@@ -1,0 +1,15 @@
+"""granite-3-8b: dense, GQA kv=8 [hf:ibm-granite/granite-3.0-2b-base]."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=12800, vocab=49155,
+)
+
+
+def reduced() -> ModelConfig:
+    return ModelConfig(name="granite-3-8b-smoke", family="dense",
+                       n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_ff=128, vocab=256)

@@ -1,0 +1,47 @@
+// Flash-attention forward for Hopper: the port of
+// repro/kernels/flash_attention.py::_flash_forward (pallas_call at :234).
+//
+// q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), out like q; GQA is indexed
+// natively (query head h reads kv head h / G) where the JAX op vmapped a
+// one-head kernel over batch, kv head and group.  Queries align to the
+// tail of the keys (kv_offset = Skv - Sq); ragged Sq and Skv edges are
+// masked here, so every shape launches and nothing falls back.
+//
+// Bound on this card: at the serving join shapes (Sq = Skv <= 512, D = 128)
+// the work is 4 * Sq * Skv * Hq * D flops over a few MB, far below the
+// H100's 295 flop/byte ridge -- bytes bound.  The design reads each K/V
+// row once per block of kWarps query rows, all G heads of a kv head
+// sharing the tile, and skips keys past the causal limit of the block's
+// last row and before the window of its first.  Scores run on CUDA cores
+// in fp32 (no wgmma yet; see attn_rows.cuh).
+#include "attn_rows.cuh"
+
+namespace {
+
+struct DenseLayout {
+  int sq, skv, hq, hkv, groups;
+  __host__ __device__ int rows() const { return sq * groups; }
+  __device__ int64_t q_row(int b, int hk, int t) const {
+    return (int64_t(b) * sq + t / groups) * hq + hk * groups + t % groups;
+  }
+  __device__ int qpos(int, int t) const { return t / groups + (skv - sq); }
+  __device__ int kv_len(int) const { return skv; }
+  __device__ int64_t k_row(int b, int hk, int kpos) const {
+    return (int64_t(b) * skv + kpos) * hkv + hk;
+  }
+};
+
+}  // namespace
+
+extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
+                                   const void* k, const void* v, void* o,
+                                   int batch, int sq, int skv, int hq,
+                                   int hkv, int causal, int window,
+                                   float logit_cap, void* stream) {
+  if (hkv <= 0 || hq % hkv) return static_cast<int>(cudaErrorInvalidValue);
+  const DenseLayout lay{sq, skv, hq, hkv, hq / hkv};
+  const attn::Mask mk{causal, window, 1.0f / sqrtf(float(head_dim)),
+                      logit_cap};
+  return attn::dispatch(dtype, head_dim, lay, hkv, batch, q, k, v, o, mk,
+                        static_cast<cudaStream_t>(stream));
+}

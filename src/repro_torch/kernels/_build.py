@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``.
+Libraries go to ``build/kernels/`` at the repository root (listed in
+``.gitignore``), named by a hash of the sources, so a changed source
+rebuilds and an unchanged one loads as it is.  :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for all of them.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("flash_attention", "flash_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by its sources' hash."""
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None and os.path.exists(
+            os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns each compiled
+    source's ``ptxas`` report (registers, shared memory, spills); raises
+    with the compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc() if any(not library_path(n).exists() for n in names) \
+        else None
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built on first
+    use), with its argument types declared and ``cudaError_t`` as the
+    return type."""
+    key = (name, symbol)
+    with _LOCK:
+        if key not in _FUNCS:
+            build([name])
+            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _FUNCS[key] = fn
+        return _FUNCS[key]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,130 @@
+"""Paged flash-decode attention: CUDA kernel, wrapper and plain version.
+
+Port of ``repro.kernels.flash_decode.flash_decode`` (the TPU kernel of
+paged decode and chunked prefill).  The kernel lives in
+``csrc/flash_decode.cu`` (design and bound in its header comment).
+
+Layouts (GQA-native: all G query heads of one KV head share its pages):
+
+* ``q``:            (B, Hkv, q_span*G, D) — rows position-major, row r is
+  position offset ``r // G``;
+* ``k/v_pages``:    (n_pages, page, Hkv, D) — the global page pool;
+* ``block_tables``: (B, n_blocks) int32 — physical page of each logical
+  KV block; entries past a request's length must still be valid page
+  indices (the scratch page 0);
+* ``lengths``:      (B,) int32 — tokens in the cache *including* the
+  first spanned token (its K/V already scattered into the pages).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, *, window: int | None = None,
+                        logit_cap: float | None = None,
+                        q_span: int = 1) -> torch.Tensor:
+    """Plain version: gather pages by block table, dense masked softmax
+    in fp32 — the counterpart of the JAX ``paged_attention_ref``."""
+    b, hkv, gtot, d = q.shape
+    g = gtot // q_span
+    _, page, _, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, nb * page, hkv, d).float()
+    v = v_pages[bt].reshape(b, nb * page, hkv, d).float()
+    s = torch.einsum("bhgd,blhd->bhgl", q.float(), k) * d ** -0.5
+    if logit_cap is not None:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    kpos = torch.arange(nb * page, device=q.device)
+    offs = torch.arange(gtot, device=q.device) // g    # row -> position off
+    lim = lengths.long()[:, None] + offs[None, :]      # (b, gtot)
+    valid = kpos[None, None, :] < lim[..., None]
+    if window is not None:
+        valid &= kpos[None, None, :] > (lim[..., None] - 1) - window
+    s = torch.where(valid[:, None, :, :], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgl,blhd->bhgd", probs, v)
+    return out.to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, *, window: int | None = None,
+                 logit_cap: float | None = None,
+                 q_span: int = 1) -> torch.Tensor:
+    """Paged attention over one q block per (batch, kv head); returns the
+    shape of ``q`` in ``q.dtype``.  With ``q_span > 1`` the rows hold
+    consecutive positions, each under its own causal limit.
+
+    CUDA tensors launch the kernel (or raise: there is no fallback);
+    CPU tensors take :func:`paged_attention_ref`.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   lengths, window=window,
+                                   logit_cap=logit_cap, q_span=q_span)
+    _check(q, k_pages, v_pages, block_tables, lengths, q_span, window)
+    b, hkv, gtot, d = q.shape
+    page = k_pages.shape[1]
+    out = torch.empty_like(q)
+    fn = _build.load("flash_decode", "flash_decode_fwd", _ARGTYPES)
+    err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+             out.data_ptr(), b, hkv, gtot, q_span, page,
+             block_tables.shape[1], int(window or 0),
+             float(logit_cap or 0.0),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != q.dtype or t.dtype not in _DTYPES or t.dim() != 4:
+            raise TypeError(f"{name} must be 4-D and share q's dtype, one "
+                            f"of {sorted(map(str, _DTYPES))}; got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "loads 16-byte vectors)")
+    for name, t in (("block_tables", block_tables), ("lengths", lengths)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    b, hkv, gtot, d = q.shape
+    if (k_pages.shape != v_pages.shape or k_pages.shape[2] != hkv
+            or k_pages.shape[3] != d):
+        raise ValueError(f"pools {tuple(k_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or tuple(lengths.shape) != (b,):
+        raise ValueError("block_tables must be (B, n_blocks), lengths (B,)")
+    if q_span < 1 or gtot % q_span:
+        raise ValueError(f"q rows {gtot} not divisible by q_span {q_span}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")

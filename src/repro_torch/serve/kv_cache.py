@@ -1,0 +1,215 @@
+"""Paged KV cache: fixed-size KV blocks + per-request block tables (the
+port of ``repro.serve.kv_cache``).
+
+Every attention layer owns a page pool ``(n_pages, page, Hkv, D)``; the
+port stacks all layers' pools into one tensor per K and V,
+``(n_layers, n_pages, page, Hkv, D)``, and each request holds a block
+table mapping its logical KV blocks to physical pages.  The page size is
+the flash-decode kernel's KV block.  In the JAX package it comes from
+the analytical blocking model (``choose_page_size``); that chooser and
+``choose_prefill_chunk`` are the port's next slice, so here the page
+size is given explicitly.
+
+The pools are updated in place (``index_put_``): JAX returned a new
+pool from every scatter, which PyTorch need not copy.
+
+Page 0 is a reserved scratch page: inactive request slots keep all-zero
+block tables, so their (masked, ignored) decode writes land there
+instead of needing a branch.  Prefix sharing (``PrefixCache``) is a
+later slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.base import ParamDef, build, stack_defs
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs.metrics import MetricsRegistry
+
+SCRATCH_PAGE = 0
+
+
+def num_blocks(length: int, page_size: int) -> int:
+    return -(-length // page_size)
+
+
+# ------------------------------ device side --------------------------------
+
+
+def paged_cache_defs(cfg: ModelConfig, n_pages: int, page_size: int) -> dict:
+    """K and V pools of every layer, stacked: (n_layers, n_pages, page,
+    Hkv, D) each."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    dtype = cfg.kv_cache_dtype or cfg.dtype
+    pool = ParamDef((n_pages, page_size, hkv, hd), init="zeros", dtype=dtype)
+    return stack_defs({"k_pages": pool, "v_pages": pool}, cfg.n_layers)
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     device: torch.device) -> dict:
+    return build(paged_cache_defs(cfg, n_pages, page_size), device)
+
+
+def write_prefill(cfg: ModelConfig, paged: dict, dense: dict,
+                  pages: torch.Tensor, page_size: int) -> None:
+    """Scatter one request's dense prefill cache into the pools, in place.
+
+    ``dense`` is a batch-1 ``transformer.prefill(..., full_kv=True)``
+    cache; ``pages`` (int64) is the request's physical page per logical
+    block (length >= ceil(bucket / page_size); spill entries may point at
+    the scratch page).
+    """
+    for name, key in (("k_pages", "k"), ("v_pages", "v")):
+        kv = torch.stack([c[key][0] for c in dense["layers"]])  # L,bucket,..
+        bucket = kv.shape[1]
+        nb = num_blocks(bucket, page_size)
+        pad = nb * page_size - bucket
+        blocks = F.pad(kv, (0, 0, 0, 0, 0, pad)).reshape(
+            kv.shape[0], nb, page_size, *kv.shape[2:])
+        pool = paged[name]
+        pool[:, pages[:nb]] = blocks.to(pool.dtype)
+
+
+def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
+                         page_size: int, use_kernel: bool = True):
+    """The ``attn_step`` the paged engine threads through
+    ``transformer.decode_step`` for one token per request.
+
+    ``pos`` is the per-request cached-token count (B,): the new token sits
+    at position ``pos[b]``, its K/V are written into page
+    ``block_tables[b, pos // page]`` slot ``pos % page`` (in place), and
+    attention runs over ``pos + 1`` positions through
+    ``ops.paged_attention`` (the flash-decode kernel).
+    """
+    def attn_step(p: dict, hn: torch.Tensor, cache: dict, pos: torch.Tensor,
+                  window: int | None) -> torch.Tensor:
+        b = hn.shape[0]
+        hq, hd = cfg.n_heads, cfg.head_dim
+        q, k, v = L.qkv_decode_proj(cfg, p, hn[:, 0], pos[:, None])
+        rows = torch.arange(b, device=pos.device)
+        page_idx = block_tables[rows, pos // page_size].long()
+        slot_idx = (pos % page_size).long()
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        kp.index_put_((page_idx, slot_idx), k.to(kp.dtype))
+        vp.index_put_((page_idx, slot_idx), v.to(vp.dtype))
+        out = ops.paged_attention(q, kp, vp, block_tables, pos + 1,
+                                  window=window,
+                                  logit_cap=cfg.attn_logit_cap,
+                                  use_kernel=use_kernel)
+        return ops.linear(out.reshape(b, 1, hq * hd).to(hn.dtype), p["wo"])
+
+    return attn_step
+
+
+def make_paged_span_step(cfg: ModelConfig, block_tables: torch.Tensor,
+                         page_size: int, max_seq: int,
+                         use_kernel: bool = True):
+    """The span ``attn_step`` for multi-token ``transformer.decode_step``
+    (chunked prefill).
+
+    ``hn`` is (B, S, D): S consecutive tokens starting at position
+    ``pos[b]``.  All S positions' K/V are written into the request's
+    pages first, then ONE ``ops.paged_attention`` call with a
+    (B, S, Hq, D) q block scores every position under its own causal
+    limit.  Positions at or past ``max_seq`` (the padded tail of a final
+    chunk) write harmlessly into the scratch page.
+    """
+    def attn_step(p: dict, hn: torch.Tensor, cache: dict, pos: torch.Tensor,
+                  window: int | None) -> torch.Tensor:
+        b, s, _ = hn.shape
+        hq, hd = cfg.n_heads, cfg.head_dim
+        positions = pos[:, None] + torch.arange(s, dtype=pos.dtype,
+                                                device=pos.device)[None, :]
+        q, k, v = L.qkv_span_proj(cfg, p, hn, positions)
+        rows = torch.arange(b, device=pos.device)[:, None]
+        nb = block_tables.shape[1]
+        safe = positions < max_seq
+        blk = torch.clamp(positions // page_size, max=nb - 1)
+        page_idx = torch.where(safe, block_tables[rows, blk],
+                               SCRATCH_PAGE).long()
+        slot_idx = torch.where(safe, positions % page_size, 0).long()
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        kp.index_put_((page_idx, slot_idx), k.to(kp.dtype))
+        vp.index_put_((page_idx, slot_idx), v.to(vp.dtype))
+        out = ops.paged_attention(q, kp, vp, block_tables, pos + 1,
+                                  window=window,
+                                  logit_cap=cfg.attn_logit_cap,
+                                  use_kernel=use_kernel)   # (B, S, Hq, hd)
+        return ops.linear(out.reshape(b, s, hq * hd).to(hn.dtype), p["wo"])
+
+    return attn_step
+
+
+# ------------------------------- host side ---------------------------------
+
+
+class PageAllocator:
+    """Host-side refcounted free list over the page pool.
+
+    Page 0 (``SCRATCH_PAGE``) is reserved and never handed out, which is
+    what lets the engine mask inactive block-table rows to it.
+    :meth:`share` takes an extra reference (for prefix sharing); a page
+    returns to the free list when its last owner releases it.  Every
+    transition is checked, so a leak or double free fails loudly.
+    """
+
+    def __init__(self, n_pages: int, metrics=None):
+        if n_pages < 2:
+            raise ValueError("need at least one scratch + one real page")
+        self.n_pages = n_pages
+        self._refs = np.zeros(n_pages, np.int32)
+        self._free = list(range(n_pages - 1, 0, -1))   # page 0 reserved
+        m = metrics if metrics is not None else MetricsRegistry()
+        m.gauge("pages.capacity").set(self.capacity)
+        self._m_in_use = m.gauge("pages.in_use")
+
+    @property
+    def capacity(self) -> int:
+        return self.n_pages - 1
+
+    def available(self) -> int:
+        return len(self._free)
+
+    def in_use(self) -> int:
+        return self.capacity - len(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise MemoryError("page pool exhausted")
+        page = self._free.pop()
+        assert self._refs[page] == 0, page
+        self._refs[page] = 1
+        self._m_in_use.set(self.in_use())
+        return page
+
+    def alloc_many(self, n: int) -> list[int]:
+        if n > len(self._free):
+            raise MemoryError(
+                f"page pool exhausted: need {n}, have {len(self._free)}")
+        return [self.alloc() for _ in range(n)]
+
+    def share(self, page: int) -> int:
+        """Take an extra reference (shared prompt prefix)."""
+        if page == SCRATCH_PAGE or self._refs[page] <= 0:
+            raise ValueError(f"cannot share unowned page {page}")
+        self._refs[page] += 1
+        return page
+
+    def free(self, page: int) -> None:
+        if page == SCRATCH_PAGE:
+            return                       # scratch is never owned
+        if self._refs[page] <= 0:
+            raise ValueError(f"double free of page {page}")
+        self._refs[page] -= 1
+        if self._refs[page] == 0:
+            self._free.append(page)
+            self._m_in_use.set(self.in_use())
+
+    def free_many(self, pages) -> None:
+        for p in pages:
+            self.free(int(p))

@@ -19,6 +19,10 @@ def pytest_configure(config):
         "markers",
         "slow: subprocess-spawning sharded-compile tests; excluded from "
         "the fast lane (-m 'not slow'), run by the full CI lane")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels); "
+        "skips without one")
     _configure_hypothesis(config)
 
 

@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Imports no JAX, so it runs where only PyTorch and the CUDA toolkit are
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Every test skips without a CUDA device.  Tolerances: fp32 differs from
+the plain version only in summation order (1e-5 abs / 1e-4 rel); bf16
+rounds the fp32 result to bf16 once, so the two may differ by one bf16
+ulp of an O(1) value (2e-2 abs / 1e-2 rel).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.flash_decode import flash_decode, paged_attention_ref
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+       torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def paged_case(dev, dtype, q_span, lengths, *, hkv=8, g=4, d=128, page=64,
+               n_blocks=8, seed=0):
+    """Ragged requests over a shuffled page pool; block-table entries
+    past each request's cache (its span included) point at scratch page
+    0, which holds garbage that must stay masked."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    n_pages = b * n_blocks + 1
+    q = rng.standard_normal((b, hkv, q_span * g, d))
+    kp = rng.standard_normal((n_pages, page, hkv, d))
+    vp = rng.standard_normal((n_pages, page, hkv, d))
+    bt = (1 + rng.permutation(b * n_blocks)).reshape(b, n_blocks)
+    for i, n in enumerate(lengths):
+        used = -(-(n + q_span - 1) // page)
+        bt[i, used:] = 0
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return (t(q), t(kp), t(vp),
+            torch.tensor(bt, dtype=torch.int32, device=dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_span,lengths", [
+    (1, [1, 17, 64, 130, 300, 512]),        # decode; 1 sits in page 0
+    (64, [1, 17, 64, 130, 300, 470]),       # chunked prefill; 470+63 > 512
+])
+@pytest.mark.parametrize("window,cap", [(None, None), (37, 30.0)])
+def test_flash_decode_matches_plain(dev, dtype, q_span, lengths, window,
+                                    cap):
+    args = paged_case(dev, dtype, q_span, lengths)
+    before = flash_decode.launches
+    out = flash_decode(*args, window=window, logit_cap=cap, q_span=q_span)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    ref = paged_attention_ref(*args, window=window, logit_cap=cap,
+                              q_span=q_span)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,window,cap", [
+    (8, 8, None, None), (64, 64, None, None), (512, 512, None, None),
+    (24, 100, None, None), (64, 64, 16, None), (40, 40, None, 30.0),
+])
+def test_flash_attention_matches_plain(dev, dtype, sq, skv, window, cap):
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dtype,  # noqa
+                                device=dev)
+    q, k, v = t(2, sq, 32, 128), t(2, skv, 8, 128), t(2, skv, 8, 128)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_ref(q, k, v, window=window, logit_cap=cap)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 8, 4, 96, device=dev)        # head_dim 96
+    kp = torch.zeros(3, 8, 8, 96, device=dev)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    ln = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        flash_decode(q, kp, kp, bt, ln)
+    with pytest.raises(TypeError):
+        flash_decode(q.half(), kp.half(), kp.half(), bt, ln)
+    qa = torch.zeros(1, 8, 4, 128, device=dev)
+    with pytest.raises(ValueError):                 # not contiguous
+        flash_attention(qa.transpose(1, 2), qa.transpose(1, 2),
+                        qa.transpose(1, 2))
