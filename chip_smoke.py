@@ -5,18 +5,28 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build both CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
-3. each kernel against its plain PyTorch version, fp32 and bf16;
+1. the card's name and power limit (``nvidia-smi``), its opt-in shared
+   memory per block beside the Hopper target's constant; TF32 off;
+2. build the three CUDA kernels from ``src/repro_torch/csrc`` with
+   ``nvcc``, all at once;
+3. each kernel against its plain PyTorch version, fp32 and bf16:
+   attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
+   largest that fits: 111 keys in fp32) and the model's page, and ``matmul_blocked`` at ragged shapes and under every
+   tile the Hopper adapter emits for granite's projection shapes;
 4. engine parity at granite-3-8b width, 2 layers, fp32: the kernel path
    and the plain path give identical greedy token streams, through both
    whole-prompt joins and chunked prefill;
-5. the full run: granite-3-8b at full width and depth in bf16, weights
-   from ``--seed``, serving 16 requests (prompts of 16..300 tokens, 32
-   new tokens each) through ``PagedEngine`` with page 64, prefill chunk
-   64, max_seq 512 and 8 slots; a short torch.profiler window of the
-   same engine (device busy share, device time by kernel kind); then
-   each kernel timed at the shapes of that run beside its bound, its
+5. the full run on the cuBLAS path: granite-3-8b at full width and depth
+   in bf16, weights from ``--seed``, serving 16 requests (prompts of
+   16..300 tokens, 32 new tokens each) through ``PagedEngine`` with page
+   64, prefill chunk 64, max_seq 512 and 8 slots, and a short
+   torch.profiler window of the same engine;
+6. the blocked path: the same model and requests with the page size and
+   prefill chunk left to the blocking model and every projection through
+   ``matmul_blocked`` (``ops.blocked_linear``), with its own profiler
+   window and the prefill logits held against the cuBLAS path;
+7. ``tune_op`` on the decode GEMM shape into a temporary cache;
+8. each kernel timed at the shapes of phase 6 beside its bound, its
    plain version and a library call.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
@@ -41,8 +51,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 TOL = {"float32": (1e-5, 1e-4),    # summation order only
        "bfloat16": (2e-2, 1e-2)}   # one bf16 rounding of an O(1) output
 
@@ -54,10 +62,21 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def compare(name: str, out, ref, dtype_name: str) -> float:
+def gemm_atol(dtype_name: str, k: int) -> float | None:
+    """A K-term fp32 sum rounds at each step, in another order in the
+    plain version: allow 2e-6 * sqrt(K) (a random walk of fp32 roundings
+    of O(1) partial sums, with margin).  bf16 keeps its output-rounding
+    tolerance."""
+    if dtype_name != "float32":
+        return None
+    return max(TOL["float32"][0], 2e-6 * k ** 0.5)
+
+
+def compare(name: str, out, ref, dtype_name: str,
+            atol: float | None = None) -> float:
     """Max abs error of ``out`` vs ``ref``; raises past the tolerance."""
     import torch
-    atol, rtol = TOL[dtype_name]
+    atol, rtol = atol or TOL[dtype_name][0], TOL[dtype_name][1]
     out, ref = out.float(), ref.float()
     err = float((out - ref).abs().max())
     ok = bool(torch.all((out - ref).abs() <= atol + rtol * ref.abs()))
@@ -95,12 +114,33 @@ def dense_inputs(dev, dtype, b, sq, skv, seed, hq=32, hkv=8, d=128):
     return t(b, sq, hq, d), t(b, skv, hkv, d), t(b, skv, hkv, d)
 
 
+GRANITE_NK = ((4096, 4096), (1024, 4096), (12800, 4096), (4096, 12800))
+
+
+def gemm_inputs(dev, dtype, m, n, k, seed):
+    """Drawn on the card from ``seed``; B is scaled by K ** -0.5 so every
+    output is O(1)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=dev)
+         * k ** -0.5).to(dtype)
+    return a, b
+
+
 def phase3_kernels(dev) -> None:
     import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.hopper_adapter import matmul_tile_candidates
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.serve.kv_cache import choose_page_size
+    cfg = get_config("granite-3-8b")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
+        model_page = choose_page_size(dataclasses.replace(cfg, dtype=dtype),
+                                      512)
         for q_span, lengths in ((1, [1, 17, 64, 130, 300, 512]),
                                 (64, [1, 17, 64, 130, 300, 470])):
             for window, cap in ((None, None), (37, 30.0)):
@@ -109,6 +149,16 @@ def phase3_kernels(dev) -> None:
                 compare(f"flash_decode {dn} q_span={q_span} window={window}"
                         f" cap={cap}", FD.flash_decode(*args, **kw),
                         FD.paged_attention_ref(*args, **kw), dn)
+            top = FD.largest_page(cfg.head_dim, dtype.itemsize, torch.cuda
+                                  .get_device_properties(dev)
+                                  .shared_memory_per_block_optin)
+            for page in sorted({16, 32, 64, min(128, top), model_page}):
+                args = paged_inputs(dev, dtype, lengths, q_span, seed=page,
+                                    page=page, n_blocks=-(-512 // page))
+                tag = " (the model's page)" if page == model_page else ""
+                compare(f"flash_decode {dn} q_span={q_span} page={page}{tag}",
+                        FD.flash_decode(*args, q_span=q_span),
+                        FD.paged_attention_ref(*args, q_span=q_span), dn)
         for sq, skv, window, cap in ((8, 8, None, None), (16, 16, None, None),
                                      (32, 32, None, None),
                                      (64, 64, None, None),
@@ -122,6 +172,31 @@ def phase3_kernels(dev) -> None:
             compare(f"flash_attention {dn} Sq={sq} Skv={skv} window={window}"
                     f" cap={cap}", FA.flash_attention(q, k, v, **kw),
                     FA.flash_attention_ref(q, k, v, **kw), dn)
+        # ragged M, N and K (scalar and 16-byte staging paths)
+        for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
+                               (50, 100, 70, (32, 128, 64)),
+                               (3, 5, 7, (3, 64, 64)),
+                               (520, 4104, 4100, (128, 64, 128))):
+            a, b = gemm_inputs(dev, dtype, m, n, k, seed=m + n)
+            bm, bk, bn = tiles
+            compare(f"matmul_blocked {dn} M={m} N={n} K={k} tiles={tiles}",
+                    MB.matmul_blocked(a, b, bm=bm, bk=bk, bn=bn),
+                    MB.matmul_ref(a, b), dn, gemm_atol(dn, k))
+        # every tile the adapter emits for granite's projections
+        n_tiles = 0
+        for m in (8, 64, 512):
+            for n, k in GRANITE_NK:
+                a, b = gemm_inputs(dev, dtype, m, n, k, seed=m + n + k)
+                ref = MB.matmul_ref(a, b)
+                for bm, bk, bn in matmul_tile_candidates(m, n, k,
+                                                         a.element_size()):
+                    compare(f"matmul_blocked {dn} M={m} N={n} K={k} "
+                            f"tiles={(bm, bk, bn)}",
+                            MB.matmul_blocked(a, b, bm=bm, bk=bk, bn=bn),
+                            ref, dn, gemm_atol(dn, k))
+                    n_tiles += 1
+        print(f"  {n_tiles} adapter tiles checked in {dn}; the largest page "
+              f"that fits is {top} keys")
     torch.cuda.synchronize()
 
 
@@ -168,43 +243,28 @@ def phase4_parity(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def time_ms(fn, flush, reps: int = 50) -> float:
-    """Median device ms of ``fn`` over ``reps`` launches, each after a
-    write of a buffer larger than L2 (the main path reads every layer's
-    pools and weights between two calls, so L2 is cold).  A spin of
-    about a millisecond keeps the device busy while the host enqueues
-    the start event and ``fn``, so the events time device work, not the
-    host's launch overhead."""
-    import torch
-    for _ in range(3):
-        fn()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+def time_ms(fn) -> float:
+    """Median device ms of ``fn`` over 50 launches, each after an L2 flush
+    and a device spin (``repro_torch.tune.measure.time_ms``)."""
+    from repro_torch.tune.measure import time_ms as measure_ms
+    return measure_ms(fn, reps=50)
 
 
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    """The least time the card could take: bytes over its memory rate or
+    flops over its dense bf16 rate, the larger (the Hopper target's)."""
+    from repro_torch.core.hopper_adapter import H100_SXM
+    t_bytes = n_bytes / H100_SXM.hbm_bytes_per_s * 1e3
+    t_ops = flops / H100_SXM.peak_bf16_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase5_full(seed: int) -> tuple[list[dict], dict]:
+def full_model(seed: int):
+    """granite-3-8b at full width and depth in bf16, and phase 5's 16
+    requests, all from ``seed``."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import flash_decode as FD
     from repro_torch.models import transformer as T
-
     cfg = get_config("granite-3-8b")
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=seed, device="cuda")
@@ -215,21 +275,32 @@ def phase5_full(seed: int) -> tuple[list[dict], dict]:
     rng = np.random.default_rng(seed)
     warm = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
             for n in (20, 100)]
-    serve(cfg, params, warm, 4, max_batch=8)        # cuBLAS handles etc.
     lens = rng.integers(16, 301, 16)
     prompts = [rng.integers(0, cfg.vocab, (int(n),), dtype=np.int32)
                for n in lens]
+    return cfg, params, warm, lens, prompts
 
-    engine = engine_for(cfg, params, max_batch=8)
+
+def counts(kernels) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def reset(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def run_engine(cfg, engine, prompts, kernels) -> tuple[dict, dict]:
+    """Serve ``prompts`` (32 new tokens each) on a warm engine with every
+    launch count at 0 just before; checks every request and the pool."""
+    import torch
     torch.cuda.synchronize()
-    FA.flash_attention.launches = FD.flash_decode.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     reqs = engine.generate(prompts, 32, return_requests=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": FA.flash_attention.launches,
-                "flash_decode": FD.flash_decode.launches}
-
+    launches = counts(kernels)
     snap = engine.metrics.snapshot()["engine"]
     for r in reqs:
         assert r.status.value == "ok" and len(r.output) == 32, r.rid
@@ -242,36 +313,152 @@ def phase5_full(seed: int) -> tuple[list[dict], dict]:
     assert launches["flash_decode"] >= n_layers * snap["decode_steps"] > 0
     tokens = sum(len(r.output) for r in reqs)
     summary = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
-               "tok_per_s": tokens / wall, "joins": snap["joins"],
+               "tok_per_s": tokens / wall, "page": engine.page_size,
+               "prefill_chunk": engine.prefill_chunk,
+               "joins": snap["joins"],
                "prefill_chunks": snap["prefill_chunks"],
                "decode_steps": snap["decode_steps"],
-               "engine_steps": snap["steps"], "launches": launches,
-               "prompt_lens": [int(n) for n in lens]}
+               "engine_steps": snap["steps"], "launches": launches}
     print(f"  {len(reqs)} requests OK, {tokens} tokens in {wall:.3f}s = "
-          f"{tokens / wall:.1f} tok/s; joins {snap['joins']}, prefill "
-          f"chunks {snap['prefill_chunks']}, decode steps "
-          f"{snap['decode_steps']}, engine steps {snap['steps']}; "
-          f"launches {launches}")
+          f"{tokens / wall:.1f} tok/s; page {engine.page_size}, chunk "
+          f"{engine.prefill_chunk}; joins {snap['joins']}, prefill chunks "
+          f"{snap['prefill_chunks']}, decode steps {snap['decode_steps']}, "
+          f"engine steps {snap['steps']}; launches {launches}")
+    return summary, snap
 
+
+def prefill_logits(cfg, params, prompt, **kw):
+    import torch
+    from repro_torch.models import transformer as T
+    tok = torch.from_numpy(prompt[None, :64].copy()).cuda()
+    logits, _ = T.prefill(cfg, params, tok, max_seq=64, **kw)
+    return logits.float()
+
+
+def hold_logits(name: str, got, want) -> dict:
+    """``got`` against ``want`` within 5% of the largest |logit|."""
+    import torch
+    dev_ = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    same = int(got.argmax()) == int(want.argmax())
+    print(f"  full-width prefill logits, {name}: max |diff| {dev_:.3e} of "
+          f"max |logit| {scale:.3e} (bound 5%); argmax "
+          f"{'agrees' if same else 'differs'}")
+    assert torch.isfinite(got).all() and dev_ <= 0.05 * scale and same, \
+        (name, dev_, scale, same)
+    return {"max_abs_diff": dev_, "max_abs_logit": scale}
+
+
+def phase5_full(cfg, params, warm, prompts, kernels) -> dict:
+    """The cuBLAS path at page 64 and chunk 64, as in the first slice."""
+    serve(cfg, params, warm, 4, max_batch=8)        # cuBLAS handles etc.
+    summary, _ = run_engine(cfg, engine_for(cfg, params, max_batch=8),
+                            prompts, kernels)
+    assert summary["launches"]["matmul_blocked"] == 0
     # what comes out is right: the full-width prefill logits of one
     # prompt through the kernels agree with the plain versions
-    tok = torch.from_numpy(prompts[0][None, :64].copy()).cuda()
-    lk, _ = T.prefill(cfg, params, tok, max_seq=64)
-    lp, _ = T.prefill(cfg, params, tok, max_seq=64, use_kernel=False)
-    dev_ = float((lk.float() - lp.float()).abs().max())
-    scale = float(lp.float().abs().max())
-    assert torch.isfinite(lk).all() and dev_ <= 0.05 * scale, (dev_, scale)
-    print(f"  full-width prefill logits, kernel vs plain: max |diff| "
-          f"{dev_:.3e} of max |logit| {scale:.3e}; argmax "
-          f"{'agrees' if int(lk.argmax()) == int(lp.argmax()) else 'differs'}")
+    summary["logits_vs_plain"] = hold_logits(
+        "kernels vs plain", prefill_logits(cfg, params, prompts[0]),
+        prefill_logits(cfg, params, prompts[0], use_kernel=False))
     summary["profile"] = profile_window(engine_for(cfg, params, max_batch=8),
                                         prompts[:8], 8)
-    del params, engine
-    torch.cuda.empty_cache()
-    return time_kernels(cfg, lens, launches), summary
+    return summary
+
+
+def phase6_blocked(cfg, params, warm, prompts, kernels) -> dict:
+    """The blocking model's page and chunk, every projection through
+    matmul_blocked, on phase 5's requests."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import (PagedEngine, PagedServeConfig,
+                                          default_buckets)
+    from repro_torch.tune import best_schedule, set_schedule_observer
+
+    def engine():
+        return PagedEngine(cfg, params, PagedServeConfig(
+            max_seq=512, max_batch=8, device="cuda"))
+
+    resolved: dict[tuple, int] = {}
+
+    def observe(spec, sched):
+        key = (spec.op, spec.dims, spec.dtype, sched.tiles, sched.source)
+        resolved[key] = resolved.get(key, 0) + 1
+
+    with ops.blocked_linear():
+        eng = engine()
+        # derive the model's tiles for every M the run can give a
+        # projection (decode slots, join buckets, chunk spans) before
+        # the clock starts: a search is host work the cache removes
+        t0 = time.perf_counter()
+        ms = {8} | set(default_buckets(cfg, 512))
+        ms |= {1 << i for i in range(eng.prefill_chunk.bit_length())}
+        for m in sorted(ms):
+            for n, k in GRANITE_NK:
+                best_schedule("matmul", (m, n, k), "bfloat16")
+        print(f"  tiles derived for M in {sorted(ms)} x 4 projection "
+              f"shapes in {time.perf_counter() - t0:.1f}s")
+        serve_warm = engine()
+        serve_warm.generate(warm, 4)
+        prev = set_schedule_observer(observe)
+        try:
+            summary, snap = run_engine(cfg, eng, prompts, kernels)
+        finally:
+            set_schedule_observer(prev)
+        calls = snap["joins"] + snap["decode_steps"] + snap["prefill_chunks"]
+        assert summary["launches"]["matmul_blocked"] == \
+            7 * cfg.n_layers * calls, (summary["launches"], calls)
+        print(f"  matmul_blocked launches "
+              f"{summary['launches']['matmul_blocked']} = 7 projections x "
+              f"{cfg.n_layers} layers x {calls} model calls")
+        print("  schedule resolutions in the run (op, dims, dtype, tiles, "
+              "source: calls):")
+        for key, n in sorted(resolved.items()):
+            print(f"    {key}: {n}")
+        summary["resolutions"] = [
+            {"op": op, "dims": list(d), "dtype": dt, "tiles": list(t),
+             "source": src, "calls": n}
+            for (op, d, dt, t, src), n in sorted(resolved.items())]
+        summary["logits_vs_cublas"] = hold_logits(
+            "blocked GEMM vs cuBLAS",
+            prefill_logits(cfg, params, prompts[0]),
+            _cublas_logits(cfg, params, prompts[0]))
+        summary["profile"] = profile_window(engine(), prompts[:8], 8)
+    return summary
+
+
+def _cublas_logits(cfg, params, prompt):
+    from repro_torch.kernels import ops
+    with ops.blocked_linear(False):
+        return prefill_logits(cfg, params, prompt)
+
+
+def phase7_tune() -> dict:
+    """tune_op on the decode projection shape, into a temporary cache."""
+    import tempfile
+    from repro_torch.tune import OpSpec, ScheduleCache, candidates, tune_op
+    from repro_torch.tune.measure import measure_top
+    spec = OpSpec("matmul", (8, 4096, 4096), "bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = ScheduleCache(str(Path(tmp) / "schedules.json"))
+        winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=3, cache=cache)
+        stored = ScheduleCache(cache.path).lookup(spec)
+        assert stored is not None and stored.tiles == winner.tiles
+    timed = measure_top(candidates(spec), top_n=3)
+    for s in timed[:3]:
+        print(f"  tiles {s.tiles}: {s.measured_us / 1e3:.4f} ms measured, "
+              f"predicted DRAM accesses {s.predicted_dram_accesses}")
+    print(f"  tune_op winner {winner.tiles} ({winner.measured_us / 1e3:.4f}"
+          f" ms), persisted and read back")
+    return {"winner": list(winner.tiles),
+            "candidates": [{"tiles": list(s.tiles),
+                            "ms": s.measured_us / 1e3,
+                            "predicted_dram_accesses":
+                                s.predicted_dram_accesses}
+                           for s in timed[:3]]}
 
 
 def kernel_kind(name: str) -> str:
+    if "matmul_blocked_kernel" in name:
+        return "matmul_blocked"
     if "attn_rows_kernel" in name:
         return ("flash_decode" if "PagedLayout" in name
                 else "flash_attention")
@@ -320,49 +507,60 @@ def profile_window(engine, prompts, n_tokens: int) -> dict:
     return out
 
 
-def time_kernels(cfg, lens, launches) -> list[dict]:
-    """Each kernel at the shapes of the full run, beside its plain
-    version, its bound and (where one exists) one library call."""
+def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
+    """Each kernel at the shapes of the blocked run (phase 6), beside its
+    plain version, its bound and (where one exists) one library call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.tune import best_schedule
     dev = torch.device("cuda")
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     bf16 = torch.bfloat16
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = []
 
-    # decode: 8 slots, each mid-generation (prompt + 16 tokens)
+    # decode: 8 slots, each mid-generation (prompt + 16 tokens), at the
+    # model's page; page 64 (the cuBLAS run's) for the first slice's row
     dec_lens = [int(n) + 16 for n in lens[:8]]
-    args = paged_inputs(dev, bf16, dec_lens, 1, seed=5)
-    k_out = FD.flash_decode(*args)
-    err = float((k_out.float() - FD.paged_attention_ref(*args).float())
-                .abs().max())
     n_keys = sum(dec_lens)
     kv_bytes = 2 * n_keys * hkv * d * 2
-    io_bytes = 2 * args[0].numel() * 2 + args[3].numel() * 4 + 4 * 8
-    b_ms, b_by = bound(kv_bytes + io_bytes, 4 * n_keys * hq * d)
-    out.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:233",
-        "launches": launches["flash_decode"], "max_abs_err": err,
-        "ms": time_ms(lambda: FD.flash_decode(*args), flush),
-        "plain_ms": time_ms(lambda: FD.paged_attention_ref(*args), flush),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"decode B=8 Hkv={hkv} G={hq // hkv} D={d} page=64 "
-                 f"lengths={dec_lens} bf16"})
+    for p in (page, 64) if page != 64 else (page,):
+        args = paged_inputs(dev, bf16, dec_lens, 1, seed=5, page=p,
+                            n_blocks=-(-512 // p))
+        io_bytes = 2 * args[0].numel() * 2 + args[3].numel() * 4 + 4 * 8
+        b_ms, b_by = bound(kv_bytes + io_bytes, 4 * n_keys * hq * d)
+        row = {
+            "name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:233",
+            "launches": launches["flash_decode"],
+            "max_abs_err": float((FD.flash_decode(*args).float()
+                                  - FD.paged_attention_ref(*args).float())
+                                 .abs().max()),
+            "ms": time_ms(lambda: FD.flash_decode(*args)),
+            "plain_ms": time_ms(lambda: FD.paged_attention_ref(*args)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"decode B=8 Hkv={hkv} G={hq // hkv} D={d} page={p} "
+                     f"lengths={dec_lens} bf16"}
+        if p == page:
+            out.append(row)
+        else:
+            print(f"  flash_decode at page {p} (the cuBLAS run's): "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
 
     # chunked prefill: the third 64-token chunk of a 300-token prompt
-    cargs = paged_inputs(dev, bf16, [129], 64, seed=6)
+    cargs = paged_inputs(dev, bf16, [129], 64, seed=6, page=page,
+                         n_blocks=-(-512 // page))
     n_pairs = sum(129 + t for t in range(64))     # causal (row, key) pairs
     c_bytes = 2 * (129 + 63) * hkv * d * 2 + 2 * cargs[0].numel() * 2
     cb_ms, cb_by = bound(c_bytes, 4 * n_pairs * hq * d)
-    c_ms = time_ms(lambda: FD.flash_decode(*cargs, q_span=64), flush)
-    cp_ms = time_ms(lambda: FD.paged_attention_ref(*cargs, q_span=64), flush)
-    print(f"  flash_decode chunk (q_span=64, cache 129..192): {c_ms:.4f} ms, "
-          f"plain {cp_ms:.4f} ms, bound {cb_ms:.4f} ms ({cb_by})")
+    c_ms = time_ms(lambda: FD.flash_decode(*cargs, q_span=64))
+    cp_ms = time_ms(lambda: FD.paged_attention_ref(*cargs, q_span=64))
+    print(f"  flash_decode chunk (q_span=64, cache 129..192, page {page}): "
+          f"{c_ms:.4f} ms, plain {cp_ms:.4f} ms, bound {cb_ms:.4f} ms "
+          f"({cb_by})")
 
     # join: one prompt in the 64 bucket
     q, k, v = dense_inputs(dev, bf16, 1, 64, 64, seed=7, hq=hq, hkv=hkv, d=d)
@@ -381,14 +579,38 @@ def time_kernels(cfg, lens, launches) -> list[dict]:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:234",
         "launches": launches["flash_attention"], "max_abs_err": err,
-        "ms": time_ms(lambda: FA.flash_attention(q, k, v), flush),
-        "plain_ms": time_ms(lambda: FA.flash_attention_ref(q, k, v), flush),
+        "ms": time_ms(lambda: FA.flash_attention(q, k, v)),
+        "plain_ms": time_ms(lambda: FA.flash_attention_ref(q, k, v)),
         "bound_ms": fb_ms, "bound_by": fb_by,
-        "library_ms": time_ms(lib, flush),
+        "library_ms": time_ms(lib),
         "shape": f"join B=1 Sq=Skv=64 Hq={hq} Hkv={hkv} D={d} causal bf16"})
     print(f"  scaled_dot_product_attention vs flash_attention: max |diff| "
           f"{lib_err:.3e}")
-    for r in out:
+
+    # the projections: decode (M = 8 slots) at each of granite's four
+    # shapes, and a 512-token join, with the model's tiles
+    gemms = []
+    for m, (n, k) in [(8, nk) for nk in GRANITE_NK] + [(512, (4096, 4096))]:
+        a, b = gemm_inputs(dev, bf16, m, n, k, seed=m + n + k)
+        bm, bk, bn = best_schedule("matmul", (m, n, k), "bfloat16").tiles
+        b_ms, b_by = bound((m * k + k * n + m * n) * 2, 2 * m * n * k)
+        gemms.append({
+            "name": "matmul_blocked", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul_blocked.cu",
+            "replaces": "src/repro/kernels/matmul_blocked.py:91",
+            "launches": launches["matmul_blocked"],
+            "max_abs_err": float((MB.matmul_blocked(a, b, bm=bm, bk=bk,
+                                                    bn=bn).float()
+                                  - MB.matmul_ref(a, b).float())
+                                 .abs().max()),
+            "ms": time_ms(lambda: MB.matmul_blocked(a, b, bm=bm, bk=bk,
+                                                    bn=bn)),
+            "plain_ms": time_ms(lambda: MB.matmul_ref(a, b)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.matmul(a, b)),
+            "shape": f"M={m} N={n} K={k} tiles={(bm, bk, bn)} bf16"})
+    out.append(gemms[0])
+    for r in out + gemms[1:]:
         print(f"  {r['name']:<16} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"library {r['library_ms']}  [{r['shape']}]")
@@ -403,7 +625,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.core.hopper_adapter import H100_SXM
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_blocked as MB
+    kernels = {"flash_attention": FA.flash_attention,
+               "flash_decode": FD.flash_decode,
+               "matmul_blocked": MB.matmul_blocked}
 
     print("phase 1: card")
     card = card_line()
@@ -412,6 +641,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    optin = torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin
+    print(f"  opt-in shared memory per block: {optin} B on the card, "
+          f"{H100_SXM.smem_optin_bytes} B in the Hopper target")
+    assert optin == H100_SXM.smem_optin_bytes, "the target does not match"
 
     print("phase 2: build")
     t0 = time.perf_counter()
@@ -427,11 +661,23 @@ def main() -> int:
     phase3_kernels(torch.device("cuda"))
     print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32")
     phase4_parity(args.seed)
-    print("phase 5: granite-3-8b, full width and depth, bf16")
-    kernels, summary = phase5_full(args.seed)
-    print("serve " + json.dumps(summary))
+    print("phase 5: granite-3-8b, full width and depth, bf16, cuBLAS path")
+    cfg, params, warm, lens, prompts = full_model(args.seed)
+    cublas = phase5_full(cfg, params, warm, prompts, kernels)
+    print("phase 6: the same, blocking model's page and chunk, every "
+          "projection through matmul_blocked")
+    blocked = phase6_blocked(cfg, params, warm, prompts, kernels)
+    del params
+    torch.cuda.empty_cache()
+    print("phase 7: tune_op matmul (8, 4096, 4096) bfloat16")
+    tuned = phase7_tune()
+    print("phase 8: kernel timings at the blocked run's shapes")
+    rows = time_kernels(cfg, lens, blocked["launches"], blocked["page"])
+    print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
+                                 "cublas": cublas, "blocked": blocked,
+                                 "tune": tuned}))
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,221 @@
+"""Hopper instantiation of the blocking model (the counterpart of
+``repro.core.tpu_adapter``).
+
+The paper's model is hierarchy-agnostic.  On an H100 the level a kernel
+blocks for is a thread block's shared memory (at most 227 KB, opt-in),
+with HBM (3.35 TB/s) above it; the output tile of a GEMM lives in
+registers, not in shared memory, so the register file caps it
+separately.  This module runs the paper's optimizer with that hierarchy
+and Hopper's alignment and emits:
+
+* ``matmul_tile_candidates`` / ``matmul_tiles`` -- (bm, bk, bn) tiles for
+  the blocked-GEMM kernel (``kernels/matmul_blocked.py``);
+* ``flash_decode_tile_candidates`` -- ``(page,)`` for the paged
+  flash-decode kernel, whose KV tile is one page, so the tile is also the
+  paged cache's page size.
+
+Each candidate is checked against the CUDA kernel's own footprint
+(``smem_bytes_required``, and for the GEMM ``accumulators_per_thread``),
+imported lazily so the model stays importable without the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+from repro_torch.core.hierarchy import MemLevel
+from repro_torch.core.loopnest import Dim, Problem, divisors
+from repro_torch.core.optimizer import ranked_level0_tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperTarget:
+    """One Hopper card, as the blocking model sees it (frozen: the tuner
+    memoizes derivations on it)."""
+
+    name: str
+    peak_bf16_flops: float
+    hbm_bytes_per_s: float
+    sms: int
+    smem_optin_bytes: int     # shared memory one block may opt in to
+    blocks_per_sm: int        # resident blocks the GEMM design wants
+    acc_per_thread: int       # fp32 accumulator registers per thread
+    m_mult: int = 16          # M tiles: multiples of 16 (extents < 16 whole)
+    nk_mult: int = 64         # N and K tiles: eight 16-byte bf16 vectors
+    key_mult: int = 32        # flash-decode KV tile: one key per lane
+
+
+# NVIDIA's data sheet and the Hopper white paper (H100 SXM).  The GEMM
+# design (csrc/matmul_blocked.cu) runs 256 threads a block, each holding
+# at most 64 fp32 accumulators: 64 of a thread's 128 registers when two
+# blocks share an SM's 65,536.
+H100_SXM = HopperTarget(
+    name="h100_sxm",
+    peak_bf16_flops=989e12,
+    hbm_bytes_per_s=3.35e12,
+    sms=132,
+    smem_optin_bytes=232_448,
+    blocks_per_sm=2,
+    acc_per_thread=64,
+)
+
+
+def default_smem_budget(target: HopperTarget = H100_SXM,
+                        smem_budget_bytes: int | None = None) -> int:
+    """Shared memory one block's tiles may use: the opt-in limit shared
+    by the resident blocks the GEMM design wants (two, so one block's
+    copies overlap the other's multiplies; the kernel itself keeps only
+    two stages in flight).  The single rule shared by the snap loops
+    here and the candidate filter in ``repro_torch.tune.lowering``."""
+    return smem_budget_bytes or target.smem_optin_bytes // target.blocks_per_sm
+
+
+def _round_to(v: int, mult: int, lo: int, hi: int) -> int:
+    v = max(lo, min(hi, (v // mult) * mult))
+    return v if v >= mult else min(hi, mult)
+
+
+def _pick_tile(extent: int, target: int, mult: int) -> int:
+    """Largest tile <= target that is a multiple of ``mult`` and <= extent;
+    prefers exact divisors of extent to avoid ragged tail blocks."""
+    if extent <= mult:
+        return extent
+    cap = min(target, extent)
+    aligned_divs = [d for d in divisors(extent) if d % mult == 0 and d <= cap]
+    if aligned_divs:
+        return max(aligned_divs)
+    return _round_to(cap, mult, mult, extent)
+
+
+def matmul_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
+                budget: int, target: HopperTarget = H100_SXM) -> bool:
+    """Whether the GEMM kernel holds these tiles: its staged A and B
+    tiles within ``budget`` and its accumulator within the register
+    limit (lazy import: the kernel module owns its footprint)."""
+    from repro_torch.kernels.matmul_blocked import (accumulators_per_thread,
+                                                    smem_bytes_required)
+    return (smem_bytes_required(bm, bk, bn, bytes_per_elem) <= budget
+            and accumulators_per_thread(bm, bn) <= target.acc_per_thread)
+
+
+def _shrink(extent: int, tile: int, mult: int) -> int:
+    """The next smaller aligned tile (divisors of ``extent`` first)."""
+    return _pick_tile(extent, max(mult, tile // 2), mult)
+
+
+def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
+                 bytes_per_elem: int, budget: int,
+                 target: HopperTarget) -> tuple[int, int, int]:
+    """Snap an analytical (bm, bk, bn) to Hopper alignment, the shared
+    memory budget and the register limit, shrinking one tile at a time."""
+    from repro_torch.kernels.matmul_blocked import (accumulators_per_thread,
+                                                    smem_bytes_required)
+    mm, mk = target.m_mult, target.nk_mult
+    bm = _pick_tile(M, max(bm, mm), mm)
+    bn = _pick_tile(N, max(bn, mk), mk)
+    bk = _pick_tile(K, max(bk, mk), mk)
+    while not matmul_fits(bm, bk, bn, bytes_per_elem, budget, target):
+        regs_ok = accumulators_per_thread(bm, bn) <= target.acc_per_thread
+        smem_over = smem_bytes_required(bm, bk, bn, bytes_per_elem) > budget
+        # the staged tiles are bk * (bm + bn): shrink bk first while it
+        # is the larger factor; an accumulator over the register limit
+        # can only shrink through bm or bn
+        if regs_ok and smem_over and bk > mk and bk * (bm + bn) >= bm * bn:
+            bk = _shrink(K, bk, mk)
+        elif bm >= bn and bm > mm:
+            bm = _shrink(M, bm, mm)
+        elif bn > mk:
+            bn = _shrink(N, bn, mk)
+        elif bm > mm:
+            bm = _shrink(M, bm, mm)
+        elif bk > mk:
+            bk = _shrink(K, bk, mk)
+        else:
+            break
+    return bm, bk, bn
+
+
+@functools.lru_cache(maxsize=512)
+def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
+                           smem_budget_bytes: int | None = None,
+                           target: HopperTarget = H100_SXM,
+                           top: int = 8) -> tuple[tuple[int, int, int], ...]:
+    """Ranked (bm, bk, bn) candidates for C[M,N] = A[M,K] @ B[K,N].
+
+    The optimizer sees a 2-level hierarchy (one block's shared memory,
+    HBM above) with alignment candidates in Hopper's multiples; each
+    analytical winner is then snapped to that alignment, the shared
+    memory budget and the register limit.  Order follows the optimizer's
+    energy ranking; the tuner (``repro_torch.tune``) re-ranks by
+    predicted DRAM accesses and measurement.  A candidate that fits no
+    budget after snapping is dropped by the tuner's filter.
+    """
+    budget = default_smem_budget(target, smem_budget_bytes)
+    problem = Problem.gemm(M=M, N_cols=N, K_reduce=K,
+                           bytes_per_elem=bytes_per_elem)
+    levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
+    align = {Dim.X: target.m_mult, Dim.K: target.nk_mult,
+             Dim.C: target.nk_mult}
+    raw = [(e.X, e.C, e.K)                     # (bm, bk, bn)
+           for e in ranked_level0_tiles(problem, levels, align=align,
+                                        top=top)]
+    raw.append((128, 64, 128))                 # seed: a 128 x 128 tile
+    out: list[tuple[int, int, int]] = []
+    for bm, bk, bn in raw:
+        cand = _snap_matmul(bm, bk, bn, M, N, K, bytes_per_elem, budget,
+                            target)
+        if cand not in out:
+            out.append(cand)
+    return tuple(out[:top])
+
+
+def matmul_tiles(M: int, N: int, K: int, bytes_per_elem: int = 2,
+                 smem_budget_bytes: int | None = None,
+                 target: HopperTarget = H100_SXM) -> tuple[int, int, int]:
+    """Top analytical (bm, bk, bn) tile (see matmul_tile_candidates)."""
+    return matmul_tile_candidates(M, N, K, bytes_per_elem,
+                                  smem_budget_bytes, target)[0]
+
+
+@functools.lru_cache(maxsize=256)
+def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
+                                 bytes_per_elem: int = 2,
+                                 smem_budget_bytes: int | None = None,
+                                 target: HopperTarget = H100_SXM,
+                                 top: int = 8) -> tuple[tuple[int], ...]:
+    """Ranked ``(page,)`` candidates for the paged flash-decode kernel.
+
+    Decode attention per (batch, kv head) is the skinny GEMM
+    ``out[G, D] = softmax(q[G, D] @ K^T[D, S]) @ V[S, D]``: a memory-bound
+    nest whose only free blocking choice is how much of the S-long KV
+    stream is resident per step.  The optimizer search runs on that nest
+    (C = the KV reduction dim); each winner's C extent is snapped to
+    multiples of 32 (one key per lane), to the kernel's shared-memory
+    footprint at its rows per block, and to a divisor of ``seq_kv`` (a
+    request's pages then tile ``max_seq`` exactly).  The chosen tile is
+    the paged cache's page size.
+    """
+    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  smem_bytes_required)
+    budget = default_smem_budget(target, smem_budget_bytes)
+    problem = Problem.gemm(M=groups, N_cols=head_dim, K_reduce=seq_kv,
+                           bytes_per_elem=bytes_per_elem)
+    levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
+    align = {Dim.C: target.key_mult}
+    raw = [e.C for e in ranked_level0_tiles(problem, levels, align=align,
+                                            top=top)]
+    raw.append(min(seq_kv, 64))                 # seed: two keys per lane
+    mult = target.key_mult if seq_kv >= target.key_mult else 1
+    out: list[tuple[int]] = []
+    for page in raw:
+        page = _pick_tile(seq_kv, max(page, mult), mult)
+        while (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
+                                   bytes_per_elem) > budget
+               and page > mult):
+            page = _shrink(seq_kv, page, mult)
+        if seq_kv % page:
+            page = max(d for d in divisors(seq_kv) if d <= page)
+        if (page,) not in out:
+            out.append((page,))
+    return tuple(out[:top])

@@ -2,16 +2,20 @@
 // port's two attention kernels (flash_attention.cu, flash_decode.cu).
 //
 // A block owns kWarps query rows of one (batch, kv head) pair, one row per
-// warp, and walks the keys those rows can see in tiles of kKeys = 32 keys
-// staged in shared memory as fp32.  Each thread loads its share of a tile
-// as 16-byte vectors, all issued before any is used, and the next tile's
-// loads are in flight while the current tile is scored.  In a tile, lane j
-// scores key j against its warp's row (the K tile is padded by one float
-// per row, so the 32 lanes read 32 different banks); the running max m,
-// denominator l and the fp32 accumulator (lane j holds dims j, j+32, ...)
-// carry across tiles in registers -- on the TPU they were VMEM scratch
-// carried across the sequential KV grid axis, which Hopper's unordered
-// blocks cannot do.
+// warp, and walks the keys those rows can see in tiles of `tile` keys, a
+// runtime argument: flash_decode passes its page size (so the KV tile is
+// one page, as on the TPU, and the blocking model's page choice is the
+// kernel's tile), flash_attention passes kDenseTile.  K and V tiles are
+// staged raw, in the input dtype, in dynamic shared memory two stages
+// deep: the next tile is copied with 16-byte cp.async while the current
+// one is scored.  Lane j scores keys j, j + 32, ... of the tile against its
+// warp's row and parks the scores in a per-warp row of shared memory; the
+// running max m, denominator l and the fp32 accumulator (lane j holds dims
+// j, j+32, ...) carry across tiles in registers -- on the TPU they were
+// VMEM scratch carried across the sequential KV grid axis, which Hopper's
+// unordered blocks cannot do.  Each lane walks the head dim starting at its
+// own offset (kRot * lane), so the 32 lanes of a warp, each on a different
+// key row, read 32 different banks of the unpadded K tile.
 //
 // The two kernels differ only in where rows and keys live, which a Layout
 // supplies (all offsets in units of head_dim-element rows):
@@ -21,7 +25,7 @@
 //   int kv_len(b)                keys that exist for batch b
 //   int64_t k_row(b, hk, kpos)   row index of key kpos (value alike)
 // Rows are position-major inside a (batch, kv head): qpos never decreases
-// with t, so the last row of a tile bounds what the tile can see.
+// with t, so the last row of a block bounds what the block can see.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,7 +37,7 @@ namespace attn {
 
 constexpr int kWarps = 4;                 // query rows per block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kKeys = 32;                 // keys per shared-memory tile
+constexpr int kDenseTile = 32;            // keys per tile of flash_attention
 constexpr float kNegInf = -1e30f;         // the JAX kernels' NEG_INF
 
 struct Mask {
@@ -42,6 +46,16 @@ struct Mask {
   float scale;    // head_dim ** -0.5
   float cap;      // > 0: scores become cap * tanh(s / cap)
 };
+
+// Dynamic shared memory of one block (mirrored by smem_bytes_required in
+// kernels/flash_decode.py): K and V tiles, two stages each, and the q rows
+// in the input dtype; one fp32 score row per warp.
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes(int tile, int head_dim) {
+  return (size_t(2) * 2 * tile * head_dim + size_t(kWarps) * head_dim) *
+             sizeof(T) +
+         size_t(kWarps) * tile * sizeof(float);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -56,22 +70,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// 16 bytes of T -> 16 / sizeof(T) floats (the pointer only picks T)
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       const float*) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       const __nv_bfloat16*) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the top half of an fp32
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -89,16 +97,19 @@ template <typename T, int D, class Layout>
 __global__ void __launch_bounds__(kThreads)
 attn_rows_kernel(Layout lay, const T* __restrict__ q,
                  const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Mask mk) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
+                 T* __restrict__ o, Mask mk, int tile) {
+  static_assert(D % 32 == 0 && (D & (D - 1)) == 0,
+                "head_dim must be a power of two, at least 32");
   constexpr int P = D / 32;                // accumulator dims per lane
-  constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte load
-  constexpr int VPR = D / VEC;             // 16-byte vectors per key row
-  constexpr int NV = kKeys * VPR / kThreads;  // per thread, per tile
-  static_assert(kKeys * VPR % kThreads == 0, "tile must split evenly");
-  __shared__ float Ks[kKeys][D + 1];
-  __shared__ float Vs[kKeys][D];
-  __shared__ float Qs[kWarps][D];
+  constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte copy
+  constexpr int VPR = D / VEC;             // 16-byte copies per key row
+  constexpr int kRot = 4 / sizeof(T);      // head-dim step between lanes
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const Ks = reinterpret_cast<T*>(smem);           // [2][tile][D]
+  T* const Vs = Ks + 2 * tile * D;                     // [2][tile][D]
+  T* const Qs = Vs + 2 * tile * D;                     // [kWarps][D]
+  float* const Ps =                                    // [kWarps][tile]
+      reinterpret_cast<float*>(Qs + kWarps * D);
 
   const int b = blockIdx.z, hk = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -108,9 +119,10 @@ attn_rows_kernel(Layout lay, const T* __restrict__ q,
   const bool row_ok = t < rows;
   const int t_last = min(t0 + kWarps, rows) - 1;
 
+  T* const qs = Qs + warp * D;
   if (row_ok) {
     const T* qr = q + lay.q_row(b, hk, t) * D;
-    for (int d = lane; d < D; d += 32) Qs[warp][d] = to_f(qr[d]);
+    for (int d = lane; d < D; d += 32) qs[d] = qr[d];
   }
   const int qpos = row_ok ? lay.qpos(b, t) : 0;
 
@@ -127,92 +139,119 @@ attn_rows_kernel(Layout lay, const T* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < P; ++i) acc[i] = 0.f;
 
-  // the tile's K/V as raw 16-byte vectors; keys at or past k_hi are zero
-  uint4 kreg[NV], vreg[NV];
-  auto load_tile = [&](int c0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int kpos = c0 + idx / VPR;
-      kreg[i] = vreg[i] = make_uint4(0u, 0u, 0u, 0u);
+  // stage s <- keys c0 .. c0 + tile; keys at or past k_hi are zero (their
+  // scores are masked, and a zero V row keeps p * V finite)
+  auto load_tile = [&](int s, int c0) {
+    T* ks = Ks + s * tile * D;
+    T* vs = Vs + s * tile * D;
+    for (int idx = threadIdx.x; idx < tile * VPR; idx += kThreads) {
+      const int j = idx / VPR, e = (idx % VPR) * VEC;
+      const int kpos = c0 + j;
       if (kpos < k_hi) {
-        const int64_t off = lay.k_row(b, hk, kpos) * D + (idx % VPR) * VEC;
-        kreg[i] = *reinterpret_cast<const uint4*>(k + off);
-        vreg[i] = *reinterpret_cast<const uint4*>(v + off);
+        const int64_t off = lay.k_row(b, hk, kpos) * D + e;
+        cp_async16(ks + j * D + e, k + off);
+        cp_async16(vs + j * D + e, v + off);
+      } else {
+        *reinterpret_cast<uint4*>(ks + j * D + e) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vs + j * D + e) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
+    cp_async_commit();
   };
 
-  const int c_first = (k_lo / kKeys) * kKeys;
-  if (c_first < k_hi) load_tile(c_first);
-  for (int c0 = c_first; c0 < k_hi; c0 += kKeys) {
-    __syncthreads();  // the previous tile is consumed; Qs is visible
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int j = idx / VPR, d0 = (idx % VPR) * VEC;
-      float kf[VEC], vf[VEC];
-      unpack(kreg[i], kf, k);
-      unpack(vreg[i], vf, v);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        Ks[j][d0 + e] = kf[e];
-        Vs[j][d0 + e] = vf[e];
-      }
+  const int c_first = (k_lo / tile) * tile;
+  if (c_first < k_hi) load_tile(0, c_first);
+  float* const ps = Ps + warp * tile;
+  int s = 0;
+  for (int c0 = c_first; c0 < k_hi; c0 += tile, s ^= 1) {
+    if (c0 + tile < k_hi) {
+      load_tile(s ^ 1, c0 + tile);   // in flight while this tile is scored
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    if (c0 + kKeys < k_hi) load_tile(c0 + kKeys);  // overlaps the scoring
-    if (!row_ok) continue;
-
-    const int kpos = c0 + lane;
-    float s = 0.f;
+    __syncthreads();  // tile s has landed for every thread; Qs is visible
+    if (row_ok) {
+      const T* ks = Ks + s * tile * D;
+      const T* vs = Vs + s * tile * D;
+      float smax = kNegInf;
+      for (int j = lane; j < tile; j += 32) {
+        const int kpos = c0 + j;
+        const T* kr = ks + j * D;
+        float sc = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < D; ++d) s = fmaf(Qs[warp][d], Ks[lane][d], s);
-    s *= mk.scale;
-    if (mk.cap > 0.f) s = mk.cap * tanhf(s / mk.cap);
-    bool valid = kpos < kv_len;
-    if (mk.causal) valid = valid && kpos <= qpos;
-    if (mk.window > 0) valid = valid && kpos > qpos - mk.window;
-    s = valid ? s : kNegInf;
-
-    // _softmax_update of the TPU kernel, with its NaN guards: a row with
-    // nothing visible yet (m <= NEG_INF / 2) keeps alpha = 0 and p = 0.
-    const float m_new = fmaxf(m, warp_max(s));
-    const float p =
-        valid ? expf(s - (m_new <= kNegInf / 2 ? 0.f : m_new)) : 0.f;
-    const float alpha =
-        m <= kNegInf / 2 ? 0.f : expf(fminf(m - m_new, 0.f));
-    l = l * alpha + warp_sum(p);
+        for (int i = 0; i < D; ++i) {
+          const int d = (i + kRot * lane) & (D - 1);
+          sc = fmaf(to_f(qs[d]), to_f(kr[d]), sc);
+        }
+        sc *= mk.scale;
+        if (mk.cap > 0.f) sc = mk.cap * tanhf(sc / mk.cap);
+        bool valid = kpos < kv_len;
+        if (mk.causal) valid = valid && kpos <= qpos;
+        if (mk.window > 0) valid = valid && kpos > qpos - mk.window;
+        sc = valid ? sc : kNegInf;
+        ps[j] = sc;
+        smax = fmaxf(smax, sc);
+      }
+      // _softmax_update of the TPU kernel, with its NaN guards: a row with
+      // nothing visible yet (m <= NEG_INF / 2) keeps alpha = 0 and p = 0.
+      const float m_new = fmaxf(m, warp_max(smax));
+      const float m_sub = m_new <= kNegInf / 2 ? 0.f : m_new;
+      float psum = 0.f;
+      for (int j = lane; j < tile; j += 32) {
+        const float sc = ps[j];
+        const float p = sc <= kNegInf / 2 ? 0.f : expf(sc - m_sub);
+        ps[j] = p;
+        psum += p;
+      }
+      const float alpha =
+          m <= kNegInf / 2 ? 0.f : expf(fminf(m - m_new, 0.f));
+      l = l * alpha + warp_sum(psum);
 #pragma unroll
-    for (int i = 0; i < P; ++i) acc[i] *= alpha;
-#pragma unroll 8
-    for (int j = 0; j < kKeys; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
+      for (int i = 0; i < P; ++i) acc[i] *= alpha;
+      __syncwarp();  // every lane's p is in ps
+      const int n_keys = min(tile, k_hi - c0);
+#pragma unroll 4
+      for (int j = 0; j < n_keys; ++j) {
+        const float pj = ps[j];
+        const T* vr = vs + j * D;
 #pragma unroll
-      for (int i = 0; i < P; ++i)
-        acc[i] = fmaf(pj, Vs[j][lane + 32 * i], acc[i]);
+        for (int i = 0; i < P; ++i)
+          acc[i] = fmaf(pj, to_f(vr[lane + 32 * i]), acc[i]);
+      }
+      __syncwarp();  // ps is read before the next tile overwrites it
+      m = m_new;
     }
-    m = m_new;
+    __syncthreads();  // everyone is done with tile s before it is reused
   }
 
   if (row_ok) {
     const float safe_l = l == 0.f ? 1.f : l;
     T* orow = o + lay.q_row(b, hk, t) * D;
 #pragma unroll
-    for (int i = 0; i < P; ++i) orow[lane + 32 * i] = from_f<T>(acc[i] / safe_l);
+    for (int i = 0; i < P; ++i)
+      orow[lane + 32 * i] = from_f<T>(acc[i] / safe_l);
   }
 }
 
 template <typename T, int D, class Layout>
 int launch_rows(const Layout& lay, int n_kv_heads, int batch, const void* q,
-                const void* k, const void* v, void* o, Mask mk,
+                const void* k, const void* v, void* o, Mask mk, int tile,
                 cudaStream_t stream) {
   const int rows = lay.rows();
   if (rows == 0 || n_kv_heads == 0 || batch == 0) return 0;
+  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<T>(tile, D);
+  auto kernel = attn_rows_kernel<T, D, Layout>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid((rows + kWarps - 1) / kWarps, n_kv_heads, batch);
-  attn_rows_kernel<T, D, Layout><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       lay, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), mk);
+      static_cast<const T*>(v), static_cast<T*>(o), mk, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,19 +259,19 @@ int launch_rows(const Layout& lay, int n_kv_heads, int batch, const void* q,
 template <class Layout>
 int dispatch(int dtype, int head_dim, const Layout& lay, int n_kv_heads,
              int batch, const void* q, const void* k, const void* v, void* o,
-             Mask mk, cudaStream_t stream) {
+             Mask mk, int tile, cudaStream_t stream) {
   if (dtype == 0 && head_dim == 64)
     return launch_rows<float, 64>(lay, n_kv_heads, batch, q, k, v, o, mk,
-                                  stream);
+                                  tile, stream);
   if (dtype == 0 && head_dim == 128)
     return launch_rows<float, 128>(lay, n_kv_heads, batch, q, k, v, o, mk,
-                                   stream);
+                                   tile, stream);
   if (dtype == 1 && head_dim == 64)
     return launch_rows<__nv_bfloat16, 64>(lay, n_kv_heads, batch, q, k, v,
-                                          o, mk, stream);
+                                          o, mk, tile, stream);
   if (dtype == 1 && head_dim == 128)
     return launch_rows<__nv_bfloat16, 128>(lay, n_kv_heads, batch, q, k, v,
-                                           o, mk, stream);
+                                           o, mk, tile, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

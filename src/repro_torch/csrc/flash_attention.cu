@@ -13,7 +13,8 @@
 // row once per block of kWarps query rows, all G heads of a kv head
 // sharing the tile, and skips keys past the causal limit of the block's
 // last row and before the window of its first.  Scores run on CUDA cores
-// in fp32 (no wgmma yet; see attn_rows.cuh).
+// in fp32 (no wgmma yet; see attn_rows.cuh), over 32-key tiles; the
+// blocking model's flash_tiles choice is not ported yet.
 #include "attn_rows.cuh"
 
 namespace {
@@ -43,5 +44,5 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
   const attn::Mask mk{causal, window, 1.0f / sqrtf(float(head_dim)),
                       logit_cap};
   return attn::dispatch(dtype, head_dim, lay, hkv, batch, q, k, v, o, mk,
-                        static_cast<cudaStream_t>(stream));
+                        attn::kDenseTile, static_cast<cudaStream_t>(stream));
 }

@@ -8,12 +8,17 @@
 // (and kpos > lengths[b] - 1 + r / G - window), exactly _block_mask.
 //
 // The TPU grid (B, Hkv, n_blocks) carried m/l/acc across the sequential
-// KV axis; here a block owns kWarps rows of one (b, kv head), reads
-// block_tables[b, kpos / page] and lengths[b] itself, and walks keys only
-// up to what its furthest row can see.  q rows are tiled across blocks,
-// so a chunked-prefill span (q_span * G = 256 rows at C = 64, G = 4) fits.
-// Block-table entries past a request's length point at scratch page 0:
-// they are read only when a row can see them, and masked when it cannot.
+// KV axis, one page per step; here a block owns kWarps rows of one
+// (b, kv head), reads block_tables[b, kpos / page] and lengths[b] itself,
+// and walks keys only up to what its furthest row can see, one page per
+// step: the KV tile of attn_rows.cuh is the page, so the page size the
+// blocking model chooses (serve/kv_cache.choose_page_size) is this
+// kernel's tile.  Any page from 1 key up to the largest whose two-stage
+// tile fits the card's opt-in shared memory launches.  q rows are tiled
+// across blocks, so a chunked-prefill span (q_span * G rows) never enters
+// the block's footprint.  Block-table entries past a request's length
+// point at scratch page 0: they are read only when a row can see them,
+// and masked when it cannot.
 //
 // Bound on this card: every visible K/V byte is read once per block of
 // rows -- at decode (one position, 4 rows) that is the whole cache once,
@@ -56,5 +61,6 @@ extern "C" int flash_decode_fwd(int dtype, int head_dim, const void* q,
                         block_tables, lengths};
   const attn::Mask mk{1, window, 1.0f / sqrtf(float(head_dim)), logit_cap};
   return attn::dispatch(dtype, head_dim, lay, hkv, batch, q, k_pages,
-                        v_pages, o, mk, static_cast<cudaStream_t>(stream));
+                        v_pages, o, mk, page,
+                        static_cast<cudaStream_t>(stream));
 }

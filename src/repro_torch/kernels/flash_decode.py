@@ -2,7 +2,11 @@
 
 Port of ``repro.kernels.flash_decode.flash_decode`` (the TPU kernel of
 paged decode and chunked prefill).  The kernel lives in
-``csrc/flash_decode.cu`` (design and bound in its header comment).
+``csrc/flash_decode.cu`` (design and bound in its header comment).  As
+on the TPU, its KV tile is one page: the page size the blocking model
+chooses (``serve.kv_cache.choose_page_size``) is what the kernel stages
+per step, and :func:`smem_bytes_required` is what the Hopper adapter's
+``"flash_decode"`` search prices.
 
 Layouts (GQA-native: all G query heads of one KV head share its pages):
 
@@ -27,6 +31,30 @@ from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+ROWS_PER_BLOCK = 4   # query rows per block, one per warp (csrc: kWarps)
+STAGES = 2           # K/V tiles in flight: the current page and the next
+
+
+def smem_bytes_required(page: int, rows_per_block: int, head_dim: int,
+                        bytes_per_elem: int = 2) -> int:
+    """Dynamic shared memory of one block (``attn::smem_bytes``): a K and
+    a V tile of ``page`` keys each, two stages deep, and the block's q
+    rows, in the input dtype; one fp32 score per key for each row.  The
+    query span of a chunked prefill does not enter: rows are tiled across
+    blocks, ``rows_per_block`` at a time."""
+    return ((STAGES * 2 * page * head_dim + rows_per_block * head_dim)
+            * bytes_per_elem + rows_per_block * page * 4)
+
+
+def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int) -> int:
+    """The largest page whose tile fits ``smem_bytes`` of shared memory
+    (fp32 with head_dim 128 on an H100: 111 keys; bf16: 222)."""
+    fixed = smem_bytes_required(0, ROWS_PER_BLOCK, head_dim, bytes_per_elem)
+    per_key = smem_bytes_required(1, ROWS_PER_BLOCK, head_dim,
+                                  bytes_per_elem) - fixed
+    return (smem_bytes - fixed) // per_key
+
+
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 
@@ -128,3 +156,11 @@ def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window):
         raise ValueError(f"window must be >= 1, got {window}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    page = k_pages.shape[1]
+    need = smem_bytes_required(page, ROWS_PER_BLOCK, d, q.element_size())
+    have = torch.cuda.get_device_properties(
+        q.device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(
+            f"page {page} needs {need} bytes of shared memory per block; "
+            f"this card allows {have}")

@@ -1,0 +1,133 @@
+"""Blocked GEMM: CUDA kernel, wrapper and plain version.
+
+Port of ``repro.kernels.matmul_blocked.matmul_blocked`` (kernel row 6).
+The kernel lives in ``csrc/matmul_blocked.cu`` (design and bound in its
+header comment): ``C[M, N] = A[M, K] @ B[K, N]`` with row-major operands,
+an fp32 accumulator held in registers across the whole K loop, output in
+the input dtype, fp32 and bf16.  The tiles ``(bm, bk, bn)`` come from the
+blocking model (``core.hopper_adapter`` through ``tune.best_schedule``)
+and are runtime arguments of the one kernel.  Ragged M, N and K edges are
+masked inside the kernel, so every shape launches: the JAX op's fallback
+to ``matmul_ref`` for tiles that do not divide is not carried over.
+
+The footprint functions here are the single source the Hopper adapter
+checks candidates against.  Forward only: a gradient needs the dgrad
+kernels (``ROADMAP.md``, queue 1, item 12).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
+
+THREADS = 256             # threads per block (csrc: kThreads)
+COLS_PER_THREAD = 4       # output columns a thread holds (csrc: kCols)
+MAX_ROWS_PER_THREAD = 16  # output rows a thread holds (csrc: kMaxRows)
+STAGES = 2                # tiles in flight: the current step and the next
+
+
+def smem_bytes_required(bm: int, bk: int, bn: int,
+                        bytes_per_elem: int = 2) -> int:
+    """Dynamic shared memory of one block: an A tile (bm, bk) and a B tile
+    (bk, bn) in the input dtype, two stages deep.  The fp32 accumulator
+    is in registers (:func:`accumulators_per_thread`), not here."""
+    return STAGES * (bm * bk + bk * bn) * bytes_per_elem
+
+
+def accumulators_per_thread(bm: int, bn: int) -> int:
+    """fp32 accumulators each thread holds for a (bm, bn) output tile:
+    the block's threads tile it as ``THREADS // ceil(bn / 4)`` thread-rows
+    by ``ceil(bn / 4)`` column groups of 4.  Returns a number above the
+    kernel's limit (``4 * MAX_ROWS_PER_THREAD``) when bn is too wide for
+    one column group per thread."""
+    groups = -(-bn // COLS_PER_THREAD)
+    if groups > THREADS:
+        return THREADS * COLS_PER_THREAD * bm
+    thread_rows = THREADS // groups
+    return COLS_PER_THREAD * -(-bm // thread_rows)
+
+
+def hbm_bytes(M: int, N: int, K: int, bm: int, bk: int, bn: int,
+              bytes_per_elem: int = 2) -> int:
+    """Global-memory bytes the grid's loads and stores issue: every block
+    of a grid column reads its A row-panel, so A is read ceil(N / bn)
+    times and B ceil(M / bm) times; C is written once.  ``bk`` does not
+    change the count (it is the staging step, not a reuse boundary).
+    L2 may serve some of the repeated reads: this counts requests, not
+    HBM transfers."""
+    del bk
+    gm, gn = -(-M // bm), -(-N // bn)
+    return (M * K * gn + K * N * gm + M * N) * bytes_per_elem
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: the fp32 product cast to the input dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
+                   bn: int) -> torch.Tensor:
+    """``a (M, K) @ b (K, N)`` tiled ``(bm, bk, bn)``; any M, N, K.
+
+    CUDA tensors launch the kernel (or raise: there is no fallback);
+    CPU tensors take :func:`matmul_ref`.
+    """
+    if a.device.type == "cpu":
+        return matmul_ref(a, b)
+    _check(a, b, bm, bk, bn)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    fn = _build.load("matmul_blocked", "matmul_blocked_fwd", _ARGTYPES)
+    err = fn(_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+             m, n, k, bm, bk, bn,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "matmul_blocked")
+    matmul_blocked.launches += 1
+    return out
+
+
+matmul_blocked.launches = 0
+
+
+def _check(a, b, bm, bk, bn):
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"matmul_blocked runs on cuda or cpu; a is on "
+                         f"{a.device}, b on {b.device}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise NotImplementedError(
+            "matmul_blocked is forward only: its gradient needs the dgrad "
+            "kernels (ROADMAP.md, queue 1, item 12)")
+    if a.dtype != b.dtype or a.dtype not in _DTYPES:
+        raise TypeError(f"a and b must share one of "
+                        f"{sorted(map(str, _DTYPES))}; got {a.dtype}, "
+                        f"{b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} do "
+                         "not make a matrix product")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous (row-major)")
+    if a.shape[0] == 0 or b.shape[1] == 0:
+        raise ValueError("an empty output has nothing to launch")
+    if min(bm, bk, bn) < 1:
+        raise ValueError(f"tiles must be positive, got {(bm, bk, bn)}")
+    acc = accumulators_per_thread(bm, bn)
+    if acc > COLS_PER_THREAD * MAX_ROWS_PER_THREAD:
+        raise ValueError(
+            f"tiles (bm={bm}, bn={bn}) need {acc} fp32 accumulators per "
+            f"thread; the kernel holds at most "
+            f"{COLS_PER_THREAD * MAX_ROWS_PER_THREAD}")
+    need = smem_bytes_required(bm, bk, bn, a.element_size())
+    have = torch.cuda.get_device_properties(
+        a.device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(
+            f"tiles {(bm, bk, bn)} need {need} bytes of shared memory per "
+            f"block; this card allows {have}")

@@ -1,26 +1,78 @@
 """Public ops over the port's kernels (the counterpart of
 ``repro.kernels.ops`` for the serving path).
 
-Each attention op runs its CUDA kernel through the kernel's wrapper,
-which launches on CUDA tensors (or raises) and takes the plain version
-for CPU tensors.  ``use_kernel=False`` is the caller's explicit choice
-of the plain version on any device: the yardstick a kernel is held
-against on the card, never a fallback.
+Each op runs its CUDA kernel through the kernel's wrapper, which
+launches on CUDA tensors (or raises) and takes the plain version for CPU
+tensors.  ``use_kernel=False`` is the caller's explicit choice of the
+plain version on any device: the yardstick a kernel is held against on
+the card, never a fallback.
+
+``matmul`` asks the schedule tuner (``repro_torch.tune.best_schedule``)
+for its tiles: a tuned, persisted schedule when one is cached for this
+(op, shapes, dtype, device), else the blocking model's winner on the
+Hopper target.  ``linear`` is a plain ``x @ w`` unless blocked linears
+are enabled (``blocked_linear(True)`` or ``REPRO_BLOCKED_LINEAR=1``), in
+which case every projection runs ``matmul``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
 
 import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_decode import flash_decode, paged_attention_ref
+from repro_torch.kernels.matmul_blocked import matmul_blocked
+from repro_torch.tune import best_schedule
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           tiles: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """``a (M, K) @ b (K, N)`` through the blocked GEMM, with the tuned or
+    model-derived tiles of the ``"matmul"`` key (``tiles`` pins them).
+    Any shape launches: the kernel masks ragged edges itself."""
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bk, bn = tiles or best_schedule(
+        "matmul", (m, n, k), str(a.dtype).removeprefix("torch.")).tiles
+    return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+
+
+_BLOCKED_LINEAR: contextvars.ContextVar[bool | None] = \
+    contextvars.ContextVar("repro_torch_blocked_linear", default=None)
+
+
+def blocked_linear_enabled() -> bool:
+    v = _BLOCKED_LINEAR.get()
+    if v is None:
+        return os.environ.get("REPRO_BLOCKED_LINEAR") == "1"
+    return v
+
+
+@contextlib.contextmanager
+def blocked_linear(enable: bool = True):
+    """Route model projections (``linear``) through the blocked GEMM
+    while inside this context."""
+    tok = _BLOCKED_LINEAR.set(bool(enable))
+    try:
+        yield
+    finally:
+        _BLOCKED_LINEAR.reset(tok)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Projection ``x @ w`` for any-rank x (w stored ``(d_in, d_out)``).
-    Blocked linears (``matmul_blocked``) are a later slice."""
-    return x @ w
+    """Projection ``x @ w`` for any-rank x (w stored ``(d_in, d_out)``);
+    the blocked GEMM when blocked linears are enabled
+    (:func:`blocked_linear`)."""
+    if not blocked_linear_enabled():
+        return x @ w
+    lead = x.shape[:-1]
+    out = matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return out.reshape(*lead, w.shape[-1])
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

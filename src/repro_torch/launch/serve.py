@@ -1,14 +1,16 @@
 """Serving launcher of the port: the paged continuous-batching engine.
 
     python -m repro_torch.launch.serve --arch granite-3-8b --engine paged \
-        --page-size 64 --prefill-chunk 64 --batch 8 --requests 16 \
-        --prompt-len 300 --mixed-lens --gen 32 --max-seq 512
+        --batch 8 --requests 16 --prompt-len 300 --mixed-lens --gen 32 \
+        --max-seq 512
 
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels (use ``--reduced`` there).  The
-page size and prefill chunk are explicit until the blocking model is
-ported (``ROADMAP.md``, next slice); the static-batch engine is a later
-slice too.
+page size and the prefill chunk come from the blocking model unless
+given (``--page-size 0`` and ``--prefill-chunk -1``, the defaults).
+``REPRO_BLOCKED_LINEAR=1`` runs every projection through the blocked
+GEMM kernel (``kernels.ops.blocked_linear``).  The static-batch engine
+is a later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.obs import format_metrics
 from repro_torch.serve.engine import PagedEngine, PagedServeConfig
@@ -41,10 +44,12 @@ def main(argv=None) -> None:
                     help="draw prompt lengths in [prompt_len/2, prompt_len]")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=128)
-    ap.add_argument("--page-size", type=int, required=True,
-                    help="KV page size (the flash-decode kernel's KV block)")
-    ap.add_argument("--prefill-chunk", type=int, required=True,
-                    help="prefill chunk in tokens (0 -> whole-prompt joins)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="KV page size, the flash-decode kernel's KV tile "
+                         "(0 -> tuned via the flash_decode schedule key)")
+    ap.add_argument("--prefill-chunk", type=int, default=-1,
+                    help="prefill chunk in tokens (-1 -> auto-sized from "
+                         "the blocking model, 0 -> whole-prompt joins)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
@@ -57,7 +62,8 @@ def main(argv=None) -> None:
     params = T.init_params(cfg, seed=args.seed, device=args.device)
     engine = PagedEngine(cfg, params, PagedServeConfig(
         max_seq=args.max_seq, max_batch=args.batch,
-        page_size=args.page_size, prefill_chunk=args.prefill_chunk,
+        page_size=args.page_size or None,
+        prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
         temperature=args.temperature, seed=args.seed, device=args.device))
     rng = np.random.default_rng(args.seed)
     n_req = args.requests or args.batch
@@ -73,7 +79,8 @@ def main(argv=None) -> None:
     emitted = sum(len(r.output) for r in reqs)
     print(f"paged engine ({args.device}): page={engine.page_size} "
           f"chunk={engine.prefill_chunk} slots={args.batch} "
-          f"requests={n_req}")
+          f"requests={n_req} blocked_linear="
+          f"{ops.blocked_linear_enabled()}")
     print(format_metrics(engine.metrics.snapshot(), sections=("engine",)))
     statuses = sorted({r.status.value for r in reqs})
     print(f"generated {emitted} tokens over {n_req} requests in {dt:.2f}s "

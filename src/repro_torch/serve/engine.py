@@ -23,10 +23,11 @@ All device state (pools, block tables, lengths, current tokens, output
 buffer) lives on the engine's device and is updated in place; the host
 reads the output buffer back only when a request finishes.
 
+The page size and the prefill chunk come from the blocking model when
+left unset (``kv_cache.choose_page_size`` / ``choose_prefill_chunk``).
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the tuned ``page_size`` / ``prefill_chunk`` (the blocking
-model, next slice), ``fuse``, ``spec_decode``, ``prefix_cache``,
-``preempt``, ``degrade`` and ``nan_guard`` (``ROADMAP.md``).
+ignored: ``fuse``, ``spec_decode``, ``prefix_cache``, ``preempt``,
+``degrade`` and ``nan_guard`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -64,13 +65,14 @@ def sample_tokens(cfg: ModelConfig, logits: torch.Tensor, temperature: float,
 class PagedServeConfig:
     max_seq: int = 1024            # per-request prompt + generation cap
     max_batch: int = 8             # decode batch slots
-    page_size: int | None = None   # required until the next slice
+    page_size: int | None = None   # None -> tuned ("flash_decode" key)
     n_pages: int | None = None     # None -> max_batch full sequences + 1
     temperature: float = 0.0
     seed: int = 0
     buckets: tuple[int, ...] | None = None   # prefill padding lengths
     decode_chunk: int = 8          # decode steps per scheduler visit
-    prefill_chunk: int | None = None   # required; 0 -> whole-prompt joins
+    prefill_chunk: int | None = None   # None -> auto-sized; 0 -> whole-
+    #                                    prompt joins
     age_limit: int = 8             # admission rounds before a waiting head
     #                                suspends backfill (anti-starvation)
     use_kernel: bool = True        # False: the plain versions, on purpose
@@ -95,11 +97,6 @@ _NOT_PORTED = (
 
 
 def _check_ported(sc: PagedServeConfig) -> None:
-    if sc.page_size is None or sc.prefill_chunk is None:
-        raise NotImplementedError(
-            "page_size and prefill_chunk come from the blocking model "
-            "(choose_page_size / choose_prefill_chunk), which is the "
-            "port's next slice (ROADMAP.md, next slice): pass both")
     for name, item in _NOT_PORTED:
         if getattr(sc, name):
             raise NotImplementedError(
@@ -138,19 +135,28 @@ class PagedEngine:
             raise ValueError(
                 f"params are on {params['embed']['embedding'].device}, the "
                 f"engine on {self.device}")
-        self.page_size = sc.page_size
+        self.page_size = sc.page_size or KV.choose_page_size(cfg, sc.max_seq)
         self.max_blocks = KV.num_blocks(sc.max_seq, self.page_size)
         n_pages = sc.n_pages or sc.max_batch * self.max_blocks + 1
         self.cache = KV.init_paged_cache(cfg, n_pages, self.page_size,
                                          self.device)
         self.buckets = (sc.buckets if sc.buckets is not None
                         else default_buckets(cfg, sc.max_seq))
-        # snap an explicit chunk to a whole number of pages
-        self.prefill_chunk = (min(sc.max_seq, KV.num_blocks(
-            sc.prefill_chunk, self.page_size) * self.page_size)
-            if sc.prefill_chunk else 0)
+        if sc.prefill_chunk is None:
+            self.prefill_chunk = KV.choose_prefill_chunk(
+                cfg, sc.max_seq, self.page_size)
+        else:   # snap an explicit chunk to a whole number of pages
+            self.prefill_chunk = (min(sc.max_seq, KV.num_blocks(
+                sc.prefill_chunk, self.page_size) * self.page_size)
+                if sc.prefill_chunk else 0)
+        if sc.page_size is None or sc.prefill_chunk is None:
+            print(f"PagedEngine: page {self.page_size}, prefill chunk "
+                  f"{self.prefill_chunk} (blocking model, max_seq "
+                  f"{sc.max_seq})")
 
         self.metrics = reg = MetricsRegistry()
+        reg.gauge("engine.page_size").set(self.page_size)
+        reg.gauge("engine.prefill_chunk").set(self.prefill_chunk)
         allocator = KV.PageAllocator(n_pages, metrics=reg)
         self.scheduler = Scheduler(sc.max_batch, self.page_size, allocator,
                                    sc.max_seq, age_limit=sc.age_limit,

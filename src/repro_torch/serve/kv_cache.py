@@ -5,10 +5,11 @@ Every attention layer owns a page pool ``(n_pages, page, Hkv, D)``; the
 port stacks all layers' pools into one tensor per K and V,
 ``(n_layers, n_pages, page, Hkv, D)``, and each request holds a block
 table mapping its logical KV blocks to physical pages.  The page size is
-the flash-decode kernel's KV block.  In the JAX package it comes from
-the analytical blocking model (``choose_page_size``); that chooser and
-``choose_prefill_chunk`` are the port's next slice, so here the page
-size is given explicitly.
+the flash-decode kernel's KV tile, chosen by the analytical blocking
+model on the Hopper target through ``repro_torch.tune`` under the
+``"flash_decode"`` key (:func:`choose_page_size`), so cache layout and
+kernel schedule are one decision; :func:`choose_prefill_chunk` sizes the
+prefill chunk against the same kernel footprint.
 
 The pools are updated in place (``index_put_``): JAX returned a new
 pool from every scatter, which PyTorch need not copy.
@@ -36,6 +37,51 @@ SCRATCH_PAGE = 0
 
 def num_blocks(length: int, page_size: int) -> int:
     return -(-length // page_size)
+
+
+def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None) -> int:
+    """KV page size from the analytical model (op key ``"flash_decode"``).
+
+    The spec's dims are (G, S, D): G query heads per KV head stream over
+    an S-long cache of head dim D.  A tuned entry in the schedule cache
+    (``python -m repro_torch.tune flash_decode ...``) wins; otherwise the
+    analytic top candidate is used.  The fused and fp8 keys, and the
+    prefix cache's ``reuse_rate`` pricing, are not ported yet
+    (``ROADMAP.md``, queue 1, items 7, 9 and 10).
+    """
+    from repro_torch.tune import best_schedule
+    g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
+    kv_dtype = cfg.kv_cache_dtype or cfg.dtype
+    sched = best_schedule("flash_decode", (g, max_seq, cfg.head_dim),
+                          str(kv_dtype).removeprefix("torch."), cache=cache)
+    return max(1, min(sched.tiles[0], max_seq))
+
+
+def choose_prefill_chunk(cfg: ModelConfig, max_seq: int,
+                         page_size: int) -> int:
+    """Prefill chunk size from the same blocking model as the page size.
+
+    A prefill chunk is one multi-position q block of the flash-decode
+    kernel (``q_span = chunk``), so it is priced by the kernel's own
+    footprint (``flash_decode.smem_bytes_required``) against the shared
+    memory budget the page was tuned under: the chunk is the largest
+    power-of-two multiple of the page size (a whole number of pages)
+    whose footprint still fits, capped at ``max_seq``.  On Hopper the
+    kernel tiles query rows across blocks, ``ROWS_PER_BLOCK`` at a time,
+    so the span never enters the footprint and the rule returns the
+    largest power-of-two whole-page chunk within ``max_seq`` -- the JAX
+    rule's answer when nothing binds.
+    """
+    from repro_torch.core.hopper_adapter import default_smem_budget
+    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  smem_bytes_required)
+    kv_bytes = (cfg.kv_cache_dtype or cfg.dtype).itemsize
+    fits = smem_bytes_required(page_size, ROWS_PER_BLOCK, cfg.head_dim,
+                               kv_bytes) <= default_smem_budget()
+    chunk = min(page_size, max_seq)
+    while fits and chunk * 2 <= max_seq:
+        chunk *= 2
+    return chunk
 
 
 # ------------------------------ device side --------------------------------

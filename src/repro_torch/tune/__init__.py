@@ -1,0 +1,126 @@
+"""Schedule tuner: the paper's blocking optimizer driving the port's
+kernels (the port of ``repro.tune`` for ``"matmul"`` and
+``"flash_decode"``).
+
+The analytical model (``repro_torch.core``) derives candidate blockings
+on the Hopper target; this package lowers them to the CUDA kernels' tile
+tuples, optionally times the top few on the card, and persists winners in
+a JSON cache so every later process -- including the default paths of
+``kernels.ops`` and the paged engine's page size -- gets tuned tiles.
+
+Entry points:
+
+* :func:`best_schedule` -- cheap, never measures: the cached schedule if
+  one exists for this (op, shapes, dtype, device), else the analytic
+  winner.  ``kernels.ops.matmul`` consults it on every call with
+  ``tiles=None``.
+* :func:`tune_op` -- the full loop: rank candidates analytically, time
+  the top-N on the card, persist the winner.  Run offline
+  (``python -m repro_torch.tune ...``) to pre-populate the cache.
+"""
+
+from __future__ import annotations
+
+import functools
+
+from repro_torch.core.hopper_adapter import (H100_SXM, HopperTarget,
+                                             default_smem_budget)
+from repro_torch.tune.cache import (ScheduleCache, default_cache_path,
+                                    device_kind)
+from repro_torch.tune.lowering import (candidates, divides, fits_smem,
+                                       level0_dram_bytes,
+                                       predicted_dram_accesses,
+                                       schedule_to_string)
+from repro_torch.tune.schedule import OpSpec, Schedule
+
+__all__ = [
+    "OpSpec", "Schedule", "ScheduleCache", "best_schedule", "candidates",
+    "default_cache_path", "describe_candidates", "device_kind", "divides",
+    "fits_smem", "level0_dram_bytes", "predicted_dram_accesses",
+    "schedule_to_string", "set_schedule_observer", "tune_op",
+]
+
+_default_cache = ScheduleCache()
+
+
+# One process-wide callable notified of every best_schedule resolution
+# with ``(spec, schedule)``; it must be cheap and must not call back into
+# best_schedule.  ``None`` (the default) costs one comparison.
+_SCHEDULE_OBSERVER = None
+
+
+def set_schedule_observer(fn):
+    """Install ``fn(spec, schedule)`` as the resolution observer;
+    returns the previous observer (``None`` to uninstall)."""
+    global _SCHEDULE_OBSERVER
+    prev = _SCHEDULE_OBSERVER
+    _SCHEDULE_OBSERVER = fn
+    return prev
+
+
+def describe_candidates(spec: OpSpec) -> str:
+    """Human-readable ranked candidate table (CLI output)."""
+    lines = []
+    for i, s in enumerate(candidates(spec)):
+        acc = (f"{s.predicted_dram_accesses:.3e}"
+               if s.predicted_dram_accesses is not None else "n/a")
+        lines.append(f"  #{i}: tiles={s.tiles}  "
+                     f"predicted DRAM accesses={acc}")
+    return "\n".join(lines)
+
+
+@functools.lru_cache(maxsize=1024)
+def _derive(spec: OpSpec, smem_budget_bytes: int | None,
+            target: HopperTarget) -> Schedule:
+    return candidates(spec, smem_budget_bytes, target)[0]
+
+
+def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
+                  cache: ScheduleCache | None = None,
+                  smem_budget_bytes: int | None = None,
+                  target: HopperTarget = H100_SXM) -> Schedule:
+    """Cached-or-derived schedule for one op instance (never measures).
+
+    ``dims`` is ``(M, N, K)`` for ``"matmul"`` and ``(G, S, D)`` for
+    ``"flash_decode"``.  A cache hit (same op, shapes, dtype and device
+    kind) wins outright, unless an explicit ``smem_budget_bytes`` is
+    given that its tiles overflow; otherwise the analytic top candidate
+    is derived in-process (memoized, not persisted -- run :func:`tune_op`
+    to measure and persist).
+    """
+    spec = OpSpec(op, tuple(dims), dtype)
+    hit = (cache or _default_cache).lookup(spec)
+    if hit is not None and hit.spec == spec and (
+            smem_budget_bytes is None or
+            fits_smem(spec, hit.tiles,
+                      default_smem_budget(target, smem_budget_bytes),
+                      target)):
+        result = hit
+    else:
+        result = _derive(spec, smem_budget_bytes, target)
+    obs = _SCHEDULE_OBSERVER
+    if obs is not None:
+        obs(spec, result)
+    return result
+
+
+def tune_op(op: str, dims: tuple[int, ...], dtype: str = "float32",
+            top_n: int = 3, measure: bool = True,
+            cache: ScheduleCache | None = None) -> Schedule:
+    """Full tuning loop for one op instance; returns the winner.
+
+    Candidates are ranked by the paper's predicted DRAM accesses; with
+    ``measure=True`` the top ``top_n`` are also timed on the card
+    (``tune.measure``; raises without a CUDA device) and the fastest
+    wins.  The winner lands in the schedule cache under the current
+    device kind, where :func:`best_schedule` -- and so the default paths
+    of ``kernels.ops`` and the paged engine -- will find it.
+    """
+    spec = OpSpec(op, tuple(dims), dtype)
+    ranked = candidates(spec)
+    if measure:
+        from repro_torch.tune import measure as measure_mod
+        ranked = measure_mod.measure_top(ranked, top_n=top_n)
+    winner = ranked[0]
+    (cache or _default_cache).store(winner)
+    return winner

@@ -1,0 +1,56 @@
+"""Offline schedule tuning CLI: pre-populate the port's schedule cache.
+
+    PYTHONPATH=src python -m repro_torch.tune matmul 8 4096 4096 \\
+        --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.tune flash_decode 4 512 128 \\
+        --dtype bfloat16 --no-measure
+
+Prints the analytic candidate table, times the top-N on the card (unless
+``--no-measure``; without a CUDA device measuring raises) and persists
+the winner.  ``kernels.ops`` and the paged engine read the *default*
+cache (``$REPRO_TORCH_TUNE_CACHE``, else
+``~/.cache/repro_torch/schedules.json``); when tuning into a ``--cache``
+override, point ``REPRO_TORCH_TUNE_CACHE`` at that file at run time.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.tune import (OpSpec, ScheduleCache, describe_candidates,
+                              device_kind, tune_op)
+from repro_torch.tune.schedule import OPS
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.tune",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("op", choices=OPS)
+    ap.add_argument("dims", type=int, nargs="+",
+                    help="matmul: M N K; flash_decode: G S D (GQA group "
+                         "size, max KV length, head dim)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--top-n", type=int, default=3,
+                    help="how many candidates to time")
+    ap.add_argument("--no-measure", action="store_true",
+                    help="persist the analytic winner without timing")
+    ap.add_argument("--cache", default=None,
+                    help="schedule cache path (default: "
+                         "$REPRO_TORCH_TUNE_CACHE or ~/.cache/repro_torch)")
+    args = ap.parse_args(argv)
+
+    spec = OpSpec(args.op, tuple(args.dims), args.dtype)
+    cache = ScheduleCache(args.cache)
+    print(f"tuning {spec.key(device_kind())}")
+    print(describe_candidates(spec))
+    winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=args.top_n,
+                     measure=not args.no_measure, cache=cache)
+    extra = (f"  {winner.measured_us:.1f} us/call"
+             if winner.measured_us is not None else "")
+    print(f"winner: tiles={winner.tiles} ({winner.source}){extra}")
+    print(f"persisted to {cache.path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,226 @@
+"""Lowering from the analytical blocking model to the port's kernel
+schedules (the port of ``repro.tune.lowering`` for ``"matmul"`` and
+``"flash_decode"``).
+
+1. :func:`candidates` runs the paper's schedule search for the op's loop
+   nest on the Hopper hierarchy (``core.hopper_adapter``), keeps what the
+   CUDA kernel holds on chip (:func:`fits_smem`) and ranks tiles that
+   divide the problem by the model's predicted DRAM accesses;
+2. :func:`schedule_to_string` maps a concrete tile tuple back onto the
+   blocking string the kernel executes, so
+3. :func:`predicted_dram_accesses` can score any candidate with the exact
+   per-level access counts of paper section 3.4.
+
+:func:`schedule_to_string`, :func:`predicted_dram_accesses` and
+:func:`level0_dram_bytes` are the model's arithmetic and have no target;
+they are the reference's, restricted to the two keys.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.hierarchy import MemLevel, cache_accesses
+from repro_torch.core.hopper_adapter import (H100_SXM, HopperTarget,
+                                             default_smem_budget,
+                                             flash_decode_tile_candidates,
+                                             matmul_fits,
+                                             matmul_tile_candidates)
+from repro_torch.core.loopnest import BlockingString, Dim, Loop
+from repro_torch.tune.schedule import OpSpec, Schedule
+
+
+def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
+              target: HopperTarget = H100_SXM) -> bool:
+    """Whether the op's CUDA kernel holds these tiles on chip: its own
+    shared-memory footprint within ``budget`` and, for the GEMM, its
+    fp32 accumulator within the target's register limit."""
+    if spec.op == "matmul":
+        bm, bk, bn = tiles
+        return matmul_fits(bm, bk, bn, spec.itemsize, budget, target)
+    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  smem_bytes_required)
+    _, _, D = spec.dims
+    (page,) = tiles
+    return smem_bytes_required(page, ROWS_PER_BLOCK, D,
+                               spec.itemsize) <= budget
+
+
+def divides(spec: OpSpec, tiles: tuple[int, ...]) -> bool:
+    """True iff the tiles cover the problem in whole blocks (the model
+    can score them; the kernels also run ragged tiles, masked)."""
+    if spec.op == "matmul":
+        M, N, K = spec.dims
+        bm, bk, bn = tiles
+        return M % bm == 0 and K % bk == 0 and N % bn == 0
+    _, S, _ = spec.dims
+    (page,) = tiles
+    return S % page == 0
+
+
+def schedule_to_string(spec: OpSpec,
+                       tiles: tuple[int, ...]) -> BlockingString:
+    """The blocking string the kernels execute for these tiles (inner ->
+    outer).
+
+    * matmul: the level-0 (bk, bm, bn) block, then the grid (m, n, k)
+      with k minor-most (the fp32 accumulator is the OB held across C);
+    * flash_decode: one query block (all G rows, all D columns) resident
+      while the kernel streams KV pages -- the running (m, l, acc) state
+      is the OB held across the whole C (KV) reduction.
+    """
+    p = spec.problem()
+    if spec.op == "matmul":
+        M, N, K = spec.dims
+        bm, bk, bn = tiles
+        loops = [Loop(Dim.C, bk), Loop(Dim.X, bm), Loop(Dim.K, bn),
+                 Loop(Dim.C, K), Loop(Dim.K, N), Loop(Dim.X, M)]
+    else:
+        G, S, D = spec.dims
+        (page,) = tiles
+        loops = [Loop(Dim.C, page), Loop(Dim.X, G), Loop(Dim.K, D),
+                 Loop(Dim.C, S)]
+    return BlockingString(loops, p)
+
+
+def predicted_dram_accesses(spec: OpSpec, tiles: tuple[int, ...],
+                            smem_budget_bytes: int | None = None,
+                            target: HopperTarget = H100_SXM) -> int:
+    """HBM-boundary accesses (elements) of this schedule under the paper's
+    access model with a shared-memory-sized on-chip level (working sets
+    that overflow the budget spill, as in the Fig. 3/4 methodology)."""
+    if not divides(spec, tiles):
+        raise ValueError(
+            f"tiles {tiles} do not divide {spec.op} dims {spec.dims}; "
+            "the blocking model cannot score a ragged schedule")
+    budget = default_smem_budget(target, smem_budget_bytes)
+    levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
+    s = schedule_to_string(spec, tiles)
+    return cache_accesses(s, levels)[levels[-1].name]
+
+
+def _operand_level0_traffic(s: BlockingString, op, footprint: int) -> int:
+    """Parent-side traffic (elements) of the outermost model buffer that
+    fits the kernel's level-0 tile footprint for this operand (including
+    the degenerate pos=-1 register when no placed buffer fits: a streamed
+    operand with no reuse pays the full compulsory stream)."""
+    from repro_torch.core.access import analyze
+    from repro_torch.core.buffers import buffers_by_operand, place_buffers
+    rep = analyze(s)
+    chain = buffers_by_operand(place_buffers(s))[op]     # inner -> outer
+    fitting = [b for b in chain if b.size_elems <= footprint]
+    pick = fitting[-1]
+    for bt in rep.per_buffer:
+        if bt.buffer.name == pick.name and bt.buffer.operand is op:
+            return bt.parent_traffic
+    raise KeyError(pick.name)
+
+
+def _level0_footprints(s: BlockingString) -> dict:
+    """Level-0 tile footprint (elements) per operand, read off the
+    innermost extent of each dim in the blocking string."""
+    from repro_torch.core.buffers import OPERAND_DIMS, Operand
+    inner: dict[Dim, int] = {}
+    for loop in s.loops:
+        inner.setdefault(loop.dim, loop.extent)
+    out = {}
+    for op in Operand:
+        fp = 1
+        for d in OPERAND_DIMS[op]:
+            fp *= inner.get(d, 1)
+        out[op] = fp
+    return out
+
+
+def level0_dram_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
+    """The blocking model's level-0 HBM traffic (bytes) for the nest(s)
+    the kernel executes with ``tiles``, with no finite on-chip packing:
+    per operand, the parent traffic of the outermost placed buffer that
+    fits the kernel's level-0 block."""
+    from repro_torch.core.buffers import Operand, operand_bytes
+    if not divides(spec, tiles):
+        raise ValueError(
+            f"tiles {tiles} do not divide {spec.op} dims {spec.dims}")
+    if spec.op == "flash_decode":
+        return _flash_decode_level0_bytes(spec, tiles)
+    s = schedule_to_string(spec, tiles)
+    fps = _level0_footprints(s)
+    return sum(_operand_level0_traffic(s, op, fps[op])
+               * operand_bytes(s.problem, op) for op in Operand)
+
+
+def _flash_decode_level0_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
+    """Two-nest decomposition of the decode-attention kernel: ``scores =
+    q @ K^T`` (count q and K; the score output is an on-chip
+    intermediate) and ``out = P @ V`` (count V and the output; P is the
+    same intermediate), sharing the KV block loop.  Per (batch, kv-head)
+    row; block tables and lengths are excluded."""
+    from repro_torch.core.buffers import Operand, operand_bytes
+    from repro_torch.core.loopnest import Problem
+    G, S, D = spec.dims
+    (page,) = tiles
+    p1 = Problem.gemm(M=G, N_cols=S, K_reduce=D,
+                      bytes_per_elem=spec.itemsize)
+    s1 = BlockingString([Loop(Dim.C, D), Loop(Dim.X, G), Loop(Dim.K, page),
+                         Loop(Dim.C, D), Loop(Dim.K, S), Loop(Dim.X, G)],
+                        p1)
+    p2 = Problem.gemm(M=G, N_cols=D, K_reduce=S,
+                      bytes_per_elem=spec.itemsize)
+    s2 = BlockingString([Loop(Dim.C, page), Loop(Dim.X, G), Loop(Dim.K, D),
+                         Loop(Dim.C, S), Loop(Dim.K, D), Loop(Dim.X, G)],
+                        p2)
+    total = 0
+    for s, counted in ((s1, (Operand.INPUT, Operand.WEIGHT)),
+                       (s2, (Operand.WEIGHT, Operand.OUTPUT))):
+        fps = _level0_footprints(s)
+        for op in counted:
+            total += _operand_level0_traffic(s, op, fps[op]) \
+                * operand_bytes(s.problem, op)
+    return total
+
+
+def candidates(spec: OpSpec,
+               smem_budget_bytes: int | None = None,
+               target: HopperTarget = H100_SXM,
+               top: int = 8) -> list[Schedule]:
+    """Analytically-ranked kernel schedules for one op instance.
+
+    Always returns at least one schedule.  When no fitting candidate
+    divides the problem, the top fitting one is returned unscored
+    (``predicted_dram_accesses`` unset): the kernel runs it with its
+    ragged edges masked.
+    """
+    budget = default_smem_budget(target, smem_budget_bytes)
+    if spec.op == "matmul":
+        M, N, K = spec.dims
+        raw = matmul_tile_candidates(M, N, K, spec.itemsize, budget,
+                                     target, top=top)
+    else:
+        G, S, D = spec.dims
+        raw = flash_decode_tile_candidates(G, S, D, spec.itemsize, budget,
+                                           target, top=top)
+    fitting = [t for t in raw if fits_smem(spec, t, budget, target)]
+    if not fitting:
+        raise ValueError(
+            f"no {spec.op} tile for dims {spec.dims} fits a shared-memory "
+            f"budget of {budget} bytes on {target.name}")
+    usable = [t for t in fitting if divides(spec, t)]
+    if not usable:
+        return [Schedule(spec, fitting[0], source="analytic")]
+    scored = [Schedule(spec, t, source="analytic",
+                       predicted_dram_accesses=predicted_dram_accesses(
+                           spec, t, budget, target))
+              for t in usable]
+
+    # fewest predicted DRAM accesses first; break ties toward bigger
+    # blocks (fewer grid steps) -- except for flash_decode, where the KV
+    # stream touches every element once at any page size (the model
+    # ties) and the tile doubles as the paged cache's allocation granule:
+    # smaller pages waste fewer slots per request.
+    def tile_product(s: Schedule) -> int:
+        prod = 1
+        for t in s.tiles:
+            prod *= t
+        return prod
+    sign = 1 if spec.op == "flash_decode" else -1
+    scored.sort(key=lambda s: (s.predicted_dram_accesses,
+                               sign * tile_product(s)))
+    return scored[:top]

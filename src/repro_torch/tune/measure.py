@@ -1,0 +1,109 @@
+"""Measurement on the card: time candidate schedules of one op instance.
+
+Each candidate runs the port's kernel wrapper with its tiles pinned.  A
+launch is timed with CUDA events, after a write of a buffer larger than
+the H100's 50 MB L2 (the serving path reads every layer's weights
+between two calls of one projection, so L2 is cold) and a device spin of
+about a millisecond (so the host enqueues the start event and the kernel
+while the device is busy, and the events time device work, not the
+host's launch overhead).  The median over the launches is the time.
+
+There is no CPU measurement: a time taken here would be the plain
+version's on the host, not the kernel's, so without a CUDA device
+:func:`measure` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+
+import numpy as np
+import torch
+
+from repro_torch.tune.schedule import Schedule
+
+L2_FLUSH_BYTES = 64 << 20
+
+
+def _device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "measuring a schedule needs a CUDA device; without one, rank "
+            "analytically (measure=False, or --no-measure on the CLI)")
+    return torch.device("cuda")
+
+
+def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
+    """Operands for the schedule's OpSpec on the card, from ``seed``.
+    ``flash_decode``: one request, one kv head, its cache of S keys laid
+    out in pages of the schedule's tile, under a shuffled block table."""
+    dev = _device()
+    spec = schedule.spec
+    dtype = getattr(torch, spec.dtype)
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=dev)
+    if spec.op == "matmul":
+        M, N, K = spec.dims
+        return t(M, K), t(K, N) * K ** -0.5
+    G, S, D = spec.dims
+    (page,) = schedule.tiles
+    n_blocks = -(-S // page)
+    bt = torch.tensor(1 + rng.permutation(n_blocks)[None, :],
+                      dtype=torch.int32, device=dev)
+    lengths = torch.tensor([S], dtype=torch.int32, device=dev)
+    return (t(1, 1, G, D), t(n_blocks + 1, page, 1, D),
+            t(n_blocks + 1, page, 1, D), bt, lengths)
+
+
+def run_once(schedule: Schedule, inputs: tuple) -> torch.Tensor:
+    """Launch the schedule's kernel once on ``inputs``."""
+    if schedule.spec.op == "matmul":
+        from repro_torch.kernels.matmul_blocked import matmul_blocked
+        bm, bk, bn = schedule.tiles
+        a, b = inputs
+        return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+    from repro_torch.kernels.flash_decode import flash_decode
+    return flash_decode(*inputs)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device milliseconds of ``fn`` over ``reps`` launches, each
+    after an L2 flush and a device spin (module docstring)."""
+    dev = _device()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def measure(schedule: Schedule, reps: int = 20, seed: int = 0) -> float:
+    """Median device time of one schedule, in microseconds."""
+    inputs = make_inputs(schedule, seed)
+    return 1e3 * time_ms(lambda: run_once(schedule, inputs), reps=reps)
+
+
+def measure_top(schedules: list[Schedule], top_n: int = 3,
+                reps: int = 20) -> list[Schedule]:
+    """Time the first ``top_n`` schedules; return ALL schedules re-ranked
+    (measured ones first, by time; the rest keep their analytic order
+    behind them)."""
+    timed = [dataclasses.replace(s, measured_us=measure(s, reps),
+                                 source="measured")
+             for s in schedules[:top_n]]
+    timed.sort(key=lambda s: s.measured_us)
+    return timed + schedules[top_n:]

@@ -1,0 +1,140 @@
+"""Schedule data model of the tuner (the port of ``repro.tune.schedule``
+for the keys the port runs).
+
+An :class:`OpSpec` names one tunable operator instance -- the op kind
+plus the problem dimensions the kernels see:
+
+* ``matmul``: ``dims = (M, N, K)`` for ``C[M,N] = A[M,K] @ B[K,N]``;
+  tiles ``(bm, bk, bn)`` of ``kernels/matmul_blocked.py``;
+* ``flash_decode``: ``dims = (G, S, D)`` -- per (batch, kv head) decode
+  attention where the G query heads of a GQA group stream over an S-long
+  paged KV cache of head dim D.  The single tile ``(page,)`` is the
+  flash-decode kernel's KV tile AND the paged cache's page size
+  (``serve/kv_cache.py``), so the model fixes both at once.
+
+The JAX package's other keys (the backward, conv, fused and quantized
+nests) are refused with ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports them.
+
+A :class:`Schedule` is a concrete kernel configuration for that spec: the
+tile tuple, where it came from (``analytic`` / ``measured`` / ``cache``),
+the model's predicted DRAM-boundary accesses, and -- when timed on the
+card -- the measured latency.  Both serialize losslessly to the JSON
+dicts the schedule cache stores.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.loopnest import Problem
+
+OPS = ("matmul", "flash_decode")
+TILE_RANK = {"matmul": 3, "flash_decode": 1}
+_N_DIMS = {"matmul": 3, "flash_decode": 3}
+# the reference's other schedule keys, with the ROADMAP item porting each
+UNPORTED_OPS = {
+    "matmul_dgrad": "queue 1, item 12 (training)",
+    "conv2d": "queue 1, item 13 (the paper's conv path)",
+    "conv2d_dgrad": "queue 1, items 12/13 (training, conv path)",
+    "conv2d_wgrad": "queue 1, items 12/13 (training, conv path)",
+    "matmul_w8": "queue 1, item 10 (quantization)",
+    "flash_decode_fp8": "queue 1, item 10 (quantization)",
+    "matmul_fused": "queue 1, item 9 (fused path)",
+    "qkv_fused": "queue 1, item 9 (fused path)",
+    "flash_decode_oproj": "queue 1, item 9 (fused path)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """One tunable operator instance (the cache-key identity)."""
+
+    op: str
+    dims: tuple[int, ...]
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.op in UNPORTED_OPS:
+            raise NotImplementedError(
+                f"schedule key {self.op!r} is not ported yet: ROADMAP.md, "
+                f"{UNPORTED_OPS[self.op]}")
+        if self.op not in OPS:
+            raise ValueError(f"unknown op {self.op!r}; expected one of {OPS}")
+        want = _N_DIMS[self.op]
+        if len(self.dims) != want:
+            raise ValueError(
+                f"{self.op} expects {want} dims, got {self.dims}")
+        if any(d < 1 for d in self.dims):
+            raise ValueError(f"dims must be >= 1, got {self.dims}")
+        object.__setattr__(self, "dims", tuple(int(d) for d in self.dims))
+
+    @property
+    def itemsize(self) -> int:
+        return getattr(torch, self.dtype).itemsize
+
+    def problem(self) -> Problem:
+        """The spec as the paper's loop-nest Problem.  Decode attention
+        per (batch, kv head) is a skinny GEMM: the G query rows stream
+        over the S-long KV cache producing D outputs, its reduction dim
+        (C in the paper's nest) the KV length being blocked."""
+        if self.op == "matmul":
+            M, N, K = self.dims
+            return Problem.gemm(M=M, N_cols=N, K_reduce=K,
+                                bytes_per_elem=self.itemsize)
+        G, S, D = self.dims
+        return Problem.gemm(M=G, N_cols=D, K_reduce=S,
+                            bytes_per_elem=self.itemsize)
+
+    def key(self, device_kind: str) -> str:
+        """Stable cache key: ``op/dims/dtype/device``."""
+        if self.op == "matmul":
+            M, N, K = self.dims
+            shape = f"m{M}n{N}k{K}"
+        else:
+            G, S, D = self.dims
+            shape = f"g{G}s{S}d{D}"
+        return f"{self.op}/{shape}/{self.dtype}/{device_kind}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A concrete kernel schedule for one OpSpec."""
+
+    spec: OpSpec
+    tiles: tuple[int, ...]
+    source: str = "analytic"
+    predicted_dram_accesses: int | None = None
+    measured_us: float | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "tiles", tuple(int(t) for t in self.tiles))
+        if len(self.tiles) != TILE_RANK[self.spec.op]:
+            raise ValueError(
+                f"{self.spec.op} schedule needs {TILE_RANK[self.spec.op]} "
+                f"tile sizes, got {self.tiles}")
+
+    def with_source(self, source: str) -> "Schedule":
+        return dataclasses.replace(self, source=source)
+
+    def to_json(self) -> dict:
+        return {
+            "op": self.spec.op,
+            "dims": list(self.spec.dims),
+            "dtype": self.spec.dtype,
+            "tiles": list(self.tiles),
+            "source": self.source,
+            "predicted_dram_accesses": self.predicted_dram_accesses,
+            "measured_us": self.measured_us,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "Schedule":
+        spec = OpSpec(op=d["op"], dims=tuple(d["dims"]),
+                      dtype=d.get("dtype", "float32"))
+        return cls(spec=spec, tiles=tuple(d["tiles"]),
+                   source=d.get("source", "cache"),
+                   predicted_dram_accesses=d.get("predicted_dram_accesses"),
+                   measured_us=d.get("measured_us"))

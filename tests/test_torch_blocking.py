@@ -1,0 +1,142 @@
+"""Port vs JAX: the paper's blocking model, and the Hopper adapter.
+
+The port keeps its own copy of ``repro.core`` (imports re-pointed), so
+the same ``Problem`` must give the same rankings, traffic and optimizer
+results in both, exactly.  Problems: granite-3-8b's projection GEMMs at
+decode and prefill M, and AlexNet conv layers 1, 2 and 5 restated from
+``benchmarks/networks.py`` (no test imports ``benchmarks/``); the
+optimizer's three-level beam search runs on a small GEMM so the file
+stays fast.
+
+The Hopper adapter's candidates are then held to the kernels' limits:
+shared memory, the register accumulator, the tile multiples, and the
+problem's extents.
+"""
+
+import pytest
+
+from repro.core import access as j_access
+from repro.core import hierarchy as j_hierarchy
+from repro.core import loopnest as j_loopnest
+from repro.core import optimizer as j_optimizer
+from repro_torch.core import access as t_access
+from repro_torch.core import hierarchy as t_hierarchy
+from repro_torch.core import loopnest as t_loopnest
+from repro_torch.core import optimizer as t_optimizer
+from repro_torch.core.hopper_adapter import (H100_SXM, default_smem_budget,
+                                             flash_decode_tile_candidates,
+                                             matmul_tile_candidates)
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import matmul_blocked as MB
+
+JAX = (j_loopnest, j_hierarchy, j_optimizer, j_access)
+PORT = (t_loopnest, t_hierarchy, t_optimizer, t_access)
+
+GEMMS = {f"gemm_m{m}_n{n}_k{k}": dict(M=m, N_cols=n, K_reduce=k)
+         for m, n, k in ((8, 4096, 4096), (8, 1024, 4096),
+                         (512, 12800, 4096), (512, 4096, 12800))}
+CONVS = {"alexnet_conv1": dict(X=55, Y=55, C=3, K=96, Fw=11, Fh=11,
+                               stride=4),
+         "alexnet_conv2": dict(X=27, Y=27, C=96, K=256, Fw=5, Fh=5),
+         "alexnet_conv5": dict(X=13, Y=13, C=384, K=256, Fw=3, Fh=3)}
+SMALL = {"gemm_small": dict(M=16, N_cols=64, K_reduce=64)}
+PROBLEMS = {**GEMMS, **CONVS, **SMALL}
+
+
+def problem(mods, name):
+    loopnest = mods[0]
+    kw = PROBLEMS[name]
+    if name.startswith("gemm"):
+        return loopnest.Problem.gemm(**kw)
+    return loopnest.Problem(**kw)
+
+
+def ranked(mods, name):
+    loopnest, hierarchy, optimizer, _ = mods
+    levels = [hierarchy.MemLevel.sram("SMEM", default_smem_budget()),
+              hierarchy.MemLevel.dram("HBM")]
+    align = {loopnest.Dim.X: 16, loopnest.Dim.K: 64, loopnest.Dim.C: 64}
+    return [(e.X, e.Y, e.C, e.K, e.Fw, e.Fh, e.N)
+            for e in optimizer.ranked_level0_tiles(
+                problem(mods, name), levels, align=align, top=6,
+                max_orders=4)]
+
+
+@pytest.mark.parametrize("name", sorted({**GEMMS, **CONVS}))
+def test_ranked_level0_tiles_match_jax(name):
+    got = ranked(PORT, name)
+    assert got and got == ranked(JAX, name)
+
+
+def results(mods, name, n_levels, **kw):
+    _, _, optimizer, access = mods
+    out = []
+    for r in optimizer.optimize(problem(mods, name), n_levels=n_levels,
+                                top=4, **kw):
+        rep = access.analyze(r.string)
+        out.append((repr(r.string), r.energy_pj, rep.dram_accesses,
+                    sorted((bt.buffer.name, bt.total_accesses,
+                            bt.parent_traffic) for bt in rep.per_buffer)))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(GEMMS))
+def test_optimize_and_traffic_match_jax(name):
+    """Two-level exhaustive search on granite's GEMMs: the same strings,
+    energies and per-buffer traffic of ``analyze``."""
+    got = results(PORT, name, 2)
+    assert got and got == results(JAX, name, 2)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_seeded_beam_search_matches_jax(seed):
+    """Three-level beam search: ``optimize`` seeds its own
+    ``random.Random``, so one seed gives one answer in both packages."""
+    got = results(PORT, "gemm_small", 3, seed=seed, beam=2)
+    assert got and got == results(JAX, "gemm_small", 3, seed=seed, beam=2)
+
+
+@pytest.mark.parametrize("dims", [(M, N, K) for M in (8, 512)
+                                  for N, K in ((4096, 4096), (1024, 4096),
+                                               (12800, 4096),
+                                               (4096, 12800))])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_matmul_candidates_fit_the_kernel(dims, itemsize):
+    M, N, K = dims
+    budget = default_smem_budget()
+    cands = matmul_tile_candidates(M, N, K, itemsize)
+    assert cands
+    for bm, bk, bn in cands:
+        assert MB.smem_bytes_required(bm, bk, bn, itemsize) <= budget
+        assert MB.accumulators_per_thread(bm, bn) <= H100_SXM.acc_per_thread
+        assert bm <= M and bk <= K and bn <= N
+        assert bm == M if M < H100_SXM.m_mult else bm % H100_SXM.m_mult == 0
+        assert bk % H100_SXM.nk_mult == 0 and bn % H100_SXM.nk_mult == 0
+
+
+@pytest.mark.parametrize("seq", [32, 64, 512, 1024, 2048])
+@pytest.mark.parametrize("itemsize,head_dim", [(2, 128), (4, 128), (2, 64)])
+def test_flash_decode_pages_divide_and_fit(seq, itemsize, head_dim):
+    budget = default_smem_budget()
+    for (page,) in flash_decode_tile_candidates(4, seq, head_dim, itemsize):
+        assert seq % page == 0 and page % H100_SXM.key_mult == 0
+        assert FD.smem_bytes_required(page, FD.ROWS_PER_BLOCK, head_dim,
+                                      itemsize) <= budget
+
+
+def test_budget_is_the_opt_in_limit_over_resident_blocks():
+    assert H100_SXM.smem_optin_bytes == 232_448
+    assert default_smem_budget() == 232_448 // H100_SXM.blocks_per_sm
+    assert default_smem_budget(smem_budget_bytes=4096) == 4096
+    # a hashable target: the tuner memoizes derivations on it
+    assert hash(H100_SXM) == hash(H100_SXM)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_largest_page_is_the_last_that_fits(itemsize):
+    optin = H100_SXM.smem_optin_bytes
+    top = FD.largest_page(128, itemsize, optin)
+    assert FD.smem_bytes_required(top, FD.ROWS_PER_BLOCK, 128,
+                                  itemsize) <= optin
+    assert FD.smem_bytes_required(top + 1, FD.ROWS_PER_BLOCK, 128,
+                                  itemsize) > optin

@@ -8,7 +8,10 @@ installed:
 Every test skips without a CUDA device.  Tolerances: fp32 differs from
 the plain version only in summation order (1e-5 abs / 1e-4 rel); bf16
 rounds the fp32 result to bf16 once, so the two may differ by one bf16
-ulp of an O(1) value (2e-2 abs / 1e-2 rel).
+ulp of an O(1) value (2e-2 abs / 1e-2 rel).  GEMM operands are scaled by
+K ** -0.5 so every output is O(1); an fp32 GEMM sums K terms in another
+order than the plain version, so its abs tolerance is 2e-6 * sqrt(K) (a
+random walk of fp32 roundings, with margin).
 """
 
 import numpy as np
@@ -17,7 +20,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_decode import flash_decode, paged_attention_ref
+from repro_torch.kernels.flash_decode import (flash_decode, largest_page,
+                                              paged_attention_ref)
+from repro_torch.kernels.matmul_blocked import matmul_blocked, matmul_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +109,71 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                 # not contiguous
         flash_attention(qa.transpose(1, 2), qa.transpose(1, 2),
                         qa.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 48, 128])
+@pytest.mark.parametrize("q_span", [1, 64])
+def test_flash_decode_page_is_the_tile(dev, dtype, page, q_span):
+    """The kernel stages one page per step: any page launches, including
+    one that is no multiple of 32 keys and one past 48 KB of tiles, up
+    to the largest that fits the card (fp32: 111 keys, so 128 -> 111)."""
+    page = min(page, largest_page(128, dtype.itemsize, torch.cuda
+                                  .get_device_properties(dev)
+                                  .shared_memory_per_block_optin))
+    args = paged_case(dev, dtype, q_span, [1, 17, 64, 130, 300, 470],
+                      page=page, n_blocks=-(-512 // page), seed=page)
+    before = flash_decode.launches
+    out = flash_decode(*args, q_span=q_span)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    ref = paged_attention_ref(*args, q_span=q_span)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def gemm_case(dev, dtype, m, n, k, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=dtype, device=dev)
+    b = torch.tensor(rng.standard_normal((k, n)) * k ** -0.5, dtype=dtype,
+                     device=dev)
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k,tiles", [
+    (8, 4096, 4096, (8, 256, 64)),       # decode, the model's tile
+    (512, 1024, 512, (128, 64, 128)),    # prefill, the model's tile
+    (37, 1000, 300, (16, 64, 64)),       # ragged M, K (K % 8: bf16 scalar)
+    (50, 100, 70, (32, 128, 64)),        # ragged in all three
+    (3, 5, 7, (3, 64, 64)),              # smaller than one tile
+])
+def test_matmul_blocked_matches_plain(dev, dtype, m, n, k, tiles):
+    a, b = gemm_case(dev, dtype, m, n, k, seed=m + n + k)
+    before = matmul_blocked.launches
+    bm, bk, bn = tiles
+    out = matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert matmul_blocked.launches == before + 1    # ragged tiles launch
+    assert out.dtype == dtype and out.shape == (m, n)
+    tol = dict(TOL[dtype])
+    if dtype == torch.float32:
+        tol["atol"] = max(tol["atol"], 2e-6 * k ** 0.5)
+    torch.testing.assert_close(out.float(), matmul_ref(a, b).float(), **tol)
+
+
+def test_matmul_blocked_refuses_what_it_cannot_hold(dev):
+    a, b = gemm_case(dev, torch.bfloat16, 64, 4096, 4096)
+    before = matmul_blocked.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        matmul_blocked(a, b, bm=16, bk=4096, bn=1024)
+    with pytest.raises(ValueError, match="accumulators"):
+        matmul_blocked(a, b, bm=256, bk=64, bn=256)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        matmul_blocked(a.requires_grad_(), b, bm=16, bk=64, bn=64)
+    assert matmul_blocked.launches == before
+    qa = torch.zeros(1, 8, 4, 128, device=dev, dtype=torch.bfloat16)
+    kp = torch.zeros(2, 512, 8, 128, device=dev, dtype=torch.bfloat16)
+    bt = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_decode(qa, kp, kp, bt, torch.ones(1, dtype=torch.int32,
+                                                device=dev))

@@ -28,7 +28,9 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import PagedEngine, PagedServeConfig
-from repro_torch.serve.kv_cache import SCRATCH_PAGE, PageAllocator
+from repro_torch.serve.kv_cache import (SCRATCH_PAGE, PageAllocator,
+                                        choose_page_size,
+                                        choose_prefill_chunk)
 from repro_torch.serve.lifecycle import RequestStatus
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -143,13 +145,56 @@ def test_allocator_scratch_page_and_double_free():
 
 
 @pytest.mark.parametrize("option", [
-    dict(page_size=None), dict(prefill_chunk=None), dict(fuse=True),
-    dict(spec_decode=2), dict(prefix_cache=True), dict(nan_guard=True),
-    dict(preempt=True), dict(degrade=True)])
+    dict(fuse=True), dict(spec_decode=2), dict(prefix_cache=True),
+    dict(nan_guard=True), dict(preempt=True), dict(degrade=True)])
 def test_unported_options_raise(model, option):
     _, _, cfg, params = model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_engine(cfg, params, **option)
+
+
+@pytest.mark.parametrize("unset", ["page_size", "prefill_chunk", "both"])
+def test_model_chosen_page_and_chunk_match_jax(model, unset, capsys):
+    """Left unset, the page and the chunk come from the blocking model:
+    the page tiles max_seq in whole pages, the chunk is a power-of-two
+    number of pages within max_seq, and the engine is token-identical to
+    the JAX PagedEngine given those values explicitly."""
+    jcfg, jparams, cfg, params = model
+    kw = dict(page_size=None, prefill_chunk=None) if unset == "both" \
+        else {unset: None}
+    eng = port_engine(cfg, params, **kw)
+    assert "blocking model" in capsys.readouterr().out
+    page, chunk = eng.page_size, eng.prefill_chunk
+    snap = eng.metrics.snapshot()["engine"]
+    assert (snap["page_size"], snap["prefill_chunk"]) == (page, chunk)
+    if unset != "prefill_chunk":
+        assert page == choose_page_size(cfg, SETTINGS["max_seq"])
+        assert SETTINGS["max_seq"] % page == 0
+    if unset != "page_size":
+        assert chunk == choose_prefill_chunk(cfg, SETTINGS["max_seq"], page)
+        blocks = chunk // page
+        assert chunk % page == 0 and blocks & (blocks - 1) == 0
+        assert chunk <= SETTINGS["max_seq"]
+    prompts, gens = make_workload(cfg.vocab, seed=4)
+    jeng = JPagedEngine(jcfg, jparams, JPagedServeConfig(
+        **{**SETTINGS, "page_size": page, "prefill_chunk": chunk},
+        spec_decode=0))
+    for w, g in zip(run(jeng, prompts, gens), run(eng, prompts, gens)):
+        np.testing.assert_array_equal(g.output, w.output)
+
+
+def test_serve_cli_runs_without_page_size_or_chunk():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+         "--reduced", "--device", "cpu", "--dtype", "float32",
+         "--requests", "3", "--prompt-len", "12", "--gen", "4",
+         "--max-seq", "64", "--batch", "2"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    page = choose_page_size(get_reduced(ARCH), 64)
+    assert f"page={page} " in res.stdout
+    assert "statuses: ok" in res.stdout
 
 
 def test_engine_defaults_to_cuda(model):

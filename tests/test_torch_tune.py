@@ -1,0 +1,235 @@
+"""The port's schedule tuner: the model's arithmetic against JAX, and the
+cache and ``best_schedule`` semantics of ``tests/test_tune.py``.
+
+``schedule_to_string``, ``predicted_dram_accesses`` and
+``level0_dram_bytes`` have no target, so for the same spec, tiles and
+budget they must equal the JAX package's exactly.  Every test that
+writes a cache writes under ``tmp_path``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.tune import OpSpec as JOpSpec
+from repro.tune import lowering as jlowering
+from repro_torch.core.hopper_adapter import default_smem_budget
+from repro_torch.tune import (OpSpec, Schedule, ScheduleCache, best_schedule,
+                              candidates, device_kind, divides, fits_smem,
+                              level0_dram_bytes, predicted_dram_accesses,
+                              schedule_to_string, set_schedule_observer,
+                              tune_op)
+from repro_torch.tune.cache import default_cache_path
+
+ROOT = Path(__file__).resolve().parents[1]
+BUDGET = default_smem_budget()
+SPECS = [("matmul", (8, 4096, 4096), "bfloat16", (8, 256, 64)),
+         ("matmul", (512, 1024, 4096), "bfloat16", (128, 64, 128)),
+         ("matmul", (64, 256, 512), "float32", (16, 128, 64)),
+         ("flash_decode", (4, 512, 128), "bfloat16", (32,)),
+         ("flash_decode", (4, 512, 128), "float32", (64,)),
+         ("flash_decode", (2, 64, 16), "float32", (8,))]
+
+
+@pytest.mark.parametrize("op,dims,dtype,tiles", SPECS)
+def test_model_arithmetic_matches_jax(op, dims, dtype, tiles):
+    spec, jspec = OpSpec(op, dims, dtype), JOpSpec(op, dims, dtype)
+    assert repr(schedule_to_string(spec, tiles)) == \
+        repr(jlowering.schedule_to_string(jspec, tiles))
+    assert predicted_dram_accesses(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_accesses(jspec, tiles, BUDGET)
+    assert level0_dram_bytes(spec, tiles) == \
+        jlowering.level0_dram_bytes(jspec, tiles)
+    assert spec.key("cpu") == jspec.key("cpu")
+    assert spec.itemsize == jspec.itemsize
+
+
+# -- cache -----------------------------------------------------------------
+
+
+def test_cache_round_trip(tmp_path):
+    path = str(tmp_path / "schedules.json")
+    spec = OpSpec("matmul", (256, 256, 512), "bfloat16")
+    sched = Schedule(spec, (64, 128, 128), source="measured",
+                     predicted_dram_accesses=12345, measured_us=6.5)
+    cache = ScheduleCache(path)
+    assert cache.lookup(spec, device="cpu") is None
+    key = cache.store(sched, device="cpu")
+    assert key == "matmul/m256n256k512/bfloat16/cpu"
+    got = ScheduleCache(path).lookup(spec, device="cpu")   # a new process
+    assert got.spec == spec and got.tiles == (64, 128, 128)
+    assert got.source == "cache"        # disk hits are tagged as such
+    assert got.predicted_dram_accesses == 12345 and got.measured_us == 6.5
+
+
+def test_cache_is_device_keyed_and_merges(tmp_path):
+    path = str(tmp_path / "schedules.json")
+    spec = OpSpec("matmul", (64, 64, 64))
+    card = "NVIDIA H100 80GB HBM3"
+    ScheduleCache(path).store(Schedule(spec, (64, 64, 64),
+                                       source="measured"), device="cpu")
+    ScheduleCache(path).store(Schedule(spec, (16, 64, 64)), device=card)
+    cache = ScheduleCache(path)
+    assert cache.lookup(spec, device="cpu").tiles == (64, 64, 64)
+    assert cache.lookup(spec, device=card).tiles == (16, 64, 64)
+    assert len(cache.keys()) == 2
+    entries = json.loads((tmp_path / "schedules.json").read_text())
+    assert entries["schedules"]["matmul/m64n64k64/float32/cpu"]["source"] \
+        == "measured"
+
+
+def test_device_kind_and_default_path_are_the_ports_own(monkeypatch):
+    assert device_kind() == (torch.cuda.get_device_name()
+                             if torch.cuda.is_available() else "cpu")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", "/x/s.json")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", "/jax/s.json")
+    assert default_cache_path() == "/x/s.json"
+    monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE")
+    assert default_cache_path().endswith(
+        os.path.join(".cache", "repro_torch", "schedules.json"))
+
+
+def test_cache_quarantines_corrupt_file(tmp_path):
+    path = tmp_path / "schedules.json"
+    spec = OpSpec("flash_decode", (4, 64, 128))
+    path.write_text("{truncated by a crashed writ")
+    with pytest.warns(UserWarning, match="quarantin"):
+        assert ScheduleCache(str(path)).lookup(spec, device="cpu") is None
+    assert (tmp_path / "schedules.json.corrupt").read_text() == \
+        "{truncated by a crashed writ"
+    assert not path.exists()
+    cache = ScheduleCache(str(path))
+    cache.store(Schedule(spec, (32,)), device="cpu")
+    assert ScheduleCache(str(path)).lookup(spec, device="cpu") is not None
+    path2 = tmp_path / "other.json"
+    path2.write_text("[1, 2, 3]")
+    with pytest.warns(UserWarning, match="quarantin"):
+        assert ScheduleCache(str(path2)).lookup(spec, device="cpu") is None
+    # a missing file is a cold start, not corruption: no warning
+    ScheduleCache(str(tmp_path / "absent.json")).lookup(spec, device="cpu")
+
+
+def test_cache_skips_entries_of_unported_keys(tmp_path):
+    path = tmp_path / "schedules.json"
+    good = Schedule(OpSpec("matmul", (8, 64, 64)), (8, 64, 64))
+    path.write_text(json.dumps({"version": 1, "schedules": {
+        "conv2d/x8y8c4k8f3x3s1/float32/cpu": {
+            "op": "conv2d", "dims": [8, 8, 4, 8, 3, 3], "tiles": [8, 8, 4, 8]},
+        "matmul/m8n64k64/float32/cpu": good.to_json()}}))
+    cache = ScheduleCache(str(path))
+    assert cache.keys() == ["matmul/m8n64k64/float32/cpu"]
+
+
+# -- lowering --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("op,dims,dtype", [
+    ("matmul", (64, 256, 512), "bfloat16"),
+    ("matmul", (8, 1024, 4096), "float32"),
+    ("flash_decode", (4, 512, 128), "bfloat16")])
+def test_candidates_divide_fit_and_rank(op, dims, dtype):
+    spec = OpSpec(op, dims, dtype)
+    cands = candidates(spec)
+    assert cands
+    for s in cands:
+        assert divides(spec, s.tiles) and fits_smem(spec, s.tiles, BUDGET)
+    accesses = [s.predicted_dram_accesses for s in cands]
+    assert None not in accesses and accesses == sorted(accesses)
+
+
+def test_ragged_problem_keeps_a_runnable_schedule():
+    """M = 257 divides by no 16-row tile: the top fitting tile comes back
+    unscored, and the kernel runs it with its edges masked."""
+    s = candidates(OpSpec("matmul", (257, 256, 512)))[0]
+    assert not divides(s.spec, s.tiles)
+    assert s.predicted_dram_accesses is None
+    assert fits_smem(s.spec, s.tiles, BUDGET)
+
+
+def test_predicted_accesses_reject_non_dividing_tiles():
+    with pytest.raises(ValueError, match="do not divide"):
+        predicted_dram_accesses(OpSpec("matmul", (256, 256, 512)),
+                                (96, 128, 128))
+
+
+# -- best_schedule and tune_op ---------------------------------------------
+
+
+def test_best_schedule_fallback_is_analytic(tmp_path):
+    cache = ScheduleCache(str(tmp_path / "empty.json"))
+    s = best_schedule("matmul", (128, 128, 128), "float32", cache=cache)
+    assert s.source == "analytic" and divides(s.spec, s.tiles)
+
+
+def test_best_schedule_prefers_cache_and_tells_the_observer(tmp_path):
+    cache = ScheduleCache(str(tmp_path / "schedules.json"))
+    spec = OpSpec("matmul", (128, 128, 128), "float32")
+    cache.store(Schedule(spec, (16, 128, 128), source="measured"))
+    seen = []
+    prev = set_schedule_observer(lambda sp, sc: seen.append((sp, sc)))
+    try:
+        s = best_schedule("matmul", (128, 128, 128), "float32", cache=cache)
+    finally:
+        set_schedule_observer(prev)
+    assert s.tiles == (16, 128, 128) and s.source == "cache"
+    assert seen == [(spec, s)]
+
+
+def test_best_schedule_rederives_when_cached_tiles_blow_budget(tmp_path):
+    cache = ScheduleCache(str(tmp_path / "schedules.json"))
+    spec = OpSpec("matmul", (512, 512, 512), "bfloat16")
+    cache.store(Schedule(spec, (128, 512, 128), source="measured"))
+    small = 32 * 1024
+    s = best_schedule("matmul", (512, 512, 512), "bfloat16", cache=cache,
+                      smem_budget_bytes=small)
+    assert s.source == "analytic" and fits_smem(spec, s.tiles, small)
+
+
+def test_best_schedule_ignores_other_dtypes(tmp_path):
+    cache = ScheduleCache(str(tmp_path / "schedules.json"))
+    cache.store(Schedule(OpSpec("matmul", (128, 128, 128), "bfloat16"),
+                         (16, 128, 128), source="measured"))
+    s = best_schedule("matmul", (128, 128, 128), "float32", cache=cache)
+    assert s.source == "analytic"
+
+
+def test_tune_op_persists_the_analytic_winner_and_measures_only_on_a_card(
+        tmp_path):
+    cache = ScheduleCache(str(tmp_path / "schedules.json"))
+    w = tune_op("flash_decode", (4, 512, 128), "bfloat16", measure=False,
+                cache=cache)
+    assert ScheduleCache(cache.path).lookup(w.spec).tiles == w.tiles
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tune_op("matmul", (8, 64, 64), measure=True, cache=cache)
+
+
+def test_opspec_validation():
+    with pytest.raises(ValueError):
+        OpSpec("matmul", (1, 2))
+    with pytest.raises(ValueError):
+        OpSpec("relu", (1, 2, 3))
+    with pytest.raises(ValueError):
+        Schedule(OpSpec("matmul", (8, 8, 8)), (8, 8))
+    for op in ("conv2d", "matmul_w8", "flash_decode_oproj", "matmul_dgrad"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            OpSpec(op, (8, 8, 8))
+
+
+def test_cli_ranks_and_persists_without_measuring(tmp_path):
+    path = tmp_path / "s.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_TUNE_CACHE": str(path)}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tune", "matmul", "8", "256",
+         "512", "--dtype", "bfloat16", "--no-measure"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "#0: tiles=" in res.stdout and "winner: tiles=" in res.stdout
+    assert "matmul/m8n256k512/bfloat16/cpu" in json.loads(
+        path.read_text())["schedules"]
