@@ -7,15 +7,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` with
+2. build the six CUDA kernels from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
-   largest that fits: 111 keys in fp32) and the model's page, and ``matmul_blocked`` at ragged shapes and under every
-   tile the Hopper adapter emits for granite's projection shapes;
-4. engine parity at granite-3-8b width, 2 layers, fp32: the kernel path
-   and the plain path give identical greedy token streams, through both
-   whole-prompt joins and chunked prefill;
+   largest that fits: 111 keys in fp32) and the model's page,
+   ``matmul_blocked`` at ragged shapes and under every tile the Hopper
+   adapter emits for granite's projection shapes; ``matmul_fused`` under
+   every epilogue combination, at ragged shapes and under every adapter
+   tile of granite's gate, up and down projections at M = 8, 64, 512;
+   ``qkv_fused`` under every adapter tile at those M; and
+   ``flash_decode_oproj`` at pages 16, 32, 64 and the fused engine's
+   page, window and logit cap on and off;
+4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
+   fused: the kernel path and the plain path give identical greedy token
+   streams, through both whole-prompt joins and chunked prefill;
 5. the full run on the cuBLAS path: granite-3-8b at full width and depth
    in bf16, weights from ``--seed``, serving 16 requests (prompts of
    16..300 tokens, 32 new tokens each) through ``PagedEngine`` with page
@@ -25,9 +31,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    prefill chunk left to the blocking model and every projection through
    ``matmul_blocked`` (``ops.blocked_linear``), with its own profiler
    window and the prefill logits held against the cuBLAS path;
-7. ``tune_op`` on the decode GEMM shape into a temporary cache;
-8. each kernel timed at the shapes of phase 6 beside its bound, its
-   plain version and a library call.
+6b. the fused path: phase 6 with ``fuse=True`` (``qkv_fused``,
+   ``matmul_fused`` and ``flash_decode_oproj``; the page under the fused
+   key), with the same checks and its own profiler window;
+7. ``tune_op`` on the decode GEMM shape and the decode QKV pass into a
+   temporary cache;
+8. each kernel timed at the shapes of phases 6 and 6b beside its bound,
+   its plain version and a library call.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -200,6 +210,147 @@ def phase3_kernels(dev) -> None:
     torch.cuda.synchronize()
 
 
+GRANITE_MLP = (("gate", 12800, 4096, dict(act="silu")),
+               ("up", 12800, 4096, dict(mul=True)),
+               ("down", 4096, 12800, dict(residual=True)))
+
+
+def epilogue(dev, dtype, m, n, seed, act="none", scale=False, bias=False,
+             mul=False, residual=False) -> dict:
+    """matmul_fused keyword arguments: fp32 scale and bias rows, (m, n)
+    mul and residual blocks in ``dtype``, all O(1), from ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    return dict(act=act,
+                scale=r(n).abs() + 0.5 if scale else None,
+                bias=r(n) if bias else None,
+                mul=r(m, n, dt=dtype) if mul else None,
+                residual=r(m, n, dt=dtype) if residual else None)
+
+
+def qkv_inputs(dev, dtype, m, nkv, k, g, seed):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+    return (r(m, k), r(k, g * nkv, scale=k ** -0.5),
+            r(k, nkv, scale=k ** -0.5), r(k, nkv, scale=k ** -0.5))
+
+
+def oproj_inputs(dev, dtype, lengths, seed, page, hkv=8, g=4, d=128,
+                 e=4096):
+    """``paged_inputs`` at q_span 1 plus a (Hkv, G*D, E) wo scaled so
+    every output is O(1)."""
+    import torch
+    args = paged_inputs(dev, dtype, lengths, 1, seed, hkv=hkv, g=g, d=d,
+                        page=page, n_blocks=-(-512 // page))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wo = (torch.randn((hkv, g * d, e), generator=gen, device=dev)
+          * (hkv * g * d) ** -0.5).to(dtype)
+    return (*args, wo)
+
+
+def phase3_fused(dev) -> None:
+    """The three fused kernels against their plain versions."""
+    import itertools
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.hopper_adapter import (matmul_tile_candidates,
+                                                 qkv_fused_tile_candidates)
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import qkv_fused as QF
+    from repro_torch.serve.kv_cache import choose_page_size
+    cfg = get_config("granite-3-8b")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        # every epilogue combination, one shape
+        m, n, k = 64, 1024, 512
+        a, w = gemm_inputs(dev, dtype, m, n, k, seed=11)
+        for act, sc, bi, mu, re in itertools.product(
+                MF.ACTIVATIONS, *[(False, True)] * 4):
+            kw = epilogue(dev, dtype, m, n, seed=12, act=act, scale=sc,
+                          bias=bi, mul=mu, residual=re)
+            compare(f"matmul_fused {dn} act={act} scale={int(sc)} "
+                    f"bias={int(bi)} mul={int(mu)} res={int(re)}",
+                    MF.matmul_fused(a, w, **kw, bm=64, bk=64, bn=128),
+                    MF.matmul_fused_ref(a, w, **kw), dn, gemm_atol(dn, k))
+        # ragged shapes (scalar and 16-byte staging paths)
+        for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
+                               (50, 100, 70, (32, 128, 64)),
+                               (3, 5, 7, (3, 64, 64)),
+                               (520, 4104, 4100, (128, 64, 128))):
+            a, w = gemm_inputs(dev, dtype, m, n, k, seed=m + n)
+            kw = epilogue(dev, dtype, m, n, seed=13, act="gelu", bias=True,
+                          mul=True, residual=True)
+            bm, bk, bn = tiles
+            compare(f"matmul_fused {dn} M={m} N={n} K={k} tiles={tiles}",
+                    MF.matmul_fused(a, w, **kw, bm=bm, bk=bk, bn=bn),
+                    MF.matmul_fused_ref(a, w, **kw), dn, gemm_atol(dn, k))
+        # every tile the adapter emits for granite's MLP, with the
+        # epilogue the model gives each projection
+        n_tiles = 0
+        for m in (8, 64, 512):
+            for name, n, k, epi in GRANITE_MLP:
+                a, w = gemm_inputs(dev, dtype, m, n, k, seed=m + n + k)
+                kw = epilogue(dev, dtype, m, n, seed=m, **epi)
+                ref = MF.matmul_fused_ref(a, w, **kw)
+                for bm, bk, bn in matmul_tile_candidates(m, n, k,
+                                                         a.element_size()):
+                    compare(f"matmul_fused {dn} {name} M={m} N={n} K={k} "
+                            f"tiles={(bm, bk, bn)}",
+                            MF.matmul_fused(a, w, **kw, bm=bm, bk=bk, bn=bn),
+                            ref, dn, gemm_atol(dn, k))
+                    n_tiles += 1
+        # qkv_fused: every adapter tile at granite's (Nkv, K, G), and a
+        # ragged shape with G = 1
+        for m in (8, 64, 512, 37):
+            x, wq, wk, wv = qkv_inputs(dev, dtype, m, 1024, 4096, 4,
+                                       seed=m)
+            refs = QF.qkv_fused_ref(x, wq, wk, wv)
+            for tiles in qkv_fused_tile_candidates(m, 1024, 4096, 4,
+                                                   x.element_size()):
+                got = QF.qkv_fused(x, wq, wk, wv, bm=tiles[0], bk=tiles[1],
+                                   bn=tiles[2])
+                for part, o, r in zip("qkv", got, refs):
+                    compare(f"qkv_fused {dn} {part} M={m} Nkv=1024 K=4096 "
+                            f"G=4 tiles={tiles}", o, r, dn,
+                            gemm_atol(dn, 4096))
+                n_tiles += 1
+        x, wq, wk, wv = qkv_inputs(dev, dtype, 24, 96, 136, 1, seed=3)
+        for part, o, r in zip("qkv", QF.qkv_fused(x, wq, wk, wv, bm=16,
+                                                  bk=64, bn=64),
+                              QF.qkv_fused_ref(x, wq, wk, wv)):
+            compare(f"qkv_fused {dn} {part} M=24 Nkv=96 K=136 G=1 ragged",
+                    o, r, dn, gemm_atol(dn, 136))
+        # flash_decode_oproj: granite's decode, B = 8, at pages 16, 32,
+        # 64 and the fused engine's page; two launches agree bit for bit
+        fused_page = choose_page_size(dataclasses.replace(cfg, dtype=dtype),
+                                      512, fused=True)
+        lengths = [1, 17, 64, 130, 300, 512, 33, 250]
+        for page in sorted({16, 32, 64, fused_page}):
+            for window, cap in ((None, None), (37, 30.0)):
+                args = oproj_inputs(dev, dtype, lengths, seed=page,
+                                    page=page)
+                kw = dict(window=window, logit_cap=cap)
+                out = FD.flash_decode_oproj(*args, **kw)
+                assert torch.equal(out, FD.flash_decode_oproj(*args, **kw))
+                tag = " (the fused page)" if page == fused_page else ""
+                compare(f"flash_decode_oproj {dn} page={page} "
+                        f"window={window} cap={cap}{tag}", out,
+                        FD.paged_attention_oproj_ref(*args, **kw), dn,
+                        gemm_atol(dn, 8 * 4 * 128))
+        print(f"  {n_tiles} adapter tiles of the fused GEMMs checked in "
+              f"{dn}; the fused engine's page is {fused_page}")
+    torch.cuda.synchronize()
+
+
 def engine_for(cfg, params, **kw):
     """The main path's engine: page 64, prefill chunk 64, max_seq 512."""
     from repro_torch.serve.engine import PagedEngine, PagedServeConfig
@@ -212,11 +363,11 @@ def serve(cfg, params, prompts, n_tokens, **kw):
                                                   return_requests=True)
 
 
-def phase4_parity(seed: int) -> None:
+def phase4_parity(seed: int, kernels: dict) -> None:
+    """Unfused, then fused: the kernel path and the plain path give
+    identical greedy streams through joins and chunked prefill."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import flash_decode as FD
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
                               dtype=torch.float32)
@@ -224,21 +375,25 @@ def phase4_parity(seed: int) -> None:
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
                for n in (5, 37, 64, 65, 130, 300)]    # joins and chunks
-    FA.flash_attention.launches = FD.flash_decode.launches = 0
-    kern = serve(cfg, params, prompts, 8, max_batch=4)
-    launched = (FA.flash_attention.launches, FD.flash_decode.launches)
-    plain = serve(cfg, params, prompts, 8, max_batch=4, use_kernel=False)
-    assert (FA.flash_attention.launches, FD.flash_decode.launches) == \
-        launched, "the plain path launched a kernel"
-    assert min(launched) > 0, launched
-    for a, b in zip(kern, plain):
-        if not np.array_equal(a.output, b.output):
-            raise AssertionError(f"request {a.rid}: kernel path "
-                                 f"{a.output.tolist()} != plain path "
-                                 f"{b.output.tolist()}")
-    print(f"  6 requests x 8 tokens identical (kernel launches: "
-          f"flash_attention {launched[0]}, flash_decode {launched[1]}); "
-          f"first tokens {[int(r.output[0]) for r in kern]}")
+    for fuse, path in ((False, ("flash_attention", "flash_decode")),
+                       (True, ("flash_attention", "flash_decode",
+                               "flash_decode_oproj", "matmul_fused",
+                               "qkv_fused"))):
+        reset(kernels)
+        kern = serve(cfg, params, prompts, 8, max_batch=4, fuse=fuse)
+        launched = counts(kernels)
+        plain = serve(cfg, params, prompts, 8, max_batch=4, fuse=fuse,
+                      use_kernel=False)
+        assert counts(kernels) == launched, "the plain path launched a kernel"
+        assert min(launched[k] for k in path) > 0, launched
+        for a, b in zip(kern, plain):
+            if not np.array_equal(a.output, b.output):
+                raise AssertionError(f"fuse={fuse}, request {a.rid}: kernel "
+                                     f"path {a.output.tolist()} != plain "
+                                     f"path {b.output.tolist()}")
+        print(f"  fuse={fuse}: 6 requests x 8 tokens identical (kernel "
+              f"launches: { {k: launched[k] for k in path} }); first "
+              f"tokens {[int(r.output[0]) for r in kern]}")
     del params
     torch.cuda.empty_cache()
 
@@ -290,9 +445,13 @@ def reset(kernels) -> None:
         fn.launches = 0
 
 
-def run_engine(cfg, engine, prompts, kernels) -> tuple[dict, dict]:
+def run_engine(cfg, engine, prompts, kernels,
+               fused: bool = False) -> tuple[dict, dict]:
     """Serve ``prompts`` (32 new tokens each) on a warm engine with every
-    launch count at 0 just before; checks every request and the pool."""
+    launch count at 0 just before; checks every request, the pool and
+    the attention kernels' launches (under ``fused``, single-token
+    decode runs flash_decode_oproj and only prefill chunks flash_decode).
+    """
     import torch
     torch.cuda.synchronize()
     reset(kernels)
@@ -308,9 +467,10 @@ def run_engine(cfg, engine, prompts, kernels) -> tuple[dict, dict]:
     assert engine.scheduler.allocator.in_use() == 0, "pages leaked"
     n_layers = cfg.n_layers
     assert launches["flash_attention"] == n_layers * snap["joins"] > 0
-    assert launches["flash_decode"] == n_layers * (
-        snap["decode_steps"] + snap["prefill_chunks"])
-    assert launches["flash_decode"] >= n_layers * snap["decode_steps"] > 0
+    decode = "flash_decode_oproj" if fused else "flash_decode"
+    assert launches[decode] >= n_layers * snap["decode_steps"] > 0
+    assert launches["flash_decode"] + launches["flash_decode_oproj"] == \
+        n_layers * (snap["decode_steps"] + snap["prefill_chunks"])
     tokens = sum(len(r.output) for r in reqs)
     summary = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
                "tok_per_s": tokens / wall, "page": engine.page_size,
@@ -425,6 +585,65 @@ def phase6_blocked(cfg, params, warm, prompts, kernels) -> dict:
     return summary
 
 
+def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
+    """Phase 6 with fuse=True: the same model, requests, blocked linears
+    and model-chosen page and chunk, so the only difference is fusion."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import (PagedEngine, PagedServeConfig,
+                                          default_buckets)
+    from repro_torch.tune import best_schedule
+
+    def engine():
+        return PagedEngine(cfg, params, PagedServeConfig(
+            max_seq=512, max_batch=8, device="cuda", fuse=True))
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    nkv = cfg.n_kv_heads * cfg.head_dim
+    with ops.blocked_linear():
+        eng = engine()
+        # the fused keys' tiles for every M the run can give them, and
+        # wo's (the blocked GEMM at joins and spans), before the clock
+        t0 = time.perf_counter()
+        ms = {8} | set(default_buckets(cfg, 512))
+        ms |= {1 << i for i in range(eng.prefill_chunk.bit_length())}
+        for m in sorted(ms):
+            best_schedule("qkv_fused", (m, nkv, cfg.d_model, g), "bfloat16")
+            for _, n, k, _ in GRANITE_MLP:
+                best_schedule("matmul_fused", (m, n, k), "bfloat16")
+            best_schedule("matmul", (m, cfg.d_model, cfg.n_heads
+                                     * cfg.head_dim), "bfloat16")
+        print(f"  fused tiles derived for M in {sorted(ms)} in "
+              f"{time.perf_counter() - t0:.1f}s; page {eng.page_size} and "
+              f"chunk {eng.prefill_chunk} under flash_decode_oproj")
+        engine().generate(warm, 4)
+        summary, snap = run_engine(cfg, eng, prompts, kernels, fused=True)
+        launches, n_layers = summary["launches"], cfg.n_layers
+        calls = snap["joins"] + snap["decode_steps"] + snap["prefill_chunks"]
+        spans = snap["joins"] + snap["prefill_chunks"]
+        assert launches["qkv_fused"] == n_layers * calls, launches
+        assert launches["matmul_fused"] == 3 * n_layers * calls, launches
+        assert launches["flash_decode_oproj"] == \
+            n_layers * snap["decode_steps"], launches
+        assert launches["matmul_blocked"] == n_layers * spans, launches
+        for name in ("qkv_fused", "matmul_fused", "flash_decode_oproj",
+                     "flash_attention", "matmul_blocked"):
+            assert launches[name] > 0, (name, launches)
+        print(f"  launches: qkv_fused {launches['qkv_fused']} = {n_layers} "
+              f"layers x {calls} model calls; matmul_fused "
+              f"{launches['matmul_fused']} = 3 x that; flash_decode_oproj "
+              f"{launches['flash_decode_oproj']} = {n_layers} x "
+              f"{snap['decode_steps']} decode steps; matmul_blocked (wo) "
+              f"{launches['matmul_blocked']} = {n_layers} x {spans} joins "
+              f"and chunks")
+        with ops.fused_ops(True):
+            fused_logits = prefill_logits(cfg, params, prompts[0])
+        summary["logits_vs_cublas"] = hold_logits(
+            "fused path vs cuBLAS", fused_logits,
+            _cublas_logits(cfg, params, prompts[0]))
+        summary["profile"] = profile_window(engine(), prompts[:8], 8)
+    return summary
+
+
 def _cublas_logits(cfg, params, prompt):
     from repro_torch.kernels import ops
     with ops.blocked_linear(False):
@@ -432,33 +651,44 @@ def _cublas_logits(cfg, params, prompt):
 
 
 def phase7_tune() -> dict:
-    """tune_op on the decode projection shape, into a temporary cache."""
+    """tune_op on the decode projection shape and on the decode QKV
+    pass, into a temporary cache."""
     import tempfile
     from repro_torch.tune import OpSpec, ScheduleCache, candidates, tune_op
     from repro_torch.tune.measure import measure_top
-    spec = OpSpec("matmul", (8, 4096, 4096), "bfloat16")
-    with tempfile.TemporaryDirectory() as tmp:
-        cache = ScheduleCache(str(Path(tmp) / "schedules.json"))
-        winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=3, cache=cache)
-        stored = ScheduleCache(cache.path).lookup(spec)
-        assert stored is not None and stored.tiles == winner.tiles
-    timed = measure_top(candidates(spec), top_n=3)
-    for s in timed[:3]:
-        print(f"  tiles {s.tiles}: {s.measured_us / 1e3:.4f} ms measured, "
-              f"predicted DRAM accesses {s.predicted_dram_accesses}")
-    print(f"  tune_op winner {winner.tiles} ({winner.measured_us / 1e3:.4f}"
-          f" ms), persisted and read back")
-    return {"winner": list(winner.tiles),
-            "candidates": [{"tiles": list(s.tiles),
-                            "ms": s.measured_us / 1e3,
-                            "predicted_dram_accesses":
-                                s.predicted_dram_accesses}
-                           for s in timed[:3]]}
+    out = {}
+    for spec in (OpSpec("matmul", (8, 4096, 4096), "bfloat16"),
+                 OpSpec("qkv_fused", (8, 1024, 4096, 4), "bfloat16")):
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = ScheduleCache(str(Path(tmp) / "schedules.json"))
+            winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=3,
+                             cache=cache)
+            stored = ScheduleCache(cache.path).lookup(spec)
+            assert stored is not None and stored.tiles == winner.tiles
+        timed = measure_top(candidates(spec), top_n=3)
+        for s in timed[:3]:
+            print(f"  {spec.op} tiles {s.tiles}: {s.measured_us / 1e3:.4f} "
+                  f"ms measured, predicted DRAM accesses "
+                  f"{s.predicted_dram_accesses}")
+        print(f"  {spec.op} {spec.dims}: tune_op winner {winner.tiles} "
+              f"({winner.measured_us / 1e3:.4f} ms), persisted and read "
+              f"back")
+        out[spec.op] = {"winner": list(winner.tiles),
+                        "candidates": [{"tiles": list(s.tiles),
+                                        "ms": s.measured_us / 1e3,
+                                        "predicted_dram_accesses":
+                                            s.predicted_dram_accesses}
+                                       for s in timed[:3]]}
+    return out
 
 
 def kernel_kind(name: str) -> str:
-    if "matmul_blocked_kernel" in name:
-        return "matmul_blocked"
+    if "gemm_kernel" in name:       # the port's GEMM tile core
+        if "QkvMap" in name:
+            return "qkv_fused"
+        return "matmul_fused" if "FusedMap" in name else "matmul_blocked"
+    if "decode_oproj_kernel" in name:
+        return "flash_decode_oproj"
     if "attn_rows_kernel" in name:
         return ("flash_decode" if "PagedLayout" in name
                 else "flash_attention")
@@ -617,6 +847,125 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
     return out
 
 
+def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
+    """The three fused kernels at the fused run's decode shapes (8 slots,
+    the model's tiles and page), beside bound, plain version and (where
+    one exists) a library call; the join shape (M = 512) is printed."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import qkv_fused as QF
+    from repro_torch.tune import best_schedule
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    hq, hkv, d, e = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    g, nkv = hq // hkv, cfg.n_kv_heads * cfg.head_dim
+    rows = []
+
+    # decode attention + output projection: 8 slots mid-generation
+    dec_lens = [int(n) + 16 for n in lens[:8]]
+    n_keys = sum(dec_lens)
+    args = oproj_inputs(dev, bf16, dec_lens, seed=8, page=page)
+    wo_bytes = args[5].numel() * 2
+    io = (args[0].numel() + 8 * e) * 2 + args[3].numel() * 4 + 4 * 8
+    b_ms, b_by = bound(2 * n_keys * hkv * d * 2 + wo_bytes + io,
+                       4 * n_keys * hq * d + 2 * 8 * hq * d * e)
+    rows.append({
+        "name": "flash_decode_oproj", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode_oproj.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:460",
+        "launches": launches["flash_decode_oproj"],
+        "max_abs_err": float((FD.flash_decode_oproj(*args).float()
+                              - FD.paged_attention_oproj_ref(*args).float())
+                             .abs().max()),
+        "ms": time_ms(lambda: FD.flash_decode_oproj(*args)),
+        "plain_ms": time_ms(lambda: FD.paged_attention_oproj_ref(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"decode B=8 Hkv={hkv} G={g} D={d} E={e} page={page} "
+                 f"lengths={dec_lens} bf16"})
+
+    # the MLP's three fused GEMMs; the row is the down projection, whose
+    # residual add torch.addmm computes in the same call
+    for m in (8, 512):
+        for name, n, k, epi in GRANITE_MLP:
+            a, w = gemm_inputs(dev, bf16, m, n, k, seed=m + n + k)
+            kw = epilogue(dev, bf16, m, n, seed=m, **epi)
+            bm, bk, bn = best_schedule("matmul_fused", (m, n, k),
+                                       "bfloat16").tiles
+            extra = m * n * 2 * (kw["mul"] is not None
+                                 or kw["residual"] is not None)
+            b_ms, b_by = bound((m * k + k * n + m * n) * 2 + extra,
+                               2 * m * n * k)
+            if kw["residual"] is not None:
+                res = kw["residual"]
+                lib = lambda: torch.addmm(res, a, w)  # noqa: E731
+            else:
+                lib = lambda: torch.matmul(a, w)  # noqa: E731
+            row = {
+                "name": "matmul_fused", "route": "cuda",
+                "source": "src/repro_torch/csrc/matmul_fused.cu",
+                "replaces": "src/repro/kernels/matmul_fused.py:173",
+                "launches": launches["matmul_fused"],
+                "max_abs_err": float(
+                    (MF.matmul_fused(a, w, **kw, bm=bm, bk=bk, bn=bn)
+                     .float() - MF.matmul_fused_ref(a, w, **kw).float())
+                    .abs().max()),
+                "ms": time_ms(lambda: MF.matmul_fused(a, w, **kw, bm=bm,
+                                                      bk=bk, bn=bn)),
+                "plain_ms": time_ms(lambda: MF.matmul_fused_ref(a, w, **kw)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib),
+                "shape": f"{name} M={m} N={n} K={k} "
+                         f"{ {x: y for x, y in epi.items()} } tiles="
+                         f"{(bm, bk, bn)} bf16; library: "
+                         f"{'addmm(residual, a, w)' if name == 'down' else 'matmul(a, w), no epilogue'}"}
+            if m == 8 and name == "down":
+                rows.append(row)
+            else:
+                print(f"  matmul_fused {row['ms']:.4f} ms  plain "
+                      f"{row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({b_by})  library {row['library_ms']:.4f} ms  "
+                      f"[{row['shape']}]")
+
+    # the QKV pass; yardstick: one matmul against [wq | wk | wv]
+    for m in (8, 512):
+        x, wq, wk, wv = qkv_inputs(dev, bf16, m, nkv, e, g, seed=m)
+        wqkv = torch.cat([wq, wk, wv], dim=1)
+        bm, bk, bn = best_schedule("qkv_fused", (m, nkv, e, g),
+                                   "bfloat16").tiles
+        cols = (g + 2) * nkv
+        b_ms, b_by = bound((m * e + e * cols + m * cols) * 2,
+                           2 * m * e * cols)
+        got = QF.qkv_fused(x, wq, wk, wv, bm=bm, bk=bk, bn=bn)
+        row = {
+            "name": "qkv_fused", "route": "cuda",
+            "source": "src/repro_torch/csrc/qkv_fused.cu",
+            "replaces": "src/repro/kernels/qkv_fused.py:103",
+            "launches": launches["qkv_fused"],
+            "max_abs_err": max(float((o.float() - r.float()).abs().max())
+                               for o, r in zip(got, QF.qkv_fused_ref(
+                                   x, wq, wk, wv))),
+            "ms": time_ms(lambda: QF.qkv_fused(x, wq, wk, wv, bm=bm, bk=bk,
+                                               bn=bn)),
+            "plain_ms": time_ms(lambda: QF.qkv_fused_ref(x, wq, wk, wv)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.matmul(x, wqkv)),
+            "shape": f"M={m} Nkv={nkv} K={e} G={g} tiles={(bm, bk, bn)} "
+                     f"bf16; library: matmul(x, [wq|wk|wv])"}
+        if m == 8:
+            rows.append(row)
+        else:
+            print(f"  qkv_fused {row['ms']:.4f} ms  plain "
+                  f"{row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                  f"library {row['library_ms']:.4f} ms  [{row['shape']}]")
+    for r in rows:
+        print(f"  {r['name']:<18} {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  library {r['library_ms']}  "
+              f"[{r['shape']}]")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -630,9 +979,14 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import qkv_fused as QF
     kernels = {"flash_attention": FA.flash_attention,
                "flash_decode": FD.flash_decode,
-               "matmul_blocked": MB.matmul_blocked}
+               "flash_decode_oproj": FD.flash_decode_oproj,
+               "matmul_blocked": MB.matmul_blocked,
+               "matmul_fused": MF.matmul_fused,
+               "qkv_fused": QF.qkv_fused}
 
     print("phase 1: card")
     card = card_line()
@@ -659,23 +1013,32 @@ def main() -> int:
 
     print("phase 3: kernels vs plain versions")
     phase3_kernels(torch.device("cuda"))
-    print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32")
-    phase4_parity(args.seed)
+    phase3_fused(torch.device("cuda"))
+    print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32, "
+          "unfused and fused")
+    phase4_parity(args.seed, kernels)
     print("phase 5: granite-3-8b, full width and depth, bf16, cuBLAS path")
     cfg, params, warm, lens, prompts = full_model(args.seed)
     cublas = phase5_full(cfg, params, warm, prompts, kernels)
     print("phase 6: the same, blocking model's page and chunk, every "
           "projection through matmul_blocked")
     blocked = phase6_blocked(cfg, params, warm, prompts, kernels)
+    print("phase 6b: the fused path: the same, fuse=True (one-pass QKV, "
+          "epilogue-fused MLP, oproj-fused decode)")
+    fused = phase6_fused(cfg, params, warm, prompts, kernels)
+    print(f"  fused {fused['tok_per_s']:.1f} tok/s against blocked "
+          f"{blocked['tok_per_s']:.1f} tok/s in this run")
     del params
     torch.cuda.empty_cache()
-    print("phase 7: tune_op matmul (8, 4096, 4096) bfloat16")
+    print("phase 7: tune_op matmul (8, 4096, 4096) and qkv_fused "
+          "(8, 1024, 4096, 4), bfloat16")
     tuned = phase7_tune()
-    print("phase 8: kernel timings at the blocked run's shapes")
+    print("phase 8: kernel timings at the blocked and fused runs' shapes")
     rows = time_kernels(cfg, lens, blocked["launches"], blocked["page"])
+    rows += time_fused_kernels(cfg, lens, fused["launches"], fused["page"])
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
                                  "cublas": cublas, "blocked": blocked,
-                                 "tune": tuned}))
+                                 "fused": fused, "tune": tuned}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

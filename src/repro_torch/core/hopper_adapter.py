@@ -12,11 +12,18 @@ and Hopper's alignment and emits:
   the blocked-GEMM kernel (``kernels/matmul_blocked.py``);
 * ``flash_decode_tile_candidates`` -- ``(page,)`` for the paged
   flash-decode kernel, whose KV tile is one page, so the tile is also the
-  paged cache's page size.
+  paged cache's page size;
+* ``qkv_fused_tile_candidates`` -- (bm, bk, bn) for the fused QKV kernel,
+  bn per projection, its joint (G+2)*bn tile within the GEMM core's
+  limits;
+* ``flash_decode_oproj_tile_candidates`` -- ``(page,)`` for the
+  oproj-fused decode kernel (the page of a fused engine).
 
-Each candidate is checked against the CUDA kernel's own footprint
-(``smem_bytes_required``, and for the GEMM ``accumulators_per_thread``),
-imported lazily so the model stays importable without the kernels.
+``"matmul_fused"`` takes ``matmul_tile_candidates`` as they are: its
+kernel stages exactly what the blocked GEMM stages.  Each candidate is
+checked against the CUDA kernel's own footprint (``smem_bytes_required``,
+and for the GEMMs ``accumulators_per_thread``), imported lazily so the
+model stays importable without the kernels.
 """
 
 from __future__ import annotations
@@ -219,3 +226,101 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
         if (page,) not in out:
             out.append((page,))
     return tuple(out[:top])
+
+
+# the thinnest k step the fused QKV search falls back to: a whole number
+# of 16-byte vectors in fp32 and in bf16
+_MIN_BK = 16
+
+
+def qkv_fits(bm: int, bk: int, bn: int, groups: int, bytes_per_elem: int,
+             budget: int, target: HopperTarget = H100_SXM) -> bool:
+    """Whether the fused QKV kernel holds these tiles: the GEMM core's
+    staged tiles and accumulator at the joint width (G+2)*bn."""
+    from repro_torch.kernels.qkv_fused import (accumulators_per_thread,
+                                               smem_bytes_required)
+    return (smem_bytes_required(bm, bk, bn, groups, bytes_per_elem) <= budget
+            and accumulators_per_thread(bm, bn, groups)
+            <= target.acc_per_thread)
+
+
+@functools.lru_cache(maxsize=256)
+def qkv_fused_tile_candidates(M: int, Nkv: int, K: int, groups: int,
+                              bytes_per_elem: int = 2,
+                              smem_budget_bytes: int | None = None,
+                              target: HopperTarget = H100_SXM,
+                              top: int = 8) -> tuple[tuple[int, int, int],
+                                                     ...]:
+    """Ranked (bm, bk, bn) candidates for the fused QKV pass, bn blocking
+    the per-projection width Nkv.
+
+    The search runs on the joint GEMM ``(M, (G+2)*Nkv, K)`` (one
+    activation stream feeding every output column).  Each winner's bn is
+    then expressed per projection, ``bn_joint // (G+2)`` snapped to a
+    divisor of Nkv in multiples of ``nk_mult`` (the TPU adapter snapped
+    to its lane width), and the tile shrinks -- bk while the staged tiles
+    overflow, then bm, then bn, then bk below ``nk_mult`` down to
+    ``_MIN_BK`` -- until the joint (bm, (G+2)*bn) tile fits the GEMM
+    core's shared memory and accumulator cap: at G = 4 the cap allows
+    bn <= 128, and only with bm <= 16; in fp32 at granite's widths no
+    tile with bk >= 64 fits the two-block budget.  A seed tile (JAX's)
+    joins the search's list.
+    """
+    from repro_torch.kernels.qkv_fused import (accumulators_per_thread,
+                                               joint_cols,
+                                               smem_bytes_required)
+    budget = default_smem_budget(target, smem_budget_bytes)
+    mm, mk = target.m_mult, target.nk_mult
+    joint = matmul_tile_candidates(M, joint_cols(Nkv, groups), K,
+                                   bytes_per_elem, budget, target, top=top)
+    seed = (min(M, 256), min(K, 512), joint_cols(min(Nkv, 128), groups))
+    out: list[tuple[int, int, int]] = []
+    for bm, bk, bn_joint in (*joint, seed):
+        bn = _pick_tile(Nkv, max(bn_joint // (groups + 2), mk), mk)
+        while not qkv_fits(bm, bk, bn, groups, bytes_per_elem, budget,
+                           target):
+            regs_ok = (accumulators_per_thread(bm, bn, groups)
+                       <= target.acc_per_thread)
+            smem_over = smem_bytes_required(bm, bk, bn, groups,
+                                            bytes_per_elem) > budget
+            if regs_ok and smem_over and bk > mk:
+                bk = _shrink(K, bk, mk)
+            elif bm > mm:
+                bm = _shrink(M, bm, mm)
+            elif bn > mk:
+                bn = _shrink(Nkv, bn, mk)
+            elif bk > mk:
+                bk = _shrink(K, bk, mk)
+            elif bk > _MIN_BK:
+                bk = _shrink(K, bk, _MIN_BK)
+            else:
+                break
+        if (bm, bk, bn) not in out:
+            out.append((bm, bk, bn))
+    return tuple(out[:top])
+
+
+@functools.lru_cache(maxsize=256)
+def flash_decode_oproj_tile_candidates(groups: int, seq_kv: int,
+                                       head_dim: int, d_model: int,
+                                       bytes_per_elem: int = 2,
+                                       smem_budget_bytes: int | None = None,
+                                       target: HopperTarget = H100_SXM,
+                                       top: int = 8) -> tuple[tuple[int],
+                                                              ...]:
+    """Ranked ``(page,)`` candidates for the oproj-fused decode kernel:
+    the ``flash_decode`` family, searched under the budget less what this
+    kernel adds to a block's shared memory (the G x D fp32 attention
+    rows and the fp32 (1, E) partial; ``oproj_smem_bytes_required``).
+    The wo slab is streamed, so E enters only through that partial."""
+    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  oproj_smem_bytes_required,
+                                                  smem_bytes_required)
+    budget = default_smem_budget(target, smem_budget_bytes)
+    extra = (oproj_smem_bytes_required(0, groups, head_dim, d_model,
+                                       bytes_per_elem)
+             - smem_bytes_required(0, ROWS_PER_BLOCK, head_dim,
+                                   bytes_per_elem))
+    return flash_decode_tile_candidates(groups, seq_kv, head_dim,
+                                        bytes_per_elem,
+                                        max(budget - extra, 1), target, top)

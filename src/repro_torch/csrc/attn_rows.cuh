@@ -1,11 +1,16 @@
 // Streaming-softmax attention over query rows: the core shared by the
-// port's two attention kernels (flash_attention.cu, flash_decode.cu).
+// port's three attention kernels (flash_attention.cu, flash_decode.cu,
+// flash_decode_oproj.cu).
 //
-// A block owns kWarps query rows of one (batch, kv head) pair, one row per
-// warp, and walks the keys those rows can see in tiles of `tile` keys, a
-// runtime argument: flash_decode passes its page size (so the KV tile is
-// one page, as on the TPU, and the blocking model's page choice is the
-// kernel's tile), flash_attention passes kDenseTile.  K and V tiles are
+// attn_rows() runs kWarps query rows of one (batch, kv head) pair in one
+// block and hands each finished row to a sink: attn_rows_kernel writes it
+// out (one block per kWarps rows), flash_decode_oproj keeps it in shared
+// memory for the output projection.  A block owns kWarps query rows of
+// one (batch, kv head) pair, one row per warp, and walks the keys those
+// rows can see in tiles of `tile` keys, a runtime argument: the paged
+// kernels pass their page size (so the KV tile is one page, as on the TPU,
+// and the blocking model's page choice is the kernel's tile),
+// flash_attention passes kDenseTile.  K and V tiles are
 // staged raw, in the input dtype, in dynamic shared memory two stages
 // deep: the next tile is copied with 16-byte cp.async while the current
 // one is scored.  Lane j scores keys j, j + 32, ... of the tile against its
@@ -17,7 +22,7 @@
 // own offset (kRot * lane), so the 32 lanes of a warp, each on a different
 // key row, read 32 different banks of the unpadded K tile.
 //
-// The two kernels differ only in where rows and keys live, which a Layout
+// The kernels differ only in where rows and keys live, which a Layout
 // supplies (all offsets in units of head_dim-element rows):
 //   int rows()                   query rows per (batch, kv head)
 //   int64_t q_row(b, hk, t)      row index of query row t (output alike)
@@ -93,28 +98,55 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D, class Layout>
-__global__ void __launch_bounds__(kThreads)
-attn_rows_kernel(Layout lay, const T* __restrict__ q,
-                 const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Mask mk, int tile) {
+// Paged KV (flash_decode, flash_decode_oproj): q (B, Hkv, gtot, D) with
+// rows position-major (row t is position offset t / groups); pools
+// (n_pages, page, Hkv, D); block_tables (B, n_blocks) int32; lengths (B,)
+// int32 counting the cache including the first spanned token.
+struct PagedLayout {
+  int gtot, groups, hkv, page, n_blocks;
+  const int* block_tables;
+  const int* lengths;
+  __host__ __device__ int rows() const { return gtot; }
+  __device__ int64_t q_row(int b, int hk, int t) const {
+    return (int64_t(b) * hkv + hk) * gtot + t;
+  }
+  __device__ int qpos(int b, int t) const {
+    return lengths[b] - 1 + t / groups;
+  }
+  __device__ int kv_len(int) const { return n_blocks * page; }
+  __device__ int64_t k_row(int b, int hk, int kpos) const {
+    const int64_t phys = block_tables[int64_t(b) * n_blocks + kpos / page];
+    return (phys * page + kpos % page) * hkv + hk;
+  }
+};
+
+// Rows t0 .. t0 + kWarps - 1 of (batch b, kv head hk), one per warp, in
+// the block's dynamic shared memory `smem` (smem_bytes<T>(tile, D)).  Each
+// finished row goes to the sink, one value at a time:
+//   sink.put(int t, int d, float value)   row t, head dim d, normalised.
+template <typename T, int D, class Layout, class Sink>
+__device__ __forceinline__ void attn_rows(const Layout& lay,
+                                          const T* __restrict__ q,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          const Mask& mk, int tile, int b,
+                                          int hk, int t0,
+                                          unsigned char* smem,
+                                          const Sink& sink) {
   static_assert(D % 32 == 0 && (D & (D - 1)) == 0,
                 "head_dim must be a power of two, at least 32");
   constexpr int P = D / 32;                // accumulator dims per lane
   constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte copy
   constexpr int VPR = D / VEC;             // 16-byte copies per key row
   constexpr int kRot = 4 / sizeof(T);      // head-dim step between lanes
-  extern __shared__ __align__(16) unsigned char smem[];
   T* const Ks = reinterpret_cast<T*>(smem);           // [2][tile][D]
   T* const Vs = Ks + 2 * tile * D;                     // [2][tile][D]
   T* const Qs = Vs + 2 * tile * D;                     // [kWarps][D]
   float* const Ps =                                    // [kWarps][tile]
       reinterpret_cast<float*>(Qs + kWarps * D);
 
-  const int b = blockIdx.z, hk = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rows = lay.rows();
-  const int t0 = blockIdx.x * kWarps;
   const int t = t0 + warp;
   const bool row_ok = t < rows;
   const int t_last = min(t0 + kWarps, rows) - 1;
@@ -227,11 +259,34 @@ attn_rows_kernel(Layout lay, const T* __restrict__ q,
 
   if (row_ok) {
     const float safe_l = l == 0.f ? 1.f : l;
-    T* orow = o + lay.q_row(b, hk, t) * D;
 #pragma unroll
-    for (int i = 0; i < P; ++i)
-      orow[lane + 32 * i] = from_f<T>(acc[i] / safe_l);
+    for (int i = 0; i < P; ++i) sink.put(t, lane + 32 * i, acc[i] / safe_l);
   }
+}
+
+// The sink of the two attention kernels: row t of (b, hk) into o, in the
+// input dtype.
+template <typename T, int D, class Layout> struct RowOut {
+  const Layout& lay;
+  T* o;
+  int b, hk;
+  __device__ void put(int t, int d, float x) const {
+    o[lay.q_row(b, hk, t) * D + d] = from_f<T>(x);
+  }
+};
+
+// One block per kWarps rows of one (batch, kv head): grid
+// (ceil(rows / kWarps), n_kv_heads, batch).
+template <typename T, int D, class Layout>
+__global__ void __launch_bounds__(kThreads)
+attn_rows_kernel(Layout lay, const T* __restrict__ q,
+                 const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, Mask mk, int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const RowOut<T, D, Layout> sink{lay, o, b, hk};
+  attn_rows<T, D>(lay, q, k, v, mk, tile, b, hk, blockIdx.x * kWarps, smem,
+                  sink);
 }
 
 template <typename T, int D, class Layout>

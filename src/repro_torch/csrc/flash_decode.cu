@@ -27,28 +27,6 @@
 // max_batch 8 against 132 SMs (split-KV is a later step).
 #include "attn_rows.cuh"
 
-namespace {
-
-struct PagedLayout {
-  int gtot, groups, hkv, page, n_blocks;
-  const int* block_tables;
-  const int* lengths;
-  __host__ __device__ int rows() const { return gtot; }
-  __device__ int64_t q_row(int b, int hk, int t) const {
-    return (int64_t(b) * hkv + hk) * gtot + t;
-  }
-  __device__ int qpos(int b, int t) const {
-    return lengths[b] - 1 + t / groups;
-  }
-  __device__ int kv_len(int) const { return n_blocks * page; }
-  __device__ int64_t k_row(int b, int hk, int kpos) const {
-    const int64_t phys = block_tables[int64_t(b) * n_blocks + kpos / page];
-    return (phys * page + kpos % page) * hkv + hk;
-  }
-};
-
-}  // namespace
-
 extern "C" int flash_decode_fwd(int dtype, int head_dim, const void* q,
                                 const void* k_pages, const void* v_pages,
                                 const int* block_tables, const int* lengths,
@@ -57,8 +35,8 @@ extern "C" int flash_decode_fwd(int dtype, int head_dim, const void* q,
                                 int window, float logit_cap, void* stream) {
   if (q_span <= 0 || gtot % q_span)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PagedLayout lay{gtot, gtot / q_span, hkv, page, n_blocks,
-                        block_tables, lengths};
+  const attn::PagedLayout lay{gtot, gtot / q_span, hkv, page, n_blocks,
+                              block_tables, lengths};
   const attn::Mask mk{1, window, 1.0f / sqrtf(float(head_dim)), logit_cap};
   return attn::dispatch(dtype, head_dim, lay, hkv, batch, q, k_pages,
                         v_pages, o, mk, page,

@@ -18,6 +18,14 @@ Layouts (GQA-native: all G query heads of one KV head share its pages):
   indices (the scratch page 0);
 * ``lengths``:      (B,) int32 — tokens in the cache *including* the
   first spanned token (its K/V already scattered into the pages).
+
+:func:`flash_decode_oproj` is the single-token form with the output
+projection fused in (port of ``flash_decode.flash_decode_oproj``, kernel
+row 3; ``csrc/flash_decode_oproj.cu``): q (B, Hkv, G, D) and ``wo``
+(Hkv, G*D, E) give (B, E), the heads reduced in a fixed order across a
+thread-block cluster, so the attention output never reaches HBM.  Its
+page is priced by :func:`oproj_smem_bytes_required` under the
+``"flash_decode_oproj"`` key.
 """
 
 from __future__ import annotations
@@ -55,8 +63,24 @@ def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int) -> int:
     return (smem_bytes - fixed) // per_key
 
 
+def oproj_smem_bytes_required(page: int, groups: int, head_dim: int,
+                              d_model: int, bytes_per_elem: int = 2) -> int:
+    """Dynamic shared memory of one ``flash_decode_oproj`` block: the
+    decode tiles of :func:`smem_bytes_required`, the head's G x D fp32
+    attention rows and its fp32 (1, E) partial product.  The wo slab is
+    streamed from L2/HBM, never staged (the TPU kernel kept it whole in
+    VMEM)."""
+    return (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
+                                bytes_per_elem)
+            + (groups * head_dim + d_model) * 4)
+
+
+MAX_CLUSTER = 8      # blocks of one cluster: the kv heads of a batch row
+
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
+_OPROJ_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -121,6 +145,84 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def paged_attention_oproj_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor, wo: torch.Tensor, *,
+                              window: int | None = None,
+                              logit_cap: float | None = None
+                              ) -> torch.Tensor:
+    """Plain version: paged attention, then the dense projection over the
+    flattened heads, in fp32 with one cast.  q (B, Hkv, G, D); wo
+    (Hkv, G*D, E).  The attention rows stay fp32 into the projection, as
+    in the TPU kernel and the CUDA one (the JAX oracle rounds them to q's
+    dtype first; at fp32 the two are the same)."""
+    b, hkv, g, d = q.shape
+    attn = paged_attention_ref(q.float(), k_pages.float(), v_pages.float(),
+                               block_tables, lengths, window=window,
+                               logit_cap=logit_cap)       # (B, Hkv, G, D)
+    out = attn.reshape(b, hkv * g * d) @ wo.reshape(hkv * g * d, -1).float()
+    return out.to(q.dtype)
+
+
+def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, wo: torch.Tensor, *,
+                       window: int | None = None,
+                       logit_cap: float | None = None) -> torch.Tensor:
+    """Single-token paged attention fused with the output projection:
+    q (B, Hkv, G, D), wo (Hkv, G*D, E) -> (B, E) in q's dtype.
+
+    CUDA tensors launch the kernel (or raise: there is no fallback);
+    CPU tensors take :func:`paged_attention_oproj_ref`.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_oproj_ref(q, k_pages, v_pages, block_tables,
+                                         lengths, wo, window=window,
+                                         logit_cap=logit_cap)
+    _check(q, k_pages, v_pages, block_tables, lengths, 1, window)
+    b, hkv, g, d = q.shape
+    if hkv > MAX_CLUSTER:
+        raise ValueError(
+            f"{hkv} kv heads: flash_decode_oproj reduces the heads of a "
+            f"batch row across one thread-block cluster, at most "
+            f"{MAX_CLUSTER} blocks (the portable cluster limit)")
+    if wo.dim() != 3 or tuple(wo.shape[:2]) != (hkv, g * d):
+        raise ValueError(f"wo {tuple(wo.shape)} is not (Hkv={hkv}, "
+                         f"G*D={g * d}, E)")
+    if wo.dtype != q.dtype or wo.device != q.device \
+            or not wo.is_contiguous() or wo.data_ptr() % 16:
+        raise ValueError("wo must be a contiguous, 16-byte aligned tensor "
+                         "on q's device in q's dtype")
+    e = wo.shape[2]
+    if e % (16 // q.element_size()):
+        raise ValueError(f"E = {e} must be a multiple of "
+                         f"{16 // q.element_size()} (16-byte wo rows)")
+    page = k_pages.shape[1]
+    need = oproj_smem_bytes_required(page, g, d, e, q.element_size())
+    have = torch.cuda.get_device_properties(
+        q.device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(
+            f"page {page} with E = {e} needs {need} bytes of shared memory "
+            f"per block; this card allows {have}")
+    out = torch.empty((b, e), dtype=q.dtype, device=q.device)
+    fn = _build.load("flash_decode_oproj", "flash_decode_oproj_fwd",
+                     _OPROJ_ARGTYPES)
+    err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+             wo.data_ptr(), out.data_ptr(), b, hkv, g, page,
+             block_tables.shape[1], e, int(window or 0),
+             float(logit_cap or 0.0),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode_oproj")
+    flash_decode_oproj.launches += 1
+    return out
+
+
+flash_decode_oproj.launches = 0
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window):

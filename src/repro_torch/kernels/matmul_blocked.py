@@ -10,8 +10,10 @@ and are runtime arguments of the one kernel.  Ragged M, N and K edges are
 masked inside the kernel, so every shape launches: the JAX op's fallback
 to ``matmul_ref`` for tiles that do not divide is not carried over.
 
-The footprint functions here are the single source the Hopper adapter
-checks candidates against.  Forward only: a gradient needs the dgrad
+The kernel is the tile core of ``csrc/gemm_tile.cuh`` with no epilogue;
+``matmul_fused`` and ``qkv_fused`` run the same core, so the footprint
+functions here are the single source the Hopper adapter checks all three
+kernels' candidates against.  Forward only: a gradient needs the dgrad
 kernels (``ROADMAP.md``, queue 1, item 12).
 """
 
@@ -97,13 +99,18 @@ def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
 matmul_blocked.launches = 0
 
 
-def _check(a, b, bm, bk, bn):
+def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None):
+    """Raise on what the tile core does not take: ``a (M, K) @ b (K, N)``
+    on one CUDA device in one dtype, contiguous, with tiles whose staged
+    A and B tiles fit the card's shared memory and whose accumulator
+    fits the register limit.  ``n_cols``: the tile's output width when it
+    is not ``bn`` (the joint width of qkv_fused)."""
     if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"matmul_blocked runs on cuda or cpu; a is on "
+        raise ValueError(f"{name} runs on cuda or cpu; a is on "
                          f"{a.device}, b on {b.device}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise NotImplementedError(
-            "matmul_blocked is forward only: its gradient needs the dgrad "
+            f"{name} is forward only: its gradient needs the dgrad "
             "kernels (ROADMAP.md, queue 1, item 12)")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"a and b must share one of "
@@ -118,13 +125,14 @@ def _check(a, b, bm, bk, bn):
         raise ValueError("an empty output has nothing to launch")
     if min(bm, bk, bn) < 1:
         raise ValueError(f"tiles must be positive, got {(bm, bk, bn)}")
-    acc = accumulators_per_thread(bm, bn)
+    cols = n_cols or bn
+    acc = accumulators_per_thread(bm, cols)
     if acc > COLS_PER_THREAD * MAX_ROWS_PER_THREAD:
         raise ValueError(
             f"tiles (bm={bm}, bn={bn}) need {acc} fp32 accumulators per "
             f"thread; the kernel holds at most "
             f"{COLS_PER_THREAD * MAX_ROWS_PER_THREAD}")
-    need = smem_bytes_required(bm, bk, bn, a.element_size())
+    need = smem_bytes_required(bm, bk, cols, a.element_size())
     have = torch.cuda.get_device_properties(
         a.device).shared_memory_per_block_optin
     if need > have:

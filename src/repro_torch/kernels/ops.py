@@ -13,6 +13,16 @@ for its tiles: a tuned, persisted schedule when one is cached for this
 Hopper target.  ``linear`` is a plain ``x @ w`` unless blocked linears
 are enabled (``blocked_linear(True)`` or ``REPRO_BLOCKED_LINEAR=1``), in
 which case every projection runs ``matmul``.
+
+The fused path (``fused_ops(True)`` or ``REPRO_FUSED_OPS=1``; the
+serving engine's ``fuse``) routes the model's hot spots through the
+cross-op fused kernels: ``matmul_fused`` (the MLP's epilogue-fused
+GEMMs), ``qkv_fused`` (the attention front end in one pass over x) and
+``paged_attention_oproj`` (single-token decode with the output
+projection fused in), each with its tiles from its own schedule key.
+Their kernels mask ragged edges, so no shape falls back to a plain
+version (the JAX ops' fallback for tiles that do not divide is not
+carried over).
 """
 
 from __future__ import annotations
@@ -25,9 +35,21 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_decode import flash_decode, paged_attention_ref
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_oproj,
+                                              paged_attention_oproj_ref,
+                                              paged_attention_ref)
 from repro_torch.kernels.matmul_blocked import matmul_blocked
+from repro_torch.kernels.matmul_fused import (matmul_fused as
+                                              _matmul_fused_kernel,
+                                              matmul_fused_ref)
+from repro_torch.kernels.qkv_fused import (qkv_fused as _qkv_fused_kernel,
+                                           qkv_fused_ref)
 from repro_torch.tune import best_schedule
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
@@ -37,8 +59,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     Any shape launches: the kernel masks ragged edges itself."""
     m, k = a.shape
     n = b.shape[1]
-    bm, bk, bn = tiles or best_schedule(
-        "matmul", (m, n, k), str(a.dtype).removeprefix("torch.")).tiles
+    bm, bk, bn = tiles or best_schedule("matmul", (m, n, k),
+                                        _dtype_name(a)).tiles
     return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
 
 
@@ -133,3 +155,117 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                    .transpose(1, 2)
                    .reshape(b, span, hq, d))
     return out.reshape(b, hq, d)
+
+
+# ------------------------------ fused ops ----------------------------------
+
+_FUSED_OPS: contextvars.ContextVar[bool | None] = \
+    contextvars.ContextVar("repro_torch_fused_ops", default=None)
+
+
+def fused_ops_enabled() -> bool:
+    v = _FUSED_OPS.get()
+    if v is None:
+        return os.environ.get("REPRO_FUSED_OPS") == "1"
+    return v
+
+
+@contextlib.contextmanager
+def fused_ops(enable: bool = True):
+    """Route the model's hot paths through the cross-op fused kernels
+    while inside this context: the MLP block through
+    :func:`matmul_fused`, the attention front end through
+    :func:`qkv_fused` and -- where the serving engine asks -- paged
+    decode through :func:`paged_attention_oproj`.  The paged engine sets
+    it from its ``fuse`` flag around every model call."""
+    tok = _FUSED_OPS.set(bool(enable))
+    try:
+        yield
+    finally:
+        _FUSED_OPS.reset(tok)
+
+
+def _wide(w, what: str) -> None:
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            f"{what} takes wide weights only; the int8 variant comes with "
+            "quantization (ROADMAP.md, queue 1, item 10)")
+
+
+def matmul_fused(a: torch.Tensor, w: torch.Tensor, *,
+                 bias: torch.Tensor | None = None, act: str = "none",
+                 mul: torch.Tensor | None = None,
+                 residual: torch.Tensor | None = None,
+                 tiles: tuple[int, int, int] | None = None,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """``act(a @ w + bias) * mul + residual`` with the epilogue fused
+    into the GEMM: the output tile never round-trips through HBM between
+    the reduction and its pointwise tail.  ``a`` may have any leading
+    shape; ``mul`` and ``residual`` match the output's.  Tiles come from
+    the ``"matmul_fused"`` key (``tiles`` pins them)."""
+    _wide(w, "matmul_fused")
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1]).contiguous()
+    m, k = a2.shape
+    n = w.shape[-1]
+    mul2 = None if mul is None else mul.reshape(m, n).contiguous()
+    res2 = None if residual is None else residual.reshape(m, n).contiguous()
+    if use_kernel:
+        bm, bk, bn = tiles or best_schedule("matmul_fused", (m, n, k),
+                                            _dtype_name(a)).tiles
+        out = _matmul_fused_kernel(a2, w, bias=bias, mul=mul2,
+                                   residual=res2, act=act, bm=bm, bk=bk,
+                                   bn=bn)
+    else:
+        out = matmul_fused_ref(a2, w, bias=bias, mul=mul2, residual=res2,
+                               act=act)
+    return out.reshape(*lead, n)
+
+
+def qkv_fused(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+              wv: torch.Tensor, *,
+              tiles: tuple[int, int, int] | None = None,
+              use_kernel: bool = True):
+    """The attention front end's three projections in one weight-
+    stationary pass: x streams from HBM once instead of three times.
+    Returns ``(q, k, v)`` with x's leading shape.  Tiles come from the
+    ``"qkv_fused"`` key, dims ``(M, Nkv, K, G)``."""
+    for w in (wq, wk, wv):
+        _wide(w, "qkv_fused")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    m, k = x2.shape
+    nq, nkv = wq.shape[-1], wk.shape[-1]
+    if use_kernel:
+        bm, bk, bn = tiles or best_schedule(
+            "qkv_fused", (m, nkv, k, nq // nkv), _dtype_name(x)).tiles
+        q, kk, v = _qkv_fused_kernel(x2, wq, wk, wv, bm=bm, bk=bk, bn=bn)
+    else:
+        q, kk, v = qkv_fused_ref(x2, wq, wk, wv)
+    return (q.reshape(*lead, nq), kk.reshape(*lead, nkv),
+            v.reshape(*lead, nkv))
+
+
+def paged_attention_oproj(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_tables: torch.Tensor,
+                          lengths: torch.Tensor, wo: torch.Tensor, *,
+                          window: int | None = None,
+                          logit_cap: float | None = None,
+                          use_kernel: bool = True) -> torch.Tensor:
+    """Paged single-token attention with the output projection fused in.
+
+    The contract of :func:`paged_attention` (q (B, Hq, D)) plus ``wo``,
+    the dense (Hq*D, E) projection; returns (B, E).  The heads' outputs
+    are reduced into the projection on chip and never reach HBM.  ``wo``
+    is viewed per kv head, (Hkv, G*D, E), here, as in JAX."""
+    _wide(wo, "paged_attention_oproj")
+    b, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads not a multiple of {hkv}")
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).contiguous()
+    wo3 = wo.reshape(hkv, g * d, wo.shape[-1])
+    fn = flash_decode_oproj if use_kernel else paged_attention_oproj_ref
+    return fn(qg, k_pages, v_pages, block_tables, lengths, wo3,
+              window=window, logit_cap=logit_cap)

@@ -9,8 +9,10 @@ plain PyTorch versions of the kernels (use ``--reduced`` there).  The
 page size and the prefill chunk come from the blocking model unless
 given (``--page-size 0`` and ``--prefill-chunk -1``, the defaults).
 ``REPRO_BLOCKED_LINEAR=1`` runs every projection through the blocked
-GEMM kernel (``kernels.ops.blocked_linear``).  The static-batch engine
-is a later slice.
+GEMM kernel (``kernels.ops.blocked_linear``).  ``--fuse`` runs the fused
+path: one-pass QKV, epilogue-fused MLP GEMMs and oproj-fused decode, the
+page sized under ``"flash_decode_oproj"``.  The static-batch engine is a
+later slice.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=-1,
                     help="prefill chunk in tokens (-1 -> auto-sized from "
                          "the blocking model, 0 -> whole-prompt joins)")
+    ap.add_argument("--fuse", action="store_true",
+                    help="cross-op fused kernels on the hot path: "
+                         "epilogue-fused MLP GEMMs, one-pass QKV and "
+                         "oproj-fused flash decode")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
@@ -64,7 +70,8 @@ def main(argv=None) -> None:
         max_seq=args.max_seq, max_batch=args.batch,
         page_size=args.page_size or None,
         prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
-        temperature=args.temperature, seed=args.seed, device=args.device))
+        temperature=args.temperature, seed=args.seed, device=args.device,
+        fuse=args.fuse))
     rng = np.random.default_rng(args.seed)
     n_req = args.requests or args.batch
     lo = max(1, args.prompt_len // 2) if args.mixed_lens else args.prompt_len
@@ -80,7 +87,7 @@ def main(argv=None) -> None:
     print(f"paged engine ({args.device}): page={engine.page_size} "
           f"chunk={engine.prefill_chunk} slots={args.batch} "
           f"requests={n_req} blocked_linear="
-          f"{ops.blocked_linear_enabled()}")
+          f"{ops.blocked_linear_enabled()} fused={args.fuse}")
     print(format_metrics(engine.metrics.snapshot(), sections=("engine",)))
     statuses = sorted({r.status.value for r in reqs})
     print(f"generated {emitted} tokens over {n_req} requests in {dt:.2f}s "

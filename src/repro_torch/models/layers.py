@@ -87,7 +87,7 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = qkv_span_proj(cfg, params, x, positions)
+    q, k, v = qkv_span_proj(cfg, params, x, positions, use_kernel=use_kernel)
     out = ops.attention(q, k, v, causal=causal, window=window,
                         logit_cap=cfg.attn_logit_cap, use_kernel=use_kernel)
     out = ops.linear(out.reshape(b, s, hq * hd), params["wo"])
@@ -106,26 +106,38 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 
 def qkv_span_proj(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, use_kernel: bool = True):
     """Q/K/V projection + rope for a span of S consecutive tokens — one
     definition shared by prefill, paged decode (S=1) and chunked prefill.
     x: (B, S, D); positions: (B, S).  Returns q (B, S, Hq, D), k/v
-    (B, S, Hkv, D)."""
+    (B, S, Hkv, D).  With fused ops on (``ops.fused_ops``) the three
+    projections are one ``qkv_fused`` pass (``use_kernel=False``: its
+    plain version)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = ops.linear(x, params["wq"]).reshape(b, s, hq, hd)
-    k = ops.linear(x, params["wk"]).reshape(b, s, hkv, hd)
-    v = ops.linear(x, params["wv"]).reshape(b, s, hkv, hd)
+    if ops.fused_ops_enabled():
+        # one weight-stationary pass: x streams from HBM once for all
+        # three projections
+        q, k, v = ops.qkv_fused(x, params["wq"], params["wk"], params["wv"],
+                                use_kernel=use_kernel)
+    else:
+        q = ops.linear(x, params["wq"])
+        k = ops.linear(x, params["wk"])
+        v = ops.linear(x, params["wv"])
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def qkv_decode_proj(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor, use_kernel: bool = True):
     """One-token wrapper over :func:`qkv_span_proj`.  x: (B, D);
     positions: (B, 1).  Returns q (B, Hq, D), k/v (B, Hkv, D)."""
-    q, k, v = qkv_span_proj(cfg, params, x[:, None, :], positions)
+    q, k, v = qkv_span_proj(cfg, params, x[:, None, :], positions,
+                            use_kernel=use_kernel)
     return q[:, 0], k[:, 0], v[:, 0]
 
 
@@ -142,9 +154,28 @@ def mlp_defs(cfg: ModelConfig) -> dict:
 
 
 def mlp_apply(params: dict, x: torch.Tensor,
-              residual: torch.Tensor | None = None) -> torch.Tensor:
-    """The MLP block (the unfused branch of the JAX ``mlp_apply``);
-    ``residual`` (when given) is added to the output."""
+              residual: torch.Tensor | None = None,
+              use_kernel: bool = True) -> torch.Tensor:
+    """The MLP block; ``residual`` (when given) is added to the output.
+
+    With fused ops on (``ops.fused_ops``, the serving engine's ``fuse``)
+    the chain is three epilogue-fused GEMMs, as in JAX: the gate's silu,
+    the gating multiply and the residual add happen on the output tile.
+    The rounding points then follow the fused JAX path: the gate is cast
+    to the model dtype before it becomes ``mul``, and the residual is
+    added in fp32 before the one cast.  ``use_kernel=False``: the fused
+    GEMMs' plain version."""
+    if ops.fused_ops_enabled():
+        if "w_gate" in params:  # SwiGLU
+            g = ops.matmul_fused(x, params["w_gate"], act="silu",
+                                 use_kernel=use_kernel)
+            u = ops.matmul_fused(x, params["w_up"], mul=g,
+                                 use_kernel=use_kernel)
+        else:  # plain GELU MLP
+            u = ops.matmul_fused(x, params["w_up"], act="gelu",
+                                 use_kernel=use_kernel)
+        return ops.matmul_fused(u, params["w_down"], residual=residual,
+                                use_kernel=use_kernel)
     u = ops.linear(x, params["w_up"]).float()
     if "w_gate" in params:  # SwiGLU
         u = F.silu(ops.linear(x, params["w_gate"]).float()) * u

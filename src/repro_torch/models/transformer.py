@@ -97,7 +97,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             window=_window(cfg, i), return_cache=max_seq, full_cache=full_kv,
             use_kernel=use_kernel)
         h = h + out
-        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h)
+        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
+                        use_kernel=use_kernel)
         caches.append(cache)
     h = L.rmsnorm(params["final_norm"], h)
     at = s - 1 if logits_at is None else logits_at
@@ -110,8 +111,8 @@ AttnStep = Callable[[dict, torch.Tensor, dict, torch.Tensor, "int | None"],
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                cache: dict, pos: torch.Tensor,
-                attn_step: AttnStep) -> tuple[torch.Tensor, dict]:
+                cache: dict, pos: torch.Tensor, attn_step: AttnStep,
+                use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
     """One decode step over a stacked cache (e.g. the paged pools).
 
     token: (B,) int -> logits (B, V); or (B, S), the span form (chunked
@@ -119,8 +120,10 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     logits (B, S, V).  ``attn_step(params, hn, layer_cache, pos, window)``
     is the attention implementation (``serve.kv_cache.make_paged_attn_step``
     / ``make_paged_span_step``); ``layer_cache`` holds layer i's slice of
-    every stacked cache tensor, which the step updates in place.  Returns
-    (logits, cache) with ``cache`` the same, updated object.
+    every stacked cache tensor, which the step updates in place.
+    ``use_kernel=False`` gives the MLP's fused GEMMs their plain version
+    (the attention step carries its own choice).  Returns (logits, cache)
+    with ``cache`` the same, updated object.
     """
     single = token.dim() == 1
     h = params["embed"]["embedding"][token[:, None] if single else token] \
@@ -129,7 +132,8 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         layer_cache = {k: v[i] for k, v in cache.items()}
         hn = L.rmsnorm(p["norm1"], h)
         h = h + attn_step(p["mixer"], hn, layer_cache, pos, _window(cfg, i))
-        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h)
+        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
+                        use_kernel=use_kernel)
     h = L.rmsnorm(params["final_norm"], h)
     logits = logits_fn(cfg, params, h)
     if single:

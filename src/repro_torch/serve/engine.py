@@ -25,9 +25,15 @@ reads the output buffer back only when a request finishes.
 
 The page size and the prefill chunk come from the blocking model when
 left unset (``kv_cache.choose_page_size`` / ``choose_prefill_chunk``).
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``fuse``, ``spec_decode``, ``prefix_cache``, ``preempt``,
-``degrade`` and ``nan_guard`` (``ROADMAP.md``).
+
+``fuse=True`` runs every model call under ``ops.fused_ops``: the QKV
+projection as one ``qkv_fused`` pass, the MLP as epilogue-fused
+``matmul_fused`` GEMMs and single-token decode as ``flash_decode_oproj``
+(attention with the output projection fused in), with the page sized
+under that kernel's key.  Not ported yet, and refused with
+``NotImplementedError`` rather than ignored: ``spec_decode``,
+``prefix_cache``, ``preempt``, ``degrade`` and ``nan_guard``
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
@@ -77,8 +84,8 @@ class PagedServeConfig:
     #                                suspends backfill (anti-starvation)
     use_kernel: bool = True        # False: the plain versions, on purpose
     device: str = "cuda"           # "cpu" runs the plain versions
+    fuse: bool = False             # the cross-op fused kernels
     # -- not ported yet: each raises NotImplementedError when set --------
-    fuse: bool = False
     spec_decode: int = 0
     prefix_cache: bool = False
     nan_guard: bool = False
@@ -87,7 +94,6 @@ class PagedServeConfig:
 
 
 _NOT_PORTED = (
-    ("fuse", "queue 1, item 9 (fused path)"),
     ("spec_decode", "queue 1, item 7 (speculative decode)"),
     ("prefix_cache", "queue 1, item 7 (PrefixCache)"),
     ("nan_guard", "queue 1, item 7 (lifecycle features)"),
@@ -135,7 +141,8 @@ class PagedEngine:
             raise ValueError(
                 f"params are on {params['embed']['embedding'].device}, the "
                 f"engine on {self.device}")
-        self.page_size = sc.page_size or KV.choose_page_size(cfg, sc.max_seq)
+        self.page_size = sc.page_size or KV.choose_page_size(
+            cfg, sc.max_seq, fused=sc.fuse)
         self.max_blocks = KV.num_blocks(sc.max_seq, self.page_size)
         n_pages = sc.n_pages or sc.max_batch * self.max_blocks + 1
         self.cache = KV.init_paged_cache(cfg, n_pages, self.page_size,
@@ -152,7 +159,7 @@ class PagedEngine:
         if sc.page_size is None or sc.prefill_chunk is None:
             print(f"PagedEngine: page {self.page_size}, prefill chunk "
                   f"{self.prefill_chunk} (blocking model, max_seq "
-                  f"{sc.max_seq})")
+                  f"{sc.max_seq}{', fused' if sc.fuse else ''})")
 
         self.metrics = reg = MetricsRegistry()
         reg.gauge("engine.page_size").set(self.page_size)
@@ -175,8 +182,8 @@ class PagedEngine:
         self._m_decode_tokens = reg.counter("engine.decode_tokens")
         self._m_prefill_tokens = reg.counter("engine.prefill_tokens")
         # model calls by kind: each runs every layer's attention kernel
-        # once (joins: flash_attention; decode steps and prefill chunks:
-        # flash_decode)
+        # once (joins: flash_attention; prefill chunks: flash_decode;
+        # decode steps: flash_decode, or flash_decode_oproj under fuse)
         self._m_joins = reg.counter("engine.joins")
         self._m_decode_steps = reg.counter("engine.decode_steps")
         self._m_prefill_chunks = reg.counter("engine.prefill_chunks")
@@ -279,10 +286,11 @@ class PagedEngine:
         nb = KV.num_blocks(bucket, self.page_size)
         pages = np.full(nb, KV.SCRATCH_PAGE, np.int64)
         pages[:min(nb, len(req.pages))] = req.pages[:nb]
-        logits, dense = T.prefill(
-            self.cfg, self.params, torch.from_numpy(prompt).to(self.device),
-            max_seq=bucket, full_kv=True, logits_at=n - 1,
-            use_kernel=self.sc.use_kernel)
+        with ops.fused_ops(self.sc.fuse):
+            logits, dense = T.prefill(
+                self.cfg, self.params,
+                torch.from_numpy(prompt).to(self.device), max_seq=bucket,
+                full_kv=True, logits_at=n - 1, use_kernel=self.sc.use_kernel)
         KV.write_prefill(self.cfg, self.cache, dense,
                          torch.from_numpy(pages).to(self.device),
                          self.page_size)
@@ -312,9 +320,11 @@ class PagedEngine:
             self.cfg, self._block_tables[slot:slot + 1], self.page_size,
             self.sc.max_seq, self.sc.use_kernel)
         pos = torch.full((1,), start, dtype=torch.int32, device=self.device)
-        logits, _ = T.decode_step(self.cfg, self.params,
-                                  torch.from_numpy(tokens).to(self.device),
-                                  self.cache, pos, attn)
+        with ops.fused_ops(self.sc.fuse):
+            logits, _ = T.decode_step(
+                self.cfg, self.params,
+                torch.from_numpy(tokens).to(self.device), self.cache, pos,
+                attn, use_kernel=self.sc.use_kernel)
         self._lengths[slot] = start + c_real
         self._m_prefill_tokens.inc(c_real)
         self._m_prefill_chunks.inc()
@@ -363,14 +373,17 @@ class PagedEngine:
                                    KV.SCRATCH_PAGE)
         lengths = torch.where(occ, self._lengths, 0)
         attn = KV.make_paged_attn_step(self.cfg, block_tables,
-                                       self.page_size, self.sc.use_kernel)
+                                       self.page_size, self.sc.use_kernel,
+                                       fused=self.sc.fuse)
         rows = torch.arange(occ.shape[0], device=dev)
         cur_tok, out_buf = self._cur_tok, self._out_buf
         emitted = torch.zeros_like(rem)
         for _ in range(chunk):
             active = occ & (emitted < rem)
-            logits, _ = T.decode_step(self.cfg, self.params, cur_tok,
-                                      self.cache, lengths, attn)
+            with ops.fused_ops(self.sc.fuse):
+                logits, _ = T.decode_step(self.cfg, self.params, cur_tok,
+                                          self.cache, lengths, attn,
+                                          use_kernel=self.sc.use_kernel)
             tok = sample_tokens(self.cfg, logits, self.sc.temperature,
                                 self._gen)
             tok = torch.where(active, tok, cur_tok)

@@ -7,9 +7,11 @@ port stacks all layers' pools into one tensor per K and V,
 table mapping its logical KV blocks to physical pages.  The page size is
 the flash-decode kernel's KV tile, chosen by the analytical blocking
 model on the Hopper target through ``repro_torch.tune`` under the
-``"flash_decode"`` key (:func:`choose_page_size`), so cache layout and
-kernel schedule are one decision; :func:`choose_prefill_chunk` sizes the
-prefill chunk against the same kernel footprint.
+``"flash_decode"`` key (:func:`choose_page_size`; under
+``"flash_decode_oproj"`` for a fused engine, whose decode kernel stages
+the page), so cache layout and kernel schedule are one decision;
+:func:`choose_prefill_chunk` sizes the prefill chunk against the same
+kernel footprint.
 
 The pools are updated in place (``index_put_``): JAX returned a new
 pool from every scatter, which PyTorch need not copy.
@@ -39,21 +41,32 @@ def num_blocks(length: int, page_size: int) -> int:
     return -(-length // page_size)
 
 
-def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None) -> int:
+def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None,
+                     fused: bool = False) -> int:
     """KV page size from the analytical model (op key ``"flash_decode"``).
 
     The spec's dims are (G, S, D): G query heads per KV head stream over
     an S-long cache of head dim D.  A tuned entry in the schedule cache
     (``python -m repro_torch.tune flash_decode ...``) wins; otherwise the
-    analytic top candidate is used.  The fused and fp8 keys, and the
-    prefix cache's ``reuse_rate`` pricing, are not ported yet
-    (``ROADMAP.md``, queue 1, items 7, 9 and 10).
+    analytic top candidate is used.
+
+    ``fused=True`` (the engine's ``fuse`` flag) sizes pages under
+    ``"flash_decode_oproj"``, dims (G, S, D, E): its decode kernel stages
+    the page beside the head's G x D rows and its (1, E) partial, so the
+    page is priced by the kernel that runs (``oproj_smem_bytes_required``).
+    The fp8 key and the prefix cache's ``reuse_rate`` pricing are not
+    ported yet (``ROADMAP.md``, queue 1, items 7 and 10).
     """
     from repro_torch.tune import best_schedule
     g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
-    kv_dtype = cfg.kv_cache_dtype or cfg.dtype
-    sched = best_schedule("flash_decode", (g, max_seq, cfg.head_dim),
-                          str(kv_dtype).removeprefix("torch."), cache=cache)
+    kv_dtype = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
+    if fused:
+        sched = best_schedule("flash_decode_oproj",
+                              (g, max_seq, cfg.head_dim, cfg.d_model),
+                              kv_dtype, cache=cache)
+    else:
+        sched = best_schedule("flash_decode", (g, max_seq, cfg.head_dim),
+                              kv_dtype, cache=cache)
     return max(1, min(sched.tiles[0], max_seq))
 
 
@@ -122,7 +135,8 @@ def write_prefill(cfg: ModelConfig, paged: dict, dense: dict,
 
 
 def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
-                         page_size: int, use_kernel: bool = True):
+                         page_size: int, use_kernel: bool = True,
+                         fused: bool = False):
     """The ``attn_step`` the paged engine threads through
     ``transformer.decode_step`` for one token per request.
 
@@ -130,19 +144,28 @@ def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
     at position ``pos[b]``, its K/V are written into page
     ``block_tables[b, pos // page]`` slot ``pos % page`` (in place), and
     attention runs over ``pos + 1`` positions through
-    ``ops.paged_attention`` (the flash-decode kernel).
+    ``ops.paged_attention`` (the flash-decode kernel) and the output
+    projection.  ``fused=True`` (the engine's ``fuse``) runs attention
+    and the output projection as one ``ops.paged_attention_oproj`` (the
+    oproj-fused decode kernel): the heads' outputs never reach HBM.
     """
     def attn_step(p: dict, hn: torch.Tensor, cache: dict, pos: torch.Tensor,
                   window: int | None) -> torch.Tensor:
         b = hn.shape[0]
         hq, hd = cfg.n_heads, cfg.head_dim
-        q, k, v = L.qkv_decode_proj(cfg, p, hn[:, 0], pos[:, None])
+        q, k, v = L.qkv_decode_proj(cfg, p, hn[:, 0], pos[:, None],
+                                    use_kernel=use_kernel)
         rows = torch.arange(b, device=pos.device)
         page_idx = block_tables[rows, pos // page_size].long()
         slot_idx = (pos % page_size).long()
         kp, vp = cache["k_pages"], cache["v_pages"]
         kp.index_put_((page_idx, slot_idx), k.to(kp.dtype))
         vp.index_put_((page_idx, slot_idx), v.to(vp.dtype))
+        if fused:
+            out = ops.paged_attention_oproj(
+                q, kp, vp, block_tables, pos + 1, p["wo"], window=window,
+                logit_cap=cfg.attn_logit_cap, use_kernel=use_kernel)
+            return out[:, None, :].to(hn.dtype)
         out = ops.paged_attention(q, kp, vp, block_tables, pos + 1,
                                   window=window,
                                   logit_cap=cfg.attn_logit_cap,
@@ -164,6 +187,10 @@ def make_paged_span_step(cfg: ModelConfig, block_tables: torch.Tensor,
     (B, S, Hq, D) q block scores every position under its own causal
     limit.  Positions at or past ``max_seq`` (the padded tail of a final
     chunk) write harmlessly into the scratch page.
+
+    The oproj-fused kernel is single-token, so spans keep the unfused
+    attention and ``linear`` pair, as in JAX; under ``fuse`` the QKV
+    projection and the MLP still fuse.
     """
     def attn_step(p: dict, hn: torch.Tensor, cache: dict, pos: torch.Tensor,
                   window: int | None) -> torch.Tensor:
@@ -171,7 +198,8 @@ def make_paged_span_step(cfg: ModelConfig, block_tables: torch.Tensor,
         hq, hd = cfg.n_heads, cfg.head_dim
         positions = pos[:, None] + torch.arange(s, dtype=pos.dtype,
                                                 device=pos.device)[None, :]
-        q, k, v = L.qkv_span_proj(cfg, p, hn, positions)
+        q, k, v = L.qkv_span_proj(cfg, p, hn, positions,
+                                  use_kernel=use_kernel)
         rows = torch.arange(b, device=pos.device)[:, None]
         nb = block_tables.shape[1]
         safe = positions < max_seq

@@ -1,6 +1,7 @@
 """Schedule tuner: the paper's blocking optimizer driving the port's
-kernels (the port of ``repro.tune`` for ``"matmul"`` and
-``"flash_decode"``).
+kernels (the port of ``repro.tune`` for ``"matmul"``, ``"flash_decode"``
+and the fused path's ``"matmul_fused"``, ``"qkv_fused"`` and
+``"flash_decode_oproj"``).
 
 The analytical model (``repro_torch.core``) derives candidate blockings
 on the Hopper target; this package lowers them to the CUDA kernels' tile
@@ -30,6 +31,7 @@ from repro_torch.tune.cache import (ScheduleCache, default_cache_path,
 from repro_torch.tune.lowering import (candidates, divides, fits_smem,
                                        level0_dram_bytes,
                                        predicted_dram_accesses,
+                                       predicted_dram_bytes,
                                        schedule_to_string)
 from repro_torch.tune.schedule import OpSpec, Schedule
 
@@ -37,7 +39,8 @@ __all__ = [
     "OpSpec", "Schedule", "ScheduleCache", "best_schedule", "candidates",
     "default_cache_path", "describe_candidates", "device_kind", "divides",
     "fits_smem", "level0_dram_bytes", "predicted_dram_accesses",
-    "schedule_to_string", "set_schedule_observer", "tune_op",
+    "predicted_dram_bytes", "schedule_to_string", "set_schedule_observer",
+    "tune_op",
 ]
 
 _default_cache = ScheduleCache()
@@ -81,8 +84,10 @@ def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
                   target: HopperTarget = H100_SXM) -> Schedule:
     """Cached-or-derived schedule for one op instance (never measures).
 
-    ``dims`` is ``(M, N, K)`` for ``"matmul"`` and ``(G, S, D)`` for
-    ``"flash_decode"``.  A cache hit (same op, shapes, dtype and device
+    ``dims`` is ``(M, N, K)`` for ``"matmul"`` and ``"matmul_fused"``,
+    ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S, D)`` for
+    ``"flash_decode"`` and ``(G, S, D, E)`` for
+    ``"flash_decode_oproj"``.  A cache hit (same op, shapes, dtype and device
     kind) wins outright, unless an explicit ``smem_budget_bytes`` is
     given that its tiles overflow; otherwise the analytic top candidate
     is derived in-process (memoized, not persisted -- run :func:`tune_op`

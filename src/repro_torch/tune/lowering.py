@@ -1,6 +1,6 @@
 """Lowering from the analytical blocking model to the port's kernel
-schedules (the port of ``repro.tune.lowering`` for ``"matmul"`` and
-``"flash_decode"``).
+schedules (the port of ``repro.tune.lowering`` for ``"matmul"``,
+``"flash_decode"`` and the fused path's keys).
 
 1. :func:`candidates` runs the paper's schedule search for the op's loop
    nest on the Hopper hierarchy (``core.hopper_adapter``), keeps what the
@@ -11,35 +11,52 @@ schedules (the port of ``repro.tune.lowering`` for ``"matmul"`` and
 3. :func:`predicted_dram_accesses` can score any candidate with the exact
    per-level access counts of paper section 3.4.
 
-:func:`schedule_to_string`, :func:`predicted_dram_accesses` and
-:func:`level0_dram_bytes` are the model's arithmetic and have no target;
-they are the reference's, restricted to the two keys.
+The fused keys (``FUSED_OPS``) rank by :func:`predicted_dram_bytes`, the
+same walk weighted by each operand's width, as the reference does:
+bytes, not element counts, are what fusion removes.
+
+:func:`schedule_to_string`, :func:`predicted_dram_accesses`,
+:func:`predicted_dram_bytes` and :func:`level0_dram_bytes` are the
+model's arithmetic and have no target; they are the reference's,
+restricted to the port's keys.
 """
 
 from __future__ import annotations
 
 from repro_torch.core.hierarchy import MemLevel, cache_accesses
-from repro_torch.core.hopper_adapter import (H100_SXM, HopperTarget,
-                                             default_smem_budget,
-                                             flash_decode_tile_candidates,
-                                             matmul_fits,
-                                             matmul_tile_candidates)
+from repro_torch.core.hopper_adapter import (
+    H100_SXM, HopperTarget, default_smem_budget,
+    flash_decode_oproj_tile_candidates, flash_decode_tile_candidates,
+    matmul_fits, matmul_tile_candidates, qkv_fits, qkv_fused_tile_candidates)
 from repro_torch.core.loopnest import BlockingString, Dim, Loop
-from repro_torch.tune.schedule import OpSpec, Schedule
+from repro_torch.tune.schedule import FUSED_OPS, OpSpec, Schedule
+
+_GEMMS = ("matmul", "matmul_fused")
+_PAGES = ("flash_decode", "flash_decode_oproj")   # tile = the page
 
 
 def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
               target: HopperTarget = H100_SXM) -> bool:
     """Whether the op's CUDA kernel holds these tiles on chip: its own
     shared-memory footprint within ``budget`` and, for the GEMM, its
-    fp32 accumulator within the target's register limit."""
-    if spec.op == "matmul":
+    fp32 accumulator within the target's register limit (the fused
+    QKV kernel's at its joint width)."""
+    if spec.op in _GEMMS:
         bm, bk, bn = tiles
         return matmul_fits(bm, bk, bn, spec.itemsize, budget, target)
+    if spec.op == "qkv_fused":
+        bm, bk, bn = tiles
+        return qkv_fits(bm, bk, bn, spec.dims[3], spec.itemsize, budget,
+                        target)
     from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  oproj_smem_bytes_required,
                                                   smem_bytes_required)
-    _, _, D = spec.dims
     (page,) = tiles
+    if spec.op == "flash_decode_oproj":
+        G, _, D, E = spec.dims
+        return oproj_smem_bytes_required(page, G, D, E,
+                                         spec.itemsize) <= budget
+    _, _, D = spec.dims
     return smem_bytes_required(page, ROWS_PER_BLOCK, D,
                                spec.itemsize) <= budget
 
@@ -47,11 +64,15 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
 def divides(spec: OpSpec, tiles: tuple[int, ...]) -> bool:
     """True iff the tiles cover the problem in whole blocks (the model
     can score them; the kernels also run ragged tiles, masked)."""
-    if spec.op == "matmul":
+    if spec.op in _GEMMS:
         M, N, K = spec.dims
         bm, bk, bn = tiles
         return M % bm == 0 and K % bk == 0 and N % bn == 0
-    _, S, _ = spec.dims
+    if spec.op == "qkv_fused":
+        M, Nkv, K, _ = spec.dims
+        bm, bk, bn = tiles
+        return M % bm == 0 and K % bk == 0 and Nkv % bn == 0
+    S = spec.dims[1]
     (page,) = tiles
     return S % page == 0
 
@@ -61,20 +82,31 @@ def schedule_to_string(spec: OpSpec,
     """The blocking string the kernels execute for these tiles (inner ->
     outer).
 
-    * matmul: the level-0 (bk, bm, bn) block, then the grid (m, n, k)
-      with k minor-most (the fp32 accumulator is the OB held across C);
-    * flash_decode: one query block (all G rows, all D columns) resident
-      while the kernel streams KV pages -- the running (m, l, acc) state
-      is the OB held across the whole C (KV) reduction.
+    * matmul, matmul_fused: the level-0 (bk, bm, bn) block, then the grid
+      (m, n, k) with k minor-most (the fp32 accumulator is the OB held
+      across C);
+    * qkv_fused: the same GEMM string over the joint width, one block
+      touching (G+2)*bn columns from a single A tile;
+    * flash_decode, flash_decode_oproj: one query block (all G rows, all
+      D columns) resident while the kernel streams KV pages -- the
+      running (m, l, acc) state is the OB held across the whole C (KV)
+      reduction.  The fused projection's wo traffic does not depend on
+      the page, so it cannot change the rank and is absent here.
     """
     p = spec.problem()
-    if spec.op == "matmul":
+    if spec.op in _GEMMS:
         M, N, K = spec.dims
         bm, bk, bn = tiles
         loops = [Loop(Dim.C, bk), Loop(Dim.X, bm), Loop(Dim.K, bn),
                  Loop(Dim.C, K), Loop(Dim.K, N), Loop(Dim.X, M)]
+    elif spec.op == "qkv_fused":
+        M, Nkv, K, G = spec.dims
+        bm, bk, bn = tiles
+        loops = [Loop(Dim.C, bk), Loop(Dim.X, bm),
+                 Loop(Dim.K, (G + 2) * bn),
+                 Loop(Dim.C, K), Loop(Dim.K, (G + 2) * Nkv), Loop(Dim.X, M)]
     else:
-        G, S, D = spec.dims
+        G, S, D = spec.dims[:3]
         (page,) = tiles
         loops = [Loop(Dim.C, page), Loop(Dim.X, G), Loop(Dim.K, D),
                  Loop(Dim.C, S)]
@@ -95,6 +127,25 @@ def predicted_dram_accesses(spec: OpSpec, tiles: tuple[int, ...],
     levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
     s = schedule_to_string(spec, tiles)
     return cache_accesses(s, levels)[levels[-1].name]
+
+
+def predicted_dram_bytes(spec: OpSpec, tiles: tuple[int, ...],
+                         smem_budget_bytes: int | None = None,
+                         target: HopperTarget = H100_SXM) -> int:
+    """HBM-boundary traffic in bytes: :func:`predicted_dram_accesses`'s
+    walk with each operand's accesses weighted by its own width
+    (``core.buffers.operand_bytes``), so the two ranks cannot disagree
+    about the miss-path rules."""
+    if not divides(spec, tiles):
+        raise ValueError(
+            f"tiles {tiles} do not divide {spec.op} dims {spec.dims}")
+    from repro_torch.core.buffers import Operand, operand_bytes
+    budget = default_smem_budget(target, smem_budget_bytes)
+    levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
+    s = schedule_to_string(spec, tiles)
+    weights = {op: operand_bytes(s.problem, op) for op in Operand}
+    return cache_accesses(s, levels,
+                          operand_weights=weights)[levels[-1].name]
 
 
 def _operand_level0_traffic(s: BlockingString, op, footprint: int) -> int:
@@ -141,6 +192,10 @@ def level0_dram_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
             f"tiles {tiles} do not divide {spec.op} dims {spec.dims}")
     if spec.op == "flash_decode":
         return _flash_decode_level0_bytes(spec, tiles)
+    if spec.op == "flash_decode_oproj":
+        raise ValueError(
+            "level0_dram_bytes covers the GEMM family and flash_decode, "
+            "not 'flash_decode_oproj'")
     s = schedule_to_string(spec, tiles)
     fps = _level0_footprints(s)
     return sum(_operand_level0_traffic(s, op, fps[op])
@@ -189,10 +244,18 @@ def candidates(spec: OpSpec,
     ragged edges masked.
     """
     budget = default_smem_budget(target, smem_budget_bytes)
-    if spec.op == "matmul":
+    if spec.op in _GEMMS:
         M, N, K = spec.dims
         raw = matmul_tile_candidates(M, N, K, spec.itemsize, budget,
                                      target, top=top)
+    elif spec.op == "qkv_fused":
+        M, Nkv, K, G = spec.dims
+        raw = qkv_fused_tile_candidates(M, Nkv, K, G, spec.itemsize, budget,
+                                        target, top=top)
+    elif spec.op == "flash_decode_oproj":
+        G, S, D, E = spec.dims
+        raw = flash_decode_oproj_tile_candidates(G, S, D, E, spec.itemsize,
+                                                 budget, target, top=top)
     else:
         G, S, D = spec.dims
         raw = flash_decode_tile_candidates(G, S, D, spec.itemsize, budget,
@@ -210,17 +273,22 @@ def candidates(spec: OpSpec,
                            spec, t, budget, target))
               for t in usable]
 
-    # fewest predicted DRAM accesses first; break ties toward bigger
-    # blocks (fewer grid steps) -- except for flash_decode, where the KV
-    # stream touches every element once at any page size (the model
-    # ties) and the tile doubles as the paged cache's allocation granule:
-    # smaller pages waste fewer slots per request.
+    # fewest predicted DRAM accesses first (bytes for the fused keys, as
+    # in the reference); break ties toward bigger blocks (fewer grid
+    # steps) -- except for the paged kernels, where the KV stream touches
+    # every element once at any page size (the model ties) and the tile
+    # doubles as the paged cache's allocation granule: smaller pages
+    # waste fewer slots per request.
     def tile_product(s: Schedule) -> int:
         prod = 1
         for t in s.tiles:
             prod *= t
         return prod
-    sign = 1 if spec.op == "flash_decode" else -1
-    scored.sort(key=lambda s: (s.predicted_dram_accesses,
-                               sign * tile_product(s)))
+    sign = 1 if spec.op in _PAGES else -1
+    if spec.op in FUSED_OPS:
+        scored.sort(key=lambda s: (predicted_dram_bytes(
+            spec, s.tiles, budget, target), sign * tile_product(s)))
+    else:
+        scored.sort(key=lambda s: (s.predicted_dram_accesses,
+                                   sign * tile_product(s)))
     return scored[:top]

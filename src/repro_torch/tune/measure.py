@@ -36,38 +36,66 @@ def _device() -> torch.device:
 
 def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
     """Operands for the schedule's OpSpec on the card, from ``seed``.
-    ``flash_decode``: one request, one kv head, its cache of S keys laid
-    out in pages of the schedule's tile, under a shuffled block table."""
+    ``flash_decode`` and ``flash_decode_oproj``: one request, one kv
+    head, its cache of S keys laid out in pages of the schedule's tile,
+    under a shuffled block table (and the head's (G*D, E) wo slab);
+    ``matmul_fused``: the MLP's epilogue shape, a bias row, a gelu and a
+    residual block."""
     dev = _device()
     spec = schedule.spec
     dtype = getattr(torch, spec.dtype)
     rng = np.random.default_rng(seed)
 
-    def t(*shape):
-        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+    def t(*shape, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape), dtype=dt,
                             device=dev)
     if spec.op == "matmul":
         M, N, K = spec.dims
         return t(M, K), t(K, N) * K ** -0.5
-    G, S, D = spec.dims
+    if spec.op == "matmul_fused":
+        M, N, K = spec.dims
+        return (t(M, K), t(K, N) * K ** -0.5, t(N, dt=torch.float32),
+                t(M, N))
+    if spec.op == "qkv_fused":
+        M, Nkv, K, G = spec.dims
+        return (t(M, K), t(K, G * Nkv) * K ** -0.5, t(K, Nkv) * K ** -0.5,
+                t(K, Nkv) * K ** -0.5)
+    G, S, D = spec.dims[:3]
     (page,) = schedule.tiles
     n_blocks = -(-S // page)
     bt = torch.tensor(1 + rng.permutation(n_blocks)[None, :],
                       dtype=torch.int32, device=dev)
     lengths = torch.tensor([S], dtype=torch.int32, device=dev)
-    return (t(1, 1, G, D), t(n_blocks + 1, page, 1, D),
-            t(n_blocks + 1, page, 1, D), bt, lengths)
+    paged = (t(1, 1, G, D), t(n_blocks + 1, page, 1, D),
+             t(n_blocks + 1, page, 1, D), bt, lengths)
+    if spec.op == "flash_decode_oproj":
+        E = spec.dims[3]
+        return paged + (t(1, G * D, E) * (G * D) ** -0.5,)
+    return paged
 
 
-def run_once(schedule: Schedule, inputs: tuple) -> torch.Tensor:
+def run_once(schedule: Schedule, inputs: tuple):
     """Launch the schedule's kernel once on ``inputs``."""
-    if schedule.spec.op == "matmul":
+    op = schedule.spec.op
+    if op == "matmul":
         from repro_torch.kernels.matmul_blocked import matmul_blocked
         bm, bk, bn = schedule.tiles
         a, b = inputs
         return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
-    from repro_torch.kernels.flash_decode import flash_decode
-    return flash_decode(*inputs)
+    if op == "matmul_fused":
+        from repro_torch.kernels.matmul_fused import matmul_fused
+        bm, bk, bn = schedule.tiles
+        a, w, bias, res = inputs
+        return matmul_fused(a, w, bias=bias, residual=res, act="gelu",
+                            bm=bm, bk=bk, bn=bn)
+    if op == "qkv_fused":
+        from repro_torch.kernels.qkv_fused import qkv_fused
+        bm, bk, bn = schedule.tiles
+        return qkv_fused(*inputs, bm=bm, bk=bk, bn=bn)
+    from repro_torch.kernels import flash_decode as FD
+    if op == "flash_decode_oproj":
+        return FD.flash_decode_oproj(*inputs)
+    return FD.flash_decode(*inputs)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:

@@ -12,9 +12,25 @@ plus the problem dimensions the kernels see:
   flash-decode kernel's KV tile AND the paged cache's page size
   (``serve/kv_cache.py``), so the model fixes both at once.
 
-The JAX package's other keys (the backward, conv, fused and quantized
-nests) are refused with ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports them.
+The fused path's keys (``FUSED_OPS``; kernels whose output tile absorbs
+the next op's work instead of round-tripping through HBM):
+
+* ``matmul_fused``: ``dims = (M, N, K)`` like any GEMM; tiles
+  ``(bm, bk, bn)`` of ``kernels/matmul_fused.py``, whose footprint is the
+  blocked GEMM's (the epilogue operands are not staged);
+* ``qkv_fused``: ``dims = (M, Nkv, K, G)``, Nkv the per-projection k/v
+  width and G = Hq / Hkv (the q projection is G * Nkv wide); tiles
+  ``(bm, bk, bn)`` block Nkv, each block producing (G + 2) * bn output
+  columns from one activation tile -- the nest is the joint GEMM;
+* ``flash_decode_oproj``: ``dims = (G, S, D, E)`` (E = d_model); the
+  single ``(page,)`` tile is still the KV tile AND the page size -- a
+  fused engine sizes its pages under this key, because the kernel's
+  extra shared memory (the G x D rows and the (1, E) partial) squeezes
+  the budget the page competes for.
+
+The JAX package's other keys (the backward, conv and quantized nests)
+are refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that ports them.
 
 A :class:`Schedule` is a concrete kernel configuration for that spec: the
 tile tuple, where it came from (``analytic`` / ``measured`` / ``cache``),
@@ -31,9 +47,12 @@ import torch
 
 from repro_torch.core.loopnest import Problem
 
-OPS = ("matmul", "flash_decode")
-TILE_RANK = {"matmul": 3, "flash_decode": 1}
-_N_DIMS = {"matmul": 3, "flash_decode": 3}
+FUSED_OPS = ("matmul_fused", "qkv_fused", "flash_decode_oproj")
+OPS = ("matmul", "flash_decode") + FUSED_OPS
+TILE_RANK = {"matmul": 3, "flash_decode": 1, "matmul_fused": 3,
+             "qkv_fused": 3, "flash_decode_oproj": 1}
+_N_DIMS = {"matmul": 3, "flash_decode": 3, "matmul_fused": 3,
+           "qkv_fused": 4, "flash_decode_oproj": 4}
 # the reference's other schedule keys, with the ROADMAP item porting each
 UNPORTED_OPS = {
     "matmul_dgrad": "queue 1, item 12 (training)",
@@ -42,9 +61,6 @@ UNPORTED_OPS = {
     "conv2d_wgrad": "queue 1, items 12/13 (training, conv path)",
     "matmul_w8": "queue 1, item 10 (quantization)",
     "flash_decode_fp8": "queue 1, item 10 (quantization)",
-    "matmul_fused": "queue 1, item 9 (fused path)",
-    "qkv_fused": "queue 1, item 9 (fused path)",
-    "flash_decode_oproj": "queue 1, item 9 (fused path)",
 }
 
 
@@ -79,20 +95,34 @@ class OpSpec:
         """The spec as the paper's loop-nest Problem.  Decode attention
         per (batch, kv head) is a skinny GEMM: the G query rows stream
         over the S-long KV cache producing D outputs, its reduction dim
-        (C in the paper's nest) the KV length being blocked."""
-        if self.op == "matmul":
+        (C in the paper's nest) the KV length being blocked.  The fused
+        QKV pass is the joint GEMM (one activation stream feeding all
+        (G+2)*Nkv output columns); the oproj-fused decode is the decode
+        nest (its projection only squeezes the shared-memory budget: the
+        candidate filter sees E, the nest does not)."""
+        if self.op in ("matmul", "matmul_fused"):
             M, N, K = self.dims
             return Problem.gemm(M=M, N_cols=N, K_reduce=K,
                                 bytes_per_elem=self.itemsize)
-        G, S, D = self.dims
+        if self.op == "qkv_fused":
+            M, Nkv, K, G = self.dims
+            return Problem.gemm(M=M, N_cols=(G + 2) * Nkv, K_reduce=K,
+                                bytes_per_elem=self.itemsize)
+        G, S, D = self.dims[:3]
         return Problem.gemm(M=G, N_cols=D, K_reduce=S,
                             bytes_per_elem=self.itemsize)
 
     def key(self, device_kind: str) -> str:
         """Stable cache key: ``op/dims/dtype/device``."""
-        if self.op == "matmul":
+        if self.op in ("matmul", "matmul_fused"):
             M, N, K = self.dims
             shape = f"m{M}n{N}k{K}"
+        elif self.op == "qkv_fused":
+            M, Nkv, K, G = self.dims
+            shape = f"m{M}n{Nkv}k{K}g{G}"
+        elif self.op == "flash_decode_oproj":
+            G, S, D, E = self.dims
+            shape = f"g{G}s{S}d{D}e{E}"
         else:
             G, S, D = self.dims
             shape = f"g{G}s{S}d{D}"

@@ -20,9 +20,14 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_decode import (flash_decode, largest_page,
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_oproj,
+                                              largest_page,
+                                              paged_attention_oproj_ref,
                                               paged_attention_ref)
 from repro_torch.kernels.matmul_blocked import matmul_blocked, matmul_ref
+from repro_torch.kernels.matmul_fused import matmul_fused, matmul_fused_ref
+from repro_torch.kernels.qkv_fused import qkv_fused, qkv_fused_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -177,3 +182,112 @@ def test_matmul_blocked_refuses_what_it_cannot_hold(dev):
     with pytest.raises(ValueError, match="shared memory"):
         flash_decode(qa, kp, kp, bt, torch.ones(1, dtype=torch.int32,
                                                 device=dev))
+
+
+def gemm_tol(dtype, k):
+    tol = dict(TOL[dtype])
+    if dtype == torch.float32:
+        tol["atol"] = max(tol["atol"], 2e-6 * k ** 0.5)
+    return tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", [
+    dict(), dict(act="gelu", bias=True), dict(act="silu", mul=True),
+    dict(residual=True), dict(act="relu", scale=True, bias=True, mul=True,
+                              residual=True)])
+@pytest.mark.parametrize("m,n,k,tiles", [
+    (8, 4096, 4096, (8, 256, 64)),       # decode
+    (64, 1024, 512, (64, 64, 128)),      # join bucket
+    (37, 1000, 300, (16, 64, 64)),       # ragged (scalar staging in bf16)
+])
+def test_matmul_fused_matches_plain(dev, dtype, epi, m, n, k, tiles):
+    """Every epilogue operand alone and together, against the plain
+    version (which applies them in fp32 in the JAX oracle's order)."""
+    rng = np.random.default_rng(m + n)
+    a, w = gemm_case(dev, dtype, m, n, k, seed=m + k)
+    f32 = lambda *s: torch.tensor(rng.standard_normal(s),  # noqa: E731
+                                  dtype=torch.float32, device=dev)
+    kw = dict(act=epi.get("act", "none"),
+              scale=f32(n) if epi.get("scale") else None,
+              bias=f32(n) if epi.get("bias") else None,
+              mul=f32(m, n).to(dtype) if epi.get("mul") else None,
+              residual=f32(m, n).to(dtype) if epi.get("residual") else None)
+    before = matmul_fused.launches
+    bm, bk, bn = tiles
+    out = matmul_fused(a, w, **kw, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert matmul_fused.launches == before + 1
+    ref = matmul_fused_ref(a, w, **kw)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **gemm_tol(dtype, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,nkv,k,g,tiles", [
+    (8, 1024, 4096, 4, (8, 32, 128)),    # granite decode, widest bn
+    (64, 1024, 4096, 4, (16, 64, 64)),
+    (24, 96, 136, 1, (16, 64, 64)),      # ragged Nkv and K, G = 1
+    (5, 40, 70, 3, (8, 64, 32)),         # scalar staging
+])
+def test_qkv_fused_matches_plain(dev, dtype, m, nkv, k, g, tiles):
+    rng = np.random.default_rng(m + nkv)
+    t = lambda *s: torch.tensor(rng.standard_normal(s),  # noqa: E731
+                                dtype=dtype, device=dev)
+    x, wq = t(m, k), t(k, g * nkv) * k ** -0.5
+    wk, wv = t(k, nkv) * k ** -0.5, t(k, nkv) * k ** -0.5
+    before = qkv_fused.launches
+    bm, bk, bn = tiles
+    got = qkv_fused(x, wq, wk, wv, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert qkv_fused.launches == before + 1
+    for o, r in zip(got, qkv_fused_ref(x, wq, wk, wv)):
+        torch.testing.assert_close(o.float(), r.float(), **gemm_tol(dtype, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 32, 64])
+@pytest.mark.parametrize("window,cap", [(None, None), (37, 30.0)])
+def test_flash_decode_oproj_matches_plain(dev, dtype, page, window, cap):
+    """B = 8, Hkv = 8, G = 4, D = 128, E = 4096 (granite's decode), ragged
+    lengths; the cluster's head reduction is in a fixed order, so two
+    launches agree bit for bit."""
+    lengths = [1, 17, 64, 130, 300, 512, 33, 250]
+    q, kp, vp, bt, ln = paged_case(dev, dtype, 1, lengths, page=page,
+                                   n_blocks=512 // page, seed=page)
+    rng = np.random.default_rng(page)
+    wo = torch.tensor(rng.standard_normal((8, 4 * 128, 4096)) / 64,
+                      dtype=dtype, device=dev)
+    before = flash_decode_oproj.launches
+    out = flash_decode_oproj(q, kp, vp, bt, ln, wo, window=window,
+                             logit_cap=cap)
+    again = flash_decode_oproj(q, kp, vp, bt, ln, wo, window=window,
+                               logit_cap=cap)
+    torch.cuda.synchronize()
+    assert flash_decode_oproj.launches == before + 2
+    assert out.shape == (8, 4096) and torch.equal(out, again)
+    ref = paged_attention_oproj_ref(q, kp, vp, bt, ln, wo, window=window,
+                                    logit_cap=cap)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **gemm_tol(dtype, 512))
+
+
+def test_fused_kernels_refuse_what_they_cannot_hold(dev):
+    """A tile past the accumulator cap raises before any launch: at
+    G = 4 a qkv bn of 256 makes a 1536-column joint tile."""
+    x = torch.zeros(8, 4096, dtype=torch.bfloat16, device=dev)
+    wq = torch.zeros(4096, 4096, dtype=torch.bfloat16, device=dev)
+    wk = torch.zeros(4096, 1024, dtype=torch.bfloat16, device=dev)
+    before = (qkv_fused.launches, matmul_fused.launches,
+              flash_decode_oproj.launches)
+    with pytest.raises(ValueError, match="accumulators"):
+        qkv_fused(x, wq, wk, wk, bm=8, bk=64, bn=256)
+    with pytest.raises(ValueError, match="accumulators"):
+        matmul_fused(x, wq, act="silu", bm=256, bk=64, bn=256)
+    q, kp, vp, bt, ln = paged_case(dev, torch.bfloat16, 1, [5, 9], hkv=16,
+                                   g=2, page=16, n_blocks=2)
+    wo = torch.zeros(16, 2 * 128, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="cluster"):
+        flash_decode_oproj(q, kp, vp, bt, ln, wo)
+    assert (qkv_fused.launches, matmul_fused.launches,
+            flash_decode_oproj.launches) == before

@@ -145,7 +145,7 @@ def test_allocator_scratch_page_and_double_free():
 
 
 @pytest.mark.parametrize("option", [
-    dict(fuse=True), dict(spec_decode=2), dict(prefix_cache=True),
+    dict(spec_decode=2), dict(prefix_cache=True),
     dict(nan_guard=True), dict(preempt=True), dict(degrade=True)])
 def test_unported_options_raise(model, option):
     _, _, cfg, params = model

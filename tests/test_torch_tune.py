@@ -18,12 +18,12 @@ import torch
 
 from repro.tune import OpSpec as JOpSpec
 from repro.tune import lowering as jlowering
-from repro_torch.core.hopper_adapter import default_smem_budget
+from repro_torch.core.hopper_adapter import H100_SXM, default_smem_budget
 from repro_torch.tune import (OpSpec, Schedule, ScheduleCache, best_schedule,
                               candidates, device_kind, divides, fits_smem,
                               level0_dram_bytes, predicted_dram_accesses,
-                              schedule_to_string, set_schedule_observer,
-                              tune_op)
+                              predicted_dram_bytes, schedule_to_string,
+                              set_schedule_observer, tune_op)
 from repro_torch.tune.cache import default_cache_path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -47,6 +47,117 @@ def test_model_arithmetic_matches_jax(op, dims, dtype, tiles):
         jlowering.level0_dram_bytes(jspec, tiles)
     assert spec.key("cpu") == jspec.key("cpu")
     assert spec.itemsize == jspec.itemsize
+
+
+FUSED_SPECS = [("matmul_fused", (8, 12800, 4096), "bfloat16", (8, 256, 64)),
+               ("matmul_fused", (64, 4096, 12800), "float32",
+                (16, 64, 128)),
+               ("qkv_fused", (8, 1024, 4096, 4), "bfloat16", (8, 64, 64)),
+               ("qkv_fused", (64, 32, 64, 2), "float32", (16, 64, 32)),
+               ("flash_decode_oproj", (4, 512, 128, 4096), "bfloat16",
+                (32,)),
+               ("flash_decode_oproj", (2, 64, 16, 64), "float32", (8,))]
+
+
+@pytest.mark.parametrize("op,dims,dtype,tiles", FUSED_SPECS)
+def test_fused_keys_model_arithmetic_matches_jax(op, dims, dtype, tiles):
+    """The fused keys' nests, access counts and byte-weighted traffic
+    (the rank they sort by) equal JAX's for the same spec, tiles and
+    explicit budget in bytes; ``level0_dram_bytes`` covers the same keys
+    in both (not the oproj nest)."""
+    spec, jspec = OpSpec(op, dims, dtype), JOpSpec(op, dims, dtype)
+    assert repr(schedule_to_string(spec, tiles)) == \
+        repr(jlowering.schedule_to_string(jspec, tiles))
+    assert predicted_dram_accesses(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_accesses(jspec, tiles, BUDGET)
+    assert predicted_dram_bytes(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_bytes(jspec, tiles, BUDGET)
+    if op == "flash_decode_oproj":
+        for fn, sp in ((level0_dram_bytes, spec),
+                       (jlowering.level0_dram_bytes, jspec)):
+            with pytest.raises(ValueError):
+                fn(sp, tiles)
+    else:
+        assert level0_dram_bytes(spec, tiles) == \
+            jlowering.level0_dram_bytes(jspec, tiles)
+    assert spec.key("cpu") == jspec.key("cpu")
+
+
+@pytest.mark.parametrize("op,dims,dtype", [
+    ("matmul_fused", (8, 12800, 4096), "bfloat16"),
+    ("matmul_fused", (512, 4096, 12800), "bfloat16"),
+    ("qkv_fused", (8, 1024, 4096, 4), "bfloat16"),
+    ("qkv_fused", (512, 1024, 4096, 4), "float32"),
+    ("qkv_fused", (64, 32, 64, 2), "float32"),
+    ("flash_decode_oproj", (4, 512, 128, 4096), "bfloat16"),
+    ("flash_decode_oproj", (4, 512, 128, 4096), "float32")])
+def test_fused_candidates_fit_the_cuda_kernels(op, dims, dtype):
+    """Every candidate of the three keys fits its CUDA kernel's own
+    shared-memory footprint within the budget and, for the GEMMs, the
+    tile core's accumulator cap -- for qkv_fused at the joint width,
+    which at G = 4 caps the per-projection bn at 128."""
+    from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import qkv_fused as QF
+    from repro_torch.kernels.flash_decode import oproj_smem_bytes_required
+    spec = OpSpec(op, dims, dtype)
+    cands = candidates(spec)
+    assert cands
+    for s in cands:
+        assert fits_smem(spec, s.tiles, BUDGET)
+        if op == "flash_decode_oproj":
+            G, S, D, E = dims
+            (page,) = s.tiles
+            assert S % page == 0
+            assert oproj_smem_bytes_required(page, G, D, E,
+                                             spec.itemsize) <= BUDGET
+            continue
+        bm, bk, bn = s.tiles
+        if op == "qkv_fused":
+            G = dims[3]
+            assert QF.smem_bytes_required(bm, bk, bn, G,
+                                          spec.itemsize) <= BUDGET
+            assert QF.accumulators_per_thread(bm, bn, G) <= \
+                H100_SXM.acc_per_thread
+            if G == 4:
+                assert bn <= 128 and bn % H100_SXM.nk_mult == 0
+        else:
+            assert MF.smem_bytes_required(bm, bk, bn,
+                                          spec.itemsize) <= BUDGET
+            assert MB.accumulators_per_thread(bm, bn) <= \
+                H100_SXM.acc_per_thread
+    assert not fits_smem(OpSpec("qkv_fused", (8, 1024, 4096, 4)),
+                         (8, 64, 256), 10 ** 9)     # 1536 joint columns
+
+
+def test_matmul_fused_ranks_the_matmul_candidates_by_bytes():
+    """The fused GEMM stages what the blocked GEMM stages, so its
+    candidates are the "matmul" ones, ranked by predicted bytes."""
+    dims = (64, 4096, 4096)
+    fused = candidates(OpSpec("matmul_fused", dims, "bfloat16"))
+    plain = candidates(OpSpec("matmul", dims, "bfloat16"))
+    assert {s.tiles for s in fused} == {s.tiles for s in plain}
+    nbytes = [predicted_dram_bytes(s.spec, s.tiles) for s in fused]
+    assert nbytes == sorted(nbytes)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_page_is_a_whole_page_divisor_that_fits(dtype):
+    """``choose_page_size(cfg, 512, fused=True)``: a divisor of max_seq
+    whose oproj footprint fits the budget the adapter sized it under."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import oproj_smem_bytes_required
+    from repro_torch.serve.kv_cache import choose_page_size
+    cfg = dataclasses.replace(get_config("granite-3-8b"), dtype=dtype)
+    page = choose_page_size(cfg, 512, fused=True)
+    g = cfg.n_heads // cfg.n_kv_heads
+    assert 512 % page == 0
+    assert oproj_smem_bytes_required(page, g, cfg.head_dim, cfg.d_model,
+                                     dtype.itemsize) <= BUDGET
+    assert page == best_schedule(
+        "flash_decode_oproj", (g, 512, cfg.head_dim, cfg.d_model),
+        str(dtype).removeprefix("torch.")).tiles[0]
 
 
 # -- cache -----------------------------------------------------------------
@@ -216,9 +327,29 @@ def test_opspec_validation():
         OpSpec("relu", (1, 2, 3))
     with pytest.raises(ValueError):
         Schedule(OpSpec("matmul", (8, 8, 8)), (8, 8))
-    for op in ("conv2d", "matmul_w8", "flash_decode_oproj", "matmul_dgrad"):
+    for op in ("conv2d", "matmul_w8", "flash_decode_fp8", "matmul_dgrad"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             OpSpec(op, (8, 8, 8))
+
+
+@pytest.mark.parametrize("op,dims,key", [
+    ("qkv_fused", ["8", "1024", "4096", "4"],
+     "qkv_fused/m8n1024k4096g4/bfloat16/cpu"),
+    ("flash_decode_oproj", ["4", "512", "128", "4096"],
+     "flash_decode_oproj/g4s512d128e4096/bfloat16/cpu"),
+    ("matmul_fused", ["8", "256", "512"],
+     "matmul_fused/m8n256k512/bfloat16/cpu")])
+def test_cli_takes_the_fused_keys(tmp_path, op, dims, key):
+    path = tmp_path / "s.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_TUNE_CACHE": str(path)}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tune", op, *dims, "--dtype",
+         "bfloat16", "--no-measure"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "winner: tiles=" in res.stdout
+    assert key in json.loads(path.read_text())["schedules"]
 
 
 def test_cli_ranks_and_persists_without_measuring(tmp_path):
