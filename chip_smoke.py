@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the six CUDA kernels from ``src/repro_torch/csrc`` with
+2. build the eight CUDA kernels from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
@@ -18,10 +18,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tile of granite's gate, up and down projections at M = 8, 64, 512;
    ``qkv_fused`` under every adapter tile at those M; and
    ``flash_decode_oproj`` at pages 16, 32, 64 and the fused engine's
-   page, window and logit cap on and off;
+   page, window and logit cap on and off; the quantized kernels:
+   ``matmul_w8`` under every adapter tile of granite's projections at
+   M = 8, 64, 512 (and a per-tensor scale, two ragged shapes), the int8
+   ``matmul_fused`` under every epilogue combination and granite's MLP,
+   ``flash_decode_fp8`` at pages 16, 32, 64 and the model's fp8 page,
+   q_span 1 and 64, window, cap and unit or drawn scales;
 4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
-   fused: the kernel path and the plain path give identical greedy token
-   streams, through both whole-prompt joins and chunked prefill;
+   fused, with wide weights and under w8fp8 (int8 projections, fp8
+   pages): the kernel path and the plain path give identical greedy
+   token streams, through both whole-prompt joins and chunked prefill,
+   and the plain path launches nothing;
 5. the full run on the cuBLAS path: granite-3-8b at full width and depth
    in bf16, weights from ``--seed``, serving 16 requests (prompts of
    16..300 tokens, 32 new tokens each) through ``PagedEngine`` with page
@@ -34,10 +41,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
 6b. the fused path: phase 6 with ``fuse=True`` (``qkv_fused``,
    ``matmul_fused`` and ``flash_decode_oproj``; the page under the fused
    key), with the same checks and its own profiler window;
+9. the quantized path (run after 6b, while the bf16 model is in memory):
+   ``quantize_params`` on the card, an fp8 page pool, the model's page
+   and chunk, every projection through ``matmul_w8`` and decode through
+   ``flash_decode_fp8``; the prefill logits held against the cuBLAS path
+   over the fake-quant tree, and reported against the bf16 model's;
+9b. the same with ``fuse=True`` (the MLP through the int8
+   ``matmul_fused``; q, k, v and wo through ``matmul_w8``);
 7. ``tune_op`` on the decode GEMM shape and the decode QKV pass into a
    temporary cache;
-8. each kernel timed at the shapes of phases 6 and 6b beside its bound,
-   its plain version and a library call.
+8. each kernel timed at the shapes of phases 6, 6b, 9 and 9b beside its
+   bound, its plain version and a library call.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -351,6 +365,137 @@ def phase3_fused(dev) -> None:
     torch.cuda.synchronize()
 
 
+def w8_inputs(dev, dtype, m, n, k, seed):
+    """``gemm_inputs`` with the weight quantized to int8 per output
+    channel (``quant.quantize``): A in ``dtype`` and the QuantizedTensor."""
+    import torch
+    from repro_torch.quant import quantize
+    a, w = gemm_inputs(dev, torch.float32, m, n, k, seed)
+    return a.to(dtype), quantize(w)
+
+
+def fp8_paged(args, seed, unit=True):
+    """``paged_inputs`` with the pools cast to float8_e4m3fn and the
+    per-kv-head fp32 scales (ones, or drawn in [0.5, 2] from ``seed``)."""
+    import torch
+    q, kp, vp, bt, ln = args
+    hkv = kp.shape[2]
+    rng = np.random.default_rng(seed)
+    ks, vs = (torch.ones(hkv, device=q.device) if unit else
+              torch.tensor(rng.uniform(0.5, 2.0, hkv), dtype=torch.float32,
+                           device=q.device) for _ in range(2))
+    fp8 = torch.float8_e4m3fn
+    return q, kp.to(fp8), vp.to(fp8), ks, vs, bt, ln
+
+
+GRANITE_PROJ = ("wq, wo", "wk, wv", "w_gate, w_up", "w_down")   # GRANITE_NK
+
+
+def phase3_quant(dev) -> None:
+    """The three quantized kernels against their plain versions."""
+    import itertools
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.hopper_adapter import matmul_tile_candidates
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import matmul_q as MQ
+    from repro_torch.serve.kv_cache import choose_page_size
+    from repro_torch.tune import best_schedule
+    cfg = get_config("granite-3-8b")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        n_tiles = 0
+        # matmul_w8: every adapter tile of granite's projections (four
+        # shapes cover the seven), per-channel scales; the model's tile
+        # also with a per-tensor scale; two launches agree bit for bit
+        for m in (8, 64, 512):
+            for (n, k), names in zip(GRANITE_NK, GRANITE_PROJ):
+                a, qw = w8_inputs(dev, dtype, m, n, k, seed=m + n + k)
+                ref = MQ.matmul_w8_ref(a, qw.q, qw.scale)
+                for bm, bk, bn in matmul_tile_candidates(
+                        m, n, k, a.element_size(), w_bytes=1):
+                    out = MQ.matmul_w8(a, qw.q, qw.scale, bm=bm, bk=bk,
+                                       bn=bn)
+                    compare(f"matmul_w8 {dn} {names} M={m} N={n} K={k} "
+                            f"tiles={(bm, bk, bn)}", out, ref, dn,
+                            gemm_atol(dn, k))
+                    n_tiles += 1
+                bm, bk, bn = best_schedule("matmul_w8", (m, n, k), dn).tiles
+                s = qw.scale.max()
+                out = MQ.matmul_w8(a, qw.q, s, bm=bm, bk=bk, bn=bn)
+                assert torch.equal(out, MQ.matmul_w8(a, qw.q, s, bm=bm,
+                                                     bk=bk, bn=bn))
+                compare(f"matmul_w8 {dn} {names} M={m} per-tensor scale "
+                        f"tiles={(bm, bk, bn)}", out,
+                        MQ.matmul_w8_ref(a, qw.q, s), dn, gemm_atol(dn, k))
+        # ragged M and K (scalar A staging when K is no multiple of 16 B)
+        for m, n, k, tiles in ((37, 1008, 300, (16, 64, 64)),
+                               (520, 4112, 4100, (128, 64, 128))):
+            a, qw = w8_inputs(dev, dtype, m, n, k, seed=m + n)
+            bm, bk, bn = tiles
+            compare(f"matmul_w8 {dn} M={m} N={n} K={k} tiles={tiles}",
+                    MQ.matmul_w8(a, qw.q, qw.scale, bm=bm, bk=bk, bn=bn),
+                    MQ.matmul_w8_ref(a, qw.q, qw.scale), dn,
+                    gemm_atol(dn, k))
+        # the int8 matmul_fused: every activation x scale, bias, mul and
+        # residual on and off, one shape.  Without the scale the int8
+        # product is O(127 * sqrt(K)); A then carries the mean scale so
+        # every output stays O(1), the regime the tolerances are for
+        m, n, k = 64, 1024, 512
+        a, qw = w8_inputs(dev, dtype, m, n, k, seed=21)
+        a_unscaled = (a.float() * qw.scale.mean()).to(dtype)
+        for act, sc, bi, mu, re in itertools.product(
+                MF.ACTIVATIONS, *[(False, True)] * 4):
+            kw = epilogue(dev, dtype, m, n, seed=22, act=act, bias=bi,
+                          mul=mu, residual=re)
+            kw["scale"] = qw.scale.reshape(-1) if sc else None
+            a_in = a if sc else a_unscaled
+            compare(f"matmul_fused int8 {dn} act={act} scale={int(sc)} "
+                    f"bias={int(bi)} mul={int(mu)} res={int(re)}",
+                    MF.matmul_fused(a_in, qw.q, **kw, bm=64, bk=64, bn=128),
+                    MF.matmul_fused_ref(a_in, qw.q, **kw), dn,
+                    gemm_atol(dn, k))
+        # ... and granite's MLP at the model's w8 tiles
+        for m in (8, 512):
+            for name, n, k, epi in GRANITE_MLP:
+                a, qw = w8_inputs(dev, dtype, m, n, k, seed=m + n + k)
+                kw = epilogue(dev, dtype, m, n, seed=m, **epi)
+                kw["scale"] = qw.scale.reshape(-1)
+                bm, bk, bn = best_schedule("matmul_w8", (m, n, k), dn).tiles
+                compare(f"matmul_fused int8 {dn} {name} M={m} N={n} K={k} "
+                        f"tiles={(bm, bk, bn)}",
+                        MF.matmul_fused(a, qw.q, **kw, bm=bm, bk=bk, bn=bn),
+                        MF.matmul_fused_ref(a, qw.q, **kw), dn,
+                        gemm_atol(dn, k))
+        # flash_decode_fp8 at pages 16, 32, 64 and the model's fp8 page
+        fp8_page = choose_page_size(dataclasses.replace(
+            cfg, dtype=dtype, kv_cache_dtype=torch.float8_e4m3fn), 512)
+        for q_span, lengths in ((1, [1, 17, 64, 130, 300, 512]),
+                                (64, [1, 17, 64, 130, 300, 470])):
+            for page in sorted({16, 32, 64, fp8_page}):
+                for window, cap, unit in ((None, None, True),
+                                          (37, 30.0, False)):
+                    args = fp8_paged(paged_inputs(
+                        dev, torch.float32, lengths, q_span, seed=page,
+                        page=page, n_blocks=-(-512 // page)), seed=page,
+                        unit=unit)
+                    args = (args[0].to(dtype),) + args[1:]
+                    kw = dict(window=window, logit_cap=cap, q_span=q_span)
+                    out = FD.flash_decode_fp8(*args, **kw)
+                    assert torch.equal(out, FD.flash_decode_fp8(*args, **kw))
+                    tag = " (the model's fp8 page)" if page == fp8_page \
+                        else ""
+                    compare(f"flash_decode_fp8 {dn} q_span={q_span} "
+                            f"page={page} window={window} cap={cap} "
+                            f"scales={'unit' if unit else 'drawn'}{tag}",
+                            out, FD.paged_attention_fp8_ref(*args, **kw), dn)
+        print(f"  {n_tiles} adapter tiles of matmul_w8 checked in {dn}; the "
+              f"model's fp8 page is {fp8_page}")
+    torch.cuda.synchronize()
+
+
 def engine_for(cfg, params, **kw):
     """The main path's engine: page 64, prefill chunk 64, max_seq 512."""
     from repro_torch.serve.engine import PagedEngine, PagedServeConfig
@@ -364,37 +509,50 @@ def serve(cfg, params, prompts, n_tokens, **kw):
 
 
 def phase4_parity(seed: int, kernels: dict) -> None:
-    """Unfused, then fused: the kernel path and the plain path give
+    """Unfused, then fused, with wide weights and then under w8fp8 (int8
+    projections, fp8 pages): the kernel path and the plain path give
     identical greedy streams through joins and chunked prefill."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
+    from repro_torch.quant import quantize_params
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
                               dtype=torch.float32)
     params = T.init_params(cfg, seed=seed, device="cuda")
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype=torch.float8_e4m3fn)
+    qparams = quantize_params(params)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
                for n in (5, 37, 64, 65, 130, 300)]    # joins and chunks
-    for fuse, path in ((False, ("flash_attention", "flash_decode")),
-                       (True, ("flash_attention", "flash_decode",
-                               "flash_decode_oproj", "matmul_fused",
-                               "qkv_fused"))):
+    runs = (
+        ("wide", cfg, params, False, ("flash_attention", "flash_decode")),
+        ("wide", cfg, params, True,
+         ("flash_attention", "flash_decode", "flash_decode_oproj",
+          "matmul_fused", "qkv_fused")),
+        ("w8fp8", cfg8, qparams, False,
+         ("flash_attention", "flash_decode_fp8", "matmul_w8")),
+        ("w8fp8", cfg8, qparams, True,
+         ("flash_attention", "flash_decode_fp8", "matmul_w8",
+          "matmul_fused")))
+    for mode, c, p, fuse, path in runs:
         reset(kernels)
-        kern = serve(cfg, params, prompts, 8, max_batch=4, fuse=fuse)
+        kern = serve(c, p, prompts, 8, max_batch=4, fuse=fuse)
         launched = counts(kernels)
-        plain = serve(cfg, params, prompts, 8, max_batch=4, fuse=fuse,
+        plain = serve(c, p, prompts, 8, max_batch=4, fuse=fuse,
                       use_kernel=False)
         assert counts(kernels) == launched, "the plain path launched a kernel"
         assert min(launched[k] for k in path) > 0, launched
+        others = {k: n for k, n in launched.items() if k not in path}
+        assert not any(others.values()), (mode, fuse, others)
         for a, b in zip(kern, plain):
             if not np.array_equal(a.output, b.output):
-                raise AssertionError(f"fuse={fuse}, request {a.rid}: kernel "
-                                     f"path {a.output.tolist()} != plain "
-                                     f"path {b.output.tolist()}")
-        print(f"  fuse={fuse}: 6 requests x 8 tokens identical (kernel "
-              f"launches: { {k: launched[k] for k in path} }); first "
-              f"tokens {[int(r.output[0]) for r in kern]}")
-    del params
+                raise AssertionError(f"{mode} fuse={fuse}, request {a.rid}: "
+                                     f"kernel path {a.output.tolist()} != "
+                                     f"plain path {b.output.tolist()}")
+        print(f"  {mode} fuse={fuse}: 6 requests x 8 tokens identical "
+              f"(kernel launches: { {k: launched[k] for k in path} }); "
+              f"first tokens {[int(r.output[0]) for r in kern]}")
+    del params, qparams
     torch.cuda.empty_cache()
 
 
@@ -450,7 +608,8 @@ def run_engine(cfg, engine, prompts, kernels,
     """Serve ``prompts`` (32 new tokens each) on a warm engine with every
     launch count at 0 just before; checks every request, the pool and
     the attention kernels' launches (under ``fused``, single-token
-    decode runs flash_decode_oproj and only prefill chunks flash_decode).
+    decode runs flash_decode_oproj and only prefill chunks flash_decode;
+    an fp8 pool runs flash_decode_fp8 for both, fused or not).
     """
     import torch
     torch.cuda.synchronize()
@@ -467,9 +626,12 @@ def run_engine(cfg, engine, prompts, kernels,
     assert engine.scheduler.allocator.in_use() == 0, "pages leaked"
     n_layers = cfg.n_layers
     assert launches["flash_attention"] == n_layers * snap["joins"] > 0
-    decode = "flash_decode_oproj" if fused else "flash_decode"
+    fp8 = (cfg.kv_cache_dtype or cfg.dtype).itemsize == 1
+    decode = ("flash_decode_fp8" if fp8 else
+              "flash_decode_oproj" if fused else "flash_decode")
     assert launches[decode] >= n_layers * snap["decode_steps"] > 0
-    assert launches["flash_decode"] + launches["flash_decode_oproj"] == \
+    assert launches["flash_decode"] + launches["flash_decode_oproj"] + \
+        launches["flash_decode_fp8"] == \
         n_layers * (snap["decode_steps"] + snap["prefill_chunks"])
     tokens = sum(len(r.output) for r in reqs)
     summary = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
@@ -644,6 +806,76 @@ def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
     return summary
 
 
+def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
+                     want_fq, want_bf16) -> dict:
+    """granite-3-8b with int8 projections and an fp8 page pool (w8fp8),
+    the model's page and chunk, unfused (phase 9) or fused (9b), on phase
+    5's requests.  Every projection runs matmul_w8 (under fuse: q, k, v
+    and wo; the MLP the int8 matmul_fused) and decode flash_decode_fp8.
+    The prefill logits are held against the cuBLAS path over the
+    fake-quant tree (the same int8 weights, dequantized to bf16), and
+    reported against the bf16 model's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import (PagedEngine, PagedServeConfig,
+                                          default_buckets)
+    from repro_torch.tune import best_schedule
+
+    def engine():
+        return PagedEngine(cfg, qparams, PagedServeConfig(
+            max_seq=512, max_batch=8, device="cuda", fuse=fuse))
+
+    eng = engine()
+    # the w8 tiles for every M the run can give a projection, before the
+    # clock starts (a search is host work the cache removes)
+    t0 = time.perf_counter()
+    ms = {8} | set(default_buckets(cfg, 512))
+    ms |= {1 << i for i in range(eng.prefill_chunk.bit_length())}
+    for m in sorted(ms):
+        for n, k in GRANITE_NK:
+            best_schedule("matmul_w8", (m, n, k), "bfloat16")
+    print(f"  w8 tiles derived for M in {sorted(ms)} in "
+          f"{time.perf_counter() - t0:.1f}s; page {eng.page_size} and chunk "
+          f"{eng.prefill_chunk} under flash_decode_fp8, kv "
+          f"{str(eng.cache['k_pages'].dtype).removeprefix('torch.')}")
+    engine().generate(warm, 4)
+    summary, snap = run_engine(cfg, eng, prompts, kernels, fused=fuse)
+    launches, n_layers = summary["launches"], cfg.n_layers
+    calls = snap["joins"] + snap["decode_steps"] + snap["prefill_chunks"]
+    assert launches["flash_decode_fp8"] == \
+        n_layers * (snap["decode_steps"] + snap["prefill_chunks"]), launches
+    w8_per_call = 4 if fuse else 7
+    assert launches["matmul_w8"] == w8_per_call * n_layers * calls, launches
+    assert launches["matmul_fused"] == \
+        (3 * n_layers * calls if fuse else 0), launches
+    for name in ("qkv_fused", "flash_decode_oproj", "flash_decode",
+                 "matmul_blocked"):
+        assert launches[name] == 0, (name, launches)
+    print(f"  launches: matmul_w8 {launches['matmul_w8']} = {w8_per_call} "
+          f"projections x {n_layers} layers x {calls} model calls; "
+          f"matmul_fused (int8) {launches['matmul_fused']}; "
+          f"flash_decode_fp8 {launches['flash_decode_fp8']} = {n_layers} x "
+          f"{snap['decode_steps'] + snap['prefill_chunks']} decode steps "
+          f"and chunks")
+    with ops.fused_ops(fuse):
+        got = prefill_logits(cfg, qparams, prompts[0])
+    summary["logits_vs_fake_quant_cublas"] = hold_logits(
+        "w8 kernels vs cuBLAS over the fake-quant tree", got, want_fq)
+    dev_ = float((got - want_bf16).abs().max())
+    scale = float(want_bf16.abs().max())
+    same = int(got.argmax()) == int(want_bf16.argmax())
+    print(f"  quantization's own effect: w8 logits vs the bf16 model's "
+          f"(cuBLAS): max |diff| {dev_:.3e} of max |logit| {scale:.3e} "
+          f"({100 * dev_ / scale:.2f}%); argmax "
+          f"{'agrees' if same else 'differs'} (reported, not a check)")
+    assert bool(torch.isfinite(got).all())
+    summary["logits_vs_bf16_model"] = {"max_abs_diff": dev_,
+                                       "max_abs_logit": scale,
+                                       "argmax_agrees": same}
+    summary["profile"] = profile_window(engine(), prompts[:8], 8)
+    return summary
+
+
 def _cublas_logits(cfg, params, prompt):
     from repro_torch.kernels import ops
     with ops.blocked_linear(False):
@@ -686,12 +918,19 @@ def kernel_kind(name: str) -> str:
     if "gemm_kernel" in name:       # the port's GEMM tile core
         if "QkvMap" in name:
             return "qkv_fused"
-        return "matmul_fused" if "FusedMap" in name else "matmul_blocked"
+        if "W8Map" in name:
+            return "matmul_w8"
+        if "FusedMap" in name:
+            return ("matmul_fused (int8)" if "signed char" in name
+                    else "matmul_fused")
+        return "matmul_blocked"
     if "decode_oproj_kernel" in name:
         return "flash_decode_oproj"
     if "attn_rows_kernel" in name:
-        return ("flash_decode" if "PagedLayout" in name
-                else "flash_attention")
+        if "PagedLayout" not in name:
+            return "flash_attention"
+        return ("flash_decode_fp8" if "unsigned char" in name
+                else "flash_decode")
     if any(w in name.lower()
            for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul"
@@ -966,6 +1205,137 @@ def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
     return rows
 
 
+def time_quant_kernels(cfg, lens, launches9, launches9b,
+                       page: int) -> list[dict]:
+    """The three quantized kernels at the decode shapes of phases 9 and
+    9b (8 slots, the model's w8 tiles and fp8 page), beside bound, plain
+    version and a library call.  No single PyTorch call computes an
+    int8-weight product, so the yardstick of the two GEMMs is
+    ``torch.matmul`` (``addmm`` with the residual) against the bf16
+    weight: the wide reference, which reads twice the weight bytes."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import matmul_q as MQ
+    from repro_torch.tune import best_schedule
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = []
+
+    # decode over the fp8 pool: 8 slots mid-generation, the fp8 page
+    dec_lens = [int(n) + 16 for n in lens[:8]]
+    n_keys = sum(dec_lens)
+    args = fp8_paged(paged_inputs(dev, torch.float32, dec_lens, 1, seed=9,
+                                  page=page, n_blocks=-(-512 // page)),
+                     seed=9)
+    args = (args[0].to(bf16),) + args[1:]
+    kv_bytes = 2 * n_keys * hkv * d * 1
+    io = 2 * args[0].numel() * 2 + args[5].numel() * 4 + 4 * 8 + 2 * 4 * hkv
+    b_ms, b_by = bound(kv_bytes + io, 4 * n_keys * hq * d)
+    rows.append({
+        "name": "flash_decode_fp8", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_decode_fp8.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:295",
+        "launches": launches9["flash_decode_fp8"],
+        "max_abs_err": float((FD.flash_decode_fp8(*args).float()
+                              - FD.paged_attention_fp8_ref(*args).float())
+                             .abs().max()),
+        "ms": time_ms(lambda: FD.flash_decode_fp8(*args)),
+        "plain_ms": time_ms(lambda: FD.paged_attention_fp8_ref(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"decode B=8 Hkv={hkv} G={hq // hkv} D={d} page={page} "
+                 f"lengths={dec_lens} (sum {n_keys}) q bf16, pages "
+                 f"float8_e4m3fn, unit scales; phase 9b launches "
+                 f"{launches9b['flash_decode_fp8']}"})
+
+    # matmul_w8: the decode projections (M = 8) at granite's four shapes
+    # and a 512-token join, the model's w8 tiles
+    gemms = []
+    for m, (n, k) in [(8, nk) for nk in GRANITE_NK] + [(512, (4096, 4096))]:
+        a, qw = w8_inputs(dev, bf16, m, n, k, seed=m + n + k)
+        wide = qw.dequant(bf16)
+        bm, bk, bn = best_schedule("matmul_w8", (m, n, k), "bfloat16").tiles
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
+                           2 * m * n * k)
+        gemms.append({
+            "name": "matmul_w8", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul_w8.cu",
+            "replaces": "src/repro/kernels/matmul_q.py:90",
+            "launches": launches9["matmul_w8"],
+            "max_abs_err": float(
+                (MQ.matmul_w8(a, qw.q, qw.scale, bm=bm, bk=bk, bn=bn)
+                 .float() - MQ.matmul_w8_ref(a, qw.q, qw.scale).float())
+                .abs().max()),
+            "ms": time_ms(lambda: MQ.matmul_w8(a, qw.q, qw.scale, bm=bm,
+                                               bk=bk, bn=bn)),
+            "plain_ms": time_ms(lambda: MQ.matmul_w8_ref(a, qw.q,
+                                                         qw.scale)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.matmul(a, wide)),
+            "shape": f"M={m} N={n} K={k} tiles={(bm, bk, bn)} A bf16, W "
+                     f"int8, per-channel scale; library: torch.matmul "
+                     f"against the bf16 weight (the wide reference); "
+                     f"phase 9b launches {launches9b['matmul_w8']}"})
+    rows.append(gemms[0])
+    for r in gemms[1:]:
+        print(f"  matmul_w8 {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library "
+              f"{r['library_ms']:.4f} ms  [{r['shape']}]")
+
+    # the int8 matmul_fused: granite's MLP at decode and a join; the row
+    # is the down projection with its residual
+    for m in (8, 512):
+        for name, n, k, epi in GRANITE_MLP:
+            a, qw = w8_inputs(dev, bf16, m, n, k, seed=m + n + k)
+            wide = qw.dequant(bf16)
+            kw = epilogue(dev, bf16, m, n, seed=m, **epi)
+            kw["scale"] = qw.scale.reshape(-1)
+            bm, bk, bn = best_schedule("matmul_w8", (m, n, k),
+                                       "bfloat16").tiles
+            extra = m * n * 2 * (kw["mul"] is not None
+                                 or kw["residual"] is not None)
+            b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2 + extra,
+                               2 * m * n * k)
+            if kw["residual"] is not None:
+                res = kw["residual"]
+                lib = lambda: torch.addmm(res, a, wide)  # noqa: E731
+            else:
+                lib = lambda: torch.matmul(a, wide)  # noqa: E731
+            row = {
+                "name": "matmul_fused (int8)", "route": "cuda",
+                "source": "src/repro_torch/csrc/matmul_fused.cu",
+                "replaces": "src/repro/kernels/matmul_fused.py:173",
+                "launches": launches9b["matmul_fused"],
+                "max_abs_err": float(
+                    (MF.matmul_fused(a, qw.q, **kw, bm=bm, bk=bk, bn=bn)
+                     .float() - MF.matmul_fused_ref(a, qw.q, **kw).float())
+                    .abs().max()),
+                "ms": time_ms(lambda: MF.matmul_fused(a, qw.q, **kw, bm=bm,
+                                                      bk=bk, bn=bn)),
+                "plain_ms": time_ms(lambda: MF.matmul_fused_ref(a, qw.q,
+                                                                **kw)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib),
+                "shape": f"{name} M={m} N={n} K={k} {epi} tiles="
+                         f"{(bm, bk, bn)} A bf16, W int8; library: "
+                         + ("addmm(residual, a, w_bf16)" if name == "down"
+                            else "matmul(a, w_bf16), no epilogue")}
+            if m == 8 and name == "down":
+                rows.append(row)
+            else:
+                print(f"  matmul_fused (int8) {row['ms']:.4f} ms  plain "
+                      f"{row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({b_by})  library {row['library_ms']:.4f} ms  "
+                      f"[{row['shape']}]")
+    for r in rows:
+        print(f"  {r['name']:<20} {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  library {r['library_ms']}  "
+              f"[{r['shape']}]")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -980,12 +1350,15 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import matmul_blocked as MB
     from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import matmul_q as MQ
     from repro_torch.kernels import qkv_fused as QF
     kernels = {"flash_attention": FA.flash_attention,
                "flash_decode": FD.flash_decode,
+               "flash_decode_fp8": FD.flash_decode_fp8,
                "flash_decode_oproj": FD.flash_decode_oproj,
                "matmul_blocked": MB.matmul_blocked,
                "matmul_fused": MF.matmul_fused,
+               "matmul_w8": MQ.matmul_w8,
                "qkv_fused": QF.qkv_fused}
 
     print("phase 1: card")
@@ -1003,9 +1376,17 @@ def main() -> int:
 
     print("phase 2: build")
     t0 = time.perf_counter()
-    reports = _build.build()
+
+    def build_one(name):     # one nvcc each, all at once, each timed
+        reports = _build.build([name])
+        return name, reports, time.perf_counter() - t0
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        built = list(pool.map(build_one, _build.SOURCES))
+    reports = {n: log for _, r, _ in built for n, log in r.items()}
     print(f"  built {sorted(reports) or 'nothing (up to date)'} in "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{time.perf_counter() - t0:.1f}s; done after (s): "
+          f"{ {n: round(t, 1) for n, _, t in built} }")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1014,8 +1395,9 @@ def main() -> int:
     print("phase 3: kernels vs plain versions")
     phase3_kernels(torch.device("cuda"))
     phase3_fused(torch.device("cuda"))
+    phase3_quant(torch.device("cuda"))
     print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32, "
-          "unfused and fused")
+          "unfused and fused, wide and w8fp8")
     phase4_parity(args.seed, kernels)
     print("phase 5: granite-3-8b, full width and depth, bf16, cuBLAS path")
     cfg, params, warm, lens, prompts = full_model(args.seed)
@@ -1028,17 +1410,52 @@ def main() -> int:
     fused = phase6_fused(cfg, params, warm, prompts, kernels)
     print(f"  fused {fused['tok_per_s']:.1f} tok/s against blocked "
           f"{blocked['tok_per_s']:.1f} tok/s in this run")
+    print("phase 9: the quantized path (w8fp8): int8 projections from "
+          "quantize_params on the card, an fp8 page pool, the model's page "
+          "and chunk")
+    from repro_torch.quant import (dequantize_params, quantize_params,
+                                   quantized_bytes)
+    want_bf16 = _cublas_logits(cfg, params, prompts[0])
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    qb, db = quantized_bytes(qparams)
+    print(f"  quantized projection weights: {qb / 1e9:.3f} GB (same "
+          f"projections at bf16: {db / 1e9:.3f} GB), quantized in "
+          f"{time.perf_counter() - t0:.1f}s")
     del params
+    torch.cuda.empty_cache()
+    fq = dequantize_params(qparams, torch.bfloat16)
+    want_fq = _cublas_logits(cfg, fq, prompts[0])
+    del fq
+    torch.cuda.empty_cache()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype=torch.float8_e4m3fn)
+    quant = phase9_quantized(cfg8, qparams, warm, prompts, kernels, False,
+                             want_fq, want_bf16)
+    print("phase 9b: the quantized path, fuse=True (q/k/v and wo through "
+          "matmul_w8, the MLP through the int8 matmul_fused)")
+    quant_fused = phase9_quantized(cfg8, qparams, warm, prompts, kernels,
+                                   True, want_fq, want_bf16)
+    for r in (quant, quant_fused):
+        r["quantized_bytes"], r["bf16_bytes"] = qb, db
+    print(f"  w8fp8 {quant['tok_per_s']:.1f} tok/s, fused "
+          f"{quant_fused['tok_per_s']:.1f} tok/s in this run")
+    del qparams
     torch.cuda.empty_cache()
     print("phase 7: tune_op matmul (8, 4096, 4096) and qkv_fused "
           "(8, 1024, 4096, 4), bfloat16")
     tuned = phase7_tune()
-    print("phase 8: kernel timings at the blocked and fused runs' shapes")
+    print("phase 8: kernel timings at the blocked, fused and quantized "
+          "runs' shapes")
     rows = time_kernels(cfg, lens, blocked["launches"], blocked["page"])
     rows += time_fused_kernels(cfg, lens, fused["launches"], fused["page"])
+    rows += time_quant_kernels(cfg, lens, quant["launches"],
+                               quant_fused["launches"], quant["page"])
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
                                  "cublas": cublas, "blocked": blocked,
-                                 "fused": fused, "tune": tuned}))
+                                 "fused": fused, "w8fp8": quant,
+                                 "w8fp8_fused": quant_fused,
+                                 "tune": tuned}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models.base import map_tree
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import QuantizedTensor
 from repro_torch.util import resolve_device
 
 
@@ -24,11 +25,37 @@ def _unstack(tree: Any, i: int) -> Any:
     return map_tree(lambda a: a[i], tree)
 
 
+def _is_quantized(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) == {"q", "scale"}
+
+
+def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _leaves(tree: Any, fn) -> Any:
+    """``map_tree`` that keeps a quantized leaf ``{"q", "scale"}`` whole."""
+    if _is_quantized(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaves(v, fn) for v in tree]
+    return fn(tree)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict,
                       device: str | torch.device = "cuda") -> dict:
     """The port's parameters from a numpy-mapped JAX param tree, on
     ``device`` in ``cfg.dtype`` (numpy has no bfloat16: map bf16 leaves
-    to float32 first, and they are cast back here)."""
+    to float32 first, and they are cast back here).
+
+    A quantized leaf is given as ``{"q": payload, "scale": fp32}`` (JAX's
+    ``QuantizedTensor`` mapped to numpy; a stacked group's ``(G, K, N)``
+    payload and ``(G, 1, N)`` scale are unstacked per layer like every
+    leaf) and becomes a :class:`QuantizedTensor` whose payload keeps its
+    dtype and whose scale stays fp32: neither is cast to ``cfg.dtype``.
+    """
     dev = resolve_device(device)
     pattern = cfg.layer_pattern
     n_groups = cfg.n_layers // len(pattern)
@@ -40,5 +67,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
                          f"{cfg.name} has {cfg.n_layers}")
     out = {k: v for k, v in tree.items() if k not in ("layers", "tail")}
     out["layers"] = layers
-    return map_tree(lambda a: torch.from_numpy(np.array(a)).to(
-        dev, cfg.dtype), out)
+
+    def leaf(a: Any):
+        if _is_quantized(a):
+            return QuantizedTensor(_tensor(a["q"], dev),
+                                   _tensor(a["scale"], dev).float())
+        return _tensor(a, dev).to(cfg.dtype)
+    return _leaves(out, leaf)

@@ -20,7 +20,15 @@ and Hopper's alignment and emits:
   oproj-fused decode kernel (the page of a fused engine).
 
 ``"matmul_fused"`` takes ``matmul_tile_candidates`` as they are: its
-kernel stages exactly what the blocked GEMM stages.  Each candidate is
+kernel stages exactly what the blocked GEMM stages.  The quantized keys
+take the same two searches with their narrow operand at one byte:
+``"matmul_w8"`` ``matmul_tile_candidates(w_bytes=1)`` (the int8 weight
+tile priced by ``matmul_q.smem_bytes_required``; N and K tiles stay
+multiples of 64, so bn is a whole number of 16-byte int8 copies whenever
+N is), and ``"flash_decode_fp8"``
+``flash_decode_tile_candidates(kv_bytes=1)`` (1-byte pages under bf16
+q rows: at D = 128 a page of up to 218 keys fits the two-block budget of
+116,224 B, against 110 at 2 bytes; the model chooses).  Each candidate is
 checked against the CUDA kernel's own footprint (``smem_bytes_required``,
 and for the GEMMs ``accumulators_per_thread``), imported lazily so the
 model stays importable without the kernels.
@@ -96,13 +104,16 @@ def _pick_tile(extent: int, target: int, mult: int) -> int:
 
 
 def matmul_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
-                budget: int, target: HopperTarget = H100_SXM) -> bool:
+                budget: int, target: HopperTarget = H100_SXM,
+                w_bytes: int | None = None) -> bool:
     """Whether the GEMM kernel holds these tiles: its staged A and B
-    tiles within ``budget`` and its accumulator within the register
-    limit (lazy import: the kernel module owns its footprint)."""
+    tiles (B at ``w_bytes``: 1 for an int8 weight) within ``budget`` and
+    its accumulator within the register limit (lazy import: the kernel
+    module owns its footprint)."""
     from repro_torch.kernels.matmul_blocked import (accumulators_per_thread,
                                                     smem_bytes_required)
-    return (smem_bytes_required(bm, bk, bn, bytes_per_elem) <= budget
+    return (smem_bytes_required(bm, bk, bn, bytes_per_elem, w_bytes)
+            <= budget
             and accumulators_per_thread(bm, bn) <= target.acc_per_thread)
 
 
@@ -112,8 +123,8 @@ def _shrink(extent: int, tile: int, mult: int) -> int:
 
 
 def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
-                 bytes_per_elem: int, budget: int,
-                 target: HopperTarget) -> tuple[int, int, int]:
+                 bytes_per_elem: int, budget: int, target: HopperTarget,
+                 w_bytes: int | None = None) -> tuple[int, int, int]:
     """Snap an analytical (bm, bk, bn) to Hopper alignment, the shared
     memory budget and the register limit, shrinking one tile at a time."""
     from repro_torch.kernels.matmul_blocked import (accumulators_per_thread,
@@ -122,9 +133,11 @@ def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
     bm = _pick_tile(M, max(bm, mm), mm)
     bn = _pick_tile(N, max(bn, mk), mk)
     bk = _pick_tile(K, max(bk, mk), mk)
-    while not matmul_fits(bm, bk, bn, bytes_per_elem, budget, target):
+    while not matmul_fits(bm, bk, bn, bytes_per_elem, budget, target,
+                          w_bytes):
         regs_ok = accumulators_per_thread(bm, bn) <= target.acc_per_thread
-        smem_over = smem_bytes_required(bm, bk, bn, bytes_per_elem) > budget
+        smem_over = smem_bytes_required(bm, bk, bn, bytes_per_elem,
+                                        w_bytes) > budget
         # the staged tiles are bk * (bm + bn): shrink bk first while it
         # is the larger factor; an accumulator over the register limit
         # can only shrink through bm or bn
@@ -147,7 +160,8 @@ def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
 def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
                            smem_budget_bytes: int | None = None,
                            target: HopperTarget = H100_SXM,
-                           top: int = 8) -> tuple[tuple[int, int, int], ...]:
+                           top: int = 8, w_bytes: int | None = None
+                           ) -> tuple[tuple[int, int, int], ...]:
     """Ranked (bm, bk, bn) candidates for C[M,N] = A[M,K] @ B[K,N].
 
     The optimizer sees a 2-level hierarchy (one block's shared memory,
@@ -157,10 +171,13 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
     energy ranking; the tuner (``repro_torch.tune``) re-ranks by
     predicted DRAM accesses and measurement.  A candidate that fits no
     budget after snapping is dropped by the tuner's filter.
+    ``w_bytes``: the B operand's own width (1 for an int8 weight), which
+    the model's nest and the kernel's footprint both see.
     """
     budget = default_smem_budget(target, smem_budget_bytes)
     problem = Problem.gemm(M=M, N_cols=N, K_reduce=K,
-                           bytes_per_elem=bytes_per_elem)
+                           bytes_per_elem=bytes_per_elem,
+                           weight_bytes=w_bytes)
     levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
     align = {Dim.X: target.m_mult, Dim.K: target.nk_mult,
              Dim.C: target.nk_mult}
@@ -171,7 +188,7 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
     out: list[tuple[int, int, int]] = []
     for bm, bk, bn in raw:
         cand = _snap_matmul(bm, bk, bn, M, N, K, bytes_per_elem, budget,
-                            target)
+                            target, w_bytes)
         if cand not in out:
             out.append(cand)
     return tuple(out[:top])
@@ -190,7 +207,8 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
                                  bytes_per_elem: int = 2,
                                  smem_budget_bytes: int | None = None,
                                  target: HopperTarget = H100_SXM,
-                                 top: int = 8) -> tuple[tuple[int], ...]:
+                                 top: int = 8, kv_bytes: int | None = None
+                                 ) -> tuple[tuple[int], ...]:
     """Ranked ``(page,)`` candidates for the paged flash-decode kernel.
 
     Decode attention per (batch, kv head) is the skinny GEMM
@@ -201,13 +219,16 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
     multiples of 32 (one key per lane), to the kernel's shared-memory
     footprint at its rows per block, and to a divisor of ``seq_kv`` (a
     request's pages then tile ``max_seq`` exactly).  The chosen tile is
-    the paged cache's page size.
+    the paged cache's page size.  ``kv_bytes``: the pages' own width (1
+    for an fp8 pool, priced by the fp8 kernel's footprint; q rows keep
+    ``bytes_per_elem``).
     """
     from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
                                                   smem_bytes_required)
     budget = default_smem_budget(target, smem_budget_bytes)
     problem = Problem.gemm(M=groups, N_cols=head_dim, K_reduce=seq_kv,
-                           bytes_per_elem=bytes_per_elem)
+                           bytes_per_elem=bytes_per_elem,
+                           weight_bytes=kv_bytes)
     levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
     align = {Dim.C: target.key_mult}
     raw = [e.C for e in ranked_level0_tiles(problem, levels, align=align,
@@ -218,7 +239,7 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
     for page in raw:
         page = _pick_tile(seq_kv, max(page, mult), mult)
         while (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
-                                   bytes_per_elem) > budget
+                                   bytes_per_elem, kv_bytes) > budget
                and page > mult):
             page = _shrink(seq_kv, page, mult)
         if seq_kv % page:

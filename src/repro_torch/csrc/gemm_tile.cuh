@@ -1,7 +1,8 @@
-// Blocked GEMM tile core shared by the port's three GEMM kernels:
+// Blocked GEMM tile core shared by the port's four GEMM kernels:
 // matmul_blocked.cu (no epilogue), matmul_fused.cu (bias, activation,
-// mul and residual applied to the output tile) and qkv_fused.cu (one A
-// tile feeding three weight matrices).
+// mul and residual applied to the output tile; wide or int8 weights),
+// qkv_fused.cu (one A tile feeding three weight matrices) and
+// matmul_w8.cu (int8 weights, the per-column scale in the epilogue).
 //
 // Block (i, j) owns a (bm, bn) output tile at rows i*bm and walks the
 // whole K extent in steps of bk, so its fp32 accumulator is held across
@@ -10,7 +11,11 @@
 // since Hopper's blocks run in no order).  The tiles are runtime
 // arguments.  Each step stages one A tile (bm, bk) and one B tile
 // (bk, bn) in dynamic shared memory, two stages deep: the next step's
-// tiles are copied with cp.async while the current ones are used.  The
+// tiles are copied with cp.async while the current ones are used.  A and
+// B have their own element types (TA: fp32 or bf16; TB: TA, or int8 for
+// the quantized kernels): each tile is staged at its own width, so an
+// int8 B tile moves one byte per element, and B is widened to fp32 only
+// at the multiply-add.  The
 // 256 threads tile the output as thread-rows x column groups of 4:
 // ncg = ceil(bn / 4) column groups, n_tr = 256 / ncg thread-rows, and
 // each thread holds rows tr, tr + n_tr, ... (at most kMaxRows) x 4
@@ -29,8 +34,9 @@
 //                            write output row m, tile column c from the
 //                            fp32 sum (the epilogue; masks the edge).
 // Both read blockIdx.x for the block's column offset.  With 16-byte
-// staging, a map guarantees that the V consecutive columns starting at a
-// multiple of V share one source and are all in range or all out.
+// staging, a map guarantees that the V = 16 / sizeof(TB) consecutive
+// columns starting at a multiple of V (8 in bf16, 4 in fp32, 16 in int8)
+// share one source and are all in range or all out.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +53,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -55,6 +62,11 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+
+template <typename T> __device__ __forceinline__ T zero() {
+  return from_f<T>(0.f);
+}
+template <> __device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
 
 template <typename T> struct ColRef {
   const T* p;  // B[0, column], or nullptr past the edge
@@ -86,49 +98,60 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
   f[2] = __uint_as_float(u.y << 16);
   f[3] = __uint_as_float(u.y & 0xffff0000u);
 }
+// Four int8 values widened exactly without the int-to-float unit (a
+// quarter-rate instruction, which every thread-row of a tile repeats for
+// the same B values): byte b + 128 becomes the low mantissa byte of
+// 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void load4(const int8_t* p, float* f) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p) ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
 
 // Stage the A tile (rows m0.., columns k0..) and the B tile (rows k0..,
 // the map's columns) into As (bm, bk) and Bs (bk, bn).  kVec: 16-byte
 // cp.async copies (every row start and tile width is a multiple of 16
-// bytes); otherwise one element at a time, synchronously.
-template <typename T, bool kVec, class Map>
-__device__ __forceinline__ void load_tiles(T* As, T* Bs, const T* A,
+// bytes: VA = 16 / sizeof(TA) elements of A per copy, VB = 16 / sizeof(TB)
+// of B); otherwise one element at a time, synchronously.
+template <typename TA, typename TB, bool kVec, class Map>
+__device__ __forceinline__ void load_tiles(TA* As, TB* Bs, const TA* A,
                                            const Map& map, int M, int K,
                                            int m0, int k0, int bm, int bk,
                                            int bn) {
   if (kVec) {
-    constexpr int V = 16 / sizeof(T);
-    const int a_vpr = bk / V, b_vpr = bn / V;
+    constexpr int VA = 16 / sizeof(TA), VB = 16 / sizeof(TB);
+    const int a_vpr = bk / VA, b_vpr = bn / VB;
     for (int i = threadIdx.x; i < bm * a_vpr; i += kThreads) {
-      const int r = i / a_vpr, c = (i % a_vpr) * V;
-      T* dst = As + r * bk + c;
+      const int r = i / a_vpr, c = (i % a_vpr) * VA;
+      TA* dst = As + r * bk + c;
       if (m0 + r < M && k0 + c < K)
         cp_async16(dst, A + int64_t(m0 + r) * K + k0 + c);
       else
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
     for (int i = threadIdx.x; i < bk * b_vpr; i += kThreads) {
-      const int r = i / b_vpr, c = (i % b_vpr) * V;
-      T* dst = Bs + r * bn + c;
-      const ColRef<T> src = map.b_col(c);
+      const int r = i / b_vpr, c = (i % b_vpr) * VB;
+      TB* dst = Bs + r * bn + c;
+      const ColRef<TB> src = map.b_col(c);
       if (k0 + r < K && src.p != nullptr)
         cp_async16(dst, src.p + int64_t(k0 + r) * src.ld);
       else
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
-    const T zero = from_f<T>(0.f);
     for (int i = threadIdx.x; i < bm * bk; i += kThreads) {
       const int r = i / bk, c = i % bk;
       As[i] = (m0 + r < M && k0 + c < K) ? A[int64_t(m0 + r) * K + k0 + c]
-                                         : zero;
+                                         : zero<TA>();
     }
     for (int i = threadIdx.x; i < bk * bn; i += kThreads) {
       const int r = i / bn, c = i % bn;
-      const ColRef<T> src = map.b_col(c);
+      const ColRef<TB> src = map.b_col(c);
       Bs[i] = (k0 + r < K && src.p != nullptr)
                   ? src.p[int64_t(k0 + r) * src.ld]
-                  : zero;
+                  : zero<TB>();
     }
   }
   cp_async_commit();
@@ -139,13 +162,20 @@ __device__ __forceinline__ void load_tiles(T* As, T* Bs, const T* A,
 // runs R = 1, a 128 x 128 tile R = 16).  Two resident blocks per SM: the
 // shared-memory budget the Hopper adapter sizes tiles under
 // (core/hopper_adapter.py) assumes as much.
-template <typename T, bool kVec, int R, class Map>
+template <typename TA, typename TB, bool kVec, int R, class Map>
 __global__ void __launch_bounds__(kThreads, 2)
-gemm_kernel(const T* __restrict__ A, Map map, int M, int K, int bm, int bk,
+gemm_kernel(const TA* __restrict__ A, Map map, int M, int K, int bm, int bk,
             int bn) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int stage = bm * bk + bk * bn;  // elements per stage
-  T* const base = reinterpret_cast<T*>(smem);
+  // bytes of an A tile and of one stage (A tile, then B tile); with
+  // 16-byte staging both are multiples of 16, so every tile is aligned
+  const int a_tile = bm * bk * int(sizeof(TA));
+  const int stage = a_tile + bk * bn * int(sizeof(TB));
+  unsigned char* const base = smem;
+  auto a_at = [=](int s) { return reinterpret_cast<TA*>(base + s * stage); };
+  auto b_at = [=](int s) {
+    return reinterpret_cast<TB*>(base + s * stage + a_tile);
+  };
 
   const int m0 = blockIdx.y * bm;
   const int ncg = (bn + kCols - 1) / kCols;
@@ -173,15 +203,14 @@ gemm_kernel(const T* __restrict__ A, Map map, int M, int K, int bm, int bk,
 
   const int nk = (K + bk - 1) / bk;
   if (nk > 0)
-    load_tiles<T, kVec>(base, base + bm * bk, A, map, M, K, m0, 0, bm, bk,
-                        bn);
+    load_tiles<TA, TB, kVec>(a_at(0), b_at(0), A, map, M, K, m0, 0, bm, bk,
+                             bn);
   for (int t = 0; t < nk; ++t) {
-    const T* As = base + (t & 1) * stage;
-    const T* Bs = As + bm * bk;
+    const TA* As = a_at(t & 1);
+    const TB* Bs = b_at(t & 1);
     if (t + 1 < nk) {
-      T* nxt = base + ((t + 1) & 1) * stage;
-      load_tiles<T, kVec>(nxt, nxt + bm * bk, A, map, M, K, m0,
-                          (t + 1) * bk, bm, bk, bn);
+      load_tiles<TA, TB, kVec>(a_at((t + 1) & 1), b_at((t + 1) & 1), A, map,
+                               M, K, m0, (t + 1) * bk, bm, bk, bn);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -222,11 +251,12 @@ gemm_kernel(const T* __restrict__ A, Map map, int M, int K, int bm, int bk,
   }
 }
 
-template <typename T, bool kVec, int R, class Map>
-int launch(const T* a, const Map& map, int M, int K, int bm, int bk, int bn,
+template <typename TA, typename TB, bool kVec, int R, class Map>
+int launch(const TA* a, const Map& map, int M, int K, int bm, int bk, int bn,
            int col_blocks, cudaStream_t stream) {
-  const int smem = 2 * (bm * bk + bk * bn) * int(sizeof(T));
-  auto kernel = gemm_kernel<T, kVec, R, Map>;
+  const int smem =
+      2 * (bm * bk * int(sizeof(TA)) + bk * bn * int(sizeof(TB)));
+  auto kernel = gemm_kernel<TA, TB, kVec, R, Map>;
   // raise this instantiation's dynamic shared-memory limit once, to the
   // largest tile seen (the attribute call is not free on the host)
   static int smem_set = 48 * 1024;
@@ -242,10 +272,11 @@ int launch(const T* a, const Map& map, int M, int K, int bm, int bk, int bn,
 }
 
 // Launch the tile core over a grid of col_blocks x ceil(M / bm) blocks,
-// each with a (bm, bn) output tile.  vec: the caller's check that A and
-// every B source are 16-byte aligned and K, bk, bn and the B widths are
-// multiples of 16 bytes.  Returns a cudaError_t.
-template <typename T, class Map>
+// each with a (bm, bn) output tile; A in TA, the map's B columns in TB.
+// vec: the caller's check that A and every B source are 16-byte aligned,
+// K and bk are multiples of 16 bytes of TA, and bn and the B widths are
+// multiples of 16 bytes of TB.  Returns a cudaError_t.
+template <typename TA, typename TB, class Map>
 int run(bool vec, const void* a, const Map& map, int M, int K, int bm,
         int bk, int bn, int col_blocks, cudaStream_t s) {
   if (M <= 0 || K < 0 || bm <= 0 || bk <= 0 || bn <= 0 || col_blocks <= 0)
@@ -254,17 +285,18 @@ int run(bool vec, const void* a, const Map& map, int M, int K, int bm,
   if (ncg > kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = (bm + kThreads / ncg - 1) / (kThreads / ncg);
   if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const T* A = static_cast<const T*>(a);
+  const TA* A = static_cast<const TA*>(a);
 #define GEMM_ROWS(V)                                                       \
-  if (rows <= 1) return launch<T, V, 1>(A, map, M, K, bm, bk, bn,          \
-                                        col_blocks, s);                    \
-  if (rows <= 2) return launch<T, V, 2>(A, map, M, K, bm, bk, bn,          \
-                                        col_blocks, s);                    \
-  if (rows <= 4) return launch<T, V, 4>(A, map, M, K, bm, bk, bn,          \
-                                        col_blocks, s);                    \
-  if (rows <= 8) return launch<T, V, 8>(A, map, M, K, bm, bk, bn,          \
-                                        col_blocks, s);                    \
-  return launch<T, V, kMaxRows>(A, map, M, K, bm, bk, bn, col_blocks, s);
+  if (rows <= 1) return launch<TA, TB, V, 1>(A, map, M, K, bm, bk, bn,     \
+                                             col_blocks, s);               \
+  if (rows <= 2) return launch<TA, TB, V, 2>(A, map, M, K, bm, bk, bn,     \
+                                             col_blocks, s);               \
+  if (rows <= 4) return launch<TA, TB, V, 4>(A, map, M, K, bm, bk, bn,     \
+                                             col_blocks, s);               \
+  if (rows <= 8) return launch<TA, TB, V, 8>(A, map, M, K, bm, bk, bn,     \
+                                             col_blocks, s);               \
+  return launch<TA, TB, V, kMaxRows>(A, map, M, K, bm, bk, bn, col_blocks, \
+                                     s);
   if (vec) {
     GEMM_ROWS(true)
   } else {

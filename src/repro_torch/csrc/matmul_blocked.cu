@@ -37,7 +37,7 @@ int dispatch(const void* a, const void* b, void* c, int M, int N, int K,
   const bool vec = gemm::aligned16(a) && gemm::aligned16(b) && K % V == 0 &&
                    N % V == 0 && bk % V == 0 && bn % V == 0;
   const PlainMap<T> map{static_cast<const T*>(b), static_cast<T*>(c), N, bn};
-  return gemm::run<T>(vec, a, map, M, K, bm, bk, bn, (N + bn - 1) / bn,
+  return gemm::run<T, T>(vec, a, map, M, K, bm, bk, bn, (N + bn - 1) / bn,
                       stream);
 }
 

@@ -71,7 +71,7 @@ int dispatch(const void* x, const void* wq, const void* wk, const void* wv,
                       static_cast<const T*>(wv), static_cast<T*>(q),
                       static_cast<T*>(k), static_cast<T*>(v), nkv, groups,
                       bn};
-  return gemm::run<T>(vec, x, map, M, K, bm, bk, (groups + 2) * bn,
+  return gemm::run<T, T>(vec, x, map, M, K, bm, bk, (groups + 2) * bn,
                       (nkv + bn - 1) / bn, stream);
 }
 

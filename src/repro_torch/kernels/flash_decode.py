@@ -26,6 +26,14 @@ row 3; ``csrc/flash_decode_oproj.cu``): q (B, Hkv, G, D) and ``wo``
 thread-block cluster, so the attention output never reaches HBM.  Its
 page is priced by :func:`oproj_smem_bytes_required` under the
 ``"flash_decode_oproj"`` key.
+
+:func:`flash_decode_fp8` is the same attention over ``float8_e4m3fn``
+pools with fp32 per-kv-head scales (port of
+``flash_decode.flash_decode_fp8``, kernel row 2;
+``csrc/flash_decode_fp8.cu``): the pages are staged as raw bytes and
+widened in registers, the k scale folds into the scores and the v scale
+into the output row.  Its page is priced by :func:`smem_bytes_required`
+with ``kv_bytes=1`` under the ``"flash_decode_fp8"`` key.
 """
 
 from __future__ import annotations
@@ -44,22 +52,29 @@ STAGES = 2           # K/V tiles in flight: the current page and the next
 
 
 def smem_bytes_required(page: int, rows_per_block: int, head_dim: int,
-                        bytes_per_elem: int = 2) -> int:
+                        bytes_per_elem: int = 2,
+                        kv_bytes: int | None = None) -> int:
     """Dynamic shared memory of one block (``attn::smem_bytes``): a K and
-    a V tile of ``page`` keys each, two stages deep, and the block's q
-    rows, in the input dtype; one fp32 score per key for each row.  The
-    query span of a chunked prefill does not enter: rows are tiled across
-    blocks, ``rows_per_block`` at a time."""
-    return ((STAGES * 2 * page * head_dim + rows_per_block * head_dim)
-            * bytes_per_elem + rows_per_block * page * 4)
+    a V tile of ``page`` keys each, two stages deep, at ``kv_bytes`` per
+    element (the input's width unless given: 1 for an fp8 pool), and the
+    block's q rows in the input dtype; one fp32 score per key for each
+    row.  The query span of a chunked prefill does not enter: rows are
+    tiled across blocks, ``rows_per_block`` at a time."""
+    kvb = bytes_per_elem if kv_bytes is None else kv_bytes
+    return (STAGES * 2 * page * head_dim * kvb
+            + rows_per_block * head_dim * bytes_per_elem
+            + rows_per_block * page * 4)
 
 
-def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int) -> int:
+def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int,
+                 kv_bytes: int | None = None) -> int:
     """The largest page whose tile fits ``smem_bytes`` of shared memory
-    (fp32 with head_dim 128 on an H100: 111 keys; bf16: 222)."""
-    fixed = smem_bytes_required(0, ROWS_PER_BLOCK, head_dim, bytes_per_elem)
+    (head_dim 128 on an H100: 111 keys in fp32, 222 in bf16; 218 for an
+    fp8 pool under bf16 q rows)."""
+    fixed = smem_bytes_required(0, ROWS_PER_BLOCK, head_dim, bytes_per_elem,
+                                kv_bytes)
     per_key = smem_bytes_required(1, ROWS_PER_BLOCK, head_dim,
-                                  bytes_per_elem) - fixed
+                                  bytes_per_elem, kv_bytes) - fixed
     return (smem_bytes - fixed) // per_key
 
 
@@ -79,6 +94,9 @@ MAX_CLUSTER = 8      # blocks of one cluster: the kv heads of a batch row
 
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
+_FP8_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+FP8 = torch.float8_e4m3fn
 _OPROJ_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
@@ -145,6 +163,74 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def paged_attention_fp8_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, k_scale, v_scale,
+                            block_tables: torch.Tensor,
+                            lengths: torch.Tensor, *,
+                            window: int | None = None,
+                            logit_cap: float | None = None,
+                            q_span: int = 1) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_fp8`, as JAX's oracle:
+    dequantize the pools in fp32 with the per-kv-head scales, then
+    :func:`paged_attention_ref`."""
+    hkv = k_pages.shape[2]
+    ks = torch.as_tensor(k_scale, dtype=torch.float32,
+                         device=q.device).reshape(1, 1, hkv, 1)
+    vs = torch.as_tensor(v_scale, dtype=torch.float32,
+                         device=q.device).reshape(1, 1, hkv, 1)
+    return paged_attention_ref(q, k_pages.float() * ks,
+                               v_pages.float() * vs, block_tables, lengths,
+                               window=window, logit_cap=logit_cap,
+                               q_span=q_span)
+
+
+def flash_decode_fp8(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, k_scale: torch.Tensor,
+                     v_scale: torch.Tensor, block_tables: torch.Tensor,
+                     lengths: torch.Tensor, *, window: int | None = None,
+                     logit_cap: float | None = None,
+                     q_span: int = 1) -> torch.Tensor:
+    """:func:`flash_decode` over ``float8_e4m3fn`` pools, with fp32
+    per-kv-head dequantisation scales ``k_scale``, ``v_scale`` (Hkv,)
+    (ones for a pure-cast cache).  Returns the shape of ``q`` in
+    ``q.dtype``.
+
+    CUDA tensors launch the kernel (or raise: there is no fallback);
+    CPU tensors take :func:`paged_attention_fp8_ref`.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_fp8_ref(q, k_pages, v_pages, k_scale,
+                                       v_scale, block_tables, lengths,
+                                       window=window, logit_cap=logit_cap,
+                                       q_span=q_span)
+    _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,
+           kv_dtype=FP8)
+    b, hkv, gtot, d = q.shape
+    scales = []
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (not isinstance(t, torch.Tensor) or t.device != q.device
+                or t.dtype != torch.float32 or t.numel() != hkv):
+            raise ValueError(f"{name} must be an fp32 tensor of {hkv} "
+                             f"values on {q.device}")
+        scales.append(t.contiguous())
+    page = k_pages.shape[1]
+    out = torch.empty_like(q)
+    fn = _build.load("flash_decode_fp8", "flash_decode_fp8_fwd",
+                     _FP8_ARGTYPES)
+    err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), scales[0].data_ptr(), scales[1].data_ptr(),
+             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
+             hkv, gtot, q_span, page, block_tables.shape[1],
+             int(window or 0), float(logit_cap or 0.0),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode_fp8")
+    flash_decode_fp8.launches += 1
+    return out
+
+
+flash_decode_fp8.launches = 0
 
 
 def paged_attention_oproj_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -225,7 +311,10 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
 flash_decode_oproj.launches = 0
 
 
-def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window):
+def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,
+           kv_dtype=None):
+    """Raise on what the paged kernels do not take.  ``kv_dtype``: the
+    pools' dtype when it is not q's (fp8)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
@@ -234,10 +323,14 @@ def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be one of {sorted(map(str, _DTYPES))}; "
+                        f"got {q.dtype}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != q.dtype or t.dtype not in _DTYPES or t.dim() != 4:
-            raise TypeError(f"{name} must be 4-D and share q's dtype, one "
-                            f"of {sorted(map(str, _DTYPES))}; got {t.dtype}")
+        want = q.dtype if name == "q" or kv_dtype is None else kv_dtype
+        if t.dtype != want or t.dim() != 4:
+            raise TypeError(f"{name} must be 4-D in {want}; got "
+                            f"{t.dtype}, {t.dim()}-D")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              "loads 16-byte vectors)")
@@ -259,7 +352,8 @@ def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window):
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
     page = k_pages.shape[1]
-    need = smem_bytes_required(page, ROWS_PER_BLOCK, d, q.element_size())
+    need = smem_bytes_required(page, ROWS_PER_BLOCK, d, q.element_size(),
+                               k_pages.element_size())
     have = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
     if need > have:

@@ -33,14 +33,19 @@ THREADS = 256             # threads per block (csrc: kThreads)
 COLS_PER_THREAD = 4       # output columns a thread holds (csrc: kCols)
 MAX_ROWS_PER_THREAD = 16  # output rows a thread holds (csrc: kMaxRows)
 STAGES = 2                # tiles in flight: the current step and the next
+INT8_COLS = 16            # int8 columns per 16-byte copy
 
 
 def smem_bytes_required(bm: int, bk: int, bn: int,
-                        bytes_per_elem: int = 2) -> int:
-    """Dynamic shared memory of one block: an A tile (bm, bk) and a B tile
-    (bk, bn) in the input dtype, two stages deep.  The fp32 accumulator
-    is in registers (:func:`accumulators_per_thread`), not here."""
-    return STAGES * (bm * bk + bk * bn) * bytes_per_elem
+                        bytes_per_elem: int = 2,
+                        w_bytes: int | None = None) -> int:
+    """Dynamic shared memory of one block: an A tile (bm, bk) in the
+    input dtype and a B tile (bk, bn) at ``w_bytes`` per element (the
+    input's width unless given: 1 for an int8 weight), two stages deep.
+    The fp32 accumulator is in registers (:func:`accumulators_per_thread`),
+    not here."""
+    wb = bytes_per_elem if w_bytes is None else w_bytes
+    return STAGES * (bm * bk * bytes_per_elem + bk * bn * wb)
 
 
 def accumulators_per_thread(bm: int, bn: int) -> int:
@@ -99,12 +104,28 @@ def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
 matmul_blocked.launches = 0
 
 
-def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None):
+def fp32_row(t, n: int, name: str, device: torch.device) -> torch.Tensor:
+    """An epilogue row (a scale or a bias) as a contiguous fp32 (N,)
+    tensor on ``device``: N values as they are ((N,) or (1, N)), one value
+    broadcast."""
+    r = torch.as_tensor(t, dtype=torch.float32, device=device)
+    if r.numel() == 1:
+        r = r.reshape(1).expand(n)
+    if r.numel() != n:
+        raise ValueError(f"{name} must hold 1 or {n} values, got "
+                         f"{tuple(r.shape)}")
+    return r.reshape(n).contiguous()
+
+
+def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None,
+           int8_b=False):
     """Raise on what the tile core does not take: ``a (M, K) @ b (K, N)``
     on one CUDA device in one dtype, contiguous, with tiles whose staged
     A and B tiles fit the card's shared memory and whose accumulator
     fits the register limit.  ``n_cols``: the tile's output width when it
-    is not ``bn`` (the joint width of qkv_fused)."""
+    is not ``bn`` (the joint width of qkv_fused).  ``int8_b``: b is an
+    int8 weight (the quantized kernels), staged at one byte per element,
+    16 columns per 16-byte copy, so N and bn must be multiples of 16."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"{name} runs on cuda or cpu; a is on "
                          f"{a.device}, b on {b.device}")
@@ -112,7 +133,11 @@ def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None):
         raise NotImplementedError(
             f"{name} is forward only: its gradient needs the dgrad "
             "kernels (ROADMAP.md, queue 1, item 12)")
-    if a.dtype != b.dtype or a.dtype not in _DTYPES:
+    if int8_b:
+        if a.dtype not in _DTYPES or b.dtype != torch.int8:
+            raise TypeError(f"a must be one of {sorted(map(str, _DTYPES))} "
+                            f"and the weight int8; got {a.dtype}, {b.dtype}")
+    elif a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"a and b must share one of "
                         f"{sorted(map(str, _DTYPES))}; got {a.dtype}, "
                         f"{b.dtype}")
@@ -125,6 +150,11 @@ def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None):
         raise ValueError("an empty output has nothing to launch")
     if min(bm, bk, bn) < 1:
         raise ValueError(f"tiles must be positive, got {(bm, bk, bn)}")
+    if int8_b and (b.shape[1] % INT8_COLS or bn % INT8_COLS):
+        raise ValueError(
+            f"an int8 weight is staged {INT8_COLS} columns per 16-byte "
+            f"copy: N = {b.shape[1]} and bn = {bn} must be multiples of "
+            f"{INT8_COLS}")
     cols = n_cols or bn
     acc = accumulators_per_thread(bm, cols)
     if acc > COLS_PER_THREAD * MAX_ROWS_PER_THREAD:
@@ -132,7 +162,8 @@ def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None):
             f"tiles (bm={bm}, bn={bn}) need {acc} fp32 accumulators per "
             f"thread; the kernel holds at most "
             f"{COLS_PER_THREAD * MAX_ROWS_PER_THREAD}")
-    need = smem_bytes_required(bm, bk, cols, a.element_size())
+    need = smem_bytes_required(bm, bk, cols, a.element_size(),
+                               b.element_size())
     have = torch.cuda.get_device_properties(
         a.device).shared_memory_per_block_optin
     if need > have:

@@ -1,19 +1,23 @@
 """Epilogue-fused blocked GEMM: CUDA kernel, wrapper and plain version.
 
-Port of ``repro.kernels.matmul_fused.matmul_fused`` (kernel row 9) for
-wide weights: ``Y = act(A @ W * scale + bias) * mul + residual`` in one
-kernel, so the output tile's pointwise tail never round-trips through
-HBM.  The kernel lives in ``csrc/matmul_fused.cu`` (design and bound in
-its header comment): the tile core of ``matmul_blocked``, with the
-epilogue applied in fp32 to each output element after the last k step
-and one cast at the end.  The epilogue operands are read into registers
-at the store, not staged, so the shared-memory footprint is exactly
-``matmul_blocked``'s and the ``"matmul_fused"`` schedule key ranks the
-``"matmul"`` candidates.  Ragged edges are masked: every shape launches.
+Port of ``repro.kernels.matmul_fused.matmul_fused`` (kernel row 9), for
+wide and int8 weights: ``Y = act(A @ W * scale + bias) * mul +
+residual`` in one kernel, so the output tile's pointwise tail never
+round-trips through HBM.  The kernel lives in ``csrc/matmul_fused.cu``
+(design and bound in its header comment): the tile core of
+``matmul_blocked``, with the epilogue applied in fp32 to each output
+element after the last k step and one cast at the end.  The epilogue
+operands are read into registers at the store, not staged, so the
+shared-memory footprint is exactly ``matmul_blocked``'s and the
+``"matmul_fused"`` schedule key ranks the ``"matmul"`` candidates.  Ragged edges are masked: every shape launches.
 
-The int8-weight variant (JAX ``ops.matmul_fused`` with a
-``QuantizedTensor``) comes with the quantized slice (``ROADMAP.md``,
-queue 1, item 10).
+An int8 ``W`` (JAX ``ops.matmul_fused`` with a ``QuantizedTensor``; its
+dequantisation scale in ``scale``) runs the same kernel with the weight
+tile staged at one byte per element (``matmul_fused_w8_fwd``), so its
+footprint is ``matmul_w8``'s and its tiles come from the ``"matmul_w8"``
+key with no re-check (JAX re-checks a cached w8 tile against the fused
+kernel's larger VMEM footprint; here the two footprints are one).  N and
+bn must then be multiples of 16.
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
 
 
 def smem_bytes_required(bm: int, bk: int, bn: int,
-                        bytes_per_elem: int = 2) -> int:
+                        bytes_per_elem: int = 2,
+                        w_bytes: int | None = None) -> int:
     """Dynamic shared memory of one block: ``matmul_blocked``'s staged A
-    and B tiles.  No epilogue operand is staged."""
-    return MB.smem_bytes_required(bm, bk, bn, bytes_per_elem)
+    and B tiles (B at ``w_bytes``: 1 for an int8 weight).  No epilogue
+    operand is staged."""
+    return MB.smem_bytes_required(bm, bk, bn, bytes_per_elem, w_bytes)
 
 
 def matmul_fused_ref(a: torch.Tensor, w: torch.Tensor,
@@ -76,9 +82,11 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor,
                  act: str = "none", bm: int, bk: int,
                  bn: int) -> torch.Tensor:
     """``act(a (M, K) @ w (K, N) * scale + bias) * mul + residual`` tiled
-    ``(bm, bk, bn)``; any M, N, K.  ``scale`` (N,) or a scalar and
-    ``bias`` (N,) are taken in fp32; ``mul`` and ``residual`` are (M, N)
-    in ``a``'s dtype.
+    ``(bm, bk, bn)``; any M, N, K (an int8 ``w``: N and bn multiples of
+    16).  ``w`` is in ``a``'s dtype or int8 (then ``scale`` is its
+    dequantisation scale).  ``scale`` (N,) or a scalar and ``bias`` (N,)
+    are taken in fp32; ``mul`` and ``residual`` are (M, N) in ``a``'s
+    dtype.
 
     CUDA tensors launch the kernel (or raise: there is no fallback);
     CPU tensors take :func:`matmul_fused_ref`.
@@ -87,19 +95,13 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"unknown activation {act!r}")
     if a.device.type == "cpu":
         return matmul_fused_ref(a, w, scale, bias, mul, residual, act=act)
-    MB._check(a, w, bm, bk, bn, name="matmul_fused")
+    int8 = w.dtype == torch.int8
+    MB._check(a, w, bm, bk, bn, name="matmul_fused", int8_b=int8)
     m, k = a.shape
     n = w.shape[1]
-    rows = {}
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t is not None:
-            t = torch.as_tensor(t, dtype=torch.float32, device=a.device)
-            if t.numel() == 1:
-                t = t.reshape(1).expand(n)
-            if tuple(t.shape) != (n,):
-                raise ValueError(f"{name} must be ({n},), got "
-                                 f"{tuple(t.shape)}")
-            rows[name] = t.contiguous()
+    rows = {name: MB.fp32_row(t, n, name, a.device)
+            for name, t in (("scale", scale), ("bias", bias))
+            if t is not None}
     for name, t in (("mul", mul), ("residual", residual)):
         if t is None:
             continue
@@ -113,7 +115,9 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    fn = _build.load("matmul_fused", "matmul_fused_fwd", _ARGTYPES)
+    fn = _build.load("matmul_fused",
+                     "matmul_fused_w8_fwd" if int8 else "matmul_fused_fwd",
+                     _ARGTYPES)
     err = fn(MB._DTYPES[a.dtype], a.data_ptr(), w.data_ptr(),
              out.data_ptr(), ptr(rows.get("scale")), ptr(rows.get("bias")),
              ptr(mul), ptr(residual), _ACT_IDS[act], m, n, k, bm, bk, bn,

@@ -23,6 +23,16 @@ projection fused in), each with its tiles from its own schedule key.
 Their kernels mask ragged edges, so no shape falls back to a plain
 version (the JAX ops' fallback for tiles that do not divide is not
 carried over).
+
+The quantized path: a weight may be a
+:class:`repro_torch.quant.QuantizedTensor`.  ``linear`` sends a 2-D
+int8 one to ``matmul_w8`` (int8 weights streamed at one byte, the scale
+in the epilogue; tiles from the ``"matmul_w8"`` key) -- on every device,
+where JAX takes the kernel only on the TPU or under blocked linears;
+``matmul_fused`` runs the int8 variant of its kernel under the same key;
+``qkv_fused`` takes three ``linear`` calls, and ``paged_attention_oproj``
+the unfused pair, as in JAX.  A 1-byte page pool (``kv_cache_dtype``
+fp8) sends ``paged_attention`` to ``flash_decode_fp8``.
 """
 
 from __future__ import annotations
@@ -36,15 +46,20 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_fp8,
                                               flash_decode_oproj,
+                                              paged_attention_fp8_ref,
                                               paged_attention_oproj_ref,
                                               paged_attention_ref)
 from repro_torch.kernels.matmul_blocked import matmul_blocked
 from repro_torch.kernels.matmul_fused import (matmul_fused as
                                               _matmul_fused_kernel,
                                               matmul_fused_ref)
+from repro_torch.kernels.matmul_q import matmul_w8 as _matmul_w8_kernel
+from repro_torch.kernels.matmul_q import matmul_w8_ref
 from repro_torch.kernels.qkv_fused import (qkv_fused as _qkv_fused_kernel,
                                            qkv_fused_ref)
+from repro_torch.quant import QuantizedTensor
 from repro_torch.tune import best_schedule
 
 
@@ -62,6 +77,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     bm, bk, bn = tiles or best_schedule("matmul", (m, n, k),
                                         _dtype_name(a)).tiles
     return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+
+
+def matmul_w8(a: torch.Tensor, w_q: torch.Tensor, scale,
+              tiles: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """int8-weight GEMM ``a (M, K) @ (w_q (K, N) * scale)`` with the
+    tuned or model-derived tiles of the ``"matmul_w8"`` key (whose model
+    sizes the weight tile at one byte per element; ``tiles`` pins them).
+    ``scale`` is fp32, per output channel (N,) or a scalar."""
+    m, k = a.shape
+    n = w_q.shape[1]
+    bm, bk, bn = tiles or best_schedule("matmul_w8", (m, n, k),
+                                        _dtype_name(a)).tiles
+    return _matmul_w8_kernel(a, w_q, scale, bm=bm, bk=bk, bn=bn)
 
 
 _BLOCKED_LINEAR: contextvars.ContextVar[bool | None] = \
@@ -86,14 +114,35 @@ def blocked_linear(enable: bool = True):
         _BLOCKED_LINEAR.reset(tok)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear(x: torch.Tensor, w, use_kernel: bool = True) -> torch.Tensor:
     """Projection ``x @ w`` for any-rank x (w stored ``(d_in, d_out)``);
     the blocked GEMM when blocked linears are enabled
-    (:func:`blocked_linear`)."""
+    (:func:`blocked_linear`).
+
+    ``w`` may be a :class:`QuantizedTensor`: a 2-D int8 one runs
+    :func:`matmul_w8` (the kernel on CUDA, its plain version on the CPU;
+    ``use_kernel=False`` the plain version anywhere), any other payload
+    JAX's dequantized product ``x @ w.dequant()``."""
+    if isinstance(w, QuantizedTensor):
+        return _quantized_linear(x, w, use_kernel)
     if not blocked_linear_enabled():
         return x @ w
     lead = x.shape[:-1]
     out = matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def _quantized_linear(x: torch.Tensor, w: QuantizedTensor,
+                      use_kernel: bool) -> torch.Tensor:
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if w.ndim == 2 and w.dtype == torch.int8:
+        if use_kernel:
+            out = matmul_w8(x2, w.q, w.scale)
+        else:
+            out = matmul_w8_ref(x2, w.q, w.scale)
+    else:
+        out = (x2.float() @ w.dequant(torch.float32)).to(x.dtype)
     return out.reshape(*lead, w.shape[-1])
 
 
@@ -114,6 +163,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *, window: int | None = None,
                     logit_cap: float | None = None,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None,
                     use_kernel: bool = True) -> torch.Tensor:
     """Attention over a paged KV cache.
 
@@ -127,6 +178,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     the FIRST of them.  Rows fold into the kernel's group dim (``q_span =
     S``) so all S positions score in one flash-decode call over the same
     pages, each under its own causal limit.  Returns (B, S, Hq, D).
+
+    A 1-byte pool (``float8_e4m3fn``, an fp8 KV cache) runs
+    :func:`flash_decode_fp8` with the per-kv-head fp32 ``k_scale`` /
+    ``v_scale`` (Hkv,), ones by default (the pure-cast cache the engine
+    keeps); scales on a wide pool raise ``ValueError``, as in JAX.
     """
     multi = q.dim() == 4
     if multi:
@@ -147,9 +203,20 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                .reshape(b, hkv, span * g, d))
     else:
         qg = q.reshape(b, hkv, g, d)
-    fn = flash_decode if use_kernel else paged_attention_ref
-    out = fn(qg.contiguous(), k_pages, v_pages, block_tables, lengths,
-             window=window, logit_cap=logit_cap, q_span=span)
+    fp8 = k_pages.element_size() == 1
+    if (k_scale is not None or v_scale is not None) and not fp8:
+        raise ValueError("k_scale/v_scale require a 1-byte (fp8) page pool")
+    if fp8:
+        ones = torch.ones(hkv, dtype=torch.float32, device=q.device)
+        ks = ones if k_scale is None else k_scale
+        vs = ones if v_scale is None else v_scale
+        fn = flash_decode_fp8 if use_kernel else paged_attention_fp8_ref
+        out = fn(qg.contiguous(), k_pages, v_pages, ks, vs, block_tables,
+                 lengths, window=window, logit_cap=logit_cap, q_span=span)
+    else:
+        fn = flash_decode if use_kernel else paged_attention_ref
+        out = fn(qg.contiguous(), k_pages, v_pages, block_tables, lengths,
+                 window=window, logit_cap=logit_cap, q_span=span)
     if multi:
         return (out.reshape(b, hkv, span, g, d)
                    .transpose(1, 2)
@@ -185,13 +252,6 @@ def fused_ops(enable: bool = True):
         _FUSED_OPS.reset(tok)
 
 
-def _wide(w, what: str) -> None:
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"{what} takes wide weights only; the int8 variant comes with "
-            "quantization (ROADMAP.md, queue 1, item 10)")
-
-
 def matmul_fused(a: torch.Tensor, w: torch.Tensor, *,
                  bias: torch.Tensor | None = None, act: str = "none",
                  mul: torch.Tensor | None = None,
@@ -202,8 +262,22 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor, *,
     into the GEMM: the output tile never round-trips through HBM between
     the reduction and its pointwise tail.  ``a`` may have any leading
     shape; ``mul`` and ``residual`` match the output's.  Tiles come from
-    the ``"matmul_fused"`` key (``tiles`` pins them)."""
-    _wide(w, "matmul_fused")
+    the ``"matmul_fused"`` key (``tiles`` pins them).
+
+    ``w`` may be a :class:`QuantizedTensor`: a 2-D int8 one runs the
+    kernel's int8 variant with its scale in the epilogue, under the
+    ``"matmul_w8"`` key (whose tiles fit the fused kernel as they are:
+    the epilogue operands are not staged); any other payload is
+    dequantized to ``a``'s dtype first, as in JAX."""
+    scale = None
+    if isinstance(w, QuantizedTensor):
+        if w.ndim != 2 or w.dtype != torch.int8:
+            return matmul_fused(a, w.dequant(torch.float32).to(a.dtype),
+                                bias=bias, act=act, mul=mul,
+                                residual=residual, tiles=tiles,
+                                use_kernel=use_kernel)
+        scale = w.scale.reshape(-1)
+        w = w.q
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1]).contiguous()
     m, k = a2.shape
@@ -211,14 +285,15 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor, *,
     mul2 = None if mul is None else mul.reshape(m, n).contiguous()
     res2 = None if residual is None else residual.reshape(m, n).contiguous()
     if use_kernel:
-        bm, bk, bn = tiles or best_schedule("matmul_fused", (m, n, k),
+        op = "matmul_fused" if scale is None else "matmul_w8"
+        bm, bk, bn = tiles or best_schedule(op, (m, n, k),
                                             _dtype_name(a)).tiles
-        out = _matmul_fused_kernel(a2, w, bias=bias, mul=mul2,
+        out = _matmul_fused_kernel(a2, w, scale, bias=bias, mul=mul2,
                                    residual=res2, act=act, bm=bm, bk=bk,
                                    bn=bn)
     else:
-        out = matmul_fused_ref(a2, w, bias=bias, mul=mul2, residual=res2,
-                               act=act)
+        out = matmul_fused_ref(a2, w, scale, bias=bias, mul=mul2,
+                               residual=res2, act=act)
     return out.reshape(*lead, n)
 
 
@@ -229,9 +304,11 @@ def qkv_fused(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     """The attention front end's three projections in one weight-
     stationary pass: x streams from HBM once instead of three times.
     Returns ``(q, k, v)`` with x's leading shape.  Tiles come from the
-    ``"qkv_fused"`` key, dims ``(M, Nkv, K, G)``."""
-    for w in (wq, wk, wv):
-        _wide(w, "qkv_fused")
+    ``"qkv_fused"`` key, dims ``(M, Nkv, K, G)``.  Quantized weights
+    take three :func:`linear` calls, as in JAX (each an int8 GEMM)."""
+    if any(isinstance(w, QuantizedTensor) for w in (wq, wk, wv)):
+        return (linear(x, wq, use_kernel), linear(x, wk, use_kernel),
+                linear(x, wv, use_kernel))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     m, k = x2.shape
@@ -257,9 +334,17 @@ def paged_attention_oproj(q: torch.Tensor, k_pages: torch.Tensor,
     The contract of :func:`paged_attention` (q (B, Hq, D)) plus ``wo``,
     the dense (Hq*D, E) projection; returns (B, E).  The heads' outputs
     are reduced into the projection on chip and never reach HBM.  ``wo``
-    is viewed per kv head, (Hkv, G*D, E), here, as in JAX."""
-    _wide(wo, "paged_attention_oproj")
+    is viewed per kv head, (Hkv, G*D, E), here, as in JAX.
+
+    An fp8 pool or a quantized ``wo`` takes the unfused pair,
+    :func:`paged_attention` then :func:`linear`, as in JAX: the fused
+    kernel reads wide pages and a wide wo."""
     b, hq, d = q.shape
+    if k_pages.element_size() == 1 or isinstance(wo, QuantizedTensor):
+        out = paged_attention(q, k_pages, v_pages, block_tables, lengths,
+                              window=window, logit_cap=logit_cap,
+                              use_kernel=use_kernel)
+        return linear(out.reshape(b, hq * d), wo, use_kernel)
     hkv = k_pages.shape[2]
     if hq % hkv:
         raise ValueError(f"{hq} query heads not a multiple of {hkv}")

@@ -51,12 +51,17 @@ class ModelConfig:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.n_heads)
         if self.kv_cache_dtype is not None:
+            # validated here, as in JAX: the cache builders and the page
+            # chooser cast K/V into this dtype without asking again
             dt = self.kv_cache_dtype
-            if not (isinstance(dt, torch.dtype) and dt.is_floating_point
-                    and dt.itemsize in (1, 2, 4)):
+            if not isinstance(dt, torch.dtype):
+                raise ValueError(f"kv_cache_dtype is not a torch dtype: "
+                                 f"{dt!r}")
+            if not (dt.is_floating_point and dt.itemsize in (1, 2, 4)):
                 raise ValueError(
-                    "kv_cache_dtype must be a floating torch dtype of width "
-                    f"1/2/4 bytes; got {dt!r}")
+                    "kv_cache_dtype must be a floating dtype of width 1/2/4 "
+                    "bytes (float8_e4m3fn / float8_e5m2, bfloat16 / "
+                    f"float16, float32); got {dt}")
 
     @property
     def is_encdec(self) -> bool:

@@ -90,7 +90,7 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     q, k, v = qkv_span_proj(cfg, params, x, positions, use_kernel=use_kernel)
     out = ops.attention(q, k, v, causal=causal, window=window,
                         logit_cap=cfg.attn_logit_cap, use_kernel=use_kernel)
-    out = ops.linear(out.reshape(b, s, hq * hd), params["wo"])
+    out = ops.linear(out.reshape(b, s, hq * hd), params["wo"], use_kernel)
     if not return_cache:
         return out
     if window is not None and not full_cache:
@@ -99,10 +99,13 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
             "DecodeEngine: ROADMAP.md, next slice")
     cache_len = return_cache if isinstance(return_cache, int) and \
         return_cache is not True else s
+    # attention above ran over the wide K/V; only the cache is cast (to
+    # fp8 for an fp8 pool), as in JAX.  Padding before the cast gives
+    # the same bytes and needs no padding op in fp8.
     cache_dtype = cfg.kv_cache_dtype or cfg.dtype
     pad = (0, 0, 0, 0, 0, cache_len - s)
-    return out, {"k": F.pad(k.to(cache_dtype), pad),
-                 "v": F.pad(v.to(cache_dtype), pad)}
+    return out, {"k": F.pad(k, pad).to(cache_dtype),
+                 "v": F.pad(v, pad).to(cache_dtype)}
 
 
 def qkv_span_proj(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -121,9 +124,9 @@ def qkv_span_proj(cfg: ModelConfig, params: dict, x: torch.Tensor,
         q, k, v = ops.qkv_fused(x, params["wq"], params["wk"], params["wv"],
                                 use_kernel=use_kernel)
     else:
-        q = ops.linear(x, params["wq"])
-        k = ops.linear(x, params["wk"])
-        v = ops.linear(x, params["wv"])
+        q = ops.linear(x, params["wq"], use_kernel)
+        k = ops.linear(x, params["wk"], use_kernel)
+        v = ops.linear(x, params["wv"], use_kernel)
     q = q.reshape(b, s, hq, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
@@ -164,7 +167,8 @@ def mlp_apply(params: dict, x: torch.Tensor,
     The rounding points then follow the fused JAX path: the gate is cast
     to the model dtype before it becomes ``mul``, and the residual is
     added in fp32 before the one cast.  ``use_kernel=False``: the fused
-    GEMMs' plain version."""
+    GEMMs' plain version, and the plain int8 GEMM for quantized
+    weights."""
     if ops.fused_ops_enabled():
         if "w_gate" in params:  # SwiGLU
             g = ops.matmul_fused(x, params["w_gate"], act="silu",
@@ -176,10 +180,10 @@ def mlp_apply(params: dict, x: torch.Tensor,
                                  use_kernel=use_kernel)
         return ops.matmul_fused(u, params["w_down"], residual=residual,
                                 use_kernel=use_kernel)
-    u = ops.linear(x, params["w_up"]).float()
+    u = ops.linear(x, params["w_up"], use_kernel).float()
     if "w_gate" in params:  # SwiGLU
-        u = F.silu(ops.linear(x, params["w_gate"]).float()) * u
+        u = F.silu(ops.linear(x, params["w_gate"], use_kernel).float()) * u
     else:  # plain GELU MLP (jax.nn.gelu's tanh form)
         u = F.gelu(u, approximate="tanh")
-    out = ops.linear(u.to(x.dtype), params["w_down"])
+    out = ops.linear(u.to(x.dtype), params["w_down"], use_kernel)
     return out if residual is None else residual + out

@@ -8,13 +8,18 @@ table mapping its logical KV blocks to physical pages.  The page size is
 the flash-decode kernel's KV tile, chosen by the analytical blocking
 model on the Hopper target through ``repro_torch.tune`` under the
 ``"flash_decode"`` key (:func:`choose_page_size`; under
-``"flash_decode_oproj"`` for a fused engine, whose decode kernel stages
-the page), so cache layout and kernel schedule are one decision;
+``"flash_decode_fp8"`` for an fp8 pool, and ``"flash_decode_oproj"``
+for a fused engine's wide pool, whose decode kernel stages the page), so
+cache layout and kernel schedule are one decision;
 :func:`choose_prefill_chunk` sizes the prefill chunk against the same
 kernel footprint.
 
 The pools are updated in place (``index_put_``): JAX returned a new
-pool from every scatter, which PyTorch need not copy.
+pool from every scatter, which PyTorch need not copy.  An fp8 pool
+(``kv_cache_dtype=torch.float8_e4m3fn``) is a pure cast of K/V, as in
+JAX's engine; it is scattered through its ``uint8`` view (the cast
+values' bytes, never a widened pool), so the scatter needs no indexing
+kernel for the fp8 dtype.
 
 Page 0 is a reserved scratch page: inactive request slots keep all-zero
 block tables, so their (masked, ignored) decode writes land there
@@ -50,23 +55,32 @@ def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None,
     (``python -m repro_torch.tune flash_decode ...``) wins; otherwise the
     analytic top candidate is used.
 
-    ``fused=True`` (the engine's ``fuse`` flag) sizes pages under
-    ``"flash_decode_oproj"``, dims (G, S, D, E): its decode kernel stages
-    the page beside the head's G x D rows and its (1, E) partial, so the
-    page is priced by the kernel that runs (``oproj_smem_bytes_required``).
-    The fp8 key and the prefix cache's ``reuse_rate`` pricing are not
-    ported yet (``ROADMAP.md``, queue 1, items 7 and 10).
+    An fp8 pool (``kv_cache_dtype`` of width 1) sizes its pages under
+    ``"flash_decode_fp8"``, dims (G, S, D), named by the model dtype (the
+    q rows' width; the pages are 1 byte), ahead of ``fused``: the fused
+    path decodes an fp8 pool with the unfused fp8 kernel, as in JAX.
+
+    ``fused=True`` (the engine's ``fuse`` flag) sizes a wide pool's pages
+    under ``"flash_decode_oproj"``, dims (G, S, D, E): its decode kernel
+    stages the page beside the head's G x D rows and its (1, E) partial,
+    so the page is priced by the kernel that runs
+    (``oproj_smem_bytes_required``).  The prefix cache's ``reuse_rate``
+    pricing is not ported yet (``ROADMAP.md``, queue 1, item 7).
     """
     from repro_torch.tune import best_schedule
     g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
-    kv_dtype = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
-    if fused:
-        sched = best_schedule("flash_decode_oproj",
-                              (g, max_seq, cfg.head_dim, cfg.d_model),
-                              kv_dtype, cache=cache)
+    kv_dtype = cfg.kv_cache_dtype or cfg.dtype
+    if kv_dtype.itemsize == 1:
+        op, dtype = "flash_decode_fp8", cfg.dtype
+        dims: tuple[int, ...] = (g, max_seq, cfg.head_dim)
+    elif fused:
+        op, dtype = "flash_decode_oproj", kv_dtype
+        dims = (g, max_seq, cfg.head_dim, cfg.d_model)
     else:
-        sched = best_schedule("flash_decode", (g, max_seq, cfg.head_dim),
-                              kv_dtype, cache=cache)
+        op, dtype = "flash_decode", kv_dtype
+        dims = (g, max_seq, cfg.head_dim)
+    sched = best_schedule(op, dims, str(dtype).removeprefix("torch."),
+                          cache=cache)
     return max(1, min(sched.tiles[0], max_seq))
 
 
@@ -90,7 +104,8 @@ def choose_prefill_chunk(cfg: ModelConfig, max_seq: int,
                                                   smem_bytes_required)
     kv_bytes = (cfg.kv_cache_dtype or cfg.dtype).itemsize
     fits = smem_bytes_required(page_size, ROWS_PER_BLOCK, cfg.head_dim,
-                               kv_bytes) <= default_smem_budget()
+                               cfg.dtype.itemsize, kv_bytes) \
+        <= default_smem_budget()
     chunk = min(page_size, max_seq)
     while fits and chunk * 2 <= max_seq:
         chunk *= 2
@@ -114,6 +129,18 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     return build(paged_cache_defs(cfg, n_pages, page_size), device)
 
 
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """The tensor an in-place scatter writes through: a 1-byte (fp8)
+    tensor's ``uint8`` view (the same bytes), any other as it is."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def _scatter(pool: torch.Tensor, idx: tuple, values: torch.Tensor) -> None:
+    """``pool[idx] = values`` in place, ``values`` cast to the pool's
+    dtype first."""
+    _raw(pool).index_put_(idx, _raw(values.to(pool.dtype)))
+
+
 def write_prefill(cfg: ModelConfig, paged: dict, dense: dict,
                   pages: torch.Tensor, page_size: int) -> None:
     """Scatter one request's dense prefill cache into the pools, in place.
@@ -124,14 +151,15 @@ def write_prefill(cfg: ModelConfig, paged: dict, dense: dict,
     the scratch page).
     """
     for name, key in (("k_pages", "k"), ("v_pages", "v")):
-        kv = torch.stack([c[key][0] for c in dense["layers"]])  # L,bucket,..
+        pool = paged[name]
+        kv = torch.stack([_raw(c[key][0].to(pool.dtype))
+                          for c in dense["layers"]])      # L, bucket, ..
         bucket = kv.shape[1]
         nb = num_blocks(bucket, page_size)
         pad = nb * page_size - bucket
         blocks = F.pad(kv, (0, 0, 0, 0, 0, pad)).reshape(
             kv.shape[0], nb, page_size, *kv.shape[2:])
-        pool = paged[name]
-        pool[:, pages[:nb]] = blocks.to(pool.dtype)
+        _raw(pool)[:, pages[:nb]] = blocks
 
 
 def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
@@ -159,8 +187,8 @@ def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
         page_idx = block_tables[rows, pos // page_size].long()
         slot_idx = (pos % page_size).long()
         kp, vp = cache["k_pages"], cache["v_pages"]
-        kp.index_put_((page_idx, slot_idx), k.to(kp.dtype))
-        vp.index_put_((page_idx, slot_idx), v.to(vp.dtype))
+        _scatter(kp, (page_idx, slot_idx), k)
+        _scatter(vp, (page_idx, slot_idx), v)
         if fused:
             out = ops.paged_attention_oproj(
                 q, kp, vp, block_tables, pos + 1, p["wo"], window=window,
@@ -170,7 +198,8 @@ def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
                                   window=window,
                                   logit_cap=cfg.attn_logit_cap,
                                   use_kernel=use_kernel)
-        return ops.linear(out.reshape(b, 1, hq * hd).to(hn.dtype), p["wo"])
+        return ops.linear(out.reshape(b, 1, hq * hd).to(hn.dtype), p["wo"],
+                          use_kernel)
 
     return attn_step
 
@@ -208,13 +237,14 @@ def make_paged_span_step(cfg: ModelConfig, block_tables: torch.Tensor,
                                SCRATCH_PAGE).long()
         slot_idx = torch.where(safe, positions % page_size, 0).long()
         kp, vp = cache["k_pages"], cache["v_pages"]
-        kp.index_put_((page_idx, slot_idx), k.to(kp.dtype))
-        vp.index_put_((page_idx, slot_idx), v.to(vp.dtype))
+        _scatter(kp, (page_idx, slot_idx), k)
+        _scatter(vp, (page_idx, slot_idx), v)
         out = ops.paged_attention(q, kp, vp, block_tables, pos + 1,
                                   window=window,
                                   logit_cap=cfg.attn_logit_cap,
                                   use_kernel=use_kernel)   # (B, S, Hq, hd)
-        return ops.linear(out.reshape(b, s, hq * hd).to(hn.dtype), p["wo"])
+        return ops.linear(out.reshape(b, s, hq * hd).to(hn.dtype), p["wo"],
+                          use_kernel)
 
     return attn_step
 

@@ -1,7 +1,8 @@
 """Schedule tuner: the paper's blocking optimizer driving the port's
-kernels (the port of ``repro.tune`` for ``"matmul"``, ``"flash_decode"``
-and the fused path's ``"matmul_fused"``, ``"qkv_fused"`` and
-``"flash_decode_oproj"``).
+kernels (the port of ``repro.tune`` for ``"matmul"``, ``"flash_decode"``,
+the fused path's ``"matmul_fused"``, ``"qkv_fused"`` and
+``"flash_decode_oproj"``, and the quantized path's ``"matmul_w8"`` and
+``"flash_decode_fp8"``).
 
 The analytical model (``repro_torch.core``) derives candidate blockings
 on the Hopper target; this package lowers them to the CUDA kernels' tile
@@ -84,14 +85,14 @@ def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
                   target: HopperTarget = H100_SXM) -> Schedule:
     """Cached-or-derived schedule for one op instance (never measures).
 
-    ``dims`` is ``(M, N, K)`` for ``"matmul"`` and ``"matmul_fused"``,
-    ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S, D)`` for
-    ``"flash_decode"`` and ``(G, S, D, E)`` for
-    ``"flash_decode_oproj"``.  A cache hit (same op, shapes, dtype and device
-    kind) wins outright, unless an explicit ``smem_budget_bytes`` is
-    given that its tiles overflow; otherwise the analytic top candidate
-    is derived in-process (memoized, not persisted -- run :func:`tune_op`
-    to measure and persist).
+    ``dims`` is ``(M, N, K)`` for ``"matmul"``, ``"matmul_fused"`` and
+    ``"matmul_w8"``, ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S,
+    D)`` for ``"flash_decode"`` and ``"flash_decode_fp8"`` and ``(G, S,
+    D, E)`` for ``"flash_decode_oproj"``.  A cache hit (same op, shapes,
+    dtype and device kind) wins outright, unless an explicit
+    ``smem_budget_bytes`` is given that its tiles overflow; otherwise the
+    analytic top candidate is derived in-process (memoized, not persisted
+    -- run :func:`tune_op` to measure and persist).
     """
     spec = OpSpec(op, tuple(dims), dtype)
     hit = (cache or _default_cache).lookup(spec)

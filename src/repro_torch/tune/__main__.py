@@ -6,6 +6,10 @@
         --dtype bfloat16 --no-measure
     PYTHONPATH=src python -m repro_torch.tune qkv_fused 8 1024 4096 4 \\
         --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.tune matmul_w8 8 4096 4096 \\
+        --dtype bfloat16 --no-measure
+    PYTHONPATH=src python -m repro_torch.tune flash_decode_fp8 4 512 128 \\
+        --dtype bfloat16 --no-measure
 
 Prints the analytic candidate table, times the top-N on the card (unless
 ``--no-measure``; without a CUDA device measuring raises) and persists
@@ -29,13 +33,16 @@ def main(argv: list[str] | None = None) -> None:
                                  description=__doc__.splitlines()[0])
     ap.add_argument("op", choices=OPS)
     ap.add_argument("dims", type=int, nargs="+",
-                    help="matmul, matmul_fused: M N K; flash_decode: G "
-                         "S D (GQA group size, max KV length, head dim); "
+                    help="matmul, matmul_fused, matmul_w8: M N K; "
+                         "flash_decode, flash_decode_fp8: G S D (GQA "
+                         "group size, max KV length, head dim); "
                          "qkv_fused: M Nkv K G (Nkv the k/v projection "
                          "width); flash_decode_oproj: G S D E (E = "
                          "d_model)")
     ap.add_argument("--dtype", default="float32",
-                    choices=("float32", "bfloat16"))
+                    choices=("float32", "bfloat16"),
+                    help="the activations' dtype (the quantized keys' "
+                         "weights or pages are one byte whatever it is)")
     ap.add_argument("--top-n", type=int, default=3,
                     help="how many candidates to time")
     ap.add_argument("--no-measure", action="store_true",

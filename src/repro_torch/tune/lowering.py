@@ -13,7 +13,11 @@ schedules (the port of ``repro.tune.lowering`` for ``"matmul"``,
 
 The fused keys (``FUSED_OPS``) rank by :func:`predicted_dram_bytes`, the
 same walk weighted by each operand's width, as the reference does:
-bytes, not element counts, are what fusion removes.
+bytes, not element counts, are what fusion removes.  The quantized keys
+(``NARROW_WEIGHT_BYTES``: ``"matmul_w8"``, ``"flash_decode_fp8"``) rank
+the same way, their one-byte operand weighted at its width (the
+reference ranks them by element counts over its width-aware buffers):
+what quantization removes is bytes too.
 
 :func:`schedule_to_string`, :func:`predicted_dram_accesses`,
 :func:`predicted_dram_bytes` and :func:`level0_dram_bytes` are the
@@ -29,10 +33,13 @@ from repro_torch.core.hopper_adapter import (
     flash_decode_oproj_tile_candidates, flash_decode_tile_candidates,
     matmul_fits, matmul_tile_candidates, qkv_fits, qkv_fused_tile_candidates)
 from repro_torch.core.loopnest import BlockingString, Dim, Loop
-from repro_torch.tune.schedule import FUSED_OPS, OpSpec, Schedule
+from repro_torch.tune.schedule import (FUSED_OPS, NARROW_WEIGHT_BYTES,
+                                       OpSpec, Schedule)
 
-_GEMMS = ("matmul", "matmul_fused")
-_PAGES = ("flash_decode", "flash_decode_oproj")   # tile = the page
+_GEMMS = ("matmul", "matmul_fused", "matmul_w8")
+_PAGES = ("flash_decode", "flash_decode_oproj",
+          "flash_decode_fp8")                     # tile = the page
+_BY_BYTES = FUSED_OPS + tuple(NARROW_WEIGHT_BYTES)
 
 
 def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
@@ -40,10 +47,14 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     """Whether the op's CUDA kernel holds these tiles on chip: its own
     shared-memory footprint within ``budget`` and, for the GEMM, its
     fp32 accumulator within the target's register limit (the fused
-    QKV kernel's at its joint width)."""
+    QKV kernel's at its joint width).  The quantized keys price their
+    narrow operand at one byte (``matmul_q.smem_bytes_required``, the
+    fp8 pages of ``flash_decode.smem_bytes_required``), and an int8
+    weight tile's bn must be a whole number of 16-byte copies."""
     if spec.op in _GEMMS:
         bm, bk, bn = tiles
-        return matmul_fits(bm, bk, bn, spec.itemsize, budget, target)
+        return matmul_fits(bm, bk, bn, spec.itemsize, budget, target,
+                           w_bytes=NARROW_WEIGHT_BYTES.get(spec.op))
     if spec.op == "qkv_fused":
         bm, bk, bn = tiles
         return qkv_fits(bm, bk, bn, spec.dims[3], spec.itemsize, budget,
@@ -57,8 +68,8 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
         return oproj_smem_bytes_required(page, G, D, E,
                                          spec.itemsize) <= budget
     _, _, D = spec.dims
-    return smem_bytes_required(page, ROWS_PER_BLOCK, D,
-                               spec.itemsize) <= budget
+    return smem_bytes_required(page, ROWS_PER_BLOCK, D, spec.itemsize,
+                               NARROW_WEIGHT_BYTES.get(spec.op)) <= budget
 
 
 def divides(spec: OpSpec, tiles: tuple[int, ...]) -> bool:
@@ -190,7 +201,7 @@ def level0_dram_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
     if not divides(spec, tiles):
         raise ValueError(
             f"tiles {tiles} do not divide {spec.op} dims {spec.dims}")
-    if spec.op == "flash_decode":
+    if spec.op in ("flash_decode", "flash_decode_fp8"):
         return _flash_decode_level0_bytes(spec, tiles)
     if spec.op == "flash_decode_oproj":
         raise ValueError(
@@ -207,18 +218,20 @@ def _flash_decode_level0_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
     q @ K^T`` (count q and K; the score output is an on-chip
     intermediate) and ``out = P @ V`` (count V and the output; P is the
     same intermediate), sharing the KV block loop.  Per (batch, kv-head)
-    row; block tables and lengths are excluded."""
+    row; block tables and lengths are excluded.  An fp8 cache streams its
+    K/V at one byte and adds its two per-head fp32 scales."""
     from repro_torch.core.buffers import Operand, operand_bytes
     from repro_torch.core.loopnest import Problem
     G, S, D = spec.dims
     (page,) = tiles
+    kvb = NARROW_WEIGHT_BYTES.get(spec.op)
     p1 = Problem.gemm(M=G, N_cols=S, K_reduce=D,
-                      bytes_per_elem=spec.itemsize)
+                      bytes_per_elem=spec.itemsize, weight_bytes=kvb)
     s1 = BlockingString([Loop(Dim.C, D), Loop(Dim.X, G), Loop(Dim.K, page),
                          Loop(Dim.C, D), Loop(Dim.K, S), Loop(Dim.X, G)],
                         p1)
     p2 = Problem.gemm(M=G, N_cols=D, K_reduce=S,
-                      bytes_per_elem=spec.itemsize)
+                      bytes_per_elem=spec.itemsize, weight_bytes=kvb)
     s2 = BlockingString([Loop(Dim.C, page), Loop(Dim.X, G), Loop(Dim.K, D),
                          Loop(Dim.C, S), Loop(Dim.K, D), Loop(Dim.X, G)],
                         p2)
@@ -229,6 +242,8 @@ def _flash_decode_level0_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
         for op in counted:
             total += _operand_level0_traffic(s, op, fps[op]) \
                 * operand_bytes(s.problem, op)
+    if spec.op == "flash_decode_fp8":
+        total += 2 * 4        # the per-head dequant scales, one row
     return total
 
 
@@ -246,8 +261,9 @@ def candidates(spec: OpSpec,
     budget = default_smem_budget(target, smem_budget_bytes)
     if spec.op in _GEMMS:
         M, N, K = spec.dims
-        raw = matmul_tile_candidates(M, N, K, spec.itemsize, budget,
-                                     target, top=top)
+        raw = matmul_tile_candidates(
+            M, N, K, spec.itemsize, budget, target, top=top,
+            w_bytes=NARROW_WEIGHT_BYTES.get(spec.op))
     elif spec.op == "qkv_fused":
         M, Nkv, K, G = spec.dims
         raw = qkv_fused_tile_candidates(M, Nkv, K, G, spec.itemsize, budget,
@@ -258,8 +274,9 @@ def candidates(spec: OpSpec,
                                                  budget, target, top=top)
     else:
         G, S, D = spec.dims
-        raw = flash_decode_tile_candidates(G, S, D, spec.itemsize, budget,
-                                           target, top=top)
+        raw = flash_decode_tile_candidates(
+            G, S, D, spec.itemsize, budget, target, top=top,
+            kv_bytes=NARROW_WEIGHT_BYTES.get(spec.op))
     fitting = [t for t in raw if fits_smem(spec, t, budget, target)]
     if not fitting:
         raise ValueError(
@@ -274,7 +291,8 @@ def candidates(spec: OpSpec,
               for t in usable]
 
     # fewest predicted DRAM accesses first (bytes for the fused keys, as
-    # in the reference); break ties toward bigger blocks (fewer grid
+    # in the reference, and for the quantized ones); break ties toward
+    # bigger blocks (fewer grid
     # steps) -- except for the paged kernels, where the KV stream touches
     # every element once at any page size (the model ties) and the tile
     # doubles as the paged cache's allocation granule: smaller pages
@@ -285,7 +303,7 @@ def candidates(spec: OpSpec,
             prod *= t
         return prod
     sign = 1 if spec.op in _PAGES else -1
-    if spec.op in FUSED_OPS:
+    if spec.op in _BY_BYTES:
         scored.sort(key=lambda s: (predicted_dram_bytes(
             spec, s.tiles, budget, target), sign * tile_product(s)))
     else:

@@ -38,9 +38,10 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
     """Operands for the schedule's OpSpec on the card, from ``seed``.
     ``flash_decode`` and ``flash_decode_oproj``: one request, one kv
     head, its cache of S keys laid out in pages of the schedule's tile,
-    under a shuffled block table (and the head's (G*D, E) wo slab);
+    under a shuffled block table (and the head's (G*D, E) wo slab;
+    ``flash_decode_fp8``: fp8 pages and per-head scales);
     ``matmul_fused``: the MLP's epilogue shape, a bias row, a gelu and a
-    residual block."""
+    residual block; ``matmul_w8``: int8 weights and per-channel scales."""
     dev = _device()
     spec = schedule.spec
     dtype = getattr(torch, spec.dtype)
@@ -60,12 +61,27 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
         M, Nkv, K, G = spec.dims
         return (t(M, K), t(K, G * Nkv) * K ** -0.5, t(K, Nkv) * K ** -0.5,
                 t(K, Nkv) * K ** -0.5)
+    if spec.op == "matmul_w8":
+        M, N, K = spec.dims
+        w_q = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8,
+                           device=dev)
+        scale = torch.tensor(rng.uniform(0.005, 0.05, N) * K ** -0.5,
+                             dtype=torch.float32, device=dev)
+        return t(M, K), w_q, scale
     G, S, D = spec.dims[:3]
     (page,) = schedule.tiles
     n_blocks = -(-S // page)
     bt = torch.tensor(1 + rng.permutation(n_blocks)[None, :],
                       dtype=torch.int32, device=dev)
     lengths = torch.tensor([S], dtype=torch.int32, device=dev)
+    if spec.op == "flash_decode_fp8":
+        fp8 = torch.float8_e4m3fn
+        return (t(1, 1, G, D), t(n_blocks + 1, page, 1, D).to(fp8),
+                t(n_blocks + 1, page, 1, D).to(fp8),
+                torch.tensor(rng.uniform(0.5, 2.0, 1), dtype=torch.float32,
+                             device=dev),
+                torch.tensor(rng.uniform(0.5, 2.0, 1), dtype=torch.float32,
+                             device=dev), bt, lengths)
     paged = (t(1, 1, G, D), t(n_blocks + 1, page, 1, D),
              t(n_blocks + 1, page, 1, D), bt, lengths)
     if spec.op == "flash_decode_oproj":
@@ -92,7 +108,13 @@ def run_once(schedule: Schedule, inputs: tuple):
         from repro_torch.kernels.qkv_fused import qkv_fused
         bm, bk, bn = schedule.tiles
         return qkv_fused(*inputs, bm=bm, bk=bk, bn=bn)
+    if op == "matmul_w8":
+        from repro_torch.kernels.matmul_q import matmul_w8
+        bm, bk, bn = schedule.tiles
+        return matmul_w8(*inputs, bm=bm, bk=bk, bn=bn)
     from repro_torch.kernels import flash_decode as FD
+    if op == "flash_decode_fp8":
+        return FD.flash_decode_fp8(*inputs)
     if op == "flash_decode_oproj":
         return FD.flash_decode_oproj(*inputs)
     return FD.flash_decode(*inputs)

@@ -28,9 +28,19 @@ the next op's work instead of round-tripping through HBM):
   extra shared memory (the G x D rows and the (1, E) partial) squeezes
   the budget the page competes for.
 
-The JAX package's other keys (the backward, conv and quantized nests)
-are refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that ports them.
+The quantized keys (``NARROW_WEIGHT_BYTES``: the narrow operand is one
+byte wide whatever the spec's activation dtype):
+
+* ``matmul_w8``: ``dims = (M, N, K)``; tiles ``(bm, bk, bn)`` of
+  ``kernels/matmul_q.py`` (and of the int8 ``matmul_fused``), the weight
+  operand int8, activations and output at ``dtype``'s width;
+* ``flash_decode_fp8``: ``dims = (G, S, D)``; the ``(page,)`` tile of
+  ``flash_decode_fp8`` and the fp8 pool's page size, the streamed K/V
+  pages fp8 while q keeps ``dtype``.
+
+The JAX package's other keys (the backward and conv nests) are refused
+with ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
+them.
 
 A :class:`Schedule` is a concrete kernel configuration for that spec: the
 tile tuple, where it came from (``analytic`` / ``measured`` / ``cache``),
@@ -48,19 +58,22 @@ import torch
 from repro_torch.core.loopnest import Problem
 
 FUSED_OPS = ("matmul_fused", "qkv_fused", "flash_decode_oproj")
-OPS = ("matmul", "flash_decode") + FUSED_OPS
+# quantized ops: the narrow operand (weights / KV pages) is 1 byte wide
+# regardless of the spec's activation dtype
+NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1}
+OPS = ("matmul", "flash_decode") + FUSED_OPS + tuple(NARROW_WEIGHT_BYTES)
 TILE_RANK = {"matmul": 3, "flash_decode": 1, "matmul_fused": 3,
-             "qkv_fused": 3, "flash_decode_oproj": 1}
+             "qkv_fused": 3, "flash_decode_oproj": 1, "matmul_w8": 3,
+             "flash_decode_fp8": 1}
 _N_DIMS = {"matmul": 3, "flash_decode": 3, "matmul_fused": 3,
-           "qkv_fused": 4, "flash_decode_oproj": 4}
+           "qkv_fused": 4, "flash_decode_oproj": 4, "matmul_w8": 3,
+           "flash_decode_fp8": 3}
 # the reference's other schedule keys, with the ROADMAP item porting each
 UNPORTED_OPS = {
     "matmul_dgrad": "queue 1, item 12 (training)",
     "conv2d": "queue 1, item 13 (the paper's conv path)",
     "conv2d_dgrad": "queue 1, items 12/13 (training, conv path)",
     "conv2d_wgrad": "queue 1, items 12/13 (training, conv path)",
-    "matmul_w8": "queue 1, item 10 (quantization)",
-    "flash_decode_fp8": "queue 1, item 10 (quantization)",
 }
 
 
@@ -99,22 +112,26 @@ class OpSpec:
         QKV pass is the joint GEMM (one activation stream feeding all
         (G+2)*Nkv output columns); the oproj-fused decode is the decode
         nest (its projection only squeezes the shared-memory budget: the
-        candidate filter sees E, the nest does not)."""
-        if self.op in ("matmul", "matmul_fused"):
+        candidate filter sees E, the nest does not).  The quantized keys
+        carry their narrow operand's width (``weight_bytes``): the GEMM's
+        weights, and the decode nest's K/V stream."""
+        wb = NARROW_WEIGHT_BYTES.get(self.op)
+        if self.op in ("matmul", "matmul_fused", "matmul_w8"):
             M, N, K = self.dims
             return Problem.gemm(M=M, N_cols=N, K_reduce=K,
-                                bytes_per_elem=self.itemsize)
+                                bytes_per_elem=self.itemsize,
+                                weight_bytes=wb)
         if self.op == "qkv_fused":
             M, Nkv, K, G = self.dims
             return Problem.gemm(M=M, N_cols=(G + 2) * Nkv, K_reduce=K,
                                 bytes_per_elem=self.itemsize)
         G, S, D = self.dims[:3]
         return Problem.gemm(M=G, N_cols=D, K_reduce=S,
-                            bytes_per_elem=self.itemsize)
+                            bytes_per_elem=self.itemsize, weight_bytes=wb)
 
     def key(self, device_kind: str) -> str:
         """Stable cache key: ``op/dims/dtype/device``."""
-        if self.op in ("matmul", "matmul_fused"):
+        if self.op in ("matmul", "matmul_fused", "matmul_w8"):
             M, N, K = self.dims
             shape = f"m{M}n{N}k{K}"
         elif self.op == "qkv_fused":

@@ -21,13 +21,17 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_fp8,
                                               flash_decode_oproj,
                                               largest_page,
+                                              paged_attention_fp8_ref,
                                               paged_attention_oproj_ref,
                                               paged_attention_ref)
 from repro_torch.kernels.matmul_blocked import matmul_blocked, matmul_ref
 from repro_torch.kernels.matmul_fused import matmul_fused, matmul_fused_ref
+from repro_torch.kernels.matmul_q import matmul_w8, matmul_w8_ref
 from repro_torch.kernels.qkv_fused import qkv_fused, qkv_fused_ref
+from repro_torch.quant import quantize
 
 pytestmark = pytest.mark.cuda
 
@@ -291,3 +295,131 @@ def test_fused_kernels_refuse_what_they_cannot_hold(dev):
         flash_decode_oproj(q, kp, vp, bt, ln, wo)
     assert (qkv_fused.launches, matmul_fused.launches,
             flash_decode_oproj.launches) == before
+
+
+# ------------------------------ quantized path -------------------------------
+
+
+def w8_case(dev, dtype, m, n, k, seed=0):
+    """A and the int8 quantization of a K ** -0.5-scaled weight (per
+    output channel), so every output is O(1)."""
+    a, w = gemm_case(dev, torch.float32, m, n, k, seed=seed)
+    return a.to(dtype), quantize(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_channel", [True, False],
+                         ids=["per_channel", "per_tensor"])
+@pytest.mark.parametrize("m,n,k,tiles", [
+    (8, 4096, 4096, (8, 512, 64)),       # decode, the model's tile
+    (8, 4096, 12800, (8, 64, 512)),      # the down projection's
+    (512, 1024, 4096, (128, 64, 128)),   # a join span
+    (37, 1008, 300, (16, 64, 64)),       # ragged M and K (K % 8: scalar)
+    (5, 48, 70, (8, 64, 16)),            # smaller than one tile
+])
+def test_matmul_w8_matches_plain(dev, dtype, per_channel, m, n, k, tiles):
+    a, qw = w8_case(dev, dtype, m, n, k, seed=m + n)
+    scale = qw.scale if per_channel else qw.scale.max()
+    before = matmul_w8.launches
+    bm, bk, bn = tiles
+    out = matmul_w8(a, qw.q, scale, bm=bm, bk=bk, bn=bn)
+    again = matmul_w8(a, qw.q, scale, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert matmul_w8.launches == before + 2
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(),
+                               matmul_w8_ref(a, qw.q, scale).float(),
+                               **gemm_tol(dtype, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", [
+    dict(act="silu"), dict(mul=True), dict(residual=True),
+    dict(act="gelu", bias=True, mul=True, residual=True)])
+@pytest.mark.parametrize("m,n,k,tiles", [
+    (8, 12800, 4096, (8, 512, 64)),      # gate / up at decode
+    (64, 1024, 512, (64, 64, 128)),
+    (37, 1008, 300, (16, 64, 64)),       # ragged M and K
+])
+def test_int8_matmul_fused_matches_plain(dev, dtype, epi, m, n, k, tiles):
+    """The int8 variant: the weight tile staged at one byte, its scale
+    first in the epilogue."""
+    rng = np.random.default_rng(m + k)
+    a, qw = w8_case(dev, dtype, m, n, k, seed=m + n)
+    f32 = lambda *s: torch.tensor(rng.standard_normal(s),  # noqa: E731
+                                  dtype=torch.float32, device=dev)
+    kw = dict(act=epi.get("act", "none"),
+              bias=f32(n) if epi.get("bias") else None,
+              mul=f32(m, n).to(dtype) if epi.get("mul") else None,
+              residual=f32(m, n).to(dtype) if epi.get("residual") else None)
+    scale = qw.scale.reshape(-1)
+    before = matmul_fused.launches
+    bm, bk, bn = tiles
+    out = matmul_fused(a, qw.q, scale, **kw, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert matmul_fused.launches == before + 1
+    ref = matmul_fused_ref(a, qw.q, scale, **kw)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **gemm_tol(dtype, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_span,lengths", [
+    (1, [1, 17, 64, 130, 300, 512]),
+    (64, [1, 17, 64, 130, 300, 470]),
+])
+@pytest.mark.parametrize("page", [16, 64, 200])
+@pytest.mark.parametrize("window,cap,unit", [(None, None, True),
+                                             (37, 30.0, False)])
+def test_flash_decode_fp8_matches_plain(dev, dtype, q_span, lengths, page,
+                                        window, cap, unit):
+    """fp8 pages (a page of 200 keys fits only at one byte), unit and
+    non-unit per-head scales; two launches agree bit for bit."""
+    q, kp, vp, bt, ln = paged_case(dev, torch.float32, q_span, lengths,
+                                   page=page, n_blocks=-(-512 // page),
+                                   seed=page + q_span)
+    q = q.to(dtype)
+    kp8, vp8 = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
+    rng = np.random.default_rng(page)
+    ks, vs = (torch.ones(8, device=dev) if unit else
+              torch.tensor(rng.uniform(0.5, 2.0, 8), dtype=torch.float32,
+                           device=dev) for _ in range(2))
+    kw = dict(window=window, logit_cap=cap, q_span=q_span)
+    before = flash_decode_fp8.launches
+    out = flash_decode_fp8(q, kp8, vp8, ks, vs, bt, ln, **kw)
+    again = flash_decode_fp8(q, kp8, vp8, ks, vs, bt, ln, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode_fp8.launches == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)
+    ref = paged_attention_fp8_ref(q, kp8, vp8, ks, vs, bt, ln, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_quantized_kernels_refuse_what_they_cannot_take(dev):
+    """An int8 weight whose N or bn is no whole number of 16-byte copies,
+    a wide weight passed to the int8 GEMM, and fp8 scales of the wrong
+    shape raise before any launch."""
+    a, qw = w8_case(dev, torch.bfloat16, 8, 40, 64)
+    a2, qw2 = w8_case(dev, torch.bfloat16, 8, 64, 64)
+    before = (matmul_w8.launches, matmul_fused.launches,
+              flash_decode_fp8.launches)
+    with pytest.raises(ValueError, match="16"):
+        matmul_w8(a, qw.q, qw.scale, bm=8, bk=64, bn=16)
+    with pytest.raises(ValueError, match="16"):
+        matmul_w8(a2, qw2.q, qw2.scale, bm=8, bk=64, bn=24)
+    with pytest.raises(ValueError, match="16"):
+        matmul_fused(a, qw.q, qw.scale, bm=8, bk=64, bn=16)
+    with pytest.raises(TypeError, match="int8"):
+        matmul_w8(a2, qw2.q.to(torch.bfloat16), qw2.scale, bm=8, bk=64,
+                  bn=64)
+    q, kp, vp, bt, ln = paged_case(dev, torch.bfloat16, 1, [5, 9], page=16,
+                                   n_blocks=2)
+    kp8, vp8 = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
+    ones = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="k_scale"):
+        flash_decode_fp8(q, kp8, vp8, ones[:4], ones, bt, ln)
+    with pytest.raises(TypeError):
+        flash_decode_fp8(q, kp, vp, ones, ones, bt, ln)
+    assert (matmul_w8.launches, matmul_fused.launches,
+            flash_decode_fp8.launches) == before

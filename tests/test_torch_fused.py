@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_decode import (flash_decode_oproj,
 from repro_torch.kernels.matmul_fused import matmul_fused, matmul_fused_ref
 from repro_torch.kernels.qkv_fused import qkv_fused, qkv_fused_ref
 from repro_torch.models import layers as L
+from repro_torch.quant import quantize
 from repro_torch.serve.engine import PagedEngine, PagedServeConfig
 from repro_torch.serve.lifecycle import RequestStatus
 
@@ -132,11 +133,23 @@ def test_matmul_fused_scale_matches_jax_kernel():
 
 
 def test_matmul_fused_refuses_unknown_activation_and_int8_weights():
+    """An unknown activation is refused.  An int8 weight (a
+    ``QuantizedTensor``) is no longer refused: ``ops.matmul_fused`` runs
+    the kernel's int8 variant (its plain version on the CPU), the
+    product of the payload with the scale in the epilogue."""
     a, w = torch.zeros(2, 4), torch.zeros(4, 3)
     with pytest.raises(ValueError, match="activation"):
         matmul_fused(a, w, act="tanh", bm=16, bk=64, bn=64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ops.matmul_fused(a, w.numpy())
+    rng = np.random.default_rng(1)
+    a = t(rng.standard_normal((2, 5, 32)).astype(np.float32))
+    qw = quantize(t((rng.standard_normal((32, 16)) / 8).astype(np.float32)))
+    got = ops.matmul_fused(a, qw, act="silu")
+    want = matmul_fused_ref(a.reshape(10, 32), qw.q, qw.scale.reshape(-1),
+                            act="silu")
+    assert got.shape == (2, 5, 16)
+    torch.testing.assert_close(got.reshape(10, 16), want, rtol=0, atol=0)
+    close(got.reshape(10, 16), torch.nn.functional.silu(
+        a.reshape(10, 32) @ qw.dequant()), 32)
 
 
 # -------------------------------- qkv_fused --------------------------------

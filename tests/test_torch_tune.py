@@ -327,7 +327,7 @@ def test_opspec_validation():
         OpSpec("relu", (1, 2, 3))
     with pytest.raises(ValueError):
         Schedule(OpSpec("matmul", (8, 8, 8)), (8, 8))
-    for op in ("conv2d", "matmul_w8", "flash_decode_fp8", "matmul_dgrad"):
+    for op in ("conv2d", "matmul_dgrad"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             OpSpec(op, (8, 8, 8))
 
@@ -364,3 +364,82 @@ def test_cli_ranks_and_persists_without_measuring(tmp_path):
     assert "#0: tiles=" in res.stdout and "winner: tiles=" in res.stdout
     assert "matmul/m8n256k512/bfloat16/cpu" in json.loads(
         path.read_text())["schedules"]
+
+
+QUANT_SPECS = [("matmul_w8", (8, 4096, 4096), "bfloat16", (8, 512, 64)),
+               ("matmul_w8", (64, 4096, 12800), "float32", (16, 64, 128)),
+               ("matmul_w8", (16, 32, 64), "float32", (16, 64, 32)),
+               ("flash_decode_fp8", (4, 512, 128), "bfloat16", (64,)),
+               ("flash_decode_fp8", (2, 64, 16), "float32", (8,))]
+
+
+@pytest.mark.parametrize("op,dims,dtype,tiles", QUANT_SPECS)
+def test_quantized_keys_model_arithmetic_matches_jax(op, dims, dtype, tiles):
+    """The quantized keys' nests carry the one-byte operand as JAX's do:
+    the blocking string, access counts, byte-weighted traffic (the rank
+    the port sorts them by), level-0 bytes (the fp8 scales included) and
+    cache key equal JAX's for the same spec, tiles and budget."""
+    spec, jspec = OpSpec(op, dims, dtype), JOpSpec(op, dims, dtype)
+    assert spec.problem().weight_bpe == 1
+    assert repr(schedule_to_string(spec, tiles)) == \
+        repr(jlowering.schedule_to_string(jspec, tiles))
+    assert predicted_dram_accesses(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_accesses(jspec, tiles, BUDGET)
+    assert predicted_dram_bytes(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_bytes(jspec, tiles, BUDGET)
+    assert level0_dram_bytes(spec, tiles) == \
+        jlowering.level0_dram_bytes(jspec, tiles)
+    assert spec.key("cpu") == jspec.key("cpu")
+
+
+@pytest.mark.parametrize("op,dims,dtype", [
+    ("matmul_w8", (8, 4096, 12800), "bfloat16"),
+    ("matmul_w8", (512, 1024, 4096), "float32"),
+    ("flash_decode_fp8", (4, 512, 128), "bfloat16"),
+    ("flash_decode_fp8", (4, 512, 128), "float32")])
+def test_quantized_candidates_fit_the_cuda_kernels(op, dims, dtype):
+    """Every candidate fits its kernel's footprint with the narrow
+    operand at one byte (``matmul_q.smem_bytes_required``; the fp8
+    pages of ``flash_decode.smem_bytes_required``), an int8 weight tile
+    is a whole number of 16-byte copies, the candidates rank by
+    predicted bytes, and an fp8 page is a whole divisor of S."""
+    from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_q as MQ
+    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  smem_bytes_required)
+    spec = OpSpec(op, dims, dtype)
+    cands = candidates(spec)
+    assert cands
+    nbytes = [predicted_dram_bytes(spec, s.tiles) for s in cands]
+    assert nbytes == sorted(nbytes)
+    for s in cands:
+        assert fits_smem(spec, s.tiles, BUDGET)
+        if op == "flash_decode_fp8":
+            G, S, D = dims
+            (page,) = s.tiles
+            assert S % page == 0
+            assert smem_bytes_required(page, ROWS_PER_BLOCK, D,
+                                       spec.itemsize, 1) <= BUDGET
+            continue
+        bm, bk, bn = s.tiles
+        assert bn % MB.INT8_COLS == 0
+        assert MQ.smem_bytes_required(bm, bk, bn, spec.itemsize) <= BUDGET
+        assert MB.accumulators_per_thread(bm, bn) <= H100_SXM.acc_per_thread
+
+
+@pytest.mark.parametrize("op,dims,key", [
+    ("matmul_w8", ["8", "4096", "4096"],
+     "matmul_w8/m8n4096k4096/bfloat16/cpu"),
+    ("flash_decode_fp8", ["4", "512", "128"],
+     "flash_decode_fp8/g4s512d128/bfloat16/cpu")])
+def test_cli_takes_the_quantized_keys(tmp_path, op, dims, key):
+    path = tmp_path / "s.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_TUNE_CACHE": str(path)}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tune", op, *dims, "--dtype",
+         "bfloat16", "--no-measure"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "winner: tiles=" in res.stdout
+    assert key in json.loads(path.read_text())["schedules"]
