@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the eight CUDA kernels from ``src/repro_torch/csrc`` with
+2. build the ten CUDA libraries from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
@@ -23,7 +23,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    M = 8, 64, 512 (and a per-tensor scale, two ragged shapes), the int8
    ``matmul_fused`` under every epilogue combination and granite's MLP,
    ``flash_decode_fp8`` at pages 16, 32, 64 and the model's fp8 page,
-   q_span 1 and 64, window, cap and unit or drawn scales;
+   q_span 1 and 64, window, cap and unit or drawn scales; the training
+   kernels: ``matmul_dgrad_a``/``_b`` at ragged shapes and under every
+   ``"matmul_dgrad"`` adapter tile of granite's projections at 2048
+   tokens, the forward's lse and ``flash_attention_bwd`` (GQA 32/8,
+   D = 128 and 64; ragged S, Sq < Skv, window, cap), repeats bit-equal;
 4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
    fused, with wide weights and under w8fp8 (int8 projections, fp8
    pages): the kernel path and the plain path give identical greedy
@@ -48,10 +52,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    over the fake-quant tree, and reported against the bf16 model's;
 9b. the same with ``fuse=True`` (the MLP through the int8
    ``matmul_fused``; q, k, v and wo through ``matmul_w8``);
+10. training parity (after 9b, the serving model freed): granite-3-8b
+   width, 2 layers, fp32, one train step on the kernel path (blocked
+   linears: kernel rows 4-8) and on the plain path; loss, grad norm and
+   every gradient leaf agree, the plain path launches nothing;
+11. training granite-3-8b at full width, depth cut to 4 of 40 layers,
+   bf16, remat "block", 4 x 512 tokens for 8 steps, on the default path
+   and with blocked kernels: finite losses, step 0 held against the
+   plain path, step times, tokens/s and a profiled step;
 7. ``tune_op`` on the decode GEMM shape and the decode QKV pass into a
    temporary cache;
-8. each kernel timed at the shapes of phases 6, 6b, 9 and 9b beside its
-   bound, its plain version and a library call.
+8. each kernel timed at the shapes of phases 6, 6b, 9, 9b and 11 beside
+   its bound, its plain version and a library call.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -1336,6 +1348,450 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
     return rows
 
 
+# ------------------------------ training ------------------------------------
+
+
+def grad_tol(dtype_name: str, reduce: int, ref) -> tuple[float, float]:
+    """(abs, rel) tolerance of a gradient against its plain version: a
+    ``reduce``-term sum in another order, on the scale of the largest
+    |value| (the phase-3 fp32 GEMM rule, ``gemm_atol``, times that
+    scale); bf16 keeps its output rounding, on the same scale."""
+    scale = max(1.0, float(ref.float().abs().max()))
+    if dtype_name == "float32":
+        return gemm_atol("float32", reduce) * scale, TOL["float32"][1]
+    return TOL["bfloat16"][0] * scale, TOL["bfloat16"][1]
+
+
+def phase3_train(dev) -> None:
+    """The training path's kernels against their plain versions: the
+    dgrad GEMMs at ragged shapes and under every "matmul_dgrad" adapter
+    tile of granite's projections at M = 2048 tokens, the forward's lse
+    residual and the attention backward (GQA 32/8, D = 128 and a D = 64
+    case; ragged S, Sq < Skv, window, cap), repeated launches bit for
+    bit."""
+    import torch
+    from repro_torch.core.hopper_adapter import backward_tile_candidates
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import matmul_bwd as MW
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+
+        def dgrad_pair(m, n, k, seed):
+            """a (m, k), b (k, n) and the cotangents of C = a @ b scaled
+            so dA = g @ b^T and dB = a^T @ g are O(1)."""
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            r = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                       device=dev)
+            a, b, g = r(m, k), r(k, n) * n ** -0.5, r(m, n)
+            return (a.to(dtype), b.to(dtype), g.to(dtype),
+                    (g * m ** -0.5).to(dtype))
+
+        def check_dgrad(tag, m, n, k, tiles_a, tiles_b, seed):
+            a, b, g, gb = dgrad_pair(m, n, k, seed)
+            if tiles_a is not None:
+                t0, t1, t2 = tiles_a
+                da = MW.matmul_dgrad_a(g, b, bm=t0, br=t1, bo=t2)
+                compare(f"matmul_dgrad_a {dn} {tag} tiles={tiles_a}", da,
+                        MW.matmul_dgrad_a_ref(g, b), dn, gemm_atol(dn, n))
+                assert torch.equal(da, MW.matmul_dgrad_a(g, b, bm=t0, br=t1,
+                                                         bo=t2))
+            if tiles_b is not None:
+                t0, t1, t2 = tiles_b
+                db = MW.matmul_dgrad_b(a, gb, bk=t0, br=t1, bn=t2)
+                compare(f"matmul_dgrad_b {dn} {tag} tiles={tiles_b}", db,
+                        MW.matmul_dgrad_b_ref(a, gb), dn, gemm_atol(dn, m))
+                assert torch.equal(db, MW.matmul_dgrad_b(a, gb, bk=t0, br=t1,
+                                                         bn=t2))
+        # ragged M, N and K (scalar and 16-byte staging paths)
+        for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
+                               (50, 100, 70, (32, 48, 64)),
+                               (3, 5, 7, (3, 64, 64)),
+                               (520, 4104, 4100, (128, 64, 128))):
+            check_dgrad(f"M={m} N={n} K={k}", m, n, k, tiles, tiles, m + n)
+        # every "matmul_dgrad" adapter tile of granite's projections at
+        # 2048 tokens: dA asks (M, K, N), dB (K, N, M)
+        m, n_tiles = 2048, 0
+        for n, k in GRANITE_NK:
+            esz = dtype.itemsize
+            cand_a = backward_tile_candidates("matmul_dgrad", (m, k, n), esz)
+            cand_b = backward_tile_candidates("matmul_dgrad", (k, n, m), esz)
+            for i in range(max(len(cand_a), len(cand_b))):
+                check_dgrad(f"M={m} N={n} K={k}", m, n, k,
+                            cand_a[i] if i < len(cand_a) else None,
+                            cand_b[i] if i < len(cand_b) else None, n + k)
+            n_tiles += len(cand_a) + len(cand_b)
+        print(f"  {n_tiles} dgrad adapter tiles checked in {dn}")
+
+        # attention: forward lse and the backward kernel on the same
+        # (o, lse); the phase-11 shape (4, 512) and its neighbours
+        for b, sq, skv, hq, hkv, d, window, cap in (
+                (1, 64, 64, 32, 8, 128, None, None),
+                (4, 512, 512, 32, 8, 128, None, None),
+                (2, 100, 100, 32, 8, 128, None, None),
+                (2, 40, 104, 32, 8, 128, None, None),
+                (2, 128, 128, 32, 8, 128, 48, None),
+                (2, 96, 96, 32, 8, 128, None, 30.0),
+                (2, 128, 128, 8, 2, 64, None, None)):
+            q, k, v = dense_inputs(dev, dtype, b, sq, skv, seed=sq + skv,
+                                   hq=hq, hkv=hkv, d=d)
+            g = dense_inputs(dev, dtype, b, sq, sq, seed=sq, hq=hq, hkv=hq,
+                             d=d)[0]
+            kw = dict(window=window, logit_cap=cap)
+            tag = (f"{dn} B={b} Sq={sq} Skv={skv} Hq/Hkv={hq}/{hkv} D={d} "
+                   f"window={window} cap={cap}")
+            o, lse = FA._forward(q, k, v, True, window, cap, with_lse=True)
+            compare(f"flash_attention lse {tag}", lse,
+                    FA.flash_attention_lse_ref(q, k, **kw), "float32",
+                    atol=1e-4)
+            got = FB.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+            want = FB.flash_attention_bwd_ref(q, k, v, o, lse, g, **kw)
+            for name, x, y, n_red in (("dq", got[0], want[0], skv),
+                                      ("dk", got[1], want[1],
+                                       sq * hq // hkv),
+                                      ("dv", got[2], want[2],
+                                       sq * hq // hkv)):
+                atol, _ = grad_tol(dn, n_red, y)
+                compare(f"flash_attention_bwd {name} {tag}", x, y, dn,
+                        atol=atol)
+            again = FB.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), tag
+    torch.cuda.synchronize()
+
+
+def train_one_step(cfg, params, batch, *, blocked: bool, use_kernel: bool,
+                   opt=None, want_grads: bool = False):
+    """One ``make_train_step`` on a fresh AdamW state; returns (metrics,
+    grads or None).  ``want_grads``: also the gradients, from the step's
+    own loss function (``train.loop._value_and_grad``) on the same
+    inputs."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    tc = loop.TrainConfig(opt=opt or adamw.AdamWConfig(),
+                          blocked_linear=blocked, use_kernel=use_kernel)
+    grads = None
+    if want_grads:
+        _, grads = loop._value_and_grad(loop.make_loss(cfg, tc), params,
+                                        batch)
+    _, _, metrics = loop.make_train_step(cfg, tc)(
+        params, adamw.init_state(params), batch)
+    return metrics, grads
+
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "matmul_blocked",
+                 "matmul_dgrad_a", "matmul_dgrad_b")
+
+
+def phase10_train_parity(seed: int, kernels: dict) -> dict:
+    """granite-3-8b width, 2 layers, fp32, one --seed tree: one
+    ``make_train_step`` on the kernel path (blocked linears, so kernel
+    rows 4-8 all run) and on the plain path (``use_kernel=False``);
+    loss, grad norm and every gradient leaf agree, the plain path
+    launches nothing, the kernel path every training kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import leaves
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
+                              dtype=torch.float32)
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    batch = make_batch(cfg, 128, 2, 0, seed=seed, device="cuda")
+    reset(kernels)
+    km, kg = train_one_step(cfg, params, batch, blocked=True,
+                            use_kernel=True, want_grads=True)
+    torch.cuda.synchronize()
+    launched = counts(kernels)
+    pm, pg = train_one_step(cfg, params, batch, blocked=True,
+                            use_kernel=False, want_grads=True)
+    torch.cuda.synchronize()
+    assert counts(kernels) == launched, "the plain path launched a kernel"
+    assert min(launched[k] for k in TRAIN_KERNELS) > 0, launched
+    others = {k: n for k, n in launched.items() if k not in TRAIN_KERNELS}
+    assert not any(others.values()), others
+    n_tok = batch["tokens"].numel()
+    for key in ("loss", "grad_norm"):
+        compare(f"train step {key}", km[key].reshape(1), pm[key].reshape(1),
+                "float32", atol=gemm_atol("float32", n_tok))
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(leaves(kg), leaves(pg))):
+        atol, rtol = grad_tol("float32", n_tok, y)
+        err = float((x.float() - y.float()).abs().max())
+        ok = bool(torch.all((x.float() - y.float()).abs()
+                            <= atol + rtol * y.float().abs()))
+        worst = max(worst, err / max(1.0, float(y.abs().max())))
+        assert ok, f"gradient leaf {i} {tuple(x.shape)}: {err:.3e}"
+    print(f"  {len(leaves(kg))} gradient leaves agree (worst max |diff|"
+          f" {worst:.3e} of the leaf's scale); loss {float(km['loss']):.6f}"
+          f" vs {float(pm['loss']):.6f}, grad norm "
+          f"{float(km['grad_norm']):.6f} vs {float(pm['grad_norm']):.6f}; "
+          f"kernel launches { {k: launched[k] for k in TRAIN_KERNELS} }")
+    out = {"loss": [float(km["loss"]), float(pm["loss"])],
+           "grad_norm": [float(km["grad_norm"]), float(pm["grad_norm"])],
+           "worst_leaf_rel": worst, "launches": launched}
+    del params, kg, pg
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_profile(step_fn, params, state, batch) -> dict:
+    """Device busy share and top kernels of one traced train step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    kinds: dict[str, float] = {}
+    top = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = float(getattr(e, "self_device_time_total", 0.0))
+        kind = train_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        top.append((us, e.count, e.key[:90]))
+    busy = sum(kinds.values()) / 1e6
+    out = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+           "device_ms_by_kind": {k: v / 1e3 for k, v in sorted(kinds.items())},
+           "top": [{"ms": us / 1e3, "count": c, "name": n}
+                   for us, c, n in sorted(top, reverse=True)[:8]]}
+    print(f"  profiled step: wall {wall:.3f}s, device busy {busy:.3f}s "
+          f"({100 * busy / wall:.1f}%), by kind (ms) "
+          f"{ {k: round(v, 3) for k, v in out['device_ms_by_kind'].items()} }")
+    for t in out["top"]:
+        print(f"    {t['ms']:9.3f} ms  x{t['count']:<6} {t['name']}")
+    return out
+
+
+def train_kind(name: str) -> str:
+    """``kernel_kind`` plus the training kernels (csrc/matmul_bwd.cu's
+    nt/tn kernels, csrc/flash_attention_bwd.cu's dq/dkv kernels)."""
+    if "::nt_kernel<" in name:
+        return "matmul_dgrad_a"
+    if "::tn_kernel<" in name:
+        return "matmul_dgrad_b"
+    if "::dq_kernel<" in name or "::dkv_kernel<" in name:
+        return "flash_attention_bwd"
+    return kernel_kind(name)
+
+
+def phase11_train(seed: int, kernels: dict) -> dict:
+    """granite-3-8b at full width, depth cut to 4 of 40 layers, bf16,
+    remat "block", batch 4 x seq 512 from ``make_batch``, 8 steps at
+    lr 3e-3 with ``launch.train``'s warmup: on the default path (cuBLAS
+    projections, flash-attention kernels forward and backward) and with
+    blocked kernels; step 0 of each held against the plain path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    leaves = adamw.leaves
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4,
+                              remat="block")
+    steps, seq, bsz = 8, 512, 4
+    t0 = time.perf_counter()
+    params0 = T.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in leaves(params0))
+    print(f"  init {n_par / 1e9:.3f} B params ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=min(20, steps // 5),
+                            total_steps=steps)
+    batches = [make_batch(cfg, seq, bsz, s, seed=seed, device="cuda")
+               for s in range(steps)]
+    plain, _ = train_one_step(cfg, params0, batches[0], blocked=False,
+                              use_kernel=False, opt=opt)
+    print(f"  plain path step 0: loss {float(plain['loss']):.5f}, grad norm "
+          f"{float(plain['grad_norm']):.5f}")
+    out = {"params": n_par, "plain_step0": {k: float(plain[k]) for k in
+                                            ("loss", "grad_norm")}}
+    for name, blocked in (("default", False), ("blocked", True)):
+        tc = loop.TrainConfig(opt=opt, blocked_linear=blocked)
+        step_fn = loop.make_train_step(cfg, tc)
+        params, state = params0, adamw.init_state(params0)
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        hist = []
+        for s, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            loss = float(m["loss"])
+            dt = time.perf_counter() - t0
+            hist.append({"step": s, "loss": loss,
+                         "grad_norm": float(m["grad_norm"]), "ms": dt * 1e3,
+                         "tokens_per_s": bsz * seq / dt})
+            print(f"  {name} step {s}: loss {loss:.5f} grad norm "
+                  f"{hist[-1]['grad_norm']:.5f} {dt * 1e3:.1f} ms "
+                  f"{bsz * seq / dt:.0f} tok/s")
+            assert np.isfinite(loss), (name, s, loss)
+        launched = counts(kernels)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = ("flash_attention", "flash_attention_bwd") + (
+            ("matmul_blocked", "matmul_dgrad_a", "matmul_dgrad_b")
+            if blocked else ())
+        assert min(launched[k] for k in want) > 0, (name, launched)
+        assert not any(n for k, n in launched.items() if k not in want), \
+            (name, launched)
+        # bf16: a few roundings of 2^-8 compounded through 4 layers
+        for key, dtol in (("loss", 2e-2), ("grad_norm", 5e-2)):
+            got, ref = hist[0][key], float(plain[key])
+            print(f"  {name} step 0 {key} {got:.5f} vs plain {ref:.5f} "
+                  f"(rel {abs(got - ref) / abs(ref):.2e}, bound {dtol:g})")
+            assert abs(got - ref) <= dtol * abs(ref), (name, key, got, ref)
+        steady = hist[1:]
+        out[name] = {
+            "history": hist, "peak_gb": peak,
+            "launches_per_step": {k: launched[k] / steps for k in want},
+            "step_ms_median": statistics.median(h["ms"] for h in steady),
+            "tokens_per_s_median": statistics.median(
+                h["tokens_per_s"] for h in steady),
+            "profile": train_profile(step_fn, params, state, batches[0])}
+        print(f"  {name}: median step {out[name]['step_ms_median']:.1f} ms, "
+              f"{out[name]['tokens_per_s_median']:.0f} tok/s, peak "
+              f"{peak:.2f} GB, launches per step "
+              f"{out[name]['launches_per_step']}")
+        del params, state
+        torch.cuda.empty_cache()
+    del params0
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_train_kernels(cfg, train: dict) -> list[dict]:
+    """Kernel rows 4 (with lse), 5, 7 and 8 at phase 11's shapes (4 x 512
+    tokens, 32/8 heads, D = 128, granite's projections at M = 2048), bf16,
+    beside bound, plain version and a library call, with launches per
+    step from phase 11's blocked run."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.hopper_adapter import flash_tiles
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import matmul_bwd as MW
+    from repro_torch.tune import best_schedule
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_step = train["blocked"]["launches_per_step"]
+    rows = []
+    b, s = 4, 512
+    q, k, v = dense_inputs(dev, bf16, b, s, s, seed=11, hq=hq, hkv=hkv, d=d)
+    g = dense_inputs(dev, bf16, b, s, s, seed=12, hq=hq, hkv=hq, d=d)[0]
+    pairs = b * hq * s * (s + 1) // 2                # causal (row, key)
+    o, lse = FA._forward(q, k, v, True, None, None, with_lse=True)
+    qkvo = 2 * (2 * q.numel() + k.numel() + v.numel())
+    fb_ms, fb_by = bound(qkvo + lse.numel() * 4, 4 * pairs * d)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    rows.append({
+        "name": "flash_attention (lse)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:234",
+        "launches": int(per_step["flash_attention"] * 8),
+        "max_abs_err": float((lse - FA.flash_attention_lse_ref(q, k))
+                             .abs().max()),
+        "ms": time_ms(lambda: FA._forward(q, k, v, True, None, None,
+                                          with_lse=True)),
+        "plain_ms": time_ms(lambda: (FA.flash_attention_ref(q, k, v),
+                                     FA.flash_attention_lse_ref(q, k))),
+        "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": time_ms(sdpa),
+        "shape": f"train B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16, "
+                 f"with lse; launches: phase 11 blocked run, 8 steps "
+                 f"(forward and remat recompute); library: SDPA forward"})
+
+    # row 5: the backward at the same shape; library: SDPA's backward
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+    lib_g = g.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (qs, ks, vs), lib_g, retain_graph=True)
+    got = FB.flash_attention_bwd(q, k, v, o, lse, g)
+    want = FB.flash_attention_bwd_ref(q, k, v, o, lse, g)
+    bb_ms, bb_by = bound(2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                         + 2 * lse.numel() * 4, 10 * pairs * d)
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:134",
+        "launches": int(per_step["flash_attention_bwd"] * 8),
+        "max_abs_err": max(float((x.float() - y.float()).abs().max())
+                           for x, y in zip(got, want)),
+        "ms": time_ms(lambda: FB.flash_attention_bwd(q, k, v, o, lse, g)),
+        "plain_ms": time_ms(lambda: FB.flash_attention_bwd_ref(
+            q, k, v, o, lse, g)),
+        "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": time_ms(lib),
+        "shape": f"train B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16, "
+                 f"tiles {flash_tiles(s, s, d, 2)} "
+                 f"(the pallas_calls at :134 and :148); launches: phase 11 "
+                 f"blocked run, 8 steps; library: SDPA backward "
+                 f"(torch.autograd.grad)"})
+
+    # rows 7 and 8: every projection of a step at M = 2048 tokens; the row
+    # is the up projection's, the others printed
+    m = b * s
+    for n, kk in GRANITE_NK:
+        gen = torch.Generator(device=dev).manual_seed(n + kk)
+        a = torch.randn((m, kk), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((kk, n), generator=gen, device=dev)
+             * n ** -0.5).to(bf16)
+        gg = torch.randn((m, n), generator=gen, device=dev).to(bf16)
+        ta = best_schedule("matmul_dgrad", (m, kk, n), "bfloat16").tiles
+        tb = best_schedule("matmul_dgrad", (kk, n, m), "bfloat16").tiles
+        flops = 2 * m * n * kk
+        for name, fn, plain, lib, tiles, io in (
+                ("matmul_dgrad_a",
+                 lambda: MW.matmul_dgrad_a(gg, w, bm=ta[0], br=ta[1],
+                                           bo=ta[2]),
+                 lambda: MW.matmul_dgrad_a_ref(gg, w),
+                 lambda: torch.matmul(gg, w.T), ta,
+                 (gg.numel() + w.numel() + m * kk) * 2),
+                ("matmul_dgrad_b",
+                 lambda: MW.matmul_dgrad_b(a, gg, bk=tb[0], br=tb[1],
+                                           bn=tb[2]),
+                 lambda: MW.matmul_dgrad_b_ref(a, gg),
+                 lambda: torch.matmul(a.T, gg), tb,
+                 (a.numel() + gg.numel() + kk * n) * 2)):
+            b_ms, b_by = bound(io, flops)
+            row = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/matmul_bwd.cu",
+                "replaces": ("src/repro/kernels/matmul_bwd.py:66"
+                             if name.endswith("_a") else
+                             "src/repro/kernels/matmul_bwd.py:104"),
+                "launches": int(per_step[name] * 8),
+                "max_abs_err": float((fn().float() - plain().float())
+                                     .abs().max()),
+                "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib),
+                "shape": f"M={m} N={n} K={kk} tiles={tiles} bf16; "
+                         f"launches: phase 11 blocked run, 8 steps; "
+                         f"library: torch.matmul of the transposed view"}
+            if n == 12800 and kk == 4096:
+                rows.append(row)
+            else:
+                print(f"  {name} {row['ms']:.4f} ms  plain "
+                      f"{row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({b_by})  library {row['library_ms']:.4f} ms  "
+                      f"[{row['shape']}]")
+    for r in rows:
+        print(f"  {r['name']:<22} {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  library {r['library_ms']:.4f} ms  "
+              f"[{r['shape']}]")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1347,16 +1803,21 @@ def main() -> int:
     from repro_torch.core.hopper_adapter import H100_SXM
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_bwd as MW
     from repro_torch.kernels import matmul_fused as MF
     from repro_torch.kernels import matmul_q as MQ
     from repro_torch.kernels import qkv_fused as QF
     kernels = {"flash_attention": FA.flash_attention,
+               "flash_attention_bwd": FB.flash_attention_bwd,
                "flash_decode": FD.flash_decode,
                "flash_decode_fp8": FD.flash_decode_fp8,
                "flash_decode_oproj": FD.flash_decode_oproj,
                "matmul_blocked": MB.matmul_blocked,
+               "matmul_dgrad_a": MW.matmul_dgrad_a,
+               "matmul_dgrad_b": MW.matmul_dgrad_b,
                "matmul_fused": MF.matmul_fused,
                "matmul_w8": MQ.matmul_w8,
                "qkv_fused": QF.qkv_fused}
@@ -1396,6 +1857,7 @@ def main() -> int:
     phase3_kernels(torch.device("cuda"))
     phase3_fused(torch.device("cuda"))
     phase3_quant(torch.device("cuda"))
+    phase3_train(torch.device("cuda"))
     print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32, "
           "unfused and fused, wide and w8fp8")
     phase4_parity(args.seed, kernels)
@@ -1442,6 +1904,14 @@ def main() -> int:
           f"{quant_fused['tok_per_s']:.1f} tok/s in this run")
     del qparams
     torch.cuda.empty_cache()
+    print("phase 10: training parity, granite-3-8b width, 2 layers, fp32: "
+          "one train step on the kernel path (blocked linears) and on the "
+          "plain path")
+    parity = phase10_train_parity(args.seed, kernels)
+    print("phase 11: training granite-3-8b at full width, 4 of 40 layers, "
+          "bf16, remat block, 4 x 512 tokens, 8 steps: default path and "
+          "blocked kernels")
+    train = phase11_train(args.seed, kernels)
     print("phase 7: tune_op matmul (8, 4096, 4096) and qkv_fused "
           "(8, 1024, 4096, 4), bfloat16")
     tuned = phase7_tune()
@@ -1451,11 +1921,13 @@ def main() -> int:
     rows += time_fused_kernels(cfg, lens, fused["launches"], fused["page"])
     rows += time_quant_kernels(cfg, lens, quant["launches"],
                                quant_fused["launches"], quant["page"])
+    rows += time_train_kernels(cfg, train)
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
                                  "cublas": cublas, "blocked": blocked,
                                  "fused": fused, "w8fp8": quant,
                                  "w8fp8_fused": quant_fused,
                                  "tune": tuned}))
+    print("train " + json.dumps({"parity": parity, "full_width": train}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

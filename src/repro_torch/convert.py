@@ -44,6 +44,21 @@ def _leaves(tree: Any, fn) -> Any:
     return fn(tree)
 
 
+def _per_layer(cfg: ModelConfig, tree: dict) -> dict:
+    """The JAX tree's stacked groups and tail as one entry per layer."""
+    pattern = cfg.layer_pattern
+    n_groups = cfg.n_layers // len(pattern)
+    layers = [_unstack(tree["layers"][j], g)
+              for g in range(n_groups) for j in range(len(pattern))]
+    layers += list(tree.get("tail", []))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, "
+                         f"{cfg.name} has {cfg.n_layers}")
+    out = {k: v for k, v in tree.items() if k not in ("layers", "tail")}
+    out["layers"] = layers
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict,
                       device: str | torch.device = "cuda") -> dict:
     """The port's parameters from a numpy-mapped JAX param tree, on
@@ -57,20 +72,29 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
     dtype and whose scale stays fp32: neither is cast to ``cfg.dtype``.
     """
     dev = resolve_device(device)
-    pattern = cfg.layer_pattern
-    n_groups = cfg.n_layers // len(pattern)
-    layers = [_unstack(tree["layers"][j], g)
-              for g in range(n_groups) for j in range(len(pattern))]
-    layers += list(tree.get("tail", []))
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"tree holds {len(layers)} layers, "
-                         f"{cfg.name} has {cfg.n_layers}")
-    out = {k: v for k, v in tree.items() if k not in ("layers", "tail")}
-    out["layers"] = layers
 
     def leaf(a: Any):
         if _is_quantized(a):
             return QuantizedTensor(_tensor(a["q"], dev),
                                    _tensor(a["scale"], dev).float())
         return _tensor(a, dev).to(cfg.dtype)
-    return _leaves(out, leaf)
+    return _leaves(_per_layer(cfg, tree), leaf)
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: dict,
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's AdamW state from a numpy-mapped JAX one (``{"mu",
+    "nu", "step"}``), so a port step can continue a JAX trajectory.  The
+    moments are laid out per layer like the parameters but stay fp32
+    whatever ``cfg.dtype`` is, and ``step`` stays an int32 scalar: the
+    cast ``params_from_numpy`` applies to every leaf would be wrong
+    here."""
+    dev = resolve_device(device)
+    return {
+        "mu": map_tree(lambda a: _tensor(a, dev).float(),
+                       _per_layer(cfg, state["mu"])),
+        "nu": map_tree(lambda a: _tensor(a, dev).float(),
+                       _per_layer(cfg, state["nu"])),
+        "step": torch.tensor(int(np.asarray(state["step"])),
+                             dtype=torch.int32, device=dev),
+    }

@@ -17,7 +17,13 @@ and Hopper's alignment and emits:
   bn per projection, its joint (G+2)*bn tile within the GEMM core's
   limits;
 * ``flash_decode_oproj_tile_candidates`` -- ``(page,)`` for the
-  oproj-fused decode kernel (the page of a fused engine).
+  oproj-fused decode kernel (the page of a fused engine);
+* ``backward_tile_candidates("matmul_dgrad", ...)`` -- (bm, bk, bn) for
+  the dgrad kernels (``kernels/matmul_bwd.py``): the GEMM search over
+  the cotangent's (M_out, N_out, K_reduce), as JAX reuses it;
+* ``flash_tiles`` -- ``(block_q, block_kv)``, the streamed tiles of the
+  flash-attention backward's two passes, checked against their own
+  footprints.
 
 ``"matmul_fused"`` takes ``matmul_tile_candidates`` as they are: its
 kernel stages exactly what the blocked GEMM stages.  The quantized keys
@@ -192,6 +198,73 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
         if cand not in out:
             out.append(cand)
     return tuple(out[:top])
+
+
+def dgrad_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
+               budget: int, target: HopperTarget = H100_SXM) -> bool:
+    """Whether the dgrad kernels hold these tiles (roles of the
+    cotangent's nest): their staged operand pair within ``budget``
+    (``matmul_bwd.smem_bytes_required``: the forward's whenever bk is a
+    multiple of 8) and the forward's accumulator limit."""
+    from repro_torch.kernels.matmul_blocked import accumulators_per_thread
+    from repro_torch.kernels.matmul_bwd import smem_bytes_required
+    return (smem_bytes_required(bm, bk, bn, bytes_per_elem) <= budget
+            and accumulators_per_thread(bm, bn) <= target.acc_per_thread)
+
+
+def backward_tile_candidates(op: str, dims: tuple[int, ...],
+                             bytes_per_elem: int = 2,
+                             smem_budget_bytes: int | None = None,
+                             target: HopperTarget = H100_SXM,
+                             top: int = 8) -> tuple[tuple[int, ...], ...]:
+    """Ranked tiles for the backward nests, reusing the forward search as
+    JAX's ``tpu_adapter.backward_tile_candidates`` does: the paper's
+    analysis does not care which operand of the nest is written, so
+    ``"matmul_dgrad"`` is the GEMM search over the cotangent's
+    ``(M_out, N_out, K_reduce)`` (dA: ``(M, K, N)``; dB: ``(K, N, M)``),
+    tiles ``(bm, bk, bn)`` in its row, reduction and column roles.  The
+    conv keys are the conv path's (``ROADMAP.md``, queue 1, items
+    12/13)."""
+    if op != "matmul_dgrad":
+        raise NotImplementedError(
+            f"backward key {op!r} is not ported yet: ROADMAP.md, queue 1, "
+            "items 12/13 (the conv path)")
+    M, N, K = dims
+    return matmul_tile_candidates(M, N, K, bytes_per_elem,
+                                  smem_budget_bytes, target, top)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_tiles(seq_q: int, seq_kv: int, head_dim: int,
+                bytes_per_elem: int = 2,
+                smem_budget_bytes: int | None = None,
+                target: HopperTarget = H100_SXM) -> tuple[int, int]:
+    """``(block_q, block_kv)`` for the flash-attention backward (the
+    counterpart of ``tpu_adapter.flash_tiles``).
+
+    In the paper's vocabulary the streamed tile is the kernel buffer,
+    reused by every row of the block, and the running sums are the
+    output buffer held across the stream: the dq pass streams K/V tiles
+    of ``block_kv`` keys, the dk/dv pass (q, do) tiles of ``block_q``
+    query rows.  As on the TPU, each starts large (512 query rows, 1024
+    keys, multiples of 32: one row or key per lane) and halves until its
+    kernel's own footprint (``flash_attention_bwd.dq_smem_bytes`` /
+    ``dkv_smem_bytes``) fits the budget.  The forward still walks fixed
+    32-key tiles (``ROADMAP.md``, queue 1, item 17).
+    """
+    from repro_torch.kernels.flash_attention_bwd import (dkv_smem_bytes,
+                                                         dq_smem_bytes)
+    budget = default_smem_budget(target, smem_budget_bytes)
+    mult = target.key_mult
+    bq = _pick_tile(seq_q, 512, mult)
+    bkv = _pick_tile(seq_kv, 1024, mult)
+    while (dkv_smem_bytes(bq, head_dim, bytes_per_elem) > budget
+           and bq > mult):
+        bq = _shrink(seq_q, bq, mult)
+    while (dq_smem_bytes(bkv, head_dim, bytes_per_elem) > budget
+           and bkv > mult):
+        bkv = _shrink(seq_kv, bkv, mult)
+    return bq, bkv
 
 
 def matmul_tiles(M: int, N: int, K: int, bytes_per_elem: int = 2,

@@ -35,6 +35,11 @@
 //   int qpos(b, t)               absolute position of query row t
 //   int kv_len(b)                keys that exist for batch b
 //   int64_t k_row(b, hk, kpos)   row index of key kpos (value alike)
+//   void row_stats(b, hk, t, m, l)
+//                                the finished row's running max and
+//                                denominator (flash_attention writes its
+//                                lse residual here; the paged layouts
+//                                ignore them)
 // Rows are position-major inside a (batch, kv head): qpos never decreases
 // with t, so the last row of a block bounds what the block can see.
 #pragma once
@@ -54,6 +59,7 @@ constexpr int kWarps = 4;                 // query rows per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kDenseTile = 32;            // keys per tile of flash_attention
 constexpr float kNegInf = -1e30f;         // the JAX kernels' NEG_INF
+constexpr float kBig = 1e30f;             // lse of a row that sees nothing
 
 struct Mask {
   int causal;     // key kpos is visible to row qpos only if kpos <= qpos
@@ -144,6 +150,7 @@ struct PagedLayout {
     const int64_t phys = block_tables[int64_t(b) * n_blocks + kpos / page];
     return (phys * page + kpos % page) * hkv + hk;
   }
+  __device__ void row_stats(int, int, int, float, float) const {}
 };
 
 // Score of one staged fp8 key row against the warp's q row: each lane
@@ -319,6 +326,7 @@ __device__ __forceinline__ void attn_rows(const Layout& lay,
 #pragma unroll
     for (int i = 0; i < P; ++i)
       sink.put(t, lane + 32 * i, acc[i] * v_scale / safe_l);
+    if (lane == 0) lay.row_stats(b, hk, t, m, l);
   }
 }
 

@@ -8,8 +8,16 @@ takes ``(B, Sq, Hq, D)`` queries against ``(B, Skv, Hkv, D)`` keys and
 values with GQA indexed natively, where the JAX op vmapped a one-head
 kernel over batch, kv head and group.  Causal masking, a sliding window
 and a tanh logit cap are supported; ``kv_offset = Skv - Sq`` aligns the
-queries to the tail of the keys.  Forward only: the ``lse`` residual the
-backward needs is a later slice (training).
+queries to the tail of the keys.
+
+Differentiable: when grad is on and an input requires it, the op runs as
+a ``torch.autograd.Function`` (the counterpart of JAX's
+``_make_differentiable``), whose forward also writes the per-row
+``lse = m + log(l)`` residual (fp32, ``(B, Hq, Sq)``; 1e30 for a row that
+sees no key) and saves ``(q, k, v, o, lse)``, and whose backward is the
+recompute kernel of ``kernels/flash_attention_bwd.py`` (kernel row 5).
+On CPU tensors both halves are the plain versions.  Without grad the
+serving path launches the forward alone, without the residual.
 """
 
 from __future__ import annotations
@@ -23,8 +31,9 @@ from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
+BIG = 1e30  # the lse of a row that sees no key: exp(s - BIG) == 0
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,6 +52,46 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
 
 
+def dense_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                 window: int | None, logit_cap: float | None):
+    """The scores of every (query row, key) pair in fp32, in the GQA
+    layout ``(B, Hkv, G, Sq, Skv)``: ``(s, t, mask)`` with ``s`` capped
+    (``cap * t``, ``t = tanh(s_pre / cap)``; ``t`` is None without a
+    cap) and ``mask`` the visible pairs (Sq, Skv).  Shared by the plain
+    lse and the plain backward."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qh = q.float().reshape(b, sq, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    kh = k.float().permute(0, 2, 1, 3)[:, :, None]
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * d ** -0.5
+    t = None
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return s, t, mask
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int | None = None,
+                            logit_cap: float | None = None) -> torch.Tensor:
+    """Plain version of the forward's residual: ``lse = log sum exp s``
+    over the visible keys of each row, fp32 ``(B, Hq, Sq)``, ``BIG`` for
+    a row that sees none."""
+    b, sq, hq, _ = q.shape
+    s, _, mask = dense_scores(q, k, causal=causal, window=window,
+                              logit_cap=logit_cap)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    lse = torch.where(mask.any(-1), lse, torch.full_like(lse, BIG))
+    return lse.reshape(b, hq, sq)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     logit_cap: float | None = None) -> torch.Tensor:
@@ -50,25 +99,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys/values; returns ``(B, Sq, Hq, D)`` in ``q.dtype``.
 
     CUDA tensors launch the kernel (or raise: there is no fallback);
-    CPU tensors take :func:`flash_attention_ref`.
+    CPU tensors take :func:`flash_attention_ref`.  With grad on and an
+    input requiring it, the op is differentiable through the backward
+    kernel (module docstring).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, logit_cap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap)
-    b, sq, hq, d = _check(q, k, v, window)
-    skv, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    fn = _build.load("flash_attention", "flash_attention_fwd", _ARGTYPES)
-    err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), b, sq, skv, hq, hkv, int(causal),
-             int(window or 0), float(logit_cap or 0.0),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _forward(q, k, v, causal, window, logit_cap, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def _forward(q, k, v, causal, window, logit_cap, with_lse):
+    """Launch the forward kernel; ``(out, lse or None)``."""
+    b, sq, hq, d = _check(q, k, v, window)
+    skv, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    fn = _build.load("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, sq,
+             skv, hq, hkv, int(causal), int(window or 0),
+             float(logit_cap or 0.0),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward with the lse residual, recompute backward (kernel row 5);
+    on CPU tensors the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kw = dict(causal=causal, window=window, logit_cap=logit_cap)
+        if q.device.type == "cpu":
+            out = flash_attention_ref(q, k, v, **kw)
+            lse = flash_attention_lse_ref(q, k, **kw)
+        else:
+            out, lse = _forward(q, k, v, causal, window, logit_cap,
+                                with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.flash_attention_bwd import \
+            flash_attention_bwd
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def _check(q, k, v, window):

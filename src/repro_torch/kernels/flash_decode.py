@@ -146,6 +146,7 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    lengths, window=window,
                                    logit_cap=logit_cap, q_span=q_span)
+    _refuse_grad("flash_decode", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_tables, lengths, q_span, window)
     b, hkv, gtot, d = q.shape
     page = k_pages.shape[1]
@@ -205,6 +206,7 @@ def flash_decode_fp8(q: torch.Tensor, k_pages: torch.Tensor,
                                        v_scale, block_tables, lengths,
                                        window=window, logit_cap=logit_cap,
                                        q_span=q_span)
+    _refuse_grad("flash_decode_fp8", q, k_pages, v_pages, k_scale, v_scale)
     _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,
            kv_dtype=FP8)
     b, hkv, gtot, d = q.shape
@@ -268,6 +270,7 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_oproj_ref(q, k_pages, v_pages, block_tables,
                                          lengths, wo, window=window,
                                          logit_cap=logit_cap)
+    _refuse_grad("flash_decode_oproj", q, k_pages, v_pages, wo)
     _check(q, k_pages, v_pages, block_tables, lengths, 1, window)
     b, hkv, g, d = q.shape
     if hkv > MAX_CLUSTER:
@@ -309,6 +312,18 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 flash_decode_oproj.launches = 0
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """The paged kernels are inference-only, as JAX's paged ops (no VJP):
+    under grad, an input that requires one raises instead of dropping
+    its gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward (the paged ops are inference-only, as "
+            "in JAX); call it under torch.no_grad() or on tensors that do "
+            "not require grad")
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,

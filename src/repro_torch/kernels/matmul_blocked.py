@@ -13,8 +13,9 @@ to ``matmul_ref`` for tiles that do not divide is not carried over.
 The kernel is the tile core of ``csrc/gemm_tile.cuh`` with no epilogue;
 ``matmul_fused`` and ``qkv_fused`` run the same core, so the footprint
 functions here are the single source the Hopper adapter checks all three
-kernels' candidates against.  Forward only: a gradient needs the dgrad
-kernels (``ROADMAP.md``, queue 1, item 12).
+kernels' candidates against.  The wrapper is forward only: the
+differentiable product is ``ops.matmul``, whose backward runs the dgrad
+kernels (``kernels/matmul_bwd.py``).
 """
 
 from __future__ import annotations
@@ -131,8 +132,9 @@ def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None,
                          f"{a.device}, b on {b.device}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise NotImplementedError(
-            f"{name} is forward only: its gradient needs the dgrad "
-            "kernels (ROADMAP.md, queue 1, item 12)")
+            f"{name} is forward only: the differentiable blocked GEMM is "
+            "ops.matmul (its backward runs the dgrad kernels); the fused "
+            "and quantized GEMMs are inference-only, as in JAX")
     if int8_b:
         if a.dtype not in _DTYPES or b.dtype != torch.int8:
             raise TypeError(f"a must be one of {sorted(map(str, _DTYPES))} "

@@ -24,6 +24,13 @@ Their kernels mask ragged edges, so no shape falls back to a plain
 version (the JAX ops' fallback for tiles that do not divide is not
 carried over).
 
+Training: ``matmul`` and ``attention`` are differentiable, as JAX's
+``custom_vjp`` ops are.  ``matmul`` is a ``torch.autograd.Function``
+whose backward runs the dgrad kernels (``matmul_dgrad_a``/``_b``, kernel
+rows 7 and 8) under the ``"matmul_dgrad"`` key; ``attention``'s kernel
+carries its own backward (``flash_attention_bwd``, row 5).  The fused
+and quantized ops stay inference-only, as in JAX.
+
 The quantized path: a weight may be a
 :class:`repro_torch.quant.QuantizedTensor`.  ``linear`` sends a 2-D
 int8 one to ``matmul_w8`` (int8 weights streamed at one byte, the scale
@@ -51,7 +58,8 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               paged_attention_fp8_ref,
                                               paged_attention_oproj_ref,
                                               paged_attention_ref)
-from repro_torch.kernels.matmul_blocked import matmul_blocked
+from repro_torch.kernels.matmul_blocked import matmul_blocked, matmul_ref
+from repro_torch.kernels.matmul_bwd import matmul_dgrad_a, matmul_dgrad_b
 from repro_torch.kernels.matmul_fused import (matmul_fused as
                                               _matmul_fused_kernel,
                                               matmul_fused_ref)
@@ -71,12 +79,59 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
            tiles: tuple[int, int, int] | None = None) -> torch.Tensor:
     """``a (M, K) @ b (K, N)`` through the blocked GEMM, with the tuned or
     model-derived tiles of the ``"matmul"`` key (``tiles`` pins them).
-    Any shape launches: the kernel masks ragged edges itself."""
+    Any shape launches: the kernel masks ragged edges itself.
+
+    Differentiable: under grad, an operand that requires it gets its
+    cotangent from the dgrad kernels with their own ``"matmul_dgrad"``
+    tiles (explicit ``tiles`` pin the forward only, as in JAX)."""
     m, k = a.shape
     n = b.shape[1]
     bm, bk, bn = tiles or best_schedule("matmul", (m, n, k),
                                         _dtype_name(a)).tiles
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Matmul.apply(a, b, (bm, bk, bn))
     return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+
+
+def _matmul_da(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dA[M, K] = g[M, N] @ b^T under the "matmul_dgrad" key, dims in the
+    (M_out, N_out, K_reduce) convention of the dA nest."""
+    m, n = g.shape
+    k = b.shape[0]
+    bm, br, bo = best_schedule("matmul_dgrad", (m, k, n),
+                               _dtype_name(g)).tiles
+    return matmul_dgrad_a(g, b, bm=bm, br=br, bo=bo)
+
+
+def _matmul_db(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dB[K, N] = a^T @ g[M, N] under the "matmul_dgrad" key."""
+    m, k = a.shape
+    n = g.shape[1]
+    bk, br, bn = best_schedule("matmul_dgrad", (k, n, m),
+                               _dtype_name(g)).tiles
+    return matmul_dgrad_b(a, g, bk=bk, br=br, bn=bn)
+
+
+class _Matmul(torch.autograd.Function):
+    """The blocked GEMM with the dgrad kernels as its backward (JAX's
+    ``_matmul_vjp``); each cotangent is cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, tiles):
+        ctx.save_for_backward(a, b)
+        bm, bk, bn = tiles
+        return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype).contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _matmul_da(g, b).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _matmul_db(a, g).to(b.dtype)
+        return da, db, None
 
 
 def matmul_w8(a: torch.Tensor, w_q: torch.Tensor, scale,
@@ -117,7 +172,8 @@ def blocked_linear(enable: bool = True):
 def linear(x: torch.Tensor, w, use_kernel: bool = True) -> torch.Tensor:
     """Projection ``x @ w`` for any-rank x (w stored ``(d_in, d_out)``);
     the blocked GEMM when blocked linears are enabled
-    (:func:`blocked_linear`).
+    (:func:`blocked_linear`; ``use_kernel=False``: its plain version,
+    ``matmul_ref``).  Differentiable either way.
 
     ``w`` may be a :class:`QuantizedTensor`: a 2-D int8 one runs
     :func:`matmul_w8` (the kernel on CUDA, its plain version on the CPU;
@@ -128,7 +184,8 @@ def linear(x: torch.Tensor, w, use_kernel: bool = True) -> torch.Tensor:
     if not blocked_linear_enabled():
         return x @ w
     lead = x.shape[:-1]
-    out = matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = matmul(x2, w) if use_kernel else matmul_ref(x2, w)
     return out.reshape(*lead, w.shape[-1])
 
 

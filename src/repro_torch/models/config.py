@@ -46,6 +46,11 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     kv_cache_dtype: Any = None  # None -> dtype
 
+    # training: activation checkpointing of the blocks in
+    # transformer.forward -- "none" | "block" | "full" | "dots" ("dots"
+    # checkpoints whole blocks for now, like "block")
+    remat: str = "block"
+
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim",

@@ -1,11 +1,20 @@
 """Model assembly for dense, attention-only decoders (the port of
-``repro.models.transformer`` for the serving path).
+``repro.models.transformer`` for the serving and training paths).
 
 A model is a stack of pre-norm blocks, each an attention mixer and a
 SwiGLU FFN.  Parameters hold one entry per layer under ``"layers"`` and a
 Python loop walks them, where the JAX package stacked layer groups and
 scanned.  Other families (MoE, SSM, recurrent, encoder-decoder) are
 later slices (``ROADMAP.md``, queue 1, item 11).
+
+Training: :func:`forward` is the full-sequence forward and
+:func:`loss_fn` the masked cross-entropy, with JAX's ``(total, {"loss",
+"aux", "tokens"})`` result.  ``cfg.remat`` ``"block"`` and ``"full"``
+checkpoint every block (``torch.utils.checkpoint``, non-reentrant), as
+JAX checkpoints each pattern cycle; ``"dots"`` (JAX: save the matmul
+outputs, recompute the elementwise ops) checkpoints whole blocks too for
+now (``ROADMAP.md``, queue 1, item 12); ``"none"`` keeps every
+activation.
 """
 
 from __future__ import annotations
@@ -13,7 +22,9 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamDef, build, fan_in_scale, retype_defs
 from repro_torch.models.config import ModelConfig
@@ -73,6 +84,70 @@ def logits_fn(cfg: ModelConfig, params: dict,
         logits = cfg.final_logit_cap * torch.tanh(
             logits.float() / cfg.final_logit_cap)
     return logits
+
+
+def _block_apply(cfg: ModelConfig, p: dict, h: torch.Tensor, i: int,
+                 positions: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    hn = L.rmsnorm(p["norm1"], h)
+    h = h + L.attention_apply(cfg, p["mixer"], hn, positions, causal=True,
+                              window=_window(cfg, i), use_kernel=use_kernel)
+    return L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
+                       use_kernel=use_kernel)
+
+
+def _remat_block(cfg, p, h, i, positions, use_kernel, blocked, fused):
+    """One block under the caller's op switches: the backward recomputes
+    it from autograd's own thread, where the switches' context variables
+    have their defaults, so they are set again here."""
+    with ops.blocked_linear(blocked), ops.fused_ops(fused):
+        return _block_apply(cfg, p, h, i, positions, use_kernel)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  tokens (B, S) -> (hidden (B, S, D) after
+    the final norm, aux loss: 0 for the dense family).  Under grad,
+    ``cfg.remat`` decides which blocks are checkpointed (module
+    docstring); ``use_kernel=False`` takes every kernel's plain
+    version."""
+    _check_ported(cfg)
+    h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    remat = torch.is_grad_enabled() and cfg.remat in ("block", "full",
+                                                      "dots")
+    switches = (ops.blocked_linear_enabled(), ops.fused_ops_enabled())
+    for i, p in enumerate(params["layers"]):
+        if remat:
+            h = checkpoint(_remat_block, cfg, p, h, i, positions,
+                           use_kernel, *switches, use_reentrant=False)
+        else:
+            h = _block_apply(cfg, p, h, i, positions, use_kernel)
+    h = L.rmsnorm(params["final_norm"], h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy LM loss over ``batch["tokens"]`` and
+    ``batch["labels"]`` (label -1: not counted), in fp32.  Returns
+    ``(total, {"loss", "aux", "tokens"})`` as JAX's ``loss_fn``."""
+    for extra in ("prefix_embeds", "enc_embeds"):
+        if batch.get(extra) is not None:
+            raise NotImplementedError(
+                f"{extra}: the multimodal and encoder-decoder families are "
+                "not ported yet; see ROADMAP.md, queue 1, item 11")
+    h, aux = forward(cfg, params, batch["tokens"], use_kernel=use_kernel)
+    logits = logits_fn(cfg, params, h).float()
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    labels = labels.clamp_min(0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

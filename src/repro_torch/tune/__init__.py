@@ -1,5 +1,6 @@
 """Schedule tuner: the paper's blocking optimizer driving the port's
-kernels (the port of ``repro.tune`` for ``"matmul"``, ``"flash_decode"``,
+kernels (the port of ``repro.tune`` for ``"matmul"``, ``"matmul_dgrad"``
+(the training path's backward GEMMs), ``"flash_decode"``,
 the fused path's ``"matmul_fused"``, ``"qkv_fused"`` and
 ``"flash_decode_oproj"``, and the quantized path's ``"matmul_w8"`` and
 ``"flash_decode_fp8"``).
@@ -86,7 +87,8 @@ def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
     """Cached-or-derived schedule for one op instance (never measures).
 
     ``dims`` is ``(M, N, K)`` for ``"matmul"``, ``"matmul_fused"`` and
-    ``"matmul_w8"``, ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S,
+    ``"matmul_w8"``, the cotangent's ``(M_out, N_out, K_reduce)`` for
+    ``"matmul_dgrad"``, ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S,
     D)`` for ``"flash_decode"`` and ``"flash_decode_fp8"`` and ``(G, S,
     D, E)`` for ``"flash_decode_oproj"``.  A cache hit (same op, shapes,
     dtype and device kind) wins outright, unless an explicit

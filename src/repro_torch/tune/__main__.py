@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.tune matmul 8 4096 4096 \\
         --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.tune matmul_dgrad 2048 4096 12800 \\
+        --dtype bfloat16 --no-measure
     PYTHONPATH=src python -m repro_torch.tune flash_decode 4 512 128 \\
         --dtype bfloat16 --no-measure
     PYTHONPATH=src python -m repro_torch.tune qkv_fused 8 1024 4096 4 \\
@@ -34,6 +36,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("op", choices=OPS)
     ap.add_argument("dims", type=int, nargs="+",
                     help="matmul, matmul_fused, matmul_w8: M N K; "
+                         "matmul_dgrad: the cotangent's M_out N_out "
+                         "K_reduce (dA: M K N; dB: K N M); "
                          "flash_decode, flash_decode_fp8: G S D (GQA "
                          "group size, max KV length, head dim); "
                          "qkv_fused: M Nkv K G (Nkv the k/v projection "

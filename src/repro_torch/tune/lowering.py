@@ -1,6 +1,9 @@
 """Lowering from the analytical blocking model to the port's kernel
 schedules (the port of ``repro.tune.lowering`` for ``"matmul"``,
-``"flash_decode"`` and the fused path's keys).
+``"matmul_dgrad"``, ``"flash_decode"`` and the fused and quantized
+paths' keys).  ``"matmul_dgrad"`` is the GEMM nest over the cotangent's
+dims (``backward_tile_candidates``), ranked by element counts as JAX
+ranks it, its tiles held to the dgrad kernels' own footprint.
 
 1. :func:`candidates` runs the paper's schedule search for the op's loop
    nest on the Hopper hierarchy (``core.hopper_adapter``), keeps what the
@@ -29,14 +32,15 @@ from __future__ import annotations
 
 from repro_torch.core.hierarchy import MemLevel, cache_accesses
 from repro_torch.core.hopper_adapter import (
-    H100_SXM, HopperTarget, default_smem_budget,
-    flash_decode_oproj_tile_candidates, flash_decode_tile_candidates,
-    matmul_fits, matmul_tile_candidates, qkv_fits, qkv_fused_tile_candidates)
+    H100_SXM, HopperTarget, backward_tile_candidates, default_smem_budget,
+    dgrad_fits, flash_decode_oproj_tile_candidates,
+    flash_decode_tile_candidates, matmul_fits, matmul_tile_candidates,
+    qkv_fits, qkv_fused_tile_candidates)
 from repro_torch.core.loopnest import BlockingString, Dim, Loop
-from repro_torch.tune.schedule import (FUSED_OPS, NARROW_WEIGHT_BYTES,
-                                       OpSpec, Schedule)
+from repro_torch.tune.schedule import (FUSED_OPS, GEMM_OPS,
+                                       NARROW_WEIGHT_BYTES, OpSpec, Schedule)
 
-_GEMMS = ("matmul", "matmul_fused", "matmul_w8")
+_GEMMS = GEMM_OPS
 _PAGES = ("flash_decode", "flash_decode_oproj",
           "flash_decode_fp8")                     # tile = the page
 _BY_BYTES = FUSED_OPS + tuple(NARROW_WEIGHT_BYTES)
@@ -51,6 +55,9 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     narrow operand at one byte (``matmul_q.smem_bytes_required``, the
     fp8 pages of ``flash_decode.smem_bytes_required``), and an int8
     weight tile's bn must be a whole number of 16-byte copies."""
+    if spec.op == "matmul_dgrad":
+        bm, bk, bn = tiles
+        return dgrad_fits(bm, bk, bn, spec.itemsize, budget, target)
     if spec.op in _GEMMS:
         bm, bk, bn = tiles
         return matmul_fits(bm, bk, bn, spec.itemsize, budget, target,
@@ -259,7 +266,10 @@ def candidates(spec: OpSpec,
     ragged edges masked.
     """
     budget = default_smem_budget(target, smem_budget_bytes)
-    if spec.op in _GEMMS:
+    if spec.op == "matmul_dgrad":
+        raw = backward_tile_candidates(spec.op, spec.dims, spec.itemsize,
+                                       budget, target, top=top)
+    elif spec.op in _GEMMS:
         M, N, K = spec.dims
         raw = matmul_tile_candidates(
             M, N, K, spec.itemsize, budget, target, top=top,

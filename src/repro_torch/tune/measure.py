@@ -41,7 +41,9 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
     under a shuffled block table (and the head's (G*D, E) wo slab;
     ``flash_decode_fp8``: fp8 pages and per-head scales);
     ``matmul_fused``: the MLP's epilogue shape, a bias row, a gelu and a
-    residual block; ``matmul_w8``: int8 weights and per-channel scales."""
+    residual block; ``matmul_w8``: int8 weights and per-channel scales;
+    ``matmul_dgrad``: the dA product's cotangent (M, K_reduce) and the
+    forward weight (N, K_reduce), read transposed, as JAX measures it."""
     dev = _device()
     spec = schedule.spec
     dtype = getattr(torch, spec.dtype)
@@ -53,6 +55,9 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
     if spec.op == "matmul":
         M, N, K = spec.dims
         return t(M, K), t(K, N) * K ** -0.5
+    if spec.op == "matmul_dgrad":
+        M, N, K = spec.dims
+        return t(M, K), t(N, K) * K ** -0.5
     if spec.op == "matmul_fused":
         M, N, K = spec.dims
         return (t(M, K), t(K, N) * K ** -0.5, t(N, dt=torch.float32),
@@ -98,6 +103,10 @@ def run_once(schedule: Schedule, inputs: tuple):
         bm, bk, bn = schedule.tiles
         a, b = inputs
         return matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+    if op == "matmul_dgrad":
+        from repro_torch.kernels.matmul_bwd import matmul_dgrad_a
+        bm, br, bo = schedule.tiles
+        return matmul_dgrad_a(*inputs, bm=bm, br=br, bo=bo)
     if op == "matmul_fused":
         from repro_torch.kernels.matmul_fused import matmul_fused
         bm, bk, bn = schedule.tiles

@@ -6,6 +6,11 @@ plus the problem dimensions the kernels see:
 
 * ``matmul``: ``dims = (M, N, K)`` for ``C[M,N] = A[M,K] @ B[K,N]``;
   tiles ``(bm, bk, bn)`` of ``kernels/matmul_blocked.py``;
+* ``matmul_dgrad``: the backward GEMMs of ``kernels/matmul_bwd.py``;
+  ``dims = (M, N, K)`` of the *cotangent* being produced in the
+  (M_out, N_out, K_reduce) convention (dA: ``(M, K_fwd, N_fwd)``; dB:
+  ``(K_fwd, N_fwd, M_fwd)``), tiles ``(bm, bk, bn)`` in the usual row,
+  reduction and column roles;
 * ``flash_decode``: ``dims = (G, S, D)`` -- per (batch, kv head) decode
   attention where the G query heads of a GQA group stream over an S-long
   paged KV cache of head dim D.  The single tile ``(page,)`` is the
@@ -38,9 +43,9 @@ byte wide whatever the spec's activation dtype):
   ``flash_decode_fp8`` and the fp8 pool's page size, the streamed K/V
   pages fp8 while q keeps ``dtype``.
 
-The JAX package's other keys (the backward and conv nests) are refused
-with ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-them.
+The JAX package's other keys (the conv nests and their backward) are
+refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+ports them.
 
 A :class:`Schedule` is a concrete kernel configuration for that spec: the
 tile tuple, where it came from (``analytic`` / ``measured`` / ``cache``),
@@ -61,16 +66,18 @@ FUSED_OPS = ("matmul_fused", "qkv_fused", "flash_decode_oproj")
 # quantized ops: the narrow operand (weights / KV pages) is 1 byte wide
 # regardless of the spec's activation dtype
 NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1}
-OPS = ("matmul", "flash_decode") + FUSED_OPS + tuple(NARROW_WEIGHT_BYTES)
-TILE_RANK = {"matmul": 3, "flash_decode": 1, "matmul_fused": 3,
-             "qkv_fused": 3, "flash_decode_oproj": 1, "matmul_w8": 3,
-             "flash_decode_fp8": 1}
-_N_DIMS = {"matmul": 3, "flash_decode": 3, "matmul_fused": 3,
-           "qkv_fused": 4, "flash_decode_oproj": 4, "matmul_w8": 3,
-           "flash_decode_fp8": 3}
+# the GEMM nests: one (M, N, K) problem, (bm, bk, bn) tiles
+GEMM_OPS = ("matmul", "matmul_dgrad", "matmul_fused", "matmul_w8")
+OPS = (("matmul", "matmul_dgrad", "flash_decode") + FUSED_OPS
+       + tuple(NARROW_WEIGHT_BYTES))
+TILE_RANK = {"matmul": 3, "matmul_dgrad": 3, "flash_decode": 1,
+             "matmul_fused": 3, "qkv_fused": 3, "flash_decode_oproj": 1,
+             "matmul_w8": 3, "flash_decode_fp8": 1}
+_N_DIMS = {"matmul": 3, "matmul_dgrad": 3, "flash_decode": 3,
+           "matmul_fused": 3, "qkv_fused": 4, "flash_decode_oproj": 4,
+           "matmul_w8": 3, "flash_decode_fp8": 3}
 # the reference's other schedule keys, with the ROADMAP item porting each
 UNPORTED_OPS = {
-    "matmul_dgrad": "queue 1, item 12 (training)",
     "conv2d": "queue 1, item 13 (the paper's conv path)",
     "conv2d_dgrad": "queue 1, items 12/13 (training, conv path)",
     "conv2d_wgrad": "queue 1, items 12/13 (training, conv path)",
@@ -116,7 +123,7 @@ class OpSpec:
         carry their narrow operand's width (``weight_bytes``): the GEMM's
         weights, and the decode nest's K/V stream."""
         wb = NARROW_WEIGHT_BYTES.get(self.op)
-        if self.op in ("matmul", "matmul_fused", "matmul_w8"):
+        if self.op in GEMM_OPS:
             M, N, K = self.dims
             return Problem.gemm(M=M, N_cols=N, K_reduce=K,
                                 bytes_per_elem=self.itemsize,
@@ -131,7 +138,7 @@ class OpSpec:
 
     def key(self, device_kind: str) -> str:
         """Stable cache key: ``op/dims/dtype/device``."""
-        if self.op in ("matmul", "matmul_fused", "matmul_w8"):
+        if self.op in GEMM_OPS:
             M, N, K = self.dims
             shape = f"m{M}n{N}k{K}"
         elif self.op == "qkv_fused":

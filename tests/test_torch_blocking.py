@@ -23,8 +23,11 @@ from repro_torch.core import access as t_access
 from repro_torch.core import hierarchy as t_hierarchy
 from repro_torch.core import loopnest as t_loopnest
 from repro_torch.core import optimizer as t_optimizer
-from repro_torch.core.hopper_adapter import (H100_SXM, default_smem_budget,
+from repro_torch.core.hopper_adapter import (H100_SXM,
+                                             backward_tile_candidates,
+                                             default_smem_budget,
                                              flash_decode_tile_candidates,
+                                             flash_tiles,
                                              matmul_tile_candidates)
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import matmul_blocked as MB
@@ -40,7 +43,13 @@ CONVS = {"alexnet_conv1": dict(X=55, Y=55, C=3, K=96, Fw=11, Fh=11,
          "alexnet_conv2": dict(X=27, Y=27, C=96, K=256, Fw=5, Fh=5),
          "alexnet_conv5": dict(X=13, Y=13, C=384, K=256, Fw=3, Fh=3)}
 SMALL = {"gemm_small": dict(M=16, N_cols=64, K_reduce=64)}
-PROBLEMS = {**GEMMS, **CONVS, **SMALL}
+# the training step's dgrad nests at 2048 tokens, in the "matmul_dgrad"
+# (M_out, N_out, K_reduce) convention: dA of the up projection (M, K, N)
+# and dB of the down projection (K, N, M)
+DGRADS = {"gemm_dgrad_a_up": dict(M=2048, N_cols=4096, K_reduce=12800),
+          "gemm_dgrad_b_down": dict(M=12800, N_cols=4096, K_reduce=2048),
+          "gemm_dgrad_b_qkv": dict(M=4096, N_cols=1024, K_reduce=2048)}
+PROBLEMS = {**GEMMS, **CONVS, **SMALL, **DGRADS}
 
 
 def problem(mods, name):
@@ -140,3 +149,36 @@ def test_largest_page_is_the_last_that_fits(itemsize):
                                   itemsize) <= optin
     assert FD.smem_bytes_required(top + 1, FD.ROWS_PER_BLOCK, 128,
                                   itemsize) > optin
+
+
+@pytest.mark.parametrize("name", sorted(DGRADS))
+def test_dgrad_problems_rank_as_jax(name):
+    """The port's core ranks the dgrad GEMM nests exactly as JAX's core,
+    and the "matmul_dgrad" candidates are the GEMM search over them."""
+    got = ranked(PORT, name)
+    assert got and got == ranked(JAX, name)
+    kw = DGRADS[name]
+    dims = (kw["M"], kw["N_cols"], kw["K_reduce"])
+    assert backward_tile_candidates("matmul_dgrad", dims) == \
+        matmul_tile_candidates(*dims)
+
+
+@pytest.mark.parametrize("seq_q,seq_kv,head_dim,itemsize", [
+    (512, 512, 128, 2), (512, 512, 128, 4), (64, 64, 128, 4),
+    (64, 64, 64, 2), (2048, 2048, 128, 2), (24, 100, 64, 4)])
+def test_flash_tiles_fit_the_backward_kernels(seq_q, seq_kv, head_dim,
+                                              itemsize):
+    """Hopper ``flash_tiles``: whole multiples of 32 (or the extent under
+    32), each pass's footprint within the two-block budget and so within
+    the card's 232,448 B."""
+    from repro_torch.kernels.flash_attention_bwd import (dkv_smem_bytes,
+                                                         dq_smem_bytes)
+    bq, bkv = flash_tiles(seq_q, seq_kv, head_dim, itemsize)
+    for tile, seq in ((bq, seq_q), (bkv, seq_kv)):
+        assert tile % 32 == 0 or tile == seq < 32
+    assert dkv_smem_bytes(bq, head_dim, itemsize) <= default_smem_budget()
+    assert dq_smem_bytes(bkv, head_dim, itemsize) <= default_smem_budget()
+    assert max(dkv_smem_bytes(bq, head_dim, itemsize),
+               dq_smem_bytes(bkv, head_dim, itemsize)) <= 232_448
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        backward_tile_candidates("conv2d_wgrad", (8, 8, 4, 8, 3, 3))

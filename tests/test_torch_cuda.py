@@ -5,7 +5,11 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every test skips without a CUDA device.  Tolerances: fp32 differs from
+Every test skips without a CUDA device.  Gradients (the training
+path's kernels) sum up to Sq * G terms in another order than their plain
+versions: fp32 within 1e-4 of the largest |value| (at least 1e-4) and
+1e-3 rel, bf16 within 1e-2 of the largest |value| and 1e-2 rel.
+Tolerances of the forward kernels: fp32 differs from
 the plain version only in summation order (1e-5 abs / 1e-4 rel); bf16
 rounds the fp32 result to bf16 once, so the two may differ by one bf16
 ulp of an O(1) value (2e-2 abs / 1e-2 rel).  GEMM operands are scaled by
@@ -18,8 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_lse_ref,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_fp8,
                                               flash_decode_oproj,
@@ -28,6 +36,10 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               paged_attention_oproj_ref,
                                               paged_attention_ref)
 from repro_torch.kernels.matmul_blocked import matmul_blocked, matmul_ref
+from repro_torch.kernels.matmul_bwd import (matmul_dgrad_a,
+                                            matmul_dgrad_a_ref,
+                                            matmul_dgrad_b,
+                                            matmul_dgrad_b_ref)
 from repro_torch.kernels.matmul_fused import matmul_fused, matmul_fused_ref
 from repro_torch.kernels.matmul_q import matmul_w8, matmul_w8_ref
 from repro_torch.kernels.qkv_fused import qkv_fused, qkv_fused_ref
@@ -177,7 +189,7 @@ def test_matmul_blocked_refuses_what_it_cannot_hold(dev):
         matmul_blocked(a, b, bm=16, bk=4096, bn=1024)
     with pytest.raises(ValueError, match="accumulators"):
         matmul_blocked(a, b, bm=256, bk=64, bn=256)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="forward only"):
         matmul_blocked(a.requires_grad_(), b, bm=16, bk=64, bn=64)
     assert matmul_blocked.launches == before
     qa = torch.zeros(1, 8, 4, 128, device=dev, dtype=torch.bfloat16)
@@ -423,3 +435,164 @@ def test_quantized_kernels_refuse_what_they_cannot_take(dev):
         flash_decode_fp8(q, kp, vp, ones, ones, bt, ln)
     assert (matmul_w8.launches, matmul_fused.launches,
             flash_decode_fp8.launches) == before
+
+
+# -- the training path: dgrad GEMMs, lse, attention backward ---------------
+
+
+def grad_close(out, ref, dtype):
+    """The gradient tolerance of the module docstring."""
+    scale = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        tol = dict(atol=1e-4 * max(1.0, scale), rtol=1e-3)
+    else:
+        tol = dict(atol=1e-2 * scale, rtol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k,tiles", [
+    (2048, 4096, 4096, (128, 64, 128)),   # a training projection
+    (256, 1024, 512, (64, 64, 128)),
+    (37, 1000, 300, (16, 64, 64)),        # ragged (scalar staging)
+    (50, 100, 70, (32, 48, 64)),          # ragged, reduction step 48
+    (3, 5, 7, (3, 64, 64)),               # smaller than one tile
+])
+def test_matmul_dgrad_matches_plain(dev, dtype, m, n, k, tiles):
+    """dA = g @ b^T and dB = a^T @ g for C[m, n] = a[m, k] @ b[k, n],
+    operands scaled so both are O(1); repeated launches agree bit for
+    bit."""
+    rng = np.random.default_rng(m + n)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dtype,  # noqa
+                                device=dev)
+    a, b, g = t(m, k), t(k, n) * n ** -0.5, t(m, n)
+    gb = g * m ** -0.5
+    before = (matmul_dgrad_a.launches, matmul_dgrad_b.launches)
+    t0, t1, t2 = tiles
+    da = matmul_dgrad_a(g, b, bm=t0, br=t1, bo=t2)
+    db = matmul_dgrad_b(a, gb, bk=t0, br=t1, bn=t2)
+    torch.cuda.synchronize()
+    assert (matmul_dgrad_a.launches, matmul_dgrad_b.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert da.shape == (m, k) and db.shape == (k, n) and da.dtype == dtype
+    torch.testing.assert_close(da.float(),
+                               matmul_dgrad_a_ref(g, b).float(),
+                               **gemm_tol(dtype, n))
+    torch.testing.assert_close(db.float(),
+                               matmul_dgrad_b_ref(a, gb).float(),
+                               **gemm_tol(dtype, m))
+    assert torch.equal(da, matmul_dgrad_a(g, b, bm=t0, br=t1, bo=t2))
+    assert torch.equal(db, matmul_dgrad_b(a, gb, bk=t0, br=t1, bn=t2))
+
+
+def test_ops_matmul_backward_equals_the_plain_gemms(dev):
+    rng = np.random.default_rng(2)
+    a = torch.tensor(rng.standard_normal((96, 320)), dtype=torch.float32,
+                     device=dev, requires_grad=True)
+    b = torch.tensor(rng.standard_normal((320, 192)) * 320 ** -0.5,
+                     dtype=torch.float32, device=dev, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((96, 192)), dtype=torch.float32,
+                     device=dev)
+    before = (matmul_blocked.launches, matmul_dgrad_a.launches,
+              matmul_dgrad_b.launches)
+    ops.matmul(a, b).backward(g)
+    torch.cuda.synchronize()
+    assert (matmul_blocked.launches, matmul_dgrad_a.launches,
+            matmul_dgrad_b.launches) == tuple(n + 1 for n in before)
+    grad_close(a.grad, matmul_dgrad_a_ref(g, b.detach()), torch.float32)
+    grad_close(b.grad, matmul_dgrad_b_ref(a.detach(), g), torch.float32)
+
+
+ATTN_BWD_CASES = [  # b, sq, skv, hq, hkv, d, window, cap
+    (1, 64, 64, 32, 8, 128, None, None),
+    (4, 512, 512, 32, 8, 128, None, None),
+    (2, 100, 100, 32, 8, 128, None, None),    # ragged S
+    (2, 40, 104, 32, 8, 128, None, None),     # Sq < Skv
+    (2, 128, 128, 32, 8, 128, 48, None),      # window
+    (2, 96, 96, 32, 8, 128, None, 30.0),      # cap
+    (2, 128, 128, 8, 2, 64, None, None),      # head_dim 64
+]
+
+
+def attn_case(dev, dtype, b, sq, skv, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dtype,  # noqa
+                                device=dev)
+    return t(b, sq, hq, d), t(b, skv, hkv, d), t(b, skv, hkv, d), \
+        t(b, sq, hq, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window,cap", ATTN_BWD_CASES)
+def test_flash_attention_lse_and_bwd_match_plain(dev, dtype, b, sq, skv, hq,
+                                                 hkv, d, window, cap):
+    """The forward's lse residual, and the backward kernel against its
+    plain version on the same (o, lse); repeated launches agree bit for
+    bit."""
+    from repro_torch.kernels.flash_attention import _forward
+    q, k, v, g = attn_case(dev, dtype, b, sq, skv, hq, hkv, d, seed=sq)
+    kw = dict(causal=True, window=window, logit_cap=cap)
+    o, lse = _forward(q, k, v, True, window, cap, with_lse=True)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                               atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(o.float(), flash_attention_ref(
+        q, k, v, **kw).float(), **TOL[dtype])
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, lse, g, **kw)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        grad_close(x, y, dtype)
+    again = flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+def test_grads_reach_wq_wk_wv_through_ops_attention(dev):
+    """The repaired fault: on the card, a loss through ops.attention gives
+    wq, wk and wv their gradients, equal to the plain path's."""
+    rng = np.random.default_rng(4)
+    bsz, s, dm, hq, hkv, d = 2, 48, 256, 4, 2, 64
+    x = torch.tensor(rng.standard_normal((bsz, s, dm)), dtype=torch.float32,
+                     device=dev)
+    w_out = torch.tensor(rng.standard_normal((bsz, s, hq, d)),
+                         dtype=torch.float32, device=dev)
+    grads = {}
+    for use_kernel in (True, False):
+        ws = [torch.tensor(rng.standard_normal((dm, n)) * dm ** -0.5,
+                           dtype=torch.float32, device=dev,
+                           requires_grad=True)
+              for n in (hq * d, hkv * d, hkv * d)] if use_kernel else \
+            [w.detach().clone().requires_grad_() for w in grads[True][1]]
+        q = (x @ ws[0]).reshape(bsz, s, hq, d)
+        k = (x @ ws[1]).reshape(bsz, s, hkv, d)
+        v = (x @ ws[2]).reshape(bsz, s, hkv, d)
+        before = flash_attention_bwd.launches
+        out = ops.attention(q, k, v, use_kernel=use_kernel)
+        (out * w_out).sum().backward()
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + int(use_kernel)
+        grads[use_kernel] = ([w.grad for w in ws], ws)
+    for got, want in zip(grads[True][0], grads[False][0]):
+        assert got is not None and float(got.abs().max()) > 0
+        grad_close(got, want, torch.float32)
+
+
+def test_flash_decode_wrappers_raise_under_grad(dev):
+    args = paged_case(dev, torch.float32, 1, [17, 64])
+    q = args[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_decode(q, *args[1:])
+    ones = torch.ones(8, dtype=torch.float32, device=dev)
+    fp8 = torch.float8_e4m3fn
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_decode_fp8(q, args[1].to(fp8), args[2].to(fp8), ones, ones,
+                         *args[3:])
+    q1 = q.detach()[:, :, :4].contiguous().requires_grad_()
+    wo = torch.zeros(8, 4 * 128, 256, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_decode_oproj(q1, *args[1:], wo)
+    with torch.no_grad():               # the serving engine's case
+        flash_decode(q, *args[1:])

@@ -327,7 +327,7 @@ def test_opspec_validation():
         OpSpec("relu", (1, 2, 3))
     with pytest.raises(ValueError):
         Schedule(OpSpec("matmul", (8, 8, 8)), (8, 8))
-    for op in ("conv2d", "matmul_dgrad"):
+    for op in ("conv2d", "conv2d_dgrad"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             OpSpec(op, (8, 8, 8))
 
@@ -443,3 +443,67 @@ def test_cli_takes_the_quantized_keys(tmp_path, op, dims, key):
     assert res.returncode == 0, res.stderr
     assert "winner: tiles=" in res.stdout
     assert key in json.loads(path.read_text())["schedules"]
+
+
+# -- the training path's dgrad key -----------------------------------------
+
+DGRAD_SPECS = [("matmul_dgrad", (2048, 4096, 12800), "bfloat16",
+                (128, 64, 128)),
+               ("matmul_dgrad", (12800, 4096, 2048), "float32",
+                (64, 64, 128)),
+               ("matmul_dgrad", (64, 32, 48), "float32", (16, 48, 32))]
+
+
+@pytest.mark.parametrize("op,dims,dtype,tiles", DGRAD_SPECS)
+def test_dgrad_key_model_arithmetic_and_cache_key_match_jax(op, dims, dtype,
+                                                            tiles):
+    """dA asks (M, K, N), dB (K, N, M): the GEMM nest over the
+    cotangent's (M_out, N_out, K_reduce), scored and keyed as JAX's."""
+    spec, jspec = OpSpec(op, dims, dtype), JOpSpec(op, dims, dtype)
+    assert repr(schedule_to_string(spec, tiles)) == \
+        repr(jlowering.schedule_to_string(jspec, tiles))
+    assert predicted_dram_accesses(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_accesses(jspec, tiles, BUDGET)
+    assert level0_dram_bytes(spec, tiles) == \
+        jlowering.level0_dram_bytes(jspec, tiles)
+    assert spec.key("cpu") == jspec.key("cpu") == \
+        f"matmul_dgrad/m{dims[0]}n{dims[1]}k{dims[2]}/{dtype}/cpu"
+
+
+@pytest.mark.parametrize("dims,dtype", [((2048, 4096, 4096), "bfloat16"),
+                                        ((4096, 12800, 2048), "bfloat16"),
+                                        ((2048, 12800, 4096), "float32"),
+                                        ((37, 65, 33), "float32")])
+def test_dgrad_candidates_fit_the_tile_core(dims, dtype):
+    """Every "matmul_dgrad" candidate fits the dgrad kernels' own
+    footprint (``matmul_bwd.smem_bytes_required``) within the two-block
+    budget and the tile core's accumulator limit; the dividing ones rank
+    by predicted accesses, as JAX ranks the key."""
+    from repro_torch.kernels import matmul_blocked as MBL
+    from repro_torch.kernels import matmul_bwd as MBW
+    spec = OpSpec("matmul_dgrad", dims, dtype)
+    cands = candidates(spec)
+    assert cands
+    for s in cands:
+        bm, bk, bn = s.tiles
+        assert fits_smem(spec, s.tiles, BUDGET)
+        assert MBW.smem_bytes_required(bm, bk, bn, spec.itemsize) <= BUDGET
+        assert MBL.accumulators_per_thread(bm, bn) <= H100_SXM.acc_per_thread
+    scored = [s.predicted_dram_accesses for s in cands
+              if s.predicted_dram_accesses is not None]
+    assert scored == sorted(scored)
+    assert best_schedule("matmul_dgrad", dims, dtype).tiles == cands[0].tiles
+
+
+def test_cli_takes_the_dgrad_key(tmp_path):
+    path = tmp_path / "s.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_TUNE_CACHE": str(path)}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tune", "matmul_dgrad", "2048",
+         "4096", "12800", "--dtype", "bfloat16", "--no-measure"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "winner: tiles=" in res.stdout
+    assert "matmul_dgrad/m2048n4096k12800/bfloat16/cpu" in json.loads(
+        path.read_text())["schedules"]
