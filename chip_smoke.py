@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the ten CUDA libraries from ``src/repro_torch/csrc`` with
+2. build the twelve CUDA libraries from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
@@ -28,6 +28,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``"matmul_dgrad"`` adapter tile of granite's projections at 2048
    tokens, the forward's lse and ``flash_attention_bwd`` (GQA 32/8,
    D = 128 and 64; ragged S, Sq < Skv, window, cap), repeats bit-equal;
+   the conv kernels: ``conv2d_block`` (row 12) and
+   ``conv2d_wgrad_block`` (row 13) at ragged C, K and spatial tiles,
+   strides 1, 2, 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3, and under
+   every tile the adapter emits for the Table-4 layers and AlexNet conv1
+   under the three conv keys, repeats bit-equal;
 4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
    fused, with wide weights and under w8fp8 (int8 projections, fp8
    pages): the kernel path and the plain path give identical greedy
@@ -60,10 +65,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bf16, remat "block", 4 x 512 tokens for 8 steps, on the default path
    and with blocked kernels: finite losses, step 0 held against the
    plain path, step times, tokens/s and a profiled step;
-7. ``tune_op`` on the decode GEMM shape and the decode QKV pass into a
-   temporary cache;
-8. each kernel timed at the shapes of phases 6, 6b, 9, 9b and 11 beside
-   its bound, its plain version and a library call.
+12. the paper's conv path at full Table-4 size: Conv1..Conv5 and AlexNet
+   conv1 (stride 4) at batch 2 in bf16 through ``ops.conv2d`` forward and
+   ``torch.autograd.grad`` (dX through row 12, dW through row 13), tiles
+   from the model under the three conv keys, held against the fp32
+   oracles, launch counts asserted, the plain path launching nothing;
+7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
+   into a temporary cache;
+8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
+   beside its bound, its plain version and a library call.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -895,18 +905,19 @@ def _cublas_logits(cfg, params, prompt):
 
 
 def phase7_tune() -> dict:
-    """tune_op on the decode projection shape and on the decode QKV
-    pass, into a temporary cache."""
+    """tune_op on the decode projection shape, the decode QKV pass and
+    the paper's Conv4 (one image), into a temporary cache."""
     import tempfile
     from repro_torch.tune import OpSpec, ScheduleCache, candidates, tune_op
     from repro_torch.tune.measure import measure_top
     out = {}
     for spec in (OpSpec("matmul", (8, 4096, 4096), "bfloat16"),
-                 OpSpec("qkv_fused", (8, 1024, 4096, 4), "bfloat16")):
+                 OpSpec("qkv_fused", (8, 1024, 4096, 4), "bfloat16"),
+                 OpSpec("conv2d", (56, 56, 128, 256, 3, 3), "bfloat16")):
         with tempfile.TemporaryDirectory() as tmp:
             cache = ScheduleCache(str(Path(tmp) / "schedules.json"))
             winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=3,
-                             cache=cache)
+                             cache=cache, stride=spec.stride)
             stored = ScheduleCache(cache.path).lookup(spec)
             assert stored is not None and stored.tiles == winner.tiles
         timed = measure_top(candidates(spec), top_n=3)
@@ -1792,6 +1803,369 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
     return rows
 
 
+# ------------------------------ the conv path --------------------------------
+
+# the paper's Table-4 conv layers (PAPER_LAYERS, output-space X, Y) and
+# AlexNet conv1 at its real shape (227 x 227 x 3 in, 11 x 11 stride 4, 96
+# out): (name, X, Y, C, K, Fw, Fh, stride)
+def conv_layers():
+    from repro_torch.configs import PAPER_LAYERS
+    out = [(n, p.X, p.Y, p.C, p.K, p.Fw, p.Fh, 1)
+           for n, p in PAPER_LAYERS.items() if n.startswith("Conv")]
+    return out + [("AlexNet conv1", 55, 55, 3, 96, 11, 11, 4)]
+
+
+def conv_inputs(dev, dtype, n, h, w, c, k, fh, fw, stride, seed):
+    """x (n, h, w, c), weights scaled by (c * fh * fw) ** -0.5 so every
+    output is O(1), and a cotangent of the output's shape; drawn on the
+    card from ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    oh, ow = (h - fh) // stride + 1, (w - fw) // stride + 1
+    return (r(n, h, w, c).to(dtype),
+            (r(fh, fw, c, k) * (c * fh * fw) ** -0.5).to(dtype),
+            r(n, oh, ow, k).to(dtype))
+
+
+def conv_key_tiles(op, dims, itemsize, stride):
+    """Every tile the Hopper adapter emits for one conv key, asked the way
+    ``tune.lowering.candidates`` asks (so the searches are shared with the
+    tuner's)."""
+    from repro_torch.core.hopper_adapter import (H100_SXM,
+                                                 backward_tile_candidates,
+                                                 conv_tile_candidates,
+                                                 default_smem_budget)
+    budget = default_smem_budget()
+    if op == "conv2d":
+        return conv_tile_candidates(*dims, itemsize, budget, H100_SXM,
+                                    top=8, stride=stride)
+    return backward_tile_candidates(op, dims, itemsize, budget, H100_SXM,
+                                    top=8, stride=stride)
+
+
+def phase3_conv(dev) -> None:
+    """Rows 12 and 13 against their plain versions, fp32 and bf16,
+    repeated launches bit-equal: ragged C, K and spatial tiles, strides
+    1, 2 and 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3; then every tile
+    the adapter emits for the Table-4 layers and AlexNet conv1 under the
+    three conv keys, each at the layer's channels, filter and stride over
+    two whole tiles and a ragged one per spatial axis (at most the
+    layer's extent), one image (the forward, the dgrad's transposed conv
+    at stride 1) or two (the wgrad)."""
+    import torch
+    from repro_torch.kernels import conv2d_blocked as CB
+    from repro_torch.kernels import conv2d_bwd as CW
+
+    def check(tag, dn, dtype, n, oy, ox, c, k, fh, fw, s, tiles, wgrad,
+              seed):
+        bx, by, bc, bk = tiles
+        h, w = (oy - 1) * s + fh, (ox - 1) * s + fw
+        x, wt, g = conv_inputs(dev, dtype, n, h, w, c, k, fh, fw, s, seed)
+        if wgrad:
+            run = lambda: CW.conv2d_wgrad_block(  # noqa: E731
+                x, g, fh, fw, bx=bx, by=by, bc=bc, bk=bk, stride=s)
+            want = CW.conv2d_wgrad_block_ref(x, g, fh, fw, s)
+            atol, _ = grad_tol("float32", n * oy * ox, want)
+            got = run()
+            compare(f"conv2d_wgrad_block {dn} {tag} tiles={tiles}", got,
+                    want, "float32", atol=atol)
+        else:
+            run = lambda: CB.conv2d_block(  # noqa: E731
+                x, wt, bc=bc, bk=bk, stride=s, bx=bx, by=by)
+            got = run()
+            compare(f"conv2d_block {dn} {tag} tiles={tiles}", got,
+                    CB.conv2d_blocked_ref(x, wt, s), dn,
+                    gemm_atol(dn, c * fh * fw))
+        assert torch.equal(got, run()), f"{tag} {tiles}: repeat differs"
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        # n, out y, out x, c, k, fh, fw, stride, (bx, by, bc, bk)
+        for n, oy, ox, c, k, fh, fw, s, tiles in (
+                (2, 8, 8, 4, 8, 3, 3, 1, (4, 4, 4, 8)),
+                (2, 12, 10, 3, 5, 2, 2, 1, (5, 3, 3, 4)),
+                (1, 6, 6, 4, 8, 3, 3, 2, (3, 3, 2, 4)),
+                (1, 5, 5, 4, 8, 3, 3, 2, (2, 2, 4, 8)),
+                (2, 8, 8, 16, 24, 1, 1, 1, (8, 8, 8, 16)),
+                (2, 8, 8, 3, 96, 11, 11, 4, (4, 4, 3, 16)),
+                (2, 20, 20, 37, 70, 11, 11, 1, (8, 8, 8, 16)),
+                (2, 17, 17, 108, 200, 4, 4, 1, (8, 8, 16, 64))):
+            tag = (f"N={n} out={oy}x{ox} C={c} K={k} {fh}x{fw} "
+                   f"stride={s}")
+            check(tag, dn, dtype, n, oy, ox, c, k, fh, fw, s, tiles, False,
+                  oy + c)
+            check(tag, dn, dtype, n, oy, ox, c, k, fh, fw, s,
+                  (tiles[0], tiles[1], min(tiles[2], 8),
+                   min(tiles[3], 16)), True, oy + k)
+        n_tiles = 0
+        for name, X, Y, C, K, Fw, Fh, s in conv_layers():
+            keys = (("conv2d", (X, Y, C, K, Fw, Fh), s),
+                    ("conv2d_dgrad", ((X - 1) * s + Fw, (Y - 1) * s + Fh,
+                                      K, C, Fw, Fh), 1),
+                    ("conv2d_wgrad", (X, Y, C, K, Fw, Fh), s))
+            for op, dims, ks in keys:
+                x_, y_, c_, k_, fw_, fh_ = dims
+                for tiles in conv_key_tiles(op, dims, dtype.itemsize, ks):
+                    oy = min(y_, 2 * tiles[1] + 1)
+                    ox = min(x_, 2 * tiles[0] + 1)
+                    check(f"{name} {op} out={oy}x{ox} C={c_} K={k_} "
+                          f"{fh_}x{fw_} stride={ks}", dn, dtype,
+                          2 if op == "conv2d_wgrad" else 1, oy, ox, c_, k_,
+                          fh_, fw_, ks, tiles, op == "conv2d_wgrad",
+                          n_tiles)
+                    n_tiles += 1
+        print(f"  {n_tiles} conv adapter tiles checked in {dn}")
+    torch.cuda.synchronize()
+
+
+CONV_KERNELS = ("conv2d_block", "conv2d_wgrad_block")
+
+
+def phase12_conv(kernels: dict) -> dict:
+    """The paper's conv path at full Table-4 size: Conv1..Conv5 at batch 2
+    and AlexNet conv1 (227 x 227 x 3, stride 4) at batch 2, bf16, each
+    through ``ops.conv2d`` forward and ``torch.autograd.grad`` for dX and
+    dW, tiles from the model under the three keys; held against the fp32
+    oracles on the card; launch counts asserted per layer (one row-12
+    launch forward, one for the dgrad, row 13's two passes for the
+    wgrad), and ``use_kernel=False`` launching nothing."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    out = {}
+    resolved = []
+    prev = tune.set_schedule_observer(
+        lambda spec, sch: resolved.append((spec.op, sch.tiles, sch.source)))
+    try:
+        for i, (name, X, Y, C, K, Fw, Fh, s) in enumerate(conv_layers()):
+            n = 2
+            h, w = (Y - 1) * s + Fh, (X - 1) * s + Fw
+            x, wt, g = conv_inputs(dev, bf16, n, h, w, C, K, Fh, Fw, s,
+                                   seed=100 + i)
+            # the model's tile search for each key is host work, done once
+            t0 = time.perf_counter()
+            for op, dims, ks in (
+                    ("conv2d", (X, Y, C, K, Fw, Fh), s),
+                    ("conv2d_dgrad", (w, h, K, C, Fw, Fh), 1),
+                    ("conv2d_wgrad", (X, Y, C, K, Fw, Fh), s)):
+                tune.best_schedule(op, dims, "bfloat16", stride=ks)
+            search_s = time.perf_counter() - t0
+            resolved.clear()
+            reset(kernels)
+            xg = x.clone().requires_grad_()
+            wg = wt.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = ops.conv2d(xg, wg, stride=s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd = counts(kernels)
+            dx, dw = torch.autograd.grad(y, (xg, wg), g)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launched = counts(kernels)
+            assert fwd["conv2d_block"] == 1 and \
+                fwd["conv2d_wgrad_block"] == 0, fwd
+            assert launched["conv2d_block"] == 2 and \
+                launched["conv2d_wgrad_block"] == 2, launched
+            assert all(v == 0 for k_, v in launched.items()
+                       if k_ not in CONV_KERNELS), launched
+            tiles = {op: list(t) for op, t, _ in resolved}
+            for op, t, src in resolved:
+                print(f"  {name}: {op} tiles {t} ({src})")
+            # the fp32 oracles on the same bf16 values, TF32 off
+            xf, wf, gf = x.float(), wt.float(), g.float()
+            errs = {}
+            for what, got, want, red in (
+                    ("y", y, ref.conv2d_ref(xf, wf, s), C * Fh * Fw),
+                    ("dX", dx, ref.conv2d_dgrad_ref(gf, wf, tuple(x.shape),
+                                                    s), K * Fh * Fw),
+                    ("dW", dw, ref.conv2d_wgrad_ref(xf, gf, tuple(wt.shape),
+                                                    s), n * X * Y)):
+                assert got.dtype == bf16 and got.shape == want.shape
+                assert bool(torch.isfinite(got.float()).all()), what
+                errs[what] = hold_conv(f"{name} {what}", got, want, red)
+            # the plain versions by name launch nothing
+            reset(kernels)
+            with torch.no_grad():
+                yp = ops.conv2d(x, wt, stride=s, use_kernel=False)
+            xp = x.clone().requires_grad_()
+            wp = wt.clone().requires_grad_()
+            dxp, dwp = torch.autograd.grad(
+                ops.conv2d(xp, wp, stride=s, use_kernel=False), (xp, wp), g)
+            torch.cuda.synchronize()
+            assert all(v == 0 for v in counts(kernels).values()), \
+                counts(kernels)
+            hold_conv(f"{name} y (plain path)", yp, ref.conv2d_ref(xf, wf, s),
+                      C * Fh * Fw)
+            gmacs = n * Y * X * K * C * Fh * Fw / 1e9
+            print(f"  {name} N={n} {h}x{w}x{C} -> {Y}x{X}x{K}, {Fh}x{Fw} "
+                  f"stride {s}: {gmacs:.1f} GMAC; forward "
+                  f"{(t1 - t0) * 1e3:.1f} ms, backward "
+                  f"{(t2 - t1) * 1e3:.1f} ms (host clock, first call); "
+                  f"tile search {search_s:.2f} s; launches {launched}")
+            out[name] = {"shape": [n, h, w, C, K, Fh, Fw, s], "tiles": tiles,
+                         "gmac": gmacs, "fwd_ms": (t1 - t0) * 1e3,
+                         "bwd_ms": (t2 - t1) * 1e3, "search_s": search_s,
+                         "launches": {k_: launched[k_]
+                                      for k_ in CONV_KERNELS},
+                         "max_abs_err": errs}
+            del x, wt, g, xg, wg, y, dx, dw, xp, wp, dxp, dwp, yp
+            torch.cuda.empty_cache()
+    finally:
+        tune.set_schedule_observer(prev)
+    return out
+
+
+def hold_conv(name: str, got, want, reduce: int) -> float:
+    """A bf16 result against the fp32 oracle on the same bf16 inputs: one
+    bf16 rounding of the output (1e-2 rel) plus a ``reduce``-term fp32 sum
+    in another order on the scale of the largest |value| (2e-6 *
+    sqrt(reduce) of it, the phase-3 GEMM rule)."""
+    import torch
+    scale = float(want.abs().max())
+    atol = 2e-6 * reduce ** 0.5 * scale
+    diff = (got.detach().float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool(torch.all(diff <= atol + 1e-2 * want.abs()))
+    print(f"  {name:<34} max_abs_err {err:.3e} of max |ref| {scale:.3e} "
+          f"(tol {atol:.3g} abs + 0.01 rel)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the conv path disagrees with the "
+                             "fp32 oracle")
+    return err
+
+
+def time_conv_kernels(conv: dict) -> list[dict]:
+    """Rows 12 and 13 at Conv4 and Conv1, batch 2, bf16, with the model's
+    tiles, beside bound, plain version and one library call (``F.conv2d``
+    on channels_last bf16 with TF32 off; ``torch.nn.grad.conv2d_input`` and
+    ``conv2d_weight``), cuDNN's algorithm chosen by timing
+    (``cudnn.benchmark``: on an H100 80GB HBM3 its default heuristic took
+    87-111 ms for Conv1's 11 x 11 in bf16); the dgrad through row 12
+    beside them.
+    Conv1's rows go into the kernels line, Conv4's are printed.  Conv1
+    times over 10 launches (a forward takes ~0.1 s), Conv4 over 50."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d_blocked as CB
+    from repro_torch.kernels import conv2d_bwd as CW
+    from repro_torch.tune import best_schedule
+    from repro_torch.tune.measure import time_ms as measure_ms
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    rows = []
+    layers = {n: v for n, *v in conv_layers()}
+    for name, reps in (("Conv4", 50), ("Conv1", 10)):
+        X, Y, C, K, Fw, Fh, s = layers[name]
+        n = 2
+        h, w = (Y - 1) * s + Fh, (X - 1) * s + Fw
+        x, wt, g = conv_inputs(dev, bf16, n, h, w, C, K, Fh, Fw, s, seed=7)
+        tf = best_schedule("conv2d", (X, Y, C, K, Fw, Fh), "bfloat16",
+                           stride=s).tiles
+        tw = best_schedule("conv2d_wgrad", (X, Y, C, K, Fw, Fh), "bfloat16",
+                           stride=s).tiles
+        flops = 2 * n * Y * X * K * C * Fh * Fw
+        # library operands: NCHW views of the NHWC tensors (channels_last)
+        # and the weight in channels_last
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        launches = {k: sum(v["launches"][k] for v in conv.values())
+                    for k in CONV_KERNELS}
+        tm = lambda fn: measure_ms(fn, reps=reps)  # noqa: E731
+
+        y = CB.conv2d_tiled(x, wt, bx=tf[0], by=tf[1], bc=tf[2], bk=tf[3],
+                            stride=s)
+        fb_ms, fb_by = bound(2 * (x.numel() + wt.numel() + y.numel()),
+                             flops)
+        fwd = {
+            "name": "conv2d_block", "route": "cuda",
+            "source": "src/repro_torch/csrc/conv2d_blocked.cu",
+            "replaces": "src/repro/kernels/conv2d_blocked.py:141",
+            "launches": launches["conv2d_block"],
+            "max_abs_err": float((y.float() - CB.conv2d_blocked_ref(
+                x, wt, s).float()).abs().max()),
+            "ms": tm(lambda: CB.conv2d_tiled(x, wt, bx=tf[0], by=tf[1],
+                                             bc=tf[2], bk=tf[3], stride=s)),
+            "plain_ms": tm(lambda: CB.conv2d_blocked_ref(x, wt, s)),
+            "bound_ms": fb_ms, "bound_by": fb_by,
+            "library_ms": tm(lambda: F.conv2d(x_cl, w_cl, stride=s)),
+            "shape": f"{name} N={n} {h}x{w}x{C} -> {Y}x{X}x{K} {Fh}x{Fw} "
+                     f"stride {s} bf16, tiles {tuple(tf)}; launches: phase "
+                     f"12, all six layers (forward and dgrad); library: "
+                     f"F.conv2d channels_last, TF32 off, cudnn.benchmark"}
+        # the dgrad through row 12: the transposed conv on the host-dilated
+        # cotangent (what ops.conv2d's backward runs)
+        dx = CW.conv2d_dgrad(g, wt, tuple(x.shape), s)
+        db_ms, db_by = bound(2 * (g.numel() + wt.numel() + x.numel()), flops)
+        dgrad = {
+            "ms": tm(lambda: CW.conv2d_dgrad(g, wt, tuple(x.shape), s)),
+            "plain_ms": tm(lambda: CW.conv2d_dgrad(g, wt, tuple(x.shape), s,
+                                                   use_kernel=False)),
+            "library_ms": tm(lambda: torch.nn.grad.conv2d_input(
+                x_cl.shape, w_cl, g_cl, stride=s)),
+            "bound_ms": db_ms, "bound_by": db_by,
+            "max_abs_err": float((dx.float() - CW.conv2d_dgrad(
+                g, wt, tuple(x.shape), s, use_kernel=False).float())
+                .abs().max())}
+        dw = CW.conv2d_wgrad_block(x, g, Fh, Fw, bx=tw[0], by=tw[1],
+                                   bc=tw[2], bk=tw[3], stride=s)
+        wb_ms, wb_by = bound(2 * (x.numel() + g.numel()) + 4 * dw.numel(),
+                             flops)
+        wgrad = {
+            "name": "conv2d_wgrad_block", "route": "cuda",
+            "source": "src/repro_torch/csrc/conv2d_wgrad.cu",
+            "replaces": "src/repro/kernels/conv2d_bwd.py:107",
+            "launches": launches["conv2d_wgrad_block"],
+            "max_abs_err": float((dw - CW.conv2d_wgrad_block_ref(
+                x, g, Fh, Fw, s)).abs().max()),
+            "ms": tm(lambda: CW.conv2d_wgrad_block(
+                x, g, Fh, Fw, bx=tw[0], by=tw[1], bc=tw[2], bk=tw[3],
+                stride=s)),
+            "plain_ms": tm(lambda: CW.conv2d_wgrad_block_ref(x, g, Fh, Fw,
+                                                             s)),
+            "bound_ms": wb_ms, "bound_by": wb_by,
+            "library_ms": tm(lambda: torch.nn.grad.conv2d_weight(
+                x_cl, w_cl.shape, g_cl, stride=s)),
+            "shape": f"{name} N={n} {h}x{w}x{C}, cotangent {Y}x{X}x{K}, "
+                     f"{Fh}x{Fw} stride {s} bf16 in, fp32 dW, tiles "
+                     f"{tuple(tw)}, both passes; launches: phase 12, all "
+                     f"six layers (two passes each); library: "
+                     f"torch.nn.grad.conv2d_weight channels_last bf16, "
+                     f"cudnn.benchmark"}
+        print(f"  {name} conv2d_block {fwd['ms']:.4f} ms  plain "
+              f"{fwd['plain_ms']:.4f} ms  bound {fb_ms:.4f} ms ({fb_by})  "
+              f"library {fwd['library_ms']:.4f} ms  "
+              f"({flops / fwd['ms'] / 1e9:.1f} TFLOP/s)  [{fwd['shape']}]")
+        print(f"  {name} dgrad via conv2d_block {dgrad['ms']:.4f} ms  plain "
+              f"{dgrad['plain_ms']:.4f} ms  bound {db_ms:.4f} ms ({db_by})  "
+              f"library {dgrad['library_ms']:.4f} ms  max_abs_err "
+              f"{dgrad['max_abs_err']:.3e}  (host dilation and padding "
+              f"included; library: torch.nn.grad.conv2d_input)")
+        print(f"  {name} conv2d_wgrad_block {wgrad['ms']:.4f} ms  plain "
+              f"{wgrad['plain_ms']:.4f} ms  bound {wb_ms:.4f} ms ({wb_by})  "
+              f"library {wgrad['library_ms']:.4f} ms  "
+              f"({flops / wgrad['ms'] / 1e9:.1f} TFLOP/s)  "
+              f"[{wgrad['shape']}]")
+        conv[name]["timing"] = {"forward": {k: v for k, v in fwd.items()
+                                            if k.endswith(("ms", "err"))},
+                                "dgrad": dgrad,
+                                "wgrad": {k: v for k, v in wgrad.items()
+                                          if k.endswith(("ms", "err"))}}
+        if name == "Conv1":
+            rows += [fwd, wgrad]
+        del x, wt, g, y, dx, dw
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1802,6 +2176,8 @@ def main() -> int:
         return 1
     from repro_torch.core.hopper_adapter import H100_SXM
     from repro_torch.kernels import _build
+    from repro_torch.kernels import conv2d_blocked as CB
+    from repro_torch.kernels import conv2d_bwd as CW
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import flash_decode as FD
@@ -1810,7 +2186,9 @@ def main() -> int:
     from repro_torch.kernels import matmul_fused as MF
     from repro_torch.kernels import matmul_q as MQ
     from repro_torch.kernels import qkv_fused as QF
-    kernels = {"flash_attention": FA.flash_attention,
+    kernels = {"conv2d_block": CB.conv2d_block,
+               "conv2d_wgrad_block": CW.conv2d_wgrad_block,
+               "flash_attention": FA.flash_attention,
                "flash_attention_bwd": FB.flash_attention_bwd,
                "flash_decode": FD.flash_decode,
                "flash_decode_fp8": FD.flash_decode_fp8,
@@ -1858,6 +2236,7 @@ def main() -> int:
     phase3_fused(torch.device("cuda"))
     phase3_quant(torch.device("cuda"))
     phase3_train(torch.device("cuda"))
+    phase3_conv(torch.device("cuda"))
     print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32, "
           "unfused and fused, wide and w8fp8")
     phase4_parity(args.seed, kernels)
@@ -1912,8 +2291,12 @@ def main() -> int:
           "bf16, remat block, 4 x 512 tokens, 8 steps: default path and "
           "blocked kernels")
     train = phase11_train(args.seed, kernels)
-    print("phase 7: tune_op matmul (8, 4096, 4096) and qkv_fused "
-          "(8, 1024, 4096, 4), bfloat16")
+    print("phase 12: the paper's conv path at full Table-4 size: Conv1-5 "
+          "and AlexNet conv1, batch 2, bf16, ops.conv2d forward and "
+          "backward")
+    conv = phase12_conv(kernels)
+    print("phase 7: tune_op matmul (8, 4096, 4096), qkv_fused "
+          "(8, 1024, 4096, 4) and conv2d (Conv4), bfloat16")
     tuned = phase7_tune()
     print("phase 8: kernel timings at the blocked, fused and quantized "
           "runs' shapes")
@@ -1922,12 +2305,14 @@ def main() -> int:
     rows += time_quant_kernels(cfg, lens, quant["launches"],
                                quant_fused["launches"], quant["page"])
     rows += time_train_kernels(cfg, train)
+    rows += time_conv_kernels(conv)
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
                                  "cublas": cublas, "blocked": blocked,
                                  "fused": fused, "w8fp8": quant,
                                  "w8fp8_fused": quant_fused,
                                  "tune": tuned}))
     print("train " + json.dumps({"parity": parity, "full_width": train}))
+    print("conv " + json.dumps(conv))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

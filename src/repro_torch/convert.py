@@ -6,6 +6,10 @@ pattern entry's layers under ``params["layers"][j]`` with a leading
 group axis and keeps the remainder under ``params["tail"]``; the port
 keeps one entry per layer, in execution order (group by group, each
 cycling through the pattern, then the tail).
+
+The conv path needs no conversion: ``ops.conv2d`` keeps JAX's layouts
+(activations NHWC, weights HWIO, Table-4 problems in output-space X, Y),
+so the same numpy arrays go to both packages unchanged.
 """
 
 from __future__ import annotations

@@ -23,7 +23,12 @@ and Hopper's alignment and emits:
   the cotangent's (M_out, N_out, K_reduce), as JAX reuses it;
 * ``flash_tiles`` -- ``(block_q, block_kv)``, the streamed tiles of the
   flash-attention backward's two passes, checked against their own
-  footprints.
+  footprints;
+* ``conv_tile_candidates`` / ``conv_tiles`` -- (bx, by, bc, bk) for the
+  direct blocked conv (``kernels/conv2d_blocked.py``, row 12), and
+  ``backward_tile_candidates("conv2d_dgrad" | "conv2d_wgrad", ...)`` for
+  its backward: the dgrad's transposed conv on row 12 at stride 1, the
+  wgrad on row 13 (``kernels/conv2d_bwd.py``) under its own footprint.
 
 ``"matmul_fused"`` takes ``matmul_tile_candidates`` as they are: its
 kernel stages exactly what the blocked GEMM stages.  The quantized keys
@@ -212,26 +217,181 @@ def dgrad_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
             and accumulators_per_thread(bm, bn) <= target.acc_per_thread)
 
 
+def conv_fits(bx: int, by: int, bc: int, bk: int, Fw: int, Fh: int,
+              bytes_per_elem: int, budget: int, stride: int = 1,
+              target: HopperTarget = H100_SXM, wgrad: bool = False) -> bool:
+    """Whether the conv kernel holds these tiles: its staged tiles within
+    ``budget`` and its fp32 sums within the register limit -- the
+    forward's (row 12, which the dgrad runs too:
+    ``conv2d_blocked.smem_bytes_required`` and ``accumulators_per_thread``
+    of the (bx*by, bk) output tile) or, with ``wgrad``, row 13's
+    (``conv2d_bwd``: the (Fh, Fw, bc, bk) dW tile).  Imported lazily: the
+    kernel modules own their footprints."""
+    if wgrad:
+        from repro_torch.kernels.conv2d_bwd import (accumulators_per_thread,
+                                                    smem_bytes_required)
+        acc = accumulators_per_thread(bc, bk, Fh, Fw)
+    else:
+        from repro_torch.kernels.conv2d_blocked import (
+            accumulators_per_thread, smem_bytes_required)
+        acc = accumulators_per_thread(bx * by, bk)
+    return (smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
+                                stride) <= budget
+            and acc <= target.acc_per_thread)
+
+
+def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
+               K: int, Fw: int, Fh: int, bytes_per_elem: int, budget: int,
+               target: HopperTarget, stride: int,
+               wgrad: bool) -> tuple[int, int, int, int]:
+    """Snap an analytical (bx, by, bc, bk) to the conv kernel: channel
+    tiles start at multiples of ``nk_mult`` (extents below it whole), then
+    one tile shrinks at a time until the kernel's own footprint fits.
+    Large filters squeeze the weight tile (Conv1's 11 x 11 at bc = 8, bk =
+    32 is 61,952 B a stage in bf16), so bc and bk go below ``nk_mult``,
+    down to one 16-byte vector (8 bf16, 4 fp32; C = 3 stays whole).
+
+    Forward (row 12, also the dgrad's): an accumulator (bx*by x bk) over
+    the register limit shrinks the larger of the spatial tile and bk;
+    shared memory over the budget shrinks bc first (the reduction step:
+    it is in both staged tiles and is reused by nothing), then the larger
+    of the weight tile (bk per tap) and the haloed input tile (with the
+    stride).  Wgrad (row 13): the dW accumulator (Fh*Fw*bc*bk) shrinks
+    the larger of bc and bk, shared memory the spatial tile."""
+    mk = target.nk_mult
+    vec = 16 // bytes_per_elem
+    bx = _pick_tile(X, bx, 1)
+    by = _pick_tile(Y, by, 1)
+    bc = _pick_tile(C, max(bc, min(C, mk)), mk if C >= mk else 1)
+    bk = _pick_tile(K, max(bk, min(K, mk)), mk if K >= mk else 1)
+    while not conv_fits(bx, by, bc, bk, Fw, Fh, bytes_per_elem, budget,
+                        stride, target, wgrad):
+        can_xy = bx > 1 or by > 1
+        ih = (by - 1) * stride + Fh
+        iw = (bx - 1) * stride + Fw
+        if wgrad:
+            from repro_torch.kernels.conv2d_bwd import accumulators_per_thread
+            acc_over = (accumulators_per_thread(bc, bk, Fh, Fw)
+                        > target.acc_per_thread)
+            if (acc_over or not can_xy) and max(bc, bk) > vec:
+                if bk >= bc or bc <= vec:
+                    bk = _shrink(K, bk, vec)
+                else:
+                    bc = _shrink(C, bc, vec)
+                continue
+            step = "xy" if can_xy else None
+        else:
+            from repro_torch.kernels.conv2d_blocked import (
+                accumulators_per_thread)
+            if accumulators_per_thread(bx * by, bk) > target.acc_per_thread:
+                step = "xy" if can_xy and (bx * by >= bk or bk <= vec) \
+                    else "k" if bk > vec else None
+            elif bc > vec:
+                step = "c"
+            elif bk > vec and (Fh * Fw * bk >= ih * iw or not can_xy):
+                step = "k"
+            else:
+                step = "xy" if can_xy else None
+        if step == "xy":
+            if bx >= by and bx > 1:
+                bx = _shrink(X, bx, 1)
+            else:
+                by = _shrink(Y, by, 1)
+        elif step == "k":
+            bk = _shrink(K, bk, vec)
+        elif step == "c":
+            bc = _shrink(C, bc, vec)
+        else:
+            break
+    return bx, by, bc, bk
+
+
+# orders of the two-level conv nest the search walks: six active dims
+# make the full enumeration take seconds per shape on the host
+_CONV_MAX_ORDERS = 4
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tile_candidates(X: int, Y: int, C: int, K: int, Fw: int, Fh: int,
+                         bytes_per_elem: int = 2,
+                         smem_budget_bytes: int | None = None,
+                         target: HopperTarget = H100_SXM, top: int = 8,
+                         stride: int = 1, wgrad: bool = False
+                         ) -> tuple[tuple[int, int, int, int], ...]:
+    """Ranked (bx, by, bc, bk) tiles for the direct blocked conv (the
+    Hopper counterpart of ``tpu_adapter.conv_tile_candidates``).
+
+    The paper's optimizer runs on the conv nest (output-space X, Y, the
+    stride widening the input halo) over a two-level hierarchy (one
+    block's shared memory, HBM), channel tiles aligned to one 16-byte
+    vector; each winner, and a seed of the whole spatial extent at
+    ``nk_mult`` channels (JAX's seed), is snapped (:func:`_snap_conv`) to
+    the CUDA kernel's own footprint and accumulator limit: the forward's
+    (row 12, also the dgrad's) or, with ``wgrad``, row 13's.  Order
+    follows the optimizer's rank; the tuner re-ranks by predicted DRAM
+    accesses."""
+    budget = default_smem_budget(target, smem_budget_bytes)
+    vec = 16 // bytes_per_elem
+    problem = Problem(X=X, Y=Y, C=C, K=K, Fw=Fw, Fh=Fh, stride=stride,
+                      bytes_per_elem=bytes_per_elem)
+    levels = [MemLevel.sram("SMEM", budget), MemLevel.dram("HBM")]
+    align = {Dim.K: vec, Dim.C: vec}
+    raw = [(e.X, e.Y, e.C, e.K)
+           for e in ranked_level0_tiles(problem, levels, align=align,
+                                        top=top,
+                                        max_orders=_CONV_MAX_ORDERS)]
+    raw.append((X, Y, min(C, target.nk_mult), min(K, target.nk_mult)))
+    out: list[tuple[int, int, int, int]] = []
+    for bx, by, bc, bk in raw:
+        cand = _snap_conv(bx, by, bc, bk, X, Y, C, K, Fw, Fh,
+                          bytes_per_elem, budget, target, stride, wgrad)
+        if cand not in out:
+            out.append(cand)
+    return tuple(out[:top])
+
+
+def conv_tiles(X: int, Y: int, C: int, K: int, Fw: int, Fh: int,
+               bytes_per_elem: int = 2,
+               smem_budget_bytes: int | None = None,
+               target: HopperTarget = H100_SXM, stride: int = 1
+               ) -> tuple[int, int, int, int]:
+    """Top analytical (bx, by, bc, bk) tile (see conv_tile_candidates)."""
+    return conv_tile_candidates(X, Y, C, K, Fw, Fh, bytes_per_elem,
+                                smem_budget_bytes, target,
+                                stride=stride)[0]
+
+
 def backward_tile_candidates(op: str, dims: tuple[int, ...],
                              bytes_per_elem: int = 2,
                              smem_budget_bytes: int | None = None,
                              target: HopperTarget = H100_SXM,
-                             top: int = 8) -> tuple[tuple[int, ...], ...]:
-    """Ranked tiles for the backward nests, reusing the forward search as
-    JAX's ``tpu_adapter.backward_tile_candidates`` does: the paper's
-    analysis does not care which operand of the nest is written, so
-    ``"matmul_dgrad"`` is the GEMM search over the cotangent's
-    ``(M_out, N_out, K_reduce)`` (dA: ``(M, K, N)``; dB: ``(K, N, M)``),
-    tiles ``(bm, bk, bn)`` in its row, reduction and column roles.  The
-    conv keys are the conv path's (``ROADMAP.md``, queue 1, items
-    12/13)."""
-    if op != "matmul_dgrad":
-        raise NotImplementedError(
-            f"backward key {op!r} is not ported yet: ROADMAP.md, queue 1, "
-            "items 12/13 (the conv path)")
-    M, N, K = dims
-    return matmul_tile_candidates(M, N, K, bytes_per_elem,
-                                  smem_budget_bytes, target, top)
+                             top: int = 8, stride: int = 1
+                             ) -> tuple[tuple[int, ...], ...]:
+    """Ranked tiles for the backward nests, reusing the forward searches
+    as JAX's ``tpu_adapter.backward_tile_candidates`` does: the paper's
+    analysis does not care which operand of the nest is written.
+
+    * ``"matmul_dgrad"``: the GEMM search over the cotangent's
+      ``(M_out, N_out, K_reduce)`` (dA: ``(M, K, N)``; dB: ``(K, N,
+      M)``), tiles ``(bm, bk, bn)`` in its row, reduction and column
+      roles;
+    * ``"conv2d_dgrad"``: the transposed conv as a direct conv (channels
+      swapped, the stride folded into host-side dilation, so searched at
+      stride 1), snapped to row 12's footprint, which it runs;
+    * ``"conv2d_wgrad"``: the forward conv's dims at the forward's
+      stride, ``(bx, by)`` blocking the spatial reduction, snapped to row
+      13's own footprint and accumulator."""
+    if op == "matmul_dgrad":
+        M, N, K = dims
+        return matmul_tile_candidates(M, N, K, bytes_per_elem,
+                                      smem_budget_bytes, target, top)
+    if op not in ("conv2d_dgrad", "conv2d_wgrad"):
+        raise ValueError(f"not a backward op: {op!r}")
+    X, Y, C, K, Fw, Fh = dims
+    wgrad = op == "conv2d_wgrad"
+    return conv_tile_candidates(X, Y, C, K, Fw, Fh, bytes_per_elem,
+                                smem_budget_bytes, target, top,
+                                stride=stride if wgrad else 1, wgrad=wgrad)
 
 
 @functools.lru_cache(maxsize=256)

@@ -21,9 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode",
-           "flash_decode_fp8", "flash_decode_oproj", "matmul_blocked",
-           "matmul_bwd", "matmul_fused", "matmul_w8", "qkv_fused")
+SOURCES = ("conv2d_blocked", "conv2d_wgrad", "flash_attention",
+           "flash_attention_bwd", "flash_decode", "flash_decode_fp8",
+           "flash_decode_oproj", "matmul_blocked", "matmul_bwd",
+           "matmul_fused", "matmul_w8", "qkv_fused")
 # --split-compile 0: the optimizer runs over a library's kernels on all
 # cores, so a library with many template instances does not serialise
 # the parallel build

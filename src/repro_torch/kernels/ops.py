@@ -40,6 +40,13 @@ where JAX takes the kernel only on the TPU or under blocked linears;
 ``qkv_fused`` takes three ``linear`` calls, and ``paged_attention_oproj``
 the unfused pair, as in JAX.  A 1-byte page pool (``kv_cache_dtype``
 fp8) sends ``paged_attention`` to ``flash_decode_fp8``.
+
+The paper's conv path: ``conv2d`` (NHWC x HWIO -> NHWC, VALID, any
+stride) is a ``torch.autograd.Function`` whose forward is the direct
+blocked conv (kernel row 12) under the ``"conv2d"`` key and whose
+backward is ``conv2d_dgrad`` (row 12 again, a transposed conv under
+``"conv2d_dgrad"``) and ``conv2d_wgrad`` (row 13 under
+``"conv2d_wgrad"``), as JAX's ``custom_vjp``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ import os
 
 import torch
 
+from repro_torch.kernels.conv2d_blocked import (conv2d_blocked_ref,
+                                                conv2d_tiled)
+from repro_torch.kernels.conv2d_bwd import conv2d_dgrad, conv2d_wgrad
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_decode import (flash_decode,
@@ -411,3 +421,57 @@ def paged_attention_oproj(q: torch.Tensor, k_pages: torch.Tensor,
     fn = flash_decode_oproj if use_kernel else paged_attention_oproj_ref
     return fn(qg, k_pages, v_pages, block_tables, lengths, wo3,
               window=window, logit_cap=logit_cap)
+
+
+# -------------------------------- conv2d -----------------------------------
+
+
+class _Conv2d(torch.autograd.Function):
+    """The direct blocked conv with its dgrad and wgrad drivers as the
+    backward (JAX's ``_conv2d_vjp``); dX is cast to x's dtype and the fp32
+    dW to w's."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, tiles, use_kernel):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.use_kernel = stride, use_kernel
+        if not use_kernel:
+            return conv2d_blocked_ref(x, w, stride)
+        bx, by, bc, bk = tiles
+        return conv2d_tiled(x, w, bx=bx, by=by, bc=bc, bk=bk, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_dgrad(g, w, tuple(x.shape), ctx.stride,
+                              use_kernel=ctx.use_kernel).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_wgrad(x, g, w.shape[0], w.shape[1], ctx.stride,
+                              use_kernel=ctx.use_kernel).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+           tiles: tuple[int, int, int, int] | None = None,
+           use_kernel: bool = True) -> torch.Tensor:
+    """Direct blocked conv, ``x (N, H, W, C)`` x ``w (Fh, Fw, C, K)`` ->
+    ``(N, OH, OW, K)``, VALID padding.  The forward is kernel row 12 with
+    the tuned or model-derived ``(bx, by, bc, bk)`` of the ``"conv2d"``
+    key at this stride (``tiles`` pins them): level-1 spatial tiles with
+    their halo as the kernel's grid, level-0 channel tiles inside.
+    Differentiable: the backward runs ``conv2d_dgrad`` and
+    ``conv2d_wgrad`` under their own keys (explicit ``tiles`` pin the
+    forward only, as in JAX).  Any shape launches: the kernels mask
+    ragged channel and spatial tiles.  ``use_kernel=False`` runs the
+    plain versions, forward and backward."""
+    n, h, wd, c = x.shape
+    fh, fw, _, k = w.shape
+    oh = (h - fh) // stride + 1
+    ow = (wd - fw) // stride + 1
+    if use_kernel and tiles is None:
+        tiles = best_schedule("conv2d", (ow, oh, c, k, fw, fh),
+                              _dtype_name(x), stride=stride).tiles
+    return _Conv2d.apply(x, w, stride, tuple(tiles or ()), use_kernel)

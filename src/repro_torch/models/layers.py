@@ -96,7 +96,7 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     if window is not None and not full_cache:
         raise NotImplementedError(
             "the ring-buffer cache of windowed layers belongs to the dense "
-            "DecodeEngine: ROADMAP.md, next slice")
+            "DecodeEngine: ROADMAP.md, queue 1, item 17")
     cache_len = return_cache if isinstance(return_cache, int) and \
         return_cache is not True else s
     # attention above ran over the wide K/V; only the cache is cast (to

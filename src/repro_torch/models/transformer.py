@@ -13,7 +13,7 @@ Training: :func:`forward` is the full-sequence forward and
 checkpoint every block (``torch.utils.checkpoint``, non-reentrant), as
 JAX checkpoints each pattern cycle; ``"dots"`` (JAX: save the matmul
 outputs, recompute the elementwise ops) checkpoints whole blocks too for
-now (``ROADMAP.md``, queue 1, item 12); ``"none"`` keeps every
+now (``ROADMAP.md``, queue 1, item 6); ``"none"`` keeps every
 activation.
 """
 

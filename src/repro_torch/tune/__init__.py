@@ -1,9 +1,10 @@
 """Schedule tuner: the paper's blocking optimizer driving the port's
-kernels (the port of ``repro.tune`` for ``"matmul"``, ``"matmul_dgrad"``
-(the training path's backward GEMMs), ``"flash_decode"``,
-the fused path's ``"matmul_fused"``, ``"qkv_fused"`` and
-``"flash_decode_oproj"``, and the quantized path's ``"matmul_w8"`` and
-``"flash_decode_fp8"``).
+kernels (the port of ``repro.tune``: ``"matmul"``, ``"matmul_dgrad"``
+(the training path's backward GEMMs), ``"flash_decode"``, the fused
+path's ``"matmul_fused"``, ``"qkv_fused"`` and ``"flash_decode_oproj"``,
+the quantized path's ``"matmul_w8"`` and ``"flash_decode_fp8"``, and the
+conv path's ``"conv2d"``, ``"conv2d_dgrad"`` and ``"conv2d_wgrad"``, each
+with a stride).
 
 The analytical model (``repro_torch.core``) derives candidate blockings
 on the Hopper target; this package lowers them to the CUDA kernels' tile
@@ -14,9 +15,9 @@ a JSON cache so every later process -- including the default paths of
 Entry points:
 
 * :func:`best_schedule` -- cheap, never measures: the cached schedule if
-  one exists for this (op, shapes, dtype, device), else the analytic
-  winner.  ``kernels.ops.matmul`` consults it on every call with
-  ``tiles=None``.
+  one exists for this (op, shapes, dtype, stride, device), else the
+  analytic winner.  ``kernels.ops.matmul`` and ``ops.conv2d`` consult it
+  on every call with ``tiles=None``.
 * :func:`tune_op` -- the full loop: rank candidates analytically, time
   the top-N on the card, persist the winner.  Run offline
   (``python -m repro_torch.tune ...``) to pre-populate the cache.
@@ -83,20 +84,23 @@ def _derive(spec: OpSpec, smem_budget_bytes: int | None,
 def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
                   cache: ScheduleCache | None = None,
                   smem_budget_bytes: int | None = None,
-                  target: HopperTarget = H100_SXM) -> Schedule:
+                  target: HopperTarget = H100_SXM,
+                  stride: int = 1) -> Schedule:
     """Cached-or-derived schedule for one op instance (never measures).
 
     ``dims`` is ``(M, N, K)`` for ``"matmul"``, ``"matmul_fused"`` and
     ``"matmul_w8"``, the cotangent's ``(M_out, N_out, K_reduce)`` for
     ``"matmul_dgrad"``, ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S,
-    D)`` for ``"flash_decode"`` and ``"flash_decode_fp8"`` and ``(G, S,
-    D, E)`` for ``"flash_decode_oproj"``.  A cache hit (same op, shapes,
-    dtype and device kind) wins outright, unless an explicit
+    D)`` for ``"flash_decode"`` and ``"flash_decode_fp8"``, ``(G, S,
+    D, E)`` for ``"flash_decode_oproj"`` and ``(X, Y, C, K, Fw, Fh)`` for
+    the conv keys, whose ``stride`` is part of the spec (``"conv2d_dgrad"``
+    is searched at stride 1).  A cache hit (same op, shapes, dtype,
+    stride and device kind) wins outright, unless an explicit
     ``smem_budget_bytes`` is given that its tiles overflow; otherwise the
     analytic top candidate is derived in-process (memoized, not persisted
     -- run :func:`tune_op` to measure and persist).
     """
-    spec = OpSpec(op, tuple(dims), dtype)
+    spec = OpSpec(op, tuple(dims), dtype, stride)
     hit = (cache or _default_cache).lookup(spec)
     if hit is not None and hit.spec == spec and (
             smem_budget_bytes is None or
@@ -114,7 +118,8 @@ def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
 
 def tune_op(op: str, dims: tuple[int, ...], dtype: str = "float32",
             top_n: int = 3, measure: bool = True,
-            cache: ScheduleCache | None = None) -> Schedule:
+            cache: ScheduleCache | None = None,
+            stride: int = 1) -> Schedule:
     """Full tuning loop for one op instance; returns the winner.
 
     Candidates are ranked by the paper's predicted DRAM accesses; with
@@ -124,7 +129,7 @@ def tune_op(op: str, dims: tuple[int, ...], dtype: str = "float32",
     device kind, where :func:`best_schedule` -- and so the default paths
     of ``kernels.ops`` and the paged engine -- will find it.
     """
-    spec = OpSpec(op, tuple(dims), dtype)
+    spec = OpSpec(op, tuple(dims), dtype, stride)
     ranked = candidates(spec)
     if measure:
         from repro_torch.tune import measure as measure_mod

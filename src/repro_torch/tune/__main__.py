@@ -12,6 +12,8 @@
         --dtype bfloat16 --no-measure
     PYTHONPATH=src python -m repro_torch.tune flash_decode_fp8 4 512 128 \\
         --dtype bfloat16 --no-measure
+    PYTHONPATH=src python -m repro_torch.tune conv2d 56 56 128 256 3 3 \\
+        --dtype bfloat16 --stride 1
 
 Prints the analytic candidate table, times the top-N on the card (unless
 ``--no-measure``; without a CUDA device measuring raises) and persists
@@ -42,11 +44,15 @@ def main(argv: list[str] | None = None) -> None:
                          "group size, max KV length, head dim); "
                          "qkv_fused: M Nkv K G (Nkv the k/v projection "
                          "width); flash_decode_oproj: G S D E (E = "
-                         "d_model)")
+                         "d_model); conv2d, conv2d_dgrad, conv2d_wgrad: "
+                         "X Y C K Fw Fh in the nest's output space (dgrad: "
+                         "the transposed conv's, channels swapped)")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"),
                     help="the activations' dtype (the quantized keys' "
                          "weights or pages are one byte whatever it is)")
+    ap.add_argument("--stride", type=int, default=1,
+                    help="the conv keys' stride (conv2d_dgrad: 1)")
     ap.add_argument("--top-n", type=int, default=3,
                     help="how many candidates to time")
     ap.add_argument("--no-measure", action="store_true",
@@ -56,12 +62,13 @@ def main(argv: list[str] | None = None) -> None:
                          "$REPRO_TORCH_TUNE_CACHE or ~/.cache/repro_torch)")
     args = ap.parse_args(argv)
 
-    spec = OpSpec(args.op, tuple(args.dims), args.dtype)
+    spec = OpSpec(args.op, tuple(args.dims), args.dtype, args.stride)
     cache = ScheduleCache(args.cache)
     print(f"tuning {spec.key(device_kind())}")
     print(describe_candidates(spec))
     winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=args.top_n,
-                     measure=not args.no_measure, cache=cache)
+                     measure=not args.no_measure, cache=cache,
+                     stride=spec.stride)
     extra = (f"  {winner.measured_us:.1f} us/call"
              if winner.measured_us is not None else "")
     print(f"winner: tiles={winner.tiles} ({winner.source}){extra}")

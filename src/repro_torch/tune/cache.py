@@ -12,7 +12,11 @@ File format (version 1)::
 
     {"version": 1,
      "schedules": {"matmul/m8n4096k4096/bfloat16/NVIDIA H100 80GB HBM3":
+                   {...Schedule...},
+                   "conv2d/x56y56c128k256f3x3s1/bfloat16/NVIDIA H100 ...":
                    {...Schedule...}}}
+
+The conv keys carry the stride (``s1``), as JAX's do.
 
 Writes are read-modify-write through an adjacent temp file + ``os.replace``
 so concurrent tuners cannot truncate each other's entries.
@@ -92,8 +96,8 @@ class ScheduleCache:
                 # keep on-disk provenance (measured/analytic) intact;
                 # lookup() tags what it hands out as "cache"
                 out[key] = Schedule.from_json(entry)
-            except (KeyError, ValueError, TypeError, NotImplementedError):
-                continue  # skip corrupt or unported entries, keep the rest
+            except (KeyError, ValueError, TypeError):
+                continue  # skip corrupt entries, keep the rest
         return out
 
     def _entries(self) -> dict[str, Schedule]:

@@ -1,9 +1,12 @@
 """Lowering from the analytical blocking model to the port's kernel
-schedules (the port of ``repro.tune.lowering`` for ``"matmul"``,
-``"matmul_dgrad"``, ``"flash_decode"`` and the fused and quantized
-paths' keys).  ``"matmul_dgrad"`` is the GEMM nest over the cotangent's
-dims (``backward_tile_candidates``), ranked by element counts as JAX
-ranks it, its tiles held to the dgrad kernels' own footprint.
+schedules (the port of ``repro.tune.lowering``: ``"matmul"``,
+``"matmul_dgrad"``, ``"flash_decode"``, the fused and quantized paths'
+keys and the conv path's).  ``"matmul_dgrad"`` is the GEMM nest over the
+cotangent's dims (``backward_tile_candidates``), ranked by element
+counts as JAX ranks it, its tiles held to the dgrad kernels' own
+footprint.  The conv keys (``CONV_OPS``) are the paper's own nest:
+``"conv2d"`` and ``"conv2d_dgrad"`` held to row 12's footprint (the dgrad
+runs the forward kernel at stride 1), ``"conv2d_wgrad"`` to row 13's.
 
 1. :func:`candidates` runs the paper's schedule search for the op's loop
    nest on the Hopper hierarchy (``core.hopper_adapter``), keeps what the
@@ -32,12 +35,12 @@ from __future__ import annotations
 
 from repro_torch.core.hierarchy import MemLevel, cache_accesses
 from repro_torch.core.hopper_adapter import (
-    H100_SXM, HopperTarget, backward_tile_candidates, default_smem_budget,
-    dgrad_fits, flash_decode_oproj_tile_candidates,
-    flash_decode_tile_candidates, matmul_fits, matmul_tile_candidates,
-    qkv_fits, qkv_fused_tile_candidates)
+    H100_SXM, HopperTarget, backward_tile_candidates, conv_fits,
+    conv_tile_candidates, default_smem_budget, dgrad_fits,
+    flash_decode_oproj_tile_candidates, flash_decode_tile_candidates,
+    matmul_fits, matmul_tile_candidates, qkv_fits, qkv_fused_tile_candidates)
 from repro_torch.core.loopnest import BlockingString, Dim, Loop
-from repro_torch.tune.schedule import (FUSED_OPS, GEMM_OPS,
+from repro_torch.tune.schedule import (CONV_OPS, FUSED_OPS, GEMM_OPS,
                                        NARROW_WEIGHT_BYTES, OpSpec, Schedule)
 
 _GEMMS = GEMM_OPS
@@ -54,7 +57,16 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     QKV kernel's at its joint width).  The quantized keys price their
     narrow operand at one byte (``matmul_q.smem_bytes_required``, the
     fp8 pages of ``flash_decode.smem_bytes_required``), and an int8
-    weight tile's bn must be a whole number of 16-byte copies."""
+    weight tile's bn must be a whole number of 16-byte copies.  The conv
+    keys: row 12's footprint and accumulator (``"conv2d"``, and
+    ``"conv2d_dgrad"``, which runs it), row 13's for ``"conv2d_wgrad"``,
+    each with the spec's stride."""
+    if spec.op in CONV_OPS:
+        bx, by, bc, bk = tiles
+        _, _, _, _, Fw, Fh = spec.dims
+        return conv_fits(bx, by, bc, bk, Fw, Fh, spec.itemsize, budget,
+                         spec.stride, target,
+                         wgrad=spec.op == "conv2d_wgrad")
     if spec.op == "matmul_dgrad":
         bm, bk, bn = tiles
         return dgrad_fits(bm, bk, bn, spec.itemsize, budget, target)
@@ -90,6 +102,10 @@ def divides(spec: OpSpec, tiles: tuple[int, ...]) -> bool:
         M, Nkv, K, _ = spec.dims
         bm, bk, bn = tiles
         return M % bm == 0 and K % bk == 0 and Nkv % bn == 0
+    if spec.op in CONV_OPS:
+        X, Y, C, K, _, _ = spec.dims
+        bx, by, bc, bk = tiles
+        return C % bc == 0 and K % bk == 0 and X % bx == 0 and Y % by == 0
     S = spec.dims[1]
     (page,) = tiles
     return S % page == 0
@@ -109,10 +125,28 @@ def schedule_to_string(spec: OpSpec,
       D columns) resident while the kernel streams KV pages -- the
       running (m, l, acc) state is the OB held across the whole C (KV)
       reduction.  The fused projection's wo traffic does not depend on
-      the page, so it cannot change the rank and is absent here.
+      the page, so it cannot change the rank and is absent here;
+    * conv2d, conv2d_dgrad: the Fw/Fh window loops inside the block, the
+      (bx, by, bc, bk) block, then C inside K (the accumulator held
+      across the reduction: the block's own loop), then the spatial
+      tiles (X inside Y), as JAX's string;
+    * conv2d_wgrad: the spatial tile is the innermost reduction (one
+      (bx, by) tile reduces into the resident dW block per tap), then
+      the channel blocks, the (k, c) tiles, and the spatial reduction
+      tiles outermost.
     """
     p = spec.problem()
-    if spec.op in _GEMMS:
+    if spec.op in CONV_OPS:
+        X, Y, C, K, Fw, Fh = spec.dims
+        bx, by, bc, bk = tiles
+        window = [Loop(d, e) for d, e in ((Dim.FW, Fw), (Dim.FH, Fh))
+                  if e > 1]
+        space = [Loop(Dim.X, bx), Loop(Dim.Y, by)]
+        loops = (space + window if spec.op == "conv2d_wgrad"
+                 else window + space)
+        loops += [Loop(Dim.C, bc), Loop(Dim.K, bk), Loop(Dim.C, C),
+                  Loop(Dim.K, K), Loop(Dim.X, X), Loop(Dim.Y, Y)]
+    elif spec.op in _GEMMS:
         M, N, K = spec.dims
         bm, bk, bn = tiles
         loops = [Loop(Dim.C, bk), Loop(Dim.X, bm), Loop(Dim.K, bn),
@@ -210,10 +244,11 @@ def level0_dram_bytes(spec: OpSpec, tiles: tuple[int, ...]) -> int:
             f"tiles {tiles} do not divide {spec.op} dims {spec.dims}")
     if spec.op in ("flash_decode", "flash_decode_fp8"):
         return _flash_decode_level0_bytes(spec, tiles)
-    if spec.op == "flash_decode_oproj":
+    if spec.op == "flash_decode_oproj" or spec.op in CONV_OPS:
         raise ValueError(
             "level0_dram_bytes covers the GEMM family and flash_decode, "
-            "not 'flash_decode_oproj'")
+            f"not {spec.op!r} (the conv kernels count their halo "
+            "refetches in their own hbm_bytes)")
     s = schedule_to_string(spec, tiles)
     fps = _level0_footprints(s)
     return sum(_operand_level0_traffic(s, op, fps[op])
@@ -266,9 +301,15 @@ def candidates(spec: OpSpec,
     ragged edges masked.
     """
     budget = default_smem_budget(target, smem_budget_bytes)
-    if spec.op == "matmul_dgrad":
+    if spec.op == "conv2d":
+        X, Y, C, K, Fw, Fh = spec.dims
+        raw = conv_tile_candidates(X, Y, C, K, Fw, Fh, spec.itemsize,
+                                   budget, target, top=top,
+                                   stride=spec.stride)
+    elif spec.op in ("matmul_dgrad", "conv2d_dgrad", "conv2d_wgrad"):
         raw = backward_tile_candidates(spec.op, spec.dims, spec.itemsize,
-                                       budget, target, top=top)
+                                       budget, target, top=top,
+                                       stride=spec.stride)
     elif spec.op in _GEMMS:
         M, N, K = spec.dims
         raw = matmul_tile_candidates(

@@ -43,7 +43,10 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
     ``matmul_fused``: the MLP's epilogue shape, a bias row, a gelu and a
     residual block; ``matmul_w8``: int8 weights and per-channel scales;
     ``matmul_dgrad``: the dA product's cotangent (M, K_reduce) and the
-    forward weight (N, K_reduce), read transposed, as JAX measures it."""
+    forward weight (N, K_reduce), read transposed, as JAX measures it;
+    the conv keys: one image, its input haloed for the spec's output
+    (``((Y-1)*s + Fh, (X-1)*s + Fw, C)``), and ``(Fh, Fw, C, K)`` weights
+    or, for ``conv2d_wgrad``, the ``(Y, X, K)`` cotangent."""
     dev = _device()
     spec = schedule.spec
     dtype = getattr(torch, spec.dtype)
@@ -66,6 +69,12 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
         M, Nkv, K, G = spec.dims
         return (t(M, K), t(K, G * Nkv) * K ** -0.5, t(K, Nkv) * K ** -0.5,
                 t(K, Nkv) * K ** -0.5)
+    if spec.op in ("conv2d", "conv2d_dgrad", "conv2d_wgrad"):
+        X, Y, C, K, Fw, Fh = spec.dims
+        x = t(1, (Y - 1) * spec.stride + Fh, (X - 1) * spec.stride + Fw, C)
+        if spec.op == "conv2d_wgrad":
+            return x, t(1, Y, X, K) * 0.5
+        return x, t(Fh, Fw, C, K) * 0.5
     if spec.op == "matmul_w8":
         M, N, K = spec.dims
         w_q = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8,
@@ -121,6 +130,17 @@ def run_once(schedule: Schedule, inputs: tuple):
         from repro_torch.kernels.matmul_q import matmul_w8
         bm, bk, bn = schedule.tiles
         return matmul_w8(*inputs, bm=bm, bk=bk, bn=bn)
+    if op == "conv2d_wgrad":
+        from repro_torch.kernels.conv2d_bwd import conv2d_wgrad_block
+        bx, by, bc, bk = schedule.tiles
+        _, _, _, _, fw, fh = schedule.spec.dims
+        return conv2d_wgrad_block(*inputs, fh, fw, bx=bx, by=by, bc=bc,
+                                  bk=bk, stride=schedule.spec.stride)
+    if op in ("conv2d", "conv2d_dgrad"):   # the dgrad runs the forward
+        from repro_torch.kernels.conv2d_blocked import conv2d_tiled
+        bx, by, bc, bk = schedule.tiles
+        return conv2d_tiled(*inputs, bx=bx, by=by, bc=bc, bk=bk,
+                            stride=schedule.spec.stride)
     from repro_torch.kernels import flash_decode as FD
     if op == "flash_decode_fp8":
         return FD.flash_decode_fp8(*inputs)

@@ -43,9 +43,18 @@ byte wide whatever the spec's activation dtype):
   ``flash_decode_fp8`` and the fp8 pool's page size, the streamed K/V
   pages fp8 while q keeps ``dtype``.
 
-The JAX package's other keys (the conv nests and their backward) are
-refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports them.
+The paper's conv path (``CONV_OPS``; tiles ``(bx, by, bc, bk)``, the
+spec carries a ``stride``):
+
+* ``conv2d``: ``dims = (X, Y, C, K, Fw, Fh)`` in the paper's output-space
+  coordinates (X = output width, Y = output height); the direct blocked
+  conv of ``kernels/conv2d_blocked.py`` (row 12);
+* ``conv2d_dgrad``: the transposed conv as a direct conv -- dims in *its*
+  output space with the channels swapped (``(W, H, K_fwd, C_fwd, Fw,
+  Fh)``, stride 1 after host-side input dilation); it runs row 12;
+* ``conv2d_wgrad``: the forward conv's dims verbatim at the forward's
+  stride; ``(bx, by)`` block the spatial *reduction*, ``(bc, bk)`` the
+  channel dims of the dW tile (``kernels/conv2d_bwd.py``, row 13).
 
 A :class:`Schedule` is a concrete kernel configuration for that spec: the
 tile tuple, where it came from (``analytic`` / ``measured`` / ``cache``),
@@ -68,20 +77,18 @@ FUSED_OPS = ("matmul_fused", "qkv_fused", "flash_decode_oproj")
 NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1}
 # the GEMM nests: one (M, N, K) problem, (bm, bk, bn) tiles
 GEMM_OPS = ("matmul", "matmul_dgrad", "matmul_fused", "matmul_w8")
+# the conv nests: (X, Y, C, K, Fw, Fh) and a stride, (bx, by, bc, bk) tiles
+CONV_OPS = ("conv2d", "conv2d_dgrad", "conv2d_wgrad")
 OPS = (("matmul", "matmul_dgrad", "flash_decode") + FUSED_OPS
-       + tuple(NARROW_WEIGHT_BYTES))
+       + tuple(NARROW_WEIGHT_BYTES) + CONV_OPS)
 TILE_RANK = {"matmul": 3, "matmul_dgrad": 3, "flash_decode": 1,
              "matmul_fused": 3, "qkv_fused": 3, "flash_decode_oproj": 1,
-             "matmul_w8": 3, "flash_decode_fp8": 1}
+             "matmul_w8": 3, "flash_decode_fp8": 1,
+             **{op: 4 for op in CONV_OPS}}
 _N_DIMS = {"matmul": 3, "matmul_dgrad": 3, "flash_decode": 3,
            "matmul_fused": 3, "qkv_fused": 4, "flash_decode_oproj": 4,
-           "matmul_w8": 3, "flash_decode_fp8": 3}
-# the reference's other schedule keys, with the ROADMAP item porting each
-UNPORTED_OPS = {
-    "conv2d": "queue 1, item 13 (the paper's conv path)",
-    "conv2d_dgrad": "queue 1, items 12/13 (training, conv path)",
-    "conv2d_wgrad": "queue 1, items 12/13 (training, conv path)",
-}
+           "matmul_w8": 3, "flash_decode_fp8": 3,
+           **{op: 6 for op in CONV_OPS}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,20 +98,19 @@ class OpSpec:
     op: str
     dims: tuple[int, ...]
     dtype: str = "float32"
+    stride: int = 1
 
     def __post_init__(self):
-        if self.op in UNPORTED_OPS:
-            raise NotImplementedError(
-                f"schedule key {self.op!r} is not ported yet: ROADMAP.md, "
-                f"{UNPORTED_OPS[self.op]}")
         if self.op not in OPS:
             raise ValueError(f"unknown op {self.op!r}; expected one of {OPS}")
         want = _N_DIMS[self.op]
         if len(self.dims) != want:
             raise ValueError(
                 f"{self.op} expects {want} dims, got {self.dims}")
-        if any(d < 1 for d in self.dims):
-            raise ValueError(f"dims must be >= 1, got {self.dims}")
+        if any(d < 1 for d in self.dims) or self.stride < 1:
+            raise ValueError(
+                f"dims and stride must be >= 1, got dims={self.dims} "
+                f"stride={self.stride}")
         object.__setattr__(self, "dims", tuple(int(d) for d in self.dims))
 
     @property
@@ -121,8 +127,13 @@ class OpSpec:
         nest (its projection only squeezes the shared-memory budget: the
         candidate filter sees E, the nest does not).  The quantized keys
         carry their narrow operand's width (``weight_bytes``): the GEMM's
-        weights, and the decode nest's K/V stream."""
+        weights, and the decode nest's K/V stream.  The conv keys are the
+        paper's own nest, with the stride."""
         wb = NARROW_WEIGHT_BYTES.get(self.op)
+        if self.op in CONV_OPS:
+            X, Y, C, K, Fw, Fh = self.dims
+            return Problem(X=X, Y=Y, C=C, K=K, Fw=Fw, Fh=Fh,
+                           stride=self.stride, bytes_per_elem=self.itemsize)
         if self.op in GEMM_OPS:
             M, N, K = self.dims
             return Problem.gemm(M=M, N_cols=N, K_reduce=K,
@@ -147,6 +158,9 @@ class OpSpec:
         elif self.op == "flash_decode_oproj":
             G, S, D, E = self.dims
             shape = f"g{G}s{S}d{D}e{E}"
+        elif self.op in CONV_OPS:
+            X, Y, C, K, Fw, Fh = self.dims
+            shape = f"x{X}y{Y}c{C}k{K}f{Fw}x{Fh}s{self.stride}"
         else:
             G, S, D = self.dims
             shape = f"g{G}s{S}d{D}"
@@ -178,6 +192,7 @@ class Schedule:
             "op": self.spec.op,
             "dims": list(self.spec.dims),
             "dtype": self.spec.dtype,
+            "stride": self.spec.stride,
             "tiles": list(self.tiles),
             "source": self.source,
             "predicted_dram_accesses": self.predicted_dram_accesses,
@@ -187,7 +202,8 @@ class Schedule:
     @classmethod
     def from_json(cls, d: dict) -> "Schedule":
         spec = OpSpec(op=d["op"], dims=tuple(d["dims"]),
-                      dtype=d.get("dtype", "float32"))
+                      dtype=d.get("dtype", "float32"),
+                      stride=int(d.get("stride", 1)))
         return cls(spec=spec, tiles=tuple(d["tiles"]),
                    source=d.get("source", "cache"),
                    predicted_dram_accesses=d.get("predicted_dram_accesses"),

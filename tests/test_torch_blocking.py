@@ -11,21 +11,34 @@ stays fast.
 The Hopper adapter's candidates are then held to the kernels' limits:
 shared memory, the register accumulator, the tile multiples, and the
 problem's extents.
+
+The conv path's model pieces: ``PAPER_LAYERS``, ``simulate_fills``
+against the closed-form access model, and the im2col lowering model
+(``gemm_lowering``), each equal to JAX's.
 """
+
+import dataclasses
 
 import pytest
 
+from repro.configs import PAPER_LAYERS as J_LAYERS
 from repro.core import access as j_access
+from repro.core import gemm_lowering as j_lowering
 from repro.core import hierarchy as j_hierarchy
 from repro.core import loopnest as j_loopnest
 from repro.core import optimizer as j_optimizer
+from repro.core import xeon_hierarchy as j_xeon
+from repro.core.validate import simulate_fills as j_simulate_fills
+from repro_torch.configs import PAPER_LAYERS
+from repro_torch.core import (direct_blocking_accesses,
+                              gemm_lowering_accesses, simulate_fills)
 from repro_torch.core import access as t_access
 from repro_torch.core import hierarchy as t_hierarchy
 from repro_torch.core import loopnest as t_loopnest
 from repro_torch.core import optimizer as t_optimizer
 from repro_torch.core.hopper_adapter import (H100_SXM,
                                              backward_tile_candidates,
-                                             default_smem_budget,
+                                             conv_fits, default_smem_budget,
                                              flash_decode_tile_candidates,
                                              flash_tiles,
                                              matmul_tile_candidates)
@@ -180,5 +193,68 @@ def test_flash_tiles_fit_the_backward_kernels(seq_q, seq_kv, head_dim,
     assert dq_smem_bytes(bkv, head_dim, itemsize) <= default_smem_budget()
     assert max(dkv_smem_bytes(bq, head_dim, itemsize),
                dq_smem_bytes(bkv, head_dim, itemsize)) <= 232_448
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backward_tile_candidates("conv2d_wgrad", (8, 8, 4, 8, 3, 3))
+    wgrad = backward_tile_candidates("conv2d_wgrad", (8, 8, 4, 8, 3, 3),
+                                     itemsize)
+    assert wgrad and all(
+        conv_fits(*tiles, 3, 3, itemsize, default_smem_budget(), wgrad=True)
+        for tiles in wgrad)
+
+
+# ------------------- the conv path's model pieces ---------------------------
+
+
+def test_paper_layers_equal_jax():
+    assert list(PAPER_LAYERS) == list(J_LAYERS)
+    for name, p in PAPER_LAYERS.items():
+        assert dataclasses.asdict(p) == dataclasses.asdict(J_LAYERS[name])
+
+
+SMALL = dict(X=4, Y=4, C=4, K=8, Fw=3, Fh=3)
+
+
+@pytest.mark.parametrize("text,dims", [
+    ("Fw3 Fh3 X2 Y2 C2 K2 X4 Y4 C4 K8", SMALL),
+    ("X2 C2 K2 Fw3 Fh3 Y4 X4 C4 K8", SMALL),
+    ("Fw3 Fh3 K8 C4 Y4 X4", SMALL),
+    ("C2 X3 K2 C4 X6 K4 N2", dict(X=6, Y=1, C=4, K=4, Fw=1, Fh=1, N=2)),
+    ("Fw2 K2 Fh2 C2 Y2 X2 K4 C4 X4 Y4 K8",
+     dict(X=4, Y=4, C=4, K=8, Fw=2, Fh=2)),
+])
+def test_simulate_fills_matches_model_and_jax(text, dims):
+    """``test_blocking_model.py``'s cases: the simulation equals the
+    closed-form access model, and both equal JAX's."""
+    s = t_loopnest.BlockingString.parse(text, t_loopnest.Problem(**dims))
+    sim = simulate_fills(s)
+    js = j_loopnest.BlockingString.parse(text, j_loopnest.Problem(**dims))
+    assert sim == j_simulate_fills(js)
+    rep, jrep = t_access.analyze(s), j_access.analyze(js)
+    for bt in rep.per_buffer:
+        if bt.buffer.pos < 0:
+            continue
+        assert sim[bt.buffer.name] == (bt.fills, bt.writebacks)
+    assert rep.dram_accesses == jrep.dram_accesses
+
+
+@pytest.mark.parametrize("layer", ["Conv3", "Conv4", "Conv5"])
+def test_direct_blocking_beats_gemm_lowering_as_jax(layer):
+    """``test_multicore_and_gemm.py``'s Figs. 3-4 check, with the numbers
+    equal to JAX's."""
+    p, jp = PAPER_LAYERS[layer], J_LAYERS[layer]
+    ours = direct_blocking_accesses(p, t_hierarchy.xeon_hierarchy())
+    assert ours == j_lowering.direct_blocking_accesses(jp, j_xeon())
+    for quality in ("mkl", "atlas"):
+        theirs = gemm_lowering_accesses(p, t_hierarchy.xeon_hierarchy(),
+                                        quality).cache_counts
+        assert theirs == j_lowering.gemm_lowering_accesses(
+            jp, j_xeon(), quality).cache_counts
+        assert theirs["L2"] + theirs["L3"] > ours["L2"] + ours["L3"]
+
+
+def test_lowering_replicates_data():
+    p = PAPER_LAYERS["Conv4"]
+    rep = gemm_lowering_accesses(p, t_hierarchy.xeon_hierarchy())
+    assert rep.lowering_write_elems == p.X * p.Y * p.C * p.Fw * p.Fh
+    assert rep.gemm.C == p.C * p.Fw * p.Fh
+    jrep = j_lowering.gemm_lowering_accesses(J_LAYERS["Conv4"], j_xeon())
+    assert (rep.lowering_write_elems, rep.lowering_read_elems) == \
+        (jrep.lowering_write_elems, jrep.lowering_read_elems)

@@ -15,7 +15,10 @@ rounds the fp32 result to bf16 once, so the two may differ by one bf16
 ulp of an O(1) value (2e-2 abs / 1e-2 rel).  GEMM operands are scaled by
 K ** -0.5 so every output is O(1); an fp32 GEMM sums K terms in another
 order than the plain version, so its abs tolerance is 2e-6 * sqrt(K) (a
-random walk of fp32 roundings, with margin).
+random walk of fp32 roundings, with margin).  The conv forward (row 12)
+is held as a GEMM of C * Fh * Fw terms, weights scaled by that count **
+-0.5; the wgrad (row 13) as a gradient (fp32 sums from the same inputs
+in either dtype).
 """
 
 import numpy as np
@@ -23,6 +26,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.conv2d_blocked import (conv2d_block,
+                                                conv2d_blocked_ref)
+from repro_torch.kernels.conv2d_bwd import (conv2d_wgrad_block,
+                                            conv2d_wgrad_block_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_lse_ref,
                                                  flash_attention_ref)
@@ -596,3 +603,96 @@ def test_flash_decode_wrappers_raise_under_grad(dev):
         flash_decode_oproj(q1, *args[1:], wo)
     with torch.no_grad():               # the serving engine's case
         flash_decode(q, *args[1:])
+
+
+# -- the conv path: rows 12 and 13 -----------------------------------------
+
+
+CONV_CASES = [  # n, h, w, c, k, fh, fw, stride, (bx, by, bc, bk)
+    (2, 10, 10, 4, 8, 3, 3, 1, (4, 4, 4, 8)),
+    (2, 13, 11, 3, 5, 2, 2, 1, (5, 3, 3, 4)),        # ragged everything
+    (1, 14, 14, 4, 8, 3, 3, 2, (3, 3, 2, 4)),        # stride 2
+    (1, 11, 11, 4, 8, 3, 3, 2, (2, 2, 4, 8)),        # remainder rows
+    (2, 8, 8, 16, 24, 1, 1, 1, (8, 8, 8, 16)),       # 1 x 1
+    (2, 40, 40, 3, 96, 11, 11, 4, (4, 4, 3, 16)),    # AlexNet conv1's C, s
+    (2, 30, 30, 37, 70, 11, 11, 1, (8, 8, 8, 16)),   # 11 x 11, ragged C/K
+    (2, 20, 20, 108, 200, 4, 4, 1, (8, 8, 16, 64)),  # Conv3's channels
+]
+
+
+def conv_case(dev, dtype, n, h, w, c, k, fh, fw, stride, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    oh, ow = (h - fh) // stride + 1, (w - fw) // stride + 1
+    return (t(rng.standard_normal((n, h, w, c))),
+            t(rng.standard_normal((fh, fw, c, k)) * (c * fh * fw) ** -0.5),
+            t(rng.standard_normal((n, oh, ow, k))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k,fh,fw,stride,tiles", CONV_CASES)
+def test_conv_kernels_match_plain(dev, dtype, n, h, w, c, k, fh, fw, stride,
+                                  tiles):
+    """Row 12 and row 13 (both passes) against their plain versions;
+    repeated launches agree bit for bit."""
+    x, wt, g = conv_case(dev, dtype, n, h, w, c, k, fh, fw, stride, seed=h)
+    bx, by, bc, bk = tiles
+    before = (conv2d_block.launches, conv2d_wgrad_block.launches)
+    y = conv2d_block(x, wt, bc=bc, bk=bk, stride=stride, bx=bx, by=by)
+    dw = conv2d_wgrad_block(x, g, fh, fw, bx=bx, by=by, bc=min(bc, 8),
+                            bk=min(bk, 16), stride=stride)
+    torch.cuda.synchronize()
+    assert (conv2d_block.launches, conv2d_wgrad_block.launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert y.dtype == dtype and dw.dtype == torch.float32
+    torch.testing.assert_close(y.float(),
+                               conv2d_blocked_ref(x, wt, stride).float(),
+                               **gemm_tol(dtype, c * fh * fw))
+    grad_close(dw, conv2d_wgrad_block_ref(x, g, fh, fw, stride),
+               torch.float32)
+    assert torch.equal(y, conv2d_block(x, wt, bc=bc, bk=bk, stride=stride,
+                                       bx=bx, by=by))
+    assert torch.equal(dw, conv2d_wgrad_block(
+        x, g, fh, fw, bx=bx, by=by, bc=min(bc, 8), bk=min(bk, 16),
+        stride=stride))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_ops_conv2d_backward_runs_the_kernels(dev, stride):
+    """One row-12 launch forward; one row-12 (dgrad) and two row-13
+    (wgrad) launches backward; ``use_kernel=False`` launches nothing and
+    gives the same gradients."""
+    x0, w0, _ = conv_case(dev, torch.float32, 2, 15, 13, 6, 10, 3, 3,
+                          stride, seed=stride)
+    grads = {}
+    for use_kernel in (True, False):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        before = (conv2d_block.launches, conv2d_wgrad_block.launches)
+        y = ops.conv2d(x, w, stride=stride, use_kernel=use_kernel)
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        k = int(use_kernel)
+        assert (conv2d_block.launches, conv2d_wgrad_block.launches) == \
+            (before[0] + 2 * k, before[1] + 2 * k)
+        grads[use_kernel] = (y.detach(), x.grad, w.grad)
+    for got, want in zip(grads[True], grads[False]):
+        grad_close(got, want, torch.float32)
+
+
+def test_conv_kernels_refuse_what_they_cannot_hold(dev):
+    x, wt, g = conv_case(dev, torch.float32, 1, 20, 20, 8, 64, 3, 3, 1)
+    with pytest.raises(ValueError, match="accumulators"):
+        conv2d_block(x, wt, bc=8, bk=64, bx=18, by=18)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d_block(x, wt, bc=512, bk=64, bx=4, by=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv2d_block(x.transpose(1, 2), wt, bc=8, bk=8)
+    with pytest.raises(ValueError, match="accumulators"):
+        conv2d_wgrad_block(x, g, 3, 3, bx=4, by=4, bc=32, bk=64)
+    with pytest.raises(NotImplementedError, match="ops.conv2d"):
+        conv2d_block(x.clone().requires_grad_(), wt, bc=8, bk=8)
+    with pytest.raises(TypeError):
+        conv2d_block(x.half(), wt.half(), bc=8, bk=8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        conv2d_block(x, wt.cpu(), bc=8, bk=8)

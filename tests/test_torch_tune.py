@@ -226,14 +226,30 @@ def test_cache_quarantines_corrupt_file(tmp_path):
 
 
 def test_cache_skips_entries_of_unported_keys(tmp_path):
+    """Every key of the reference is ported now: a conv entry (with its
+    stride) round-trips; an entry of a key neither package has, or one
+    with a malformed tile tuple, is skipped and the rest kept."""
     path = tmp_path / "schedules.json"
     good = Schedule(OpSpec("matmul", (8, 64, 64)), (8, 64, 64))
+    conv = Schedule(OpSpec("conv2d", (8, 8, 4, 8, 3, 3), stride=2),
+                    (8, 8, 4, 8))
     path.write_text(json.dumps({"version": 1, "schedules": {
         "conv2d/x8y8c4k8f3x3s1/float32/cpu": {
             "op": "conv2d", "dims": [8, 8, 4, 8, 3, 3], "tiles": [8, 8, 4, 8]},
+        "conv2d/x8y8c4k8f3x3s2/float32/cpu": conv.to_json(),
+        "conv2d_wgrad/x8y8c4k8f3x3s1/float32/cpu": {
+            "op": "conv2d_wgrad", "dims": [8, 8, 4, 8, 3, 3],
+            "tiles": [8, 8]},
+        "relu/x8/float32/cpu": {"op": "relu", "dims": [8], "tiles": [8]},
         "matmul/m8n64k64/float32/cpu": good.to_json()}}))
     cache = ScheduleCache(str(path))
-    assert cache.keys() == ["matmul/m8n64k64/float32/cpu"]
+    assert cache.keys() == ["conv2d/x8y8c4k8f3x3s1/float32/cpu",
+                            "conv2d/x8y8c4k8f3x3s2/float32/cpu",
+                            "matmul/m8n64k64/float32/cpu"]
+    hit = cache.lookup(conv.spec, device="cpu")
+    assert hit.tiles == (8, 8, 4, 8) and hit.spec.stride == 2
+    assert cache.lookup(OpSpec("conv2d", (8, 8, 4, 8, 3, 3)),
+                        device="cpu").spec.stride == 1
 
 
 # -- lowering --------------------------------------------------------------
@@ -327,9 +343,17 @@ def test_opspec_validation():
         OpSpec("relu", (1, 2, 3))
     with pytest.raises(ValueError):
         Schedule(OpSpec("matmul", (8, 8, 8)), (8, 8))
-    for op in ("conv2d", "conv2d_dgrad"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for op in ("conv2d", "conv2d_dgrad", "conv2d_wgrad"):
+        spec = OpSpec(op, (8, 8, 4, 8, 3, 3), stride=2)
+        assert spec.problem().stride == 2
+        assert Schedule.from_json(Schedule(spec, (4, 4, 4, 8)).to_json()) \
+            .spec == spec
+        with pytest.raises(ValueError):
             OpSpec(op, (8, 8, 8))
+        with pytest.raises(ValueError):
+            OpSpec(op, (8, 8, 4, 8, 3, 3), stride=0)
+        with pytest.raises(ValueError):
+            Schedule(spec, (4, 4, 4))
 
 
 @pytest.mark.parametrize("op,dims,key", [
@@ -507,3 +531,148 @@ def test_cli_takes_the_dgrad_key(tmp_path):
     assert "winner: tiles=" in res.stdout
     assert "matmul_dgrad/m2048n4096k12800/bfloat16/cpu" in json.loads(
         path.read_text())["schedules"]
+
+
+# -- the conv path's keys ----------------------------------------------------
+
+
+CONV_SPECS = [("conv2d", (26, 26, 32, 64, 3, 3), "float32", 1,
+               (13, 13, 32, 64)),
+              ("conv2d", (56, 56, 128, 256, 3, 3), "bfloat16", 1,
+               (14, 14, 32, 64)),
+              ("conv2d", (27, 27, 16, 32, 5, 5), "bfloat16", 2,
+               (9, 9, 8, 16)),
+              ("conv2d_dgrad", (58, 58, 256, 128, 3, 3), "float32", 1,
+               (29, 29, 32, 64)),
+              ("conv2d_wgrad", (56, 56, 128, 256, 3, 3), "bfloat16", 1,
+               (28, 8, 32, 32)),
+              ("conv2d_wgrad", (27, 27, 3, 96, 11, 11), "float32", 4,
+               (27, 27, 3, 32))]
+
+
+@pytest.mark.parametrize("op,dims,dtype,stride,tiles", CONV_SPECS)
+def test_conv_keys_model_arithmetic_matches_jax(op, dims, dtype, stride,
+                                                tiles):
+    """The conv nests (the wgrad's with the spatial reduction innermost),
+    their access counts and cache keys equal JAX's for the same spec,
+    tiles and budget; neither package's ``level0_dram_bytes`` covers
+    them (the kernels count their own halo traffic)."""
+    spec = OpSpec(op, dims, dtype, stride)
+    jspec = JOpSpec(op, dims, dtype, stride)
+    assert repr(schedule_to_string(spec, tiles)) == \
+        repr(jlowering.schedule_to_string(jspec, tiles))
+    assert predicted_dram_accesses(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_accesses(jspec, tiles, BUDGET)
+    assert predicted_dram_bytes(spec, tiles, BUDGET) == \
+        jlowering.predicted_dram_bytes(jspec, tiles, BUDGET)
+    with pytest.raises(ValueError):
+        level0_dram_bytes(spec, tiles)
+    with pytest.raises(ValueError):
+        jlowering.level0_dram_bytes(jspec, tiles)
+    X, Y, C, K, Fw, Fh = dims
+    assert spec.key("cpu") == jspec.key("cpu") == \
+        f"{op}/x{X}y{Y}c{C}k{K}f{Fw}x{Fh}s{stride}/{dtype}/cpu"
+
+
+@pytest.mark.parametrize("op,dims,dtype,stride", [
+    ("conv2d", (26, 26, 32, 64, 3, 3), "float32", 1),
+    ("conv2d", (26, 26, 32, 64, 3, 3), "bfloat16", 1),
+    ("conv2d", (56, 56, 128, 256, 3, 3), "bfloat16", 1),
+    ("conv2d", (55, 55, 3, 96, 11, 11), "bfloat16", 4),
+    ("conv2d_dgrad", (58, 58, 256, 128, 3, 3), "float32", 1),
+    ("conv2d_wgrad", (56, 56, 128, 256, 3, 3), "bfloat16", 1),
+    ("conv2d_wgrad", (55, 55, 3, 96, 11, 11), "float32", 4)])
+def test_conv_candidates_divide_and_fit(op, dims, dtype, stride):
+    """``test_tune.py``'s conv check on the Hopper target: every candidate
+    fits its kernel's own footprint and accumulator limit (row 12's for
+    the forward and dgrad, row 13's for the wgrad), the dividing ones
+    rank by predicted accesses, and ``best_schedule`` takes the first."""
+    from repro_torch.kernels import conv2d_blocked as CB
+    from repro_torch.kernels import conv2d_bwd as CW
+    spec = OpSpec(op, dims, dtype, stride)
+    cands = candidates(spec)
+    assert cands
+    X, Y, C, K, Fw, Fh = dims
+    s = 1 if op == "conv2d_dgrad" else stride
+    for sch in cands:
+        bx, by, bc, bk = sch.tiles
+        assert fits_smem(spec, sch.tiles, BUDGET)
+        if op == "conv2d_wgrad":
+            assert CW.smem_bytes_required(bx, by, bc, bk, Fh, Fw,
+                                          spec.itemsize, s) <= BUDGET
+            assert CW.accumulators_per_thread(bc, bk, Fh, Fw) <= \
+                H100_SXM.acc_per_thread
+        else:
+            assert CB.smem_bytes_required(bx, by, bc, bk, Fh, Fw,
+                                          spec.itemsize, s) <= BUDGET
+            assert CB.accumulators_per_thread(bx * by, bk) <= \
+                H100_SXM.acc_per_thread
+        assert divides(spec, sch.tiles)
+        assert sch.predicted_dram_accesses is not None
+    accesses = [sch.predicted_dram_accesses for sch in cands]
+    assert accesses == sorted(accesses)
+    assert best_schedule(op, dims, dtype, stride=stride).tiles == \
+        cands[0].tiles
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_strided_conv_candidates_respect_stride_halo(dtype):
+    """``test_tune.py``'s 7 x 7 / stride-2 case: the snap loop budgets the
+    stride-widened halo, or the filter (which does) rejects everything.
+    The budget is tight enough that the halo decides."""
+    spec = OpSpec("conv2d", (56, 56, 64, 128, 7, 7), dtype, 2)
+    budget = 48 * 1024
+    cands = candidates(spec, smem_budget_bytes=budget)
+    assert cands
+    for sch in cands:
+        assert fits_smem(spec, sch.tiles, budget)
+        assert sch.predicted_dram_accesses is not None
+    # at stride 1 the same tiles need less: the halo is what grew
+    flat = OpSpec("conv2d", (56, 56, 64, 128, 7, 7), dtype, 1)
+    assert all(fits_smem(flat, sch.tiles, budget) for sch in cands)
+
+
+def test_large_filters_squeeze_channel_tiles_below_the_gemm_multiple():
+    """Conv1's 11 x 11 weight tile: bc and bk go below ``nk_mult`` (64),
+    down to 16-byte vectors; C = 3 (AlexNet conv1) stays whole."""
+    (bx, by, bc, bk), *_ = [s.tiles for s in candidates(
+        OpSpec("conv2d", (256, 256, 256, 384, 11, 11), "bfloat16"))]
+    assert bc < H100_SXM.nk_mult and bk < H100_SXM.nk_mult
+    assert bc % 8 == 0 and bk % 8 == 0
+    alex = candidates(OpSpec("conv2d", (55, 55, 3, 96, 11, 11),
+                             "bfloat16", 4))
+    assert all(s.tiles[2] == 3 for s in alex)
+
+
+def test_best_schedule_keys_the_stride(tmp_path):
+    cache = ScheduleCache(str(tmp_path / "s.json"))
+    dims = (8, 8, 4, 8, 3, 3)
+    w2 = tune_op("conv2d", dims, measure=False, cache=cache, stride=2)
+    assert w2.spec.stride == 2
+    assert best_schedule("conv2d", dims, cache=cache,
+                         stride=2).source == "cache"
+    assert best_schedule("conv2d", dims, cache=cache,
+                         stride=1).source == "analytic"
+
+
+@pytest.mark.parametrize("op,dims,stride,key", [
+    ("conv2d", ["6", "6", "4", "8", "3", "3"], "1",
+     "conv2d/x6y6c4k8f3x3s1/float32/cpu"),
+    ("conv2d", ["6", "6", "4", "8", "3", "3"], "2",
+     "conv2d/x6y6c4k8f3x3s2/float32/cpu"),
+    ("conv2d_dgrad", ["8", "8", "8", "4", "3", "3"], "1",
+     "conv2d_dgrad/x8y8c8k4f3x3s1/float32/cpu"),
+    ("conv2d_wgrad", ["6", "6", "4", "8", "3", "3"], "2",
+     "conv2d_wgrad/x6y6c4k8f3x3s2/float32/cpu")])
+def test_cli_takes_the_conv_keys(tmp_path, op, dims, stride, key):
+    path = tmp_path / "s.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_TUNE_CACHE": str(path)}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tune", op, *dims, "--stride",
+         stride, "--no-measure"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "winner: tiles=" in res.stdout
+    entry = json.loads(path.read_text())["schedules"][key]
+    assert entry["stride"] == int(stride)
