@@ -73,7 +73,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
-   beside its bound, its plain version and a library call.
+   beside its bound, its plain version and a library call; row 12's
+   forward and dgrad at all six conv layers.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -1847,7 +1848,8 @@ def conv_key_tiles(op, dims, itemsize, stride):
 def phase3_conv(dev) -> None:
     """Rows 12 and 13 against their plain versions, fp32 and bf16,
     repeated launches bit-equal: ragged C, K and spatial tiles, strides
-    1, 2 and 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3; then every tile
+    1, 2 and 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3; in bf16 the
+    branches of row 12's tensor-core instance (see below); then every tile
     the adapter emits for the Table-4 layers and AlexNet conv1 under the
     three conv keys, each at the layer's channels, filter and stride over
     two whole tiles and a ragged one per spatial axis (at most the
@@ -1898,6 +1900,28 @@ def phase3_conv(dev) -> None:
             check(tag, dn, dtype, n, oy, ox, c, k, fh, fw, s,
                   (tiles[0], tiles[1], min(tiles[2], 8),
                    min(tiles[3], 16)), True, oy + k)
+        if dtype == torch.bfloat16:
+            # the tensor-core instance's branches: bc = 8 at 11 x 11 (a
+            # k-step straddles two taps), C = 3 at stride 4, bx * by not
+            # a multiple of 16 (7 x 19), bk not a multiple of the warp's
+            # N (24: a clamped n8 pair; 40 and 72: odd n8 counts, 72 over
+            # two warps across N; 3: one clamped n8 tile), wide bk (256:
+            # four warps across N), 16 m16 tiles a warp (64 x 32 at bk =
+            # 8) and an odd chunk count (3 x 3 taps of 8 channels)
+            for n, oy, ox, c, k, fh, fw, s, tiles in (
+                    (1, 16, 16, 64, 32, 11, 11, 1, (16, 16, 8, 16)),
+                    (2, 11, 11, 3, 96, 11, 11, 4, (11, 11, 3, 8)),
+                    (1, 19, 14, 16, 16, 3, 3, 1, (7, 19, 16, 16)),
+                    (2, 12, 12, 16, 48, 3, 3, 1, (12, 12, 16, 24)),
+                    (1, 10, 13, 24, 80, 2, 2, 1, (13, 10, 16, 40)),
+                    (1, 9, 9, 16, 72, 3, 3, 1, (9, 9, 16, 72)),
+                    (1, 20, 20, 40, 3, 3, 3, 1, (16, 8, 8, 3)),
+                    (1, 8, 8, 16, 256, 3, 3, 1, (8, 8, 16, 256)),
+                    (1, 32, 64, 8, 8, 1, 1, 1, (64, 32, 8, 8)),
+                    (2, 14, 14, 8, 16, 3, 3, 1, (14, 8, 8, 16))):
+                check(f"N={n} out={oy}x{ox} C={c} K={k} {fh}x{fw} "
+                      f"stride={s} (tensor cores)", dn, dtype, n, oy, ox, c,
+                      k, fh, fw, s, tiles, False, oy * k)
         n_tiles = 0
         for name, X, Y, C, K, Fw, Fh, s in conv_layers():
             keys = (("conv2d", (X, Y, C, K, Fw, Fh), s),
@@ -1929,7 +1953,9 @@ def phase12_conv(kernels: dict) -> dict:
     dW, tiles from the model under the three keys; held against the fp32
     oracles on the card; launch counts asserted per layer (one row-12
     launch forward, one for the dgrad, row 13's two passes for the
-    wgrad), and ``use_kernel=False`` launching nothing."""
+    wgrad), and ``use_kernel=False`` launching nothing; each layer's
+    forward and backward timed on the host clock at the first call and
+    at a second one."""
     import torch
     from repro_torch import tune
     from repro_torch.kernels import ops, ref
@@ -1976,6 +2002,17 @@ def phase12_conv(kernels: dict) -> dict:
             tiles = {op: list(t) for op, t, _ in resolved}
             for op, t, src in resolved:
                 print(f"  {name}: {op} tiles {t} ({src})")
+            # the same call again: what a layer costs once its kernels
+            # are loaded and its tiles resolved
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            y2 = ops.conv2d(xg, wg, stride=s)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            torch.autograd.grad(y2, (xg, wg), g)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            del y2
             # the fp32 oracles on the same bf16 values, TF32 off
             xf, wf, gf = x.float(), wt.float(), g.float()
             errs = {}
@@ -2005,11 +2042,15 @@ def phase12_conv(kernels: dict) -> dict:
             print(f"  {name} N={n} {h}x{w}x{C} -> {Y}x{X}x{K}, {Fh}x{Fw} "
                   f"stride {s}: {gmacs:.1f} GMAC; forward "
                   f"{(t1 - t0) * 1e3:.1f} ms, backward "
-                  f"{(t2 - t1) * 1e3:.1f} ms (host clock, first call); "
-                  f"tile search {search_s:.2f} s; launches {launched}")
+                  f"{(t2 - t1) * 1e3:.1f} ms (host clock, first call; "
+                  f"again: {(t4 - t3) * 1e3:.2f} and {(t5 - t4) * 1e3:.2f} "
+                  f"ms); tile search {search_s:.2f} s; launches {launched}")
             out[name] = {"shape": [n, h, w, C, K, Fh, Fw, s], "tiles": tiles,
                          "gmac": gmacs, "fwd_ms": (t1 - t0) * 1e3,
-                         "bwd_ms": (t2 - t1) * 1e3, "search_s": search_s,
+                         "bwd_ms": (t2 - t1) * 1e3,
+                         "fwd_again_ms": (t4 - t3) * 1e3,
+                         "bwd_again_ms": (t5 - t4) * 1e3,
+                         "search_s": search_s,
                          "launches": {k_: launched[k_]
                                       for k_ in CONV_KERNELS},
                          "max_abs_err": errs}
@@ -2048,7 +2089,8 @@ def time_conv_kernels(conv: dict) -> list[dict]:
     87-111 ms for Conv1's 11 x 11 in bf16); the dgrad through row 12
     beside them.
     Conv1's rows go into the kernels line, Conv4's are printed.  Conv1
-    times over 10 launches (a forward takes ~0.1 s), Conv4 over 50."""
+    times over 10 launches, Conv4 over 50.  Then row 12 at AlexNet
+    conv1's tile, at stride 4 and at stride 1 on the same products."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv2d_blocked as CB
@@ -2104,7 +2146,18 @@ def time_conv_kernels(conv: dict) -> list[dict]:
         # cotangent (what ops.conv2d's backward runs)
         dx = CW.conv2d_dgrad(g, wt, tuple(x.shape), s)
         db_ms, db_by = bound(2 * (g.numel() + wt.numel() + x.numel()), flops)
+        # row 12 alone on the dgrad's operands: the padded cotangent and
+        # the flipped weights, under the "conv2d_dgrad" key's tiles
+        gp, w_t = CW.dgrad_operands(g, wt, s)
+        td = best_schedule("conv2d_dgrad", (gp.shape[2] - Fw + 1,
+                                            gp.shape[1] - Fh + 1, K, C, Fw,
+                                            Fh), "bfloat16").tiles
+        dflops = 2 * n * (gp.shape[1] - Fh + 1) * (gp.shape[2] - Fw + 1) \
+            * C * K * Fh * Fw
         dgrad = {
+            "kernel_ms": tm(lambda: CB.conv2d_tiled(
+                gp, w_t, bx=td[0], by=td[1], bc=td[2], bk=td[3])),
+            "kernel_flops": dflops, "tiles": list(td),
             "ms": tm(lambda: CW.conv2d_dgrad(g, wt, tuple(x.shape), s)),
             "plain_ms": tm(lambda: CW.conv2d_dgrad(g, wt, tuple(x.shape), s,
                                                    use_kernel=False)),
@@ -2142,12 +2195,17 @@ def time_conv_kernels(conv: dict) -> list[dict]:
         print(f"  {name} conv2d_block {fwd['ms']:.4f} ms  plain "
               f"{fwd['plain_ms']:.4f} ms  bound {fb_ms:.4f} ms ({fb_by})  "
               f"library {fwd['library_ms']:.4f} ms  "
-              f"({flops / fwd['ms'] / 1e9:.1f} TFLOP/s)  [{fwd['shape']}]")
+              f"({flops / fwd['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{fb_ms / fwd['ms']:.1%} of bound)  [{fwd['shape']}]")
         print(f"  {name} dgrad via conv2d_block {dgrad['ms']:.4f} ms  plain "
               f"{dgrad['plain_ms']:.4f} ms  bound {db_ms:.4f} ms ({db_by})  "
               f"library {dgrad['library_ms']:.4f} ms  max_abs_err "
               f"{dgrad['max_abs_err']:.3e}  (host dilation and padding "
-              f"included; library: torch.nn.grad.conv2d_input)")
+              f"included; library: torch.nn.grad.conv2d_input); row 12 "
+              f"alone {dgrad['kernel_ms']:.4f} ms at tiles {tuple(td)} "
+              f"({dflops / dgrad['kernel_ms'] / 1e9:.1f} TFLOP/s over the "
+              f"padded cotangent's products, {db_ms / dgrad['kernel_ms']:.1%}"
+              f" of the dgrad's bound)")
         print(f"  {name} conv2d_wgrad_block {wgrad['ms']:.4f} ms  plain "
               f"{wgrad['plain_ms']:.4f} ms  bound {wb_ms:.4f} ms ({wb_by})  "
               f"library {wgrad['library_ms']:.4f} ms  "
@@ -2160,10 +2218,62 @@ def time_conv_kernels(conv: dict) -> list[dict]:
                                           if k.endswith(("ms", "err"))}}
         if name == "Conv1":
             rows += [fwd, wgrad]
-        del x, wt, g, y, dx, dw
+        del x, wt, g, y, dx, dw, gp, w_t
         torch.cuda.empty_cache()
+    # AlexNet conv1's stride 4 puts neighbouring output pixels 4 staged
+    # pixels apart, so the 8 rows of an A fragment share bank groups;
+    # the same products at stride 1 (a 65 x 65 input) show what that and
+    # the stride's 6x larger staged input cost
+    X, Y, C, K, Fw, Fh, s = layers["AlexNet conv1"]
+    ta = best_schedule("conv2d", (X, Y, C, K, Fw, Fh), "bfloat16",
+                       stride=s).tiles
+    flops = 2 * 2 * Y * X * K * C * Fh * Fw
+    alex = {}
+    for st in (s, 1):
+        h, w = (Y - 1) * st + Fh, (X - 1) * st + Fw
+        x, wt, _ = conv_inputs(dev, bf16, 2, h, w, C, K, Fh, Fw, st, seed=7)
+        alex[st] = measure_ms(lambda: CB.conv2d_tiled(
+            x, wt, bx=ta[0], by=ta[1], bc=ta[2], bk=ta[3], stride=st),
+            reps=50)
+        print(f"  AlexNet conv1 conv2d_block at stride {st} (N=2 {h}x{w}x"
+              f"{C} -> {Y}x{X}x{K}, tiles {tuple(ta)}): {alex[st]:.4f} ms "
+              f"({flops / alex[st] / 1e9:.1f} TFLOP/s)")
+    conv["AlexNet conv1"]["timing"] = {"forward_ms_by_stride": alex}
     torch.backends.cudnn.benchmark = False
     return rows
+
+
+def time_row12_layers() -> dict:
+    """Row 12 at every Table-4 layer and AlexNet conv1, batch 2, bf16,
+    with the model's tiles: the forward (``conv2d_tiled``) and the dgrad
+    (``conv2d_dgrad``, the host's dilation and padding included), median
+    device ms over 20 launches (10 at Conv1), L2 flushed."""
+    import torch
+    from repro_torch.kernels import conv2d_blocked as CB
+    from repro_torch.kernels import conv2d_bwd as CW
+    from repro_torch.tune import best_schedule
+    from repro_torch.tune.measure import time_ms as measure_ms
+    dev = torch.device("cuda")
+    out = {}
+    for name, X, Y, C, K, Fw, Fh, s in conv_layers():
+        h, w = (Y - 1) * s + Fh, (X - 1) * s + Fw
+        x, wt, g = conv_inputs(dev, torch.bfloat16, 2, h, w, C, K, Fh, Fw, s,
+                               seed=7)
+        tf = best_schedule("conv2d", (X, Y, C, K, Fw, Fh), "bfloat16",
+                           stride=s).tiles
+        reps = 10 if name == "Conv1" else 20
+        fwd = measure_ms(lambda: CB.conv2d_tiled(
+            x, wt, bx=tf[0], by=tf[1], bc=tf[2], bk=tf[3], stride=s),
+            reps=reps)
+        dgrad = measure_ms(lambda: CW.conv2d_dgrad(g, wt, tuple(x.shape), s),
+                           reps=reps)
+        out[name] = {"forward_ms": fwd, "dgrad_ms": dgrad,
+                     "forward_tiles": list(tf)}
+        print(f"  row 12 at {name}: forward {fwd:.4f} ms (tiles {tuple(tf)}),"
+              f" dgrad {dgrad:.4f} ms")
+        del x, wt, g
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2306,6 +2416,8 @@ def main() -> int:
                                quant_fused["launches"], quant["page"])
     rows += time_train_kernels(cfg, train)
     rows += time_conv_kernels(conv)
+    for name, t in time_row12_layers().items():
+        conv[name].setdefault("timing", {})["row12"] = t
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
                                  "cublas": cublas, "blocked": blocked,
                                  "fused": fused, "w8fp8": quant,

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 from repro_torch.core.hierarchy import MemLevel
 from repro_torch.core.loopnest import Dim, Problem, divisors
@@ -219,45 +220,53 @@ def dgrad_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
 
 def conv_fits(bx: int, by: int, bc: int, bk: int, Fw: int, Fh: int,
               bytes_per_elem: int, budget: int, stride: int = 1,
-              target: HopperTarget = H100_SXM, wgrad: bool = False) -> bool:
+              target: HopperTarget = H100_SXM, wgrad: bool = False,
+              channels: int | None = None) -> bool:
     """Whether the conv kernel holds these tiles: its staged tiles within
     ``budget`` and its fp32 sums within the register limit -- the
     forward's (row 12, which the dgrad runs too:
     ``conv2d_blocked.smem_bytes_required`` and ``accumulators_per_thread``
-    of the (bx*by, bk) output tile) or, with ``wgrad``, row 13's
-    (``conv2d_bwd``: the (Fh, Fw, bc, bk) dW tile).  Imported lazily: the
-    kernel modules own their footprints."""
+    of the (bx*by, bk) output tile; ``channels``, the input's C, lets its
+    bf16 instance keep one stage where C takes one step) or, with
+    ``wgrad``, row 13's (``conv2d_bwd``: the (Fh, Fw, bc, bk) dW tile).
+    Imported lazily: the kernel modules own their footprints."""
     if wgrad:
         from repro_torch.kernels.conv2d_bwd import (accumulators_per_thread,
                                                     smem_bytes_required)
         acc = accumulators_per_thread(bc, bk, Fh, Fw)
+        smem = smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
+                                   stride)
     else:
         from repro_torch.kernels.conv2d_blocked import (
             accumulators_per_thread, smem_bytes_required)
-        acc = accumulators_per_thread(bx * by, bk)
-    return (smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
-                                stride) <= budget
-            and acc <= target.acc_per_thread)
+        acc = accumulators_per_thread(bx * by, bk, bytes_per_elem)
+        smem = smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
+                                   stride, channels)
+    return smem <= budget and acc <= target.acc_per_thread
 
 
 def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
                K: int, Fw: int, Fh: int, bytes_per_elem: int, budget: int,
                target: HopperTarget, stride: int,
                wgrad: bool) -> tuple[int, int, int, int]:
-    """Snap an analytical (bx, by, bc, bk) to the conv kernel: channel
-    tiles start at multiples of ``nk_mult`` (extents below it whole), then
-    one tile shrinks at a time until the kernel's own footprint fits.
-    Large filters squeeze the weight tile (Conv1's 11 x 11 at bc = 8, bk =
-    32 is 61,952 B a stage in bf16), so bc and bk go below ``nk_mult``,
-    down to one 16-byte vector (8 bf16, 4 fp32; C = 3 stays whole).
+    """Snap an analytical (bx, by, bc, bk) to the conv kernel.  The bf16
+    forward (row 12 on the tensor cores, also the dgrad's) goes to
+    :func:`_snap_conv_mma`.  Otherwise channel tiles start at multiples
+    of ``nk_mult`` (extents below it whole), then one tile shrinks at a
+    time until the kernel's own footprint fits.  Large filters squeeze
+    the weight tile, so bc and bk go below ``nk_mult``, down to one
+    16-byte vector (4 fp32; C = 3 stays whole).
 
-    Forward (row 12, also the dgrad's): an accumulator (bx*by x bk) over
-    the register limit shrinks the larger of the spatial tile and bk;
-    shared memory over the budget shrinks bc first (the reduction step:
-    it is in both staged tiles and is reused by nothing), then the larger
-    of the weight tile (bk per tap) and the haloed input tile (with the
-    stride).  Wgrad (row 13): the dW accumulator (Fh*Fw*bc*bk) shrinks
-    the larger of bc and bk, shared memory the spatial tile."""
+    fp32 forward (row 12's CUDA-core loop): an accumulator (bx*by x bk)
+    over the register limit shrinks the larger of the spatial tile and
+    bk; shared memory over the budget shrinks bc first (the reduction
+    step: it is in both staged tiles and is reused by nothing), then the
+    larger of the weight tile (bk per tap) and the haloed input tile
+    (with the stride).  Wgrad (row 13): the dW accumulator (Fh*Fw*bc*bk)
+    shrinks the larger of bc and bk, shared memory the spatial tile."""
+    if bytes_per_elem == 2 and not wgrad:
+        return _snap_conv_mma(bx, by, bc, bk, X, Y, C, K, Fw, Fh, budget,
+                              target, stride)
     mk = target.nk_mult
     vec = 16 // bytes_per_elem
     bx = _pick_tile(X, bx, 1)
@@ -283,7 +292,8 @@ def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
         else:
             from repro_torch.kernels.conv2d_blocked import (
                 accumulators_per_thread)
-            if accumulators_per_thread(bx * by, bk) > target.acc_per_thread:
+            if accumulators_per_thread(bx * by, bk, bytes_per_elem) > \
+                    target.acc_per_thread:
                 step = "xy" if can_xy and (bx * by >= bk or bk <= vec) \
                     else "k" if bk > vec else None
             elif bc > vec:
@@ -304,6 +314,133 @@ def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
         else:
             break
     return bx, by, bc, bk
+
+
+# the bf16 conv kernel's M rows (16 x its warps down M x their m16
+# fragments) that may lie past the tile's bx * by pixels
+MAX_EMPTY_ROWS = 1 / 8
+
+
+def _mma_channels(C: int, bc: int) -> int:
+    """bc for the bf16 conv kernel: whole 8-channel chunks (a 16-deep
+    k-step is two of them, from one tap or two), divisors of C first; C
+    whole below 8."""
+    return C if C < 8 else _pick_tile(C, max(bc, 8), 8)
+
+
+def _mma_cols(K: int, bk: int, least: int = 16) -> int:
+    """bk for the bf16 conv kernel: at least ``least`` (K below it whole;
+    16 lets an A fragment feed two n8 tiles), whole n8 fragments for
+    every warp across N -- a multiple of 8 up to 64 channels (one warp
+    across), of 16 up to 128, 32 up to 256, 64 up to 512 -- the largest
+    divisor of K that is one, else bk rounded down to one."""
+    if K < least:
+        return K
+    bk = max(least, min(bk, 512, K))
+    mult = 8
+    while bk > 8 * mult:
+        mult *= 2
+    divs = [d for d in divisors(K) if d % mult == 0 and least <= d <= bk]
+    return max(divs) if divs else bk // mult * mult
+
+
+@functools.lru_cache(maxsize=8192)
+def _mma_rows_ok(pixels: int, bk: int, acc_limit: int) -> bool:
+    """Whether the bf16 kernel's warp grid holds a pixels x bk tile within
+    the register limit and leaves at most MAX_EMPTY_ROWS of its M rows
+    empty."""
+    from repro_torch.kernels.conv2d_blocked import (accumulators_per_thread,
+                                                    empty_row_share)
+    return (accumulators_per_thread(pixels, bk) <= acc_limit
+            and empty_row_share(pixels, bk) <= MAX_EMPTY_ROWS)
+
+
+@functools.lru_cache(maxsize=1024)
+def _mma_max_pixels(bk: int, acc_limit: int) -> int:
+    """The most pixels the bf16 kernel's warp grid holds at bk within the
+    register limit (a multiple of 16; at least 1)."""
+    from repro_torch.kernels.conv2d_blocked import (MMA_M,
+                                                    accumulators_per_thread)
+    p = MMA_M
+    while accumulators_per_thread(p + MMA_M, bk) <= acc_limit:
+        p += MMA_M
+    return p
+
+
+def _mma_pixels(want: float, X: int, Y: int, bk: int, cap: int, Fw: int,
+                Fh: int, stride: int, acc_limit: int) -> tuple[int, int]:
+    """The spatial tile of at most ``cap`` pixels for the bf16 kernel: one
+    that meets :func:`_mma_rows_ok` if any does, dividing X and Y first,
+    then the most pixels, then the smallest haloed input tile, then the
+    log aspect (bx / by) nearest ``want``.  Where none meets it (an image
+    or a cap under one m16 fragment per warp), the fewest empty rows."""
+    from repro_torch.kernels.conv2d_blocked import empty_row_share
+    cap = min(cap, _mma_max_pixels(bk, acc_limit))
+    y_divs = sorted(divisors(Y), reverse=True)
+    best, best_key = (1, 1), None
+    for tx in range(1, min(X, cap) + 1):
+        top = min(Y, cap // tx)
+        tys = {top, next((ty for ty in range(top, 0, -1)
+                          if _mma_rows_ok(tx * ty, bk, acc_limit)), top)}
+        if X % tx == 0:
+            tys.add(next((ty for ty in y_divs if ty <= top and
+                          _mma_rows_ok(tx * ty, bk, acc_limit)), top))
+        for ty in tys:
+            p = tx * ty
+            ok = _mma_rows_ok(p, bk, acc_limit)
+            halo = ((ty - 1) * stride + Fh) * ((tx - 1) * stride + Fw)
+            key = (ok, ok and X % tx == 0 and Y % ty == 0,
+                   0.0 if ok else -empty_row_share(p, bk), p, -halo,
+                   -abs(math.log(tx / ty) - want))
+            if best_key is None or key > best_key:
+                best, best_key = (tx, ty), key
+    return best
+
+
+def _snap_conv_mma(bx: int, by: int, bc: int, bk: int, X: int, Y: int,
+                   C: int, K: int, Fw: int, Fh: int, budget: int,
+                   target: HopperTarget,
+                   stride: int) -> tuple[int, int, int, int]:
+    """Snap an analytical (bx, by, bc, bk) to row 12's bf16 kernel (the
+    tensor cores): bc starts at ``nk_mult`` or more (C below it whole),
+    in whole 8-channel chunks, bk at 16 or more (K below it whole: an A
+    fragment then feeds two n8 tiles), in whole n8 fragments of the
+    warp grid, and bx * by is a tile whose M fragments leave at most
+    ``MAX_EMPTY_ROWS`` of their rows empty (a tile under one m16
+    fragment per warp grows to it), of the analytical tile's aspect
+    where the halo allows.  Then, until the footprint fits: bc
+    shrinks first (in both staged tiles, reused by nothing); then bk
+    while the weight tile is the larger and bk > 16 (an A fragment then
+    feeds two or more n8 tiles); then the pixels while they fill more
+    than one fragment per warp; then bk down to 8, then the pixels down
+    to one."""
+    from repro_torch.kernels.conv2d_blocked import (
+        MMA_M, WARPS, pixel_stride, weight_rows, weight_vectors)
+    want = math.log(min(bx, X) / min(by, Y))
+    bc = _mma_channels(C, max(bc, min(C, target.nk_mult)))
+    bk = _mma_cols(K, bk)
+    cap = max(min(bx, X) * min(by, Y), MMA_M * WARPS)
+    while True:
+        bx, by = _mma_pixels(want, X, Y, bk, cap, Fw, Fh, stride,
+                             target.acc_per_thread)
+        if conv_fits(bx, by, bc, bk, Fw, Fh, 2, budget, stride, target,
+                     channels=C):
+            return bx, by, bc, bk
+        x_tile = (((by - 1) * stride + Fh) * ((bx - 1) * stride + Fw)
+                  * pixel_stride(bc, 2))
+        w_tile = weight_rows(bc, Fh, Fw) * weight_vectors(bk) * 8
+        if bc > 8:
+            bc = _shrink(C, bc, 8)
+        elif bk > 16 and w_tile >= x_tile:
+            bk = _mma_cols(K, bk // 2)
+        elif bx * by > MMA_M * WARPS:
+            cap = bx * by // 2
+        elif bk > 8:
+            bk = _mma_cols(K, bk // 2, least=8)
+        elif bx * by > 1:
+            cap = bx * by // 2
+        else:
+            return bx, by, bc, bk
 
 
 # orders of the two-level conv nest the search walks: six active dims
@@ -341,6 +478,10 @@ def conv_tile_candidates(X: int, Y: int, C: int, K: int, Fw: int, Fh: int,
                                         top=top,
                                         max_orders=_CONV_MAX_ORDERS)]
     raw.append((X, Y, min(C, target.nk_mult), min(K, target.nk_mult)))
+    if bytes_per_elem == 2 and not wgrad:
+        # the tensor cores' seed: the narrowest bk an A fragment serves
+        # twice, so that its snap spends the budget on pixels
+        raw.append((X, Y, min(C, target.nk_mult), min(K, 16)))
     out: list[tuple[int, int, int, int]] = []
     for bx, by, bc, bk in raw:
         cand = _snap_conv(bx, by, bc, bk, X, Y, C, K, Fw, Fh,

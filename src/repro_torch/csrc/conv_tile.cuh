@@ -53,22 +53,27 @@ __device__ __forceinline__ void stage_vec(T* dst, const T* src, int n) {
 
 // The haloed input tile of image n: rows h0 .. h0 + ih and columns
 // w0 .. w0 + iw of x, channels c0 .. c0 + bc, into xs (ih * iw pixels of
-// pst elements).  Zero outside the image, past C and past bc.
+// pst elements).  Zero outside the image, past C and past bc.  Only the
+// first nv vectors of a pixel are staged (default: all of pst): the
+// rest are never read.  A thread keeps one vector column of the pixels
+// it stages, so the pixel's row and column cost one division.
 template <typename T>
 __device__ __forceinline__ void stage_input(T* xs, const T* x, int n, int H,
                                             int W, int C, int h0, int w0,
                                             int ih, int iw, int c0, int bc,
-                                            int pst) {
+                                            int pst, int nv = 0) {
   constexpr int V = 16 / sizeof(T);
-  const int nch = pst / V;
-  const int total = ih * iw * nch;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int pix = i / nch, e = (i - pix * nch) * V;
+  if (nv <= 0) nv = pst / V;
+  const int cols = min(nv, kThreads), step = kThreads / cols;
+  if (threadIdx.x >= step * cols) return;
+  for (int pix = threadIdx.x / cols; pix < ih * iw; pix += step) {
     const int r = pix / iw, q = pix - r * iw;
     const int h = h0 + r, w = w0 + q;
-    const int n_in = h < H && w < W ? min(V, min(bc - e, C - c0 - e)) : 0;
-    stage_vec(xs + pix * pst + e,
-              x + ((int64_t(n) * H + h) * W + w) * C + c0 + e, n_in);
+    const T* const src = x + ((int64_t(n) * H + h) * W + w) * C + c0;
+    for (int e = (threadIdx.x % cols) * V; e < nv * V; e += cols * V) {
+      const int n_in = h < H && w < W ? min(V, min(bc - e, C - c0 - e)) : 0;
+      stage_vec(xs + pix * pst + e, src + e, n_in);
+    }
   }
 }
 

@@ -17,10 +17,12 @@ call, and the batch is vmapped.  Here one launch covers the whole
 ``(N, H, W, C)`` batch: the grid is (spatial tile, K tile, image), each
 block finds its halo from ``blockIdx`` and the stride, and the C
 reduction is a loop inside the block (``csrc/conv2d_blocked.cu``; design
-and bound in its header comment).  Ragged C, K and spatial edges are
-masked in the kernel, so every shape launches (JAX sends ragged channel
-tiles to its oracle and collapses ragged space to one tile).  fp32 and
-bf16, output in x's dtype.
+and bound in its header comment).  bf16 multiplies on the tensor cores,
+an implicit GEMM over the staged tiles (``mma.sync``); fp32 keeps the
+CUDA-core loop (TF32 would break the fp32 tolerances).  Ragged C, K and
+spatial edges are masked in the kernel, so every shape launches (JAX
+sends ragged channel tiles to its oracle and collapses ragged space to
+one tile).  Output in x's dtype.
 """
 
 from __future__ import annotations
@@ -32,9 +34,17 @@ import torch
 from repro_torch.kernels import _build
 
 THREADS = 256             # threads a block (csrc: conv::kThreads)
+STAGES = 2                # C tiles in flight: the current one and the next
+# fp32, the CUDA-core loop
 COLS_PER_THREAD = 4       # K columns a thread holds (csrc: conv::kCols)
 MAX_ROWS_PER_THREAD = 16  # output pixels a thread holds: 64 fp32 sums
-STAGES = 2                # C tiles in flight: the current one and the next
+# bf16, the tensor cores (mma.sync m16n8k16)
+WARPS = THREADS // 32
+MMA_M, MMA_N = 16, 8      # one fragment: 16 pixels x 8 output channels
+CHUNK = 8                 # reduction chunk: 8 channels of one tap
+K_STEP = 16               # reduction depth of one mma: two chunks
+MAX_FRAGMENTS = 16        # fragments a warp holds: 64 fp32 sums a thread
+MAX_N_TILES = 8           # n8 fragments a warp holds
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
@@ -48,36 +58,97 @@ def _ceil(a: int, b: int) -> int:
 def pixel_stride(bc: int, itemsize: int) -> int:
     """Elements between two staged pixels of the input tile: ``bc``
     rounded up to whole 16-byte vectors, an odd number of them, so that
-    the compute loop's reads of neighbouring pixels fall into different
-    bank groups (csrc: ``conv::pixel_stride``)."""
+    reads of neighbouring pixels fall into different bank groups (csrc:
+    ``conv::pixel_stride``)."""
     vec = 16 // itemsize
     chunks = _ceil(bc, vec)
     return (chunks + (chunks % 2 == 0)) * vec
 
 
+def mma_layout(pixels: int, bk: int) -> tuple[int, int, int, int] | None:
+    """The bf16 kernel's warp grid for a ``pixels`` x ``bk`` output tile:
+    ``(wm, wn, mt, nt)``, ``wn`` warps across the channels and ``wm =
+    8 // wn`` down the pixels, each holding ``mt`` m16 x ``nt`` n8
+    fragments: the fewest warps across N (so each A fragment feeds the
+    most n8 tiles) with ``nt <= 8`` whose fragments fit (``mt * nt <=
+    16``), else the fewest with ``nt <= 8`` (then the tile needs more
+    sums than a thread holds).  None past 512 channels.  csrc:
+    ``mma_layout`` in ``conv2d_blocked.cu``."""
+    mt_all, nt_all = _ceil(pixels, MMA_M), _ceil(bk, MMA_N)
+    grids = [(WARPS // wn, wn, _ceil(mt_all, WARPS // wn), _ceil(nt_all, wn))
+             for wn in (1, 2, 4, 8)]
+    grids = [g for g in grids if g[3] <= MAX_N_TILES]
+    fits = [g for g in grids if g[2] * g[3] <= MAX_FRAGMENTS]
+    return (fits or grids or [None])[0]
+
+
+def empty_row_share(pixels: int, bk: int) -> float:
+    """Share of the bf16 kernel's M rows (``16 wm mt``, the pixels its
+    warps compute) that lie past the ``pixels`` of the tile: computed and
+    never stored (1 past 512 channels, where no grid holds the tile)."""
+    layout = mma_layout(pixels, bk)
+    if layout is None:
+        return 1.0
+    wm, _, mt, _ = layout
+    return 1 - pixels / (MMA_M * wm * mt)
+
+
+def weight_rows(bc: int, fh: int, fw: int) -> int:
+    """Rows of the bf16 weight tile: ``fh * fw`` taps of ``bc`` channels
+    rounded up to 8-channel chunks, the chunks rounded up to whole
+    16-deep k-steps (the pad rows are zero)."""
+    return _ceil(fh * fw * _ceil(bc, CHUNK) * CHUNK, K_STEP) * K_STEP
+
+
+def weight_vectors(bk: int) -> int:
+    """16-byte vectors between two rows of the bf16 weight tile: the 8
+    rows of one ``ldmatrix`` sub-matrix must fall into distinct bank
+    groups, so a power of two (2 or more) is XOR-swizzled, unpadded, an
+    odd count needs nothing, and any other count is padded by one vector
+    to odd (csrc: ``weight_vectors``)."""
+    v = _ceil(bk, 8)
+    return v if v % 2 or v & (v - 1) == 0 else v + 1
+
+
 def smem_bytes_required(bx: int, by: int, bc: int, bk: int, fh: int,
-                        fw: int, itemsize: int = 2, stride: int = 1) -> int:
-    """Dynamic shared memory of one block, two stages deep: the haloed
+                        fw: int, itemsize: int = 2, stride: int = 1,
+                        channels: int | None = None) -> int:
+    """Dynamic shared memory of one block, two stages deep (in bf16 one
+    where ``channels``, the input's C, takes one step of bc): the haloed
     input tile (``(by-1)*stride+fh`` x ``(bx-1)*stride+fw`` pixels of
-    :func:`pixel_stride` elements) and the weight tile (``fh*fw`` taps
-    of ``bc`` channels rounded up to 4, each a row of ``bk`` rounded up
-    to a 16-byte vector).  The fp32 accumulator is in registers
+    :func:`pixel_stride` elements) and the weight tile.  bf16 (the
+    tensor cores): :func:`weight_rows` rows of :func:`weight_vectors`
+    16-byte vectors, then one 4-byte offset per 8-channel chunk (the
+    table the A fragments are addressed from).  fp32 (the CUDA cores): ``fh*fw``
+    taps of ``bc`` channels rounded up to 4, each a row of ``bk`` rounded
+    up to a 16-byte vector.  The fp32 sums are in registers
     (:func:`accumulators_per_thread`)."""
     vec = 16 // itemsize
     ih = (by - 1) * stride + fh
     iw = (bx - 1) * stride + fw
     x_tile = ih * iw * pixel_stride(bc, itemsize)
+    if itemsize == 2:
+        rows = weight_rows(bc, fh, fw)
+        w_tile = rows * weight_vectors(bk) * vec
+        stages = 1 if channels is not None and channels <= bc else STAGES
+        return stages * (x_tile + w_tile) * itemsize + rows // CHUNK * 4
     w_tile = fh * fw * _ceil(bc, 4) * 4 * _ceil(bk, vec) * vec
     return STAGES * (x_tile + w_tile) * itemsize
 
 
-def accumulators_per_thread(pixels: int, bk: int) -> int:
+def accumulators_per_thread(pixels: int, bk: int, itemsize: int = 2) -> int:
     """fp32 sums each thread holds for an output tile of ``pixels``
-    (``bx * by``) positions by ``bk`` channels: the block's threads tile
-    it as ``THREADS // ceil(bk / 4)`` thread-rows of pixels by
-    ``ceil(bk / 4)`` column groups of 4.  Above the kernel's limit
-    (``4 * MAX_ROWS_PER_THREAD``) when bk is too wide for one column
-    group per thread."""
+    (``bx * by``) positions by ``bk`` channels.  bf16: four per fragment
+    of :func:`mma_layout` (above the limit when no grid fits).  fp32: the
+    block's threads tile it as ``THREADS // ceil(bk / 4)`` thread-rows
+    of pixels by ``ceil(bk / 4)`` column groups of 4; above the kernel's
+    limit (``4 * MAX_ROWS_PER_THREAD``) when bk is too wide for one
+    column group per thread."""
+    if itemsize == 2:
+        layout = mma_layout(pixels, bk)
+        if layout is None:
+            return 4 * _ceil(pixels, MMA_M) * _ceil(bk, MMA_N)
+        return 4 * layout[2] * layout[3]
     groups = _ceil(bk, COLS_PER_THREAD)
     if groups > THREADS:
         return THREADS * COLS_PER_THREAD * pixels
@@ -224,7 +295,7 @@ def _check(x, w, bx, by, bc, bk, stride):
                          "(NHWC, HWIO)")
     if min(bx, by, bc, bk) < 1:
         raise ValueError(f"tiles must be positive, got {(bx, by, bc, bk)}")
-    acc = accumulators_per_thread(bx * by, bk)
+    acc = accumulators_per_thread(bx * by, bk, x.element_size())
     if acc > COLS_PER_THREAD * MAX_ROWS_PER_THREAD:
         raise ValueError(
             f"output tile {bx} x {by} x {bk} needs {acc} fp32 accumulators "
@@ -232,7 +303,7 @@ def _check(x, w, bx, by, bc, bk, stride):
             f"{COLS_PER_THREAD * MAX_ROWS_PER_THREAD}")
     fh, fw, _, k = w.shape
     need = smem_bytes_required(bx, by, bc, bk, fh, fw, x.element_size(),
-                               stride)
+                               stride, channels=x.shape[3])
     have = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
     if need > have:

@@ -200,6 +200,23 @@ def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, fh: int, fw: int,
                               by=by, bc=bc, bk=bk, stride=stride)
 
 
+def dgrad_operands(g: torch.Tensor, w: torch.Tensor,
+                   stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dgrad's transposed conv as a stride-1 direct conv: the NHWC
+    cotangent g dilated by the stride and padded by the filter minus one,
+    and the weights flipped and transposed to ``(Fh, Fw, K, C)``."""
+    n, oh, ow, k = g.shape
+    fh, fw = w.shape[:2]
+    if stride > 1:                       # transposed conv: input dilation
+        gd = g.new_zeros((n, (oh - 1) * stride + 1, (ow - 1) * stride + 1,
+                          k))
+        gd[:, ::stride, ::stride, :] = g
+    else:
+        gd = g
+    gp = F.pad(gd, (0, 0, fw - 1, fw - 1, fh - 1, fh - 1)).contiguous()
+    return gp, w.flip(0, 1).transpose(2, 3).contiguous()
+
+
 def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
                  x_shape: tuple[int, ...], stride: int = 1,
                  tiles: tuple[int, int, int, int] | None = None,
@@ -214,17 +231,10 @@ def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     output space).  Rows and columns the strided forward never read get
     zero gradient."""
     from repro_torch.tune import best_schedule
-    n, h, wd, c = x_shape
+    _, h, wd, c = x_shape
     fh, fw, _, k = w.shape
     _, oh, ow, _ = g.shape
-    if stride > 1:                       # transposed conv: input dilation
-        gd = g.new_zeros((n, (oh - 1) * stride + 1, (ow - 1) * stride + 1,
-                          k))
-        gd[:, ::stride, ::stride, :] = g
-    else:
-        gd = g
-    gp = F.pad(gd, (0, 0, fw - 1, fw - 1, fh - 1, fh - 1)).contiguous()
-    w_t = w.flip(0, 1).transpose(2, 3).contiguous()      # (Fh, Fw, K, C)
+    gp, w_t = dgrad_operands(g, w, stride)
     oh_d = (oh - 1) * stride + fh        # == H less the remainder rows
     ow_d = (ow - 1) * stride + fw
     if use_kernel:

@@ -63,10 +63,10 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     each with the spec's stride."""
     if spec.op in CONV_OPS:
         bx, by, bc, bk = tiles
-        _, _, _, _, Fw, Fh = spec.dims
+        _, _, C, _, Fw, Fh = spec.dims
         return conv_fits(bx, by, bc, bk, Fw, Fh, spec.itemsize, budget,
                          spec.stride, target,
-                         wgrad=spec.op == "conv2d_wgrad")
+                         wgrad=spec.op == "conv2d_wgrad", channels=C)
     if spec.op == "matmul_dgrad":
         bm, bk, bn = tiles
         return dgrad_fits(bm, bk, bn, spec.itemsize, budget, target)

@@ -25,9 +25,15 @@ from repro.kernels import ref as jref
 from repro.kernels.conv2d_blocked import conv2d_block as j_conv2d_block
 from repro.kernels.conv2d_bwd import conv2d_dgrad as j_conv2d_dgrad
 from repro.kernels.conv2d_bwd import conv2d_wgrad as j_conv2d_wgrad
+from repro_torch.configs import PAPER_LAYERS
+from repro_torch.core.hopper_adapter import (H100_SXM,
+                                             backward_tile_candidates,
+                                             conv_fits, conv_tile_candidates,
+                                             default_smem_budget)
 from repro_torch.kernels import conv2d_blocked as CB
 from repro_torch.kernels import conv2d_bwd as CW
 from repro_torch.kernels import ops, ref
+from repro_torch.tune import ScheduleCache, best_schedule
 
 TOL = dict(rtol=2e-3, atol=2e-4)
 
@@ -243,6 +249,51 @@ def test_ops_conv2d_launches_nothing_on_the_cpu():
 # --------------------------- footprints ------------------------------------
 
 
+# the paper's Table-4 conv layers and AlexNet conv1 (stride 4): name,
+# the forward's output X, Y, C, K, Fw, Fh and stride
+CONV_LAYERS = [(n, p.X, p.Y, p.C, p.K, p.Fw, p.Fh, 1)
+               for n, p in PAPER_LAYERS.items() if n.startswith("Conv")] + \
+    [("AlexNet conv1", 55, 55, 3, 96, 11, 11, 4)]
+
+
+@pytest.mark.parametrize("op", ["conv2d", "conv2d_dgrad"])
+@pytest.mark.parametrize("layer", CONV_LAYERS, ids=[c[0] for c in CONV_LAYERS])
+def test_snapped_bf16_tiles_fit_the_tensor_core_kernel(layer, op, tmp_path):
+    """Every bf16 tile the model emits for row 12 (the forward, and the
+    dgrad's transposed conv at stride 1) fits the tensor-core instance:
+    its staged tiles within the two-block budget and its fragments within
+    64 fp32 sums a thread; bc in whole 8-channel chunks (C = 3 whole), bk
+    in whole n8 fragments of every warp across N (K = 3 whole); at most
+    1/8 of the M rows its warps compute past bx * by.  The tuner's pick
+    is one of them."""
+    _, X, Y, C, K, Fw, Fh, s = layer
+    if op == "conv2d_dgrad":
+        X, Y, C, K, s_key = (X - 1) * s + Fw, (Y - 1) * s + Fh, K, C, 1
+    else:
+        s_key = s
+    dims = (X, Y, C, K, Fw, Fh)
+    budget = default_smem_budget()
+    if op == "conv2d":
+        tiles = conv_tile_candidates(*dims, 2, budget, H100_SXM, top=8,
+                                     stride=s_key)
+    else:
+        tiles = backward_tile_candidates(op, dims, 2, budget, H100_SXM,
+                                         top=8)
+    assert tiles
+    for bx, by, bc, bk in tiles:
+        assert conv_fits(bx, by, bc, bk, Fw, Fh, 2, budget, s_key,
+                         channels=C)
+        assert CB.smem_bytes_required(bx, by, bc, bk, Fh, Fw, 2, s_key,
+                                      channels=C) <= budget
+        assert CB.accumulators_per_thread(bx * by, bk) <= 64
+        assert bc % 8 == 0 or bc == C < 8
+        _, wn, _, nt = CB.mma_layout(bx * by, bk)
+        assert bk % (8 * wn) == 0 or bk == K < 8
+        assert CB.empty_row_share(bx * by, bk) <= 1 / 8, (bx, by, bk)
+    assert best_schedule(op, dims, "bfloat16", cache=ScheduleCache(
+        str(tmp_path / "empty.json")), stride=s_key).tiles in tiles
+
+
 @pytest.mark.parametrize("bc,itemsize,want", [
     (3, 2, 8), (8, 2, 8), (16, 2, 24), (32, 2, 40), (4, 4, 4), (8, 4, 12),
     (32, 4, 36)])
@@ -251,13 +302,53 @@ def test_pixel_stride_is_an_odd_number_of_vectors(bc, itemsize, want):
 
 
 def test_footprints_and_traffic_count_the_kernels_tiles():
-    # Conv1's 11 x 11 weight tile at bc = 8, bk = 32, bf16: 61,952 B a
-    # stage, more than half the two-block budget with its input tile
-    assert 11 * 11 * 8 * 32 * 2 == 61_952
-    assert CB.smem_bytes_required(16, 16, 8, 32, 11, 11, 2) == \
-        2 * (26 * 26 * 8 + 61_952 // 2) * 2
+    # Conv1's 11 x 11 weight tile on the tensor cores (bf16) at bc = 8,
+    # bk = 16: 121 taps of one 8-channel chunk, rounded up to whole
+    # 16-deep k-steps (976 rows, the last 8 zero), each row 2 vectors
+    # (XOR-swizzled, unpadded); two stages with the 26 x 26 input tile of
+    # one vector a pixel, then a 4-byte offset per chunk: 84,584 B
+    assert CB.weight_rows(8, 11, 11) == 976
+    assert CB.smem_bytes_required(16, 16, 8, 16, 11, 11, 2) == \
+        2 * (26 * 26 * 8 + 976 * 16) * 2 + 122 * 4 == 84_584
+    # weight rows: powers of two swizzled, odd counts as they are, other
+    # counts padded to odd; input pixels: odd counts
+    assert [CB.weight_vectors(bk) for bk in (3, 8, 16, 24, 32, 48, 64,
+                                             96, 128)] == \
+        [1, 1, 2, 3, 4, 7, 8, 13, 16]
+    assert CB.pixel_stride(16, 2) == 24
+    # no pad chunk: 3 x 3 taps of 16 channels, 144 rows
+    assert CB.weight_rows(16, 3, 3) == 144
+    # one stage where C takes one step of bc (AlexNet conv1's C = 3 at
+    # stride 4: a 51 x 51 input tile, bk = 32 in 4 swizzled vectors)
+    assert CB.smem_bytes_required(11, 11, 3, 32, 11, 11, 2, 4,
+                                  channels=3) == \
+        (51 * 51 * 8 + 976 * 32) * 2 + 122 * 4
+    assert CB.smem_bytes_required(11, 11, 3, 32, 11, 11, 2, 4,
+                                  channels=6) == \
+        2 * (51 * 51 * 8 + 976 * 32) * 2 + 122 * 4
+    # fp32 keeps the CUDA-core loop's footprint: 121 taps of bc = 8 by
+    # bk = 32 (61,952 B a stage in bf16 terms, 123,904 in fp32)
+    assert CB.smem_bytes_required(16, 16, 8, 32, 11, 11, 4) == \
+        2 * (26 * 26 * 12 + 121 * 8 * 32) * 4
+    assert CB.accumulators_per_thread(16 * 16, 64, 4) == 64
+    assert CB.accumulators_per_thread(16 * 16, 128, 4) == 128
+    # bf16: 8 warps down M, each 2 m16 x 8 n8 fragments (64 sums); at bk
+    # = 128 two warps across N, each 4 x 8: over the limit
+    assert CB.mma_layout(16 * 16, 64) == (8, 1, 2, 8)
     assert CB.accumulators_per_thread(16 * 16, 64) == 64
+    assert CB.mma_layout(16 * 16, 128) == (4, 2, 4, 8)
     assert CB.accumulators_per_thread(16 * 16, 128) == 128
+    # the dgrad's old Conv1 tile (7, 19): 133 pixels take 9 m16 tiles,
+    # 2 a warp, so 123 of 256 rows are empty; 128 pixels leave none
+    assert CB.mma_layout(7 * 19, 16) == (8, 1, 2, 2)
+    assert CB.empty_row_share(7 * 19, 16) == 1 - 133 / 256
+    assert CB.empty_row_share(16 * 8, 16) == 0
+    # AlexNet's dgrad writes 3 channels: one n8 tile, 5 columns clamped
+    assert CB.mma_layout(128, 3) == (8, 1, 1, 1)
+    # wide K tiles spread warps across N; past 512 no grid holds one
+    assert CB.mma_layout(64, 256) == (2, 4, 2, 8)
+    assert CB.mma_layout(16, 520) is None
+    assert CB.accumulators_per_thread(16, 520) > 64
     assert CW.accumulators_per_thread(8, 16, 11, 11) == 64
     assert CW.accumulators_per_thread(16, 16, 11, 11) > 64
     assert CW.smem_bytes_required(8, 8, 8, 16, 3, 3, 4, stride=2) == \

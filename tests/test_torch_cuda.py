@@ -657,6 +657,34 @@ def test_conv_kernels_match_plain(dev, dtype, n, h, w, c, k, fh, fw, stride,
         stride=stride))
 
 
+MMA_CASES = [  # bf16: branches of row 12's tensor-core instance
+    (1, 26, 26, 64, 32, 11, 11, 1, (16, 16, 8, 16)),  # k-steps straddle taps
+    (2, 51, 51, 3, 96, 11, 11, 4, (11, 11, 3, 8)),    # C = 3 at stride 4
+    (1, 21, 16, 16, 16, 3, 3, 1, (7, 19, 16, 16)),    # 133 pixels
+    (2, 14, 14, 16, 48, 3, 3, 1, (12, 12, 16, 24)),   # a clamped n8 tile
+    (1, 11, 11, 16, 72, 3, 3, 1, (9, 9, 16, 72)),     # two warps across N
+    (1, 22, 22, 40, 3, 3, 3, 1, (16, 8, 8, 3)),       # K = 3
+    (1, 10, 10, 16, 256, 3, 3, 1, (8, 8, 16, 256)),   # four warps across N
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,fh,fw,stride,tiles", MMA_CASES)
+def test_conv_tensor_core_instance_matches_plain(dev, n, h, w, c, k, fh, fw,
+                                                 stride, tiles):
+    """Row 12 in bf16 (the implicit GEMM on the tensor cores) against its
+    plain version; repeated launches agree bit for bit."""
+    x, wt, _ = conv_case(dev, torch.bfloat16, n, h, w, c, k, fh, fw, stride,
+                         seed=h + k)
+    bx, by, bc, bk = tiles
+    y = conv2d_block(x, wt, bc=bc, bk=bk, stride=stride, bx=bx, by=by)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(),
+                               conv2d_blocked_ref(x, wt, stride).float(),
+                               **gemm_tol(torch.bfloat16, c * fh * fw))
+    assert torch.equal(y, conv2d_block(x, wt, bc=bc, bk=bk, stride=stride,
+                                       bx=bx, by=by))
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_ops_conv2d_backward_runs_the_kernels(dev, stride):
     """One row-12 launch forward; one row-12 (dgrad) and two row-13
@@ -684,6 +712,8 @@ def test_conv_kernels_refuse_what_they_cannot_hold(dev):
     x, wt, g = conv_case(dev, torch.float32, 1, 20, 20, 8, 64, 3, 3, 1)
     with pytest.raises(ValueError, match="accumulators"):
         conv2d_block(x, wt, bc=8, bk=64, bx=18, by=18)
+    with pytest.raises(ValueError, match="accumulators"):   # 96 sums
+        conv2d_block(x.bfloat16(), wt.bfloat16(), bc=8, bk=64, bx=18, by=18)
     with pytest.raises(ValueError, match="shared memory"):
         conv2d_block(x, wt, bc=512, bk=64, bx=4, by=4)
     with pytest.raises(ValueError, match="contiguous"):

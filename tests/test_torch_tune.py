@@ -317,6 +317,32 @@ def test_best_schedule_rederives_when_cached_tiles_blow_budget(tmp_path):
     assert s.source == "analytic" and fits_smem(spec, s.tiles, small)
 
 
+def test_best_schedule_refuses_a_cached_conv_tile_its_kernel_cannot_hold(
+        tmp_path):
+    """A conv tile cached under another footprint is refused and searched
+    again: Conv1's (16, 16, 4, 32) stages 121 taps of 4 channels x 32
+    columns on CUDA cores (83,584 B in two stages), but row 12's bf16
+    instance rounds every tap up to a whole 8-channel chunk: 976 weight
+    rows, 146,560 B of weights and input."""
+    from repro_torch.kernels import conv2d_blocked as CB
+    cache = ScheduleCache(str(tmp_path / "schedules.json"))
+    dims = (256, 256, 256, 384, 11, 11)
+    spec = OpSpec("conv2d", dims, "bfloat16")
+    stale = (16, 16, 4, 32)
+    assert 2 * (26 * 26 * 8 + 121 * 4 * 32) * 2 == 83_584 <= BUDGET
+    assert CB.smem_bytes_required(*stale, 11, 11, 2) == \
+        2 * (26 * 26 * 8 + 976 * 32) * 2 + 122 * 4 == 147_048
+    assert not fits_smem(spec, stale, BUDGET)
+    cache.store(Schedule(spec, stale, source="measured"))
+    s = best_schedule("conv2d", dims, "bfloat16", cache=cache)
+    assert s.source == "analytic" and s.tiles != stale
+    assert fits_smem(spec, s.tiles, BUDGET)
+    # a cached tile that fits is taken as it is
+    cache.store(Schedule(spec, s.tiles, source="measured"))
+    assert best_schedule("conv2d", dims, "bfloat16",
+                         cache=cache).source == "cache"
+
+
 def test_best_schedule_ignores_other_dtypes(tmp_path):
     cache = ScheduleCache(str(tmp_path / "schedules.json"))
     cache.store(Schedule(OpSpec("matmul", (128, 128, 128), "bfloat16"),
@@ -604,8 +630,10 @@ def test_conv_candidates_divide_and_fit(op, dims, dtype, stride):
                 H100_SXM.acc_per_thread
         else:
             assert CB.smem_bytes_required(bx, by, bc, bk, Fh, Fw,
-                                          spec.itemsize, s) <= BUDGET
-            assert CB.accumulators_per_thread(bx * by, bk) <= \
+                                          spec.itemsize, s,
+                                          channels=C) <= BUDGET
+            assert CB.accumulators_per_thread(bx * by, bk,
+                                              spec.itemsize) <= \
                 H100_SXM.acc_per_thread
         assert divides(spec, sch.tiles)
         assert sch.predicted_dram_accesses is not None
