@@ -28,6 +28,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``"matmul_dgrad"`` adapter tile of granite's projections at 2048
    tokens, the forward's lse and ``flash_attention_bwd`` (GQA 32/8,
    D = 128 and 64; ragged S, Sq < Skv, window, cap), repeats bit-equal;
+   rows 4 and 5 at the tensor-core instances' edges (Sq, Skv of 16k +- 1,
+   Sq < Skv and Sq > Skv, a window across tiles, a cap, D 64, G 1 and 8,
+   non-causal, the join), in bf16 on the ``mma`` instance at
+   ``flash_tiles``' tiles, in fp32 on the CUDA-core one;
    the conv kernels: ``conv2d_block`` (row 12) and
    ``conv2d_wgrad_block`` (row 13) at ragged C, K and spatial tiles,
    strides 1, 2, 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3, and under
@@ -64,7 +68,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 11. training granite-3-8b at full width, depth cut to 4 of 40 layers,
    bf16, remat "block", 4 x 512 tokens for 8 steps, on the default path
    and with blocked kernels: finite losses, step 0 held against the
-   plain path, step times, tokens/s and a profiled step;
+   plain path, step times, tokens/s and a profiled step whose attention
+   kernels are the tensor-core ones;
 12. the paper's conv path at full Table-4 size: Conv1..Conv5 and AlexNet
    conv1 (stride 4) at batch 2 in bf16 through ``ops.conv2d`` forward and
    ``torch.autograd.grad`` (dX through row 12, dW through row 13), tiles
@@ -73,8 +78,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
-   beside its bound, its plain version and a library call; row 12's
-   forward and dgrad at all six conv layers.
+   beside its bound, its plain version and a library call (rows 4 and 5
+   with their tiles, TFLOP/s, share of the bound and ratio to SDPA, and
+   at S 2048 and 8192 beside SDPA, each pass's kernel time);
+   row 12's forward and dgrad at all six conv layers.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -175,6 +182,63 @@ def gemm_inputs(dev, dtype, m, n, k, seed):
     return a, b
 
 
+# the tensor-core instances' edges (b, sq, skv, hq, hkv, d, causal, window,
+# cap): Sq and Skv of 16k +- 1, Sq < Skv and Sq > Skv, a window crossing a
+# tile boundary, a cap, D 64, G 1 and G 8, non-causal, the join (B 1, S 64).
+# Sq > Skv is non-causal: a causal row that sees no key gets 0 from the
+# kernels (as from JAX's kernel) and the mean of V from the plain
+# version (as from JAX's oracle), so no case holds such a row.
+ATTN_EDGES = ((1, 63, 65, 32, 8, 128, True, None, None),
+              (2, 129, 127, 32, 8, 128, False, None, None),
+              (2, 33, 97, 32, 8, 128, True, None, None),
+              (2, 128, 128, 32, 8, 128, True, 40, None),
+              (2, 96, 96, 32, 8, 128, True, 70, 30.0),
+              (2, 128, 128, 8, 2, 64, True, None, None),
+              (2, 100, 100, 8, 8, 128, True, None, None),
+              (1, 80, 80, 64, 8, 128, True, None, None),
+              (2, 96, 96, 32, 8, 128, False, None, None),
+              (1, 64, 64, 32, 8, 128, True, None, None))
+
+
+def check_attention_edge(dev, dtype, b, sq, skv, hq, hkv, d, causal, window,
+                         cap, with_bwd: bool = False) -> None:
+    """Row 4 (and with ``with_bwd`` its lse and row 5, repeats bit-equal)
+    against the plain versions at one edge shape; the instance that ran is
+    the tensor-core one in bf16, at flash_tiles' tiles."""
+    import torch
+    from repro_torch.core.hopper_adapter import flash_tiles
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    dn = str(dtype).split(".")[1]
+    q, k, v = dense_inputs(dev, dtype, b, sq, skv, seed=sq + skv + hq,
+                           hq=hq, hkv=hkv, d=d)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    tiles = flash_tiles(sq, skv, d, dtype.itemsize)
+    kind = "mma" if dtype == torch.bfloat16 else "cuda_core"
+    tag = (f"{dn} B={b} Sq={sq} Skv={skv} Hq/Hkv={hq}/{hkv} D={d} "
+           f"causal={causal} window={window} cap={cap} tiles={tiles}")
+    if not with_bwd:
+        compare(f"flash_attention {tag}", FA.flash_attention(q, k, v, **kw),
+                FA.flash_attention_ref(q, k, v, **kw), dn)
+        assert FA.flash_attention.instance == (kind, *tiles), tag
+        return
+    g = dense_inputs(dev, dtype, b, sq, sq, seed=sq, hq=hq, hkv=hq, d=d)[0]
+    o, lse = FA._forward(q, k, v, causal, window, cap, with_lse=True)
+    assert FA.flash_attention.instance == (kind, *tiles), tag
+    compare(f"flash_attention lse {tag}", lse,
+            FA.flash_attention_lse_ref(q, k, **kw), "float32", atol=1e-4)
+    got = FB.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    assert FB.flash_attention_bwd.instance == (kind, *tiles), tag
+    want = FB.flash_attention_bwd_ref(q, k, v, o, lse, g, **kw)
+    for name, x, y, n_red in (("dq", got[0], want[0], skv),
+                              ("dk", got[1], want[1], sq * hq // hkv),
+                              ("dv", got[2], want[2], sq * hq // hkv)):
+        atol, _ = grad_tol(dn, n_red, y)
+        compare(f"flash_attention_bwd {name} {tag}", x, y, dn, atol=atol)
+    again = FB.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), tag
+
+
 def phase3_kernels(dev) -> None:
     import torch
     from repro_torch.configs import get_config
@@ -219,6 +283,8 @@ def phase3_kernels(dev) -> None:
             compare(f"flash_attention {dn} Sq={sq} Skv={skv} window={window}"
                     f" cap={cap}", FA.flash_attention(q, k, v, **kw),
                     FA.flash_attention_ref(q, k, v, **kw), dn)
+        for case in ATTN_EDGES:
+            check_attention_edge(dev, dtype, *case)
         # ragged M, N and K (scalar and 16-byte staging paths)
         for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
                                (50, 100, 70, (32, 128, 64)),
@@ -595,6 +661,17 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attn_line(row: dict, flops: float, tiles) -> None:
+    """Rows 4 and 5 in phase 8: the tiles, the rate, the share of the
+    bound and the ratio to the SDPA call."""
+    print(f"  {row['name']} [{row['shape'].split(',')[0]}]: tiles {tiles}, "
+          f"{row['ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of the "
+          f"{row['bound_ms']:.4f} ms bound ({row['bound_by']}), "
+          f"{row['ms'] / row['library_ms']:.2f}x SDPA "
+          f"({row['library_ms']:.4f} ms)")
+
+
 def full_model(seed: int):
     """granite-3-8b at full width and depth in bf16, and phase 5's 16
     requests, all from ``seed``."""
@@ -950,6 +1027,8 @@ def kernel_kind(name: str) -> str:
         return "matmul_blocked"
     if "decode_oproj_kernel" in name:
         return "flash_decode_oproj"
+    if "fwd_mma_kernel" in name:
+        return "flash_attention (mma)"
     if "attn_rows_kernel" in name:
         if "PagedLayout" not in name:
             return "flash_attention"
@@ -1076,9 +1155,12 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
         "plain_ms": time_ms(lambda: FA.flash_attention_ref(q, k, v)),
         "bound_ms": fb_ms, "bound_by": fb_by,
         "library_ms": time_ms(lib),
-        "shape": f"join B=1 Sq=Skv=64 Hq={hq} Hkv={hkv} D={d} causal bf16"})
+        "shape": f"join B=1 Sq=Skv=64 Hq={hq} Hkv={hkv} D={d} causal bf16, "
+                 f"instance {FA.flash_attention.instance}"})
     print(f"  scaled_dot_product_attention vs flash_attention: max |diff| "
           f"{lib_err:.3e}")
+    attn_line(out[-1], 4 * (64 * 65 // 2) * hq * d,
+              FA.flash_attention.instance[1:])
 
     # the projections: decode (M = 8 slots) at each of granite's four
     # shapes, and a 512-token join, with the model's tiles
@@ -1435,6 +1517,10 @@ def phase3_train(dev) -> None:
             n_tiles += len(cand_a) + len(cand_b)
         print(f"  {n_tiles} dgrad adapter tiles checked in {dn}")
 
+        # attention at the tensor-core instances' edges, forward lse and
+        # backward
+        for case in ATTN_EDGES:
+            check_attention_edge(dev, dtype, *case, with_bwd=True)
         # attention: forward lse and the backward kernel on the same
         # (o, lse); the phase-11 shape (4, 512) and its neighbours
         for b, sq, skv, hq, hkv, d, window, cap in (
@@ -1581,13 +1667,16 @@ def train_profile(step_fn, params, state, batch) -> dict:
 
 def train_kind(name: str) -> str:
     """``kernel_kind`` plus the training kernels (csrc/matmul_bwd.cu's
-    nt/tn kernels, csrc/flash_attention_bwd.cu's dq/dkv kernels)."""
+    nt/tn kernels, csrc/flash_attention_bwd.cu's dq/dkv kernels: the
+    CUDA-core fp32 ones and the tensor-core bf16 ones, "(mma)")."""
     if "::nt_kernel<" in name:
         return "matmul_dgrad_a"
     if "::tn_kernel<" in name:
         return "matmul_dgrad_b"
     if "::dq_kernel<" in name or "::dkv_kernel<" in name:
         return "flash_attention_bwd"
+    if "::dq_mma_kernel<" in name or "::dkv_mma_kernel<" in name:
+        return "flash_attention_bwd (mma)"
     return kernel_kind(name)
 
 
@@ -1600,6 +1689,8 @@ def phase11_train(seed: int, kernels: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.train import loop
@@ -1665,6 +1756,16 @@ def phase11_train(seed: int, kernels: dict) -> dict:
             "tokens_per_s_median": statistics.median(
                 h["tokens_per_s"] for h in steady),
             "profile": train_profile(step_fn, params, state, batches[0])}
+        # bf16 attention ran the tensor-core instances, and only those
+        kinds = out[name]["profile"]["device_ms_by_kind"]
+        assert kinds.get("flash_attention (mma)", 0) > 0 and kinds.get(
+            "flash_attention_bwd (mma)", 0) > 0, (name, kinds)
+        assert "flash_attention" not in kinds and \
+            "flash_attention_bwd" not in kinds, (name, kinds)
+        assert FA.flash_attention.instance[0] == "mma" and \
+            FB.flash_attention_bwd.instance[0] == "mma", name
+        print(f"  {name}: attention instances {FA.flash_attention.instance}"
+              f" forward, {FB.flash_attention_bwd.instance} backward")
         print(f"  {name}: median step {out[name]['step_ms_median']:.1f} ms, "
               f"{out[name]['tokens_per_s_median']:.0f} tok/s, peak "
               f"{peak:.2f} GB, launches per step "
@@ -1716,8 +1817,10 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
                                      FA.flash_attention_lse_ref(q, k))),
         "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": time_ms(sdpa),
         "shape": f"train B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16, "
-                 f"with lse; launches: phase 11 blocked run, 8 steps "
-                 f"(forward and remat recompute); library: SDPA forward"})
+                 f"with lse, instance {FA.flash_attention.instance}; "
+                 f"launches: phase 11 blocked run, 8 steps (forward and "
+                 f"remat recompute); library: SDPA forward"})
+    attn_line(rows[-1], 4 * pairs * d, FA.flash_attention.instance[1:])
 
     # row 5: the backward at the same shape; library: SDPA's backward
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
@@ -1743,10 +1846,11 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
             q, k, v, o, lse, g)),
         "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": time_ms(lib),
         "shape": f"train B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal bf16, "
-                 f"tiles {flash_tiles(s, s, d, 2)} "
+                 f"instance {FB.flash_attention_bwd.instance} "
                  f"(the pallas_calls at :134 and :148); launches: phase 11 "
                  f"blocked run, 8 steps; library: SDPA backward "
                  f"(torch.autograd.grad)"})
+    attn_line(rows[-1], 10 * pairs * d, flash_tiles(s, s, d, 2))
 
     # rows 7 and 8: every projection of a step at M = 2048 tokens; the row
     # is the up projection's, the others printed
@@ -1802,6 +1906,77 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
               f"({r['bound_by']})  library {r['library_ms']:.4f} ms  "
               f"[{r['shape']}]")
     return rows
+
+
+def time_attention_passes() -> dict:
+    """Rows 4 and 5 beyond phase 11's shape, bf16, GQA 32/8, D 128,
+    causal: the forward with lse and the backward at (B, S) = (4, 2048)
+    and (1, 8192) beside SDPA's forward and backward (median device ms,
+    L2 flushed), and each launched kernel's device time at the train
+    shape (4, 512) from torch.profiler: the forward and the backward's
+    dq and dk/dv passes."""
+    import re
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.tune.measure import time_ms as measure_ms
+    dev = torch.device("cuda")
+    out = {}
+    for b, s in ((4, 2048), (1, 8192), (4, 512)):
+        q, k, v = dense_inputs(dev, torch.bfloat16, b, s, s, seed=s)
+        g = dense_inputs(dev, torch.bfloat16, b, s, s, seed=s + 1,
+                         hkv=32)[0]
+        o, lse = FA._forward(q, k, v, True, None, None, with_lse=True)
+        if s == 512:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    FA._forward(q, k, v, True, None, None, with_lse=True)
+                    FB.flash_attention_bwd(q, k, v, o, lse, g)
+                torch.cuda.synchronize()
+            passes = {re.search(r"\w+_mma_kernel", e.key).group():
+                      float(e.self_device_time_total) / e.count / 1e3
+                      for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")
+                      and "_mma_kernel" in e.key}
+            # late in this long process the trace has held no kernel
+            # events (the same call alone records them): say so
+            out["passes_ms_at_4x512"] = passes or None
+            print(f"  rows 4 and 5 at B=4 S=512, ms per launch by kernel "
+                  f"(torch.profiler): "
+                  + (f"{ {n: round(t, 4) for n, t in passes.items()} }"
+                     if passes else "not measured (no kernel events in "
+                     "the trace)"))
+            continue
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               enable_gqa=True)
+        pairs = b * 32 * s * (s + 1) // 2
+        row = {
+            "fwd_ms": measure_ms(lambda: FA._forward(
+                q, k, v, True, None, None, with_lse=True), reps=10),
+            "bwd_ms": measure_ms(lambda: FB.flash_attention_bwd(
+                q, k, v, o, lse, g), reps=10),
+            "sdpa_fwd_ms": measure_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), reps=10),
+            "sdpa_bwd_ms": measure_ms(lambda: torch.autograd.grad(
+                lib_o, (qs, ks, vs), g.transpose(1, 2), retain_graph=True),
+                reps=10)}
+        out[f"B{b}xS{s}"] = row
+        print(f"  rows 4 and 5 at B={b} S={s}: forward "
+              f"{row['fwd_ms']:.4f} ms "
+              f"({4 * pairs * 128 / row['fwd_ms'] / 1e9:.1f} TFLOP/s; SDPA "
+              f"{row['sdpa_fwd_ms']:.4f}), backward {row['bwd_ms']:.4f} ms "
+              f"({10 * pairs * 128 / row['bwd_ms'] / 1e9:.1f} TFLOP/s; "
+              f"SDPA {row['sdpa_bwd_ms']:.4f})")
+        del q, k, v, g, o, lse, qs, ks, vs, lib_o
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------ the conv path --------------------------------
@@ -2276,6 +2451,37 @@ def time_row12_layers() -> dict:
     return out
 
 
+def ptxas_report(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each entry function in
+    an ``nvcc -Xptxas -v`` log; the kernel named by its identifier and
+    its integer template arguments (``fwd_mma_kernel<128,64,64>``)."""
+    import re
+
+    def label(mangled: str) -> str:
+        # the length-prefixed names of the (nested) name, in order
+        i = 3 if mangled.startswith("_ZN") else 2
+        while (m := re.match(r"\d+", mangled[i:])) is not None:
+            j = i + len(m.group())
+            i = j + int(m.group())
+            if mangled[j:i].endswith("kernel"):
+                ints = re.findall(r"Li(\d+)E", mangled[i:])[:3]
+                return f"{mangled[j:i]}<{','.join(ints)}>"
+        return mangled[:40]
+
+    out, name, spill = [], "?", 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = label(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, int(m.group(1)), spill))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2337,9 +2543,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s; done after (s): "
           f"{ {n: round(t, 1) for n, _, t in built} }")
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for label, regs, spill in ptxas_report(log):
+            print(f"  {name}: {label}: {regs} registers, {spill} B spilled")
 
     print("phase 3: kernels vs plain versions")
     phase3_kernels(torch.device("cuda"))
@@ -2415,6 +2620,7 @@ def main() -> int:
     rows += time_quant_kernels(cfg, lens, quant["launches"],
                                quant_fused["launches"], quant["page"])
     rows += time_train_kernels(cfg, train)
+    train["attention"] = time_attention_passes()
     rows += time_conv_kernels(conv)
     for name, t in time_row12_layers().items():
         conv[name].setdefault("timing", {})["row12"] = t

@@ -21,9 +21,9 @@ and Hopper's alignment and emits:
 * ``backward_tile_candidates("matmul_dgrad", ...)`` -- (bm, bk, bn) for
   the dgrad kernels (``kernels/matmul_bwd.py``): the GEMM search over
   the cotangent's (M_out, N_out, K_reduce), as JAX reuses it;
-* ``flash_tiles`` -- ``(block_q, block_kv)``, the streamed tiles of the
-  flash-attention backward's two passes, checked against their own
-  footprints;
+* ``flash_tiles`` -- ``(block_q, block_kv)``, the tiles of the
+  flash-attention forward and its backward's two passes, checked
+  against each pass's own footprint;
 * ``conv_tile_candidates`` / ``conv_tiles`` -- (bx, by, bc, bk) for the
   direct blocked conv (``kernels/conv2d_blocked.py``, row 12), and
   ``backward_tile_candidates("conv2d_dgrad" | "conv2d_wgrad", ...)`` for
@@ -38,8 +38,8 @@ tile priced by ``matmul_q.smem_bytes_required``; N and K tiles stay
 multiples of 64, so bn is a whole number of 16-byte int8 copies whenever
 N is), and ``"flash_decode_fp8"``
 ``flash_decode_tile_candidates(kv_bytes=1)`` (1-byte pages under bf16
-q rows: at D = 128 a page of up to 218 keys fits the two-block budget of
-116,224 B, against 110 at 2 bytes; the model chooses).  Each candidate is
+q rows: at D = 128 a page of up to 217 keys fits the two-block budget of
+115,712 B, against 110 at 2 bytes; the model chooses).  Each candidate is
 checked against the CUDA kernel's own footprint (``smem_bytes_required``,
 and for the GEMMs ``accumulators_per_thread``), imported lazily so the
 model stays importable without the kernels.
@@ -68,6 +68,9 @@ class HopperTarget:
     smem_optin_bytes: int     # shared memory one block may opt in to
     blocks_per_sm: int        # resident blocks the GEMM design wants
     acc_per_thread: int       # fp32 accumulator registers per thread
+    smem_per_sm_bytes: int = 233_472      # shared memory of one SM
+    smem_reserved_per_block: int = 1_024  # kept by the card per resident block
+    attn_acc_per_thread: int = 160  # fp32 accumulators of a flash thread
     m_mult: int = 16          # M tiles: multiples of 16 (extents < 16 whole)
     nk_mult: int = 64         # N and K tiles: eight 16-byte bf16 vectors
     key_mult: int = 32        # flash-decode KV tile: one key per lane
@@ -76,7 +79,10 @@ class HopperTarget:
 # NVIDIA's data sheet and the Hopper white paper (H100 SXM).  The GEMM
 # design (csrc/matmul_blocked.cu) runs 256 threads a block, each holding
 # at most 64 fp32 accumulators: 64 of a thread's 128 registers when two
-# blocks share an SM's 65,536.
+# blocks share an SM's 65,536.  The flash-attention tensor-core instances
+# (csrc/attn_mma.cuh) hold at most 160 fp32 sums a thread, of the 255
+# registers a thread may have: the rest hold fragments, addresses and
+# the softmax state.
 H100_SXM = HopperTarget(
     name="h100_sxm",
     peak_bf16_flops=989e12,
@@ -90,12 +96,18 @@ H100_SXM = HopperTarget(
 
 def default_smem_budget(target: HopperTarget = H100_SXM,
                         smem_budget_bytes: int | None = None) -> int:
-    """Shared memory one block's tiles may use: the opt-in limit shared
-    by the resident blocks the GEMM design wants (two, so one block's
-    copies overlap the other's multiplies; the kernel itself keeps only
-    two stages in flight).  The single rule shared by the snap loops
-    here and the candidate filter in ``repro_torch.tune.lowering``."""
-    return smem_budget_bytes or target.smem_optin_bytes // target.blocks_per_sm
+    """Shared memory one block's tiles may use: the SM's shared memory
+    split over the resident blocks the GEMM design wants (two, so one
+    block's copies overlap the other's multiplies; the kernel itself
+    keeps only two stages in flight), less the 1 KB the card reserves
+    for each block, and never more than one block may opt in to.  On the
+    H100: 233,472 // 2 - 1,024 = 115,712 B.  The single rule shared by
+    the snap loops here and the candidate filter in
+    ``repro_torch.tune.lowering``."""
+    return smem_budget_bytes or min(
+        target.smem_optin_bytes,
+        target.smem_per_sm_bytes // target.blocks_per_sm
+        - target.smem_reserved_per_block)
 
 
 def _round_to(v: int, mult: int, lo: int, hi: int) -> int:
@@ -535,35 +547,83 @@ def backward_tile_candidates(op: str, dims: tuple[int, ...],
                                 stride=stride if wgrad else 1, wgrad=wgrad)
 
 
+def _attn_mma_tile(extent: int, tiles: tuple[int, ...]) -> int:
+    """A tile of the tensor-core instances' warp grid (``tiles``: one to
+    four m16 tiles, one per warp, or as many k16 steps): the largest that
+    divides ``extent``, else the largest within ``extent`` rounded up to
+    16 (the ragged edge is masked)."""
+    divs = [t for t in tiles if extent % t == 0]
+    if divs:
+        return max(divs)
+    return max([t for t in tiles if t <= -(-extent // 16) * 16] or
+               [min(tiles)])
+
+
 @functools.lru_cache(maxsize=256)
 def flash_tiles(seq_q: int, seq_kv: int, head_dim: int,
                 bytes_per_elem: int = 2,
                 smem_budget_bytes: int | None = None,
                 target: HopperTarget = H100_SXM) -> tuple[int, int]:
-    """``(block_q, block_kv)`` for the flash-attention backward (the
-    counterpart of ``tpu_adapter.flash_tiles``).
+    """``(block_q, block_kv)`` for flash attention, shared by the forward
+    and both backward passes (the counterpart of
+    ``tpu_adapter.flash_tiles``).
 
     In the paper's vocabulary the streamed tile is the kernel buffer,
     reused by every row of the block, and the running sums are the
-    output buffer held across the stream: the dq pass streams K/V tiles
-    of ``block_kv`` keys, the dk/dv pass (q, do) tiles of ``block_q``
-    query rows.  As on the TPU, each starts large (512 query rows, 1024
-    keys, multiples of 32: one row or key per lane) and halves until its
-    kernel's own footprint (``flash_attention_bwd.dq_smem_bytes`` /
-    ``dkv_smem_bytes``) fits the budget.  The forward still walks fixed
-    32-key tiles (``ROADMAP.md``, queue 1, item 17).
+    output buffer held across the stream: the forward and the dq pass
+    own ``block_q`` query rows and stream K/V tiles of ``block_kv``
+    keys, the dk/dv pass owns ``block_kv`` keys and streams (q, do)
+    tiles of ``block_q`` rows.
+
+    bf16 (the tensor-core instances, ``csrc/attn_mma.cuh``): both tiles
+    lie on the mma warp grid (``flash_attention.MMA_TILES``: one m16
+    tile per warp, up to four warps; a whole number of k16 steps),
+    dividing their extents where one does.  Then, as on the TPU, the
+    larger tile halves (``block_kv`` first on a tie) until every pass's
+    footprint (``fwd_smem_bytes``, ``dq_smem_bytes``,
+    ``dkv_smem_bytes``) fits the budget and its fp32 sums per thread
+    (``*_accumulators``) fit ``target.attn_acc_per_thread``.
+
+    fp32 (the CUDA-core instances): each tile starts large (512 query
+    rows, 1024 keys, multiples of 32: one row or key per lane) and
+    halves until its pass's footprint fits: ``block_q`` the dk/dv
+    pass's, ``block_kv`` the dq pass's and the forward's.
     """
-    from repro_torch.kernels.flash_attention_bwd import (dkv_smem_bytes,
+    from repro_torch.kernels.flash_attention import (MMA_TILES,
+                                                     fwd_accumulators,
+                                                     fwd_smem_bytes)
+    from repro_torch.kernels.flash_attention_bwd import (dkv_accumulators,
+                                                         dkv_smem_bytes,
+                                                         dq_accumulators,
                                                          dq_smem_bytes)
     budget = default_smem_budget(target, smem_budget_bytes)
+    d, esz = head_dim, bytes_per_elem
+    if esz == 2:
+        def fits(bq: int, bkv: int) -> bool:
+            return (max(fwd_smem_bytes(bq, bkv, d, esz),
+                        dq_smem_bytes(bq, bkv, d, esz),
+                        dkv_smem_bytes(bq, bkv, d, esz)) <= budget
+                    and max(fwd_accumulators(bq, bkv, d),
+                            dq_accumulators(bq, bkv, d),
+                            dkv_accumulators(bq, bkv, d))
+                    <= target.attn_acc_per_thread)
+        bq = _attn_mma_tile(seq_q, MMA_TILES)
+        bkv = _attn_mma_tile(seq_kv, MMA_TILES)
+        while not fits(bq, bkv):
+            if bkv >= bq and bkv > min(MMA_TILES):
+                bkv //= 2
+            elif bq > min(MMA_TILES):
+                bq //= 2
+            else:
+                break
+        return bq, bkv
     mult = target.key_mult
     bq = _pick_tile(seq_q, 512, mult)
     bkv = _pick_tile(seq_kv, 1024, mult)
-    while (dkv_smem_bytes(bq, head_dim, bytes_per_elem) > budget
-           and bq > mult):
+    while dkv_smem_bytes(bq, bkv, d, esz) > budget and bq > mult:
         bq = _shrink(seq_q, bq, mult)
-    while (dq_smem_bytes(bkv, head_dim, bytes_per_elem) > budget
-           and bkv > mult):
+    while (max(dq_smem_bytes(bq, bkv, d, esz),
+               fwd_smem_bytes(bq, bkv, d, esz)) > budget and bkv > mult):
         bkv = _shrink(seq_kv, bkv, mult)
     return bq, bkv
 

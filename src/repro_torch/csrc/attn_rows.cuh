@@ -1,6 +1,7 @@
-// Streaming-softmax attention over query rows: the core shared by the
-// port's four attention kernels (flash_attention.cu, flash_decode.cu,
-// flash_decode_oproj.cu, flash_decode_fp8.cu).
+// Streaming-softmax attention over query rows on CUDA cores: the core of
+// the paged decode kernels (flash_decode.cu, flash_decode_oproj.cu,
+// flash_decode_fp8.cu) and of flash_attention.cu's fp32 instance (its
+// bf16 instance runs on the tensor cores, attn_mma.cuh).
 //
 // attn_rows() runs kWarps query rows of one (batch, kv head) pair in one
 // block and hands each finished row to a sink: attn_rows_kernel writes it
@@ -10,14 +11,15 @@
 // rows can see in tiles of `tile` keys, a runtime argument: the paged
 // kernels pass their page size (so the KV tile is one page, as on the TPU,
 // and the blocking model's page choice is the kernel's tile),
-// flash_attention passes kDenseTile.  K and V tiles are
-// staged raw, in their own element type TK (the input dtype, or fp8 e4m3
-// bytes for flash_decode_fp8: one 16-byte cp.async carries 16 keys' dims),
-// in dynamic shared memory two stages deep: the next tile is copied with
-// 16-byte cp.async while the current one is scored.  fp8 elements are
-// widened in registers (e4m3 is exact in fp16, and fp16 in fp32); the
-// per-kv-head scales of an fp8 cache fold into the score scale (k) and
-// into the finished row (v), so no widened tile is ever stored.  Lane j
+// flash_attention's fp32 instance the block_kv of flash_tiles.  K and V
+// tiles are staged raw, in their own element type TK (the input dtype, or
+// fp8 e4m3 bytes for flash_decode_fp8: one 16-byte cp.async carries 16
+// keys' dims), in dynamic shared memory two stages deep: the next tile is
+// copied with 16-byte cp.async while the current one is scored.  fp8
+// elements are widened in registers (e4m3 is exact in fp16, and fp16 in
+// fp32); the per-kv-head scales of an fp8 cache fold into the score
+// scale (k) and into the finished row (v), so no widened tile is ever
+// stored.  Lane j
 // scores keys j, j + 32, ... of the tile against its warp's row and parks
 // the scores in a per-warp row of shared memory; the running max m,
 // denominator l and the fp32 accumulator (lane j holds dims j, j+32, ...)
@@ -57,7 +59,6 @@ namespace attn {
 
 constexpr int kWarps = 4;                 // query rows per block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kDenseTile = 32;            // keys per tile of flash_attention
 constexpr float kNegInf = -1e30f;         // the JAX kernels' NEG_INF
 constexpr float kBig = 1e30f;             // lse of a row that sees nothing
 

@@ -8,7 +8,13 @@ takes ``(B, Sq, Hq, D)`` queries against ``(B, Skv, Hkv, D)`` keys and
 values with GQA indexed natively, where the JAX op vmapped a one-head
 kernel over batch, kv head and group.  Causal masking, a sliding window
 and a tanh logit cap are supported; ``kv_offset = Skv - Sq`` aligns the
-queries to the tail of the keys.
+queries to the tail of the keys.  Two instances: bf16 runs on the
+tensor cores (``mma.sync``, ``csrc/attn_mma.cuh``; P is rounded to bf16
+before its product with V), fp32 on CUDA cores (``csrc/attn_rows.cuh``).
+Both are tiled ``(block_q, block_kv)`` by the Hopper ``flash_tiles``,
+which the backward shares; :func:`fwd_smem_bytes` and
+:func:`fwd_accumulators` mirror the ``.cu``.  The wrapper records the
+instance it launched in ``flash_attention.instance``.
 
 Differentiable: when grad is on and an input requires it, the op runs as
 a ``torch.autograd.Function`` (the counterpart of JAX's
@@ -26,14 +32,44 @@ import ctypes
 
 import torch
 
+from repro_torch.core.hopper_adapter import flash_tiles
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 BIG = 1e30  # the lse of a row that sees no key: exp(s - BIG) == 0
+# block_q and block_kv of the tensor-core instances: one m16 row tile per
+# warp, one to four warps (block_q), and whole k16 steps (block_kv); the
+# .cu instantiates exactly these
+MMA_TILES = (16, 32, 64)
+ROWS_PER_WARP = 16       # the m16 tile a warp owns
+CUDA_CORE_ROWS = 4       # fp32 instances: query rows (or keys) per block
+
+
+def fwd_smem_bytes(block_q: int, block_kv: int, head_dim: int,
+                   bytes_per_elem: int = 2) -> int:
+    """Dynamic shared memory of one forward block (csrc:
+    ``attn_mma::fwd_smem_bytes``, ``attn::smem_bytes``).  bf16: K and V
+    tiles of ``block_kv`` keys, two stages each, and the block's
+    ``block_q`` q rows, staged in the second stage where they fit (they
+    go to registers before the first copy into it).  fp32: K and V
+    tiles, two stages each, the block's 4 q rows and one fp32 score per
+    key for each."""
+    if bytes_per_elem == 2:
+        q_rows = 0 if block_q <= 2 * block_kv else block_q
+        return (2 * 2 * block_kv + q_rows) * head_dim * 2
+    return (2 * 2 * block_kv * head_dim * bytes_per_elem
+            + CUDA_CORE_ROWS * head_dim * bytes_per_elem
+            + CUDA_CORE_ROWS * block_kv * 4)
+
+
+def fwd_accumulators(block_q: int, block_kv: int, head_dim: int) -> int:
+    """fp32 sums a thread of the bf16 forward holds: its warp's m16 x D
+    output and m16 x block_kv scores, over 32 lanes."""
+    return ROWS_PER_WARP * (head_dim + block_kv) // 32
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,12 +149,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.instance = None   # (kind, block_q, block_kv) of the last
+
+
+def instance_kind(dtype: torch.dtype) -> str:
+    """The instance a CUDA tensor of ``dtype`` launches: ``"mma"`` (bf16,
+    tensor cores) or ``"cuda_core"`` (fp32)."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def check_tiles(tiles: tuple[int, int], dtype: torch.dtype
+                ) -> tuple[int, int]:
+    """``(block_q, block_kv)`` as given, or raise where the instance for
+    ``dtype`` has no such tiles (bf16: both in :data:`MMA_TILES`)."""
+    block_q, block_kv = tiles
+    if dtype == torch.bfloat16 and not {block_q, block_kv} <= set(MMA_TILES):
+        raise ValueError(f"tiles {tiles}: the tensor-core instance takes "
+                         f"block_q and block_kv in {MMA_TILES}")
+    if block_q < 1 or block_kv < 1:
+        raise ValueError(f"tiles {tiles} must be positive")
+    return block_q, block_kv
 
 
 def _forward(q, k, v, causal, window, logit_cap, with_lse):
-    """Launch the forward kernel; ``(out, lse or None)``."""
+    """Launch the forward kernel, tiled by the Hopper ``flash_tiles``;
+    ``(out, lse or None)``."""
     b, sq, hq, d = _check(q, k, v, window)
     skv, hkv = k.shape[1], k.shape[2]
+    block_q, block_kv = check_tiles(
+        flash_tiles(sq, skv, d, q.element_size()), q.dtype)
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -126,10 +185,11 @@ def _forward(q, k, v, causal, window, logit_cap, with_lse):
     err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, sq,
              skv, hq, hkv, int(causal), int(window or 0),
-             float(logit_cap or 0.0),
+             float(logit_cap or 0.0), block_q, block_kv,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.instance = (instance_kind(q.dtype), block_q, block_kv)
     return out, lse
 
 

@@ -69,8 +69,9 @@ def smem_bytes_required(page: int, rows_per_block: int, head_dim: int,
 def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int,
                  kv_bytes: int | None = None) -> int:
     """The largest page whose tile fits ``smem_bytes`` of shared memory
-    (head_dim 128 on an H100: 111 keys in fp32, 222 in bf16; 218 for an
-    fp8 pool under bf16 q rows)."""
+    (head_dim 128 on an H100's 232,448 B: 111 keys in fp32, 222 in bf16;
+    at the two-block budget of 115,712 B, 110 in bf16 and 217 for an fp8
+    pool under bf16 q rows)."""
     fixed = smem_bytes_required(0, ROWS_PER_BLOCK, head_dim, bytes_per_elem,
                                 kv_bytes)
     per_key = smem_bytes_required(1, ROWS_PER_BLOCK, head_dim,

@@ -147,8 +147,17 @@ def test_flash_decode_pages_divide_and_fit(seq, itemsize, head_dim):
 
 
 def test_budget_is_the_opt_in_limit_over_resident_blocks():
+    """The SM's 233,472 B over the two resident blocks, less the 1 KB the
+    card reserves for each (two blocks of 116,224 B would not fit), and
+    never above what one block may opt in to."""
     assert H100_SXM.smem_optin_bytes == 232_448
-    assert default_smem_budget() == 232_448 // H100_SXM.blocks_per_sm
+    assert H100_SXM.smem_per_sm_bytes == 233_472
+    assert default_smem_budget() == (
+        233_472 // H100_SXM.blocks_per_sm
+        - H100_SXM.smem_reserved_per_block) == 115_712
+    assert H100_SXM.blocks_per_sm * (
+        default_smem_budget() + H100_SXM.smem_reserved_per_block) \
+        <= H100_SXM.smem_per_sm_bytes
     assert default_smem_budget(smem_budget_bytes=4096) == 4096
     # a hashable target: the tuner memoizes derivations on it
     assert hash(H100_SXM) == hash(H100_SXM)
@@ -178,21 +187,40 @@ def test_dgrad_problems_rank_as_jax(name):
 
 @pytest.mark.parametrize("seq_q,seq_kv,head_dim,itemsize", [
     (512, 512, 128, 2), (512, 512, 128, 4), (64, 64, 128, 4),
-    (64, 64, 64, 2), (2048, 2048, 128, 2), (24, 100, 64, 4)])
+    (64, 64, 64, 2), (2048, 2048, 128, 2), (24, 100, 64, 4),
+    (64, 64, 128, 2),                      # the serving join (B 1, S 64)
+    (512, 512, 64, 2), (16383, 16385, 128, 2), (40, 104, 128, 2),
+    (1, 64, 128, 2)])
 def test_flash_tiles_fit_the_backward_kernels(seq_q, seq_kv, head_dim,
                                               itemsize):
-    """Hopper ``flash_tiles``: whole multiples of 32 (or the extent under
-    32), each pass's footprint within the two-block budget and so within
-    the card's 232,448 B."""
-    from repro_torch.kernels.flash_attention_bwd import (dkv_smem_bytes,
+    """Hopper ``flash_tiles``: one (block_q, block_kv) for the forward and
+    both backward passes.  bf16 (the tensor cores): both on the mma warp
+    grid (one to four m16 row tiles, whole k16 steps), each pass's
+    footprint within the repaired two-block budget of 115,712 B and its
+    fp32 sums per thread within the stated cap.  fp32 (CUDA cores):
+    whole multiples of 32 (or the extent under 32), each pass's footprint
+    within the budget."""
+    from repro_torch.kernels.flash_attention import (MMA_TILES,
+                                                     fwd_accumulators,
+                                                     fwd_smem_bytes)
+    from repro_torch.kernels.flash_attention_bwd import (dkv_accumulators,
+                                                         dkv_smem_bytes,
+                                                         dq_accumulators,
                                                          dq_smem_bytes)
     bq, bkv = flash_tiles(seq_q, seq_kv, head_dim, itemsize)
-    for tile, seq in ((bq, seq_q), (bkv, seq_kv)):
-        assert tile % 32 == 0 or tile == seq < 32
-    assert dkv_smem_bytes(bq, head_dim, itemsize) <= default_smem_budget()
-    assert dq_smem_bytes(bkv, head_dim, itemsize) <= default_smem_budget()
-    assert max(dkv_smem_bytes(bq, head_dim, itemsize),
-               dq_smem_bytes(bkv, head_dim, itemsize)) <= 232_448
+    if itemsize == 2:
+        assert bq in MMA_TILES and bkv in MMA_TILES
+        assert bq % 16 == 0 and bq // 16 <= 4 and bkv % 16 == 0
+        assert max(fwd_accumulators(bq, bkv, head_dim),
+                   dq_accumulators(bq, bkv, head_dim),
+                   dkv_accumulators(bq, bkv, head_dim)) \
+            <= H100_SXM.attn_acc_per_thread
+    else:
+        for tile, seq in ((bq, seq_q), (bkv, seq_kv)):
+            assert tile % 32 == 0 or tile == seq < 32
+    for footprint in (fwd_smem_bytes, dq_smem_bytes, dkv_smem_bytes):
+        assert footprint(bq, bkv, head_dim, itemsize) \
+            <= default_smem_budget() == 115_712
     wgrad = backward_tile_candidates("conv2d_wgrad", (8, 8, 4, 8, 3, 3),
                                      itemsize)
     assert wgrad and all(

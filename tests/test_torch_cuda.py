@@ -12,7 +12,10 @@ versions: fp32 within 1e-4 of the largest |value| (at least 1e-4) and
 Tolerances of the forward kernels: fp32 differs from
 the plain version only in summation order (1e-5 abs / 1e-4 rel); bf16
 rounds the fp32 result to bf16 once, so the two may differ by one bf16
-ulp of an O(1) value (2e-2 abs / 1e-2 rel).  GEMM operands are scaled by
+ulp of an O(1) value (2e-2 abs / 1e-2 rel); the attention kernels' bf16
+instances also round P (and in the backward dS) to bf16 before their
+products, a relative 2^-9 per term that averages out in the sums
+(tests/test_torch_attn_tiles.py holds that rounding to these gates).  GEMM operands are scaled by
 K ** -0.5 so every output is O(1); an fp32 GEMM sums K terms in another
 order than the plain version, so its abs tolerance is 2e-6 * sqrt(K) (a
 random walk of fp32 roundings, with margin).  The conv forward (row 12)
@@ -106,22 +109,84 @@ def test_flash_decode_matches_plain(dev, dtype, q_span, lengths, window,
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+# b, sq, skv, hq, hkv, d, causal, window, cap: the first six the serving
+# joins' shapes (GQA 32/8, D = 128), then the tensor-core instance's edges
+FA_CASES = [
+    (2, 8, 8, 32, 8, 128, True, None, None),
+    (2, 64, 64, 32, 8, 128, True, None, None),
+    (2, 512, 512, 32, 8, 128, True, None, None),
+    (2, 24, 100, 32, 8, 128, True, None, None),
+    (2, 64, 64, 32, 8, 128, True, 16, None),
+    (2, 40, 40, 32, 8, 128, True, None, 30.0),
+    (1, 63, 65, 32, 8, 128, True, None, None),    # 16k - 1, 16k + 1
+    (2, 129, 127, 32, 8, 128, False, None, None),  # Sq > Skv
+    (2, 33, 97, 32, 8, 128, True, None, None),    # Sq < Skv, ragged
+    (2, 128, 128, 32, 8, 128, True, 40, None),    # window across tiles
+    (2, 96, 96, 32, 8, 128, True, 70, 30.0),      # window and cap
+    (2, 128, 128, 8, 2, 64, True, None, None),    # head_dim 64
+    (2, 100, 100, 8, 8, 128, True, None, None),   # G = 1
+    (1, 80, 80, 64, 8, 128, True, None, None),    # G = 8
+    (2, 96, 96, 32, 8, 128, False, None, None),   # non-causal
+    (1, 64, 64, 32, 8, 128, True, None, None),    # the join: B 1, S 64
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,skv,window,cap", [
-    (8, 8, None, None), (64, 64, None, None), (512, 512, None, None),
-    (24, 100, None, None), (64, 64, 16, None), (40, 40, None, 30.0),
-])
-def test_flash_attention_matches_plain(dev, dtype, sq, skv, window, cap):
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window,cap", FA_CASES)
+def test_flash_attention_matches_plain(dev, dtype, b, sq, skv, hq, hkv, d,
+                                       causal, window, cap):
     rng = np.random.default_rng(1)
     t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dtype,  # noqa
                                 device=dev)
-    q, k, v = t(2, sq, 32, 128), t(2, skv, 8, 128), t(2, skv, 8, 128)
+    q, k, v = t(b, sq, hq, d), t(b, skv, hkv, d), t(b, skv, hkv, d)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
     before = flash_attention.launches
-    out = flash_attention(q, k, v, window=window, logit_cap=cap)
+    out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    ref = flash_attention_ref(q, k, v, window=window, logit_cap=cap)
+    ref = flash_attention_ref(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "cuda_core")])
+def test_flash_attention_instance_by_dtype(dev, dtype, kind):
+    """bf16 runs the tensor-core instances, forward and backward, at the
+    tiles of flash_tiles; fp32 the CUDA-core ones."""
+    from repro_torch.core.hopper_adapter import flash_tiles
+    from repro_torch.kernels.flash_attention import _forward
+    q, k, v, g = attn_case(dev, dtype, 2, 128, 128, 32, 8, 128)
+    tiles = flash_tiles(128, 128, 128, dtype.itemsize)
+    o, lse = _forward(q, k, v, True, None, None, with_lse=True)
+    assert flash_attention.instance == (kind, *tiles)
+    flash_attention_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.instance == (kind, *tiles)
+
+
+def test_flash_attention_refuses_tiles_and_head_dims_it_has_not(
+        dev, monkeypatch):
+    """A tile pair off the bf16 instance's warp grid (as a changed
+    flash_tiles could return) raises before any launch, forward and
+    backward; so does a head_dim the kernels do not take."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    q, k, v, g = attn_case(dev, torch.bfloat16, 1, 64, 64, 8, 2, 128)
+    o, lse = FA._forward(q, k, v, True, None, None, with_lse=True)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    for tiles in ((48, 64), (64, 128), (8, 16)):
+        monkeypatch.setattr(FA, "flash_tiles", lambda *a: tiles)
+        monkeypatch.setattr(FB, "flash_tiles", lambda *a: tiles)
+        with pytest.raises(ValueError, match="tensor-core instance"):
+            FA._forward(q, k, v, True, None, None, with_lse=True)
+        with pytest.raises(ValueError, match="tensor-core instance"):
+            flash_attention_bwd(q, k, v, o, lse, g)
+    monkeypatch.undo()
+    q96, k96, v96, _ = attn_case(dev, torch.bfloat16, 1, 64, 64, 8, 2, 96)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q96, k96, v96)
+    assert (flash_attention.launches,
+            flash_attention_bwd.launches) == before
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -510,14 +575,19 @@ def test_ops_matmul_backward_equals_the_plain_gemms(dev):
     grad_close(b.grad, matmul_dgrad_b_ref(a.detach(), g), torch.float32)
 
 
-ATTN_BWD_CASES = [  # b, sq, skv, hq, hkv, d, window, cap
-    (1, 64, 64, 32, 8, 128, None, None),
-    (4, 512, 512, 32, 8, 128, None, None),
-    (2, 100, 100, 32, 8, 128, None, None),    # ragged S
-    (2, 40, 104, 32, 8, 128, None, None),     # Sq < Skv
-    (2, 128, 128, 32, 8, 128, 48, None),      # window
-    (2, 96, 96, 32, 8, 128, None, 30.0),      # cap
-    (2, 128, 128, 8, 2, 64, None, None),      # head_dim 64
+ATTN_BWD_CASES = [  # b, sq, skv, hq, hkv, d, window, cap, causal
+    (1, 64, 64, 32, 8, 128, None, None, True),
+    (4, 512, 512, 32, 8, 128, None, None, True),
+    (2, 100, 100, 32, 8, 128, None, None, True),    # ragged S
+    (2, 40, 104, 32, 8, 128, None, None, True),     # Sq < Skv
+    (2, 128, 128, 32, 8, 128, 48, None, True),      # window
+    (2, 96, 96, 32, 8, 128, None, 30.0, True),      # cap
+    (2, 128, 128, 8, 2, 64, None, None, True),      # head_dim 64
+    (1, 63, 65, 32, 8, 128, None, None, True),      # 16k - 1, 16k + 1
+    (2, 128, 128, 32, 8, 128, 40, None, True),      # window across tiles
+    (2, 100, 100, 8, 8, 128, None, None, True),     # G = 1
+    (1, 80, 80, 64, 8, 128, None, None, True),      # G = 8
+    (2, 96, 96, 32, 8, 128, None, None, False),     # non-causal
 ]
 
 
@@ -530,16 +600,18 @@ def attn_case(dev, dtype, b, sq, skv, hq, hkv, d, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window,cap", ATTN_BWD_CASES)
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window,cap,causal",
+                         ATTN_BWD_CASES)
 def test_flash_attention_lse_and_bwd_match_plain(dev, dtype, b, sq, skv, hq,
-                                                 hkv, d, window, cap):
+                                                 hkv, d, window, cap,
+                                                 causal):
     """The forward's lse residual, and the backward kernel against its
     plain version on the same (o, lse); repeated launches agree bit for
     bit."""
     from repro_torch.kernels.flash_attention import _forward
     q, k, v, g = attn_case(dev, dtype, b, sq, skv, hq, hkv, d, seed=sq)
-    kw = dict(causal=True, window=window, logit_cap=cap)
-    o, lse = _forward(q, k, v, True, window, cap, with_lse=True)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    o, lse = _forward(q, k, v, causal, window, cap, with_lse=True)
     torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
                                atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(o.float(), flash_attention_ref(

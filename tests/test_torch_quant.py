@@ -466,7 +466,7 @@ def test_fp8_page_and_chunk_fit_the_fp8_kernel():
     assert 512 % page == 0
     assert smem_bytes_required(page, ROWS_PER_BLOCK, 128, 2, 1) <= \
         default_smem_budget()
-    assert largest_page(128, 2, default_smem_budget(), kv_bytes=1) == 218
+    assert largest_page(128, 2, default_smem_budget(), kv_bytes=1) == 217
     assert largest_page(128, 2, default_smem_budget()) == 110
     assert choose_prefill_chunk(cfg, 512, page) == 512
 
