@@ -26,7 +26,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    q_span 1 and 64, window, cap and unit or drawn scales; the training
    kernels: ``matmul_dgrad_a``/``_b`` at ragged shapes and under every
    ``"matmul_dgrad"`` adapter tile of granite's projections at 2048
-   tokens, the forward's lse and ``flash_attention_bwd`` (GQA 32/8,
+   tokens (bf16 on the tensor-core ``mma`` instance, at 2 and 3
+   stages; fp32 on the CUDA-core one), the forward's lse and
+   ``flash_attention_bwd`` (GQA 32/8,
    D = 128 and 64; ragged S, Sq < Skv, window, cap), repeats bit-equal;
    rows 4 and 5 at the tensor-core instances' edges (Sq, Skv of 16k +- 1,
    Sq < Skv and Sq > Skv, a window across tiles, a cap, D 64, G 1 and 8,
@@ -69,7 +71,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bf16, remat "block", 4 x 512 tokens for 8 steps, on the default path
    and with blocked kernels: finite losses, step 0 held against the
    plain path, step times, tokens/s and a profiled step whose attention
-   kernels are the tensor-core ones;
+   kernels (and, blocked, dgrad kernels) are the tensor-core ones;
 12. the paper's conv path at full Table-4 size: Conv1..Conv5 and AlexNet
    conv1 (stride 4) at batch 2 in bf16 through ``ops.conv2d`` forward and
    ``torch.autograd.grad`` (dX through row 12, dW through row 13), tiles
@@ -80,7 +82,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
    beside its bound, its plain version and a library call (rows 4 and 5
    with their tiles, TFLOP/s, share of the bound and ratio to SDPA, and
-   at S 2048 and 8192 beside SDPA, each pass's kernel time);
+   at S 2048 and 8192 beside SDPA, each pass's kernel time; rows 7 and 8
+   at all four projection shapes with the model's tiles, TFLOP/s, share
+   of the bound, ratio to ``torch.matmul``, two and three stages);
    row 12's forward and dgrad at all six conv layers.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
@@ -1481,11 +1485,15 @@ def phase3_train(dev) -> None:
             return (a.to(dtype), b.to(dtype), g.to(dtype),
                     (g * m ** -0.5).to(dtype))
 
+        kind = MW.instance_kind(dtype)   # bf16: "mma", fp32: "fma"
+
         def check_dgrad(tag, m, n, k, tiles_a, tiles_b, seed):
             a, b, g, gb = dgrad_pair(m, n, k, seed)
             if tiles_a is not None:
                 t0, t1, t2 = tiles_a
                 da = MW.matmul_dgrad_a(g, b, bm=t0, br=t1, bo=t2)
+                assert MW.matmul_dgrad_a.instance[0] == kind, \
+                    MW.matmul_dgrad_a.instance
                 compare(f"matmul_dgrad_a {dn} {tag} tiles={tiles_a}", da,
                         MW.matmul_dgrad_a_ref(g, b), dn, gemm_atol(dn, n))
                 assert torch.equal(da, MW.matmul_dgrad_a(g, b, bm=t0, br=t1,
@@ -1493,16 +1501,32 @@ def phase3_train(dev) -> None:
             if tiles_b is not None:
                 t0, t1, t2 = tiles_b
                 db = MW.matmul_dgrad_b(a, gb, bk=t0, br=t1, bn=t2)
+                assert MW.matmul_dgrad_b.instance[0] == kind, \
+                    MW.matmul_dgrad_b.instance
                 compare(f"matmul_dgrad_b {dn} {tag} tiles={tiles_b}", db,
                         MW.matmul_dgrad_b_ref(a, gb), dn, gemm_atol(dn, m))
                 assert torch.equal(db, MW.matmul_dgrad_b(a, gb, bk=t0, br=t1,
                                                          bn=t2))
-        # ragged M, N and K (scalar and 16-byte staging paths)
+        # ragged M, N and K (scalar and 16-byte staging paths), a tile
+        # off the default warp grid, and in bf16 both stage counts
         for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
                                (50, 100, 70, (32, 48, 64)),
                                (3, 5, 7, (3, 64, 64)),
-                               (520, 4104, 4100, (128, 64, 128))):
+                               (520, 4104, 4100, (128, 64, 128)),
+                               (2048, 4096, 1024, (80, 64, 128))):
             check_dgrad(f"M={m} N={n} K={k}", m, n, k, tiles, tiles, m + n)
+        if kind == "mma":
+            a, b, g, gb = dgrad_pair(520, 4104, 4100, 7)
+            for st in (2, 3):
+                da = MW.matmul_dgrad_a(g, b, bm=128, br=64, bo=128,
+                                       stages=st)
+                db = MW.matmul_dgrad_b(a, gb, bk=128, br=64, bn=128,
+                                       stages=st)
+                assert MW.matmul_dgrad_a.instance[2] == st
+                compare(f"matmul_dgrad_a {dn} M=520 stages={st}", da,
+                        MW.matmul_dgrad_a_ref(g, b), dn)
+                compare(f"matmul_dgrad_b {dn} M=520 stages={st}", db,
+                        MW.matmul_dgrad_b_ref(a, gb), dn)
         # every "matmul_dgrad" adapter tile of granite's projections at
         # 2048 tokens: dA asks (M, K, N), dB (K, N, M)
         m, n_tiles = 2048, 0
@@ -1515,7 +1539,8 @@ def phase3_train(dev) -> None:
                             cand_a[i] if i < len(cand_a) else None,
                             cand_b[i] if i < len(cand_b) else None, n + k)
             n_tiles += len(cand_a) + len(cand_b)
-        print(f"  {n_tiles} dgrad adapter tiles checked in {dn}")
+        print(f"  {n_tiles} dgrad adapter tiles checked in {dn} on the "
+              f"{kind!r} instance")
 
         # attention at the tensor-core instances' edges, forward lse and
         # backward
@@ -1673,6 +1698,10 @@ def train_kind(name: str) -> str:
         return "matmul_dgrad_a"
     if "::tn_kernel<" in name:
         return "matmul_dgrad_b"
+    if "::nt_mma_kernel<" in name:
+        return "matmul_dgrad_a (mma)"
+    if "::tn_mma_kernel<" in name:
+        return "matmul_dgrad_b (mma)"
     if "::dq_kernel<" in name or "::dkv_kernel<" in name:
         return "flash_attention_bwd"
     if "::dq_mma_kernel<" in name or "::dkv_mma_kernel<" in name:
@@ -1691,6 +1720,7 @@ def phase11_train(seed: int, kernels: dict) -> dict:
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import matmul_bwd as MW
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.train import loop
@@ -1766,6 +1796,16 @@ def phase11_train(seed: int, kernels: dict) -> dict:
             FB.flash_attention_bwd.instance[0] == "mma", name
         print(f"  {name}: attention instances {FA.flash_attention.instance}"
               f" forward, {FB.flash_attention_bwd.instance} backward")
+        if blocked:
+            # bf16 dgrad ran the tensor-core instances, and only those
+            assert kinds.get("matmul_dgrad_a (mma)", 0) > 0 and kinds.get(
+                "matmul_dgrad_b (mma)", 0) > 0, (name, kinds)
+            assert "matmul_dgrad_a" not in kinds and \
+                "matmul_dgrad_b" not in kinds, (name, kinds)
+            assert MW.matmul_dgrad_a.instance[0] == "mma" and \
+                MW.matmul_dgrad_b.instance[0] == "mma", name
+            print(f"  {name}: dgrad instances {MW.matmul_dgrad_a.instance} "
+                  f"(dA), {MW.matmul_dgrad_b.instance} (dB)")
         print(f"  {name}: median step {out[name]['step_ms_median']:.1f} ms, "
               f"{out[name]['tokens_per_s_median']:.0f} tok/s, peak "
               f"{peak:.2f} GB, launches per step "
@@ -1852,8 +1892,11 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
                  f"(torch.autograd.grad)"})
     attn_line(rows[-1], 10 * pairs * d, flash_tiles(s, s, d, 2))
 
-    # rows 7 and 8: every projection of a step at M = 2048 tokens; the row
-    # is the up projection's, the others printed
+    # rows 7 and 8: every projection of a step at M = 2048 tokens, the
+    # model's tiles, each beside its bound and torch.matmul, the two- and
+    # three-stage instances in turns (2, 3, 3, 2; the row takes the
+    # instance that runs by default); the row is the up projection's,
+    # the others printed
     m = b * s
     for n, kk in GRANITE_NK:
         gen = torch.Generator(device=dev).manual_seed(n + kk)
@@ -1863,21 +1906,29 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
         gg = torch.randn((m, n), generator=gen, device=dev).to(bf16)
         ta = best_schedule("matmul_dgrad", (m, kk, n), "bfloat16").tiles
         tb = best_schedule("matmul_dgrad", (kk, n, m), "bfloat16").tiles
+        print(f"  the model's dgrad tiles at M={m} N={n} K={kk}: dA {ta}, "
+              f"dB {tb}")
         flops = 2 * m * n * kk
         for name, fn, plain, lib, tiles, io in (
                 ("matmul_dgrad_a",
-                 lambda: MW.matmul_dgrad_a(gg, w, bm=ta[0], br=ta[1],
-                                           bo=ta[2]),
+                 lambda st: MW.matmul_dgrad_a(gg, w, bm=ta[0], br=ta[1],
+                                              bo=ta[2], stages=st),
                  lambda: MW.matmul_dgrad_a_ref(gg, w),
                  lambda: torch.matmul(gg, w.T), ta,
                  (gg.numel() + w.numel() + m * kk) * 2),
                 ("matmul_dgrad_b",
-                 lambda: MW.matmul_dgrad_b(a, gg, bk=tb[0], br=tb[1],
-                                           bn=tb[2]),
+                 lambda st: MW.matmul_dgrad_b(a, gg, bk=tb[0], br=tb[1],
+                                              bn=tb[2], stages=st),
                  lambda: MW.matmul_dgrad_b_ref(a, gg),
                  lambda: torch.matmul(a.T, gg), tb,
                  (a.numel() + gg.numel() + kk * n) * 2)):
             b_ms, b_by = bound(io, flops)
+            by_stages = {2: [], 3: []}
+            for st in (2, 3, 3, 2):
+                by_stages[st].append(time_ms(lambda: fn(st)))
+            st_ms = {st: statistics.mean(t) for st, t in by_stages.items()}
+            fn(None)
+            instance = getattr(MW, name).instance
             row = {
                 "name": name, "route": "cuda",
                 "source": "src/repro_torch/csrc/matmul_bwd.cu",
@@ -1885,21 +1936,25 @@ def time_train_kernels(cfg, train: dict) -> list[dict]:
                              if name.endswith("_a") else
                              "src/repro/kernels/matmul_bwd.py:104"),
                 "launches": int(per_step[name] * 8),
-                "max_abs_err": float((fn().float() - plain().float())
+                "max_abs_err": float((fn(None).float() - plain().float())
                                      .abs().max()),
-                "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                "ms": st_ms[instance[2]], "plain_ms": time_ms(plain),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": time_ms(lib),
-                "shape": f"M={m} N={n} K={kk} tiles={tiles} bf16; "
+                "shape": f"M={m} N={n} K={kk} tiles={tiles} bf16, "
+                         f"instance {instance}; stages 2 / 3: "
+                         f"{st_ms[2]:.4f} / {st_ms[3]:.4f} ms; "
                          f"launches: phase 11 blocked run, 8 steps; "
                          f"library: torch.matmul of the transposed view"}
+            print(f"  {name} N={n} K={kk} tiles {tiles}: {row['ms']:.4f} ms,"
+                  f" {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+                  f"{100 * b_ms / row['ms']:.1f}% of the {b_ms:.4f} ms bound "
+                  f"({b_by}), {row['ms'] / row['library_ms']:.2f}x "
+                  f"torch.matmul ({row['library_ms']:.4f} ms); stages 2 / 3 "
+                  f"{st_ms[2]:.4f} / {st_ms[3]:.4f} ms; plain "
+                  f"{row['plain_ms']:.4f} ms")
             if n == 12800 and kk == 4096:
                 rows.append(row)
-            else:
-                print(f"  {name} {row['ms']:.4f} ms  plain "
-                      f"{row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
-                      f"({b_by})  library {row['library_ms']:.4f} ms  "
-                      f"[{row['shape']}]")
     for r in rows:
         print(f"  {r['name']:<22} {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
@@ -2545,6 +2600,14 @@ def main() -> int:
     for name, log in reports.items():
         for label, regs, spill in ptxas_report(log):
             print(f"  {name}: {label}: {regs} registers, {spill} B spilled")
+    dgrad_mma = [(regs, spill) for label, regs, spill in
+                 ptxas_report(reports.get("matmul_bwd", ""))
+                 if "_mma_kernel" in label]
+    if dgrad_mma:
+        print(f"  matmul_bwd: {len(dgrad_mma)} nt_mma_kernel/tn_mma_kernel "
+              f"instances, {min(r for r, _ in dgrad_mma)}-"
+              f"{max(r for r, _ in dgrad_mma)} registers, "
+              f"{sum(sp for _, sp in dgrad_mma)} B spilled in all")
 
     print("phase 3: kernels vs plain versions")
     phase3_kernels(torch.device("cuda"))

@@ -20,7 +20,9 @@ and Hopper's alignment and emits:
   oproj-fused decode kernel (the page of a fused engine);
 * ``backward_tile_candidates("matmul_dgrad", ...)`` -- (bm, bk, bn) for
   the dgrad kernels (``kernels/matmul_bwd.py``): the GEMM search over
-  the cotangent's (M_out, N_out, K_reduce), as JAX reuses it;
+  the cotangent's (M_out, N_out, K_reduce), as JAX reuses it, snapped to
+  the dgrad kernels' own footprint (in bf16 their tensor-core warp
+  grid);
 * ``flash_tiles`` -- ``(block_q, block_kv)``, the tiles of the
   flash-attention forward and its backward's two passes, checked
   against each pass's own footprint;
@@ -148,23 +150,47 @@ def _shrink(extent: int, tile: int, mult: int) -> int:
 
 def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
                  bytes_per_elem: int, budget: int, target: HopperTarget,
-                 w_bytes: int | None = None) -> tuple[int, int, int]:
+                 w_bytes: int | None = None,
+                 dgrad: bool = False) -> tuple[int, int, int]:
     """Snap an analytical (bm, bk, bn) to Hopper alignment, the shared
-    memory budget and the register limit, shrinking one tile at a time."""
-    from repro_torch.kernels.matmul_blocked import (accumulators_per_thread,
+    memory budget and the register limit, shrinking one tile at a time:
+    the forward GEMM's footprint and accumulator, or with ``dgrad`` the
+    dgrad kernels' (:func:`dgrad_fits`)."""
+    if dgrad:
+        from repro_torch.kernels.matmul_bwd import (accumulators_per_thread,
                                                     smem_bytes_required)
+
+        def acc(bm, bn):
+            return accumulators_per_thread(bm, bn, bytes_per_elem)
+
+        def smem(bm, bk, bn):
+            return smem_bytes_required(bm, bk, bn, bytes_per_elem)
+
+        def fits(bm, bk, bn):
+            return dgrad_fits(bm, bk, bn, bytes_per_elem, budget, target)
+    else:
+        from repro_torch.kernels.matmul_blocked import (
+            accumulators_per_thread as acc)
+
+        def smem(bm, bk, bn):
+            from repro_torch.kernels.matmul_blocked import \
+                smem_bytes_required
+            return smem_bytes_required(bm, bk, bn, bytes_per_elem, w_bytes)
+
+        def fits(bm, bk, bn):
+            return matmul_fits(bm, bk, bn, bytes_per_elem, budget, target,
+                               w_bytes)
     mm, mk = target.m_mult, target.nk_mult
     bm = _pick_tile(M, max(bm, mm), mm)
     bn = _pick_tile(N, max(bn, mk), mk)
     bk = _pick_tile(K, max(bk, mk), mk)
-    while not matmul_fits(bm, bk, bn, bytes_per_elem, budget, target,
-                          w_bytes):
-        regs_ok = accumulators_per_thread(bm, bn) <= target.acc_per_thread
-        smem_over = smem_bytes_required(bm, bk, bn, bytes_per_elem,
-                                        w_bytes) > budget
+    while not fits(bm, bk, bn):
+        regs_ok = acc(bm, bn) <= target.acc_per_thread
+        smem_over = smem(bm, bk, bn) > budget
         # the staged tiles are bk * (bm + bn): shrink bk first while it
         # is the larger factor; an accumulator over the register limit
-        # can only shrink through bm or bn
+        # (or a dgrad warp grid with too many empty rows) can only shrink
+        # through bm or bn
         if regs_ok and smem_over and bk > mk and bk * (bm + bn) >= bm * bn:
             bk = _shrink(K, bk, mk)
         elif bm >= bn and bm > mm:
@@ -184,7 +210,8 @@ def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
 def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
                            smem_budget_bytes: int | None = None,
                            target: HopperTarget = H100_SXM,
-                           top: int = 8, w_bytes: int | None = None
+                           top: int = 8, w_bytes: int | None = None,
+                           dgrad: bool = False
                            ) -> tuple[tuple[int, int, int], ...]:
     """Ranked (bm, bk, bn) candidates for C[M,N] = A[M,K] @ B[K,N].
 
@@ -196,7 +223,9 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
     predicted DRAM accesses and measurement.  A candidate that fits no
     budget after snapping is dropped by the tuner's filter.
     ``w_bytes``: the B operand's own width (1 for an int8 weight), which
-    the model's nest and the kernel's footprint both see.
+    the model's nest and the kernel's footprint both see.  ``dgrad``:
+    snap to the dgrad kernels (:func:`dgrad_fits`) instead of the
+    forward GEMM.
     """
     budget = default_smem_budget(target, smem_budget_bytes)
     problem = Problem.gemm(M=M, N_cols=N, K_reduce=K,
@@ -212,7 +241,7 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
     out: list[tuple[int, int, int]] = []
     for bm, bk, bn in raw:
         cand = _snap_matmul(bm, bk, bn, M, N, K, bytes_per_elem, budget,
-                            target, w_bytes)
+                            target, w_bytes, dgrad)
         if cand not in out:
             out.append(cand)
     return tuple(out[:top])
@@ -221,13 +250,24 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
 def dgrad_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
                budget: int, target: HopperTarget = H100_SXM) -> bool:
     """Whether the dgrad kernels hold these tiles (roles of the
-    cotangent's nest): their staged operand pair within ``budget``
-    (``matmul_bwd.smem_bytes_required``: the forward's whenever bk is a
-    multiple of 8) and the forward's accumulator limit."""
-    from repro_torch.kernels.matmul_blocked import accumulators_per_thread
-    from repro_torch.kernels.matmul_bwd import smem_bytes_required
+    cotangent's nest): both kernels' staged operands within ``budget``
+    (``matmul_bwd.smem_bytes_required``, the larger of NT's and TN's) and
+    their fp32 sums within the register limit
+    (``matmul_bwd.accumulators_per_thread``).  In bf16 that is the
+    tensor-core instance at its stage count on a warp grid of
+    ``matmul_bwd.mma_layout``, which must leave at most
+    ``MAX_EMPTY_ROWS`` of its computed rows empty unless the tile is under
+    one m16 fragment (an M extent below 16); in fp32 the CUDA-core
+    instance, the forward's footprint whenever bk is a multiple of 8."""
+    from repro_torch.kernels.matmul_bwd import (MMA_M,
+                                                accumulators_per_thread,
+                                                empty_row_share,
+                                                smem_bytes_required)
     return (smem_bytes_required(bm, bk, bn, bytes_per_elem) <= budget
-            and accumulators_per_thread(bm, bn) <= target.acc_per_thread)
+            and accumulators_per_thread(bm, bn, bytes_per_elem)
+            <= target.acc_per_thread
+            and (bytes_per_elem != 2 or bm < MMA_M
+                 or empty_row_share(bm, bn) <= MAX_EMPTY_ROWS))
 
 
 def conv_fits(bx: int, by: int, bc: int, bk: int, Fw: int, Fh: int,
@@ -328,8 +368,8 @@ def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
     return bx, by, bc, bk
 
 
-# the bf16 conv kernel's M rows (16 x its warps down M x their m16
-# fragments) that may lie past the tile's bx * by pixels
+# the bf16 conv and dgrad kernels' M rows (16 x their warps down M x
+# their m16 fragments) that may lie past the tile's rows (bx * by pixels)
 MAX_EMPTY_ROWS = 1 / 8
 
 
@@ -527,7 +567,8 @@ def backward_tile_candidates(op: str, dims: tuple[int, ...],
     * ``"matmul_dgrad"``: the GEMM search over the cotangent's
       ``(M_out, N_out, K_reduce)`` (dA: ``(M, K, N)``; dB: ``(K, N,
       M)``), tiles ``(bm, bk, bn)`` in its row, reduction and column
-      roles;
+      roles, snapped to the dgrad kernels' footprint (:func:`dgrad_fits`:
+      in bf16 the tensor-core instance's stages, sums and warp grid);
     * ``"conv2d_dgrad"``: the transposed conv as a direct conv (channels
       swapped, the stride folded into host-side dilation, so searched at
       stride 1), snapped to row 12's footprint, which it runs;
@@ -537,7 +578,8 @@ def backward_tile_candidates(op: str, dims: tuple[int, ...],
     if op == "matmul_dgrad":
         M, N, K = dims
         return matmul_tile_candidates(M, N, K, bytes_per_elem,
-                                      smem_budget_bytes, target, top)
+                                      smem_budget_bytes, target, top,
+                                      dgrad=True)
     if op not in ("conv2d_dgrad", "conv2d_wgrad"):
         raise ValueError(f"not a backward op: {op!r}")
     X, Y, C, K, Fw, Fh = dims

@@ -39,6 +39,7 @@ from repro_torch.core import optimizer as t_optimizer
 from repro_torch.core.hopper_adapter import (H100_SXM,
                                              backward_tile_candidates,
                                              conv_fits, default_smem_budget,
+                                             dgrad_fits,
                                              flash_decode_tile_candidates,
                                              flash_tiles,
                                              matmul_tile_candidates)
@@ -176,13 +177,19 @@ def test_largest_page_is_the_last_that_fits(itemsize):
 @pytest.mark.parametrize("name", sorted(DGRADS))
 def test_dgrad_problems_rank_as_jax(name):
     """The port's core ranks the dgrad GEMM nests exactly as JAX's core,
-    and the "matmul_dgrad" candidates are the GEMM search over them."""
+    and the "matmul_dgrad" candidates are the GEMM search over them,
+    snapped to the dgrad kernels' own footprint: in bf16 the tensor-core
+    instance's (``dgrad_fits``: its stages, sums and warp grid), in fp32
+    the CUDA-core instance's, which is the forward's."""
     got = ranked(PORT, name)
     assert got and got == ranked(JAX, name)
     kw = DGRADS[name]
     dims = (kw["M"], kw["N_cols"], kw["K_reduce"])
-    assert backward_tile_candidates("matmul_dgrad", dims) == \
-        matmul_tile_candidates(*dims)
+    cands = backward_tile_candidates("matmul_dgrad", dims)
+    assert cands == matmul_tile_candidates(*dims, dgrad=True)
+    assert all(dgrad_fits(*t, 2, default_smem_budget()) for t in cands)
+    assert backward_tile_candidates("matmul_dgrad", dims, 4) == \
+        matmul_tile_candidates(*dims, 4)
 
 
 @pytest.mark.parametrize("seq_q,seq_kv,head_dim,itemsize", [

@@ -49,7 +49,7 @@ from repro_torch.kernels.matmul_blocked import matmul_blocked, matmul_ref
 from repro_torch.kernels.matmul_bwd import (matmul_dgrad_a,
                                             matmul_dgrad_a_ref,
                                             matmul_dgrad_b,
-                                            matmul_dgrad_b_ref)
+                                            matmul_dgrad_b_ref, mma_layout)
 from repro_torch.kernels.matmul_fused import matmul_fused, matmul_fused_ref
 from repro_torch.kernels.matmul_q import matmul_w8, matmul_w8_ref
 from repro_torch.kernels.qkv_fused import qkv_fused, qkv_fused_ref
@@ -525,6 +525,9 @@ def grad_close(out, ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,n,k,tiles", [
     (2048, 4096, 4096, (128, 64, 128)),   # a training projection
+    (2048, 12800, 4096, (128, 64, 128)),  # the up projection, model's tile
+    (2048, 4096, 12800, (128, 64, 128)),  # the down projection
+    (2048, 4096, 1024, (80, 64, 128)),    # a tile off the default grid
     (256, 1024, 512, (64, 64, 128)),
     (37, 1000, 300, (16, 64, 64)),        # ragged (scalar staging)
     (50, 100, 70, (32, 48, 64)),          # ragged, reduction step 48
@@ -533,7 +536,8 @@ def grad_close(out, ref, dtype):
 def test_matmul_dgrad_matches_plain(dev, dtype, m, n, k, tiles):
     """dA = g @ b^T and dB = a^T @ g for C[m, n] = a[m, k] @ b[k, n],
     operands scaled so both are O(1); repeated launches agree bit for
-    bit."""
+    bit; bf16 runs the tensor-core ("mma") instance on its warp grid,
+    fp32 the CUDA-core ("fma") one."""
     rng = np.random.default_rng(m + n)
     t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dtype,  # noqa
                                 device=dev)
@@ -555,6 +559,11 @@ def test_matmul_dgrad_matches_plain(dev, dtype, m, n, k, tiles):
                                **gemm_tol(dtype, m))
     assert torch.equal(da, matmul_dgrad_a(g, b, bm=t0, br=t1, bo=t2))
     assert torch.equal(db, matmul_dgrad_b(a, gb, bk=t0, br=t1, bn=t2))
+    kind = "mma" if dtype == torch.bfloat16 else "fma"
+    for fn in (matmul_dgrad_a, matmul_dgrad_b):
+        assert fn.instance[0] == kind
+        if kind == "mma":
+            assert fn.instance[1] == mma_layout(t0, t2)
 
 
 def test_ops_matmul_backward_equals_the_plain_gemms(dev):

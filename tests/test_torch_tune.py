@@ -527,8 +527,11 @@ def test_dgrad_key_model_arithmetic_and_cache_key_match_jax(op, dims, dtype,
 def test_dgrad_candidates_fit_the_tile_core(dims, dtype):
     """Every "matmul_dgrad" candidate fits the dgrad kernels' own
     footprint (``matmul_bwd.smem_bytes_required``) within the two-block
-    budget and the tile core's accumulator limit; the dividing ones rank
-    by predicted accesses, as JAX ranks the key."""
+    budget and the instance's fp32 sums within the register limit (bf16:
+    the tensor-core warp grid, at most 1/8 of its rows empty; fp32: the
+    tile core's accumulator); the dividing ones rank by predicted
+    accesses, as JAX ranks the key."""
+    from repro_torch.core.hopper_adapter import MAX_EMPTY_ROWS
     from repro_torch.kernels import matmul_blocked as MBL
     from repro_torch.kernels import matmul_bwd as MBW
     spec = OpSpec("matmul_dgrad", dims, dtype)
@@ -538,7 +541,13 @@ def test_dgrad_candidates_fit_the_tile_core(dims, dtype):
         bm, bk, bn = s.tiles
         assert fits_smem(spec, s.tiles, BUDGET)
         assert MBW.smem_bytes_required(bm, bk, bn, spec.itemsize) <= BUDGET
-        assert MBL.accumulators_per_thread(bm, bn) <= H100_SXM.acc_per_thread
+        assert MBW.accumulators_per_thread(bm, bn, spec.itemsize) \
+            <= H100_SXM.acc_per_thread
+        if spec.itemsize == 2:
+            assert MBW.empty_row_share(bm, bn) <= MAX_EMPTY_ROWS
+        else:
+            assert MBL.accumulators_per_thread(bm, bn) \
+                <= H100_SXM.acc_per_thread
     scored = [s.predicted_dram_accesses for s in cands
               if s.predicted_dram_accesses is not None]
     assert scored == sorted(scored)
