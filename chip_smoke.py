@@ -36,9 +36,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``flash_tiles``' tiles, in fp32 on the CUDA-core one;
    the conv kernels: ``conv2d_block`` (row 12) and
    ``conv2d_wgrad_block`` (row 13) at ragged C, K and spatial tiles,
-   strides 1, 2, 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3, and under
-   every tile the adapter emits for the Table-4 layers and AlexNet conv1
-   under the three conv keys, repeats bit-equal;
+   strides 1, 2, 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3, the
+   branches of both tensor-core instances, and under every tile the
+   adapter emits for the Table-4 layers and AlexNet conv1 under the
+   three conv keys, repeats bit-equal, every bf16 wgrad on its ``mma``
+   instance;
 4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
    fused, with wide weights and under w8fp8 (int8 projections, fp8
    pages): the kernel path and the plain path give identical greedy
@@ -76,7 +78,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    conv1 (stride 4) at batch 2 in bf16 through ``ops.conv2d`` forward and
    ``torch.autograd.grad`` (dX through row 12, dW through row 13), tiles
    from the model under the three conv keys, held against the fp32
-   oracles, launch counts asserted, the plain path launching nothing;
+   oracles, launch counts asserted, every wgrad on row 13's tensor-core
+   instance, the plain path launching nothing;
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
@@ -85,7 +88,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at S 2048 and 8192 beside SDPA, each pass's kernel time; rows 7 and 8
    at all four projection shapes with the model's tiles, TFLOP/s, share
    of the bound, ratio to ``torch.matmul``, two and three stages);
-   row 12's forward and dgrad at all six conv layers.
+   rows 12 and 13 at Conv1 and Conv4 with TFLOP/s and share of the bound
+   (row 13 with its instance and ratio to ``conv2d_weight``); row 12's
+   forward and dgrad and row 13 at all six conv layers.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2079,7 +2084,8 @@ def phase3_conv(dev) -> None:
     """Rows 12 and 13 against their plain versions, fp32 and bf16,
     repeated launches bit-equal: ragged C, K and spatial tiles, strides
     1, 2 and 4, 1 x 1, 3 x 3 and 11 x 11 filters, C = 3; in bf16 the
-    branches of row 12's tensor-core instance (see below); then every tile
+    branches of rows 12 and 13's tensor-core instances (see below), every
+    bf16 wgrad asserted to run its ``mma`` instance; then every tile
     the adapter emits for the Table-4 layers and AlexNet conv1 under the
     three conv keys, each at the layer's channels, filter and stride over
     two whole tiles and a ragged one per spatial axis (at most the
@@ -2100,8 +2106,11 @@ def phase3_conv(dev) -> None:
             want = CW.conv2d_wgrad_block_ref(x, g, fh, fw, s)
             atol, _ = grad_tol("float32", n * oy * ox, want)
             got = run()
-            compare(f"conv2d_wgrad_block {dn} {tag} tiles={tiles}", got,
-                    want, "float32", atol=atol)
+            kind = CW.conv2d_wgrad_block.instance
+            assert kind[0] == ("mma" if dtype == torch.bfloat16 else "fma"), \
+                (tag, tiles, kind)
+            compare(f"conv2d_wgrad_block {dn} {tag} tiles={tiles} {kind}",
+                    got, want, "float32", atol=atol)
         else:
             run = lambda: CB.conv2d_block(  # noqa: E731
                 x, wt, bc=bc, bk=bk, stride=s, bx=bx, by=by)
@@ -2152,6 +2161,28 @@ def phase3_conv(dev) -> None:
                 check(f"N={n} out={oy}x{ox} C={c} K={k} {fh}x{fw} "
                       f"stride={s} (tensor cores)", dn, dtype, n, oy, ox, c,
                       k, fh, fw, s, tiles, False, oy * k)
+            # row 13's tensor-core instance: bc = 8 at 11 x 11 (an m16
+            # fragment spans two taps), C = 3 at stride 4 (one chunk, 5
+            # channels computed and not stored), bx * by not a multiple of
+            # 16 (7 x 19: 11 zero cotangent rows against the last pixel),
+            # ragged image edges (5 x 5 tiles of 12 x 12), bk of 3 (one
+            # clamped n8 tile), 24 (over two warps across N) and 40 (five
+            # n8 tiles), a ragged C tile (20 in 16s), stride 2, wide bk
+            # (128: eight warps across N), Conv1's tile; a few (C, K)
+            # tiles, so every case runs several splits
+            for n, oy, ox, c, k, fh, fw, s, tiles in (
+                    (2, 16, 16, 64, 32, 11, 11, 1, (16, 16, 8, 16)),
+                    (2, 11, 11, 3, 96, 11, 11, 4, (11, 11, 3, 16)),
+                    (1, 19, 14, 16, 16, 3, 3, 1, (7, 19, 16, 16)),
+                    (2, 12, 12, 16, 48, 3, 3, 1, (5, 5, 16, 24)),
+                    (1, 20, 20, 40, 3, 3, 3, 1, (16, 8, 8, 3)),
+                    (1, 10, 13, 24, 80, 2, 2, 1, (13, 10, 16, 40)),
+                    (2, 9, 7, 20, 40, 3, 3, 2, (4, 3, 16, 40)),
+                    (1, 9, 9, 8, 128, 3, 3, 1, (9, 9, 8, 128)),
+                    (2, 40, 40, 16, 32, 11, 11, 1, (32, 16, 8, 16))):
+                check(f"N={n} out={oy}x{ox} C={c} K={k} {fh}x{fw} "
+                      f"stride={s} (tensor cores)", dn, dtype, n, oy, ox, c,
+                      k, fh, fw, s, tiles, True, oy * k + 1)
         n_tiles = 0
         for name, X, Y, C, K, Fw, Fh, s in conv_layers():
             keys = (("conv2d", (X, Y, C, K, Fw, Fh), s),
@@ -2183,7 +2214,8 @@ def phase12_conv(kernels: dict) -> dict:
     dW, tiles from the model under the three keys; held against the fp32
     oracles on the card; launch counts asserted per layer (one row-12
     launch forward, one for the dgrad, row 13's two passes for the
-    wgrad), and ``use_kernel=False`` launching nothing; each layer's
+    wgrad, on its tensor-core instance), and ``use_kernel=False``
+    launching nothing; each layer's
     forward and backward timed on the host clock at the first call and
     at a second one."""
     import torch
@@ -2227,6 +2259,9 @@ def phase12_conv(kernels: dict) -> dict:
                 fwd["conv2d_wgrad_block"] == 0, fwd
             assert launched["conv2d_block"] == 2 and \
                 launched["conv2d_wgrad_block"] == 2, launched
+            # no silent CUDA-core path: the bf16 wgrad ran the tensor cores
+            wgrad_instance = kernels["conv2d_wgrad_block"].instance
+            assert wgrad_instance[0] == "mma", wgrad_instance
             assert all(v == 0 for k_, v in launched.items()
                        if k_ not in CONV_KERNELS), launched
             tiles = {op: list(t) for op, t, _ in resolved}
@@ -2274,8 +2309,11 @@ def phase12_conv(kernels: dict) -> dict:
                   f"{(t1 - t0) * 1e3:.1f} ms, backward "
                   f"{(t2 - t1) * 1e3:.1f} ms (host clock, first call; "
                   f"again: {(t4 - t3) * 1e3:.2f} and {(t5 - t4) * 1e3:.2f} "
-                  f"ms); tile search {search_s:.2f} s; launches {launched}")
+                  f"ms); tile search {search_s:.2f} s; launches {launched}; "
+                  f"wgrad instance {wgrad_instance}")
             out[name] = {"shape": [n, h, w, C, K, Fh, Fw, s], "tiles": tiles,
+                         "wgrad_instance": [wgrad_instance[0],
+                                            list(wgrad_instance[1])],
                          "gmac": gmacs, "fwd_ms": (t1 - t0) * 1e3,
                          "bwd_ms": (t2 - t1) * 1e3,
                          "fwd_again_ms": (t4 - t3) * 1e3,
@@ -2399,6 +2437,8 @@ def time_conv_kernels(conv: dict) -> list[dict]:
                 .abs().max())}
         dw = CW.conv2d_wgrad_block(x, g, Fh, Fw, bx=tw[0], by=tw[1],
                                    bc=tw[2], bk=tw[3], stride=s)
+        w_instance = CW.conv2d_wgrad_block.instance
+        assert w_instance[0] == "mma", w_instance
         wb_ms, wb_by = bound(2 * (x.numel() + g.numel()) + 4 * dw.numel(),
                              flops)
         wgrad = {
@@ -2418,7 +2458,8 @@ def time_conv_kernels(conv: dict) -> list[dict]:
                 x_cl, w_cl.shape, g_cl, stride=s)),
             "shape": f"{name} N={n} {h}x{w}x{C}, cotangent {Y}x{X}x{K}, "
                      f"{Fh}x{Fw} stride {s} bf16 in, fp32 dW, tiles "
-                     f"{tuple(tw)}, both passes; launches: phase 12, all "
+                     f"{tuple(tw)}, instance {w_instance}, both passes; "
+                     f"launches: phase 12, all "
                      f"six layers (two passes each); library: "
                      f"torch.nn.grad.conv2d_weight channels_last bf16, "
                      f"cudnn.benchmark"}
@@ -2439,8 +2480,10 @@ def time_conv_kernels(conv: dict) -> list[dict]:
         print(f"  {name} conv2d_wgrad_block {wgrad['ms']:.4f} ms  plain "
               f"{wgrad['plain_ms']:.4f} ms  bound {wb_ms:.4f} ms ({wb_by})  "
               f"library {wgrad['library_ms']:.4f} ms  "
-              f"({flops / wgrad['ms'] / 1e9:.1f} TFLOP/s)  "
-              f"[{wgrad['shape']}]")
+              f"({flops / wgrad['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{wb_ms / wgrad['ms']:.1%} of bound, "
+              f"{wgrad['ms'] / wgrad['library_ms']:.2f}x the library, "
+              f"instance {w_instance})  [{wgrad['shape']}]")
         conv[name]["timing"] = {"forward": {k: v for k, v in fwd.items()
                                             if k.endswith(("ms", "err"))},
                                 "dgrad": dgrad,
@@ -2473,11 +2516,13 @@ def time_conv_kernels(conv: dict) -> list[dict]:
     return rows
 
 
-def time_row12_layers() -> dict:
-    """Row 12 at every Table-4 layer and AlexNet conv1, batch 2, bf16,
-    with the model's tiles: the forward (``conv2d_tiled``) and the dgrad
-    (``conv2d_dgrad``, the host's dilation and padding included), median
-    device ms over 20 launches (10 at Conv1), L2 flushed."""
+def time_conv_layers() -> dict:
+    """Rows 12 and 13 at every Table-4 layer and AlexNet conv1, batch 2,
+    bf16, with the model's tiles: the forward (``conv2d_tiled``), the
+    dgrad (``conv2d_dgrad``, the host's dilation and padding included)
+    and the wgrad (``conv2d_wgrad_block``, both passes, with its TFLOP/s
+    and share of the bound), median device ms over 20 launches (10 at
+    Conv1), L2 flushed."""
     import torch
     from repro_torch.kernels import conv2d_blocked as CB
     from repro_torch.kernels import conv2d_bwd as CW
@@ -2491,16 +2536,28 @@ def time_row12_layers() -> dict:
                                seed=7)
         tf = best_schedule("conv2d", (X, Y, C, K, Fw, Fh), "bfloat16",
                            stride=s).tiles
+        tw = best_schedule("conv2d_wgrad", (X, Y, C, K, Fw, Fh), "bfloat16",
+                           stride=s).tiles
         reps = 10 if name == "Conv1" else 20
         fwd = measure_ms(lambda: CB.conv2d_tiled(
             x, wt, bx=tf[0], by=tf[1], bc=tf[2], bk=tf[3], stride=s),
             reps=reps)
         dgrad = measure_ms(lambda: CW.conv2d_dgrad(g, wt, tuple(x.shape), s),
                            reps=reps)
-        out[name] = {"forward_ms": fwd, "dgrad_ms": dgrad,
-                     "forward_tiles": list(tf)}
-        print(f"  row 12 at {name}: forward {fwd:.4f} ms (tiles {tuple(tf)}),"
-              f" dgrad {dgrad:.4f} ms")
+        wgrad = measure_ms(lambda: CW.conv2d_wgrad_block(
+            x, g, Fh, Fw, bx=tw[0], by=tw[1], bc=tw[2], bk=tw[3], stride=s),
+            reps=reps)
+        flops = 2 * 2 * Y * X * K * C * Fh * Fw
+        w_bound, _ = bound(2 * (x.numel() + g.numel()) + 4 * Fh * Fw * C * K,
+                           flops)
+        out[name] = {"forward_ms": fwd, "dgrad_ms": dgrad, "wgrad_ms": wgrad,
+                     "forward_tiles": list(tf), "wgrad_tiles": list(tw),
+                     "wgrad_bound_ms": w_bound}
+        print(f"  rows 12 and 13 at {name}: forward {fwd:.4f} ms (tiles "
+              f"{tuple(tf)}), dgrad {dgrad:.4f} ms, wgrad {wgrad:.4f} ms "
+              f"(tiles {tuple(tw)}, {CW.conv2d_wgrad_block.instance}, "
+              f"{flops / wgrad / 1e9:.1f} TFLOP/s, {w_bound / wgrad:.1%} "
+              f"of bound)")
         del x, wt, g
         torch.cuda.empty_cache()
     return out
@@ -2509,7 +2566,8 @@ def time_row12_layers() -> dict:
 def ptxas_report(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill-store bytes) of each entry function in
     an ``nvcc -Xptxas -v`` log; the kernel named by its identifier and
-    its integer template arguments (``fwd_mma_kernel<128,64,64>``)."""
+    its integer template arguments (``fwd_mma_kernel<128,64,64>``,
+    ``wgrad_mma<8,2>``)."""
     import re
 
     def label(mangled: str) -> str:
@@ -2518,7 +2576,7 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
         while (m := re.match(r"\d+", mangled[i:])) is not None:
             j = i + len(m.group())
             i = j + int(m.group())
-            if mangled[j:i].endswith("kernel"):
+            if mangled[j:i].endswith("kernel") or mangled[i:i + 1] == "I":
                 ints = re.findall(r"Li(\d+)E", mangled[i:])[:3]
                 return f"{mangled[j:i]}<{','.join(ints)}>"
         return mangled[:40]
@@ -2608,6 +2666,14 @@ def main() -> int:
               f"instances, {min(r for r, _ in dgrad_mma)}-"
               f"{max(r for r, _ in dgrad_mma)} registers, "
               f"{sum(sp for _, sp in dgrad_mma)} B spilled in all")
+    wgrad_mma = [(regs, spill) for label, regs, spill in
+                 ptxas_report(reports.get("conv2d_wgrad", ""))
+                 if label.startswith("wgrad_mma<")]
+    if wgrad_mma:
+        print(f"  conv2d_wgrad: {len(wgrad_mma)} wgrad_mma instances, "
+              f"{min(r for r, _ in wgrad_mma)}-"
+              f"{max(r for r, _ in wgrad_mma)} registers, "
+              f"{sum(sp for _, sp in wgrad_mma)} B spilled in all")
 
     print("phase 3: kernels vs plain versions")
     phase3_kernels(torch.device("cuda"))
@@ -2685,8 +2751,8 @@ def main() -> int:
     rows += time_train_kernels(cfg, train)
     train["attention"] = time_attention_passes()
     rows += time_conv_kernels(conv)
-    for name, t in time_row12_layers().items():
-        conv[name].setdefault("timing", {})["row12"] = t
+    for name, t in time_conv_layers().items():
+        conv[name].setdefault("timing", {})["layers"] = t
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
                                  "cublas": cublas, "blocked": blocked,
                                  "fused": fused, "w8fp8": quant,

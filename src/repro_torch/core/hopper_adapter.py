@@ -280,20 +280,21 @@ def conv_fits(bx: int, by: int, bc: int, bk: int, Fw: int, Fh: int,
     ``conv2d_blocked.smem_bytes_required`` and ``accumulators_per_thread``
     of the (bx*by, bk) output tile; ``channels``, the input's C, lets its
     bf16 instance keep one stage where C takes one step) or, with
-    ``wgrad``, row 13's (``conv2d_bwd``: the (Fh, Fw, bc, bk) dW tile).
-    Imported lazily: the kernel modules own their footprints."""
+    ``wgrad``, row 13's (``conv2d_bwd``: the (Fh, Fw, bc, bk) dW tile, in
+    bf16 on the tensor-core instance's warp grid).  Imported lazily: the
+    kernel modules own their footprints."""
     if wgrad:
         from repro_torch.kernels.conv2d_bwd import (accumulators_per_thread,
                                                     smem_bytes_required)
-        acc = accumulators_per_thread(bc, bk, Fh, Fw)
+        acc = accumulators_per_thread(bc, bk, Fh, Fw, bytes_per_elem)
         smem = smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
                                    stride)
-    else:
-        from repro_torch.kernels.conv2d_blocked import (
-            accumulators_per_thread, smem_bytes_required)
-        acc = accumulators_per_thread(bx * by, bk, bytes_per_elem)
-        smem = smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
-                                   stride, channels)
+        return smem <= budget and acc <= target.acc_per_thread
+    from repro_torch.kernels.conv2d_blocked import (accumulators_per_thread,
+                                                    smem_bytes_required)
+    acc = accumulators_per_thread(bx * by, bk, bytes_per_elem)
+    smem = smem_bytes_required(bx, by, bc, bk, Fh, Fw, bytes_per_elem,
+                               stride, channels)
     return smem <= budget and acc <= target.acc_per_thread
 
 
@@ -303,22 +304,27 @@ def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
                wgrad: bool) -> tuple[int, int, int, int]:
     """Snap an analytical (bx, by, bc, bk) to the conv kernel.  The bf16
     forward (row 12 on the tensor cores, also the dgrad's) goes to
-    :func:`_snap_conv_mma`.  Otherwise channel tiles start at multiples
-    of ``nk_mult`` (extents below it whole), then one tile shrinks at a
-    time until the kernel's own footprint fits.  Large filters squeeze
-    the weight tile, so bc and bk go below ``nk_mult``, down to one
-    16-byte vector (4 fp32; C = 3 stays whole).
+    :func:`_snap_conv_mma`, the bf16 wgrad (row 13 on the tensor cores)
+    to :func:`_snap_conv_wgrad_mma`.  Otherwise channel tiles start at
+    multiples of ``nk_mult`` (extents below it whole), then one tile
+    shrinks at a time until the kernel's own footprint fits.  Large
+    filters squeeze the weight tile, so bc and bk go below ``nk_mult``,
+    down to one 16-byte vector (4 fp32; C = 3 stays whole).
 
     fp32 forward (row 12's CUDA-core loop): an accumulator (bx*by x bk)
     over the register limit shrinks the larger of the spatial tile and
     bk; shared memory over the budget shrinks bc first (the reduction
     step: it is in both staged tiles and is reused by nothing), then the
     larger of the weight tile (bk per tap) and the haloed input tile
-    (with the stride).  Wgrad (row 13): the dW accumulator (Fh*Fw*bc*bk)
-    shrinks the larger of bc and bk, shared memory the spatial tile."""
+    (with the stride).  fp32 wgrad (row 13's CUDA-core loop): the dW
+    accumulator (Fh*Fw*bc*bk) shrinks the larger of bc and bk, shared
+    memory the spatial tile."""
     if bytes_per_elem == 2 and not wgrad:
         return _snap_conv_mma(bx, by, bc, bk, X, Y, C, K, Fw, Fh, budget,
                               target, stride)
+    if bytes_per_elem == 2:
+        return _snap_conv_wgrad_mma(bx, by, bc, bk, X, Y, C, K, Fw, Fh,
+                                    budget, target, stride)
     mk = target.nk_mult
     vec = 16 // bytes_per_elem
     bx = _pick_tile(X, bx, 1)
@@ -332,7 +338,8 @@ def _snap_conv(bx: int, by: int, bc: int, bk: int, X: int, Y: int, C: int,
         iw = (bx - 1) * stride + Fw
         if wgrad:
             from repro_torch.kernels.conv2d_bwd import accumulators_per_thread
-            acc_over = (accumulators_per_thread(bc, bk, Fh, Fw)
+            acc_over = (accumulators_per_thread(bc, bk, Fh, Fw,
+                                                bytes_per_elem)
                         > target.acc_per_thread)
             if (acc_over or not can_xy) and max(bc, bk) > vec:
                 if bk >= bc or bc <= vec:
@@ -495,6 +502,118 @@ def _snap_conv_mma(bx: int, by: int, bc: int, bk: int, X: int, Y: int,
             return bx, by, bc, bk
 
 
+# the bf16 wgrad's reduction slots (a pair's bx * by pixels rounded up to
+# whole 16-pixel k-steps) that may be padding: zero cotangent rows
+MAX_PADDED_PIXELS = 1 / 8
+# the fewest pixels the bf16 wgrad's snap gives a pair where the budget
+# allows: 16 k-steps over which a pair's staging and barriers are spread
+WGRAD_MIN_PIXELS = 256
+
+
+def _wgrad_dw_tile(bc: int, bk: int, C: int, K: int, Fw: int, Fh: int,
+                   acc_limit: int) -> tuple[int, int]:
+    """(bc, bk) for row 13's bf16 instance, at most the analytical tile's:
+    bc in whole 8-channel chunks (:func:`_mma_channels`), bk in whole n8
+    fragments of the warps across N (:func:`_mma_cols`), on a warp grid
+    within the register limit.  Of those: a grid that leaves at most
+    ``MAX_EMPTY_ROWS`` of its computed rows empty, then bk of 16 or more
+    where K allows (an A fragment then feeds two n8 tiles or more), then
+    the most dW cells a block holds (each staged pixel meets them all;
+    ragged C and K tiles count their mean width), then the fewest
+    ``ldmatrix.x4`` per computed fragment, then the narrowest ``bc + bk``
+    (the fewest staged channels a pixel).  None fits: one chunk by 8
+    columns, which the kernel's check refuses."""
+    from repro_torch.kernels.conv2d_bwd import (accumulators_per_thread,
+                                                empty_row_share, mma_layout)
+    chans = {_mma_channels(C, c) for c in range(8, max(bc, 8) + 1, 8)}
+    cols = {_mma_cols(K, k, least) for k in range(8, max(bk, 8) + 1, 8)
+            for least in (16, 8)}
+    best, best_key = (_mma_channels(C, 8), _mma_cols(K, 8, 8)), None
+    for c in sorted(chans):
+        for k in sorted(cols):
+            if accumulators_per_thread(c, k, Fh, Fw) > acc_limit:
+                continue
+            _, _, mt, nt = mma_layout(c, k, Fh, Fw)
+            cells = C / -(-C // c) * K / -(-K // k)
+            key = (empty_row_share(c, k, Fh, Fw) <= MAX_EMPTY_ROWS,
+                   k >= min(K, 16), cells,
+                   -(mt + (nt + 1) // 2) / (mt * nt), -(c + k))
+            if best_key is None or key > best_key:
+                best, best_key = (c, k), key
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def _wgrad_pixels(want: float, X: int, Y: int, bc: int, bk: int, Fw: int,
+                  Fh: int, stride: int, budget: int,
+                  cap: int) -> tuple[int, int]:
+    """The spatial tile (the reduction of a pair) for row 13's bf16
+    instance: at most ``cap`` pixels whose staged tiles fit ``budget``;
+    of those, one that pads at most ``MAX_PADDED_PIXELS`` of its slots to
+    whole 16-pixel k-steps if any does, dividing X and Y first, then the
+    most pixels, then the smallest haloed input tile, then the log aspect
+    nearest ``want``.  Where none pads so little (an image of a few
+    pixels), the least padded."""
+    from repro_torch.kernels.conv2d_bwd import (padded_pixel_share,
+                                                smem_bytes_required)
+
+    def fits(tx: int, ty: int) -> bool:
+        return smem_bytes_required(tx, ty, bc, bk, Fh, Fw, 2,
+                                   stride) <= budget
+
+    def pad_ok(p: int) -> bool:
+        return padded_pixel_share(p, 1) <= MAX_PADDED_PIXELS
+
+    y_divs = sorted(divisors(Y), reverse=True)
+    best, best_key = (1, 1), None
+    for tx in range(1, min(X, cap) + 1):
+        if not fits(tx, 1):
+            break
+        lo, hi = 1, min(Y, cap // tx)
+        while lo < hi:                  # the most rows that fit
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fits(tx, mid) else (lo, mid - 1)
+        tys = {lo, next((ty for ty in range(lo, 0, -1) if pad_ok(tx * ty)),
+                        lo)}
+        if X % tx == 0:
+            tys.add(next((ty for ty in y_divs
+                          if ty <= lo and pad_ok(tx * ty)), lo))
+        for ty in tys:
+            p = tx * ty
+            ok = pad_ok(p)
+            halo = ((ty - 1) * stride + Fh) * ((tx - 1) * stride + Fw)
+            key = (ok, ok and X % tx == 0 and Y % ty == 0,
+                   0.0 if ok else -padded_pixel_share(p, 1), p, -halo,
+                   -abs(math.log(tx / ty) - want))
+            if best_key is None or key > best_key:
+                best, best_key = (tx, ty), key
+    return best
+
+
+def _snap_conv_wgrad_mma(bx: int, by: int, bc: int, bk: int, X: int, Y: int,
+                         C: int, K: int, Fw: int, Fh: int, budget: int,
+                         target: HopperTarget,
+                         stride: int) -> tuple[int, int, int, int]:
+    """Snap an analytical (bx, by, bc, bk) to row 13's bf16 instance (the
+    tensor cores: M the dW tile's (tap, channel) rows, N its bk columns,
+    the reduction the staged pixels).  The dW tile first
+    (:func:`_wgrad_dw_tile`, bc up to ``nk_mult`` or the analytical
+    tile's if larger, bk up to the analytical tile's): it is held in
+    registers, so the register limit and the warp grid decide it, not
+    the budget.  Then the pixels
+    (:func:`_wgrad_pixels`): the reduction of a pair, any count the
+    budget holds up to the analytical tile's or ``WGRAD_MIN_PIXELS``,
+    whichever is more, in whole k16 steps or within
+    ``MAX_PADDED_PIXELS``, of the analytical tile's aspect where the
+    halo allows.  The fp32 wgrad keeps :func:`_snap_conv`'s loop."""
+    want = math.log(min(bx, X) / min(by, Y))
+    bc, bk = _wgrad_dw_tile(max(bc, min(C, target.nk_mult)), bk, C, K, Fw,
+                            Fh, target.acc_per_thread)
+    cap = max(min(bx, X) * min(by, Y), WGRAD_MIN_PIXELS)
+    bx, by = _wgrad_pixels(want, X, Y, bc, bk, Fw, Fh, stride, budget, cap)
+    return bx, by, bc, bk
+
+
 # orders of the two-level conv nest the search walks: six active dims
 # make the full enumeration take seconds per shape on the host
 _CONV_MAX_ORDERS = 4
@@ -530,9 +649,10 @@ def conv_tile_candidates(X: int, Y: int, C: int, K: int, Fw: int, Fh: int,
                                         top=top,
                                         max_orders=_CONV_MAX_ORDERS)]
     raw.append((X, Y, min(C, target.nk_mult), min(K, target.nk_mult)))
-    if bytes_per_elem == 2 and not wgrad:
+    if bytes_per_elem == 2:
         # the tensor cores' seed: the narrowest bk an A fragment serves
-        # twice, so that its snap spends the budget on pixels
+        # twice, so that the forward's snap spends the budget on pixels
+        # and the wgrad's the register limit on (tap, channel) rows
         raw.append((X, Y, min(C, target.nk_mult), min(K, 16)))
     out: list[tuple[int, int, int, int]] = []
     for bx, by, bc, bk in raw:

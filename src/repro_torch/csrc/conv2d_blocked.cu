@@ -272,25 +272,11 @@ __host__ __device__ inline int weight_rows(int taps, int bc) {
   return conv::round_up(taps * conv::round_up(bc, 8), 16);
 }
 
-// 16-byte vectors between two weight rows of bk columns.  The 8 rows of
-// one ldmatrix sub-matrix must fall into distinct bank groups: a power of
-// two (2 or more) is XOR-swizzled for that, unpadded; an odd count needs
-// nothing; any other is padded by one vector to odd.
-__host__ __device__ inline int weight_vectors(int bk) {
-  const int v = conv::ceil_div(bk, 8);
-  return (v & 1) || (v & (v - 1)) == 0 ? v : v + 1;
-}
-
-// the swizzle of a row of v vectors: logical vector L = r * v + c sits at
-// L ^ ((L >> shift) & mask), which XORs c with r (v >= 8) or with the
-// 128-byte line (v = 2, 4); mask 0 where v is odd (no swizzle)
-struct Swizzle {
-  int shift, mask;
-};
-__device__ inline Swizzle weight_swizzle(int v) {
-  if (v < 2 || (v & (v - 1))) return Swizzle{0, 0};
-  return Swizzle{max(3, 31 - __clz(v)), 7};
-}
+// weight rows: 16-byte vectors and swizzle as conv_tile.cuh's staged
+// tensor-core rows
+using conv::row_swizzle;
+using conv::row_vectors;
+using conv::Swizzle;
 
 template <int MT, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -305,9 +291,9 @@ conv_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int ih = (by - 1) * s + Fh, iw = (bx - 1) * s + Fw;
   const int pst = conv::pixel_stride<bf16>(bc);
   const int bcp = conv::round_up(bc, 8), nch = bcp / 8;
-  const int wvs = weight_vectors(bk);             // vectors a weight row
+  const int wvs = row_vectors(bk);                // vectors a weight row
   const int wv = conv::ceil_div(bk, 8);           // of them staged
-  const Swizzle sw = weight_swizzle(wvs);
+  const Swizzle sw = row_swizzle(wvs);
   const int taps = Fh * Fw, rows = weight_rows(taps, bc);
   const int in_size = ih * iw * pst;
   const int stage = in_size + rows * wvs * 8;  // elements of one stage
@@ -453,7 +439,7 @@ inline int mma_smem_bytes(int bx, int by, int Fh, int Fw, int s, int C,
   const int rows = weight_rows(Fh * Fw, bc);
   return (C > bc ? 2 : 1) *
              (ih * iw * conv::pixel_stride<bf16>(bc) +
-              rows * weight_vectors(bk) * 8) *
+              rows * row_vectors(bk) * 8) *
              int(sizeof(bf16)) +
          rows / 8 * int(sizeof(int));
 }

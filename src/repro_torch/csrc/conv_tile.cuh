@@ -38,6 +38,28 @@ template <typename T> __host__ __device__ inline int pixel_stride(int bc) {
   return (chunks | 1) * V;
 }
 
+// 16-byte vectors between two staged rows of bk bf16 columns that the
+// tensor cores read with ldmatrix (row 12's weight tile, row 13's
+// cotangent tile; conv2d_blocked.weight_vectors).  The 8 rows of one
+// ldmatrix sub-matrix must fall into distinct bank groups: a power of two
+// (2 or more) is XOR-swizzled for that, unpadded; an odd count needs
+// nothing; any other is padded by one vector to odd.
+__host__ __device__ inline int row_vectors(int bk) {
+  const int v = ceil_div(bk, 8);
+  return (v & 1) || (v & (v - 1)) == 0 ? v : v + 1;
+}
+
+// the swizzle of a row of v vectors: logical vector L = r * v + c sits at
+// L ^ ((L >> shift) & mask), which XORs c with r (v >= 8) or with the
+// 128-byte line (v = 2, 4); mask 0 where v is odd (no swizzle)
+struct Swizzle {
+  int shift, mask;
+};
+__device__ inline Swizzle row_swizzle(int v) {
+  if (v < 2 || (v & (v - 1))) return Swizzle{0, 0};
+  return Swizzle{max(3, 31 - __clz(v)), 7};
+}
+
 // The first n (<= 0: none) of the V elements at src into the 16-byte
 // vector at dst, the rest zero.
 template <typename T>

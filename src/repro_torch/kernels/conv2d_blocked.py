@@ -110,6 +110,18 @@ def weight_vectors(bk: int) -> int:
     return v if v % 2 or v & (v - 1) == 0 else v + 1
 
 
+def staged_vector(v: int, L: int) -> int:
+    """Where logical 16-byte vector ``L`` (row ``L // v``, column ``L %
+    v``) of a staged tile of :func:`weight_vectors` ``v`` a row sits: a
+    power of two ``v >= 8`` XORs the column with the row's low three
+    bits, ``v = 2`` and ``4`` with the row's 128-byte line, any other
+    ``v`` is as it is (csrc: ``conv::row_swizzle``; row 12's weight tile,
+    row 13's cotangent tile)."""
+    if v < 2 or v & (v - 1):
+        return L
+    return L ^ ((L >> max(3, v.bit_length() - 1)) & 7)
+
+
 def smem_bytes_required(bx: int, by: int, bc: int, bk: int, fh: int,
                         fw: int, itemsize: int = 2, stride: int = 1,
                         channels: int | None = None) -> int:

@@ -148,13 +148,13 @@ def test_serving_choices_at_the_smoke_shapes_do_not_move():
 
 
 # the model's tiles at Conv1 and Conv4 under the three conv keys, bf16
-# (PERF.md §6, rows 12 and 13)
+# (PERF.md §6, rows 12 and 13; the wgrad's on row 13's tensor-core grid)
 CONV_TILES = [("Conv1", "conv2d", (32, 16, 8, 16)),
               ("Conv1", "conv2d_dgrad", (38, 19, 8, 16)),
-              ("Conv1", "conv2d_wgrad", (16, 16, 16, 8)),
+              ("Conv1", "conv2d_wgrad", (32, 16, 8, 16)),
               ("Conv4", "conv2d", (28, 8, 32, 16)),
               ("Conv4", "conv2d_dgrad", (2, 58, 16, 128)),
-              ("Conv4", "conv2d_wgrad", (28, 8, 32, 32))]
+              ("Conv4", "conv2d_wgrad", (8, 28, 32, 32))]
 
 
 @pytest.mark.parametrize("layer,op,tiles", CONV_TILES)

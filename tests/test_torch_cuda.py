@@ -766,6 +766,38 @@ def test_conv_tensor_core_instance_matches_plain(dev, n, h, w, c, k, fh, fw,
                                        bx=bx, by=by))
 
 
+WGRAD_MMA_CASES = [  # bf16: branches of row 13's tensor-core instance
+    (2, 26, 26, 64, 32, 11, 11, 1, (16, 16, 8, 16)),  # a fragment, 2 taps
+    (2, 51, 51, 3, 96, 11, 11, 4, (11, 11, 3, 16)),   # C = 3 at stride 4
+    (1, 21, 16, 16, 16, 3, 3, 1, (7, 19, 16, 16)),    # 133 pixels a pair
+    (2, 14, 14, 16, 48, 3, 3, 1, (5, 5, 16, 24)),     # ragged image edges
+    (1, 22, 22, 40, 3, 3, 3, 1, (16, 8, 8, 3)),       # K = 3
+    (2, 19, 15, 20, 40, 3, 3, 2, (4, 3, 16, 40)),     # ragged C, stride 2
+    (1, 11, 11, 8, 128, 3, 3, 1, (9, 9, 8, 128)),     # 8 warps across N
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,fh,fw,stride,tiles", WGRAD_MMA_CASES)
+def test_wgrad_tensor_core_instance_matches_plain(dev, n, h, w, c, k, fh, fw,
+                                                  stride, tiles):
+    """Row 13 in bf16 (the implicit GEMM on the tensor cores, both passes)
+    against its plain version; the wrapper records the ``mma`` instance
+    at ``mma_layout``'s grid; repeated launches agree bit for bit."""
+    from repro_torch.kernels.conv2d_bwd import mma_layout
+    x, _, g = conv_case(dev, torch.bfloat16, n, h, w, c, k, fh, fw, stride,
+                        seed=h + k)
+    bx, by, bc, bk = tiles
+    dw = conv2d_wgrad_block(x, g, fh, fw, bx=bx, by=by, bc=bc, bk=bk,
+                            stride=stride)
+    torch.cuda.synchronize()
+    assert conv2d_wgrad_block.instance == ("mma",
+                                           mma_layout(bc, bk, fh, fw))
+    grad_close(dw, conv2d_wgrad_block_ref(x, g, fh, fw, stride),
+               torch.float32)
+    assert torch.equal(dw, conv2d_wgrad_block(x, g, fh, fw, bx=bx, by=by,
+                                              bc=bc, bk=bk, stride=stride))
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_ops_conv2d_backward_runs_the_kernels(dev, stride):
     """One row-12 launch forward; one row-12 (dgrad) and two row-13

@@ -635,7 +635,8 @@ def test_conv_candidates_divide_and_fit(op, dims, dtype, stride):
         if op == "conv2d_wgrad":
             assert CW.smem_bytes_required(bx, by, bc, bk, Fh, Fw,
                                           spec.itemsize, s) <= BUDGET
-            assert CW.accumulators_per_thread(bc, bk, Fh, Fw) <= \
+            assert CW.accumulators_per_thread(bc, bk, Fh, Fw,
+                                              spec.itemsize) <= \
                 H100_SXM.acc_per_thread
         else:
             assert CB.smem_bytes_required(bx, by, bc, bk, Fh, Fw,
