@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the twelve CUDA libraries from ``src/repro_torch/csrc`` with
+2. build the thirteen CUDA libraries from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
@@ -248,6 +248,84 @@ def check_attention_edge(dev, dtype, b, sq, skv, hq, hkv, d, causal, window,
     assert all(torch.equal(x, y) for x, y in zip(got, again)), tag
 
 
+# head dims off the 64 and 128 instances: 16 (every reduced config) runs
+# at 32, 80 and 96 (phi-3-vision) at 128, 256 (gemma2-9b) at 256
+HEAD_DIMS = (16, 80, 96, 256)
+
+
+def phase3_head_dims(dev) -> None:
+    """Rows 1-5 at head dims 16, 80, 96 and 256 against their plain
+    versions, fp32 and bf16: paged decode and chunked prefill (rows 1 and
+    2, windowed and capped), the oproj-fused decode (row 3, repeats
+    bit-equal), the forward with its lse and the backward (rows 4 and 5;
+    causal, windowed and non-causal, GQA 8/2, ragged S; repeats
+    bit-equal), each at the instance ``flash_tiles`` picks."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for d in HEAD_DIMS:
+            page = 32
+            for q_span, lengths in ((1, [1, 17, 64, 130]),
+                                    (16, [1, 17, 64, 100])):
+                for window, cap in ((None, None), (37, 30.0)):
+                    args = paged_inputs(dev, dtype, lengths, q_span,
+                                        seed=d + q_span, hkv=2, g=4, d=d,
+                                        page=page, n_blocks=5)
+                    kw = dict(window=window, logit_cap=cap, q_span=q_span)
+                    compare(f"flash_decode {dn} D={d} q_span={q_span} "
+                            f"window={window} cap={cap}",
+                            FD.flash_decode(*args, **kw),
+                            FD.paged_attention_ref(*args, **kw), dn)
+                    f8 = fp8_paged(paged_inputs(
+                        dev, torch.float32, lengths, q_span, seed=d + 1,
+                        hkv=2, g=4, d=d, page=page, n_blocks=5),
+                        seed=d, unit=window is None)
+                    f8 = (f8[0].to(dtype),) + f8[1:]
+                    compare(f"flash_decode_fp8 {dn} D={d} q_span={q_span} "
+                            f"window={window} cap={cap}",
+                            FD.flash_decode_fp8(*f8, **kw),
+                            FD.paged_attention_fp8_ref(*f8, **kw), dn)
+            args = oproj_inputs(dev, dtype, [1, 17, 64, 130], seed=d,
+                                page=page, hkv=2, g=4, d=d, e=512)
+            out = FD.flash_decode_oproj(*args, window=37)
+            assert torch.equal(out, FD.flash_decode_oproj(*args, window=37))
+            compare(f"flash_decode_oproj {dn} D={d} window=37", out,
+                    FD.paged_attention_oproj_ref(*args, window=37), dn,
+                    gemm_atol(dn, 2 * 4 * d))
+            for causal, window in ((True, None), (True, 40), (False, None)):
+                check_attention_edge(dev, dtype, 2, 100, 100, 8, 2, d,
+                                     causal, window, None, with_bwd=True)
+            check_attention_edge(dev, dtype, 1, 33, 97, 8, 2, d, True, None,
+                                 30.0, with_bwd=True)
+    torch.cuda.synchronize()
+
+
+def phase3_oproj_wide(dev) -> None:
+    """Row 3 with more kv heads than a cluster holds: (B 2, Hkv 16, G 1,
+    D 64, E 1024; seamless-m4t-medium's attention) and (B 2, Hkv 32, G 1,
+    D 96, E 3072; phi-3-vision's), each block of a batch row's cluster
+    summing its heads, fp32 and bf16, window on and off, repeats
+    bit-equal."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for hkv, d, e in ((16, 64, 1024), (32, 96, 3072)):
+            for window in (None, 37):
+                args = oproj_inputs(dev, dtype, [45, 300], seed=hkv + d,
+                                    page=32, hkv=hkv, g=1, d=d, e=e)
+                out = FD.flash_decode_oproj(*args, window=window)
+                assert torch.equal(out, FD.flash_decode_oproj(
+                    *args, window=window)), (hkv, d, window)
+                compare(f"flash_decode_oproj {dn} B=2 Hkv={hkv} G=1 D={d} "
+                        f"E={e} window={window} (cluster of "
+                        f"{FD.oproj_cluster(hkv)})", out,
+                        FD.paged_attention_oproj_ref(*args, window=window),
+                        dn, gemm_atol(dn, hkv * d))
+    torch.cuda.synchronize()
+
+
 def phase3_kernels(dev) -> None:
     import torch
     from repro_torch.configs import get_config
@@ -367,59 +445,122 @@ def oproj_inputs(dev, dtype, lengths, seed, page, hkv=8, g=4, d=128,
     return (*args, wo)
 
 
-def phase3_fused(dev) -> None:
-    """The three fused kernels against their plain versions."""
+# row 9 at decode (1, 8, 16 tokens: the transposed instance), a join of
+# 24 and a 512-token prefill (the mma instance)
+ROW9_M = (1, 8, 16, 24, 512)
+
+
+def check_row9(dev, dtype, w8: bool) -> int:
+    """Row 9 (wide, or with ``w8`` an int8 weight and its per-channel
+    scale in the epilogue) against its plain version: every activation
+    and epilogue operand on and off at M = 64 and 8; ragged M, N and K
+    (3 and 13 tokens: one and two n8 token tiles; the scalar staging
+    path of a wide W); granite's gate, up and down projections with the
+    model's epilogues at ``ROW9_M`` under every tile the adapter emits
+    for the ``"matmul_fused"`` (``"matmul_fused_w8"``) key, repeats
+    bit-equal.  bf16 asserts the instance: ``"mma_t"`` at M <= 16,
+    ``"mma"`` above.  Returns the adapter tiles checked."""
     import itertools
 
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.hopper_adapter import (matmul_tile_candidates,
-                                                 qkv_fused_tile_candidates)
-    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.core.hopper_adapter import matmul_tile_candidates
     from repro_torch.kernels import matmul_fused as MF
+    dn = str(dtype).split(".")[1]
+    tag = "matmul_fused int8" if w8 else "matmul_fused"
+
+    def operands(m, n, k, seed):
+        if not w8:
+            return (*gemm_inputs(dev, dtype, m, n, k, seed), None)
+        a, qw = w8_inputs(dev, dtype, m, n, k, seed)
+        return a, qw.q, qw.scale.reshape(-1)
+
+    def epi(m, n, seed, **k):
+        """(scale, the other epilogue keywords) of ``epilogue``."""
+        kw = epilogue(dev, dtype, m, n, seed, **k)
+        return kw.pop("scale"), kw
+
+    def run(a, w, sc, kw, tiles):
+        bm, bk, bn = tiles
+        out = MF.matmul_fused(a, w, sc, **kw, bm=bm, bk=bk, bn=bn)
+        kind = MF.matmul_fused.instance
+        assert kind[0] == MF.instance_kind(dtype, a.shape[0]), (tiles, kind)
+        return out, kind
+
+    # every epilogue combination at an "mma" and an "mma_t" shape; an
+    # int8 product without its scale is O(127 sqrt(K)), so A then carries
+    # the mean scale and every output stays O(1)
+    for m, tiles in ((64, (64, 64, 128)), (8, (8, 128, 32))):
+        n, k = 1024, 512
+        a, w, scale = operands(m, n, k, seed=11 + m)
+        for act, sc, bi, mu, re in itertools.product(
+                MF.ACTIVATIONS, *[(False, True)] * 4):
+            s_in, kw = epi(m, n, 12, act=act, scale=sc and not w8, bias=bi,
+                           mul=mu, residual=re)
+            a_in = a
+            if w8 and sc:
+                s_in = scale
+            elif w8:
+                a_in = (a.float() * scale.mean()).to(dtype)
+            out, kind = run(a_in, w, s_in, kw, tiles)
+            compare(f"{tag} {dn} M={m} act={act} scale={int(sc)} "
+                    f"bias={int(bi)} mul={int(mu)} res={int(re)} {kind}",
+                    out, MF.matmul_fused_ref(a_in, w, s_in, **kw), dn,
+                    gemm_atol(dn, k))
+    # ragged shapes: N a multiple of 16 (an int8 W's rule), and for a
+    # wide W also N not a multiple of 8 (the scalar staging path and the
+    # masked partial chunk of both instances)
+    ragged = [(37, 1008, 300, (16, 64, 64)), (50, 112, 70, (32, 128, 64)),
+              (3, 16, 7, (3, 64, 64)), (13, 1008, 300, (13, 64, 32)),
+              (520, 4112, 4100, (128, 64, 128))]
+    if not w8:
+        ragged += [(37, 1000, 300, (16, 64, 64)), (50, 100, 70, (32, 128, 64)),
+                   (3, 5, 7, (3, 64, 64)), (13, 20, 33, (13, 32, 16)),
+                   (520, 4104, 4100, (128, 64, 128))]
+    for m, n, k, tiles in ragged:
+        a, w, scale = operands(m, n, k, seed=m + n)
+        _, kw = epi(m, n, 13, act="gelu", bias=True, mul=True,
+                    residual=True)
+        out, kind = run(a, w, scale, kw, tiles)
+        compare(f"{tag} {dn} M={m} N={n} K={k} tiles={tiles} {kind}", out,
+                MF.matmul_fused_ref(a, w, scale, **kw), dn, gemm_atol(dn, k))
+    if not w8:
+        a, w = gemm_inputs(dev, dtype, 5, 1000, 301, seed=5)
+        _, kw = epi(5, 1000, 14, act="silu", residual=True)
+        out, kind = run(a, w, None, kw, (5, 64, 64))
+        compare(f"{tag} {dn} M=5 N=1000 K=301 (scalar staging) {kind}",
+                out, MF.matmul_fused_ref(a, w, **kw), dn, gemm_atol(dn, 301))
+    # every tile the adapter emits for granite's MLP, with the epilogue
+    # the model gives each projection
+    n_tiles = 0
+    for m in ROW9_M:
+        for name, n, k, epi_kw in GRANITE_MLP:
+            a, w, scale = operands(m, n, k, seed=m + n + k)
+            _, kw = epi(m, n, m, **epi_kw)
+            ref = MF.matmul_fused_ref(a, w, scale, **kw)
+            for tiles in matmul_tile_candidates(
+                    m, n, k, a.element_size(), w_bytes=1 if w8 else None,
+                    fused=True):
+                out, kind = run(a, w, scale, kw, tiles)
+                compare(f"{tag} {dn} {name} M={m} N={n} K={k} "
+                        f"tiles={tiles} {kind}", out, ref, dn,
+                        gemm_atol(dn, k))
+                assert torch.equal(out, run(a, w, scale, kw, tiles)[0])
+                n_tiles += 1
+    return n_tiles
+
+
+def phase3_fused(dev) -> None:
+    """The three fused kernels against their plain versions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.hopper_adapter import qkv_fused_tile_candidates
+    from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import qkv_fused as QF
     from repro_torch.serve.kv_cache import choose_page_size
     cfg = get_config("granite-3-8b")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        # every epilogue combination, one shape
-        m, n, k = 64, 1024, 512
-        a, w = gemm_inputs(dev, dtype, m, n, k, seed=11)
-        for act, sc, bi, mu, re in itertools.product(
-                MF.ACTIVATIONS, *[(False, True)] * 4):
-            kw = epilogue(dev, dtype, m, n, seed=12, act=act, scale=sc,
-                          bias=bi, mul=mu, residual=re)
-            compare(f"matmul_fused {dn} act={act} scale={int(sc)} "
-                    f"bias={int(bi)} mul={int(mu)} res={int(re)}",
-                    MF.matmul_fused(a, w, **kw, bm=64, bk=64, bn=128),
-                    MF.matmul_fused_ref(a, w, **kw), dn, gemm_atol(dn, k))
-        # ragged shapes (scalar and 16-byte staging paths)
-        for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
-                               (50, 100, 70, (32, 128, 64)),
-                               (3, 5, 7, (3, 64, 64)),
-                               (520, 4104, 4100, (128, 64, 128))):
-            a, w = gemm_inputs(dev, dtype, m, n, k, seed=m + n)
-            kw = epilogue(dev, dtype, m, n, seed=13, act="gelu", bias=True,
-                          mul=True, residual=True)
-            bm, bk, bn = tiles
-            compare(f"matmul_fused {dn} M={m} N={n} K={k} tiles={tiles}",
-                    MF.matmul_fused(a, w, **kw, bm=bm, bk=bk, bn=bn),
-                    MF.matmul_fused_ref(a, w, **kw), dn, gemm_atol(dn, k))
-        # every tile the adapter emits for granite's MLP, with the
-        # epilogue the model gives each projection
-        n_tiles = 0
-        for m in (8, 64, 512):
-            for name, n, k, epi in GRANITE_MLP:
-                a, w = gemm_inputs(dev, dtype, m, n, k, seed=m + n + k)
-                kw = epilogue(dev, dtype, m, n, seed=m, **epi)
-                ref = MF.matmul_fused_ref(a, w, **kw)
-                for bm, bk, bn in matmul_tile_candidates(m, n, k,
-                                                         a.element_size()):
-                    compare(f"matmul_fused {dn} {name} M={m} N={n} K={k} "
-                            f"tiles={(bm, bk, bn)}",
-                            MF.matmul_fused(a, w, **kw, bm=bm, bk=bk, bn=bn),
-                            ref, dn, gemm_atol(dn, k))
-                    n_tiles += 1
+        n_tiles = check_row9(dev, dtype, w8=False)
         # qkv_fused: every adapter tile at granite's (Nkv, K, G), and a
         # ragged shape with G = 1
         for m in (8, 64, 512, 37):
@@ -491,13 +632,10 @@ GRANITE_PROJ = ("wq, wo", "wk, wv", "w_gate, w_up", "w_down")   # GRANITE_NK
 
 def phase3_quant(dev) -> None:
     """The three quantized kernels against their plain versions."""
-    import itertools
-
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.hopper_adapter import matmul_tile_candidates
     from repro_torch.kernels import flash_decode as FD
-    from repro_torch.kernels import matmul_fused as MF
     from repro_torch.kernels import matmul_q as MQ
     from repro_torch.serve.kv_cache import choose_page_size
     from repro_torch.tune import best_schedule
@@ -537,36 +675,9 @@ def phase3_quant(dev) -> None:
                     MQ.matmul_w8(a, qw.q, qw.scale, bm=bm, bk=bk, bn=bn),
                     MQ.matmul_w8_ref(a, qw.q, qw.scale), dn,
                     gemm_atol(dn, k))
-        # the int8 matmul_fused: every activation x scale, bias, mul and
-        # residual on and off, one shape.  Without the scale the int8
-        # product is O(127 * sqrt(K)); A then carries the mean scale so
-        # every output stays O(1), the regime the tolerances are for
-        m, n, k = 64, 1024, 512
-        a, qw = w8_inputs(dev, dtype, m, n, k, seed=21)
-        a_unscaled = (a.float() * qw.scale.mean()).to(dtype)
-        for act, sc, bi, mu, re in itertools.product(
-                MF.ACTIVATIONS, *[(False, True)] * 4):
-            kw = epilogue(dev, dtype, m, n, seed=22, act=act, bias=bi,
-                          mul=mu, residual=re)
-            kw["scale"] = qw.scale.reshape(-1) if sc else None
-            a_in = a if sc else a_unscaled
-            compare(f"matmul_fused int8 {dn} act={act} scale={int(sc)} "
-                    f"bias={int(bi)} mul={int(mu)} res={int(re)}",
-                    MF.matmul_fused(a_in, qw.q, **kw, bm=64, bk=64, bn=128),
-                    MF.matmul_fused_ref(a_in, qw.q, **kw), dn,
-                    gemm_atol(dn, k))
-        # ... and granite's MLP at the model's w8 tiles
-        for m in (8, 512):
-            for name, n, k, epi in GRANITE_MLP:
-                a, qw = w8_inputs(dev, dtype, m, n, k, seed=m + n + k)
-                kw = epilogue(dev, dtype, m, n, seed=m, **epi)
-                kw["scale"] = qw.scale.reshape(-1)
-                bm, bk, bn = best_schedule("matmul_w8", (m, n, k), dn).tiles
-                compare(f"matmul_fused int8 {dn} {name} M={m} N={n} K={k} "
-                        f"tiles={(bm, bk, bn)}",
-                        MF.matmul_fused(a, qw.q, **kw, bm=bm, bk=bk, bn=bn),
-                        MF.matmul_fused_ref(a, qw.q, **kw), dn,
-                        gemm_atol(dn, k))
+        # the int8 matmul_fused: every epilogue, ragged shapes and every
+        # adapter tile of granite's MLP under "matmul_fused_w8"
+        n_tiles += check_row9(dev, dtype, w8=True)
         # flash_decode_fp8 at pages 16, 32, 64 and the model's fp8 page
         fp8_page = choose_page_size(dataclasses.replace(
             cfg, dtype=dtype, kv_cache_dtype=torch.float8_e4m3fn), 512)
@@ -589,7 +700,8 @@ def phase3_quant(dev) -> None:
                             f"page={page} window={window} cap={cap} "
                             f"scales={'unit' if unit else 'drawn'}{tag}",
                             out, FD.paged_attention_fp8_ref(*args, **kw), dn)
-        print(f"  {n_tiles} adapter tiles of matmul_w8 checked in {dn}; the "
+        print(f"  {n_tiles} adapter tiles of matmul_w8 and the int8 "
+              f"matmul_fused checked in {dn}; the "
               f"model's fp8 page is {fp8_page}")
     torch.cuda.synchronize()
 
@@ -652,6 +764,121 @@ def phase4_parity(seed: int, kernels: dict) -> None:
               f"first tokens {[int(r.output[0]) for r in kern]}")
     del params, qparams
     torch.cuda.empty_cache()
+
+
+def phase13_reduced(seed: int, kernels: dict) -> dict:
+    """The reduced granite-3-8b (``configs.get_reduced``: d_model 64, 4
+    heads of 16 over 2 kv heads, d_ff 128, 2 layers; head_dim 16 runs the
+    attention kernels' 32-wide instance) on the card.  Serving, fp32: 6
+    requests x 8 tokens through joins and chunked prefill, unfused and
+    fused, the kernel path token-identical to the plain path; bf16 fused:
+    the same requests, every row-9 call on its transposed (decode) or
+    mma instance.  Training, bf16: 3 steps on the default path (rows 4
+    and 5 forward and backward), finite losses, step 0's loss within 2%
+    of the plain path's.  Then the two launchers' own usage lines,
+    ``launch.train --reduced --steps 2`` and ``launch.serve --reduced``,
+    on their default device."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    base = get_reduced("granite-3-8b")
+    print(f"  {base.name}: d_model {base.d_model}, {base.n_heads} heads / "
+          f"{base.n_kv_heads} kv heads, head_dim {base.head_dim}, d_ff "
+          f"{base.d_ff}, {base.n_layers} layers")
+    assert base.head_dim == 16
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
+               for n in (5, 37, 64, 65, 130, 300)]
+    out = {"head_dim": base.head_dim}
+    for fuse, path in ((False, ("flash_attention", "flash_decode")),
+                       (True, ("flash_attention", "flash_decode",
+                               "flash_decode_oproj", "matmul_fused",
+                               "qkv_fused"))):
+        reset(kernels)
+        kern = serve(cfg, params, prompts, 8, max_batch=4, fuse=fuse)
+        launched = counts(kernels)
+        plain = serve(cfg, params, prompts, 8, max_batch=4, fuse=fuse,
+                      use_kernel=False)
+        assert counts(kernels) == launched, "the plain path launched a kernel"
+        assert min(launched[k] for k in path) > 0, launched
+        for a, b in zip(kern, plain):
+            if not np.array_equal(a.output, b.output):
+                raise AssertionError(f"reduced fuse={fuse}, request {a.rid}:"
+                                     f" kernel path {a.output.tolist()} != "
+                                     f"plain path {b.output.tolist()}")
+        print(f"  fp32 fuse={fuse}: 6 requests x 8 tokens identical to the "
+              f"plain path (kernel launches: "
+              f"{ {k: launched[k] for k in path} })")
+        out[f"serve_fuse_{int(fuse)}"] = {k: launched[k] for k in path}
+    cfgb = dataclasses.replace(base, dtype=torch.bfloat16)
+    paramsb = T.init_params(cfgb, seed=seed, device="cuda")
+    kinds = set()
+    real = ops._matmul_fused_kernel
+
+    def spy(a, *args, **kw):    # the op's launch, and what it ran
+        y = real(a, *args, **kw)
+        kinds.add((a.shape[0] <= MF.MMA_T_ROWS, MF.matmul_fused.instance[0]))
+        return y
+    ops._matmul_fused_kernel = spy
+    try:
+        reqs = serve(cfgb, paramsb, prompts, 8, max_batch=4, fuse=True)
+    finally:
+        ops._matmul_fused_kernel = real
+    assert all(len(r.output) == 8 and int(r.output.max()) < cfgb.vocab
+               for r in reqs)
+    assert kinds == {(True, "mma_t"), (False, "mma")}, kinds
+    print(f"  bf16 fuse=True: 6 requests x 8 tokens; row 9 instances "
+          f"{sorted(k for _, k in kinds)}; first tokens "
+          f"{[int(r.output[0]) for r in reqs]}")
+    del params, paramsb
+    # training: 3 steps, bf16, the default path
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=3)
+    params0 = T.init_params(cfgb, seed=seed, device="cuda")
+    batches = [make_batch(cfgb, 128, 8, s, seed=seed, device="cuda")
+               for s in range(3)]
+    plain, _ = train_one_step(cfgb, params0, batches[0], blocked=False,
+                              use_kernel=False, opt=opt)
+    step_fn = loop.make_train_step(cfgb, loop.TrainConfig(opt=opt))
+    params, state = params0, adamw.init_state(params0)
+    reset(kernels)
+    losses = []
+    for batch in batches:
+        params, state, m = step_fn(params, state, batch)
+        losses.append(float(m["loss"]))
+    launched = counts(kernels)
+    assert all(np.isfinite(losses)), losses
+    assert launched["flash_attention"] > 0 and \
+        launched["flash_attention_bwd"] > 0, launched
+    assert FA.flash_attention.instance[0] == "mma" and \
+        FB.flash_attention_bwd.instance[0] == "mma"
+    ref = float(plain["loss"])
+    print(f"  bf16 training, 3 steps: losses {losses}; step 0 vs plain "
+          f"{ref:.5f} (rel {abs(losses[0] - ref) / abs(ref):.2e}, bound "
+          f"2e-2); attention {FA.flash_attention.instance} forward, "
+          f"{FB.flash_attention_bwd.instance} backward")
+    assert abs(losses[0] - ref) <= 2e-2 * abs(ref), (losses[0], ref)
+    out["train"] = {"losses": losses, "plain_step0": ref,
+                    "launches": {k: launched[k] for k in
+                                 ("flash_attention", "flash_attention_bwd")}}
+    del params0, params, state
+    torch.cuda.empty_cache()
+    # the launchers' usage lines, on their default device (cuda)
+    launch_train.main(["--arch", "granite-3-8b", "--reduced", "--steps",
+                       "2"])
+    launch_serve.main(["--arch", "granite-3-8b", "--reduced", "--requests",
+                       "4", "--gen", "8"])
+    return out
 
 
 def time_ms(fn) -> float:
@@ -912,7 +1139,22 @@ def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
             "fused path vs cuBLAS", fused_logits,
             _cublas_logits(cfg, params, prompts[0]))
         summary["profile"] = profile_window(engine(), prompts[:8], 8)
+        hold_row9_kinds(summary["profile"])
     return summary
+
+
+def hold_row9_kinds(profile: dict) -> None:
+    """Every bf16 row-9 launch in a profiled serving window ran on the
+    tensor cores: the joins on the ``mma`` instance, decode on the
+    transposed one, none on the CUDA-core tile core."""
+    kinds = profile["device_ms_by_kind"]
+    assert kinds.get("matmul_fused (mma)", 0) > 0 and \
+        kinds.get("matmul_fused (mma_t)", 0) > 0, kinds
+    assert "matmul_fused" not in kinds and \
+        "matmul_fused (int8)" not in kinds, kinds
+    print(f"  row 9 in the profiled window: mma "
+          f"{kinds['matmul_fused (mma)']:.3f} ms, mma_t "
+          f"{kinds['matmul_fused (mma_t)']:.3f} ms, no CUDA-core launch")
 
 
 def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
@@ -943,6 +1185,9 @@ def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
     for m in sorted(ms):
         for n, k in GRANITE_NK:
             best_schedule("matmul_w8", (m, n, k), "bfloat16")
+        if fuse:
+            for _, n, k, _ in GRANITE_MLP:
+                best_schedule("matmul_fused_w8", (m, n, k), "bfloat16")
     print(f"  w8 tiles derived for M in {sorted(ms)} in "
           f"{time.perf_counter() - t0:.1f}s; page {eng.page_size} and chunk "
           f"{eng.prefill_chunk} under flash_decode_fp8, kv "
@@ -982,6 +1227,8 @@ def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
                                        "max_abs_logit": scale,
                                        "argmax_agrees": same}
     summary["profile"] = profile_window(engine(), prompts[:8], 8)
+    if fuse:
+        hold_row9_kinds(summary["profile"])
     return summary
 
 
@@ -1034,6 +1281,10 @@ def kernel_kind(name: str) -> str:
             return ("matmul_fused (int8)" if "signed char" in name
                     else "matmul_fused")
         return "matmul_blocked"
+    if "fused_mma_t_kernel" in name:   # row 9's bf16 instances
+        return "matmul_fused (mma_t)"
+    if "fused_mma_kernel" in name:
+        return "matmul_fused (mma)"
     if "decode_oproj_kernel" in name:
         return "flash_decode_oproj"
     if "fwd_mma_kernel" in name:
@@ -1201,6 +1452,18 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
     return out
 
 
+def row9_instance(row: dict, m: int, n: int, bm: int, bn: int) -> None:
+    """Row 9's instance (``matmul_fused.instance``: the kind, its warp
+    grid or fragment counts, its stages) and its block count, on the
+    timed row and its shape; a bf16 launch runs on the tensor cores."""
+    from repro_torch.kernels import matmul_fused as MF
+    kind, layout, stages = MF.matmul_fused.instance
+    assert kind in ("mma", "mma_t"), MF.matmul_fused.instance
+    blocks = -(-n // bn) * (1 if kind == "mma_t" else -(-m // bm))
+    row["instance"], row["blocks"] = [kind, layout, stages], blocks
+    row["shape"] += f"; {kind} {layout} stages={stages}, {blocks} blocks"
+
+
 def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
     """The three fused kernels at the fused run's decode shapes (8 slots,
     the model's tiles and page), beside bound, plain version and (where
@@ -1273,6 +1536,7 @@ def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
                          f"{ {x: y for x, y in epi.items()} } tiles="
                          f"{(bm, bk, bn)} bf16; library: "
                          f"{'addmm(residual, a, w)' if name == 'down' else 'matmul(a, w), no epilogue'}"}
+            row9_instance(row, m, n, bm, bn)
             if m == 8 and name == "down":
                 rows.append(row)
             else:
@@ -1406,7 +1670,7 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
             wide = qw.dequant(bf16)
             kw = epilogue(dev, bf16, m, n, seed=m, **epi)
             kw["scale"] = qw.scale.reshape(-1)
-            bm, bk, bn = best_schedule("matmul_w8", (m, n, k),
+            bm, bk, bn = best_schedule("matmul_fused_w8", (m, n, k),
                                        "bfloat16").tiles
             extra = m * n * 2 * (kw["mul"] is not None
                                  or kw["residual"] is not None)
@@ -1436,6 +1700,7 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
                          f"{(bm, bk, bn)} A bf16, W int8; library: "
                          + ("addmm(residual, a, w_bf16)" if name == "down"
                             else "matmul(a, w_bf16), no epilogue")}
+            row9_instance(row, m, n, bm, bn)
             if m == 8 and name == "down":
                 rows.append(row)
             else:
@@ -2183,6 +2448,25 @@ def phase3_conv(dev) -> None:
                 check(f"N={n} out={oy}x{ox} C={c} K={k} {fh}x{fw} "
                       f"stride={s} (tensor cores)", dn, dtype, n, oy, ox, c,
                       k, fh, fw, s, tiles, True, oy * k + 1)
+        # non-finite input: +Inf in the last real pixel of a tile whose
+        # pixel count pads to whole k-steps (7 x 19), and in the input row
+        # past the last window of a ragged image edge (12 x 12 outputs in
+        # 5 x 5 tiles): dW is +-Inf exactly where the fp32 oracle is, and
+        # within the gate elsewhere
+        for n, oy, ox, c, k, tiles, pixel in (
+                (1, 19, 14, 16, 16, (7, 19, 16, 16), (0, 20, 8, 0)),
+                (2, 12, 12, 16, 48, (5, 5, 16, 24), (1, 13, 7, 3))):
+            h, w = oy + 2, ox + 2
+            x, _, g = conv_inputs(dev, dtype, n, h, w, c, k, 3, 3, 1, oy)
+            x[pixel] = float("inf")
+            bx, by, bc, bk = tiles
+            got = CW.conv2d_wgrad_block(x, g, 3, 3, bx=bx, by=by, bc=bc,
+                                        bk=bk)
+            want = CW.conv2d_wgrad_block_ref(x, g, 3, 3, 1)
+            hold_nonfinite(f"conv2d_wgrad_block {dn} N={n} out={oy}x{ox} "
+                           f"C={c} K={k} tiles={tiles} +Inf at {pixel}",
+                           got, want, grad_tol("float32", n * oy * ox,
+                                               want.nan_to_num(0, 0, 0))[0])
         n_tiles = 0
         for name, X, Y, C, K, Fw, Fh, s in conv_layers():
             keys = (("conv2d", (X, Y, C, K, Fw, Fh), s),
@@ -2202,6 +2486,22 @@ def phase3_conv(dev) -> None:
                     n_tiles += 1
         print(f"  {n_tiles} conv adapter tiles checked in {dn}")
     torch.cuda.synchronize()
+
+
+def hold_nonfinite(name: str, got, want, atol: float) -> None:
+    """``got`` is non-finite exactly where ``want`` is, with the same
+    values there (+-Inf, NaN), and within ``atol`` plus the fp32 rule
+    elsewhere."""
+    import torch
+    bad = ~torch.isfinite(want)
+    assert bool(bad.any()), f"{name}: the case holds no non-finite value"
+    same = torch.equal(bad, ~torch.isfinite(got)) and torch.equal(
+        got[bad].nan_to_num(), want[bad].nan_to_num())
+    print(f"  {name}: {int(bad.sum())} non-finite values "
+          f"{'as in the oracle' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"{name}: non-finite values differ")
+    compare(name, got[~bad], want[~bad], "float32", atol=atol)
 
 
 CONV_KERNELS = ("conv2d_block", "conv2d_wgrad_block")
@@ -2595,6 +2895,15 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
     return out
 
 
+T0 = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """A phase's title, with the seconds the run has taken before it."""
+    print(f"{title}  [{time.perf_counter() - T0:.0f}s into the run]",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2629,7 +2938,7 @@ def main() -> int:
                "matmul_w8": MQ.matmul_w8,
                "qkv_fused": QF.qkv_fused}
 
-    print("phase 1: card")
+    phase("phase 1: card")
     card = card_line()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2642,7 +2951,7 @@ def main() -> int:
           f"{H100_SXM.smem_optin_bytes} B in the Hopper target")
     assert optin == H100_SXM.smem_optin_bytes, "the target does not match"
 
-    print("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
 
     def build_one(name):     # one nvcc each, all at once, each timed
@@ -2675,27 +2984,31 @@ def main() -> int:
               f"{max(r for r, _ in wgrad_mma)} registers, "
               f"{sum(sp for _, sp in wgrad_mma)} B spilled in all")
 
-    print("phase 3: kernels vs plain versions")
-    phase3_kernels(torch.device("cuda"))
-    phase3_fused(torch.device("cuda"))
-    phase3_quant(torch.device("cuda"))
-    phase3_train(torch.device("cuda"))
-    phase3_conv(torch.device("cuda"))
-    print("phase 4: engine parity, granite-3-8b width, 2 layers, fp32, "
+    phase("phase 3: kernels vs plain versions")
+    for check in (phase3_kernels, phase3_head_dims, phase3_oproj_wide,
+                  phase3_fused, phase3_quant, phase3_train, phase3_conv):
+        t0 = time.perf_counter()
+        check(torch.device("cuda"))
+        print(f"  {check.__name__}: {time.perf_counter() - t0:.1f}s")
+    phase("phase 4: engine parity, granite-3-8b width, 2 layers, fp32, "
           "unfused and fused, wide and w8fp8")
     phase4_parity(args.seed, kernels)
-    print("phase 5: granite-3-8b, full width and depth, bf16, cuBLAS path")
+    phase("phase 13: the reduced granite-3-8b (head_dim 16) on the card: "
+          "serving parity, the fused path, 3 training steps, the "
+          "launchers' usage lines")
+    reduced = phase13_reduced(args.seed, kernels)
+    phase("phase 5: granite-3-8b, full width and depth, bf16, cuBLAS path")
     cfg, params, warm, lens, prompts = full_model(args.seed)
     cublas = phase5_full(cfg, params, warm, prompts, kernels)
-    print("phase 6: the same, blocking model's page and chunk, every "
+    phase("phase 6: the same, blocking model's page and chunk, every "
           "projection through matmul_blocked")
     blocked = phase6_blocked(cfg, params, warm, prompts, kernels)
-    print("phase 6b: the fused path: the same, fuse=True (one-pass QKV, "
+    phase("phase 6b: the fused path: the same, fuse=True (one-pass QKV, "
           "epilogue-fused MLP, oproj-fused decode)")
     fused = phase6_fused(cfg, params, warm, prompts, kernels)
     print(f"  fused {fused['tok_per_s']:.1f} tok/s against blocked "
           f"{blocked['tok_per_s']:.1f} tok/s in this run")
-    print("phase 9: the quantized path (w8fp8): int8 projections from "
+    phase("phase 9: the quantized path (w8fp8): int8 projections from "
           "quantize_params on the card, an fp8 page pool, the model's page "
           "and chunk")
     from repro_torch.quant import (dequantize_params, quantize_params,
@@ -2717,7 +3030,7 @@ def main() -> int:
     cfg8 = dataclasses.replace(cfg, kv_cache_dtype=torch.float8_e4m3fn)
     quant = phase9_quantized(cfg8, qparams, warm, prompts, kernels, False,
                              want_fq, want_bf16)
-    print("phase 9b: the quantized path, fuse=True (q/k/v and wo through "
+    phase("phase 9b: the quantized path, fuse=True (q/k/v and wo through "
           "matmul_w8, the MLP through the int8 matmul_fused)")
     quant_fused = phase9_quantized(cfg8, qparams, warm, prompts, kernels,
                                    True, want_fq, want_bf16)
@@ -2727,22 +3040,22 @@ def main() -> int:
           f"{quant_fused['tok_per_s']:.1f} tok/s in this run")
     del qparams
     torch.cuda.empty_cache()
-    print("phase 10: training parity, granite-3-8b width, 2 layers, fp32: "
+    phase("phase 10: training parity, granite-3-8b width, 2 layers, fp32: "
           "one train step on the kernel path (blocked linears) and on the "
           "plain path")
     parity = phase10_train_parity(args.seed, kernels)
-    print("phase 11: training granite-3-8b at full width, 4 of 40 layers, "
+    phase("phase 11: training granite-3-8b at full width, 4 of 40 layers, "
           "bf16, remat block, 4 x 512 tokens, 8 steps: default path and "
           "blocked kernels")
     train = phase11_train(args.seed, kernels)
-    print("phase 12: the paper's conv path at full Table-4 size: Conv1-5 "
+    phase("phase 12: the paper's conv path at full Table-4 size: Conv1-5 "
           "and AlexNet conv1, batch 2, bf16, ops.conv2d forward and "
           "backward")
     conv = phase12_conv(kernels)
-    print("phase 7: tune_op matmul (8, 4096, 4096), qkv_fused "
+    phase("phase 7: tune_op matmul (8, 4096, 4096), qkv_fused "
           "(8, 1024, 4096, 4) and conv2d (Conv4), bfloat16")
     tuned = phase7_tune()
-    print("phase 8: kernel timings at the blocked, fused and quantized "
+    phase("phase 8: kernel timings at the blocked, fused and quantized "
           "runs' shapes")
     rows = time_kernels(cfg, lens, blocked["launches"], blocked["page"])
     rows += time_fused_kernels(cfg, lens, fused["launches"], fused["page"])
@@ -2758,7 +3071,8 @@ def main() -> int:
                                  "fused": fused, "w8fp8": quant,
                                  "w8fp8_fused": quant_fused,
                                  "tune": tuned}))
-    print("train " + json.dumps({"parity": parity, "full_width": train}))
+    print("train " + json.dumps({"parity": parity, "full_width": train,
+                                 "reduced": reduced}))
     print("conv " + json.dumps(conv))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -32,9 +32,13 @@ and Hopper's alignment and emits:
   its backward: the dgrad's transposed conv on row 12 at stride 1, the
   wgrad on row 13 (``kernels/conv2d_bwd.py``) under its own footprint.
 
-``"matmul_fused"`` takes ``matmul_tile_candidates`` as they are: its
-kernel stages exactly what the blocked GEMM stages.  The quantized keys
-take the same two searches with their narrow operand at one byte:
+``"matmul_fused"`` (and ``"matmul_fused_w8"``, its int8 weight at one
+byte) takes ``matmul_tile_candidates(fused=True)``: in fp32 the blocked
+GEMM's tiles (its kernel runs that tile core), in bf16 tiles snapped to
+the fused kernel's tensor-core instances (:func:`fused_fits`), and at
+M <= 16 one decode tile for the transposed instance whose column blocks
+fill the card (:func:`fused_decode_tile`).  The quantized keys take the
+same two searches with their narrow operand at one byte:
 ``"matmul_w8"`` ``matmul_tile_candidates(w_bytes=1)`` (the int8 weight
 tile priced by ``matmul_q.smem_bytes_required``; N and K tiles stay
 multiples of 64, so bn is a whole number of 16-byte int8 copies whenever
@@ -143,6 +147,81 @@ def matmul_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
             and accumulators_per_thread(bm, bn) <= target.acc_per_thread)
 
 
+def decode_smem_limit(N: int | None, bn: int, budget: int,
+                      target: HopperTarget = H100_SXM) -> int:
+    """Shared memory a decode block of the fused GEMM may use: where its
+    ``ceil(N / bn)`` column blocks are one wave at one block an SM, the
+    opt-in of one block (a second resident block would have no work);
+    else, or with N unknown, ``budget`` (two blocks an SM)."""
+    if N is not None and -(-N // bn) <= target.sms:
+        return max(budget, target.smem_optin_bytes)
+    return budget
+
+
+def fused_fits(M: int, bm: int, bk: int, bn: int, bytes_per_elem: int,
+               budget: int, target: HopperTarget = H100_SXM,
+               w_bytes: int | None = None, N: int | None = None) -> bool:
+    """Whether the epilogue-fused GEMM's instance for ``M`` rows holds
+    these tiles (``kernels/matmul_fused.py``): fp32, the blocked GEMM's
+    tile core (:func:`matmul_fits`); bf16, its staged tiles at the
+    instance's stages within ``budget`` and its fp32 sums within the
+    register limit -- ``"mma"`` (M > 16) on a warp grid that leaves at
+    most ``MAX_EMPTY_ROWS`` of its computed rows empty, ``"mma_t"``
+    (M <= 16) at a bn it is compiled for, within
+    :func:`decode_smem_limit` of the output's N columns."""
+    if bytes_per_elem != 2:
+        return matmul_fits(bm, bk, bn, bytes_per_elem, budget, target,
+                           w_bytes)
+    from repro_torch.kernels.matmul_bwd import MMA_M, empty_row_share
+    from repro_torch.kernels.matmul_fused import (MMA_T_COLS, MMA_T_ROWS,
+                                                  accumulators_per_thread,
+                                                  smem_bytes_required)
+    if M <= MMA_T_ROWS:
+        budget = decode_smem_limit(N, bn, budget, target)
+    if (smem_bytes_required(bm, bk, bn, 2, w_bytes, m=M) > budget
+            or accumulators_per_thread(bm, bn, 2, m=M)
+            > target.acc_per_thread):
+        return False
+    if M <= MMA_T_ROWS:
+        return bn in MMA_T_COLS
+    return bm < MMA_M or empty_row_share(bm, bn) <= MAX_EMPTY_ROWS
+
+
+def fused_decode_tile(M: int, N: int, K: int, budget: int,
+                      w_bytes: int | None = None,
+                      target: HopperTarget = H100_SXM
+                      ) -> tuple[int, int, int]:
+    """The bf16 fused GEMM's tile at M <= 16 (decode), for its transposed
+    instance: bm = M (the block holds every row); bn the widest of
+    ``MMA_T_COLS`` whose ``ceil(N / bn)`` blocks reach
+    ``DECODE_BLOCKS`` (about one per SM: N = 4096 takes 32, 12800 takes
+    64; the narrowest where none does); bk the deepest power of two up to
+    512 whose ``MMA_T_STAGES`` steps of W stay within ``DECODE_W_BYTES``
+    (bytes in flight: about 1 us of the card's 3.35 TB/s spread over its
+    SMs is 25 KB an SM), no deeper than K rounded up to 16, halved while
+    the footprint exceeds :func:`decode_smem_limit` (the opt-in where the
+    column blocks are one wave: N = 4096's int8 weight then keeps bk
+    512, 25 reduction steps, where the two-block budget held it to 256;
+    the per-step barriers and widening pass, not the bytes, set its
+    pace)."""
+    from repro_torch.kernels.matmul_fused import (DECODE_BLOCKS,
+                                                  DECODE_W_BYTES,
+                                                  MMA_T_COLS, MMA_T_STAGES,
+                                                  smem_bytes_required)
+    wide = [c for c in MMA_T_COLS if -(-N // c) >= DECODE_BLOCKS]
+    bn = max(wide) if wide else min(MMA_T_COLS)
+    wb = w_bytes or 2
+    bk = 512
+    while bk > 16 and MMA_T_STAGES * bk * bn * wb > DECODE_W_BYTES:
+        bk //= 2
+    bk = min(bk, -(-K // 16) * 16)
+    limit = decode_smem_limit(N, bn, budget, target)
+    while (bk > 16 and smem_bytes_required(M, bk, bn, 2, w_bytes, m=M)
+           > limit):
+        bk //= 2
+    return M, bk, bn
+
+
 def _shrink(extent: int, tile: int, mult: int) -> int:
     """The next smaller aligned tile (divisors of ``extent`` first)."""
     return _pick_tile(extent, max(mult, tile // 2), mult)
@@ -150,13 +229,28 @@ def _shrink(extent: int, tile: int, mult: int) -> int:
 
 def _snap_matmul(bm: int, bk: int, bn: int, M: int, N: int, K: int,
                  bytes_per_elem: int, budget: int, target: HopperTarget,
-                 w_bytes: int | None = None,
-                 dgrad: bool = False) -> tuple[int, int, int]:
+                 w_bytes: int | None = None, dgrad: bool = False,
+                 fused: bool = False) -> tuple[int, int, int]:
     """Snap an analytical (bm, bk, bn) to Hopper alignment, the shared
     memory budget and the register limit, shrinking one tile at a time:
-    the forward GEMM's footprint and accumulator, or with ``dgrad`` the
-    dgrad kernels' (:func:`dgrad_fits`)."""
-    if dgrad:
+    the forward GEMM's footprint and accumulator, with ``dgrad`` the
+    dgrad kernels' (:func:`dgrad_fits`), with ``fused`` in bf16 the fused
+    GEMM's tensor-core instance (:func:`fused_fits`)."""
+    if fused and bytes_per_elem == 2:
+        from repro_torch.kernels.matmul_fused import (
+            accumulators_per_thread as fused_acc)
+        from repro_torch.kernels.matmul_fused import \
+            smem_bytes_required as fused_smem
+
+        def acc(bm, bn):
+            return fused_acc(bm, bn, 2, m=M)
+
+        def smem(bm, bk, bn):
+            return fused_smem(bm, bk, bn, 2, w_bytes, m=M)
+
+        def fits(bm, bk, bn):
+            return fused_fits(M, bm, bk, bn, 2, budget, target, w_bytes)
+    elif dgrad:
         from repro_torch.kernels.matmul_bwd import (accumulators_per_thread,
                                                     smem_bytes_required)
 
@@ -211,7 +305,7 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
                            smem_budget_bytes: int | None = None,
                            target: HopperTarget = H100_SXM,
                            top: int = 8, w_bytes: int | None = None,
-                           dgrad: bool = False
+                           dgrad: bool = False, fused: bool = False
                            ) -> tuple[tuple[int, int, int], ...]:
     """Ranked (bm, bk, bn) candidates for C[M,N] = A[M,K] @ B[K,N].
 
@@ -225,9 +319,14 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
     ``w_bytes``: the B operand's own width (1 for an int8 weight), which
     the model's nest and the kernel's footprint both see.  ``dgrad``:
     snap to the dgrad kernels (:func:`dgrad_fits`) instead of the
-    forward GEMM.
+    forward GEMM.  ``fused``: the epilogue-fused GEMM's instances
+    (:func:`fused_fits`; the same as the forward GEMM's in fp32), and in
+    bf16 at M <= 16 the one decode tile of :func:`fused_decode_tile`.
     """
     budget = default_smem_budget(target, smem_budget_bytes)
+    from repro_torch.kernels.matmul_fused import MMA_T_ROWS
+    if fused and bytes_per_elem == 2 and M <= MMA_T_ROWS:
+        return (fused_decode_tile(M, N, K, budget, w_bytes, target),)
     problem = Problem.gemm(M=M, N_cols=N, K_reduce=K,
                            bytes_per_elem=bytes_per_elem,
                            weight_bytes=w_bytes)
@@ -241,7 +340,7 @@ def matmul_tile_candidates(M: int, N: int, K: int, bytes_per_elem: int = 2,
     out: list[tuple[int, int, int]] = []
     for bm, bk, bn in raw:
         cand = _snap_matmul(bm, bk, bn, M, N, K, bytes_per_elem, budget,
-                            target, w_bytes, dgrad)
+                            target, w_bytes, dgrad, fused)
         if cand not in out:
             out.append(cand)
     return tuple(out[:top])
@@ -838,6 +937,12 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
                                    bytes_per_elem, kv_bytes) > budget
                and page > mult):
             page = _shrink(seq_kv, page, mult)
+        # one key per lane is a preference: a wide head (D = 256 in fp32)
+        # fits the budget only below it
+        while (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
+                                   bytes_per_elem, kv_bytes) > budget
+               and page > 1):
+            page = _shrink(seq_kv, page, 1)
         if seq_kv % page:
             page = max(d for d in divisors(seq_kv) if d <= page)
         if (page,) not in out:

@@ -1,13 +1,18 @@
 // Tensor-core pieces of the bf16 flash-attention kernels: the forward
 // (flash_attention.cu) and both backward passes (flash_attention_bwd.cu).
+// D is the instance's width (32, 64, 128 or 256; attn_rows.cuh's
+// with_head_dim); rows in global memory are the true head_dim (Mask::hd,
+// a multiple of 16) apart, and the chunks past it stage as zeros.
 //
 // Every product is mma.sync m16n8k16 with fp32 sums (mma_frag.cuh).  A
 // warp owns one m16 tile of the block's rows (query rows in the forward
 // and the dq pass, keys in the dk/dv pass); the streamed operand is a
 // tile of whole k16 steps.  The operands live in shared memory as rows
 // of D bf16 (256 B at D = 128, a power of two), their 16-byte chunks
-// XOR-swizzled by row (chunk c of row r at c ^ (r & 7)), so the eight
-// row addresses of each ldmatrix sub-matrix hit eight bank groups.  Three
+// XOR-swizzled by row (chunk c of row r at c ^ (r & 7); at D = 32, four
+// chunks a row, at c ^ ((r >> 1) & 3), by the row's 128-byte line), so
+// the eight row addresses of each ldmatrix sub-matrix hit eight bank
+// groups.  Three
 // fragment loads cover every product:
 //   ld_a     A of rows m0.. from a row-major [m][D] tile (q, k, v, do);
 //   ld_b_nk  B of two n8 tiles from an [n][D] tile (k for q . k^T, q
@@ -41,9 +46,16 @@ constexpr float kLn2 = 0.6931471805599453f;
 // kernels/flash_attention.py and kernels/flash_attention_bwd.py).
 // forward: K and V tiles, two stages [2][K, V][bkv][D]; the q rows
 // [bq][D] are staged in stage 1 (they are read into registers before the
-// first copy into it) where they fit, else after both stages
+// first copy into it) where they fit and D <= 128, else after both
+// stages (at D = 256 q is read from shared memory at every tile: its
+// fragments would take 64 registers a thread)
+template <int D> __host__ __device__ constexpr bool fwd_q_in_regs() {
+  return D <= 128;
+}
 template <int D> constexpr size_t fwd_smem_bytes(int bq, int bkv) {
-  return size_t(bq <= 2 * bkv ? 4 * bkv : 4 * bkv + bq) * D * sizeof(bf16);
+  return size_t(bq <= 2 * bkv && fwd_q_in_regs<D>() ? 4 * bkv
+                                                     : 4 * bkv + bq) *
+         D * sizeof(bf16);
 }
 // dq pass: q and do rows [bq][D], K and V tiles [2][bkv][D], lse, delta
 template <int D> constexpr size_t dq_smem_bytes(int bq, int bkv) {
@@ -58,8 +70,14 @@ template <int D> constexpr size_t dkv_smem_bytes(int bq, int bkv) {
 }
 
 // element offset of 16-byte chunk c of row r in a swizzled [rows][D] tile
+// (kernels/flash_attention.py::chunk_at)
 template <int D> __device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
+  constexpr int CPR = D / 8;
+  if constexpr (CPR >= 8) {
+    return r * D + ((c ^ (r & 7)) << 3);
+  } else {
+    return r * D + ((c ^ ((r / (8 / CPR)) & (CPR - 1))) << 3);
+  }
 }
 
 // x / d for 0 <= x with x * (d - 1) < 2^32 (the launcher checks the
@@ -80,15 +98,16 @@ struct FastDiv {
 
 // Stage rows 0 .. N - 1 of the swizzled [N][D] tile ta from ga, and with
 // kPair of tb from gb (K and V, or q and do), row r at element offset
-// off(r), or zeros where off(r) < 0 (zeros keep every product finite: a
-// masked p or ds is exactly 0, and 0 times a zero row is 0 where 0 times
-// stale bits could be NaN).  Thread t copies 16-byte chunk t % (D / 8) of
-// rows t / (D / 8), t / (D / 8) + kThreads / (D / 8), ..., so each row's
+// off(r), its first hc chunks (head_dim / 8), or zeros where off(r) < 0
+// and past chunk hc (zeros keep every product finite: a masked p or ds
+// is exactly 0, and 0 times a zero row is 0 where 0 times stale bits
+// could be NaN).  Thread t copies 16-byte chunk t % (D / 8) of rows
+// t / (D / 8), t / (D / 8) + kThreads / (D / 8), ..., so each row's
 // offset is computed once for both tiles.
 template <int D, int kThreads, int N, bool kPair, class Off>
 __device__ __forceinline__ void stage_rows(bf16* ta, const bf16* ga,
                                            bf16* tb, const bf16* gb,
-                                           const Off& off) {
+                                           int hc, const Off& off) {
   constexpr int CPR = D / 8, RPI = kThreads / CPR;
   static_assert(kThreads % CPR == 0, "whole rows per pass");
   const int c = threadIdx.x % CPR, r0 = threadIdx.x / CPR;
@@ -96,7 +115,7 @@ __device__ __forceinline__ void stage_rows(bf16* ta, const bf16* ga,
   for (int i = 0; i < (N + RPI - 1) / RPI; ++i) {
     const int r = r0 + i * RPI;
     if (N % RPI != 0 && r >= N) break;
-    const int64_t o = off(r);
+    const int64_t o = c < hc ? off(r) : -1;
     const int e = swz<D>(r, c);
     if (o >= 0) {
       attn::cp_async16(ta + e, ga + o + c * 8);
@@ -331,19 +350,23 @@ __device__ __forceinline__ void softmax_update(float (&s)[NT][4], float mul,
 }
 
 // Write the thread's share of a 16 x D fp32 accumulator, times `mul`, as
-// bf16 pairs: row h (g or g + 8) to out_row[h] (null: not a real row)
+// bf16 pairs: row h (g or g + 8) to out_row[h] (null: not a real row),
+// its first hd columns
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
                                            bf16* const (&out_row)[2],
-                                           const float (&mul)[2], int lane) {
+                                           const float (&mul)[2], int hd,
+                                           int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (out_row[h] == nullptr) continue;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(out_row[h] + c_col(dt, 0, lane)) =
-          __floats2bfloat162_rn(acc[dt][2 * h] * mul[h],
-                                acc[dt][2 * h + 1] * mul[h]);
+      if (dt * 8 < hd)
+        *reinterpret_cast<__nv_bfloat162*>(out_row[h] +
+                                           c_col(dt, 0, lane)) =
+            __floats2bfloat162_rn(acc[dt][2 * h] * mul[h],
+                                  acc[dt][2 * h + 1] * mul[h]);
   }
 }
 

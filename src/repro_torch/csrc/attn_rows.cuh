@@ -44,6 +44,13 @@
 //                                ignore them)
 // Rows are position-major inside a (batch, kv head): qpos never decreases
 // with t, so the last row of a block bounds what the block can see.
+//
+// Head dims.  D, the width a kernel is compiled for, is one of 32, 64,
+// 128 and 256; a call runs the smallest D at least its true head_dim
+// (Mask::hd, a multiple of 16: with_head_dim).  Rows in global memory are
+// hd elements apart; shared-memory rows are D wide, the columns in
+// [hd, D) of q, K and V staged as zeros (shared memory is not
+// initialised, and 0 x NaN = NaN), and only hd columns are stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +74,7 @@ struct Mask {
   int window;     // > 0: and only if kpos > qpos - window
   float scale;    // head_dim ** -0.5
   float cap;      // > 0: scores become cap * tanh(s / cap)
+  int hd;         // the true head_dim (<= the instance's D): row stride
   // fp8 cache: per-kv-head fp32 dequantisation scales (Hkv,), or null
   const float* k_scale = nullptr;
   const float* v_scale = nullptr;
@@ -189,7 +197,7 @@ __device__ __forceinline__ void attn_rows(const Layout& lay,
                                           unsigned char* smem,
                                           const Sink& sink) {
   static_assert(D % 32 == 0 && (D & (D - 1)) == 0,
-                "head_dim must be a power of two, at least 32");
+                "the instance's D must be a power of two, at least 32");
   constexpr bool kFp8 = sizeof(TK) == 1;
   constexpr int P = D / 32;                // accumulator dims per lane
   constexpr int VEC = 16 / sizeof(TK);     // elements per 16-byte copy
@@ -212,10 +220,12 @@ __device__ __forceinline__ void attn_rows(const Layout& lay,
   const bool row_ok = t < rows;
   const int t_last = min(t0 + kWarps, rows) - 1;
 
+  const int hd = mk.hd;
   T* const qs = Qs + warp * D;
   if (row_ok) {
-    const T* qr = q + lay.q_row(b, hk, t) * D;
-    for (int d = lane; d < D; d += 32) qs[d] = qr[d];
+    const T* qr = q + lay.q_row(b, hk, t) * hd;
+    for (int d = lane; d < D; d += 32)
+      qs[d] = d < hd ? qr[d] : from_f<T>(0.f);
   }
   const int qpos = row_ok ? lay.qpos(b, t) : 0;
 
@@ -232,16 +242,17 @@ __device__ __forceinline__ void attn_rows(const Layout& lay,
 #pragma unroll
   for (int i = 0; i < P; ++i) acc[i] = 0.f;
 
-  // stage s <- keys c0 .. c0 + tile; keys at or past k_hi are zero (their
-  // scores are masked, and a zero V row keeps p * V finite)
+  // stage s <- keys c0 .. c0 + tile; keys at or past k_hi, and columns
+  // at or past hd, are zero (their scores are masked, and a zero V row
+  // keeps p * V finite)
   auto load_tile = [&](int s, int c0) {
     TK* ks = Ks + s * tile * D;
     TK* vs = Vs + s * tile * D;
     for (int idx = threadIdx.x; idx < tile * VPR; idx += kThreads) {
       const int j = idx / VPR, e = (idx % VPR) * VEC;
       const int kpos = c0 + j;
-      if (kpos < k_hi) {
-        const int64_t off = lay.k_row(b, hk, kpos) * D + e;
+      if (kpos < k_hi && e < hd) {
+        const int64_t off = lay.k_row(b, hk, kpos) * hd + e;
         cp_async16(ks + j * D + e, k + off);
         cp_async16(vs + j * D + e, v + off);
       } else {
@@ -326,19 +337,20 @@ __device__ __forceinline__ void attn_rows(const Layout& lay,
     const float safe_l = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int i = 0; i < P; ++i)
-      sink.put(t, lane + 32 * i, acc[i] * v_scale / safe_l);
+      if (lane + 32 * i < hd)
+        sink.put(t, lane + 32 * i, acc[i] * v_scale / safe_l);
     if (lane == 0) lay.row_stats(b, hk, t, m, l);
   }
 }
 
 // The sink of the two attention kernels: row t of (b, hk) into o, in the
-// input dtype.
-template <typename T, int D, class Layout> struct RowOut {
+// input dtype (rows hd elements apart).
+template <typename T, class Layout> struct RowOut {
   const Layout& lay;
   T* o;
-  int b, hk;
+  int b, hk, hd;
   __device__ void put(int t, int d, float x) const {
-    o[lay.q_row(b, hk, t) * D + d] = from_f<T>(x);
+    o[lay.q_row(b, hk, t) * hd + d] = from_f<T>(x);
   }
 };
 
@@ -351,7 +363,7 @@ attn_rows_kernel(Layout lay, const T* __restrict__ q,
                  T* __restrict__ o, Mask mk, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, hk = blockIdx.y;
-  const RowOut<T, D, Layout> sink{lay, o, b, hk};
+  const RowOut<T, Layout> sink{lay, o, b, hk, mk.hd};
   attn_rows<T, D>(lay, q, k, v, mk, tile, b, hk, blockIdx.x * kWarps, smem,
                   sink);
 }
@@ -377,27 +389,36 @@ int launch_rows(const Layout& lay, int n_kv_heads, int batch, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Run f with the compile-time width of the instance that takes head_dim:
+// the smallest of 32, 64, 128 and 256 at least head_dim, a multiple of 16
+// (kernels/flash_attention.py::instance_head_dim).  Anything else is
+// cudaErrorInvalidValue.
+template <class F> int with_head_dim(int head_dim, F&& f) {
+  if (head_dim < 16 || head_dim % 16 || head_dim > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim <= 32) return f(std::integral_constant<int, 32>{});
+  if (head_dim <= 64) return f(std::integral_constant<int, 64>{});
+  if (head_dim <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
+}
+
 // dtype (of q and the output): 0 = float32, 1 = bfloat16.  K and V in
-// q's dtype, or fp8 (kFp8KV).  Returns a cudaError_t.
+// q's dtype, or fp8 (kFp8KV); head_dim is mk.hd.  Returns a cudaError_t.
 template <bool kFp8KV = false, class Layout>
-int dispatch(int dtype, int head_dim, const Layout& lay, int n_kv_heads,
-             int batch, const void* q, const void* k, const void* v, void* o,
-             Mask mk, int tile, cudaStream_t stream) {
+int dispatch(int dtype, const Layout& lay, int n_kv_heads, int batch,
+             const void* q, const void* k, const void* v, void* o, Mask mk,
+             int tile, cudaStream_t stream) {
   using F32K = std::conditional_t<kFp8KV, fp8, float>;
   using B16K = std::conditional_t<kFp8KV, fp8, __nv_bfloat16>;
-  if (dtype == 0 && head_dim == 64)
-    return launch_rows<float, 64, Layout, F32K>(lay, n_kv_heads, batch, q,
-                                                k, v, o, mk, tile, stream);
-  if (dtype == 0 && head_dim == 128)
-    return launch_rows<float, 128, Layout, F32K>(lay, n_kv_heads, batch, q,
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return with_head_dim(mk.hd, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch_rows<float, D, Layout, F32K>(lay, n_kv_heads, batch, q,
                                                  k, v, o, mk, tile, stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_rows<__nv_bfloat16, 64, Layout, B16K>(
+    return launch_rows<__nv_bfloat16, D, Layout, B16K>(
         lay, n_kv_heads, batch, q, k, v, o, mk, tile, stream);
-  if (dtype == 1 && head_dim == 128)
-    return launch_rows<__nv_bfloat16, 128, Layout, B16K>(
-        lay, n_kv_heads, batch, q, k, v, o, mk, tile, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace attn

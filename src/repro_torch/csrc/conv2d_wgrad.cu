@@ -47,10 +47,13 @@
 // (tap, chunk) offset, held in registers, so no k-step divides.  B is the
 // staged cotangent tile, pixel rows of bk contiguous columns, read with
 // ldmatrix.x4.trans as row 12's weight tile is.  The reduction is not
-// masked at the store (every pixel adds into every sum), so a pixel past
-// the tile or past OH / OW stages an exact-zero cotangent row, and its A
-// rows point at staged, finite data (the last real pixel): shared memory
-// is not initialised and 0 x NaN = NaN.  M rows past the dW tile (the
+// masked at the store (every pixel adds into every sum), so a pixel slot
+// past the tile or past OH / OW stages an exact-zero cotangent row, and
+// its A rows point at one zeroed 16-byte chunk (a per-stage mask of such
+// slots, 16 bits a k-step, is written with the stage): shared memory is
+// not initialised, and 0 x NaN or 0 x Inf = NaN where the staged input
+// (the tile's last real pixel, or input past the last window) is not
+// finite.  M rows past the dW tile (the
 // pad chunk of an odd count, channels past bc or C: C = 3 is zero-padded
 // to one chunk at staging) are computed and never stored, as are n8
 // tiles past bk (clamped into the staged columns).  The 8 warps tile M x
@@ -69,6 +72,8 @@
 // sums each (64 at most), and per output pixel reads 4 cotangent values
 // and each group's 4 input channels in vector loads: 16 fused
 // multiply-adds per load.
+#include <type_traits>
+
 #include "conv_tile.cuh"
 #include "mma_frag.cuh"
 
@@ -343,11 +348,18 @@ wgrad_mma(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const int in_size = ih * iw * pst;
   const int stage = in_size + P16 * gvs * 8;  // elements of one stage
   bf16* const base = reinterpret_cast<bf16*>(smem);
+  const int ksteps = P16 / 16;
   int* const pix_off = reinterpret_cast<int*>(base + 2 * stage);
+  // per stage, a bit for each pixel slot of each k-step that has no
+  // output pixel (past the tile, or past OH / OW), and a zero chunk its
+  // A rows read
+  uint32_t* const pad_mask = reinterpret_cast<uint32_t*>(pix_off + P16);
+  uint4* const zero = reinterpret_cast<uint4*>(
+      pad_mask + conv::round_up(2 * ksteps, 4));
+  if (threadIdx.x == 0) *zero = make_uint4(0u, 0u, 0u, 0u);
 
-  // byte offset in the staged input of each pixel's window origin; the
-  // pixels that pad the tile to whole k-steps read the last one (finite
-  // data against their zero cotangent rows)
+  // byte offset in the staged input of each pixel's window origin (the
+  // slots that pad the tile to whole k-steps: the last pixel's, unread)
   for (int p = threadIdx.x; p < P16; p += kThreads) {
     const int q = min(p, P - 1), py = q / bx, px = q - py * bx;
     pix_off[p] = (py * s * iw + px * s) * pst * 2;
@@ -399,6 +411,12 @@ wgrad_mma(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const int nsp = ntx * nty;
   const int64_t pairs = int64_t(N) * nsp;
   const int64_t q0 = pairs * split / splits, q1 = pairs * (split + 1) / splits;
+  // whether the (image, tile) pair at tile (ty, tx) has pixel slots
+  // without an output pixel (its pixels pad to whole k-steps, or it
+  // crosses OH or OW); only such a pair writes and reads its mask
+  auto has_pad = [&](int ty, int tx) {
+    return P16 != P || (ty + 1) * by > OH || (tx + 1) * bx > OW;
+  };
   auto load = [&](int buf, int64_t q) {
     const int n = int(q / nsp), t = int(q - int64_t(n) * nsp);
     const int ty = t / ntx, tx = t - ty * ntx;
@@ -408,6 +426,17 @@ wgrad_mma(const bf16* __restrict__ x, const bf16* __restrict__ g,
     // cotangent row p: g[n, ty*by + p / bx, tx*bx + p % bx, k0 .. k0 + bk];
     // rows past the tile or the image, and columns past bk or K, are zero
     bf16* const gs = xs + in_size;
+    if (has_pad(ty, tx)) {
+      for (int j = threadIdx.x; j < ksteps; j += kThreads) {
+        uint32_t m = 0;
+        for (int i = 0; i < 16; ++i) {
+          const int p = j * 16 + i, py = p / bx, px = p - py * bx;
+          if (p >= P || ty * by + py >= OH || tx * bx + px >= OW)
+            m |= 1u << i;
+        }
+        pad_mask[buf * ksteps + j] = m;
+      }
+    }
     for (int p = threadIdx.x / gcols; stager && p < P16; p += gstep) {
       const int py = p / bx, px = p - py * bx;
       const int oy = ty * by + py, ox = tx * bx + px;
@@ -421,8 +450,8 @@ wgrad_mma(const bf16* __restrict__ x, const bf16* __restrict__ g,
     }
     gemm::cp_async_commit();
   };
-  const int ksteps = P16 / 16;
   const uint32_t s0 = mma::smem_addr(base);
+  const uint32_t zero_addr = mma::smem_addr(zero);
   if (q0 < q1) load(0, q0);
   for (int64_t q = q0; q < q1; ++q) {
     const int buf = int(q - q0) & 1;
@@ -435,30 +464,46 @@ wgrad_mma(const bf16* __restrict__ x, const bf16* __restrict__ g,
     __syncthreads();
     const uint32_t xs = s0 + buf * stage * 2;
     const uint32_t gs = xs + in_size * 2;
+    // the k-steps; with kMasked, the slots without an output pixel read
+    // the zero chunk (only a pair whose pixels pad to whole k-steps, or
+    // at a ragged image edge, has such slots: the others keep the plain
+    // addressing)
+    auto ksteps_of = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
 #pragma unroll(kUnrollOf<MT, NT>)
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const uint32_t xk = xs + pix_off[ks * 16 + a_pix];
-      uint32_t b[NP][4];
+      for (int ks = 0; ks < ksteps; ++ks) {
+        bool pad = false;
+        if constexpr (kMasked)
+          pad = (pad_mask[buf * ksteps + ks] >> a_pix) & 1u;
+        const uint32_t xk = pad ? zero_addr : xs + pix_off[ks * 16 + a_pix];
+        uint32_t b[NP][4];
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const int L = ks * 16 * gvs + b_vec[j];
-        const uint32_t addr = gs + (L ^ ((L >> sw.shift) & sw.mask)) * 16;
-        if (2 * j + 1 < NT)
-          mma::ldmatrix_x4_trans(b[j], addr);
-        else  // an odd count's last n8 tile
-          mma::ldmatrix_x2_trans(b[j][0], b[j][1], addr);
+        for (int j = 0; j < NP; ++j) {
+          const int L = ks * 16 * gvs + b_vec[j];
+          const uint32_t addr = gs + (L ^ ((L >> sw.shift) & sw.mask)) * 16;
+          if (2 * j + 1 < NT)
+            mma::ldmatrix_x4_trans(b[j], addr);
+          else  // an odd count's last n8 tile
+            mma::ldmatrix_x2_trans(b[j][0], b[j][1], addr);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t off = ((a_off[mt / 2] >> (16 * (mt & 1))) & 0xffff)
+                               << 4;
+          uint32_t a[4];
+          mma::ldmatrix_x4_trans(a, pad ? xk : xk + off);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma::mma_bf16_16816(acc[mt][nt], a, b[nt / 2][(nt & 1) * 2],
+                                b[nt / 2][(nt & 1) * 2 + 1]);
+        }
       }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        mma::ldmatrix_x4_trans(
-            a, xk + (((a_off[mt / 2] >> (16 * (mt & 1))) & 0xffff) << 4));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma::mma_bf16_16816(acc[mt][nt], a, b[nt / 2][(nt & 1) * 2],
-                              b[nt / 2][(nt & 1) * 2 + 1]);
-      }
-    }
+    };
+    const int t = int(q % nsp), ty = t / ntx, tx = t - ty * ntx;
+    if (has_pad(ty, tx))
+      ksteps_of(std::true_type{});
+    else
+      ksteps_of(std::false_type{});
     __syncthreads();
   }
 
@@ -491,7 +536,8 @@ wgrad_mma(const bf16* __restrict__ x, const bf16* __restrict__ g,
 }
 
 // dynamic shared memory of the bf16 kernel: two stages of the input and
-// cotangent tiles, then the pixel-offset table
+// cotangent tiles, then the pixel-offset table, the two stages' padding
+// masks (a word a k-step, rounded up to 16 bytes) and the zero chunk
 inline int mma_smem_bytes(int bx, int by, int Fh, int Fw, int s, int bc,
                           int bk) {
   const int ih = (by - 1) * s + Fh, iw = (bx - 1) * s + Fw;
@@ -500,7 +546,8 @@ inline int mma_smem_bytes(int bx, int by, int Fh, int Fw, int s, int bc,
              (ih * iw * conv::pixel_stride<bf16>(bc) +
               P16 * conv::row_vectors(bk) * 8) *
              int(sizeof(bf16)) +
-         P16 * int(sizeof(int));
+         P16 * int(sizeof(int)) +
+         conv::round_up(2 * (P16 / 16), 4) * int(sizeof(uint32_t)) + 16;
 }
 
 struct MmaArgs {

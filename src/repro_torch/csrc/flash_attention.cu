@@ -18,10 +18,16 @@
 // window of its first.  (block_q, block_kv) come from
 // core.hopper_adapter.flash_tiles, shared with the backward.
 //
+// head_dim: any multiple of 16 up to 256, at the smallest compiled width
+// D of 32, 64, 128, 256 at least it (attn_rows.cuh: with_head_dim; the
+// columns past head_dim stage as zeros and are not stored).
+//
 // bf16 (fwd_mma_kernel): the tensor cores.  block_q / 16 warps, each
 // owning one m16 tile of rows; q is staged once (in the second K/V stage,
-// so three blocks fit an SM at (64, 64)) and held in registers as A
-// fragments for the whole KV loop; K and V tiles come in with 16-byte
+// so three blocks fit an SM at (64, 64)) and, up to D = 128, held in
+// registers as A fragments for the whole KV loop (at D = 256 they would
+// take 64 registers a thread: q stays in its own shared tile and its
+// fragments are read at every KV tile); K and V tiles come in with 16-byte
 // cp.async, two stages deep, XOR-swizzled; S = q . k^T takes K through
 // ldmatrix, O += P . V takes V through ldmatrix.trans; the online softmax
 // runs on the C fragments (attn_mma.cuh) and P goes to bf16 A fragments
@@ -78,7 +84,9 @@ fwd_mma_kernel(DenseLayout lay, const bf16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kStage = 2 * BKV * D;               // K and V of a stage
   bf16* const St = reinterpret_cast<bf16*>(smem);   // [2][K, V][BKV][D]
-  bf16* const Qs = St + (BQ <= kStage / D ? kStage : 2 * kStage);  // [BQ][D]
+  bf16* const Qs =                                  // [BQ][D]
+      St + (BQ <= kStage / D && attn_mma::fwd_q_in_regs<D>() ? kStage
+                                                           : 2 * kStage);
 
   const int b = blockIdx.z, hk = blockIdx.y;
   const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;
@@ -86,9 +94,10 @@ fwd_mma_kernel(DenseLayout lay, const bf16* __restrict__ q,
   const int rows = lay.rows(), kv_len = lay.kv_len(b);
   const int t_last = min(t0 + BQ, rows) - 1;
 
+  const int hd = mk.hd, hc = hd / 8;
   attn_mma::stage_rows<D, kThreads, BQ, false>(
-      Qs, q, nullptr, nullptr, [&](int r) -> int64_t {
-        return t0 + r < rows ? lay.q_row(b, hk, t0 + r) * D : -1;
+      Qs, q, nullptr, nullptr, hc, [&](int r) -> int64_t {
+        return t0 + r < rows ? lay.q_row(b, hk, t0 + r) * hd : -1;
       });
   attn::cp_async_commit();
 
@@ -99,9 +108,9 @@ fwd_mma_kernel(DenseLayout lay, const bf16* __restrict__ q,
   // stage s <- keys c0 .. c0 + BKV; keys at or past k_hi are zero
   auto load_tile = [&](int s, int c0) {
     attn_mma::stage_rows<D, kThreads, BKV, true>(
-        St + s * kStage, k, St + s * kStage + BKV * D, v,
+        St + s * kStage, k, St + s * kStage + BKV * D, v, hc,
         [&](int j) -> int64_t {
-          return c0 + j < k_hi ? lay.k_row(b, hk, c0 + j) * D : -1;
+          return c0 + j < k_hi ? lay.k_row(b, hk, c0 + j) * hd : -1;
         });
     attn::cp_async_commit();
   };
@@ -111,10 +120,14 @@ fwd_mma_kernel(DenseLayout lay, const bf16* __restrict__ q,
   __syncthreads();
 
   const int m0 = warp * attn_mma::kRowsPerWarp;
-  uint32_t qf[KD][4];
+  constexpr bool kQRegs = attn_mma::fwd_q_in_regs<D>();
+  uint32_t qf[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int ks = 0; ks < KD; ++ks) attn_mma::ld_a<D>(qf[ks], Qs, m0, ks, lane);
-  __syncthreads();  // every warp holds its q before stage 1 is overwritten
+    for (int ks = 0; ks < KD; ++ks)
+      attn_mma::ld_a<D>(qf[ks], Qs, m0, ks, lane);
+    __syncthreads();  // every warp holds its q before stage 1 is overwritten
+  }
   bool row_ok[2];
   int qpos[2];
 #pragma unroll
@@ -143,7 +156,10 @@ fwd_mma_kernel(DenseLayout lay, const bf16* __restrict__ q,
     const bf16* ks = St + s * kStage;
     const bf16* vs = ks + BKV * D;
     float sc[NT][4] = {};
-    attn_mma::mma_abt_reg<D, NT>(sc, qf, ks, lane);
+    if constexpr (kQRegs)
+      attn_mma::mma_abt_reg<D, NT>(sc, qf, ks, lane);
+    else
+      attn_mma::mma_abt<D, NT>(sc, Qs, m0, ks, lane);
     const bool masked =
         !(rows_full && c0 + BKV <= kv_len && mk.cap <= 0.f &&
           attn_mma::all_visible(mk, c0, c0 + BKV - 1, qpos_lo, qpos_hi));
@@ -178,11 +194,11 @@ fwd_mma_kernel(DenseLayout lay, const bf16* __restrict__ q,
     const int t = t0 + m0 + (lane >> 2) + 8 * h;
     l[h] = attn_mma::quad_sum(l[h]);
     inv_l[h] = 1.f / (l[h] == 0.f ? 1.f : l[h]);
-    out_row[h] = row_ok[h] ? o + lay.q_row(b, hk, t) * D : nullptr;
+    out_row[h] = row_ok[h] ? o + lay.q_row(b, hk, t) * hd : nullptr;
     if (row_ok[h] && (lane & 3) == 0)
       lay.row_stats(b, hk, t, m[h] * attn_mma::kLn2, l[h]);
   }
-  attn_mma::store_rows<D>(acc, out_row, inv_l, lane);
+  attn_mma::store_rows<D>(acc, out_row, inv_l, hd, lane);
 }
 
 template <int D, int BQ, int BKV>
@@ -239,18 +255,14 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
   if (!attn_mma::FastDiv::exact(lay.rows(), lay.groups))
     return static_cast<int>(cudaErrorInvalidValue);
   const attn::Mask mk{causal, window, 1.0f / sqrtf(float(head_dim)),
-                      logit_cap};
+                      logit_cap, head_dim};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return attn::launch_rows<float, 64>(lay, hkv, batch, q, k, v, o, mk,
-                                        block_kv, s);
-  if (dtype == 0 && head_dim == 128)
-    return attn::launch_rows<float, 128>(lay, hkv, batch, q, k, v, o, mk,
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return attn::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return attn::launch_rows<float, D>(lay, hkv, batch, q, k, v, o, mk,
                                          block_kv, s);
-  if (dtype == 1 && head_dim == 64)
-    return dispatch_mma<64>(block_q, block_kv, lay, batch, q, k, v, o, mk, s);
-  if (dtype == 1 && head_dim == 128)
-    return dispatch_mma<128>(block_q, block_kv, lay, batch, q, k, v, o, mk,
-                             s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_mma<D>(block_q, block_kv, lay, batch, q, k, v, o, mk, s);
+  });
 }

@@ -48,7 +48,14 @@
 //   scored kDkvSubRows rows at a time so the sums fit the registers:
 //   S^T = k . q^T, dP^T = v . do^T, P^T and dS^T, then dv += P^T . do and
 //   dk += dS^T . q (q and do through ldmatrix.trans).  The fragments of k
-//   and v are re-read from shared memory per step, not held.
+//   and v are re-read from shared memory per step, not held.  At D = 256
+//   dk and dv together would need 272 sums a thread: the pass sweeps the
+//   rows twice, dv first, then dk, 16 rows at a time (dkv_sweep), each
+//   sweep recomputing s and p; the order is fixed, so repeats stay
+//   bit-equal.
+// head_dim: any multiple of 16 up to 256, at the smallest compiled width
+// D of 32, 64, 128, 256 at least it (attn_rows.cuh: with_head_dim); the
+// columns past head_dim stage as zeros and are not stored.
 // Both are issued heaviest first (dq: the last rows; dk/dv: the first
 // keys).  Seven products where the bound counts five: no closer than
 // 1.4x the operations bound.
@@ -152,14 +159,17 @@ dq_kernel(BwdLayout lay, const T* __restrict__ q, const T* __restrict__ k,
   const int t_last = min(t0 + kWarps, rows) - 1;
   T* const qs = Qs + warp * D;
   T* const gs = Gs + warp * D;
+  const int hd = mk.hd;
   float lse_t = 0.f, delta_t = 0.f;
   int qpos = 0;
   if (row_ok) {
-    const int64_t r = lay.q_row(b, hk, t) * D;
+    const int64_t r = lay.q_row(b, hk, t) * hd;
     for (int d = lane; d < D; d += 32) {
-      qs[d] = q[r + d];
-      gs[d] = go[r + d];
-      delta_t = fmaf(attn::to_f(go[r + d]), attn::to_f(o[r + d]), delta_t);
+      const bool in = d < hd;
+      qs[d] = in ? q[r + d] : attn::from_f<T>(0.f);
+      gs[d] = in ? go[r + d] : attn::from_f<T>(0.f);
+      if (in)
+        delta_t = fmaf(attn::to_f(go[r + d]), attn::to_f(o[r + d]), delta_t);
     }
     delta_t = attn::warp_sum(delta_t);
     if (lane == 0) delta[lay.stat_row(b, hk, t)] = delta_t;
@@ -175,8 +185,8 @@ dq_kernel(BwdLayout lay, const T* __restrict__ q, const T* __restrict__ k,
     T* vs = Vs + s * tile * D;
     for (int idx = threadIdx.x; idx < tile * VPR; idx += kThreads) {
       const int j = idx / VPR, e = (idx % VPR) * VEC;
-      if (c0 + j < k_hi) {
-        const int64_t off = lay.k_row(b, hk, c0 + j) * D + e;
+      if (c0 + j < k_hi && e < hd) {
+        const int64_t off = lay.k_row(b, hk, c0 + j) * hd + e;
         attn::cp_async16(ks + j * D + e, k + off);
         attn::cp_async16(vs + j * D + e, v + off);
       } else {
@@ -232,10 +242,11 @@ dq_kernel(BwdLayout lay, const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile s is free for the copy after next
   }
   if (row_ok) {
-    const int64_t r = lay.q_row(b, hk, t) * D;
+    const int64_t r = lay.q_row(b, hk, t) * hd;
 #pragma unroll
     for (int i = 0; i < P; ++i)
-      dq[r + lane + 32 * i] = attn::from_f<T>(acc[i] * mk.scale);
+      if (lane + 32 * i < hd)
+        dq[r + lane + 32 * i] = attn::from_f<T>(acc[i] * mk.scale);
   }
 }
 
@@ -267,11 +278,12 @@ dkv_kernel(BwdLayout lay, const T* __restrict__ q, const T* __restrict__ k,
   const int j_last = min(j0 + kWarps, lay.skv) - 1;
   T* const kw = Kw + warp * D;
   T* const vw = Vw + warp * D;
+  const int hd = mk.hd;
   if (key_ok) {
-    const int64_t r = lay.k_row(b, hk, key) * D;
+    const int64_t r = lay.k_row(b, hk, key) * hd;
     for (int d = lane; d < D; d += 32) {
-      kw[d] = k[r + d];
-      vw[d] = v[r + d];
+      kw[d] = d < hd ? k[r + d] : attn::from_f<T>(0.f);
+      vw[d] = d < hd ? v[r + d] : attn::from_f<T>(0.f);
     }
   }
   // the query rows some key of this block is visible to
@@ -286,8 +298,8 @@ dkv_kernel(BwdLayout lay, const T* __restrict__ q, const T* __restrict__ k,
     T* gs = Gs + s * tile * D;
     for (int idx = threadIdx.x; idx < tile * VPR; idx += kThreads) {
       const int r = idx / VPR, e = (idx % VPR) * VEC;
-      if (c0 + r < t_hi) {
-        const int64_t off = lay.q_row(b, hk, c0 + r) * D + e;
+      if (c0 + r < t_hi && e < hd) {
+        const int64_t off = lay.q_row(b, hk, c0 + r) * hd + e;
         attn::cp_async16(qs + r * D + e, q + off);
         attn::cp_async16(gs + r * D + e, go + off);
       } else {
@@ -352,9 +364,10 @@ dkv_kernel(BwdLayout lay, const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
   if (key_ok) {
-    const int64_t r = lay.k_row(b, hk, key) * D;
+    const int64_t r = lay.k_row(b, hk, key) * hd;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
+      if (lane + 32 * i >= hd) continue;
       dk[r + lane + 32 * i] = attn::from_f<T>(acc_k[i] * mk.scale);
       dv[r + lane + 32 * i] = attn::from_f<T>(acc_v[i]);
     }
@@ -388,9 +401,10 @@ dq_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
   const int rows = lay.rows();
   const int t_last = min(t0 + BQ, rows) - 1;
 
+  const int hd = mk.hd, hc = hd / 8;
   attn_mma::stage_rows<D, kThreads, BQ, true>(
-      Qs, q, Gs, go, [&](int r) -> int64_t {
-        return t0 + r < rows ? lay.q_row(b, hk, t0 + r) * D : -1;
+      Qs, q, Gs, go, hc, [&](int r) -> int64_t {
+        return t0 + r < rows ? lay.q_row(b, hk, t0 + r) * hd : -1;
       });
   for (int r = threadIdx.x; r < BQ; r += kThreads)
     Ls[r] = t0 + r < rows
@@ -403,8 +417,8 @@ dq_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
   const int k_lo = mk.window > 0 ? max(0, lay.qpos(t0) - mk.window + 1) : 0;
   auto load_tile = [&](int s, int c0) {
     attn_mma::stage_rows<D, kThreads, BKV, true>(
-        Ks + s * BKV * D, k, Vs + s * BKV * D, v, [&](int j) -> int64_t {
-          return c0 + j < k_hi ? lay.k_row(b, hk, c0 + j) * D : -1;
+        Ks + s * BKV * D, k, Vs + s * BKV * D, v, hc, [&](int j) -> int64_t {
+          return c0 + j < k_hi ? lay.k_row(b, hk, c0 + j) * hd : -1;
         });
     attn::cp_async_commit();
   };
@@ -418,17 +432,19 @@ dq_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
   const int m0 = warp * attn_mma::kRowsPerWarp;
   {
     // two lanes a row, half a row each, every 16-byte load of o in flight
-    // at once; the halves add in a fixed order
+    // at once; the halves add in a fixed order (chunks past head_dim are
+    // zero in do and not read from o)
     constexpr int CH = D / 16;               // 16-byte chunks per half row
     const int r = m0 + (lane >> 1), half = lane & 1;
     const bool in = t0 + r < rows;
     float d = 0.f;
     if (in) {
       const uint4* orow = reinterpret_cast<const uint4*>(
-                              o + lay.q_row(b, hk, t0 + r) * D) + half * CH;
+                              o + lay.q_row(b, hk, t0 + r) * hd) + half * CH;
       uint4 ov[CH];
 #pragma unroll
-      for (int c = 0; c < CH; ++c) ov[c] = orow[c];
+      for (int c = 0; c < CH; ++c)
+        ov[c] = half * CH + c < hc ? orow[c] : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const uint4 gv = *reinterpret_cast<const uint4*>(
@@ -522,23 +538,36 @@ dq_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int t = t0 + m0 + (lane >> 2) + 8 * h;
-    out_row[h] = row_ok[h] ? dq + lay.q_row(b, hk, t) * D : nullptr;
+    out_row[h] = row_ok[h] ? dq + lay.q_row(b, hk, t) * hd : nullptr;
   }
-  attn_mma::store_rows<D>(acc, out_row, mul, lane);
+  attn_mma::store_rows<D>(acc, out_row, mul, hd, lane);
 }
 
-// grid (ceil(Skv / BKV), Hkv, B), BKV / 16 warps
-template <int D, int BQ, int BKV>
-__global__ void __launch_bounds__(2 * BKV)
-dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
-               const bf16* __restrict__ k, const bf16* __restrict__ v,
-               const bf16* __restrict__ go, const float* __restrict__ lse,
-               const float* __restrict__ delta, bf16* __restrict__ dk,
-               bf16* __restrict__ dv, attn::Mask mk) {
-  constexpr int kThreads = 2 * BKV, DT = D / 8;
-  constexpr int RS = BQ < attn_mma::kDkvSubRows ? BQ : attn_mma::kDkvSubRows;
-  constexpr int NTS = RS / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
+// Rows scored at once by the dk/dv pass, and its sweeps over the rows:
+// up to D = 128 one sweep sums dk and dv together, 32 rows at a time; at
+// D = 256 the two would need 16 (2 D + 2 rows) / 32 = 272 sums a thread,
+// so a first sweep sums dv and a second dk, 16 rows at a time (144 sums;
+// each recomputes s and p).  kernels/flash_attention_bwd.py::
+// dkv_sub_rows and dkv_sweeps.
+template <int D> __host__ __device__ constexpr int dkv_sweeps() {
+  return D > 128 ? 2 : 1;
+}
+template <int D, int BQ> __host__ __device__ constexpr int dkv_sub_rows() {
+  constexpr int RS = D > 128 ? 16 : attn_mma::kDkvSubRows;
+  return BQ < RS ? BQ : RS;
+}
+
+// One sweep of the dk/dv pass over the (q, do, lse, delta) tiles the
+// block's keys can see: dv += P^T . do (kV) and dk += dS^T . q (kK).
+template <int D, int BQ, int BKV, bool kK, bool kV>
+__device__ __forceinline__ void dkv_sweep(
+    const BwdLayout& lay, const bf16* __restrict__ q,
+    const bf16* __restrict__ go, const float* __restrict__ lse,
+    const float* __restrict__ delta, const attn::Mask& mk,
+    unsigned char* smem, int b, int hk, int j0, int t_lo, int t_hi,
+    float (&acc_k)[D / 8][4], float (&acc_v)[D / 8][4]) {
+  constexpr int kThreads = 2 * BKV;
+  constexpr int RS = dkv_sub_rows<D, BQ>(), NTS = RS / 8;
   bf16* const Kw = reinterpret_cast<bf16*>(smem);   // [BKV][D]
   bf16* const Vw = Kw + BKV * D;                    // [BKV][D]
   bf16* const Qs = Vw + BKV * D;                    // [2][BQ][D]
@@ -546,27 +575,14 @@ dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
   // the staged rows' lse (natural units) and delta
   float* const Ls = reinterpret_cast<float*>(Gs + 2 * BQ * D);  // [2][BQ]
   float* const Ds = Ls + 2 * BQ;                                 // [2][BQ]
-
-  const int b = blockIdx.z, hk = blockIdx.y, j0 = blockIdx.x * BKV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j_last = min(j0 + BKV, lay.skv) - 1;
-  attn_mma::stage_rows<D, kThreads, BKV, true>(
-      Kw, k, Vw, v, [&](int j) -> int64_t {
-        return j0 + j < lay.skv ? lay.k_row(b, hk, j0 + j) * D : -1;
-      });
-  attn::cp_async_commit();
-
-  // the query rows some key of this block is visible to
-  const int rows = lay.rows(), kv_off = lay.skv - lay.sq;
-  int t_lo = 0, t_hi = rows;
-  if (mk.causal) t_lo = min(rows, max(0, j0 - kv_off) * lay.groups);
-  if (mk.window > 0)
-    t_hi = min(rows, max(0, j_last + mk.window - kv_off) * lay.groups);
+  const int hd = mk.hd, hc = hd / 8;
 
   auto load_tile = [&](int s, int c0) {
     attn_mma::stage_rows<D, kThreads, BQ, true>(
-        Qs + s * BQ * D, q, Gs + s * BQ * D, go, [&](int r) -> int64_t {
-          return c0 + r < t_hi ? lay.q_row(b, hk, c0 + r) * D : -1;
+        Qs + s * BQ * D, q, Gs + s * BQ * D, go, hc,
+        [&](int r) -> int64_t {
+          return c0 + r < t_hi ? lay.q_row(b, hk, c0 + r) * hd : -1;
         });
     for (int r = threadIdx.x; r < BQ; r += kThreads) {
       float* const lr = Ls + s * BQ + r;
@@ -598,7 +614,6 @@ dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
   const bool keys_full = j0 + m0 + attn_mma::kRowsPerWarp <= lay.skv;
   const int key_lo = j0 + m0, key_hi = j0 + m0 + 15;
   const float scale_log2 = mk.scale * attn_mma::kLog2e;
-  float acc_k[DT][4] = {}, acc_v[DT][4] = {};
   int s = 0;
   for (int c0 = t_lo; c0 < t_hi; c0 += BQ, s ^= 1) {
     if (c0 + BQ < t_hi) {
@@ -613,9 +628,10 @@ dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
       const bf16* gs = Gs + (s * BQ + rs) * D;
       const float* ls = Ls + s * BQ + rs;
       const float* dls = Ds + s * BQ + rs;
-      float st[NTS][4] = {}, dpt[NTS][4] = {};
+      float st[NTS][4] = {}, dpt[kK ? NTS : 1][4] = {};
       attn_mma::mma_abt<D, NTS>(st, Kw, m0, qs, lane);    // S^T = k q^T
-      attn_mma::mma_abt<D, NTS>(dpt, Vw, m0, gs, lane);   // dP^T = v do^T
+      if constexpr (kK)
+        attn_mma::mma_abt<D, NTS>(dpt, Vw, m0, gs, lane);  // dP^T = v do^T
       const int t_first = c0 + rs, t_end = t_first + RS;
       if (keys_full && t_end <= t_hi && mk.cap <= 0.f &&
           attn_mma::all_visible(mk, key_lo, key_hi, lay.qpos(t_first),
@@ -628,7 +644,7 @@ dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
             const float p = attn_mma::exp2_ftz(
                 fmaf(st[nt][e], scale_log2, -ls[r] * attn_mma::kLog2e));
             st[nt][e] = p;
-            dpt[nt][e] = p * (dpt[nt][e] - dls[r]);
+            if constexpr (kK) dpt[nt][e] = p * (dpt[nt][e] - dls[r]);
           }
       } else {
 #pragma unroll
@@ -648,35 +664,92 @@ dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
               const float p =
                   ok ? attn_mma::exp2_ftz((x - ls[r]) * attn_mma::kLog2e)
                      : 0.f;
-              float ds = p * (dpt[nt][e] - dls[r]);
-              if (mk.cap > 0.f) ds *= 1.f - tc * tc;
               st[nt][e] = p;
-              dpt[nt][e] = ds;
+              if constexpr (kK) {
+                float ds = p * (dpt[nt][e] - dls[r]);
+                if (mk.cap > 0.f) ds *= 1.f - tc * tc;
+                dpt[nt][e] = ds;
+              }
             }
           }
       }
 #pragma unroll
       for (int j = 0; j < NTS / 2; ++j) {
-        uint32_t pa[4], da[4];
-        attn_mma::c_to_a<NTS>(pa, st, j);
-        attn_mma::c_to_a<NTS>(da, dpt, j);
-        attn_mma::mma_ab_step<D>(acc_v, pa, gs, 16 * j, lane);
-        attn_mma::mma_ab_step<D>(acc_k, da, qs, 16 * j, lane);
+        uint32_t pa[4];
+        if constexpr (kV) {
+          attn_mma::c_to_a<NTS>(pa, st, j);
+          attn_mma::mma_ab_step<D>(acc_v, pa, gs, 16 * j, lane);
+        }
+        if constexpr (kK) {
+          attn_mma::c_to_a<NTS>(pa, dpt, j);
+          attn_mma::mma_ab_step<D>(acc_k, pa, qs, 16 * j, lane);
+        }
       }
     }
     __syncthreads();  // tile s is free for the copy after next
   }
+}
+
+// grid (ceil(Skv / BKV), Hkv, B), BKV / 16 warps
+template <int D, int BQ, int BKV>
+__global__ void __launch_bounds__(2 * BKV)
+dkv_mma_kernel(BwdLayout lay, const bf16* __restrict__ q,
+               const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const bf16* __restrict__ go, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, attn::Mask mk) {
+  constexpr int kThreads = 2 * BKV, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* const Kw = reinterpret_cast<bf16*>(smem);   // [BKV][D]
+  bf16* const Vw = Kw + BKV * D;                    // [BKV][D]
+
+  const int b = blockIdx.z, hk = blockIdx.y, j0 = blockIdx.x * BKV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j_last = min(j0 + BKV, lay.skv) - 1;
+  const int hd = mk.hd;
+  attn_mma::stage_rows<D, kThreads, BKV, true>(
+      Kw, k, Vw, v, hd / 8, [&](int j) -> int64_t {
+        return j0 + j < lay.skv ? lay.k_row(b, hk, j0 + j) * hd : -1;
+      });
+  attn::cp_async_commit();
+
+  // the query rows some key of this block is visible to
+  const int rows = lay.rows(), kv_off = lay.skv - lay.sq;
+  int t_lo = 0, t_hi = rows;
+  if (mk.causal) t_lo = min(rows, max(0, j0 - kv_off) * lay.groups);
+  if (mk.window > 0)
+    t_hi = min(rows, max(0, j_last + mk.window - kv_off) * lay.groups);
+
   bf16* k_row[2];
   bf16* v_row[2];
+  const int m0 = warp * attn_mma::kRowsPerWarp;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int64_t r = lay.k_row(b, hk, key[h]) * D;
-    k_row[h] = key_ok[h] ? dk + r : nullptr;
-    v_row[h] = key_ok[h] ? dv + r : nullptr;
+    const int key = j0 + m0 + (lane >> 2) + 8 * h;
+    const int64_t r = lay.k_row(b, hk, key) * hd;
+    k_row[h] = key < lay.skv ? dk + r : nullptr;
+    v_row[h] = key < lay.skv ? dv + r : nullptr;
   }
   const float k_mul[2] = {mk.scale, mk.scale}, v_mul[2] = {1.f, 1.f};
-  attn_mma::store_rows<D>(acc_k, k_row, k_mul, lane);
-  attn_mma::store_rows<D>(acc_v, v_row, v_mul, lane);
+  if constexpr (dkv_sweeps<D>() == 1) {
+    float acc_k[DT][4] = {}, acc_v[DT][4] = {};
+    dkv_sweep<D, BQ, BKV, true, true>(lay, q, go, lse, delta, mk, smem, b,
+                                      hk, j0, t_lo, t_hi, acc_k, acc_v);
+    attn_mma::store_rows<D>(acc_k, k_row, k_mul, hd, lane);
+    attn_mma::store_rows<D>(acc_v, v_row, v_mul, hd, lane);
+  } else {
+    float acc[DT][4] = {};
+    dkv_sweep<D, BQ, BKV, false, true>(lay, q, go, lse, delta, mk, smem, b,
+                                       hk, j0, t_lo, t_hi, acc, acc);
+    attn_mma::store_rows<D>(acc, v_row, v_mul, hd, lane);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    dkv_sweep<D, BQ, BKV, true, false>(lay, q, go, lse, delta, mk, smem, b,
+                                       hk, j0, t_lo, t_hi, acc, acc);
+    attn_mma::store_rows<D>(acc, k_row, k_mul, hd, lane);
+  }
 }
 
 template <typename Kernel>
@@ -793,13 +866,12 @@ extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
                static_cast<const float*>(lse),
                static_cast<float*>(delta), dq, dk, dv,
                attn::Mask{causal, window, 1.0f / sqrtf(float(head_dim)),
-                          logit_cap},
+                          logit_cap, head_dim},
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0 && head_dim == 64) return launch_fp32<64>(a, tile_q, tile_kv);
-  if (dtype == 0 && head_dim == 128)
-    return launch_fp32<128>(a, tile_q, tile_kv);
-  if (dtype == 1 && head_dim == 64) return dispatch_mma<64>(a, tile_q, tile_kv);
-  if (dtype == 1 && head_dim == 128)
-    return dispatch_mma<128>(a, tile_q, tile_kv);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return attn::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0) return launch_fp32<D>(a, tile_q, tile_kv);
+    return dispatch_mma<D>(a, tile_q, tile_kv);
+  });
 }

@@ -20,6 +20,9 @@
 // point at scratch page 0: they are read only when a row can see them,
 // and masked when it cannot.
 //
+// head_dim: any multiple of 16 up to 256, run at the smallest compiled
+// width at least it (attn_rows.cuh: 32, 64, 128, 256).
+//
 // Bound on this card: every visible K/V byte is read once per block of
 // rows -- at decode (one position, 4 rows) that is the whole cache once,
 // 0.5 flop/byte, bytes bound at 3.35 TB/s.  The simple design leaves the
@@ -37,8 +40,8 @@ extern "C" int flash_decode_fwd(int dtype, int head_dim, const void* q,
     return static_cast<int>(cudaErrorInvalidValue);
   const attn::PagedLayout lay{gtot, gtot / q_span, hkv, page, n_blocks,
                               block_tables, lengths};
-  const attn::Mask mk{1, window, 1.0f / sqrtf(float(head_dim)), logit_cap};
-  return attn::dispatch(dtype, head_dim, lay, hkv, batch, q, k_pages,
-                        v_pages, o, mk, page,
-                        static_cast<cudaStream_t>(stream));
+  const attn::Mask mk{1, window, 1.0f / sqrtf(float(head_dim)), logit_cap,
+                      head_dim};
+  return attn::dispatch(dtype, lay, hkv, batch, q, k_pages, v_pages, o, mk,
+                        page, static_cast<cudaStream_t>(stream));
 }

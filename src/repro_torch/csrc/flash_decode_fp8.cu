@@ -16,7 +16,9 @@
 // k_scale[h])) and v_scale[h] into the output row (sum_j p_j v_j *
 // v_scale[h], applied once before the 1 / l normalisation), so no
 // widened tile is ever materialised.  The core is attn_rows.cuh with its
-// KV element type set to fp8.
+// KV element type set to fp8; head_dim is any multiple of 16 up to 256
+// (a 16-byte chunk of a page row is 16 e4m3 values, so rows are whole
+// chunks).
 //
 // Bound on this card: every visible KV byte is read once per block of
 // rows -- at decode (one position, 4 rows of a block) the whole fp8
@@ -43,8 +45,7 @@ extern "C" int flash_decode_fp8_fwd(int dtype, int head_dim, const void* q,
   const attn::PagedLayout lay{gtot, gtot / q_span, hkv, page, n_blocks,
                               block_tables, lengths};
   const attn::Mask mk{1, window, 1.0f / sqrtf(float(head_dim)), logit_cap,
-                      k_scale, v_scale};
-  return attn::dispatch<true>(dtype, head_dim, lay, hkv, batch, q, k_pages,
-                              v_pages, o, mk, page,
-                              static_cast<cudaStream_t>(stream));
+                      head_dim, k_scale, v_scale};
+  return attn::dispatch<true>(dtype, lay, hkv, batch, q, k_pages, v_pages,
+                              o, mk, page, static_cast<cudaStream_t>(stream));
 }

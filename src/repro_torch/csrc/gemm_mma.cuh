@@ -1,7 +1,8 @@
 // Tensor-core GEMM fragment core: the bf16 instances of the dgrad GEMMs
-// (matmul_bwd.cu: nt_mma_kernel, tn_mma_kernel), built on mma_frag.cuh.
-// The forward GEMM kernels keep gemm_tile.cuh's CUDA-core core; they may
-// adopt this one later.
+// (matmul_bwd.cu: nt_mma_kernel, tn_mma_kernel) and of the epilogue-fused
+// GEMM (matmul_fused.cu: fused_mma_kernel, fused_mma_t_kernel), built on
+// mma_frag.cuh.  matmul_blocked.cu, matmul_w8.cu and qkv_fused.cu keep
+// gemm_tile.cuh's CUDA-core core.
 //
 // A block of 256 threads (8 warps) owns one (rows x cols) output tile and
 // holds its fp32 sums in registers across the whole reduction.  The warps
@@ -25,7 +26,7 @@
 // operands allow it (aligned, whole chunks in range), else one element
 // at a time; what lies past the matrix or the step is zero.
 //
-// Pipeline.  `stages` (2 or 3) buffers of one reduction step each: step
+// Pipeline.  `stages` (2 to 4) buffers of one reduction step each: step
 // t + stages - 1 is copied by cp.async while step t is multiplied, with
 // one barrier a step.  The copy loop is kept short (one division a
 // staged tile, a strided address a chunk): its instructions compete with
@@ -183,7 +184,7 @@ __device__ __forceinline__ void stage(bf16* s, const bf16* X, int64_t ldx,
   }
 }
 
-// Walk nk reduction steps `stages` (2 or 3) deep: load(buf, t) stages
+// Walk nk reduction steps `stages` (2 to 4) deep: load(buf, t) stages
 // step t into buffer buf, compute(buf) multiplies a staged step.  The
 // copy of step t + stages - 1 is issued, all at once, before step t is
 // multiplied (spreading it over the k16 steps ran slower); one commit
@@ -198,7 +199,9 @@ __device__ __forceinline__ void pipeline(int nk, int stages, Load load,
   }
   int use = 0, fill = stages - 1;
   for (int t = 0; t < nk; ++t) {
-    if (stages == 3)
+    if (stages == 4)
+      gemm::cp_async_wait<2>();
+    else if (stages == 3)
       gemm::cp_async_wait<1>();
     else
       gemm::cp_async_wait<0>();
@@ -235,6 +238,36 @@ __device__ __forceinline__ void mma_step(float (&d)[MT][NT][4],
       mma::ldmatrix_x4_trans(a, a_at(mt));
     else
       mma::ldmatrix_x4(a, a_at(mt));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mma::mma_bf16_16816(d[mt][nt], a, b[nt / 2][(nt & 1) * 2],
+                          b[nt / 2][(nt & 1) * 2 + 1]);
+  }
+}
+
+// The k16 step of mma_step with A through plain ldmatrix (rows of
+// reduction elements, as the NT kernel stages them) and B through
+// ldmatrix.trans (reduction-major rows, as the TN kernel stages them): the
+// forward GEMM's operands as they lie in memory.  An odd NT's last n8
+// tile loads by ldmatrix.x2.trans (b_at gives lanes 0-15 its two
+// sub-matrices' rows).
+template <int MT, int NT, class AAt, class BAt>
+__device__ __forceinline__ void mma_step_ab_t(float (&d)[MT][NT][4],
+                                              const AAt& a_at,
+                                              const BAt& b_at) {
+  constexpr int NP = (NT + 1) / 2;
+  uint32_t b[NP][4];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    if (NT % 2 == 1 && j == NP - 1)
+      mma::ldmatrix_x2_trans(b[j][0], b[j][1], b_at(j));
+    else
+      mma::ldmatrix_x4_trans(b[j], b_at(j));
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t a[4];
+    mma::ldmatrix_x4(a, a_at(mt));
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       mma::mma_bf16_16816(d[mt][nt], a, b[nt / 2][(nt & 1) * 2],

@@ -44,6 +44,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// the first two sub-matrices of ldmatrix_x4 (lanes 0-15 address them):
+// one n8 tile's B fragment from rows of reduction elements
+__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+
 // the first two sub-matrices of ldmatrix_x4_trans (lanes 0-15 address
 // them): one n8 tile's B fragment
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,

@@ -24,7 +24,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("conv2d_blocked", "conv2d_wgrad", "flash_attention",
            "flash_attention_bwd", "flash_decode", "flash_decode_fp8",
            "flash_decode_oproj", "matmul_blocked", "matmul_bwd",
-           "matmul_fused", "matmul_w8", "qkv_fused")
+           "matmul_fused", "matmul_fused_mma", "matmul_w8", "qkv_fused")
+# matmul_fused_mma is kernel row 9's "mma" instance (bf16, M > 16), apart
+# from matmul_fused (its "fma" and "mma_t" instances) only so that the two
+# compile in parallel; its symbols carry the library's name
 # --split-compile 0: the optimizer runs over a library's kernels on all
 # cores, so a library with many template instances does not serialise
 # the parallel build

@@ -137,7 +137,10 @@ def smem_bytes_required(bx: int, by: int, bc: int, bk: int, fh: int,
     cotangent tile.  bf16 (the tensor cores): ``bx * by`` cotangent rows
     rounded up to whole 16-pixel k-steps, each of
     ``conv2d_blocked.weight_vectors(bk)`` 16-byte vectors, then one 4-byte
-    offset per pixel slot (the table the A fragments are addressed from).
+    offset per pixel slot (the table the A fragments are addressed from),
+    each stage's 4-byte padding mask per k-step (rounded up to 16 bytes)
+    and one zeroed 16-byte chunk, which the slots without an output pixel
+    read.
     fp32 (the CUDA cores): one row per pixel of ``bk`` rounded up to a
     16-byte vector.  The fp32 dW tile is in registers
     (:func:`accumulators_per_thread`)."""
@@ -148,7 +151,9 @@ def smem_bytes_required(bx: int, by: int, bc: int, bk: int, fh: int,
     if itemsize == 2:
         slots = _ceil(bx * by, K_STEP) * K_STEP
         g_tile = slots * weight_vectors(bk) * vec
-        return STAGES * (x_tile + g_tile) * itemsize + slots * 4
+        masks = _ceil(STAGES * slots // K_STEP, 4) * 4
+        return (STAGES * (x_tile + g_tile) * itemsize + slots * 4
+                + masks * 4 + 16)
     g_tile = bx * by * _ceil(bk, vec) * vec
     return STAGES * (x_tile + g_tile) * itemsize
 

@@ -14,7 +14,12 @@ before its product with V), fp32 on CUDA cores (``csrc/attn_rows.cuh``).
 Both are tiled ``(block_q, block_kv)`` by the Hopper ``flash_tiles``,
 which the backward shares; :func:`fwd_smem_bytes` and
 :func:`fwd_accumulators` mirror the ``.cu``.  The wrapper records the
-instance it launched in ``flash_attention.instance``.
+instance it launched in ``flash_attention.instance``.  The head dim D is
+any multiple of 16 up to 256 (:func:`check_head_dim`): a call runs the
+smallest compiled width of :data:`HEAD_DIM_INSTANCES` at least D
+(:func:`instance_head_dim`), its columns past D staged as zeros and
+never stored; at width 256 the bf16 forward reads q's fragments from
+shared memory at every KV tile instead of holding them.
 
 Differentiable: when grad is on and an input requires it, the op runs as
 a ``torch.autograd.Function`` (the counterpart of JAX's
@@ -37,7 +42,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# the widths the attention kernels are compiled for (csrc: attn_rows.cuh,
+# with_head_dim); a call runs the smallest at least its head_dim
+HEAD_DIM_INSTANCES = (32, 64, 128, 256)
+HEAD_DIM_MULT = 16       # a head_dim must be a multiple of this
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 BIG = 1e30  # the lse of a row that sees no key: exp(s - BIG) == 0
@@ -49,27 +57,72 @@ ROWS_PER_WARP = 16       # the m16 tile a warp owns
 CUDA_CORE_ROWS = 4       # fp32 instances: query rows (or keys) per block
 
 
+def instance_head_dim(head_dim: int) -> int:
+    """The width D of the compiled instance that runs ``head_dim``: the
+    smallest of :data:`HEAD_DIM_INSTANCES` at least it (16 runs at 32,
+    96 at 128); past the largest, ``head_dim`` itself (no instance runs
+    it: :func:`check_head_dim` refuses it).  Shared memory and registers
+    are priced at D; the columns past ``head_dim`` stage as zeros."""
+    return next((d for d in HEAD_DIM_INSTANCES if d >= head_dim), head_dim)
+
+
+def check_head_dim(head_dim: int) -> int:
+    """``head_dim`` where the attention kernels take it (a multiple of 16
+    from 16 to 256), else raise."""
+    if (head_dim % HEAD_DIM_MULT or head_dim < HEAD_DIM_MULT
+            or head_dim > HEAD_DIM_INSTANCES[-1]):
+        raise ValueError(
+            f"head_dim {head_dim}: the attention kernels take multiples of "
+            f"{HEAD_DIM_MULT} from {HEAD_DIM_MULT} to "
+            f"{HEAD_DIM_INSTANCES[-1]} (ROADMAP q3 item 1; other head dims "
+            f"are an open note under item 18b)")
+    return head_dim
+
+
+def chunk_at(head_dim: int, r: int, c: int) -> int:
+    """Chunk index of 16-byte chunk ``c`` of row ``r`` in a bf16
+    tensor-core tile of rows of ``instance_head_dim(head_dim)`` elements:
+    XOR-swizzled by ``r & 7`` where a row holds 8 chunks or more, by the
+    row's 128-byte line (``(r >> 1) & 3``) at D = 32 (csrc:
+    ``attn_mma::swz``)."""
+    cpr = instance_head_dim(head_dim) // 8
+    if cpr >= 8:
+        return r * cpr + (c ^ (r & 7))
+    return r * cpr + (c ^ ((r // (8 // cpr)) & (cpr - 1)))
+
+
+def fwd_q_in_registers(head_dim: int) -> bool:
+    """Whether the bf16 forward holds q's fragments in registers: up to
+    D = 128.  At D = 256 they would take 64 registers a thread, and q is
+    read from its own shared tile at every KV tile (csrc:
+    ``attn_mma::fwd_q_in_regs``)."""
+    return instance_head_dim(head_dim) <= 128
+
+
 def fwd_smem_bytes(block_q: int, block_kv: int, head_dim: int,
                    bytes_per_elem: int = 2) -> int:
     """Dynamic shared memory of one forward block (csrc:
     ``attn_mma::fwd_smem_bytes``, ``attn::smem_bytes``).  bf16: K and V
     tiles of ``block_kv`` keys, two stages each, and the block's
-    ``block_q`` q rows, staged in the second stage where they fit (they
-    go to registers before the first copy into it).  fp32: K and V
-    tiles, two stages each, the block's 4 q rows and one fp32 score per
-    key for each."""
+    ``block_q`` q rows, staged in the second stage where they fit and go
+    to registers (before the first copy into it), else after both.
+    fp32: K and V tiles, two stages each, the block's 4 q rows and one
+    fp32 score per key for each.  Rows at the instance's width
+    (:func:`instance_head_dim`)."""
+    d = instance_head_dim(head_dim)
     if bytes_per_elem == 2:
-        q_rows = 0 if block_q <= 2 * block_kv else block_q
-        return (2 * 2 * block_kv + q_rows) * head_dim * 2
-    return (2 * 2 * block_kv * head_dim * bytes_per_elem
-            + CUDA_CORE_ROWS * head_dim * bytes_per_elem
+        q_rows = (0 if block_q <= 2 * block_kv and fwd_q_in_registers(d)
+                  else block_q)
+        return (2 * 2 * block_kv + q_rows) * d * 2
+    return (2 * 2 * block_kv * d * bytes_per_elem
+            + CUDA_CORE_ROWS * d * bytes_per_elem
             + CUDA_CORE_ROWS * block_kv * 4)
 
 
 def fwd_accumulators(block_q: int, block_kv: int, head_dim: int) -> int:
     """fp32 sums a thread of the bf16 forward holds: its warp's m16 x D
     output and m16 x block_kv scores, over 32 lanes."""
-    return ROWS_PER_WARP * (head_dim + block_kv) // 32
+    return ROWS_PER_WARP * (instance_head_dim(head_dim) + block_kv) // 32
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,6 +297,5 @@ def _check(q, k, v, window):
         raise ValueError(f"{hq} query heads not a multiple of {k.shape[2]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    check_head_dim(d)
     return b, sq, hq, d

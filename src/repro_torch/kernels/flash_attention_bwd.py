@@ -16,7 +16,10 @@ before their products), fp32 on CUDA cores.  ``(block_q, block_kv)`` are
 the forward's, from ``core.hopper_adapter.flash_tiles`` against
 :func:`dq_smem_bytes` and :func:`dkv_smem_bytes` (and the accumulator
 counts); the wrapper records its instance in
-``flash_attention_bwd.instance``.
+``flash_attention_bwd.instance``.  Head dims as the forward's; at width
+256 the bf16 dk/dv pass sweeps the streamed rows twice, dv then dk, 16
+rows at a time (:func:`dkv_sweeps`), so each sweep's sums fit the
+registers.
 
 Layouts: q, o, do ``(B, Sq, Hq, D)``; k, v ``(B, Skv, Hkv, D)``; lse
 ``(B, Hq, Sq)`` fp32 (``flash_attention``'s residual).  Returns (dq, dk,
@@ -34,10 +37,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (_DTYPES, CUDA_CORE_ROWS,
                                                  ROWS_PER_WARP, _check,
                                                  check_tiles, dense_scores,
+                                                 instance_head_dim,
                                                  instance_kind)
 
 STAGES = 2           # streamed tiles in flight: the current one and the next
 DKV_SUB_ROWS = 32    # bf16 dk/dv pass: streamed rows scored at a time
+DKV_SUB_ROWS_WIDE = 16   # the same at D = 256, where it sweeps twice
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
@@ -47,12 +52,14 @@ def dq_smem_bytes(block_q: int, block_kv: int, head_dim: int,
     """Dynamic shared memory of one dq block (csrc: ``dq_smem_bytes``):
     K and V tiles of ``block_kv`` keys, two stages each, and the block's
     q and do rows; bf16 with the rows' fp32 lse and delta (``block_q``
-    rows), fp32 with one fp32 ds per key for each of its 4 rows."""
+    rows), fp32 with one fp32 ds per key for each of its 4 rows.  Rows
+    at the instance's width (``instance_head_dim``)."""
+    d = instance_head_dim(head_dim)
     if bytes_per_elem == 2:
-        return ((2 * block_q + STAGES * 2 * block_kv) * head_dim * 2
+        return ((2 * block_q + STAGES * 2 * block_kv) * d * 2
                 + 2 * block_q * 4)
-    return (STAGES * 2 * block_kv * head_dim * bytes_per_elem
-            + 2 * CUDA_CORE_ROWS * head_dim * bytes_per_elem
+    return (STAGES * 2 * block_kv * d * bytes_per_elem
+            + 2 * CUDA_CORE_ROWS * d * bytes_per_elem
             + CUDA_CORE_ROWS * block_kv * 4)
 
 
@@ -62,28 +69,46 @@ def dkv_smem_bytes(block_q: int, block_kv: int, head_dim: int,
     ``dkv_smem_bytes``): q and do tiles of ``block_q`` rows and their
     fp32 lse and delta, two stages each, and the block's k and v rows
     (bf16: ``block_kv`` keys; fp32: 4 keys, with one fp32 p and ds per
-    row for each)."""
+    row for each).  Rows at the instance's width."""
+    d = instance_head_dim(head_dim)
     if bytes_per_elem == 2:
-        return ((STAGES * 2 * block_q + 2 * block_kv) * head_dim * 2
+        return ((STAGES * 2 * block_q + 2 * block_kv) * d * 2
                 + STAGES * 2 * block_q * 4)
-    return (STAGES * 2 * block_q * head_dim * bytes_per_elem
+    return (STAGES * 2 * block_q * d * bytes_per_elem
             + STAGES * 2 * block_q * 4
-            + 2 * CUDA_CORE_ROWS * head_dim * bytes_per_elem
+            + 2 * CUDA_CORE_ROWS * d * bytes_per_elem
             + 2 * CUDA_CORE_ROWS * block_q * 4)
 
 
 def dq_accumulators(block_q: int, block_kv: int, head_dim: int) -> int:
     """fp32 sums a thread of the bf16 dq pass holds: its warp's m16 x D
     dq and m16 x block_kv s and dp, over 32 lanes."""
-    return ROWS_PER_WARP * (head_dim + 2 * block_kv) // 32
+    return ROWS_PER_WARP * (instance_head_dim(head_dim)
+                            + 2 * block_kv) // 32
+
+
+def dkv_sweeps(head_dim: int) -> int:
+    """Sweeps of the bf16 dk/dv pass over the streamed rows: one (dk and
+    dv together) up to D = 128; two at D = 256 (dv, then dk), where both
+    at once would need 272 sums a thread (csrc: ``dkv_sweeps``)."""
+    return 2 if instance_head_dim(head_dim) > 128 else 1
+
+
+def dkv_sub_rows(block_q: int, head_dim: int) -> int:
+    """Streamed rows the bf16 dk/dv pass scores at a time (csrc:
+    ``dkv_sub_rows``)."""
+    sub = DKV_SUB_ROWS_WIDE if dkv_sweeps(head_dim) == 2 else DKV_SUB_ROWS
+    return min(block_q, sub)
 
 
 def dkv_accumulators(block_q: int, block_kv: int, head_dim: int) -> int:
     """fp32 sums a thread of the bf16 dk/dv pass holds: its warp's 16
-    keys' dk and dv (16 x D each) and their s and dp against one
-    sub-step of ``min(block_q, DKV_SUB_ROWS)`` rows, over 32 lanes."""
-    sub = min(block_q, DKV_SUB_ROWS)
-    return ROWS_PER_WARP * (2 * head_dim + 2 * sub) // 32
+    keys' dk and dv (16 x D each; one of them a sweep at D = 256) and
+    their s and dp against one sub-step of :func:`dkv_sub_rows` rows,
+    over 32 lanes."""
+    d = instance_head_dim(head_dim)
+    sub = dkv_sub_rows(block_q, head_dim)
+    return ROWS_PER_WARP * (2 * d // dkv_sweeps(head_dim) + 2 * sub) // 32
 
 
 def row_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -19,11 +19,16 @@ Layouts (GQA-native: all G query heads of one KV head share its pages):
 * ``lengths``:      (B,) int32 — tokens in the cache *including* the
   first spanned token (its K/V already scattered into the pages).
 
+D, the head_dim, is any multiple of 16 from 16 to 256: each kernel runs
+the smallest compiled width of 32, 64, 128 and 256 at least D, its
+columns past D staged as zeros (``flash_attention.instance_head_dim``).
+
 :func:`flash_decode_oproj` is the single-token form with the output
 projection fused in (port of ``flash_decode.flash_decode_oproj``, kernel
 row 3; ``csrc/flash_decode_oproj.cu``): q (B, Hkv, G, D) and ``wo``
-(Hkv, G*D, E) give (B, E), the heads reduced in a fixed order across a
-thread-block cluster, so the attention output never reaches HBM.  Its
+(Hkv, G*D, E) give (B, E), the heads reduced in a fixed order (each block
+of a batch row's cluster sums its heads, :func:`oproj_cluster`, then the
+cluster sums its blocks), so the attention output never reaches HBM.  Its
 page is priced by :func:`oproj_smem_bytes_required` under the
 ``"flash_decode_oproj"`` key.
 
@@ -43,10 +48,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (check_head_dim,
+                                                 instance_head_dim)
 from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 ROWS_PER_BLOCK = 4   # query rows per block, one per warp (csrc: kWarps)
 STAGES = 2           # K/V tiles in flight: the current page and the next
 
@@ -59,10 +65,13 @@ def smem_bytes_required(page: int, rows_per_block: int, head_dim: int,
     element (the input's width unless given: 1 for an fp8 pool), and the
     block's q rows in the input dtype; one fp32 score per key for each
     row.  The query span of a chunked prefill does not enter: rows are
-    tiled across blocks, ``rows_per_block`` at a time."""
+    tiled across blocks, ``rows_per_block`` at a time.  Rows are staged
+    at the compiled instance's width (``instance_head_dim``: 16 at 32,
+    96 at 128), the columns past ``head_dim`` as zeros."""
     kvb = bytes_per_elem if kv_bytes is None else kv_bytes
-    return (STAGES * 2 * page * head_dim * kvb
-            + rows_per_block * head_dim * bytes_per_elem
+    d = instance_head_dim(head_dim)
+    return (STAGES * 2 * page * d * kvb
+            + rows_per_block * d * bytes_per_elem
             + rows_per_block * page * 4)
 
 
@@ -80,18 +89,30 @@ def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int,
 
 
 def oproj_smem_bytes_required(page: int, groups: int, head_dim: int,
-                              d_model: int, bytes_per_elem: int = 2) -> int:
+                              d_model: int, bytes_per_elem: int = 2,
+                              n_kv_heads: int | None = None) -> int:
     """Dynamic shared memory of one ``flash_decode_oproj`` block: the
-    decode tiles of :func:`smem_bytes_required`, the head's G x D fp32
-    attention rows and its fp32 (1, E) partial product.  The wo slab is
-    streamed from L2/HBM, never staged (the TPU kernel kept it whole in
-    VMEM)."""
+    decode tiles of :func:`smem_bytes_required`, its kv heads' G x
+    head_dim fp32 attention rows (one head, or ``n_kv_heads /
+    oproj_cluster(n_kv_heads)`` where more heads than a cluster's 8
+    blocks share a batch row) and the block's fp32 (1, E) partial
+    product.  The wo slabs are streamed from L2/HBM, never staged (the
+    TPU kernel kept each whole in VMEM)."""
+    heads = n_kv_heads // oproj_cluster(n_kv_heads) if n_kv_heads else 1
     return (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
                                 bytes_per_elem)
-            + (groups * head_dim + d_model) * 4)
+            + (heads * groups * head_dim + d_model) * 4)
 
 
-MAX_CLUSTER = 8      # blocks of one cluster: the kv heads of a batch row
+MAX_CLUSTER = 8      # blocks of one cluster (the portable limit)
+
+
+def oproj_cluster(n_kv_heads: int) -> int:
+    """Blocks of one batch row's cluster in ``flash_decode_oproj``: the
+    largest divisor of ``n_kv_heads`` that is at most :data:`MAX_CLUSTER`;
+    block ``r`` takes kv heads ``r, r + c, ...`` (csrc:
+    ``cluster_size``)."""
+    return max(c for c in range(1, MAX_CLUSTER + 1) if n_kv_heads % c == 0)
 
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
@@ -274,11 +295,6 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
     _refuse_grad("flash_decode_oproj", q, k_pages, v_pages, wo)
     _check(q, k_pages, v_pages, block_tables, lengths, 1, window)
     b, hkv, g, d = q.shape
-    if hkv > MAX_CLUSTER:
-        raise ValueError(
-            f"{hkv} kv heads: flash_decode_oproj reduces the heads of a "
-            f"batch row across one thread-block cluster, at most "
-            f"{MAX_CLUSTER} blocks (the portable cluster limit)")
     if wo.dim() != 3 or tuple(wo.shape[:2]) != (hkv, g * d):
         raise ValueError(f"wo {tuple(wo.shape)} is not (Hkv={hkv}, "
                          f"G*D={g * d}, E)")
@@ -291,7 +307,7 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"E = {e} must be a multiple of "
                          f"{16 // q.element_size()} (16-byte wo rows)")
     page = k_pages.shape[1]
-    need = oproj_smem_bytes_required(page, g, d, e, q.element_size())
+    need = oproj_smem_bytes_required(page, g, d, e, q.element_size(), hkv)
     have = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
     if need > have:
@@ -365,8 +381,7 @@ def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,
         raise ValueError(f"q rows {gtot} not divisible by q_span {q_span}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    check_head_dim(d)
     page = k_pages.shape[1]
     need = smem_bytes_required(page, ROWS_PER_BLOCK, d, q.element_size(),
                                k_pages.element_size())

@@ -119,14 +119,16 @@ def fp32_row(t, n: int, name: str, device: torch.device) -> torch.Tensor:
 
 
 def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None,
-           int8_b=False):
+           int8_b=False, core_tiles=True):
     """Raise on what the tile core does not take: ``a (M, K) @ b (K, N)``
     on one CUDA device in one dtype, contiguous, with tiles whose staged
     A and B tiles fit the card's shared memory and whose accumulator
     fits the register limit.  ``n_cols``: the tile's output width when it
     is not ``bn`` (the joint width of qkv_fused).  ``int8_b``: b is an
     int8 weight (the quantized kernels), staged at one byte per element,
-    16 columns per 16-byte copy, so N and bn must be multiples of 16."""
+    16 columns per 16-byte copy, so N and bn must be multiples of 16.
+    ``core_tiles=False``: the operands only (a kernel off this tile core
+    checks its own tiles)."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"{name} runs on cuda or cpu; a is on "
                          f"{a.device}, b on {b.device}")
@@ -157,6 +159,8 @@ def _check(a, b, bm, bk, bn, name="matmul_blocked", n_cols=None,
             f"an int8 weight is staged {INT8_COLS} columns per 16-byte "
             f"copy: N = {b.shape[1]} and bn = {bn} must be multiples of "
             f"{INT8_COLS}")
+    if not core_tiles:
+        return
     cols = n_cols or bn
     acc = accumulators_per_thread(bm, cols)
     if acc > COLS_PER_THREAD * MAX_ROWS_PER_THREAD:

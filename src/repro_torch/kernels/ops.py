@@ -36,7 +36,8 @@ The quantized path: a weight may be a
 int8 one to ``matmul_w8`` (int8 weights streamed at one byte, the scale
 in the epilogue; tiles from the ``"matmul_w8"`` key) -- on every device,
 where JAX takes the kernel only on the TPU or under blocked linears;
-``matmul_fused`` runs the int8 variant of its kernel under the same key;
+``matmul_fused`` runs the int8 variant of its kernel under its own
+``"matmul_fused_w8"`` key;
 ``qkv_fused`` takes three ``linear`` calls, and ``paged_attention_oproj``
 the unfused pair, as in JAX.  A 1-byte page pool (``kv_cache_dtype``
 fp8) sends ``paged_attention`` to ``flash_decode_fp8``.
@@ -333,9 +334,9 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor, *,
 
     ``w`` may be a :class:`QuantizedTensor`: a 2-D int8 one runs the
     kernel's int8 variant with its scale in the epilogue, under the
-    ``"matmul_w8"`` key (whose tiles fit the fused kernel as they are:
-    the epilogue operands are not staged); any other payload is
-    dequantized to ``a``'s dtype first, as in JAX."""
+    ``"matmul_fused_w8"`` key (the fused kernel's footprint with its
+    weight at one byte); any other payload is dequantized to ``a``'s
+    dtype first, as in JAX."""
     scale = None
     if isinstance(w, QuantizedTensor):
         if w.ndim != 2 or w.dtype != torch.int8:
@@ -352,7 +353,7 @@ def matmul_fused(a: torch.Tensor, w: torch.Tensor, *,
     mul2 = None if mul is None else mul.reshape(m, n).contiguous()
     res2 = None if residual is None else residual.reshape(m, n).contiguous()
     if use_kernel:
-        op = "matmul_fused" if scale is None else "matmul_w8"
+        op = "matmul_fused" if scale is None else "matmul_fused_w8"
         bm, bk, bn = tiles or best_schedule(op, (m, n, k),
                                             _dtype_name(a)).tiles
         out = _matmul_fused_kernel(a2, w, scale, bias=bias, mul=mul2,

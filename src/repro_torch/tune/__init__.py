@@ -2,7 +2,8 @@
 kernels (the port of ``repro.tune``: ``"matmul"``, ``"matmul_dgrad"``
 (the training path's backward GEMMs), ``"flash_decode"``, the fused
 path's ``"matmul_fused"``, ``"qkv_fused"`` and ``"flash_decode_oproj"``,
-the quantized path's ``"matmul_w8"`` and ``"flash_decode_fp8"``, and the
+the quantized path's ``"matmul_w8"``, ``"matmul_fused_w8"`` and
+``"flash_decode_fp8"``, and the
 conv path's ``"conv2d"``, ``"conv2d_dgrad"`` and ``"conv2d_wgrad"``, each
 with a stride).
 
@@ -88,14 +89,15 @@ def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
                   stride: int = 1) -> Schedule:
     """Cached-or-derived schedule for one op instance (never measures).
 
-    ``dims`` is ``(M, N, K)`` for ``"matmul"``, ``"matmul_fused"`` and
-    ``"matmul_w8"``, the cotangent's ``(M_out, N_out, K_reduce)`` for
-    ``"matmul_dgrad"``, ``(M, Nkv, K, G)`` for ``"qkv_fused"``, ``(G, S,
-    D)`` for ``"flash_decode"`` and ``"flash_decode_fp8"``, ``(G, S,
-    D, E)`` for ``"flash_decode_oproj"`` and ``(X, Y, C, K, Fw, Fh)`` for
-    the conv keys, whose ``stride`` is part of the spec (``"conv2d_dgrad"``
-    is searched at stride 1).  A cache hit (same op, shapes, dtype,
-    stride and device kind) wins outright, unless an explicit
+    ``dims`` is ``(M, N, K)`` for ``"matmul"``, ``"matmul_fused"``,
+    ``"matmul_w8"`` and ``"matmul_fused_w8"``, the cotangent's ``(M_out,
+    N_out, K_reduce)`` for ``"matmul_dgrad"``, ``(M, Nkv, K, G)`` for
+    ``"qkv_fused"``, ``(G, S, D)`` for ``"flash_decode"`` and
+    ``"flash_decode_fp8"``, ``(G, S, D, E)`` for ``"flash_decode_oproj"``
+    and ``(X, Y, C, K, Fw, Fh)`` for the conv keys, whose ``stride`` is
+    part of the spec (``"conv2d_dgrad"`` is searched at stride 1).  A
+    cache hit (same op, shapes, dtype, stride and device kind) wins
+    outright, unless an explicit
     ``smem_budget_bytes`` is given that its tiles overflow, or a conv
     key's tiles do not fit its kernel's footprint at the default budget
     (a tile cached for another footprint, which the kernel's wrapper

@@ -37,7 +37,8 @@ def main(argv: list[str] | None = None) -> None:
                                  description=__doc__.splitlines()[0])
     ap.add_argument("op", choices=OPS)
     ap.add_argument("dims", type=int, nargs="+",
-                    help="matmul, matmul_fused, matmul_w8: M N K; "
+                    help="matmul, matmul_fused, matmul_w8, "
+                         "matmul_fused_w8: M N K; "
                          "matmul_dgrad: the cotangent's M_out N_out "
                          "K_reduce (dA: M K N; dB: K N M); "
                          "flash_decode, flash_decode_fp8: G S D (GQA "

@@ -20,7 +20,8 @@ runs the forward kernel at stride 1), ``"conv2d_wgrad"`` to row 13's.
 The fused keys (``FUSED_OPS``) rank by :func:`predicted_dram_bytes`, the
 same walk weighted by each operand's width, as the reference does:
 bytes, not element counts, are what fusion removes.  The quantized keys
-(``NARROW_WEIGHT_BYTES``: ``"matmul_w8"``, ``"flash_decode_fp8"``) rank
+(``NARROW_WEIGHT_BYTES``: ``"matmul_w8"``, ``"matmul_fused_w8"``,
+``"flash_decode_fp8"``) rank
 the same way, their one-byte operand weighted at its width (the
 reference ranks them by element counts over its width-aware buffers):
 what quantization removes is bytes too.
@@ -38,10 +39,12 @@ from repro_torch.core.hopper_adapter import (
     H100_SXM, HopperTarget, backward_tile_candidates, conv_fits,
     conv_tile_candidates, default_smem_budget, dgrad_fits,
     flash_decode_oproj_tile_candidates, flash_decode_tile_candidates,
-    matmul_fits, matmul_tile_candidates, qkv_fits, qkv_fused_tile_candidates)
+    fused_fits, matmul_fits, matmul_tile_candidates, qkv_fits,
+    qkv_fused_tile_candidates)
 from repro_torch.core.loopnest import BlockingString, Dim, Loop
-from repro_torch.tune.schedule import (CONV_OPS, FUSED_OPS, GEMM_OPS,
-                                       NARROW_WEIGHT_BYTES, OpSpec, Schedule)
+from repro_torch.tune.schedule import (CONV_OPS, FUSED_GEMM_OPS, FUSED_OPS,
+                                       GEMM_OPS, NARROW_WEIGHT_BYTES, OpSpec,
+                                       Schedule)
 
 _GEMMS = GEMM_OPS
 _PAGES = ("flash_decode", "flash_decode_oproj",
@@ -70,6 +73,11 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     if spec.op == "matmul_dgrad":
         bm, bk, bn = tiles
         return dgrad_fits(bm, bk, bn, spec.itemsize, budget, target)
+    if spec.op in FUSED_GEMM_OPS:
+        bm, bk, bn = tiles
+        return fused_fits(spec.dims[0], bm, bk, bn, spec.itemsize, budget,
+                          target, NARROW_WEIGHT_BYTES.get(spec.op),
+                          N=spec.dims[1])
     if spec.op in _GEMMS:
         bm, bk, bn = tiles
         return matmul_fits(bm, bk, bn, spec.itemsize, budget, target,
@@ -314,7 +322,8 @@ def candidates(spec: OpSpec,
         M, N, K = spec.dims
         raw = matmul_tile_candidates(
             M, N, K, spec.itemsize, budget, target, top=top,
-            w_bytes=NARROW_WEIGHT_BYTES.get(spec.op))
+            w_bytes=NARROW_WEIGHT_BYTES.get(spec.op),
+            fused=spec.op in FUSED_GEMM_OPS)
     elif spec.op == "qkv_fused":
         M, Nkv, K, G = spec.dims
         raw = qkv_fused_tile_candidates(M, Nkv, K, G, spec.itemsize, budget,

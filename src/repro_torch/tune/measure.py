@@ -41,7 +41,9 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
     under a shuffled block table (and the head's (G*D, E) wo slab;
     ``flash_decode_fp8``: fp8 pages and per-head scales);
     ``matmul_fused``: the MLP's epilogue shape, a bias row, a gelu and a
-    residual block; ``matmul_w8``: int8 weights and per-channel scales;
+    residual block; ``matmul_w8`` and ``matmul_fused_w8``: int8 weights
+    and per-channel scales (the fused one with the scale in its
+    epilogue);
     ``matmul_dgrad``: the dA product's cotangent (M, K_reduce) and the
     forward weight (N, K_reduce), read transposed, as JAX measures it;
     the conv keys: one image, its input haloed for the spec's output
@@ -75,7 +77,7 @@ def make_inputs(schedule: Schedule, seed: int = 0) -> tuple:
         if spec.op == "conv2d_wgrad":
             return x, t(1, Y, X, K) * 0.5
         return x, t(Fh, Fw, C, K) * 0.5
-    if spec.op == "matmul_w8":
+    if spec.op in ("matmul_w8", "matmul_fused_w8"):
         M, N, K = spec.dims
         w_q = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8,
                            device=dev)
@@ -126,6 +128,11 @@ def run_once(schedule: Schedule, inputs: tuple):
         from repro_torch.kernels.qkv_fused import qkv_fused
         bm, bk, bn = schedule.tiles
         return qkv_fused(*inputs, bm=bm, bk=bk, bn=bn)
+    if op == "matmul_fused_w8":
+        from repro_torch.kernels.matmul_fused import matmul_fused
+        bm, bk, bn = schedule.tiles
+        a, w_q, scale = inputs
+        return matmul_fused(a, w_q, scale, bm=bm, bk=bk, bn=bn)
     if op == "matmul_w8":
         from repro_torch.kernels.matmul_q import matmul_w8
         bm, bk, bn = schedule.tiles

@@ -21,8 +21,9 @@ The fused path's keys (``FUSED_OPS``; kernels whose output tile absorbs
 the next op's work instead of round-tripping through HBM):
 
 * ``matmul_fused``: ``dims = (M, N, K)`` like any GEMM; tiles
-  ``(bm, bk, bn)`` of ``kernels/matmul_fused.py``, whose footprint is the
-  blocked GEMM's (the epilogue operands are not staged);
+  ``(bm, bk, bn)`` of ``kernels/matmul_fused.py`` under its own
+  footprint (the blocked GEMM's in fp32; in bf16 its tensor-core
+  instances', at M <= 16 one decode tile that fills the card);
 * ``qkv_fused``: ``dims = (M, Nkv, K, G)``, Nkv the per-projection k/v
   width and G = Hq / Hkv (the q projection is G * Nkv wide); tiles
   ``(bm, bk, bn)`` block Nkv, each block producing (G + 2) * bn output
@@ -37,8 +38,10 @@ The quantized keys (``NARROW_WEIGHT_BYTES``: the narrow operand is one
 byte wide whatever the spec's activation dtype):
 
 * ``matmul_w8``: ``dims = (M, N, K)``; tiles ``(bm, bk, bn)`` of
-  ``kernels/matmul_q.py`` (and of the int8 ``matmul_fused``), the weight
-  operand int8, activations and output at ``dtype``'s width;
+  ``kernels/matmul_q.py``, the weight operand int8, activations and
+  output at ``dtype``'s width;
+* ``matmul_fused_w8``: the int8-weight ``matmul_fused``, ``dims = (M, N,
+  K)``, under the fused kernel's footprint with its weight at one byte;
 * ``flash_decode_fp8``: ``dims = (G, S, D)``; the ``(page,)`` tile of
   ``flash_decode_fp8`` and the fp8 pool's page size, the streamed K/V
   pages fp8 while q keeps ``dtype``.
@@ -74,20 +77,24 @@ from repro_torch.core.loopnest import Problem
 FUSED_OPS = ("matmul_fused", "qkv_fused", "flash_decode_oproj")
 # quantized ops: the narrow operand (weights / KV pages) is 1 byte wide
 # regardless of the spec's activation dtype
-NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1}
+NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1,
+                       "matmul_fused_w8": 1}
 # the GEMM nests: one (M, N, K) problem, (bm, bk, bn) tiles
-GEMM_OPS = ("matmul", "matmul_dgrad", "matmul_fused", "matmul_w8")
+GEMM_OPS = ("matmul", "matmul_dgrad", "matmul_fused", "matmul_w8",
+            "matmul_fused_w8")
+# the epilogue-fused GEMM's keys: its own footprint (matmul_fused.py)
+FUSED_GEMM_OPS = ("matmul_fused", "matmul_fused_w8")
 # the conv nests: (X, Y, C, K, Fw, Fh) and a stride, (bx, by, bc, bk) tiles
 CONV_OPS = ("conv2d", "conv2d_dgrad", "conv2d_wgrad")
 OPS = (("matmul", "matmul_dgrad", "flash_decode") + FUSED_OPS
        + tuple(NARROW_WEIGHT_BYTES) + CONV_OPS)
 TILE_RANK = {"matmul": 3, "matmul_dgrad": 3, "flash_decode": 1,
              "matmul_fused": 3, "qkv_fused": 3, "flash_decode_oproj": 1,
-             "matmul_w8": 3, "flash_decode_fp8": 1,
+             "matmul_w8": 3, "flash_decode_fp8": 1, "matmul_fused_w8": 3,
              **{op: 4 for op in CONV_OPS}}
 _N_DIMS = {"matmul": 3, "matmul_dgrad": 3, "flash_decode": 3,
            "matmul_fused": 3, "qkv_fused": 4, "flash_decode_oproj": 4,
-           "matmul_w8": 3, "flash_decode_fp8": 3,
+           "matmul_w8": 3, "flash_decode_fp8": 3, "matmul_fused_w8": 3,
            **{op: 6 for op in CONV_OPS}}
 
 

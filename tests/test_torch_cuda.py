@@ -182,16 +182,16 @@ def test_flash_attention_refuses_tiles_and_head_dims_it_has_not(
         with pytest.raises(ValueError, match="tensor-core instance"):
             flash_attention_bwd(q, k, v, o, lse, g)
     monkeypatch.undo()
-    q96, k96, v96, _ = attn_case(dev, torch.bfloat16, 1, 64, 64, 8, 2, 96)
+    q24, k24, v24, _ = attn_case(dev, torch.bfloat16, 1, 64, 64, 8, 2, 24)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q96, k96, v96)
+        flash_attention(q24, k24, v24)
     assert (flash_attention.launches,
             flash_attention_bwd.launches) == before
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 8, 4, 96, device=dev)        # head_dim 96
-    kp = torch.zeros(3, 8, 8, 96, device=dev)
+    q = torch.zeros(1, 8, 4, 24, device=dev)        # head_dim 24
+    kp = torch.zeros(3, 8, 8, 24, device=dev)
     bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     ln = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -361,8 +361,11 @@ def test_flash_decode_oproj_matches_plain(dev, dtype, page, window, cap):
 
 
 def test_fused_kernels_refuse_what_they_cannot_hold(dev):
-    """A tile past the accumulator cap raises before any launch: at
-    G = 4 a qkv bn of 256 makes a 1536-column joint tile."""
+    """A tile the kernel does not hold raises before any launch: at
+    G = 4 a qkv bn of 256 makes a 1536-column joint tile; row 9's
+    transposed instance (M <= 16) takes bn of 16, 32, 64 or 128 and its
+    mma instance a tile on its warp grid; the oproj-fused decode takes
+    16-byte wo rows."""
     x = torch.zeros(8, 4096, dtype=torch.bfloat16, device=dev)
     wq = torch.zeros(4096, 4096, dtype=torch.bfloat16, device=dev)
     wk = torch.zeros(4096, 1024, dtype=torch.bfloat16, device=dev)
@@ -370,12 +373,15 @@ def test_fused_kernels_refuse_what_they_cannot_hold(dev):
               flash_decode_oproj.launches)
     with pytest.raises(ValueError, match="accumulators"):
         qkv_fused(x, wq, wk, wk, bm=8, bk=64, bn=256)
-    with pytest.raises(ValueError, match="accumulators"):
+    with pytest.raises(ValueError, match="transposed"):
         matmul_fused(x, wq, act="silu", bm=256, bk=64, bn=256)
+    x512 = torch.zeros(512, 4096, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="warp grid"):
+        matmul_fused(x512, wq, act="silu", bm=512, bk=64, bn=256)
     q, kp, vp, bt, ln = paged_case(dev, torch.bfloat16, 1, [5, 9], hkv=16,
                                    g=2, page=16, n_blocks=2)
-    wo = torch.zeros(16, 2 * 128, 64, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="cluster"):
+    wo = torch.zeros(16, 2 * 128, 60, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
         flash_decode_oproj(q, kp, vp, bt, ln, wo)
     assert (qkv_fused.launches, matmul_fused.launches,
             flash_decode_oproj.launches) == before
@@ -839,3 +845,138 @@ def test_conv_kernels_refuse_what_they_cannot_hold(dev):
         conv2d_block(x.half(), wt.half(), bc=8, bk=8)
     with pytest.raises(ValueError, match="cuda or cpu"):
         conv2d_block(x, wt.cpu(), bc=8, bk=8)
+
+
+# ------------------------------ head dims, wide Hkv, row 9 ------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 80, 96, 256])
+def test_attention_kernels_take_every_head_dim(dev, dtype, d):
+    """Rows 1-5 at head dims off the 64 and 128 instances (16 at the
+    32-wide one, 80 and 96 at 128, 256 at 256): paged decode and chunked
+    prefill, the fp8 decode, the oproj-fused decode, the forward with
+    its lse and the backward against their plain versions; repeats of
+    the backward and of the oproj decode agree bit for bit."""
+    for q_span, lengths in ((1, [1, 17, 64, 130]), (16, [1, 17, 64, 100])):
+        args = paged_case(dev, dtype, q_span, lengths, hkv=2, g=4, d=d,
+                          page=32, n_blocks=5, seed=d)
+        kw = dict(window=37, logit_cap=30.0, q_span=q_span)
+        torch.testing.assert_close(
+            flash_decode(*args, **kw).float(),
+            paged_attention_ref(*args, **kw).float(), **TOL[dtype])
+        if dtype == torch.bfloat16:
+            q, kp, vp, bt, ln = paged_case(dev, torch.float32, q_span,
+                                           lengths, hkv=2, g=4, d=d,
+                                           page=32, n_blocks=5, seed=d)
+            f8 = (q.to(dtype), kp.to(torch.float8_e4m3fn),
+                  vp.to(torch.float8_e4m3fn),
+                  torch.ones(2, device=dev), torch.ones(2, device=dev),
+                  bt, ln)
+            torch.testing.assert_close(
+                flash_decode_fp8(*f8, q_span=q_span).float(),
+                paged_attention_fp8_ref(*f8, q_span=q_span).float(),
+                **TOL[dtype])
+    q, kp, vp, bt, ln = paged_case(dev, dtype, 1, [1, 17, 64, 130], hkv=2,
+                                   g=4, d=d, page=32, n_blocks=5, seed=d)
+    rng = np.random.default_rng(d)
+    wo = torch.tensor(rng.standard_normal((2, 4 * d, 256)) * (8 * d) ** -0.5,
+                      dtype=dtype, device=dev)
+    out = flash_decode_oproj(q, kp, vp, bt, ln, wo, window=37)
+    assert torch.equal(out, flash_decode_oproj(q, kp, vp, bt, ln, wo,
+                                               window=37))
+    torch.testing.assert_close(
+        out.float(),
+        paged_attention_oproj_ref(q, kp, vp, bt, ln, wo, window=37).float(),
+        **gemm_tol(dtype, 8 * d))
+    for causal, window in ((True, None), (True, 40), (False, None)):
+        q, k, v, g = attn_case(dev, dtype, 2, 100, 100, 8, 2, d)
+        kw = dict(causal=causal, window=window, logit_cap=None)
+        from repro_torch.kernels.flash_attention import _forward
+        o, lse = _forward(q, k, v, causal, window, None, with_lse=True)
+        torch.testing.assert_close(o.float(),
+                                   flash_attention_ref(q, k, v, **kw).float(),
+                                   **TOL[dtype])
+        torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                                   atol=1e-4, rtol=1e-4)
+        got = flash_attention_bwd(q, k, v, o, lse, g, **kw)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, g, **kw)
+        for x, y in zip(got, want):
+            grad_close(x, y, dtype)
+        assert all(torch.equal(x, y) for x, y in
+                   zip(got, flash_attention_bwd(q, k, v, o, lse, g, **kw)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,d,e", [(16, 64, 1024), (32, 96, 3072)])
+def test_oproj_takes_more_kv_heads_than_a_cluster(dev, dtype, hkv, d, e):
+    """Row 3 at Hkv 16 and 32 (G 1): each batch row's cluster of 8
+    blocks sums its heads, then the cluster sums its blocks; against the
+    plain version, repeats bit-equal."""
+    q, kp, vp, bt, ln = paged_case(dev, dtype, 1, [45, 300], hkv=hkv, g=1,
+                                   d=d, page=32, n_blocks=16, seed=hkv)
+    rng = np.random.default_rng(hkv)
+    wo = torch.tensor(rng.standard_normal((hkv, d, e)) * (hkv * d) ** -0.5,
+                      dtype=dtype, device=dev)
+    before = flash_decode_oproj.launches
+    out = flash_decode_oproj(q, kp, vp, bt, ln, wo)
+    torch.cuda.synchronize()
+    assert flash_decode_oproj.launches == before + 1
+    assert torch.equal(out, flash_decode_oproj(q, kp, vp, bt, ln, wo))
+    torch.testing.assert_close(
+        out.float(),
+        paged_attention_oproj_ref(q, kp, vp, bt, ln, wo).float(),
+        **gemm_tol(dtype, hkv * d))
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 13, 16, 24, 512])
+@pytest.mark.parametrize("n,k", [(4096, 12800), (12800, 4096)])
+def test_row9_tensor_core_instances_match_plain(dev, w8, m, n, k):
+    """Row 9 in bf16 at the fused keys' own tiles: the transposed
+    instance at M <= 16, the mma instance above, wide and int8, with the
+    down projection's residual and the gate's silu; repeats bit-equal."""
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.tune import best_schedule
+    if w8:
+        a, qw = w8_case(dev, torch.bfloat16, m, n, k, seed=m)
+        w, scale = qw.q, qw.scale.reshape(-1)
+    else:
+        a, w = gemm_case(dev, torch.bfloat16, m, n, k, seed=m)
+        scale = None
+    res = torch.randn(m, n, device=dev).to(torch.bfloat16)
+    key = "matmul_fused_w8" if w8 else "matmul_fused"
+    bm, bk, bn = best_schedule(key, (m, n, k), "bfloat16").tiles
+    kw = dict(act="silu", residual=res)
+    out = matmul_fused(a, w, scale, **kw, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert MF.matmul_fused.instance[0] == ("mma_t" if m <= 16 else "mma")
+    torch.testing.assert_close(out.float(),
+                               matmul_fused_ref(a, w, scale, **kw).float(),
+                               **gemm_tol(torch.bfloat16, k))
+    assert torch.equal(out, matmul_fused(a, w, scale, **kw, bm=bm, bk=bk,
+                                         bn=bn))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k,tiles,pixel", [
+    (1, 21, 16, 16, 16, (7, 19, 16, 16), (0, 20, 8, 0)),
+    (2, 14, 14, 16, 48, (5, 5, 16, 24), (1, 13, 7, 3)),
+])
+def test_wgrad_keeps_an_inf_where_the_oracle_does(dev, dtype, n, h, w, c, k,
+                                                  tiles, pixel):
+    """Row 13 with +Inf in the last real pixel of a tile whose pixel
+    slots pad to whole k-steps, and in the input row past the last window
+    of a ragged image edge: dW is +-Inf exactly where the fp32 oracle is
+    (the slots without an output pixel read a zero chunk, not the Inf:
+    0 x Inf would be NaN), and agrees elsewhere."""
+    x, _, g = conv_case(dev, dtype, n, h, w, c, k, 3, 3, 1, seed=h)
+    x[pixel] = float("inf")
+    bx, by, bc, bk = tiles
+    dw = conv2d_wgrad_block(x, g, 3, 3, bx=bx, by=by, bc=bc, bk=bk)
+    want = conv2d_wgrad_block_ref(x, g, 3, 3, 1)
+    bad = ~torch.isfinite(want)
+    assert bad.any() and not want.isnan().any()
+    assert torch.equal(~torch.isfinite(dw), bad)
+    assert torch.equal(dw[bad], want[bad])
+    grad_close(dw[~bad], want[~bad], torch.float32)

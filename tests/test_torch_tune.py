@@ -94,8 +94,9 @@ def test_fused_keys_model_arithmetic_matches_jax(op, dims, dtype, tiles):
 def test_fused_candidates_fit_the_cuda_kernels(op, dims, dtype):
     """Every candidate of the three keys fits its CUDA kernel's own
     shared-memory footprint within the budget and, for the GEMMs, the
-    tile core's accumulator cap -- for qkv_fused at the joint width,
-    which at G = 4 caps the per-projection bn at 128."""
+    accumulator cap -- for qkv_fused the tile core's at the joint width,
+    which at G = 4 caps the per-projection bn at 128; for matmul_fused
+    the instance's for the spec's M (bf16: the tensor cores)."""
     from repro_torch.kernels import matmul_blocked as MB
     from repro_torch.kernels import matmul_fused as MF
     from repro_torch.kernels import qkv_fused as QF
@@ -122,20 +123,25 @@ def test_fused_candidates_fit_the_cuda_kernels(op, dims, dtype):
             if G == 4:
                 assert bn <= 128 and bn % H100_SXM.nk_mult == 0
         else:
-            assert MF.smem_bytes_required(bm, bk, bn,
-                                          spec.itemsize) <= BUDGET
-            assert MB.accumulators_per_thread(bm, bn) <= \
-                H100_SXM.acc_per_thread
+            m = dims[0]
+            assert MF.smem_bytes_required(bm, bk, bn, spec.itemsize,
+                                          m=m) <= BUDGET
+            assert MF.accumulators_per_thread(bm, bn, spec.itemsize,
+                                              m=m) <= H100_SXM.acc_per_thread
+            if spec.itemsize == 4:
+                assert MB.accumulators_per_thread(bm, bn) <= \
+                    H100_SXM.acc_per_thread
     assert not fits_smem(OpSpec("qkv_fused", (8, 1024, 4096, 4)),
                          (8, 64, 256), 10 ** 9)     # 1536 joint columns
 
 
 def test_matmul_fused_ranks_the_matmul_candidates_by_bytes():
-    """The fused GEMM stages what the blocked GEMM stages, so its
-    candidates are the "matmul" ones, ranked by predicted bytes."""
+    """In fp32 the fused GEMM runs the blocked GEMM's tile core, so its
+    candidates are the "matmul" ones, ranked by predicted bytes (bf16
+    runs the tensor-core instances under their own footprint)."""
     dims = (64, 4096, 4096)
-    fused = candidates(OpSpec("matmul_fused", dims, "bfloat16"))
-    plain = candidates(OpSpec("matmul", dims, "bfloat16"))
+    fused = candidates(OpSpec("matmul_fused", dims, "float32"))
+    plain = candidates(OpSpec("matmul", dims, "float32"))
     assert {s.tiles for s in fused} == {s.tiles for s in plain}
     nbytes = [predicted_dram_bytes(s.spec, s.tiles) for s in fused]
     assert nbytes == sorted(nbytes)

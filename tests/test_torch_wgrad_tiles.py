@@ -10,10 +10,13 @@
   The fp32 tiles (the CUDA-core instance) are pinned as they were.
 * The lane arithmetic: a numpy emulation of one launch -- the staging
   into NaN-filled shared memory (it is not initialised on the card), the
-  pixel-offset table, the (tap, chunk) offsets, ``ldmatrix.x4.trans`` of
-  A and B, ``mma.sync`` m16n8k16 with fp32 sums, the masked store and the
-  sum over splits -- against ``conv2d_wgrad_block_ref`` and JAX's
-  ``conv2d_wgrad_block`` in interpret mode.
+  pixel-offset table, the padding mask that points the A rows of pixel
+  slots without an output pixel at a zero chunk, the (tap, chunk)
+  offsets, ``ldmatrix.x4.trans`` of A and B, ``mma.sync`` m16n8k16 with
+  fp32 sums, the masked store and the sum over splits -- against
+  ``conv2d_wgrad_block_ref`` and JAX's ``conv2d_wgrad_block`` in
+  interpret mode, with finite input and with +Inf where a padding slot
+  would have read it (0 x Inf = NaN).
 * The bank groups of the staged A and B operands.
 * The launch: ``conv2d_wgrad`` asks ``best_schedule`` and the wrapper
   launches its tiles and records the instance (the loader
@@ -118,13 +121,16 @@ def test_layout_rule(tile, layout):
 def test_footprint_of_conv1s_tile():
     """(32, 16, 8, 16) at 11 x 11: a 42 x 26 input tile of one vector a
     pixel and 512 cotangent rows of two (XOR-swizzled) vectors a stage,
-    two stages, then a 4-byte offset per pixel slot: 69,760 B, within
-    the two-block budget of 115,712 B.  A ragged pair (7 x 19 = 133
-    pixels) stages 144 rows and pads 11 slots."""
+    two stages, then a 4-byte offset per pixel slot, each stage's 4-byte
+    padding mask per k-step (2 x 32, a multiple of 4) and the 16-byte
+    zero chunk: 70,032 B, within the two-block budget of 115,712 B.  A
+    ragged pair (7 x 19 = 133 pixels) stages 144 rows and pads 11 slots
+    (2 x 9 masks rounded up to 20)."""
     assert CW.smem_bytes_required(32, 16, 8, 16, 11, 11) == \
-        2 * (42 * 26 * 8 + 512 * 2 * 8) * 2 + 512 * 4 == 69_760
+        2 * (42 * 26 * 8 + 512 * 2 * 8) * 2 + 512 * 4 + 64 * 4 + 16 \
+        == 70_032
     assert CW.smem_bytes_required(7, 19, 8, 16, 3, 3) == \
-        2 * (21 * 9 * 8 + 144 * 2 * 8) * 2 + 144 * 4
+        2 * (21 * 9 * 8 + 144 * 2 * 8) * 2 + 144 * 4 + 20 * 4 + 16
     assert CW.padded_pixel_share(7, 19) == 1 - 133 / 144
     # fp32 keeps the CUDA-core footprint: rows of bk rounded to a vector
     assert CW.smem_bytes_required(8, 8, 8, 16, 3, 3, 4, stride=2) == \
@@ -193,7 +199,8 @@ def mma_16816(acc, a, b0, b1):
 def emulate_wgrad_mma(x, g, fh, fw, stride, tiles, splits):
     """One launch of ``wgrad_mma`` and ``wgrad_sum`` lane by lane: x (N,
     H, W, C) and g (N, OH, OW, K) float32 holding bf16 values.  Shared
-    memory starts as NaN and keeps what earlier pairs staged."""
+    memory starts as NaN and keeps what earlier pairs staged; one 16-byte
+    chunk past the stages is zero (the kernel's zero chunk)."""
     bx, by, bc, bk = tiles
     n, H, W, C = x.shape
     _, OH, OW, K = g.shape
@@ -239,7 +246,9 @@ def emulate_wgrad_mma(x, g, fh, fw, stride, tiles, splits):
             c0, k0 = ct * bc, kt * bk
             kn = min(bk, K - k0)
             for split in range(splits):
-                smem = np.full(2 * stage, np.nan, np.float32)
+                smem = np.full(2 * stage + 8, np.nan, np.float32)
+                smem[2 * stage:] = 0.0
+                zero_addr = 2 * stage * 2
                 acc = np.zeros((CW.WARPS, MT, NT, 32, 4), np.float32)
                 q0, q1 = pairs * split // splits, pairs * (split + 1) // splits
                 for pq in range(q0, q1):
@@ -267,16 +276,24 @@ def emulate_wgrad_mma(x, g, fh, fw, stride, tiles, splits):
                                 smem[dst + e] = g[img, oy, ox, k0 + kk] \
                                     if live and kk < kn else 0.0
                     xs, gs = base * 2, (base + in_size) * 2
+                    # the stage's padding mask: slots past the tile, OH, OW
+                    p_all = np.arange(P16)
+                    pad_slot = ((p_all >= P) | (ty * by + p_all // bx >= OH)
+                                | (tx * bx + p_all % bx >= OW))
                     for warp in range(CW.WARPS):
                         wm, wn = divmod(warp, wn_n)
                         for ks in range(P16 // 16):
-                            xk = xs + pix_off[ks * 16 + a_pix]
+                            pad = pad_slot[ks * 16 + a_pix]
+                            xk = np.where(pad, zero_addr,
+                                          xs + pix_off[ks * 16 + a_pix])
                             b = [ldmatrix_x4_trans(smem, gs + 16 * np.array(
                                 [CB.staged_vector(gvs, L) for L in
                                  ks * 16 * gvs + b_vec(wn, j)]))
                                 for j in range((NT + 1) // 2)]
                             for mt in range(MT):
-                                a = ldmatrix_x4_trans(smem, xk + a_off(wm, mt))
+                                a = ldmatrix_x4_trans(
+                                    smem, np.where(pad, xk,
+                                                   xk + a_off(wm, mt)))
                                 for nt in range(NT):
                                     bj = b[nt // 2]
                                     mma_16816(acc[warp, mt, nt], a,
@@ -346,6 +363,42 @@ def test_emulated_instance_matches_plain_and_jax(n, h, w, c, k, fh, fw,
         jnp.asarray(g[i], jnp.bfloat16), bc=c, bk=k, stride=stride,
         interpret=True)) for i in range(n))
     np.testing.assert_allclose(got, jax_dw, atol=tol, rtol=1e-5)
+
+
+NONFINITE = [  # n, h, w, c, k, (bx, by, bc, bk), +Inf at (n, y, x, c)
+    # the last real pixel of a 3 x 3 tile: 7 padding slots a pair read
+    # its window on the card before the zero chunk
+    (1, 9, 8, 8, 16, (3, 3, 8, 16), (0, 8, 4, 2)),
+    # the input row past the last window at a ragged image edge (5 x 5
+    # outputs in tiles of 2 x 2: phantom output rows read it)
+    (2, 7, 7, 8, 8, (2, 2, 8, 8), (1, 6, 3, 5)),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,tiles,pixel", NONFINITE)
+def test_emulated_instance_keeps_an_inf(n, h, w, c, k, tiles, pixel):
+    """+Inf in the input where a pixel slot without an output pixel would
+    read it: the emulated launch is +-Inf exactly where the plain version
+    and JAX's kernel are (no NaN from 0 x Inf), and agrees elsewhere."""
+    rng = np.random.default_rng(h * 10 + k)
+    oh, ow = h - 2, w - 2
+    x = bf16_values(rng, (n, h, w, c))
+    x[pixel] = np.inf
+    g = bf16_values(rng, (n, oh, ow, k))
+    got = emulate_wgrad_mma(x, g, 3, 3, 1, tiles, 2)
+    want = CW.conv2d_wgrad_block_ref(torch.tensor(x).bfloat16(),
+                                     torch.tensor(g).bfloat16(), 3, 3,
+                                     1).numpy()
+    jax_dw = sum(np.asarray(j_wgrad_block(
+        jnp.asarray(x[i], jnp.bfloat16), jnp.asarray(g[i], jnp.bfloat16),
+        bc=c, bk=k, stride=1, interpret=True)) for i in range(n))
+    bad = ~np.isfinite(want)
+    assert bad.any() and not np.isnan(want).any()
+    for other in (got, jax_dw):
+        np.testing.assert_array_equal(other[bad], want[bad])
+        assert np.all(np.isfinite(other[~bad]))
+    tol = 2e-6 * (n * oh * ow) ** 0.5 * max(1.0, np.abs(want[~bad]).max())
+    np.testing.assert_allclose(got[~bad], want[~bad], atol=tol, rtol=1e-5)
 
 
 # ------------------------------ the bank groups -----------------------------
