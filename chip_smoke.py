@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the thirteen CUDA libraries from ``src/repro_torch/csrc`` with
+2. build the fifteen CUDA libraries from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
@@ -16,11 +16,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    adapter emits for granite's projection shapes; ``matmul_fused`` under
    every epilogue combination, at ragged shapes and under every adapter
    tile of granite's gate, up and down projections at M = 8, 64, 512;
-   ``qkv_fused`` under every adapter tile at those M; and
+   ``qkv_fused`` under every adapter tile at M = 1, 8, 16 (bf16: the
+   transposed ``mma_t`` instance) and 24, 37, 64, 512 (``mma``), at
+   ragged Nkv and K, G = 1 and the reduced granite's (Nkv 32, G 2, K 64),
+   repeats bit-equal; and
    ``flash_decode_oproj`` at pages 16, 32, 64 and the fused engine's
    page, window and logit cap on and off; the quantized kernels:
    ``matmul_w8`` under every adapter tile of granite's projections at
-   M = 8, 64, 512 (and a per-tensor scale, two ragged shapes), the int8
+   M = 1, 8, 16, 24, 64, 512 (and a per-tensor scale, ragged M, N and K),
+   repeats bit-equal, bf16 on ``mma_t`` / ``mma``, the int8
    ``matmul_fused`` under every epilogue combination and granite's MLP,
    ``flash_decode_fp8`` at pages 16, 32, 64 and the model's fp8 page,
    q_span 1 and 64, window, cap and unit or drawn scales; the training
@@ -64,7 +68,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``flash_decode_fp8``; the prefill logits held against the cuBLAS path
    over the fake-quant tree, and reported against the bf16 model's;
 9b. the same with ``fuse=True`` (the MLP through the int8
-   ``matmul_fused``; q, k, v and wo through ``matmul_w8``);
+   ``matmul_fused``; q, k, v and wo through ``matmul_w8``); 6b, 9 and 9b
+   hold every bf16 launch of rows 9, 10 and 11 in their profiled
+   windows to the tensor-core instances;
 10. training parity (after 9b, the serving model freed): granite-3-8b
    width, 2 layers, fp32, one train step on the kernel path (blocked
    linears: kernel rows 4-8) and on the plain path; loss, grad norm and
@@ -549,39 +555,52 @@ def check_row9(dev, dtype, w8: bool) -> int:
     return n_tiles
 
 
+# rows 10 and 11 at decode (1, 8, 16 tokens: the transposed instance),
+# joins of 24 and 37, a chunk of 64 and a 512-token prefill (mma)
+QKV_M = (1, 8, 16, 24, 37, 64, 512)
+
+
+def check_qkv(dev, dtype, m, nkv, k, g) -> int:
+    """``qkv_fused`` at (M, Nkv, K, G) under every adapter tile of the
+    ``"qkv_fused"`` key, against its plain version, repeats bit-equal;
+    bf16 asserts the instance.  Returns the tiles checked."""
+    import torch
+    from repro_torch.core.hopper_adapter import qkv_fused_tile_candidates
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import qkv_fused as QF
+    dn = str(dtype).split(".")[1]
+    x, wq, wk, wv = qkv_inputs(dev, dtype, m, nkv, k, g, seed=m + nkv)
+    refs = QF.qkv_fused_ref(x, wq, wk, wv)
+    tiles = qkv_fused_tile_candidates(m, nkv, k, g, x.element_size())
+    for bm, bk, bn in tiles:
+        got = QF.qkv_fused(x, wq, wk, wv, bm=bm, bk=bk, bn=bn)
+        kind = QF.qkv_fused.instance
+        assert kind[0] == MF.instance_kind(dtype, m), kind
+        for part, o, r, a in zip("qkv", got, refs, QF.qkv_fused(
+                x, wq, wk, wv, bm=bm, bk=bk, bn=bn)):
+            compare(f"qkv_fused {dn} {part} M={m} Nkv={nkv} K={k} G={g} "
+                    f"tiles={(bm, bk, bn)} {kind}", o, r, dn,
+                    gemm_atol(dn, k))
+            assert torch.equal(o, a)
+    return len(tiles)
+
+
 def phase3_fused(dev) -> None:
     """The three fused kernels against their plain versions."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.hopper_adapter import qkv_fused_tile_candidates
     from repro_torch.kernels import flash_decode as FD
-    from repro_torch.kernels import qkv_fused as QF
     from repro_torch.serve.kv_cache import choose_page_size
     cfg = get_config("granite-3-8b")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         n_tiles = check_row9(dev, dtype, w8=False)
-        # qkv_fused: every adapter tile at granite's (Nkv, K, G), and a
-        # ragged shape with G = 1
-        for m in (8, 64, 512, 37):
-            x, wq, wk, wv = qkv_inputs(dev, dtype, m, 1024, 4096, 4,
-                                       seed=m)
-            refs = QF.qkv_fused_ref(x, wq, wk, wv)
-            for tiles in qkv_fused_tile_candidates(m, 1024, 4096, 4,
-                                                   x.element_size()):
-                got = QF.qkv_fused(x, wq, wk, wv, bm=tiles[0], bk=tiles[1],
-                                   bn=tiles[2])
-                for part, o, r in zip("qkv", got, refs):
-                    compare(f"qkv_fused {dn} {part} M={m} Nkv=1024 K=4096 "
-                            f"G=4 tiles={tiles}", o, r, dn,
-                            gemm_atol(dn, 4096))
-                n_tiles += 1
-        x, wq, wk, wv = qkv_inputs(dev, dtype, 24, 96, 136, 1, seed=3)
-        for part, o, r in zip("qkv", QF.qkv_fused(x, wq, wk, wv, bm=16,
-                                                  bk=64, bn=64),
-                              QF.qkv_fused_ref(x, wq, wk, wv)):
-            compare(f"qkv_fused {dn} {part} M=24 Nkv=96 K=136 G=1 ragged",
-                    o, r, dn, gemm_atol(dn, 136))
+        # qkv_fused: every adapter tile at granite's (Nkv, K, G) and the
+        # reduced granite's, ragged Nkv and K with G = 1 and 3
+        for m, nkv, k, g in [(m, 1024, 4096, 4) for m in QKV_M] + [
+                (8, 32, 64, 2), (24, 32, 64, 2), (13, 96, 136, 1),
+                (24, 96, 136, 1), (5, 40, 70, 3), (40, 40, 70, 3)]:
+            n_tiles += check_qkv(dev, dtype, m, nkv, k, g)
         # flash_decode_oproj: granite's decode, B = 8, at pages 16, 32,
         # 64 and the fused engine's page; two launches agree bit for bit
         fused_page = choose_page_size(dataclasses.replace(cfg, dtype=dtype),
@@ -628,6 +647,25 @@ def fp8_paged(args, seed, unit=True):
 
 
 GRANITE_PROJ = ("wq, wo", "wk, wv", "w_gate, w_up", "w_down")   # GRANITE_NK
+W8_M = (1, 8, 16, 24, 64, 512)
+
+
+def check_w8(a, w_q, scale, tiles, ref, what: str) -> None:
+    """``matmul_w8`` at these tiles against ``ref``, repeats bit-equal;
+    bf16 asserts the instance (``"mma_t"`` at M <= 16, ``"mma"``
+    above)."""
+    import torch
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import matmul_q as MQ
+    dn = str(a.dtype).split(".")[1]
+    bm, bk, bn = tiles
+    out = MQ.matmul_w8(a, w_q, scale, bm=bm, bk=bk, bn=bn)
+    kind = MQ.matmul_w8.instance
+    assert kind[0] == MF.instance_kind(a.dtype, a.shape[0]), kind
+    compare(f"matmul_w8 {dn} {what} tiles={tiles} {kind}", out, ref, dn,
+            gemm_atol(dn, a.shape[1]))
+    assert torch.equal(out, MQ.matmul_w8(a, w_q, scale, bm=bm, bk=bk,
+                                         bn=bn))
 
 
 def phase3_quant(dev) -> None:
@@ -644,37 +682,33 @@ def phase3_quant(dev) -> None:
         dn = str(dtype).split(".")[1]
         n_tiles = 0
         # matmul_w8: every adapter tile of granite's projections (four
-        # shapes cover the seven), per-channel scales; the model's tile
-        # also with a per-tensor scale; two launches agree bit for bit
-        for m in (8, 64, 512):
+        # shapes cover the seven), per-channel scales, repeats bit-equal;
+        # the model's tile also with a per-tensor scale.  The key's tiles
+        # are row 9's int8 ones (its bf16 kernels are row 9's instances)
+        for m in W8_M:
             for (n, k), names in zip(GRANITE_NK, GRANITE_PROJ):
                 a, qw = w8_inputs(dev, dtype, m, n, k, seed=m + n + k)
                 ref = MQ.matmul_w8_ref(a, qw.q, qw.scale)
-                for bm, bk, bn in matmul_tile_candidates(
-                        m, n, k, a.element_size(), w_bytes=1):
-                    out = MQ.matmul_w8(a, qw.q, qw.scale, bm=bm, bk=bk,
-                                       bn=bn)
-                    compare(f"matmul_w8 {dn} {names} M={m} N={n} K={k} "
-                            f"tiles={(bm, bk, bn)}", out, ref, dn,
-                            gemm_atol(dn, k))
+                for tiles in matmul_tile_candidates(
+                        m, n, k, a.element_size(), w_bytes=1, fused=True):
+                    check_w8(a, qw.q, qw.scale, tiles, ref,
+                             f"{names} M={m} N={n} K={k}")
                     n_tiles += 1
-                bm, bk, bn = best_schedule("matmul_w8", (m, n, k), dn).tiles
+                tiles = best_schedule("matmul_w8", (m, n, k), dn).tiles
                 s = qw.scale.max()
-                out = MQ.matmul_w8(a, qw.q, s, bm=bm, bk=bk, bn=bn)
-                assert torch.equal(out, MQ.matmul_w8(a, qw.q, s, bm=bm,
-                                                     bk=bk, bn=bn))
-                compare(f"matmul_w8 {dn} {names} M={m} per-tensor scale "
-                        f"tiles={(bm, bk, bn)}", out,
-                        MQ.matmul_w8_ref(a, qw.q, s), dn, gemm_atol(dn, k))
-        # ragged M and K (scalar A staging when K is no multiple of 16 B)
+                check_w8(a, qw.q, s, tiles, MQ.matmul_w8_ref(a, qw.q, s),
+                         f"{names} M={m} per-tensor scale")
+        # ragged M, N and K (scalar A staging when K is no multiple of
+        # 16 B; a last column block past N), on both bf16 instances
         for m, n, k, tiles in ((37, 1008, 300, (16, 64, 64)),
-                               (520, 4112, 4100, (128, 64, 128))):
+                               (520, 4112, 4100, (128, 64, 128)),
+                               (13, 1008, 300, (13, 64, 32)),
+                               (3, 16, 7, (3, 64, 16)),
+                               (1, 4112, 4100, (1, 512, 32))):
             a, qw = w8_inputs(dev, dtype, m, n, k, seed=m + n)
-            bm, bk, bn = tiles
-            compare(f"matmul_w8 {dn} M={m} N={n} K={k} tiles={tiles}",
-                    MQ.matmul_w8(a, qw.q, qw.scale, bm=bm, bk=bk, bn=bn),
-                    MQ.matmul_w8_ref(a, qw.q, qw.scale), dn,
-                    gemm_atol(dn, k))
+            check_w8(a, qw.q, qw.scale, tiles,
+                     MQ.matmul_w8_ref(a, qw.q, qw.scale),
+                     f"M={m} N={n} K={k} ragged")
         # the int8 matmul_fused: every epilogue, ragged shapes and every
         # adapter tile of granite's MLP under "matmul_fused_w8"
         n_tiles += check_row9(dev, dtype, w8=True)
@@ -772,8 +806,8 @@ def phase13_reduced(seed: int, kernels: dict) -> dict:
     attention kernels' 32-wide instance) on the card.  Serving, fp32: 6
     requests x 8 tokens through joins and chunked prefill, unfused and
     fused, the kernel path token-identical to the plain path; bf16 fused:
-    the same requests, every row-9 call on its transposed (decode) or
-    mma instance.  Training, bf16: 3 steps on the default path (rows 4
+    the same requests, every row-9 and row-11 call on its transposed
+    (decode) or mma instance.  Training, bf16: 3 steps on the default path (rows 4
     and 5 forward and backward), finite losses, step 0's loss within 2%
     of the plain path's.  Then the two launchers' own usage lines,
     ``launch.train --reduced --steps 2`` and ``launch.serve --reduced``,
@@ -823,23 +857,30 @@ def phase13_reduced(seed: int, kernels: dict) -> dict:
         out[f"serve_fuse_{int(fuse)}"] = {k: launched[k] for k in path}
     cfgb = dataclasses.replace(base, dtype=torch.bfloat16)
     paramsb = T.init_params(cfgb, seed=seed, device="cuda")
-    kinds = set()
-    real = ops._matmul_fused_kernel
+    kinds = {"matmul_fused": set(), "qkv_fused": set()}
+    real = {name: getattr(ops, f"_{name}_kernel") for name in kinds}
 
-    def spy(a, *args, **kw):    # the op's launch, and what it ran
-        y = real(a, *args, **kw)
-        kinds.add((a.shape[0] <= MF.MMA_T_ROWS, MF.matmul_fused.instance[0]))
-        return y
-    ops._matmul_fused_kernel = spy
+    def spy(name):              # the op's launch, and what it ran
+        def launch(a, *args, **kw):
+            y = real[name](a, *args, **kw)
+            kinds[name].add((a.shape[0] <= MF.MMA_T_ROWS,
+                             real[name].instance[0]))
+            return y
+        return launch
+    for name in kinds:
+        setattr(ops, f"_{name}_kernel", spy(name))
     try:
         reqs = serve(cfgb, paramsb, prompts, 8, max_batch=4, fuse=True)
     finally:
-        ops._matmul_fused_kernel = real
+        for name in kinds:
+            setattr(ops, f"_{name}_kernel", real[name])
     assert all(len(r.output) == 8 and int(r.output.max()) < cfgb.vocab
                for r in reqs)
-    assert kinds == {(True, "mma_t"), (False, "mma")}, kinds
-    print(f"  bf16 fuse=True: 6 requests x 8 tokens; row 9 instances "
-          f"{sorted(k for _, k in kinds)}; first tokens "
+    for name, seen in kinds.items():
+        assert seen == {(True, "mma_t"), (False, "mma")}, (name, seen)
+    print(f"  bf16 fuse=True: 6 requests x 8 tokens; rows 9 and 11 on "
+          f"{sorted(k for _, k in kinds['matmul_fused'])} and "
+          f"{sorted(k for _, k in kinds['qkv_fused'])}; first tokens "
           f"{[int(r.output[0]) for r in reqs]}")
     del params, paramsb
     # training: 3 steps, bf16, the default path
@@ -1139,22 +1180,23 @@ def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
             "fused path vs cuBLAS", fused_logits,
             _cublas_logits(cfg, params, prompts[0]))
         summary["profile"] = profile_window(engine(), prompts[:8], 8)
-        hold_row9_kinds(summary["profile"])
+        hold_mma_kinds(summary["profile"], ("matmul_fused", "qkv_fused"))
     return summary
 
 
-def hold_row9_kinds(profile: dict) -> None:
-    """Every bf16 row-9 launch in a profiled serving window ran on the
-    tensor cores: the joins on the ``mma`` instance, decode on the
+def hold_mma_kinds(profile: dict, rows: tuple[str, ...]) -> None:
+    """Every bf16 launch of these GEMM rows (``matmul_fused``,
+    ``qkv_fused``, ``matmul_w8``) in a profiled serving window ran on
+    the tensor cores: the joins on the ``mma`` instance, decode on the
     transposed one, none on the CUDA-core tile core."""
     kinds = profile["device_ms_by_kind"]
-    assert kinds.get("matmul_fused (mma)", 0) > 0 and \
-        kinds.get("matmul_fused (mma_t)", 0) > 0, kinds
-    assert "matmul_fused" not in kinds and \
-        "matmul_fused (int8)" not in kinds, kinds
-    print(f"  row 9 in the profiled window: mma "
-          f"{kinds['matmul_fused (mma)']:.3f} ms, mma_t "
-          f"{kinds['matmul_fused (mma_t)']:.3f} ms, no CUDA-core launch")
+    for row in rows:
+        assert kinds.get(f"{row} (mma)", 0) > 0 and \
+            kinds.get(f"{row} (mma_t)", 0) > 0, (row, kinds)
+        assert row not in kinds and f"{row} (int8)" not in kinds, kinds
+        print(f"  {row} in the profiled window: mma "
+              f"{kinds[f'{row} (mma)']:.3f} ms, mma_t "
+              f"{kinds[f'{row} (mma_t)']:.3f} ms, no CUDA-core launch")
 
 
 def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
@@ -1227,8 +1269,8 @@ def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
                                        "max_abs_logit": scale,
                                        "argmax_agrees": same}
     summary["profile"] = profile_window(engine(), prompts[:8], 8)
-    if fuse:
-        hold_row9_kinds(summary["profile"])
+    hold_mma_kinds(summary["profile"],
+                   ("matmul_fused", "matmul_w8") if fuse else ("matmul_w8",))
     return summary
 
 
@@ -1272,6 +1314,7 @@ def phase7_tune() -> dict:
 
 
 def kernel_kind(name: str) -> str:
+    import re
     if "gemm_kernel" in name:       # the port's GEMM tile core
         if "QkvMap" in name:
             return "qkv_fused"
@@ -1281,10 +1324,11 @@ def kernel_kind(name: str) -> str:
             return ("matmul_fused (int8)" if "signed char" in name
                     else "matmul_fused")
         return "matmul_blocked"
-    if "fused_mma_t_kernel" in name:   # row 9's bf16 instances
-        return "matmul_fused (mma_t)"
-    if "fused_mma_kernel" in name:
-        return "matmul_fused (mma)"
+    inst = re.search(r"\bmma(_t)?_kernel<", name)   # gemm_mma_inst.cuh
+    if inst:   # the bf16 instances of rows 9, 10 and 11, by their map
+        row = ("qkv_fused" if "QkvBlocks" in name else
+               "matmul_w8" if "W8Map" in name else "matmul_fused")
+        return f"{row} ({'mma_t' if inst.group(1) else 'mma'})"
     if "decode_oproj_kernel" in name:
         return "flash_decode_oproj"
     if "fwd_mma_kernel" in name:
@@ -1452,14 +1496,14 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
     return out
 
 
-def row9_instance(row: dict, m: int, n: int, bm: int, bn: int) -> None:
-    """Row 9's instance (``matmul_fused.instance``: the kind, its warp
-    grid or fragment counts, its stages) and its block count, on the
-    timed row and its shape; a bf16 launch runs on the tensor cores."""
-    from repro_torch.kernels import matmul_fused as MF
-    kind, layout, stages = MF.matmul_fused.instance
-    assert kind in ("mma", "mma_t"), MF.matmul_fused.instance
-    blocks = -(-n // bn) * (1 if kind == "mma_t" else -(-m // bm))
+def gemm_instance(row: dict, fn, m: int, col_blocks: int, bm: int) -> None:
+    """The instance a GEMM wrapper ran (``fn.instance``: the kind, its
+    warp grid or fragment counts, its stages; rows 9, 10 and 11) and its
+    block count, on the timed row and its shape; a bf16 launch runs on
+    the tensor cores."""
+    kind, layout, stages = fn.instance
+    assert kind in ("mma", "mma_t"), fn.instance
+    blocks = col_blocks * (1 if kind == "mma_t" else -(-m // bm))
     row["instance"], row["blocks"] = [kind, layout, stages], blocks
     row["shape"] += f"; {kind} {layout} stages={stages}, {blocks} blocks"
 
@@ -1536,7 +1580,7 @@ def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
                          f"{ {x: y for x, y in epi.items()} } tiles="
                          f"{(bm, bk, bn)} bf16; library: "
                          f"{'addmm(residual, a, w)' if name == 'down' else 'matmul(a, w), no epilogue'}"}
-            row9_instance(row, m, n, bm, bn)
+            gemm_instance(row, MF.matmul_fused, m, -(-n // bn), bm)
             if m == 8 and name == "down":
                 rows.append(row)
             else:
@@ -1570,6 +1614,7 @@ def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
             "library_ms": time_ms(lambda: torch.matmul(x, wqkv)),
             "shape": f"M={m} Nkv={nkv} K={e} G={g} tiles={(bm, bk, bn)} "
                      f"bf16; library: matmul(x, [wq|wk|wv])"}
+        gemm_instance(row, QF.qkv_fused, m, QF.blocks(nkv, g, bn), bm)
         if m == 8:
             rows.append(row)
         else:
@@ -1656,6 +1701,7 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
                      f"int8, per-channel scale; library: torch.matmul "
                      f"against the bf16 weight (the wide reference); "
                      f"phase 9b launches {launches9b['matmul_w8']}"})
+        gemm_instance(gemms[-1], MQ.matmul_w8, m, -(-n // bn), bm)
     rows.append(gemms[0])
     for r in gemms[1:]:
         print(f"  matmul_w8 {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -1700,7 +1746,7 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
                          f"{(bm, bk, bn)} A bf16, W int8; library: "
                          + ("addmm(residual, a, w_bf16)" if name == "down"
                             else "matmul(a, w_bf16), no epilogue")}
-            row9_instance(row, m, n, bm, bn)
+            gemm_instance(row, MF.matmul_fused, m, -(-n // bn), bm)
             if m == 8 and name == "down":
                 rows.append(row)
             else:
@@ -2975,6 +3021,17 @@ def main() -> int:
               f"instances, {min(r for r, _ in dgrad_mma)}-"
               f"{max(r for r, _ in dgrad_mma)} registers, "
               f"{sum(sp for _, sp in dgrad_mma)} B spilled in all")
+    gemm_inst = [(regs, spill) for name in ("matmul_fused",
+                                            "matmul_fused_mma", "matmul_w8",
+                                            "matmul_w8_mma", "qkv_fused",
+                                            "qkv_fused_mma")
+                 for label, regs, spill in ptxas_report(reports.get(name, ""))
+                 if label.startswith(("mma_kernel<", "mma_t_kernel<"))]
+    if gemm_inst:
+        print(f"  rows 9-11: {len(gemm_inst)} mma_kernel/mma_t_kernel "
+              f"instances, {min(r for r, _ in gemm_inst)}-"
+              f"{max(r for r, _ in gemm_inst)} registers, "
+              f"{sum(sp for _, sp in gemm_inst)} B spilled in all")
     wgrad_mma = [(regs, spill) for label, regs, spill in
                  ptxas_report(reports.get("conv2d_wgrad", ""))
                  if label.startswith("wgrad_mma<")]

@@ -14,8 +14,9 @@ and Hopper's alignment and emits:
   flash-decode kernel, whose KV tile is one page, so the tile is also the
   paged cache's page size;
 * ``qkv_fused_tile_candidates`` -- (bm, bk, bn) for the fused QKV kernel,
-  bn per projection, its joint (G+2)*bn tile within the GEMM core's
-  limits;
+  bn per projection: in fp32 its joint (G+2)*bn tile within the GEMM
+  core's limits, in bf16 one projection's (bm, bn) tile on the fused
+  GEMM's tensor-core instances (at decode :func:`qkv_decode_tile`);
 * ``flash_decode_oproj_tile_candidates`` -- ``(page,)`` for the
   oproj-fused decode kernel (the page of a fused engine);
 * ``backward_tile_candidates("matmul_dgrad", ...)`` -- (bm, bk, bn) for
@@ -39,9 +40,11 @@ the fused kernel's tensor-core instances (:func:`fused_fits`), and at
 M <= 16 one decode tile for the transposed instance whose column blocks
 fill the card (:func:`fused_decode_tile`).  The quantized keys take the
 same two searches with their narrow operand at one byte:
-``"matmul_w8"`` ``matmul_tile_candidates(w_bytes=1)`` (the int8 weight
-tile priced by ``matmul_q.smem_bytes_required``; N and K tiles stay
-multiples of 64, so bn is a whole number of 16-byte int8 copies whenever
+``"matmul_w8"`` ``matmul_tile_candidates(w_bytes=1, fused=True)`` (its
+bf16 kernels are the fused GEMM's tensor-core instances, so it takes
+``"matmul_fused_w8"``'s tiles; in fp32 the int8 weight tile priced by
+the tile core's footprint; N and K tiles stay multiples of 64, or at
+decode of 16, so bn is a whole number of 16-byte int8 copies whenever
 N is), and ``"flash_decode_fp8"``
 ``flash_decode_tile_candidates(kv_bytes=1)`` (1-byte pages under bf16
 q rows: at D = 128 a page of up to 217 keys fits the two-block budget of
@@ -148,19 +151,24 @@ def matmul_fits(bm: int, bk: int, bn: int, bytes_per_elem: int,
 
 
 def decode_smem_limit(N: int | None, bn: int, budget: int,
-                      target: HopperTarget = H100_SXM) -> int:
-    """Shared memory a decode block of the fused GEMM may use: where its
-    ``ceil(N / bn)`` column blocks are one wave at one block an SM, the
-    opt-in of one block (a second resident block would have no work);
-    else, or with N unknown, ``budget`` (two blocks an SM)."""
-    if N is not None and -(-N // bn) <= target.sms:
+                      target: HopperTarget = H100_SXM, *,
+                      blocks: int | None = None) -> int:
+    """Shared memory a decode block of the tensor-core GEMM instances may
+    use: where its column blocks (``blocks``, else ``ceil(N / bn)``) are
+    one wave at one block an SM, the opt-in of one block (a second
+    resident block would have no work); else, or with neither known,
+    ``budget`` (two blocks an SM)."""
+    if blocks is None and N is not None:
+        blocks = -(-N // bn)
+    if blocks is not None and blocks <= target.sms:
         return max(budget, target.smem_optin_bytes)
     return budget
 
 
 def fused_fits(M: int, bm: int, bk: int, bn: int, bytes_per_elem: int,
                budget: int, target: HopperTarget = H100_SXM,
-               w_bytes: int | None = None, N: int | None = None) -> bool:
+               w_bytes: int | None = None, N: int | None = None, *,
+               blocks: int | None = None) -> bool:
     """Whether the epilogue-fused GEMM's instance for ``M`` rows holds
     these tiles (``kernels/matmul_fused.py``): fp32, the blocked GEMM's
     tile core (:func:`matmul_fits`); bf16, its staged tiles at the
@@ -168,7 +176,8 @@ def fused_fits(M: int, bm: int, bk: int, bn: int, bytes_per_elem: int,
     register limit -- ``"mma"`` (M > 16) on a warp grid that leaves at
     most ``MAX_EMPTY_ROWS`` of its computed rows empty, ``"mma_t"``
     (M <= 16) at a bn it is compiled for, within
-    :func:`decode_smem_limit` of the output's N columns."""
+    :func:`decode_smem_limit` of the output's N columns (or of the
+    grid's ``blocks``).  Rows 10 and 11 run the same two instances."""
     if bytes_per_elem != 2:
         return matmul_fits(bm, bk, bn, bytes_per_elem, budget, target,
                            w_bytes)
@@ -177,7 +186,7 @@ def fused_fits(M: int, bm: int, bk: int, bn: int, bytes_per_elem: int,
                                                   accumulators_per_thread,
                                                   smem_bytes_required)
     if M <= MMA_T_ROWS:
-        budget = decode_smem_limit(N, bn, budget, target)
+        budget = decode_smem_limit(N, bn, budget, target, blocks=blocks)
     if (smem_bytes_required(bm, bk, bn, 2, w_bytes, m=M) > budget
             or accumulators_per_thread(bm, bn, 2, m=M)
             > target.acc_per_thread):
@@ -203,19 +212,31 @@ def fused_decode_tile(M: int, N: int, K: int, budget: int,
     column blocks are one wave: N = 4096's int8 weight then keeps bk
     512, 25 reduction steps, where the two-block budget held it to 256;
     the per-step barriers and widening pass, not the bytes, set its
-    pace)."""
+    pace).  ``"matmul_w8"`` takes the same tile (its bf16 kernels are
+    these instances)."""
+    from repro_torch.kernels.matmul_fused import MMA_T_COLS
+    return _decode_tile(M, K, MMA_T_COLS, lambda bn: -(-N // bn), budget,
+                        w_bytes, target)
+
+
+def _decode_tile(M: int, K: int, cols, n_blocks, budget: int,
+                 w_bytes: int | None, target: HopperTarget
+                 ) -> tuple[int, int, int]:
+    """:func:`fused_decode_tile`'s rule with bn taken from ``cols`` and a
+    grid of ``n_blocks(bn)`` column blocks."""
     from repro_torch.kernels.matmul_fused import (DECODE_BLOCKS,
                                                   DECODE_W_BYTES,
-                                                  MMA_T_COLS, MMA_T_STAGES,
+                                                  MMA_T_STAGES,
                                                   smem_bytes_required)
-    wide = [c for c in MMA_T_COLS if -(-N // c) >= DECODE_BLOCKS]
-    bn = max(wide) if wide else min(MMA_T_COLS)
+    wide = [c for c in cols if n_blocks(c) >= DECODE_BLOCKS]
+    bn = max(wide) if wide else min(cols)
     wb = w_bytes or 2
     bk = 512
     while bk > 16 and MMA_T_STAGES * bk * bn * wb > DECODE_W_BYTES:
         bk //= 2
     bk = min(bk, -(-K // 16) * 16)
-    limit = decode_smem_limit(N, bn, budget, target)
+    limit = decode_smem_limit(None, bn, budget, target,
+                              blocks=n_blocks(bn))
     while (bk > 16 and smem_bytes_required(M, bk, bn, 2, w_bytes, m=M)
            > limit):
         bk //= 2
@@ -955,15 +976,40 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
 _MIN_BK = 16
 
 
-def qkv_fits(bm: int, bk: int, bn: int, groups: int, bytes_per_elem: int,
-             budget: int, target: HopperTarget = H100_SXM) -> bool:
-    """Whether the fused QKV kernel holds these tiles: the GEMM core's
-    staged tiles and accumulator at the joint width (G+2)*bn."""
+def qkv_fits(M: int, bm: int, bk: int, bn: int, groups: int,
+             bytes_per_elem: int, budget: int,
+             target: HopperTarget = H100_SXM, *,
+             Nkv: int | None = None) -> bool:
+    """Whether the fused QKV kernel's instance for ``M`` rows holds these
+    tiles: fp32, the GEMM core's staged tiles and accumulator at the
+    joint width (G+2)*bn; bf16, row 9's tensor-core instance at one
+    projection's (bm, bk, bn) (:func:`fused_fits`), at decode within
+    :func:`decode_smem_limit` of the segment-major grid's blocks
+    (``Nkv``)."""
     from repro_torch.kernels.qkv_fused import (accumulators_per_thread,
-                                               smem_bytes_required)
+                                               blocks, smem_bytes_required)
+    if bytes_per_elem == 2:
+        return fused_fits(M, bm, bk, bn, 2, budget, target,
+                          blocks=None if Nkv is None
+                          else blocks(Nkv, groups, bn))
     return (smem_bytes_required(bm, bk, bn, groups, bytes_per_elem) <= budget
-            and accumulators_per_thread(bm, bn, groups)
+            and accumulators_per_thread(bm, bn, groups, bytes_per_elem)
             <= target.acc_per_thread)
+
+
+def qkv_decode_tile(M: int, Nkv: int, K: int, groups: int, budget: int,
+                    target: HopperTarget = H100_SXM
+                    ) -> tuple[int, int, int]:
+    """The bf16 QKV pass's tile at M <= 16, for the transposed instance:
+    :func:`fused_decode_tile`'s rule over the segment-major grid's
+    ``qkv_fused.blocks`` (the joint (G+2)*Nkv columns), bn of
+    ``MMA_T_COLS`` dividing Nkv where one does (granite's decode: bn 32,
+    192 blocks, bk 256; the reduced granite's Nkv 32: bn 16)."""
+    from repro_torch.kernels.matmul_fused import MMA_T_COLS
+    from repro_torch.kernels.qkv_fused import blocks
+    cols = [c for c in MMA_T_COLS if Nkv % c == 0] or list(MMA_T_COLS)
+    return _decode_tile(M, K, cols, lambda bn: blocks(Nkv, groups, bn),
+                        budget, None, target)
 
 
 @functools.lru_cache(maxsize=256)
@@ -976,32 +1022,54 @@ def qkv_fused_tile_candidates(M: int, Nkv: int, K: int, groups: int,
     """Ranked (bm, bk, bn) candidates for the fused QKV pass, bn blocking
     the per-projection width Nkv.
 
-    The search runs on the joint GEMM ``(M, (G+2)*Nkv, K)`` (one
-    activation stream feeding every output column).  Each winner's bn is
-    then expressed per projection, ``bn_joint // (G+2)`` snapped to a
-    divisor of Nkv in multiples of ``nk_mult`` (the TPU adapter snapped
-    to its lane width), and the tile shrinks -- bk while the staged tiles
-    overflow, then bm, then bn, then bk below ``nk_mult`` down to
-    ``_MIN_BK`` -- until the joint (bm, (G+2)*bn) tile fits the GEMM
-    core's shared memory and accumulator cap: at G = 4 the cap allows
-    bn <= 128, and only with bm <= 16; in fp32 at granite's widths no
-    tile with bk >= 64 fits the two-block budget.  A seed tile (JAX's)
+    bf16 (row 9's tensor-core instances over the segment-major grid,
+    where a block is a (bm, bn) tile of one projection): at M <= 16 the
+    one decode tile of :func:`qkv_decode_tile`; above, the search's
+    candidates for the joint GEMM ``(M, (G+2)*Nkv, K)`` under the fused
+    GEMM's footprint (``matmul_tile_candidates(fused=True)``), each
+    snapped to Nkv (a divisor where an aligned one fits) and again to the
+    ``"mma"`` instance (:func:`fused_fits`).
+
+    fp32 (the tile core over the joint tile): the search runs on the
+    joint GEMM (one activation stream feeding every output column).
+    Each winner's bn is then expressed per projection, ``bn_joint //
+    (G+2)`` snapped to a divisor of Nkv in multiples of ``nk_mult`` (the
+    TPU adapter snapped to its lane width), and the tile shrinks -- bk
+    while the staged tiles overflow, then bm, then bn, then bk below
+    ``nk_mult`` down to ``_MIN_BK`` -- until the joint (bm, (G+2)*bn)
+    tile fits the GEMM core's shared memory and accumulator cap: at G = 4
+    the cap allows bn <= 128, and only with bm <= 16; at granite's widths
+    no tile with bk >= 64 fits the two-block budget.  A seed tile (JAX's)
     joins the search's list.
     """
+    from repro_torch.kernels.matmul_fused import MMA_T_ROWS
     from repro_torch.kernels.qkv_fused import (accumulators_per_thread,
                                                joint_cols,
                                                smem_bytes_required)
     budget = default_smem_budget(target, smem_budget_bytes)
     mm, mk = target.m_mult, target.nk_mult
+    if bytes_per_elem == 2:
+        if M <= MMA_T_ROWS:
+            return (qkv_decode_tile(M, Nkv, K, groups, budget, target),)
+        out = []
+        for bm, bk, bn in matmul_tile_candidates(
+                M, joint_cols(Nkv, groups), K, 2, budget, target, top=top,
+                fused=True):
+            cand = _snap_matmul(bm, bk, bn, M, Nkv, K, 2, budget, target,
+                                fused=True)
+            if cand not in out:
+                out.append(cand)
+        return tuple(out[:top])
     joint = matmul_tile_candidates(M, joint_cols(Nkv, groups), K,
                                    bytes_per_elem, budget, target, top=top)
     seed = (min(M, 256), min(K, 512), joint_cols(min(Nkv, 128), groups))
     out: list[tuple[int, int, int]] = []
     for bm, bk, bn_joint in (*joint, seed):
         bn = _pick_tile(Nkv, max(bn_joint // (groups + 2), mk), mk)
-        while not qkv_fits(bm, bk, bn, groups, bytes_per_elem, budget,
+        while not qkv_fits(M, bm, bk, bn, groups, bytes_per_elem, budget,
                            target):
-            regs_ok = (accumulators_per_thread(bm, bn, groups)
+            regs_ok = (accumulators_per_thread(bm, bn, groups,
+                                               bytes_per_elem)
                        <= target.acc_per_thread)
             smem_over = smem_bytes_required(bm, bk, bn, groups,
                                             bytes_per_elem) > budget

@@ -1,9 +1,9 @@
-// Blocked GEMM tile core on the CUDA cores: matmul_blocked.cu (no
-// epilogue), qkv_fused.cu (one A tile feeding three weight matrices),
-// matmul_w8.cu (int8 weights, the per-column scale in the epilogue) and
-// matmul_fused.cu's fp32 instance (bias, activation, mul and residual
-// applied to the output tile; wide or int8 weights).  matmul_fused's
-// bf16 instances run gemm_mma.cuh's tensor-core fragment core.
+// Blocked GEMM tile core on the CUDA cores: matmul_blocked.cu (row 6, no
+// epilogue) and the fp32 instances of qkv_fused.cu (one A tile feeding
+// three weight matrices), matmul_w8.cu (int8 weights, the per-column
+// scale in the epilogue) and matmul_fused.cu (bias, activation, mul and
+// residual applied to the output tile; wide or int8 weights).  Their bf16
+// instances run gemm_mma_inst.cuh's tensor-core instances.
 //
 // Block (i, j) owns a (bm, bn) output tile at rows i*bm and walks the
 // whole K extent in steps of bk, so its fp32 accumulator is held across

@@ -2,23 +2,36 @@
 // repro/kernels/qkv_fused.py::qkv_fused (_qkv_kernel :63, pallas_call at
 // :103).
 //
-// q = x @ wq, k = x @ wk, v = x @ wv in one pass over x: x (M, K);
-// wq (K, G*Nkv); wk, wv (K, Nkv); all row-major, fp32 or bf16.  As on the
-// TPU, block j of the grid owns q columns [j*G*bn, (j+1)*G*bn) and k and v
-// columns [j*bn, (j+1)*bn), so one staged A tile (bm, bk) feeds all three
-// weight streams.  Here that is one GEMM over a joint tile of (G+2)*bn
-// columns with a column map onto the three source matrices and the three
-// outputs (QkvMap), so the tile core of matmul_blocked and matmul_fused
-// (gemm_tile.cuh) runs it unchanged.  The accumulator cap of that core
-// (one group of 4 columns per thread, at most 16 rows) applies to the
-// joint width: at G = 4 a bn of 128 makes 768 columns, one thread-row,
-// so bm <= 16; the Hopper adapter and the wrapper refuse wider tiles.
+// q = x @ wq, k = x @ wk, v = x @ wv: x (M, K); wq (K, G*Nkv); wk, wv
+// (K, Nkv); all row-major, fp32 or bf16.  The tiles (bm, bk, bn) block
+// the per-projection width Nkv.  Three instances (this library holds the
+// first two; the third is qkv_fused_mma.cu, symbol qkv_fused_mma_fwd,
+// built apart so that the two compile in parallel):
+// * fp32 ("fma"): as on the TPU, block j owns q columns [j*G*bn,
+//   (j+1)*G*bn) and k and v columns [j*bn, (j+1)*bn), so one staged A
+//   tile (bm, bk) feeds all three weight streams: one GEMM over a joint
+//   tile of (G+2)*bn columns with a column map onto the three source
+//   matrices and outputs (QkvMap), on the tile core of matmul_blocked
+//   (gemm_tile.cuh), whose accumulator cap (4 columns x 16 rows a
+//   thread) applies to the joint width: at G = 4 a bn of 128 makes 768
+//   columns, so bm <= 16.  TF32 would break the fp32 tolerances.
+// * bf16, M <= 16 ("mma_t") and M > 16 ("mma"): gemm_mma_inst.cuh's
+//   tensor-core instances (row 9's) over a segment-major grid
+//   (QkvBlocks): each block owns bn columns of ONE projection -- first
+//   the ceil(G Nkv / bn) q blocks, then the k blocks, then the v blocks
+//   -- and reads its own weight at its own stride.  At granite's decode
+//   (Nkv 1024, G 4, bn 32) that is 128 + 32 + 32 = 192 blocks.  The
+//   TPU's joint tile saves x's second and third read, but on this card
+//   every column block reads x from L2 anyway (64 KB at decode), while
+//   (G+2) bn columns a block would cap the decode grid at 64 blocks for
+//   mma_t's bn of 16.  No block straddles two projections, so ragged Nkv
+//   needs no special case.
 // Ragged M, Nkv and K are masked.
 //
 // Bound on this card: at decode (M = 8) the three weights are read once,
-// bytes bound at 3.35 TB/s; what fusion saves is x's second and third
-// read, which matters at the join and chunk shapes (M >= 64).
-#include "gemm_tile.cuh"
+// (G+2) Nkv K bf16, 50.3 MB at granite's shapes: 0.015 ms at 3.35
+// TB/s; at M = 512 the operations over the bf16 tensor cores.
+#include "gemm_mma_inst.cuh"
 
 namespace {
 
@@ -59,39 +72,40 @@ template <typename T> struct QkvMap {
   }
 };
 
-template <typename T>
-int dispatch(const void* x, const void* wq, const void* wk, const void* wv,
-             void* q, void* k, void* v, int M, int nkv, int K, int groups,
-             int bm, int bk, int bn, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
+int fma_fwd(const void* x, const void* wq, const void* wk, const void* wv,
+            void* q, void* k, void* v, int M, int nkv, int K, int groups,
+            int bm, int bk, int bn, cudaStream_t stream) {
   const bool vec = gemm::aligned16(x) && gemm::aligned16(wq) &&
                    gemm::aligned16(wk) && gemm::aligned16(wv) &&
-                   K % V == 0 && nkv % V == 0 && bk % V == 0 && bn % V == 0;
-  const QkvMap<T> map{static_cast<const T*>(wq), static_cast<const T*>(wk),
-                      static_cast<const T*>(wv), static_cast<T*>(q),
-                      static_cast<T*>(k), static_cast<T*>(v), nkv, groups,
-                      bn};
-  return gemm::run<T, T>(vec, x, map, M, K, bm, bk, (groups + 2) * bn,
-                      (nkv + bn - 1) / bn, stream);
+                   K % 4 == 0 && nkv % 4 == 0 && bk % 4 == 0 && bn % 4 == 0;
+  const QkvMap<float> map{static_cast<const float*>(wq),
+                          static_cast<const float*>(wk),
+                          static_cast<const float*>(wv),
+                          static_cast<float*>(q), static_cast<float*>(k),
+                          static_cast<float*>(v), nkv, groups, bn};
+  return gemm::run<float, float>(vec, x, map, M, K, bm, bk,
+                                 (groups + 2) * bn, (nkv + bn - 1) / bn,
+                                 stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bn blocks the per-projection width
-// Nkv.  Returns a cudaError_t.
+// dtype: 0 = float32 (CUDA cores; stages must be 2), 1 = bfloat16 with
+// M <= 16 (the transposed instance, 2 to 4 stages; M > 16 runs in
+// qkv_fused_mma.cu).  bn blocks the per-projection width Nkv.  Returns a
+// cudaError_t.
 extern "C" int qkv_fused_fwd(int dtype, const void* x, const void* wq,
                              const void* wk, const void* wv, void* q,
                              void* k, void* v, int M, int nkv, int K,
-                             int groups, int bm, int bk, int bn,
+                             int groups, int bm, int bk, int bn, int stages,
                              void* stream) {
-  if (nkv <= 0 || groups <= 0 || bn <= 0)
+  if (M <= 0 || nkv <= 0 || K <= 0 || groups <= 0 || bm <= 0 || bk <= 0 ||
+      bn <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(x, wq, wk, wv, q, k, v, M, nkv, K, groups, bm,
-                           bk, bn, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, wq, wk, wv, q, k, v, M, nkv, K,
-                                   groups, bm, bk, bn, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && stages == 2)
+    return fma_fwd(x, wq, wk, wv, q, k, v, M, nkv, K, groups, bm, bk, bn, s);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return mma_inst::run_mma_t(mma_inst::qkv_args(
+      x, wq, wk, wv, q, k, v, M, nkv, K, groups, bm, bk, bn, stages, s));
 }

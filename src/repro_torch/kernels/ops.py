@@ -369,8 +369,9 @@ def qkv_fused(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
               wv: torch.Tensor, *,
               tiles: tuple[int, int, int] | None = None,
               use_kernel: bool = True):
-    """The attention front end's three projections in one weight-
-    stationary pass: x streams from HBM once instead of three times.
+    """The attention front end's three projections in one launch: x
+    streams from HBM once instead of three times (the bf16 kernel's
+    later column blocks read it from L2).
     Returns ``(q, k, v)`` with x's leading shape.  Tiles come from the
     ``"qkv_fused"`` key, dims ``(M, Nkv, K, G)``.  Quantized weights
     take three :func:`linear` calls, as in JAX (each an int8 GEMM)."""

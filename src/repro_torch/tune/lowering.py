@@ -42,9 +42,9 @@ from repro_torch.core.hopper_adapter import (
     fused_fits, matmul_fits, matmul_tile_candidates, qkv_fits,
     qkv_fused_tile_candidates)
 from repro_torch.core.loopnest import BlockingString, Dim, Loop
-from repro_torch.tune.schedule import (CONV_OPS, FUSED_GEMM_OPS, FUSED_OPS,
-                                       GEMM_OPS, NARROW_WEIGHT_BYTES, OpSpec,
-                                       Schedule)
+from repro_torch.tune.schedule import (CONV_OPS, FUSED_OPS, GEMM_OPS,
+                                       MMA_GEMM_OPS, NARROW_WEIGHT_BYTES,
+                                       OpSpec, Schedule)
 
 _GEMMS = GEMM_OPS
 _PAGES = ("flash_decode", "flash_decode_oproj",
@@ -56,11 +56,14 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
               target: HopperTarget = H100_SXM) -> bool:
     """Whether the op's CUDA kernel holds these tiles on chip: its own
     shared-memory footprint within ``budget`` and, for the GEMM, its
-    fp32 accumulator within the target's register limit (the fused
-    QKV kernel's at its joint width).  The quantized keys price their
-    narrow operand at one byte (``matmul_q.smem_bytes_required``, the
-    fp8 pages of ``flash_decode.smem_bytes_required``), and an int8
-    weight tile's bn must be a whole number of 16-byte copies.  The conv
+    fp32 accumulator within the target's register limit: the keys of
+    ``MMA_GEMM_OPS`` (``"matmul_w8"`` among them) under the fused GEMM's
+    instance for the spec's M, the fused QKV kernel's (in fp32 at its
+    joint width; in bf16 the same instances at one projection's tile
+    over its segment-major grid).  The quantized keys price their
+    narrow operand at one byte (the int8 weight tile, the fp8 pages of
+    ``flash_decode.smem_bytes_required``), and an int8 weight tile's bn
+    must be a whole number of 16-byte copies.  The conv
     keys: row 12's footprint and accumulator (``"conv2d"``, and
     ``"conv2d_dgrad"``, which runs it), row 13's for ``"conv2d_wgrad"``,
     each with the spec's stride."""
@@ -73,7 +76,7 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     if spec.op == "matmul_dgrad":
         bm, bk, bn = tiles
         return dgrad_fits(bm, bk, bn, spec.itemsize, budget, target)
-    if spec.op in FUSED_GEMM_OPS:
+    if spec.op in MMA_GEMM_OPS:
         bm, bk, bn = tiles
         return fused_fits(spec.dims[0], bm, bk, bn, spec.itemsize, budget,
                           target, NARROW_WEIGHT_BYTES.get(spec.op),
@@ -84,8 +87,8 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
                            w_bytes=NARROW_WEIGHT_BYTES.get(spec.op))
     if spec.op == "qkv_fused":
         bm, bk, bn = tiles
-        return qkv_fits(bm, bk, bn, spec.dims[3], spec.itemsize, budget,
-                        target)
+        return qkv_fits(spec.dims[0], bm, bk, bn, spec.dims[3],
+                        spec.itemsize, budget, target, Nkv=spec.dims[1])
     from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
                                                   oproj_smem_bytes_required,
                                                   smem_bytes_required)
@@ -323,7 +326,7 @@ def candidates(spec: OpSpec,
         raw = matmul_tile_candidates(
             M, N, K, spec.itemsize, budget, target, top=top,
             w_bytes=NARROW_WEIGHT_BYTES.get(spec.op),
-            fused=spec.op in FUSED_GEMM_OPS)
+            fused=spec.op in MMA_GEMM_OPS)
     elif spec.op == "qkv_fused":
         M, Nkv, K, G = spec.dims
         raw = qkv_fused_tile_candidates(M, Nkv, K, G, spec.itemsize, budget,

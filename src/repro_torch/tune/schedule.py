@@ -26,8 +26,10 @@ the next op's work instead of round-tripping through HBM):
   instances', at M <= 16 one decode tile that fills the card);
 * ``qkv_fused``: ``dims = (M, Nkv, K, G)``, Nkv the per-projection k/v
   width and G = Hq / Hkv (the q projection is G * Nkv wide); tiles
-  ``(bm, bk, bn)`` block Nkv, each block producing (G + 2) * bn output
-  columns from one activation tile -- the nest is the joint GEMM;
+  ``(bm, bk, bn)`` block Nkv -- the nest is the joint GEMM, each block
+  producing (G + 2) * bn output columns from one activation tile, as
+  the fp32 kernel runs it; the bf16 kernel runs one projection's (bm,
+  bn) tile a block on the fused GEMM's tensor-core instances;
 * ``flash_decode_oproj``: ``dims = (G, S, D, E)`` (E = d_model); the
   single ``(page,)`` tile is still the KV tile AND the page size -- a
   fused engine sizes its pages under this key, because the kernel's
@@ -39,7 +41,8 @@ byte wide whatever the spec's activation dtype):
 
 * ``matmul_w8``: ``dims = (M, N, K)``; tiles ``(bm, bk, bn)`` of
   ``kernels/matmul_q.py``, the weight operand int8, activations and
-  output at ``dtype``'s width;
+  output at ``dtype``'s width; in bf16 under ``matmul_fused``'s
+  tensor-core footprint, which its kernel runs (``MMA_GEMM_OPS``);
 * ``matmul_fused_w8``: the int8-weight ``matmul_fused``, ``dims = (M, N,
   K)``, under the fused kernel's footprint with its weight at one byte;
 * ``flash_decode_fp8``: ``dims = (G, S, D)``; the ``(page,)`` tile of
@@ -82,8 +85,10 @@ NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1,
 # the GEMM nests: one (M, N, K) problem, (bm, bk, bn) tiles
 GEMM_OPS = ("matmul", "matmul_dgrad", "matmul_fused", "matmul_w8",
             "matmul_fused_w8")
-# the epilogue-fused GEMM's keys: its own footprint (matmul_fused.py)
-FUSED_GEMM_OPS = ("matmul_fused", "matmul_fused_w8")
+# the GEMM keys whose bf16 kernels are row 9's tensor-core instances
+# (csrc/gemm_mma_inst.cuh): their footprint is matmul_fused.py's (in fp32
+# each runs the blocked GEMM's tile core, and the two footprints agree)
+MMA_GEMM_OPS = ("matmul_fused", "matmul_fused_w8", "matmul_w8")
 # the conv nests: (X, Y, C, K, Fw, Fh) and a stride, (bx, by, bc, bk) tiles
 CONV_OPS = ("conv2d", "conv2d_dgrad", "conv2d_wgrad")
 OPS = (("matmul", "matmul_dgrad", "flash_decode") + FUSED_OPS

@@ -312,24 +312,41 @@ def test_matmul_fused_matches_plain(dev, dtype, epi, m, n, k, tiles):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,nkv,k,g,tiles", [
-    (8, 1024, 4096, 4, (8, 32, 128)),    # granite decode, widest bn
-    (64, 1024, 4096, 4, (16, 64, 64)),
-    (24, 96, 136, 1, (16, 64, 64)),      # ragged Nkv and K, G = 1
-    (5, 40, 70, 3, (8, 64, 32)),         # scalar staging
+@pytest.mark.parametrize("m,nkv,k,g,tiles,bf16_tiles", [
+    (8, 1024, 4096, 4, (8, 32, 128), None),   # granite decode, widest bn
+    (8, 1024, 4096, 4, (8, 32, 64), (8, 256, 32)),  # the model's tiles
+    (1, 1024, 4096, 4, (8, 32, 64), (1, 256, 32)),  # one token
+    (16, 1024, 4096, 4, (16, 32, 64), (16, 128, 64)),  # two token tiles
+    (64, 1024, 4096, 4, (16, 64, 64), None),
+    (512, 1024, 4096, 4, (16, 64, 64), (128, 64, 128)),  # a join: mma
+    (24, 96, 136, 1, (16, 64, 64), None),     # ragged Nkv and K, G = 1
+    (13, 96, 136, 1, (13, 64, 64), (13, 144, 64)),  # ragged k, v blocks
+    (8, 32, 64, 2, (8, 64, 16), None),        # the reduced granite: decode
+    (24, 32, 64, 2, (16, 64, 32), None),      # and a join
+    (5, 40, 70, 3, (8, 64, 32), None),        # scalar staging
 ])
-def test_qkv_fused_matches_plain(dev, dtype, m, nkv, k, g, tiles):
+def test_qkv_fused_matches_plain(dev, dtype, m, nkv, k, g, tiles,
+                                 bf16_tiles):
+    """fp32 on the tile core over the joint tile; bf16 on row 9's
+    tensor-core instances over the segment-major grid (``"mma_t"`` at M
+    <= 16, ``"mma"`` above), at each instance's own tiles where the two
+    differ; repeats bit-equal."""
+    from repro_torch.kernels import matmul_fused as MF
     rng = np.random.default_rng(m + nkv)
     t = lambda *s: torch.tensor(rng.standard_normal(s),  # noqa: E731
                                 dtype=dtype, device=dev)
     x, wq = t(m, k), t(k, g * nkv) * k ** -0.5
     wk, wv = t(k, nkv) * k ** -0.5, t(k, nkv) * k ** -0.5
     before = qkv_fused.launches
-    bm, bk, bn = tiles
+    bm, bk, bn = bf16_tiles if dtype == torch.bfloat16 and bf16_tiles \
+        else tiles
     got = qkv_fused(x, wq, wk, wv, bm=bm, bk=bk, bn=bn)
+    again = qkv_fused(x, wq, wk, wv, bm=bm, bk=bk, bn=bn)
     torch.cuda.synchronize()
-    assert qkv_fused.launches == before + 1
-    for o, r in zip(got, qkv_fused_ref(x, wq, wk, wv)):
+    assert qkv_fused.launches == before + 2
+    assert qkv_fused.instance[0] == MF.instance_kind(dtype, m)
+    for o, a, r in zip(got, again, qkv_fused_ref(x, wq, wk, wv)):
+        assert torch.equal(o, a)
         torch.testing.assert_close(o.float(), r.float(), **gemm_tol(dtype, k))
 
 
@@ -361,23 +378,30 @@ def test_flash_decode_oproj_matches_plain(dev, dtype, page, window, cap):
 
 
 def test_fused_kernels_refuse_what_they_cannot_hold(dev):
-    """A tile the kernel does not hold raises before any launch: at
-    G = 4 a qkv bn of 256 makes a 1536-column joint tile; row 9's
-    transposed instance (M <= 16) takes bn of 16, 32, 64 or 128 and its
-    mma instance a tile on its warp grid; the oproj-fused decode takes
-    16-byte wo rows."""
+    """A tile the kernel does not hold raises before any launch: in fp32
+    at G = 4 a qkv bn of 256 makes a 1536-column joint tile; rows 9 and
+    11's transposed instance (M <= 16) takes bn of 16, 32, 64 or 128 and
+    their mma instance a tile on its warp grid; the oproj-fused decode
+    takes 16-byte wo rows."""
     x = torch.zeros(8, 4096, dtype=torch.bfloat16, device=dev)
     wq = torch.zeros(4096, 4096, dtype=torch.bfloat16, device=dev)
     wk = torch.zeros(4096, 1024, dtype=torch.bfloat16, device=dev)
     before = (qkv_fused.launches, matmul_fused.launches,
               flash_decode_oproj.launches)
     with pytest.raises(ValueError, match="accumulators"):
+        qkv_fused(x.float(), wq.float(), wk.float(), wk.float(), bm=8,
+                  bk=64, bn=256)
+    with pytest.raises(ValueError, match="transposed"):
         qkv_fused(x, wq, wk, wk, bm=8, bk=64, bn=256)
     with pytest.raises(ValueError, match="transposed"):
         matmul_fused(x, wq, act="silu", bm=256, bk=64, bn=256)
     x512 = torch.zeros(512, 4096, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="warp grid"):
         matmul_fused(x512, wq, act="silu", bm=512, bk=64, bn=256)
+    with pytest.raises(ValueError, match="warp grid"):
+        qkv_fused(x512, wq, wk, wk, bm=512, bk=64, bn=256)
+    with pytest.raises(ValueError, match="shared memory"):
+        qkv_fused(x, wq, wk, wk, bm=8, bk=4096, bn=128)
     q, kp, vp, bt, ln = paged_case(dev, torch.bfloat16, 1, [5, 9], hkv=16,
                                    g=2, page=16, n_blocks=2)
     wo = torch.zeros(16, 2 * 128, 60, dtype=torch.bfloat16, device=dev)
@@ -400,22 +424,32 @@ def w8_case(dev, dtype, m, n, k, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_channel", [True, False],
                          ids=["per_channel", "per_tensor"])
-@pytest.mark.parametrize("m,n,k,tiles", [
-    (8, 4096, 4096, (8, 512, 64)),       # decode, the model's tile
-    (8, 4096, 12800, (8, 64, 512)),      # the down projection's
-    (512, 1024, 4096, (128, 64, 128)),   # a join span
-    (37, 1008, 300, (16, 64, 64)),       # ragged M and K (K % 8: scalar)
-    (5, 48, 70, (8, 64, 16)),            # smaller than one tile
+@pytest.mark.parametrize("m,n,k,tiles,bf16_tiles", [
+    (8, 4096, 4096, (8, 512, 64), None),  # decode
+    (8, 4096, 12800, (8, 64, 512), (8, 512, 32)),  # the down projection's
+    (1, 4096, 4096, (8, 64, 128), (1, 512, 32)),   # one token
+    (16, 1008, 300, (16, 64, 64), (16, 128, 16)),  # two token tiles, ragged
+    (512, 1024, 4096, (128, 64, 128), None),   # a join span: mma
+    (37, 1008, 300, (16, 64, 64), None),       # ragged M and K (K % 8)
+    (24, 4096, 4096, (16, 128, 64), None),     # the smallest mma M
+    (5, 48, 70, (8, 64, 16), None),            # smaller than one tile
 ])
-def test_matmul_w8_matches_plain(dev, dtype, per_channel, m, n, k, tiles):
+def test_matmul_w8_matches_plain(dev, dtype, per_channel, m, n, k, tiles,
+                                 bf16_tiles):
+    """fp32 on the tile core; bf16 on row 9's tensor-core instances with
+    the scale-only store (``"mma_t"`` at M <= 16, ``"mma"`` above), at
+    each instance's own tiles where the two differ; repeats bit-equal."""
+    from repro_torch.kernels import matmul_fused as MF
     a, qw = w8_case(dev, dtype, m, n, k, seed=m + n)
     scale = qw.scale if per_channel else qw.scale.max()
     before = matmul_w8.launches
-    bm, bk, bn = tiles
+    bm, bk, bn = bf16_tiles if dtype == torch.bfloat16 and bf16_tiles \
+        else tiles
     out = matmul_w8(a, qw.q, scale, bm=bm, bk=bk, bn=bn)
     again = matmul_w8(a, qw.q, scale, bm=bm, bk=bk, bn=bn)
     torch.cuda.synchronize()
     assert matmul_w8.launches == before + 2
+    assert matmul_w8.instance[0] == MF.instance_kind(dtype, m)
     assert out.dtype == dtype and out.shape == (m, n)
     assert torch.equal(out, again)
     torch.testing.assert_close(out.float(),
@@ -488,8 +522,10 @@ def test_flash_decode_fp8_matches_plain(dev, dtype, q_span, lengths, page,
 
 def test_quantized_kernels_refuse_what_they_cannot_take(dev):
     """An int8 weight whose N or bn is no whole number of 16-byte copies,
-    a wide weight passed to the int8 GEMM, and fp8 scales of the wrong
-    shape raise before any launch."""
+    a wide weight passed to the int8 GEMM, a bf16 tile off the
+    tensor-core instances (a transposed-instance bn outside 16, 32, 64,
+    128; an mma tile off its warp grid) and fp8 scales of the wrong shape
+    raise before any launch."""
     a, qw = w8_case(dev, torch.bfloat16, 8, 40, 64)
     a2, qw2 = w8_case(dev, torch.bfloat16, 8, 64, 64)
     before = (matmul_w8.launches, matmul_fused.launches,
@@ -503,6 +539,11 @@ def test_quantized_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(TypeError, match="int8"):
         matmul_w8(a2, qw2.q.to(torch.bfloat16), qw2.scale, bm=8, bk=64,
                   bn=64)
+    a3, qw3 = w8_case(dev, torch.bfloat16, 512, 4096, 64)
+    with pytest.raises(ValueError, match="transposed"):
+        matmul_w8(a3[:8], qw3.q, qw3.scale, bm=8, bk=64, bn=48)
+    with pytest.raises(ValueError, match="warp grid"):
+        matmul_w8(a3, qw3.q, qw3.scale, bm=512, bk=64, bn=256)
     q, kp, vp, bt, ln = paged_case(dev, torch.bfloat16, 1, [5, 9], page=16,
                                    n_blocks=2)
     kp8, vp8 = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)

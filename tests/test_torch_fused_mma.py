@@ -1,21 +1,27 @@
-"""Row 9's bf16 tensor-core instances (``csrc/matmul_fused.cu``:
-``fused_mma_kernel``, M > 16, and ``fused_mma_t_kernel``, M <= 16), their
-tiles and footprints, on the CPU.
+"""The bf16 tensor-core instances of the forward GEMM
+(``csrc/gemm_mma_inst.cuh``: ``mma_kernel``, M > 16, and
+``mma_t_kernel``, M <= 16) that rows 9 (``matmul_fused``), 10
+(``matmul_w8``) and 11 (``qkv_fused``) run, their tiles and footprints,
+on the CPU.
 
-* The lane arithmetic: a numpy emulation of each instance lane by lane --
-  the staging into NaN-filled shared memory (it is not initialised on the
-  card) with ``gemm_mma::Tile``'s swizzle, an int8 weight staged raw and
-  widened into the swizzled bf16 tile, the fragment addressing
-  (``ldmatrix`` for A's rows, ``ldmatrix.trans`` for W's, ``.x2`` for an
-  odd n8 count; in the transposed instance the other way round),
-  ``mma.sync`` m16n8k16 with fp32 sums, the warps' split of the k16
-  steps and their sum in warp order, the swapped (token, column) store
-  through the fused epilogue -- against JAX's ``matmul_fused`` in
-  interpret mode and the plain version, wide and int8.
-* The tiles: the ``"matmul"`` and ``"matmul_w8"`` candidates at
-  granite's projections are pinned as they were (rows 6 and 10 keep
-  their tiles); the fused key's decode tiles fill the card; the bf16
-  fused candidates fit the instance that runs them.
+* The lane arithmetic: a numpy emulation of each instance lane by lane
+  over a per-block weight source and a store map -- the staging into
+  NaN-filled shared memory (it is not initialised on the card) with
+  ``gemm_mma::Tile``'s swizzle, an int8 weight staged raw and widened
+  into the swizzled bf16 tile, the fragment addressing (``ldmatrix`` for
+  A's rows, ``ldmatrix.trans`` for W's, ``.x2`` for an odd n8 count; in
+  the transposed instance the other way round), ``mma.sync`` m16n8k16
+  with fp32 sums, the warps' split of the k16 steps and their sum in
+  warp order, the swapped (token, column) store through the map --
+  against JAX's Pallas kernels in interpret mode and the plain
+  versions: row 9 wide and int8 with its fused epilogue, row 11's
+  segment-major QKV grid (``QkvBlocks``: G 1, 2 and 4, ragged Nkv), row
+  10's scale-only int8 store (``W8Map``: per-channel and per-tensor).
+* The tiles: the ``"matmul"`` candidates and fp32 ``"matmul_w8"`` ones
+  at granite's projections are pinned as they were, bf16
+  ``"matmul_w8"`` at row 9's int8 tiles; the fused, QKV and int8 keys'
+  decode tiles fill the card; the bf16 candidates above 16 rows fit the
+  ``mma`` instance that runs them.
 * The footprints mirror the ``.cu``'s ``mma_smem`` / ``mma_t_smem``.
 """
 
@@ -27,14 +33,20 @@ import pytest
 import torch
 
 from repro.kernels.matmul_fused import matmul_fused as j_matmul_fused
+from repro.kernels.matmul_q import matmul_w8 as j_matmul_w8
+from repro.kernels.qkv_fused import qkv_fused as j_qkv_fused
 from repro_torch.core.hopper_adapter import (H100_SXM, MAX_EMPTY_ROWS,
                                              decode_smem_limit,
                                              default_smem_budget, fused_fits,
-                                             matmul_tile_candidates)
+                                             matmul_tile_candidates,
+                                             qkv_fits)
+from repro_torch.kernels import matmul_blocked as MB
 from repro_torch.kernels import matmul_fused as MF
+from repro_torch.kernels import matmul_q as MQ
+from repro_torch.kernels import qkv_fused as QF
 from repro_torch.kernels.matmul_bwd import (chunk_at, empty_row_share,
                                             mma_layout, staged_chunks)
-from repro_torch.tune import best_schedule
+from repro_torch.tune import OpSpec, best_schedule, candidates, fits_smem
 
 LANES = np.arange(32)
 WARPS = 8
@@ -154,20 +166,56 @@ def epilogue(y, col, row, scale, bias, mul, res, act):
     return y
 
 
-def emulate_mma(a, w, tiles, w8, epi):
-    """One launch of ``fused_mma_kernel`` (M > 16) block by block, warp by
-    warp, lane by lane."""
+def one_w(w, bn):
+    """``OneW``: the column blocks of one weight matrix, each (segment 0,
+    the matrix, its first column, its columns in range)."""
+    n = w.shape[1]
+    return [(0, w, n0, min(bn, n - n0)) for n0 in range(0, n, bn)]
+
+
+def qkv_blocks(wq, wk, wv, bn):
+    """``QkvBlocks``: the segment-major grid -- the q blocks, then the k
+    blocks, then the v blocks, each of one projection's matrix."""
+    return [blk for seg, w in enumerate((wq, wk, wv))
+            for blk in [(seg, *b[1:]) for b in one_w(w, bn)]]
+
+
+def fused_map(out, epi):
+    """``FusedMap::store``: the fused epilogue at (row, col)."""
+    def store(seg, row, col, acc):
+        out[row, col] = epilogue(acc, col, row, **epi)
+    return store
+
+
+def w8_map(out, scale):
+    """``W8Map::store``: the per-column scale once, in fp32."""
+    def store(seg, row, col, acc):
+        out[row, col] = np.float32(np.float32(acc) * scale[col])
+    return store
+
+
+def qkv_map(outs):
+    """``QkvBlocks::store``: the sum into the block's own projection."""
+    def store(seg, row, col, acc):
+        outs[seg][row, col] = acc
+    return store
+
+
+def emulate_mma(a, blocks, tiles, w8, store):
+    """One launch of ``mma_kernel`` (M > 16) block by block, warp by
+    warp, lane by lane: column block x of ``blocks`` (the per-block
+    weight source: segment, matrix, first column, columns in range) and
+    row block y; ``store(segment, row, column, sum)`` is the map."""
     M, K = a.shape
-    N = w.shape[1]
     bm, bk, bn = tiles
     bkp = _ceil(bk, 16) * 16
     txw, tww = bkp // 8, _ceil(bn, 8)
     tx_ld, tw_ld = staged_chunks(txw)[0], staged_chunks(tww)[0]
     wm_n, wn_n, MT, NT = mma_layout(bm, bn)
     NP = (NT + 1) // 2
-    out = np.full((M, N), np.nan, np.float32)
-    for m0, n0 in itertools.product(range(0, M, bm), range(0, N, bn)):
-        m_ok, n_ok = min(bm, M - m0), min(bn, N - n0)
+    for m0, (seg, w, n0, n_ok) in itertools.product(range(0, M, bm),
+                                                    blocks):
+        m_ok = min(bm, M - m0)
         acc = np.zeros((WARPS, MT, NT, 32, 4), np.float32)
         for k0 in range(0, K, bk):
             k_ok = min(bk, K - k0)
@@ -207,27 +255,22 @@ def emulate_mma(a, w, tiles, w8, epi):
                 r = (wm * MT + mt) * 16 + lane // 4 + (e // 2) * 8
                 c = (wn * NT + nt) * 8 + 2 * (lane % 4) + e % 2
                 if r < m_ok and c < n_ok:
-                    out[m0 + r, n0 + c] = epilogue(
-                        acc[warp, mt, nt, lane, e], n0 + c, m0 + r, **epi)
-    return out
+                    store(seg, m0 + r, n0 + c, acc[warp, mt, nt, lane, e])
 
 
-def emulate_mma_t(a, w, bk, bn, w8, epi):
-    """One launch of ``fused_mma_t_kernel`` (M <= 16): Y^T = W^T . A^T,
-    the 8 warps on k16 steps w, w + 8, ... of each step, their sums added
-    in warp order, the (column, token) fragments stored to (token,
-    column)."""
+def emulate_mma_t(a, blocks, bk, bn, w8, store):
+    """One launch of ``mma_t_kernel`` (M <= 16): Y^T = W^T . A^T over the
+    column blocks of ``blocks``, the 8 warps on k16 steps w, w + 8, ...
+    of each step, their sums added in warp order, the (column, token)
+    fragments stored to (token, column) through ``store``."""
     M, K = a.shape
-    N = w.shape[1]
     assert M <= MF.MMA_T_ROWS and bn in MF.MMA_T_COLS
     NT, MT = MF.token_tiles(M), bn // 16
     XR = 8 * NT
     bkp = _ceil(bk, 16) * 16
     txw, tww = bkp // 8, bn // 8
     tx_ld, tw_ld = staged_chunks(txw)[0], staged_chunks(tww)[0]
-    out = np.full((M, N), np.nan, np.float32)
-    for n0 in range(0, N, bn):
-        n_ok = min(bn, N - n0)
+    for seg, w, n0, n_ok in blocks:
         acc = np.zeros((WARPS, MT, NT, 32, 4), np.float32)
         for k0 in range(0, K, bk):
             k_ok = min(bk, K - k0)
@@ -259,9 +302,15 @@ def emulate_mma_t(a, w, bk, bn, w8, epi):
             col = mt * 16 + (lane >> 2) + 8 * (e >> 1)
             tok = nt * 8 + 2 * (lane & 3) + (e & 1)
             if tok < M and col < n_ok:
-                out[tok, n0 + col] = epilogue(total[mt, nt, lane, e],
-                                              n0 + col, tok, **epi)
-    return out
+                store(seg, tok, n0 + col, total[mt, nt, lane, e])
+
+
+def emulate(a, blocks, tiles, w8, store):
+    """The launch of the instance a bf16 wrapper picks for ``a``'s M."""
+    if MF.instance_kind(torch.bfloat16, a.shape[0]) == "mma_t":
+        emulate_mma_t(a, blocks, tiles[1], tiles[2], w8, store)
+    else:
+        emulate_mma(a, blocks, tiles, w8, store)
 
 
 def bf16_values(rng, shape, scale=1.0):
@@ -316,11 +365,8 @@ def test_emulated_instance_matches_jax_and_plain(m, n, k, tiles, w8, act,
     mul = bf16_values(rng, (m, n))
     res = bf16_values(rng, (m, n))
     epi = dict(scale=scale, bias=bias, mul=mul, res=res, act=act)
-    kind = MF.instance_kind(torch.bfloat16, m)
-    if kind == "mma_t":
-        got = emulate_mma_t(a, w, tiles[1], tiles[2], w8, epi)
-    else:
-        got = emulate_mma(a, w, tiles, w8, epi)
+    got = np.full((m, n), np.nan, np.float32)
+    emulate(a, one_w(w, tiles[2]), tiles, w8, fused_map(got, epi))
     got = torch.tensor(got).bfloat16().float().numpy()
     assert np.all(np.isfinite(got))
     t = torch.tensor
@@ -357,7 +403,10 @@ def test_staged_chunk_rows_hit_eight_bank_groups():
 GRANITE_NK = ((4096, 4096), (1024, 4096), (12800, 4096), (4096, 12800))
 
 # the candidates of rows 6 ("matmul") and 10 ("matmul_w8") at granite's
-# projections before the fused key had a footprint of its own:
+# projections: row 6's and row 10's fp32 ones as they were before the
+# fused key had a footprint of its own (the tile core's), row 10's bf16
+# ones those of row 9's int8 tensor-core instances, which it runs (at
+# decode one tile whose column blocks fill the card):
 # (key, M, N, K, bytes per element) -> (bm, bk, bn) in rank order
 PINNED = {
     ("matmul", 8, 1024, 4096, 2): ((8, 256, 64), (8, 64, 64), (8, 64, 128)),
@@ -387,35 +436,30 @@ PINNED = {
                                       (128, 64, 128)),
     ("matmul", 512, 12800, 4096, 4): ((16, 128, 64), (16, 64, 128),
                                       (64, 64, 64), (64, 64, 128)),
-    ("matmul_w8", 8, 1024, 4096, 2): ((8, 512, 64), (8, 64, 64),
-                                      (8, 64, 128)),
+    ("matmul_w8", 8, 1024, 4096, 2): ((8, 512, 16),),
     ("matmul_w8", 8, 1024, 4096, 4): ((8, 512, 64), (8, 64, 64),
                                       (8, 64, 128)),
-    ("matmul_w8", 8, 4096, 4096, 2): ((8, 512, 64), (8, 64, 64),
-                                      (8, 64, 128)),
+    ("matmul_w8", 8, 4096, 4096, 2): ((8, 512, 32),),
     ("matmul_w8", 8, 4096, 4096, 4): ((8, 512, 64), (8, 64, 512),
                                       (8, 64, 128)),
-    ("matmul_w8", 8, 4096, 12800, 2): ((8, 640, 64), (8, 64, 512),
-                                       (8, 64, 128)),
+    ("matmul_w8", 8, 4096, 12800, 2): ((8, 512, 32),),
     ("matmul_w8", 8, 4096, 12800, 4): ((8, 64, 512), (8, 320, 64),
                                        (8, 64, 128)),
-    ("matmul_w8", 8, 12800, 4096, 2): ((8, 512, 64), (8, 64, 64),
-                                       (8, 64, 128)),
+    ("matmul_w8", 8, 12800, 4096, 2): ((8, 256, 64),),
     ("matmul_w8", 8, 12800, 4096, 4): ((8, 512, 64), (8, 64, 128)),
     ("matmul_w8", 512, 1024, 4096, 2): ((16, 64, 64), (256, 64, 64),
                                         (128, 64, 128)),
     ("matmul_w8", 512, 1024, 4096, 4): ((16, 64, 512), (16, 256, 64),
                                         (128, 64, 128)),
     ("matmul_w8", 512, 4096, 4096, 2): ((16, 64, 64), (256, 64, 64),
-                                        (16, 512, 64), (128, 64, 128)),
+                                        (16, 256, 64), (128, 64, 128)),
     ("matmul_w8", 512, 4096, 4096, 4): ((16, 256, 128), (16, 256, 64),
                                         (128, 64, 64), (128, 64, 128)),
-    ("matmul_w8", 512, 4096, 12800, 2): ((16, 320, 128), (128, 128, 128),
-                                         (64, 128, 256), (64, 128, 64),
-                                         (128, 64, 128)),
+    ("matmul_w8", 512, 4096, 12800, 2): ((16, 128, 128), (128, 64, 128),
+                                         (64, 64, 256), (64, 128, 64)),
     ("matmul_w8", 512, 4096, 12800, 4): ((16, 128, 128), (128, 64, 128)),
-    ("matmul_w8", 512, 12800, 4096, 2): ((16, 256, 128), (16, 128, 64),
-                                         (256, 64, 64), (16, 512, 64),
+    ("matmul_w8", 512, 12800, 4096, 2): ((16, 128, 128), (16, 128, 64),
+                                         (256, 64, 64), (16, 256, 64),
                                          (128, 64, 128)),
     ("matmul_w8", 512, 12800, 4096, 4): ((16, 256, 128), (16, 256, 64),
                                          (128, 64, 64), (128, 64, 128)),
@@ -423,11 +467,19 @@ PINNED = {
 
 
 @pytest.mark.parametrize("key", sorted(PINNED), ids=str)
-def test_rows_6_and_10_keep_their_tiles(key):
+def test_row_6_keeps_its_tiles_and_row_10_takes_the_instances(key):
+    """Row 6 and fp32 row 10 keep the tile core's candidates; bf16 row 10
+    takes row 9's int8 instances' (the ``"matmul_w8"`` key snaps as
+    ``"matmul_fused_w8"`` does, ``fused=True``; in fp32 the flag changes
+    nothing)."""
     op, m, n, k, esz = key
-    w_bytes = 1 if op == "matmul_w8" else None
-    assert matmul_tile_candidates(m, n, k, esz, w_bytes=w_bytes) == \
-        PINNED[key]
+    w8 = op == "matmul_w8"
+    assert matmul_tile_candidates(m, n, k, esz, w_bytes=1 if w8 else None,
+                                  fused=w8) == PINNED[key]
+    if w8:   # the key's ranked schedules are drawn from these tiles
+        dn = "bfloat16" if esz == 2 else "float32"
+        got = {s.tiles for s in candidates(OpSpec(op, (m, n, k), dn))}
+        assert got and got <= set(PINNED[key])
 
 
 @pytest.mark.parametrize("op", ["matmul_fused", "matmul_fused_w8"])
@@ -530,3 +582,202 @@ def test_instance_kinds_and_refusals():
     assert MF.instance(torch.bfloat16, 8, 8, 32, 4) == ("mma_t", (2, 1), 4)
     assert MF.instance(torch.bfloat16, 512, 128, 128, 3) == \
         ("mma", (4, 2, 2, 8), 3)
+
+
+# ------------------------- rows 10 and 11 on the same instances -------------
+
+
+QKV_EMULATED = [  # M, Nkv, K, G, (bm, bk, bn), jax tiles
+    # mma_t: 8 tokens, G 4: 8 q blocks of 16, then 2 k and 2 v blocks
+    (8, 32, 64, 4, (8, 64, 16), (8, 32, 16)),
+    # mma_t: 13 tokens (two n8 tiles), G 2, ragged Nkv (24: the last k
+    # and v blocks hold 8 of 16 columns), ragged K (72 = 48 + 24)
+    (13, 24, 72, 2, (13, 48, 16), None),
+    # mma_t: one token, G 1, Nkv 40 in blocks of 32 (a ragged 8)
+    (1, 40, 40, 1, (1, 32, 32), None),
+    # mma: 24 rows in tiles of 16 (a ragged 8), G 2
+    (24, 32, 64, 2, (16, 32, 32), (8, 32, 16)),
+    # mma: bn 48 (six n8 tiles) over Nkv 48, G 1, ragged M and K
+    (40, 48, 40, 1, (32, 32, 48), None),
+    # mma: Nkv 20, not a multiple of 8 (the scalar staging path), G 4
+    (20, 20, 40, 4, (16, 32, 24), None),
+]
+
+
+@pytest.mark.parametrize("m,nkv,k,g,tiles,jtiles", QKV_EMULATED)
+def test_emulated_qkv_matches_jax_and_plain(m, nkv, k, g, tiles, jtiles):
+    """Row 11's bf16 launch (``QkvBlocks``: the segment-major grid, each
+    block reading its own projection's weight and storing into its own
+    output) emulated lane by lane on the instance the wrapper picks for
+    ``m``, against the plain version and JAX's Pallas kernel in
+    interpret mode (where the tiles divide) to bf16 output rounding
+    (atol 2e-2, rtol 1e-2); every output element is stored once."""
+    rng = np.random.default_rng(m * 100 + nkv + k + g)
+    a = bf16_values(rng, (m, k))
+    ws = [bf16_values(rng, (k, c), k ** -0.5) for c in (g * nkv, nkv, nkv)]
+    blocks = qkv_blocks(*ws, tiles[2])
+    assert len(blocks) == QF.blocks(nkv, g, tiles[2])
+    outs = [np.full((m, w.shape[1]), np.nan, np.float32) for w in ws]
+    emulate(a, blocks, tiles, False, qkv_map(outs))
+    t = torch.tensor
+    want = QF.qkv_fused_ref(t(a).bfloat16(), *[t(w).bfloat16() for w in ws])
+    jax_out = None
+    if jtiles is not None:
+        bm, bk, bn = jtiles
+        jax_out = j_qkv_fused(jnp.asarray(a, jnp.bfloat16),
+                              *[jnp.asarray(w, jnp.bfloat16) for w in ws],
+                              bm=bm, bk=bk, bn=bn, interpret=True)
+    for i, got in enumerate(outs):
+        assert np.all(np.isfinite(got))
+        got = t(got).bfloat16().float().numpy()
+        np.testing.assert_allclose(got, want[i].float().numpy(), atol=2e-2,
+                                   rtol=1e-2)
+        if jax_out is not None:
+            np.testing.assert_allclose(
+                got, np.asarray(jax_out[i]).astype(np.float32), atol=2e-2,
+                rtol=1e-2)
+
+
+W8_EMULATED = [  # M, N, K, (bm, bk, bn), per-channel, jax tiles
+    # mma_t: 8 tokens, bn 32, two steps
+    (8, 64, 96, (8, 64, 32), True, (8, 32, 32)),
+    # mma_t: 13 tokens (two n8 tiles), bn 16, ragged K, per-tensor
+    (13, 48, 70, (13, 64, 16), False, None),
+    # mma_t: one token, bn 64 over N 96 (a ragged 32)
+    (1, 96, 64, (1, 32, 64), True, None),
+    # mma: a 16 x 64 tile over 24 rows, per-tensor
+    (24, 64, 64, (16, 32, 64), False, (8, 32, 64)),
+    # mma: 32 x 48 tiles over 40 rows, ragged K
+    (40, 48, 72, (32, 32, 48), True, None),
+]
+
+
+@pytest.mark.parametrize("m,n,k,tiles,per_channel,jtiles", W8_EMULATED)
+def test_emulated_w8_matches_jax_and_plain(m, n, k, tiles, per_channel,
+                                           jtiles):
+    """Row 10's bf16 launch (one int8 matrix, ``OneW``; the scale-only
+    ``W8Map`` store: the scale once in fp32, then one cast) emulated lane
+    by lane, the int8 rows staged raw and widened, against the plain
+    version and JAX's Pallas kernel in interpret mode (where the tiles
+    divide) to bf16 output rounding, per-channel and per-tensor."""
+    rng = np.random.default_rng(m * 100 + n + k)
+    a = bf16_values(rng, (m, k))
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    scale = (rng.uniform(0.5, 1.5, n if per_channel else 1)
+             * k ** -0.5 / 64).astype(np.float32)
+    row = np.broadcast_to(scale, (n,))       # the wrapper's fp32 row
+    got = np.full((m, n), np.nan, np.float32)
+    emulate(a, one_w(w, tiles[2]), tiles, True, w8_map(got, row))
+    assert np.all(np.isfinite(got))
+    got = torch.tensor(got).bfloat16().float().numpy()
+    t = torch.tensor
+    s_in = t(scale) if per_channel else t(scale[0])
+    want = MQ.matmul_w8_ref(t(a).bfloat16(), t(w), s_in).float().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-2)
+    if jtiles is not None:
+        bm, bk, bn = jtiles
+        jax_y = np.asarray(j_matmul_w8(
+            jnp.asarray(a, jnp.bfloat16), jnp.asarray(w),
+            jnp.asarray(scale if per_channel else scale[0]), bm=bm, bk=bk,
+            bn=bn, interpret=True)).astype(np.float32)
+        np.testing.assert_allclose(got, jax_y, atol=2e-2, rtol=1e-2)
+
+
+def test_qkv_and_w8_footprints_mirror_the_kernel():
+    """Rows 10 and 11 in bf16 have row 9's footprint (``mma_smem`` /
+    ``mma_t_smem``) at one projection's (bm, bk, bn) tile; in fp32 the
+    tile core's (row 11 at its joint width)."""
+    # row 11's decode tile: mma_t, 8 tokens, 4 stages of 8 x 32 and 256 x
+    # 4 chunks; 192 segment-major blocks at granite's Nkv 1024, G 4
+    assert QF.smem_bytes_required(8, 256, 32, 4, 2, m=8) == \
+        MF.smem_bytes_required(8, 256, 32, 2, m=8) == 81920
+    assert QF.blocks(1024, 4, 32) == 128 + 32 + 32
+    assert QF.blocks(96, 1, 64) == 2 + 2 + 2          # ragged Nkv
+    assert QF.accumulators_per_thread(8, 32, 4, 2, m=8) == 4 * 2 * 1
+    # mma at (128, 64, 128): the warp grid's 2 x 8 fragments
+    assert QF.smem_bytes_required(128, 64, 128, 4, 2) == 98304
+    assert QF.accumulators_per_thread(128, 128, 4, 2, m=512) == 64
+    # fp32: the tile core at the joint (G + 2) * bn width
+    assert QF.smem_bytes_required(8, 32, 64, 4, 4) == \
+        MB.smem_bytes_required(8, 32, 6 * 64, 4) == 2 * (8 * 32 + 32 * 384) * 4
+    assert QF.accumulators_per_thread(8, 64, 4, 4) == \
+        MB.accumulators_per_thread(8, 384)
+    # row 10's decode tile: mma_t int8, 4 stages of 8 x 64 chunks of A and
+    # 512 x 2 raw chunks of W, one widened 512 x 4 tile
+    assert MQ.smem_bytes_required(8, 512, 32, 2, 1, m=8) == \
+        (4 * (8 * 64 + 512 * 2) + 512 * 4) * 16 == 131072
+    assert MQ.smem_bytes_required(128, 64, 128, 2, 1) == \
+        MF.smem_bytes_required(128, 64, 128, 2, 1)
+    assert MQ.smem_bytes_required(8, 64, 512, 4, 1) == \
+        MB.smem_bytes_required(8, 64, 512, 4, 1)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_qkv_and_w8_decode_tiles_fill_the_card(m):
+    """At M <= 16 the ``"qkv_fused"`` key holds one tile for the
+    transposed instance: at granite's (Nkv 1024, G 4) bn 32, whose 192
+    segment-major blocks reach ``DECODE_BLOCKS`` (bn 64 would give 96),
+    bk 256 (4 stages of 32 bf16 columns: ``DECODE_W_BYTES``); at the
+    reduced granite's (Nkv 32, G 2) the narrowest bn dividing Nkv.  The
+    ``"matmul_w8"`` key takes ``"matmul_fused_w8"``'s tile at each of
+    granite's projections."""
+    budget = default_smem_budget()
+    bm, bk, bn = best_schedule("qkv_fused", (m, 1024, 4096, 4),
+                               "bfloat16").tiles
+    assert (bm, bk, bn) == (m, 256, 32)
+    assert QF.blocks(1024, 4, bn) >= MF.DECODE_BLOCKS > QF.blocks(1024, 4,
+                                                                  2 * bn)
+    assert MF.MMA_T_STAGES * bk * bn * 2 <= MF.DECODE_W_BYTES
+    assert QF.smem_bytes_required(bm, bk, bn, 4, 2, m=m) <= budget
+    assert best_schedule("qkv_fused", (m, 32, 64, 2), "bfloat16").tiles == \
+        (m, 64, 16)
+    for n, k in GRANITE_NK:
+        tiles = best_schedule("matmul_w8", (m, n, k), "bfloat16").tiles
+        assert tiles == best_schedule("matmul_fused_w8", (m, n, k),
+                                      "bfloat16").tiles
+        bm, bk, bn = tiles
+        assert bm == m and bn in MF.MMA_T_COLS
+        assert _ceil(n, bn) >= MF.DECODE_BLOCKS or bn == min(MF.MMA_T_COLS)
+        assert MQ.smem_bytes_required(bm, bk, bn, 2, 1, m=m) <= \
+            decode_smem_limit(n, bn, budget)
+
+
+@pytest.mark.parametrize("op", ["qkv_fused", "matmul_w8"])
+@pytest.mark.parametrize("m", [24, 512, 2048])
+def test_qkv_and_w8_mma_candidates_fit_the_instance(op, m):
+    """Every bf16 candidate of the two keys above 16 rows sits on the
+    ``"mma"`` instance's warp grid with at most ``MAX_EMPTY_ROWS`` of its
+    computed rows empty, 64 sums a thread and its stages within the
+    budget; row 11's bn divides Nkv (no block straddles a projection
+    boundary inside a segment) and at most Nkv."""
+    budget = default_smem_budget()
+    shapes = ([(1024, 4096, 4)] if op == "qkv_fused" else GRANITE_NK)
+    for dims in shapes:
+        cands = candidates(OpSpec(op, (m, *dims), "bfloat16"))
+        assert cands
+        for sched in cands:
+            bm, bk, bn = sched.tiles
+            assert mma_layout(bm, bn) is not None
+            assert empty_row_share(bm, bn) <= MAX_EMPTY_ROWS
+            assert MF.accumulators_per_thread(bm, bn, 2, m=m) \
+                <= H100_SXM.acc_per_thread
+            if op == "qkv_fused":
+                assert dims[0] % bn == 0
+                assert QF.smem_bytes_required(bm, bk, bn, 4, 2, m=m) <= budget
+            else:
+                assert MQ.smem_bytes_required(bm, bk, bn, 2, 1, m=m) <= budget
+
+
+def test_qkv_and_w8_footprint_checks_refuse():
+    """The two keys' footprint checks refuse what row 9's instances do
+    not hold: a transposed-instance bn off ``MMA_T_COLS``, an mma tile
+    off the warp grid; row 11's fp32 tile core keeps its joint-width
+    cap."""
+    budget = default_smem_budget()
+    assert not qkv_fits(8, 8, 64, 48, 4, 2, budget)
+    assert qkv_fits(8, 8, 256, 32, 4, 2, budget, Nkv=1024)
+    assert not qkv_fits(512, 512, 64, 256, 4, 2, budget)
+    assert not qkv_fits(8, 8, 64, 256, 4, 4, 10 ** 9)  # 1536 joint columns
+    w8 = OpSpec("matmul_w8", (8, 4096, 4096), "bfloat16")
+    assert not fits_smem(w8, (8, 64, 48), budget)
+    assert fits_smem(w8, (8, 512, 32), budget)

@@ -18,7 +18,8 @@ import torch
 
 from repro.tune import OpSpec as JOpSpec
 from repro.tune import lowering as jlowering
-from repro_torch.core.hopper_adapter import H100_SXM, default_smem_budget
+from repro_torch.core.hopper_adapter import (H100_SXM, decode_smem_limit,
+                                             default_smem_budget)
 from repro_torch.tune import (OpSpec, Schedule, ScheduleCache, best_schedule,
                               candidates, device_kind, divides, fits_smem,
                               level0_dram_bytes, predicted_dram_accesses,
@@ -94,9 +95,11 @@ def test_fused_keys_model_arithmetic_matches_jax(op, dims, dtype, tiles):
 def test_fused_candidates_fit_the_cuda_kernels(op, dims, dtype):
     """Every candidate of the three keys fits its CUDA kernel's own
     shared-memory footprint within the budget and, for the GEMMs, the
-    accumulator cap -- for qkv_fused the tile core's at the joint width,
-    which at G = 4 caps the per-projection bn at 128; for matmul_fused
-    the instance's for the spec's M (bf16: the tensor cores)."""
+    accumulator cap -- for qkv_fused in fp32 the tile core's at the joint
+    width, which at G = 4 caps the per-projection bn at 128; for
+    matmul_fused, and qkv_fused in bf16, the instance's for the spec's M
+    (the tensor cores; at decode within the opt-in where the column
+    blocks are one wave)."""
     from repro_torch.kernels import matmul_blocked as MB
     from repro_torch.kernels import matmul_fused as MF
     from repro_torch.kernels import qkv_fused as QF
@@ -115,12 +118,16 @@ def test_fused_candidates_fit_the_cuda_kernels(op, dims, dtype):
             continue
         bm, bk, bn = s.tiles
         if op == "qkv_fused":
-            G = dims[3]
-            assert QF.smem_bytes_required(bm, bk, bn, G,
-                                          spec.itemsize) <= BUDGET
-            assert QF.accumulators_per_thread(bm, bn, G) <= \
-                H100_SXM.acc_per_thread
-            if G == 4:
+            m, nkv, _, G = dims
+            limit = BUDGET
+            if spec.itemsize == 2 and m <= 16:   # one wave may opt in
+                limit = decode_smem_limit(None, bn, BUDGET,
+                                          blocks=QF.blocks(nkv, G, bn))
+            assert QF.smem_bytes_required(bm, bk, bn, G, spec.itemsize,
+                                          m=m) <= limit
+            assert QF.accumulators_per_thread(bm, bn, G, spec.itemsize,
+                                              m=m) <= H100_SXM.acc_per_thread
+            if G == 4 and spec.itemsize == 4:
                 assert bn <= 128 and bn % H100_SXM.nk_mult == 0
         else:
             m = dims[0]
@@ -455,11 +462,13 @@ def test_quantized_keys_model_arithmetic_matches_jax(op, dims, dtype, tiles):
     ("flash_decode_fp8", (4, 512, 128), "float32")])
 def test_quantized_candidates_fit_the_cuda_kernels(op, dims, dtype):
     """Every candidate fits its kernel's footprint with the narrow
-    operand at one byte (``matmul_q.smem_bytes_required``; the fp8
-    pages of ``flash_decode.smem_bytes_required``), an int8 weight tile
-    is a whole number of 16-byte copies, the candidates rank by
-    predicted bytes, and an fp8 page is a whole divisor of S."""
+    operand at one byte (``matmul_q.smem_bytes_required`` of the
+    instance for the spec's M, bf16 on the tensor cores; the fp8 pages
+    of ``flash_decode.smem_bytes_required``), an int8 weight tile is a
+    whole number of 16-byte copies, the candidates rank by predicted
+    bytes, and an fp8 page is a whole divisor of S."""
     from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_fused as MF
     from repro_torch.kernels import matmul_q as MQ
     from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
                                                   smem_bytes_required)
@@ -478,9 +487,15 @@ def test_quantized_candidates_fit_the_cuda_kernels(op, dims, dtype):
                                        spec.itemsize, 1) <= BUDGET
             continue
         bm, bk, bn = s.tiles
+        m, n, _ = dims
         assert bn % MB.INT8_COLS == 0
-        assert MQ.smem_bytes_required(bm, bk, bn, spec.itemsize) <= BUDGET
-        assert MB.accumulators_per_thread(bm, bn) <= H100_SXM.acc_per_thread
+        limit = BUDGET
+        if spec.itemsize == 2 and m <= 16:       # one wave may opt in
+            limit = decode_smem_limit(n, bn, BUDGET)
+        assert MQ.smem_bytes_required(bm, bk, bn, spec.itemsize,
+                                      m=m) <= limit
+        assert (MF.accumulators_per_thread(bm, bn, spec.itemsize, m=m)
+                <= H100_SXM.acc_per_thread)
 
 
 @pytest.mark.parametrize("op,dims,key", [
