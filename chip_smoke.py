@@ -7,13 +7,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (``nvidia-smi``), its opt-in shared
    memory per block beside the Hopper target's constant; TF32 off;
-2. build the fifteen CUDA libraries from ``src/repro_torch/csrc`` with
+2. build the sixteen CUDA libraries from ``src/repro_torch/csrc`` with
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
    largest that fits: 111 keys in fp32) and the model's page,
    ``matmul_blocked`` at ragged shapes and under every tile the Hopper
-   adapter emits for granite's projection shapes; ``matmul_fused`` under
+   adapter emits for granite's projection shapes at M = 1, 8, 16, 17,
+   64, 512 (bf16: the transposed ``mma_t`` instance up to 16 rows,
+   ``mma`` above), repeats bit-equal; ``matmul_fused`` under
    every epilogue combination, at ragged shapes and under every adapter
    tile of granite's gate, up and down projections at M = 8, 64, 512;
    ``qkv_fused`` under every adapter tile at M = 1, 8, 16 (bf16: the
@@ -21,7 +23,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ragged Nkv and K, G = 1 and the reduced granite's (Nkv 32, G 2, K 64),
    repeats bit-equal; and
    ``flash_decode_oproj`` at pages 16, 32, 64 and the fused engine's
-   page, window and logit cap on and off; the quantized kernels:
+   page and at 20 batch rows, window and logit cap on and off, repeats
+   bit-equal, its slice counters left zero; the quantized kernels:
    ``matmul_w8`` under every adapter tile of granite's projections at
    M = 1, 8, 16, 24, 64, 512 (and a per-tensor scale, ragged M, N and K),
    repeats bit-equal, bf16 on ``mma_t`` / ``mma``, the int8
@@ -58,7 +61,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 6. the blocked path: the same model and requests with the page size and
    prefill chunk left to the blocking model and every projection through
    ``matmul_blocked`` (``ops.blocked_linear``), with its own profiler
-   window and the prefill logits held against the cuBLAS path;
+   window (every bf16 launch of it on the tensor-core instances) and
+   the prefill logits held against the cuBLAS path;
 6b. the fused path: phase 6 with ``fuse=True`` (``qkv_fused``,
    ``matmul_fused`` and ``flash_decode_oproj``; the page under the fused
    key), with the same checks and its own profiler window;
@@ -308,11 +312,11 @@ def phase3_head_dims(dev) -> None:
 
 
 def phase3_oproj_wide(dev) -> None:
-    """Row 3 with more kv heads than a cluster holds: (B 2, Hkv 16, G 1,
-    D 64, E 1024; seamless-m4t-medium's attention) and (B 2, Hkv 32, G 1,
-    D 96, E 3072; phi-3-vision's), each block of a batch row's cluster
-    summing its heads, fp32 and bf16, window on and off, repeats
-    bit-equal."""
+    """Row 3 at more kv heads: (B 2, Hkv 16, G 1, D 64, E 1024;
+    seamless-m4t-medium's attention: 8 slices of 128, cluster 8) and (B
+    2, Hkv 32, G 1, D 96, E 3072; phi-3-vision's: 12 slices of 256,
+    cluster 12), the last block of each slice summing 16 and 32 heads in
+    order, fp32 and bf16, window on and off, repeats bit-equal."""
     import torch
     from repro_torch.kernels import flash_decode as FD
     for dtype in (torch.float32, torch.bfloat16):
@@ -325,8 +329,8 @@ def phase3_oproj_wide(dev) -> None:
                 assert torch.equal(out, FD.flash_decode_oproj(
                     *args, window=window)), (hkv, d, window)
                 compare(f"flash_decode_oproj {dn} B=2 Hkv={hkv} G=1 D={d} "
-                        f"E={e} window={window} (cluster of "
-                        f"{FD.oproj_cluster(hkv)})", out,
+                        f"E={e} window={window} (grid "
+                        f"{FD.oproj_grid(hkv, e)})", out,
                         FD.paged_attention_oproj_ref(*args, window=window),
                         dn, gemm_atol(dn, hkv * d))
     torch.cuda.synchronize()
@@ -339,6 +343,7 @@ def phase3_kernels(dev) -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_fused as MF
     from repro_torch.serve.kv_cache import choose_page_size
     cfg = get_config("granite-3-8b")
     for dtype in (torch.float32, torch.bfloat16):
@@ -378,28 +383,44 @@ def phase3_kernels(dev) -> None:
                     FA.flash_attention_ref(q, k, v, **kw), dn)
         for case in ATTN_EDGES:
             check_attention_edge(dev, dtype, *case)
-        # ragged M, N and K (scalar and 16-byte staging paths)
+        # ragged M, N and K (scalar and 16-byte staging paths; in bf16
+        # both tensor-core instances: 3, 5 and 13 rows on "mma_t", one
+        # and two token tiles), repeats bit-equal, the instance asserted
         for m, n, k, tiles in ((37, 1000, 300, (16, 64, 64)),
                                (50, 100, 70, (32, 128, 64)),
                                (3, 5, 7, (3, 64, 64)),
+                               (13, 1008, 300, (13, 64, 32)),
+                               (5, 20, 48, (5, 48, 16)),
+                               (17, 40, 72, (16, 32, 24)),
                                (520, 4104, 4100, (128, 64, 128))):
             a, b = gemm_inputs(dev, dtype, m, n, k, seed=m + n)
             bm, bk, bn = tiles
-            compare(f"matmul_blocked {dn} M={m} N={n} K={k} tiles={tiles}",
-                    MB.matmul_blocked(a, b, bm=bm, bk=bk, bn=bn),
-                    MB.matmul_ref(a, b), dn, gemm_atol(dn, k))
-        # every tile the adapter emits for granite's projections
+            out = MB.matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+            kind = MB.matmul_blocked.instance
+            assert kind[0] == MF.instance_kind(dtype, m), (tiles, kind)
+            compare(f"matmul_blocked {dn} M={m} N={n} K={k} tiles={tiles} "
+                    f"{kind}", out, MB.matmul_ref(a, b), dn,
+                    gemm_atol(dn, k))
+            assert torch.equal(out, MB.matmul_blocked(a, b, bm=bm, bk=bk,
+                                                      bn=bn))
+        # every tile the adapter emits for granite's projections under
+        # the "matmul" key (bf16: the instance's, at M <= 16 the decode
+        # tile), repeats bit-equal
         n_tiles = 0
-        for m in (8, 64, 512):
+        for m in (1, 8, 16, 17, 64, 512):
             for n, k in GRANITE_NK:
                 a, b = gemm_inputs(dev, dtype, m, n, k, seed=m + n + k)
                 ref = MB.matmul_ref(a, b)
-                for bm, bk, bn in matmul_tile_candidates(m, n, k,
-                                                         a.element_size()):
+                for bm, bk, bn in matmul_tile_candidates(
+                        m, n, k, a.element_size(), fused=True):
+                    out = MB.matmul_blocked(a, b, bm=bm, bk=bk, bn=bn)
+                    kind = MB.matmul_blocked.instance
+                    assert kind[0] == MF.instance_kind(dtype, m), kind
                     compare(f"matmul_blocked {dn} M={m} N={n} K={k} "
-                            f"tiles={(bm, bk, bn)}",
-                            MB.matmul_blocked(a, b, bm=bm, bk=bk, bn=bn),
-                            ref, dn, gemm_atol(dn, k))
+                            f"tiles={(bm, bk, bn)} {kind}", out, ref, dn,
+                            gemm_atol(dn, k))
+                    assert torch.equal(out, MB.matmul_blocked(
+                        a, b, bm=bm, bk=bk, bn=bn))
                     n_tiles += 1
         print(f"  {n_tiles} adapter tiles checked in {dn}; the largest page "
               f"that fits is {top} keys")
@@ -602,20 +623,26 @@ def phase3_fused(dev) -> None:
                 (24, 96, 136, 1), (5, 40, 70, 3), (40, 40, 70, 3)]:
             n_tiles += check_qkv(dev, dtype, m, nkv, k, g)
         # flash_decode_oproj: granite's decode, B = 8, at pages 16, 32,
-        # 64 and the fused engine's page; two launches agree bit for bit
+        # 64 and the fused engine's page, and B = 20 (two groups of
+        # batch rows, wo read twice); two launches agree bit for bit and
+        # leave the slice counters zero
         fused_page = choose_page_size(dataclasses.replace(cfg, dtype=dtype),
                                       512, fused=True)
         lengths = [1, 17, 64, 130, 300, 512, 33, 250]
-        for page in sorted({16, 32, 64, fused_page}):
+        wide = [(37 * i) % 512 + 1 for i in range(20)]
+        for page, lens in [(p, lengths) for p in sorted(
+                {16, 32, 64, fused_page})] + [(32, wide)]:
             for window, cap in ((None, None), (37, 30.0)):
-                args = oproj_inputs(dev, dtype, lengths, seed=page,
+                args = oproj_inputs(dev, dtype, lens, seed=page,
                                     page=page)
                 kw = dict(window=window, logit_cap=cap)
                 out = FD.flash_decode_oproj(*args, **kw)
                 assert torch.equal(out, FD.flash_decode_oproj(*args, **kw))
+                assert not FD._COUNTERS[out.device].any()
                 tag = " (the fused page)" if page == fused_page else ""
-                compare(f"flash_decode_oproj {dn} page={page} "
-                        f"window={window} cap={cap}{tag}", out,
+                compare(f"flash_decode_oproj {dn} B={len(lens)} "
+                        f"page={page} window={window} cap={cap}{tag} grid "
+                        f"{FD.oproj_grid(8, 4096)}", out,
                         FD.paged_attention_oproj_ref(*args, **kw), dn,
                         gemm_atol(dn, 8 * 4 * 128))
         print(f"  {n_tiles} adapter tiles of the fused GEMMs checked in "
@@ -1121,6 +1148,7 @@ def phase6_blocked(cfg, params, warm, prompts, kernels) -> dict:
             prefill_logits(cfg, params, prompts[0]),
             _cublas_logits(cfg, params, prompts[0]))
         summary["profile"] = profile_window(engine(), prompts[:8], 8)
+        hold_mma_kinds(summary["profile"], ("matmul_blocked",))
     return summary
 
 
@@ -1184,19 +1212,24 @@ def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
     return summary
 
 
-def hold_mma_kinds(profile: dict, rows: tuple[str, ...]) -> None:
-    """Every bf16 launch of these GEMM rows (``matmul_fused``,
-    ``qkv_fused``, ``matmul_w8``) in a profiled serving window ran on
-    the tensor cores: the joins on the ``mma`` instance, decode on the
-    transposed one, none on the CUDA-core tile core."""
+def hold_mma_kinds(profile: dict, rows: tuple[str, ...],
+                   instances: tuple[str, ...] = ("mma", "mma_t")) -> None:
+    """Every bf16 launch of these GEMM rows (``matmul_blocked``,
+    ``matmul_fused``, ``qkv_fused``, ``matmul_w8``) in a profiled window
+    ran on the tensor cores: each of ``instances`` ran (in serving the
+    joins on the ``mma`` instance, decode on the transposed one; a
+    training step's spans on ``mma`` alone), none on the CUDA-core tile
+    core."""
     kinds = profile["device_ms_by_kind"]
+    assert "other (mma)" not in kinds and "other (mma_t)" not in kinds, \
+        kinds   # a tensor-core instance under no row's map
     for row in rows:
-        assert kinds.get(f"{row} (mma)", 0) > 0 and \
-            kinds.get(f"{row} (mma_t)", 0) > 0, (row, kinds)
+        for inst in instances:
+            assert kinds.get(f"{row} ({inst})", 0) > 0, (row, inst, kinds)
         assert row not in kinds and f"{row} (int8)" not in kinds, kinds
-        print(f"  {row} in the profiled window: mma "
-              f"{kinds[f'{row} (mma)']:.3f} ms, mma_t "
-              f"{kinds[f'{row} (mma_t)']:.3f} ms, no CUDA-core launch")
+        ran = ", ".join(f"{inst} {kinds[f'{row} ({inst})']:.3f} ms"
+                        for inst in instances)
+        print(f"  {row} in the profiled window: {ran}, no CUDA-core launch")
 
 
 def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
@@ -1325,9 +1358,11 @@ def kernel_kind(name: str) -> str:
                     else "matmul_fused")
         return "matmul_blocked"
     inst = re.search(r"\bmma(_t)?_kernel<", name)   # gemm_mma_inst.cuh
-    if inst:   # the bf16 instances of rows 9, 10 and 11, by their map
+    if inst:   # the bf16 instances of rows 6, 9, 10 and 11, by their map
         row = ("qkv_fused" if "QkvBlocks" in name else
-               "matmul_w8" if "W8Map" in name else "matmul_fused")
+               "matmul_w8" if "W8Map" in name else
+               "matmul_blocked" if "BlockedMap" in name else
+               "matmul_fused" if "FusedMap" in name else "other")
         return f"{row} ({'mma_t' if inst.group(1) else 'mma'})"
     if "decode_oproj_kernel" in name:
         return "flash_decode_oproj"
@@ -1488,6 +1523,7 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: torch.matmul(a, b)),
             "shape": f"M={m} N={n} K={k} tiles={(bm, bk, bn)} bf16"})
+        gemm_instance(gemms[-1], MB.matmul_blocked, m, -(-n // bn), bm)
     out.append(gemms[0])
     for r in out + gemms[1:]:
         print(f"  {r['name']:<16} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
@@ -1498,7 +1534,7 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
 
 def gemm_instance(row: dict, fn, m: int, col_blocks: int, bm: int) -> None:
     """The instance a GEMM wrapper ran (``fn.instance``: the kind, its
-    warp grid or fragment counts, its stages; rows 9, 10 and 11) and its
+    warp grid or fragment counts, its stages; rows 6, 9, 10 and 11) and its
     block count, on the timed row and its shape; a bf16 launch runs on
     the tensor cores."""
     kind, layout, stages = fn.instance
@@ -1531,6 +1567,13 @@ def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
     io = (args[0].numel() + 8 * e) * 2 + args[3].numel() * 4 + 4 * 8
     b_ms, b_by = bound(2 * n_keys * hkv * d * 2 + wo_bytes + io,
                        4 * n_keys * hq * d + 2 * 8 * hq * d * e)
+    # the yardstick: the unfused pair, row 1 then one library GEMM over
+    # the flattened heads (not one call, so not library_ms)
+    q, kp, vp, bt, ln, wo = args
+    wo2 = wo.reshape(hq * d, e)
+    pair_ms = time_ms(lambda: torch.matmul(
+        FD.flash_decode(q, kp, vp, bt, ln).reshape(8, hq * d), wo2))
+    width, n_slices, cluster = FD.oproj_grid(hkv, e)
     rows.append({
         "name": "flash_decode_oproj", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode_oproj.cu",
@@ -1543,7 +1586,14 @@ def time_fused_kernels(cfg, lens, launches, page: int) -> list[dict]:
         "plain_ms": time_ms(lambda: FD.paged_attention_oproj_ref(*args)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"decode B=8 Hkv={hkv} G={g} D={d} E={e} page={page} "
-                 f"lengths={dec_lens} bf16"})
+                 f"lengths={dec_lens} bf16; {n_slices} slices of {width} x "
+                 f"{hkv} heads = {n_slices * hkv} blocks, cluster "
+                 f"{cluster}"})
+    print(f"  flash_decode_oproj {rows[-1]['ms']:.4f} ms; the unfused pair "
+          f"(flash_decode, then torch.matmul over the heads) {pair_ms:.4f} "
+          f"ms; plain {rows[-1]['plain_ms']:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}); global bytes of the call "
+          f"{FD.oproj_hbm_bytes(8, hkv, g, d, e, max(dec_lens), page)}")
 
     # the MLP's three fused GEMMs; the row is the down projection, whose
     # residual add torch.addmm computes in the same call
@@ -2036,6 +2086,7 @@ def phase11_train(seed: int, kernels: dict) -> dict:
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import matmul_blocked as MB
     from repro_torch.kernels import matmul_bwd as MW
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
@@ -2122,6 +2173,10 @@ def phase11_train(seed: int, kernels: dict) -> dict:
                 MW.matmul_dgrad_b.instance[0] == "mma", name
             print(f"  {name}: dgrad instances {MW.matmul_dgrad_a.instance} "
                   f"(dA), {MW.matmul_dgrad_b.instance} (dB)")
+            # and the forward GEMM (row 6) its "mma" instance, only that
+            hold_mma_kinds(out[name]["profile"], ("matmul_blocked",),
+                           ("mma",))
+            assert MB.matmul_blocked.instance[0] == "mma", name
         print(f"  {name}: median step {out[name]['step_ms_median']:.1f} ms, "
               f"{out[name]['tokens_per_s_median']:.0f} tok/s, peak "
               f"{peak:.2f} GB, launches per step "
@@ -3021,17 +3076,24 @@ def main() -> int:
               f"instances, {min(r for r, _ in dgrad_mma)}-"
               f"{max(r for r, _ in dgrad_mma)} registers, "
               f"{sum(sp for _, sp in dgrad_mma)} B spilled in all")
-    gemm_inst = [(regs, spill) for name in ("matmul_fused",
+    gemm_inst = [(regs, spill) for name in ("matmul_blocked",
+                                            "matmul_blocked_mma",
+                                            "matmul_fused",
                                             "matmul_fused_mma", "matmul_w8",
                                             "matmul_w8_mma", "qkv_fused",
                                             "qkv_fused_mma")
                  for label, regs, spill in ptxas_report(reports.get(name, ""))
                  if label.startswith(("mma_kernel<", "mma_t_kernel<"))]
     if gemm_inst:
-        print(f"  rows 9-11: {len(gemm_inst)} mma_kernel/mma_t_kernel "
+        print(f"  rows 6, 9-11: {len(gemm_inst)} mma_kernel/mma_t_kernel "
               f"instances, {min(r for r, _ in gemm_inst)}-"
               f"{max(r for r, _ in gemm_inst)} registers, "
               f"{sum(sp for _, sp in gemm_inst)} B spilled in all")
+    oproj = ptxas_report(reports.get("flash_decode_oproj", ""))
+    if oproj:
+        print(f"  flash_decode_oproj: {len(oproj)} instances, "
+              f"{min(r for _, r, _ in oproj)}-{max(r for _, r, _ in oproj)} "
+              f"registers, {sum(sp for _, _, sp in oproj)} B spilled in all")
     wgrad_mma = [(regs, spill) for label, regs, spill in
                  ptxas_report(reports.get("conv2d_wgrad", ""))
                  if label.startswith("wgrad_mma<")]

@@ -9,7 +9,9 @@ separately.  This module runs the paper's optimizer with that hierarchy
 and Hopper's alignment and emits:
 
 * ``matmul_tile_candidates`` / ``matmul_tiles`` -- (bm, bk, bn) tiles for
-  the blocked-GEMM kernel (``kernels/matmul_blocked.py``);
+  the blocked-GEMM kernel (``kernels/matmul_blocked.py``; the
+  ``"matmul"`` key takes ``fused=True``, since in bf16 it runs the fused
+  GEMM's tensor-core instances);
 * ``flash_decode_tile_candidates`` -- ``(page,)`` for the paged
   flash-decode kernel, whose KV tile is one page, so the tile is also the
   paged cache's page size;
@@ -86,9 +88,11 @@ class HopperTarget:
 
 
 # NVIDIA's data sheet and the Hopper white paper (H100 SXM).  The GEMM
-# design (csrc/matmul_blocked.cu) runs 256 threads a block, each holding
-# at most 64 fp32 accumulators: 64 of a thread's 128 registers when two
-# blocks share an SM's 65,536.  The flash-attention tensor-core instances
+# designs (the fp32 tile core, csrc/gemm_tile.cuh, and the bf16
+# tensor-core instances, csrc/gemm_mma.cuh and gemm_mma_inst.cuh) run 256
+# threads a block, each holding at most 64 fp32 sums: 64 of a thread's
+# 128 registers when two blocks share an SM's 65,536.  The
+# flash-attention tensor-core instances
 # (csrc/attn_mma.cuh) hold at most 160 fp32 sums a thread, of the 255
 # registers a thread may have: the rest hold fragments, addresses and
 # the softmax state.
@@ -1101,16 +1105,18 @@ def flash_decode_oproj_tile_candidates(groups: int, seq_kv: int,
     """Ranked ``(page,)`` candidates for the oproj-fused decode kernel:
     the ``flash_decode`` family, searched under the budget less what this
     kernel adds to a block's shared memory (the G x D fp32 attention
-    rows and the fp32 (1, E) partial; ``oproj_smem_bytes_required``).
-    The wo slab is streamed, so E enters only through that partial."""
-    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
-                                                  oproj_smem_bytes_required,
-                                                  smem_bytes_required)
+    rows of a group of 16 batch rows, one split's rows, its statistics
+    and the merge weights; ``oproj_smem_bytes_required``).  ``wo`` is
+    streamed through a fixed ring that overlays the page's tiles, so E
+    does not enter."""
+    del d_model
+    from repro_torch.kernels.flash_decode import (OPROJ_STEP_BYTES,
+                                                  OPROJ_WO_STAGES,
+                                                  oproj_smem_bytes_required)
     budget = default_smem_budget(target, smem_budget_bytes)
-    extra = (oproj_smem_bytes_required(0, groups, head_dim, d_model,
-                                       bytes_per_elem)
-             - smem_bytes_required(0, ROWS_PER_BLOCK, head_dim,
-                                   bytes_per_elem))
+    # at page 0 the ring is the larger of the overlaid pair
+    extra = (oproj_smem_bytes_required(0, groups, head_dim, bytes_per_elem)
+             - OPROJ_WO_STAGES * OPROJ_STEP_BYTES)
     return flash_decode_tile_candidates(groups, seq_kv, head_dim,
                                         bytes_per_elem,
                                         max(budget - extra, 1), target, top)

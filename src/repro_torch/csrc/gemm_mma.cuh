@@ -1,9 +1,9 @@
 // Tensor-core GEMM fragment core: the bf16 instances of the dgrad GEMMs
 // (matmul_bwd.cu: nt_mma_kernel, tn_mma_kernel) and the two forward-GEMM
-// instances of gemm_mma_inst.cuh (mma_kernel, mma_t_kernel), which rows 9
-// (matmul_fused), 10 (matmul_w8) and 11 (qkv_fused) run, built on
-// mma_frag.cuh.  matmul_blocked.cu (row 6) and the fp32 instances keep
-// gemm_tile.cuh's CUDA-core core.
+// instances of gemm_mma_inst.cuh (mma_kernel, mma_t_kernel), which rows 6
+// (matmul_blocked), 9 (matmul_fused), 10 (matmul_w8) and 11 (qkv_fused)
+// run, built on mma_frag.cuh.  The fp32 instances keep gemm_tile.cuh's
+// CUDA-core core.
 //
 // A block of 256 threads (8 warps) owns one (rows x cols) output tile and
 // holds its fp32 sums in registers across the whole reduction.  The warps

@@ -1,19 +1,22 @@
 // The two bf16 tensor-core instances of the forward GEMM, Y[M, N] = A[M,
 // K] @ W[K, N] (A bf16, W bf16 or int8, both row-major), on gemm_mma.cuh's
-// fragment core: kernel rows 9 (matmul_fused.cu, matmul_fused_mma.cu),
-// 10 (matmul_w8.cu, matmul_w8_mma.cu) and 11 (qkv_fused.cu,
-// qkv_fused_mma.cu) instantiate them.  What differs per row is two small
-// structs passed by value to the kernel:
+// fragment core: kernel rows 6 (matmul_blocked.cu, matmul_blocked_mma.cu),
+// 9 (matmul_fused.cu, matmul_fused_mma.cu), 10 (matmul_w8.cu,
+// matmul_w8_mma.cu) and 11 (qkv_fused.cu, qkv_fused_mma.cu) instantiate
+// them.  What differs per row is two small structs passed by value to the
+// kernel:
 //   Src, the per-block weight source: block(x, bn) is column block x's
 //     WBlock -- its weight matrix, that matrix's row stride, the block's
 //     first column in it and its columns in range (n_ok <= bn) -- and
 //     blocks(bn), on the host, the grid's column blocks.  OneW is one
-//     matrix of N columns (rows 9 and 10); row 11's source walks the q,
-//     k and v weights one segment after the other.
+//     matrix of N columns (rows 6, 9 and 10); row 11's source walks the
+//     q, k and v weights one segment after the other.
 //   Map, the store: store(m, c, acc) writes row m, column c (< n_ok) of
 //     block blockIdx.x's tile from its fp32 sum, the epilogue included:
-//     FusedMap (fused_gemm.cuh, row 9), W8Map (below, row 10), QkvBlocks
-//     (below, row 11: source and map in one).
+//     BlockedMap (below, row 6: the sum cast once), FusedMap
+//     (fused_gemm.cuh, row 9), W8Map (below, row 10), QkvBlocks (below,
+//     row 11: source and map in one).  Each row's map has a name of its
+//     own, so a profile tells the rows' kernels apart.
 // Both are __grid_constant__ kernel parameters: their member calls take
 // their address, which would otherwise copy them to each thread's local
 // memory (on an H100 that made row 9's decode 1.5-3% slower).
@@ -470,7 +473,29 @@ template <class Src, class Map> int run_mma_t(const Args<Src, Map>& a) {
   return a.M <= 8 ? dispatch_mma_t<1>(a) : dispatch_mma_t<2>(a);
 }
 
-// -------------------------------------- the sources and maps of rows 10, 11 --
+// ---------------------------------- the sources and maps of rows 6, 10, 11 --
+
+// Row 6's store: C[m, col] = the fp32 sum, cast once to bf16 (no
+// epilogue: matmul_ref's order).
+struct BlockedMap {
+  bf16* C;
+  int N, bn;
+  __device__ void store(int m, int c, float acc) const {
+    const int col = blockIdx.x * bn + c;
+    if (col < N) C[int64_t(m) * N + col] = __float2bfloat16(acc);
+  }
+};
+
+inline Args<OneW, BlockedMap> blocked_args(const void* a, const void* b,
+                                           void* c, int M, int N, int K,
+                                           int bm, int bk, int bn,
+                                           int stages, cudaStream_t stream) {
+  const bool vec = gemm::aligned16(a) && gemm::aligned16(b) && K % 8 == 0 &&
+                   bk % 8 == 0 && N % 8 == 0 && bn % 8 == 0;
+  return {static_cast<const bf16*>(a), OneW{b, N},
+          BlockedMap{static_cast<bf16*>(c), N, bn},
+          M, K, bm, bk, bn, stages, vec, 0, stream};
+}
 
 // Row 10's store: C[m, col] = acc * scale[col], the scale once in fp32,
 // then one cast (matmul_w8_ref's order).  b_col is gemm_tile.cuh's Map

@@ -1,5 +1,5 @@
-// Blocked GEMM tile core on the CUDA cores: matmul_blocked.cu (row 6, no
-// epilogue) and the fp32 instances of qkv_fused.cu (one A tile feeding
+// Blocked GEMM tile core on the CUDA cores: the fp32 instances of
+// matmul_blocked.cu (row 6, no epilogue), qkv_fused.cu (one A tile feeding
 // three weight matrices), matmul_w8.cu (int8 weights, the per-column
 // scale in the epilogue) and matmul_fused.cu (bias, activation, mul and
 // residual applied to the output tile; wide or int8 weights).  Their bf16

@@ -23,10 +23,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("conv2d_blocked", "conv2d_wgrad", "flash_attention",
            "flash_attention_bwd", "flash_decode", "flash_decode_fp8",
-           "flash_decode_oproj", "matmul_blocked", "matmul_bwd",
-           "matmul_fused", "matmul_fused_mma", "matmul_w8", "matmul_w8_mma",
-           "qkv_fused", "qkv_fused_mma")
-# <row>_mma is kernel rows 9, 10 and 11's "mma" instance (bf16, M > 16),
+           "flash_decode_oproj", "matmul_blocked", "matmul_blocked_mma",
+           "matmul_bwd", "matmul_fused", "matmul_fused_mma", "matmul_w8",
+           "matmul_w8_mma", "qkv_fused", "qkv_fused_mma")
+# <row>_mma is kernel rows 6, 9, 10 and 11's "mma" instance (bf16, M > 16),
 # apart from <row> (its "fma" and "mma_t" instances) only so that the two
 # compile in parallel; its symbols carry the library's name
 # --split-compile 0: the optimizer runs over a library's kernels on all

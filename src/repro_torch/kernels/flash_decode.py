@@ -26,11 +26,14 @@ columns past D staged as zeros (``flash_attention.instance_head_dim``).
 :func:`flash_decode_oproj` is the single-token form with the output
 projection fused in (port of ``flash_decode.flash_decode_oproj``, kernel
 row 3; ``csrc/flash_decode_oproj.cu``): q (B, Hkv, G, D) and ``wo``
-(Hkv, G*D, E) give (B, E), the heads reduced in a fixed order (each block
-of a batch row's cluster sums its heads, :func:`oproj_cluster`, then the
-cluster sums its blocks), so the attention output never reaches HBM.  Its
-page is priced by :func:`oproj_smem_bytes_required` under the
-``"flash_decode_oproj"`` key.
+(Hkv, G*D, E) give (B, E).  Its grid is E slices by kv heads
+(:func:`oproj_grid`): the blocks of a head's slices form clusters that
+run the head's attention once per batch row and share the rows through
+distributed shared memory, each block streams its slice of the head's
+``wo`` once for every batch row, and the last block of a slice sums the
+heads' fp32 partials in head order, so the attention output never
+reaches HBM.  Its page is priced by :func:`oproj_smem_bytes_required`
+under the ``"flash_decode_oproj"`` key.
 
 :func:`flash_decode_fp8` is the same attention over ``float8_e4m3fn``
 pools with fp32 per-kv-head scales (port of
@@ -88,39 +91,97 @@ def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int,
     return (smem_bytes - fixed) // per_key
 
 
+OPROJ_MAX_ROWS = 16        # batch rows of one group (csrc: kMaxRows)
+OPROJ_WO_STAGES = 4        # wo steps in the ring (csrc: kStages)
+OPROJ_STEP_BYTES = 16384   # one wo step (csrc: kStageBytes)
+OPROJ_SLICES = (128, 256)  # E columns a block owns: 1 or 2 a thread
+OPROJ_BLOCKS = 128         # the grid's least Hkv * E / slice
+MAX_CLUSTER = 16           # blocks of one cluster (H100's non-portable 16)
+
+
+def oproj_group_rows(batch: int | None = None) -> int:
+    """Row slots of one batch group in ``flash_decode_oproj``: 8 up to 8
+    rows, else :data:`OPROJ_MAX_ROWS` (None: the most any batch takes)."""
+    return 8 if batch is not None and batch <= 8 else OPROJ_MAX_ROWS
+
+
 def oproj_smem_bytes_required(page: int, groups: int, head_dim: int,
-                              d_model: int, bytes_per_elem: int = 2,
-                              n_kv_heads: int | None = None) -> int:
-    """Dynamic shared memory of one ``flash_decode_oproj`` block: the
-    decode tiles of :func:`smem_bytes_required`, its kv heads' G x
-    head_dim fp32 attention rows (one head, or ``n_kv_heads /
-    oproj_cluster(n_kv_heads)`` where more heads than a cluster's 8
-    blocks share a batch row) and the block's fp32 (1, E) partial
-    product.  The wo slabs are streamed from L2/HBM, never staged (the
-    TPU kernel kept each whole in VMEM)."""
-    heads = n_kv_heads // oproj_cluster(n_kv_heads) if n_kv_heads else 1
-    return (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
-                                bytes_per_elem)
-            + (heads * groups * head_dim + d_model) * 4)
+                              bytes_per_elem: int = 2, *,
+                              batch: int | None = None) -> int:
+    """Dynamic shared memory of one ``flash_decode_oproj`` block (csrc
+    ``smem_bytes``): the decode tiles of :func:`smem_bytes_required` or
+    the wo ring (:data:`OPROJ_WO_STAGES` steps of
+    :data:`OPROJ_STEP_BYTES`), which overlays them, whichever is larger;
+    the group's G x head_dim fp32 attention rows in
+    :func:`oproj_group_rows` slots; one split's rows and its G running
+    maxima and sums (:func:`oproj_splits`).  Neither E nor Hkv enters,
+    nor B beyond 16 rows (larger batches run in groups)."""
+    tiles = max(smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
+                                    bytes_per_elem),
+                OPROJ_WO_STAGES * OPROJ_STEP_BYTES)
+    rows = oproj_group_rows(batch) + 1
+    return tiles + (rows * head_dim + 2) * groups * 4
 
 
-MAX_CLUSTER = 8      # blocks of one cluster (the portable limit)
+def oproj_splits(cluster: int, rows: int) -> int:
+    """The ways a group's batch row's visible pages are split across a
+    cluster's blocks in ``flash_decode_oproj``: ``cluster // rows`` where
+    the cluster has at least as many blocks as the group has rows (block
+    r runs split ``r % n`` of row ``r // n``; every block merges a row's
+    splits in split order), else 1 (block r runs rows r, r + c, ...)."""
+    return max(1, cluster // rows)
 
 
-def oproj_cluster(n_kv_heads: int) -> int:
-    """Blocks of one batch row's cluster in ``flash_decode_oproj``: the
-    largest divisor of ``n_kv_heads`` that is at most :data:`MAX_CLUSTER`;
-    block ``r`` takes kv heads ``r, r + c, ...`` (csrc:
-    ``cluster_size``)."""
-    return max(c for c in range(1, MAX_CLUSTER + 1) if n_kv_heads % c == 0)
+def oproj_grid(n_kv_heads: int, d_model: int) -> tuple[int, int, int]:
+    """``(slice, slices, cluster)`` of ``flash_decode_oproj``'s grid
+    (slices x Hkv blocks): the widest of :data:`OPROJ_SLICES` whose
+    ``Hkv * ceil(E / slice)`` blocks reach :data:`OPROJ_BLOCKS` (the
+    narrowest where none does: row 9's decode rule), and the cluster of a
+    head's slices, the largest divisor of the slice count up to
+    :data:`MAX_CLUSTER`."""
+    wide = [w for w in OPROJ_SLICES
+            if n_kv_heads * -(-d_model // w) >= OPROJ_BLOCKS]
+    width = max(wide) if wide else min(OPROJ_SLICES)
+    n = -(-d_model // width)
+    return width, n, oproj_cluster(n)
+
+
+def oproj_cluster(n_slices: int) -> int:
+    """Blocks of one cluster in ``flash_decode_oproj``: the largest
+    divisor of the head's slice count up to :data:`MAX_CLUSTER`; block
+    ``r`` of a cluster runs the attention of batch rows ``r, r + c, ...``
+    of each group."""
+    return max(c for c in range(1, MAX_CLUSTER + 1) if n_slices % c == 0)
+
+
+def oproj_hbm_bytes(batch: int, hkv: int, groups: int, head_dim: int,
+                    d_model: int, seq: int, page: int,
+                    bytes_per_elem: int = 2) -> int:
+    """Global-memory bytes of one ``flash_decode_oproj`` call, as JAX's
+    ``oproj_hbm_bytes`` counts them (q, K and V over ``ceil(seq / page)``
+    pages a row, out) but with ``wo`` read once a call (per group of up
+    to :data:`OPROJ_MAX_ROWS` rows), K and V once per cluster of a
+    head's slices, and the fp32 (Hkv, B, E) workspace written and read
+    back.  JAX's kernel reads ``wo`` once per batch row."""
+    width, n, c = oproj_grid(hkv, d_model)
+    nb = -(-seq // page)
+    q_bytes = batch * hkv * groups * head_dim * bytes_per_elem
+    kv = 2 * batch * hkv * nb * page * head_dim * bytes_per_elem * (n // c)
+    reads = -(-batch // OPROJ_MAX_ROWS)
+    wo = reads * hkv * groups * head_dim * d_model * bytes_per_elem
+    ws = 2 * hkv * batch * d_model * 4
+    out = batch * d_model * bytes_per_elem
+    return q_bytes + kv + wo + ws + out
+
 
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 _FP8_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 FP8 = torch.float8_e4m3fn
-_OPROJ_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+_OPROJ_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -283,7 +344,12 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
                        window: int | None = None,
                        logit_cap: float | None = None) -> torch.Tensor:
     """Single-token paged attention fused with the output projection:
-    q (B, Hkv, G, D), wo (Hkv, G*D, E) -> (B, E) in q's dtype.
+    q (B, Hkv, G, D), wo (Hkv, G*D, E) -> (B, E) in q's dtype.  One
+    launch reads ``wo`` once per group of up to 16 batch rows
+    (:func:`oproj_grid`), the heads summed in order through an fp32
+    (Hkv, B, E) workspace; the slice counters (zero, kept per device,
+    left zero by every launch) make the launches of one device share a
+    stream.
 
     CUDA tensors launch the kernel (or raise: there is no fallback);
     CPU tensors take :func:`paged_attention_oproj_ref`.
@@ -307,21 +373,29 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"E = {e} must be a multiple of "
                          f"{16 // q.element_size()} (16-byte wo rows)")
     page = k_pages.shape[1]
-    need = oproj_smem_bytes_required(page, g, d, e, q.element_size(), hkv)
+    need = oproj_smem_bytes_required(page, g, d, q.element_size(), batch=b)
     have = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
     if need > have:
         raise ValueError(
-            f"page {page} with E = {e} needs {need} bytes of shared memory "
-            f"per block; this card allows {have}")
+            f"page {page} at G = {g}, D = {d} needs {need} bytes of shared "
+            f"memory per block; this card allows {have}")
+    width, n_slices, cluster = oproj_grid(hkv, e)
+    n_counters = -(-b // oproj_group_rows(b)) * n_slices
+    counters = _COUNTERS.get(q.device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32,
+                               device=q.device)
+        _COUNTERS[q.device] = counters
+    ws = torch.empty((hkv, b, e), dtype=torch.float32, device=q.device)
     out = torch.empty((b, e), dtype=q.dtype, device=q.device)
     fn = _build.load("flash_decode_oproj", "flash_decode_oproj_fwd",
                      _OPROJ_ARGTYPES)
     err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-             wo.data_ptr(), out.data_ptr(), b, hkv, g, page,
-             block_tables.shape[1], e, int(window or 0),
-             float(logit_cap or 0.0),
+             wo.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), b, hkv, g, page, block_tables.shape[1], e,
+             width, cluster, int(window or 0), float(logit_cap or 0.0),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_oproj")
     flash_decode_oproj.launches += 1

@@ -1,21 +1,33 @@
-"""Blocked GEMM: CUDA kernel, wrapper and plain version.
+"""Blocked GEMM: CUDA kernels, wrapper and plain version.
 
 Port of ``repro.kernels.matmul_blocked.matmul_blocked`` (kernel row 6).
-The kernel lives in ``csrc/matmul_blocked.cu`` (design and bound in its
-header comment): ``C[M, N] = A[M, K] @ B[K, N]`` with row-major operands,
-an fp32 accumulator held in registers across the whole K loop, output in
-the input dtype, fp32 and bf16.  The tiles ``(bm, bk, bn)`` come from the
-blocking model (``core.hopper_adapter`` through ``tune.best_schedule``)
-and are runtime arguments of the one kernel.  Ragged M, N and K edges are
-masked inside the kernel, so every shape launches: the JAX op's fallback
-to ``matmul_ref`` for tiles that do not divide is not carried over.
+The kernels live in ``csrc/matmul_blocked.cu`` (design and bound in its
+header comment; the ``"mma"`` instance in ``csrc/matmul_blocked_mma.cu``,
+a library of its own so that the two build in parallel):
+``C[M, N] = A[M, K] @ B[K, N]`` with row-major operands, an fp32 sum
+held across the whole K loop, output in the input dtype, fp32 and bf16.
+Three instances (``matmul_fused.instance_kind``):
 
-The kernel is the tile core of ``csrc/gemm_tile.cuh`` with no epilogue;
-``matmul_fused`` and ``qkv_fused`` run the same core, so the footprint
-functions here are the single source the Hopper adapter checks all three
-kernels' candidates against.  The wrapper is forward only: the
-differentiable product is ``ops.matmul``, whose backward runs the dgrad
-kernels (``kernels/matmul_bwd.py``).
+* fp32, ``"fma"``: the CUDA-core tile core of ``csrc/gemm_tile.cuh``
+  with no epilogue (TF32 would break the fp32 tolerances);
+* bf16, ``"mma_t"`` (M <= 16) and ``"mma"`` (M > 16): row 9's
+  tensor-core instances (``csrc/gemm_mma_inst.cuh``) over one weight
+  matrix with a plain store (``BlockedMap``: the sum cast once).
+
+The tiles ``(bm, bk, bn)`` come from the blocking model
+(``core.hopper_adapter`` through ``tune.best_schedule``, the
+``"matmul"`` key: in bf16 snapped to the instance that runs them, at
+decode one tile whose column blocks fill the card) and are runtime
+arguments.  Ragged M, N and K edges are masked inside the kernels, so
+every shape launches: the JAX op's fallback to ``matmul_ref`` for tiles
+that do not divide is not carried over.
+
+The footprint functions here are the fp32 tile core's, which
+``matmul_fused``, ``matmul_w8`` and ``qkv_fused`` also run in fp32; the
+bf16 instances' are ``matmul_fused``'s.  The wrapper is forward only:
+the differentiable product is ``ops.matmul``, whose backward runs the
+dgrad kernels (``kernels/matmul_bwd.py``).  It records what ran in
+``matmul_blocked.instance``.
 """
 
 from __future__ import annotations
@@ -27,7 +39,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 
 THREADS = 256             # threads per block (csrc: kThreads)
@@ -82,27 +94,38 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
                    bn: int) -> torch.Tensor:
-    """``a (M, K) @ b (K, N)`` tiled ``(bm, bk, bn)``; any M, N, K.
+    """``a (M, K) @ b (K, N)`` tiled ``(bm, bk, bn)``; any M, N, K.  The
+    bf16 instances keep ``matmul_fused.mma_stages`` (``"mma"``) or
+    ``MMA_T_STAGES`` (``"mma_t"``) reduction steps in flight.
 
     CUDA tensors launch the kernel (or raise: there is no fallback);
     CPU tensors take :func:`matmul_ref`.
     """
     if a.device.type == "cpu":
         return matmul_ref(a, b)
-    _check(a, b, bm, bk, bn)
+    # matmul_fused imports this module (the tile core's footprint)
+    from repro_torch.kernels import matmul_fused as MF
+    _check(a, b, bm, bk, bn, core_tiles=a.dtype != torch.bfloat16)
     m, k = a.shape
     n = b.shape[1]
+    stages = MF.check_tiles(a.dtype, m, (bm, bk, bn), False,
+                            torch.cuda.get_device_properties(
+                                a.device).shared_memory_per_block_optin)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    fn = _build.load("matmul_blocked", "matmul_blocked_fwd", _ARGTYPES)
+    lib = ("matmul_blocked_mma" if MF.instance_kind(a.dtype, m) == "mma"
+           else "matmul_blocked")
+    fn = _build.load(lib, f"{lib}_fwd", _ARGTYPES)
     err = fn(_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
-             m, n, k, bm, bk, bn,
+             m, n, k, bm, bk, bn, stages,
              torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "matmul_blocked")
     matmul_blocked.launches += 1
+    matmul_blocked.instance = MF.instance(a.dtype, m, bm, bn, stages)
     return out
 
 
 matmul_blocked.launches = 0
+matmul_blocked.instance = None   # ("mma" | "mma_t" | "fma", layout, stages)
 
 
 def fp32_row(t, n: int, name: str, device: torch.device) -> torch.Tensor:

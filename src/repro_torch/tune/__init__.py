@@ -37,7 +37,8 @@ from repro_torch.tune.lowering import (candidates, divides, fits_smem,
                                        predicted_dram_accesses,
                                        predicted_dram_bytes,
                                        schedule_to_string)
-from repro_torch.tune.schedule import CONV_OPS, OpSpec, Schedule
+from repro_torch.tune.schedule import (CONV_OPS, MMA_GEMM_OPS, OpSpec,
+                                      Schedule)
 
 __all__ = [
     "OpSpec", "Schedule", "ScheduleCache", "best_schedule", "candidates",
@@ -99,17 +100,20 @@ def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",
     cache hit (same op, shapes, dtype, stride and device kind) wins
     outright, unless an explicit
     ``smem_budget_bytes`` is given that its tiles overflow, or a conv
-    key's tiles do not fit its kernel's footprint at the default budget
-    (a tile cached for another footprint, which the kernel's wrapper
-    would refuse: row 12's bf16 instance stages every tap in whole
-    8-channel chunks); otherwise the analytic top candidate is derived
+    key's or a bf16 ``MMA_GEMM_OPS`` key's tiles do not fit its kernel's
+    footprint at the default budget (a tile cached for another
+    footprint, which the kernel's wrapper would refuse: row 12's bf16
+    instance stages every tap in whole 8-channel chunks; the bf16 GEMM
+    instances take their own warp grids, and at decode a bn of
+    ``MMA_T_COLS``); otherwise the analytic top candidate is derived
     in-process (memoized, not persisted -- run :func:`tune_op` to
     measure and persist).
     """
     spec = OpSpec(op, tuple(dims), dtype, stride)
     hit = (cache or _default_cache).lookup(spec)
     if hit is not None and hit.spec == spec and (
-            (smem_budget_bytes is None and spec.op not in CONV_OPS) or
+            (smem_budget_bytes is None and spec.op not in CONV_OPS
+             and not (spec.op in MMA_GEMM_OPS and spec.itemsize == 2)) or
             fits_smem(spec, hit.tiles,
                       default_smem_budget(target, smem_budget_bytes),
                       target)):

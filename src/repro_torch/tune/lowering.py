@@ -94,9 +94,8 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
                                                   smem_bytes_required)
     (page,) = tiles
     if spec.op == "flash_decode_oproj":
-        G, _, D, E = spec.dims
-        return oproj_smem_bytes_required(page, G, D, E,
-                                         spec.itemsize) <= budget
+        G, _, D, _ = spec.dims
+        return oproj_smem_bytes_required(page, G, D, spec.itemsize) <= budget
     _, _, D = spec.dims
     return smem_bytes_required(page, ROWS_PER_BLOCK, D, spec.itemsize,
                                NARROW_WEIGHT_BYTES.get(spec.op)) <= budget

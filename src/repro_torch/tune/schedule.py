@@ -5,7 +5,10 @@ An :class:`OpSpec` names one tunable operator instance -- the op kind
 plus the problem dimensions the kernels see:
 
 * ``matmul``: ``dims = (M, N, K)`` for ``C[M,N] = A[M,K] @ B[K,N]``;
-  tiles ``(bm, bk, bn)`` of ``kernels/matmul_blocked.py``;
+  tiles ``(bm, bk, bn)`` of ``kernels/matmul_blocked.py`` (the tile
+  core's in fp32; in bf16 its tensor-core instances', which are
+  ``matmul_fused``'s: ``MMA_GEMM_OPS``, at M <= 16 one decode tile that
+  fills the card);
 * ``matmul_dgrad``: the backward GEMMs of ``kernels/matmul_bwd.py``;
   ``dims = (M, N, K)`` of the *cotangent* being produced in the
   (M_out, N_out, K_reduce) convention (dA: ``(M, K_fwd, N_fwd)``; dB:
@@ -86,9 +89,10 @@ NARROW_WEIGHT_BYTES = {"matmul_w8": 1, "flash_decode_fp8": 1,
 GEMM_OPS = ("matmul", "matmul_dgrad", "matmul_fused", "matmul_w8",
             "matmul_fused_w8")
 # the GEMM keys whose bf16 kernels are row 9's tensor-core instances
-# (csrc/gemm_mma_inst.cuh): their footprint is matmul_fused.py's (in fp32
-# each runs the blocked GEMM's tile core, and the two footprints agree)
-MMA_GEMM_OPS = ("matmul_fused", "matmul_fused_w8", "matmul_w8")
+# (csrc/gemm_mma_inst.cuh; rows 6, 9 and 10): their footprint is
+# matmul_fused.py's (in fp32 each runs the blocked GEMM's tile core, and
+# the two footprints agree)
+MMA_GEMM_OPS = ("matmul", "matmul_fused", "matmul_fused_w8", "matmul_w8")
 # the conv nests: (X, Y, C, K, Fw, Fh) and a stride, (bx, by, bc, bk) tiles
 CONV_OPS = ("conv2d", "conv2d_dgrad", "conv2d_wgrad")
 OPS = (("matmul", "matmul_dgrad", "flash_decode") + FUSED_OPS

@@ -241,6 +241,7 @@ def gemm_case(dev, dtype, m, n, k, seed=0):
     (3, 5, 7, (3, 64, 64)),              # smaller than one tile
 ])
 def test_matmul_blocked_matches_plain(dev, dtype, m, n, k, tiles):
+    from repro_torch.kernels import matmul_fused as MF
     a, b = gemm_case(dev, dtype, m, n, k, seed=m + n + k)
     before = matmul_blocked.launches
     bm, bk, bn = tiles
@@ -248,6 +249,10 @@ def test_matmul_blocked_matches_plain(dev, dtype, m, n, k, tiles):
     torch.cuda.synchronize()
     assert matmul_blocked.launches == before + 1    # ragged tiles launch
     assert out.dtype == dtype and out.shape == (m, n)
+    # bf16 on the tensor cores ("mma_t" up to 16 rows), fp32 on the tile
+    # core; repeats bit-equal
+    assert matmul_blocked.instance[0] == MF.instance_kind(dtype, m)
+    assert torch.equal(out, matmul_blocked(a, b, bm=bm, bk=bk, bn=bn))
     tol = dict(TOL[dtype])
     if dtype == torch.float32:
         tol["atol"] = max(tol["atol"], 2e-6 * k ** 0.5)
@@ -255,12 +260,19 @@ def test_matmul_blocked_matches_plain(dev, dtype, m, n, k, tiles):
 
 
 def test_matmul_blocked_refuses_what_it_cannot_hold(dev):
+    """bf16 tiles are held to the tensor-core instance (its shared
+    memory, its warp grid, at decode its bn), fp32 ones to the tile
+    core's accumulators; nothing launches."""
     a, b = gemm_case(dev, torch.bfloat16, 64, 4096, 4096)
     before = matmul_blocked.launches
     with pytest.raises(ValueError, match="shared memory"):
-        matmul_blocked(a, b, bm=16, bk=4096, bn=1024)
-    with pytest.raises(ValueError, match="accumulators"):
+        matmul_blocked(a, b, bm=128, bk=4096, bn=128)
+    with pytest.raises(ValueError, match="warp grid"):
         matmul_blocked(a, b, bm=256, bk=64, bn=256)
+    with pytest.raises(ValueError, match="transposed"):
+        matmul_blocked(a[:8].contiguous(), b, bm=8, bk=64, bn=256)
+    with pytest.raises(ValueError, match="accumulators"):
+        matmul_blocked(a.float(), b.float(), bm=256, bk=64, bn=256)
     with pytest.raises(NotImplementedError, match="forward only"):
         matmul_blocked(a.requires_grad_(), b, bm=16, bk=64, bn=64)
     assert matmul_blocked.launches == before
@@ -951,9 +963,9 @@ def test_attention_kernels_take_every_head_dim(dev, dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hkv,d,e", [(16, 64, 1024), (32, 96, 3072)])
 def test_oproj_takes_more_kv_heads_than_a_cluster(dev, dtype, hkv, d, e):
-    """Row 3 at Hkv 16 and 32 (G 1): each batch row's cluster of 8
-    blocks sums its heads, then the cluster sums its blocks; against the
-    plain version, repeats bit-equal."""
+    """Row 3 at Hkv 16 and 32 (G 1): clusters of 8 and 12 of a head's
+    E slices, the last block of each slice summing the 16 or 32 heads in
+    order; against the plain version, repeats bit-equal."""
     q, kp, vp, bt, ln = paged_case(dev, dtype, 1, [45, 300], hkv=hkv, g=1,
                                    d=d, page=32, n_blocks=16, seed=hkv)
     rng = np.random.default_rng(hkv)

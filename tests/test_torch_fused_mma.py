@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.matmul_blocked import matmul_blocked as j_matmul_blocked
 from repro.kernels.matmul_fused import matmul_fused as j_matmul_fused
 from repro.kernels.matmul_q import matmul_w8 as j_matmul_w8
 from repro.kernels.qkv_fused import qkv_fused as j_qkv_fused
@@ -403,21 +404,21 @@ def test_staged_chunk_rows_hit_eight_bank_groups():
 GRANITE_NK = ((4096, 4096), (1024, 4096), (12800, 4096), (4096, 12800))
 
 # the candidates of rows 6 ("matmul") and 10 ("matmul_w8") at granite's
-# projections: row 6's and row 10's fp32 ones as they were before the
-# fused key had a footprint of its own (the tile core's), row 10's bf16
-# ones those of row 9's int8 tensor-core instances, which it runs (at
-# decode one tile whose column blocks fill the card):
+# projections: their fp32 ones as they were before the fused key had a
+# footprint of its own (the tile core's); their bf16 ones those of row
+# 9's tensor-core instances, which both run -- row 6 wide, row 10 with
+# its int8 weight (at decode one tile whose column blocks fill the card;
+# above 16 rows row 6's equal the tile core's, now snapped to the "mma"
+# instance):
 # (key, M, N, K, bytes per element) -> (bm, bk, bn) in rank order
 PINNED = {
-    ("matmul", 8, 1024, 4096, 2): ((8, 256, 64), (8, 64, 64), (8, 64, 128)),
+    ("matmul", 8, 1024, 4096, 2): ((8, 512, 16),),
     ("matmul", 8, 1024, 4096, 4): ((8, 128, 64), (8, 64, 64), (8, 64, 128)),
-    ("matmul", 8, 4096, 4096, 2): ((8, 256, 64), (8, 64, 64), (8, 64, 128)),
+    ("matmul", 8, 4096, 4096, 2): ((8, 256, 32),),
     ("matmul", 8, 4096, 4096, 4): ((8, 128, 64), (8, 64, 128)),
-    ("matmul", 8, 4096, 12800, 2): ((8, 320, 64), (8, 64, 256),
-                                    (8, 64, 128)),
+    ("matmul", 8, 4096, 12800, 2): ((8, 256, 32),),
     ("matmul", 8, 4096, 12800, 4): ((8, 64, 128), (8, 128, 64)),
-    ("matmul", 8, 12800, 4096, 2): ((8, 256, 64), (8, 64, 64),
-                                    (8, 64, 128)),
+    ("matmul", 8, 12800, 4096, 2): ((8, 128, 64),),
     ("matmul", 8, 12800, 4096, 4): ((8, 128, 64), (8, 64, 128)),
     ("matmul", 512, 1024, 4096, 2): ((16, 64, 64), (256, 64, 64),
                                      (16, 256, 64), (128, 64, 128)),
@@ -467,19 +468,22 @@ PINNED = {
 
 
 @pytest.mark.parametrize("key", sorted(PINNED), ids=str)
-def test_row_6_keeps_its_tiles_and_row_10_takes_the_instances(key):
-    """Row 6 and fp32 row 10 keep the tile core's candidates; bf16 row 10
-    takes row 9's int8 instances' (the ``"matmul_w8"`` key snaps as
-    ``"matmul_fused_w8"`` does, ``fused=True``; in fp32 the flag changes
-    nothing)."""
+def test_rows_6_and_10_take_the_instances(key):
+    """fp32 rows 6 and 10 keep the tile core's candidates; in bf16 both
+    take row 9's instances' (the ``"matmul"`` and ``"matmul_w8"`` keys
+    snap as ``"matmul_fused"`` and ``"matmul_fused_w8"`` do,
+    ``fused=True``; in fp32 the flag changes nothing), and each key's
+    ranked schedules are drawn from these tiles."""
     op, m, n, k, esz = key
     w8 = op == "matmul_w8"
     assert matmul_tile_candidates(m, n, k, esz, w_bytes=1 if w8 else None,
-                                  fused=w8) == PINNED[key]
-    if w8:   # the key's ranked schedules are drawn from these tiles
-        dn = "bfloat16" if esz == 2 else "float32"
-        got = {s.tiles for s in candidates(OpSpec(op, (m, n, k), dn))}
-        assert got and got <= set(PINNED[key])
+                                  fused=True) == PINNED[key]
+    if esz == 4:
+        assert matmul_tile_candidates(m, n, k, esz, w_bytes=1 if w8
+                                      else None) == PINNED[key]
+    dn = "bfloat16" if esz == 2 else "float32"
+    got = {s.tiles for s in candidates(OpSpec(op, (m, n, k), dn))}
+    assert got and got <= set(PINNED[key])
 
 
 @pytest.mark.parametrize("op", ["matmul_fused", "matmul_fused_w8"])
@@ -681,6 +685,128 @@ def test_emulated_w8_matches_jax_and_plain(m, n, k, tiles, per_channel,
             jnp.asarray(scale if per_channel else scale[0]), bm=bm, bk=bk,
             bn=bn, interpret=True)).astype(np.float32)
         np.testing.assert_allclose(got, jax_y, atol=2e-2, rtol=1e-2)
+
+
+def blocked_map(out):
+    """``BlockedMap::store`` (row 6): the fp32 sum as it is, cast once by
+    the caller."""
+    def store(seg, row, col, acc):
+        out[row, col] = acc
+    return store
+
+
+BLOCKED_EMULATED = [  # M, N, K, (bm, bk, bn), jax tiles
+    # mma_t: one token, bn 16, three steps
+    (1, 32, 48, (1, 16, 16), (1, 16, 16)),
+    # mma_t: 8 tokens (one n8 tile), bn 32, two steps of 4 k16 steps
+    (8, 64, 128, (8, 64, 32), (8, 64, 32)),
+    # mma_t: 16 tokens (two full n8 tiles), bn 16, one step of 96
+    (16, 48, 96, (16, 96, 16), (16, 32, 16)),
+    # mma: 17 rows (a ragged row block of 1), ragged K (72 = 2 x 32 + 8)
+    # and N (40 = 24 + 16: the second block's last n8 tile partial)
+    (17, 40, 72, (16, 32, 24), None),
+    # mma: a 512-token span, four row blocks of 128 (8 warps down)
+    (512, 16, 32, (128, 32, 16), (128, 32, 16)),
+    # mma_t: 13 tokens, ragged K and N (the last block 24 of 32 columns)
+    (13, 88, 200, (13, 128, 32), None),
+    # N = 20, not a multiple of 8 (the scalar staging path), both
+    # instances
+    (5, 20, 48, (5, 48, 16), None),
+    (24, 20, 40, (16, 32, 24), None),
+]
+
+
+@pytest.mark.parametrize("m,n,k,tiles,jtiles", BLOCKED_EMULATED)
+def test_emulated_blocked_matches_jax_and_plain(m, n, k, tiles, jtiles):
+    """Row 6's bf16 launch, emulated lane by lane on the instance the
+    wrapper picks for ``m`` (``mma_t`` up to 16 rows, ``mma`` above) over
+    one weight matrix with ``BlockedMap``'s plain store, equals
+    ``matmul_ref`` and JAX's ``matmul_blocked`` in interpret mode (where
+    the tiles divide) to bf16 output rounding (2e-2 abs + 1e-2 rel: the
+    fp32 sums differ only in order, the outputs O(1) by B's K ** -0.5)."""
+    rng = np.random.default_rng(m * 1000 + n + k + 6)
+    a = bf16_values(rng, (m, k))
+    w = bf16_values(rng, (k, n), k ** -0.5)
+    got = np.full((m, n), np.nan, np.float32)
+    emulate(a, one_w(w, tiles[2]), tiles, False, blocked_map(got))
+    assert np.all(np.isfinite(got))
+    got = torch.tensor(got).bfloat16().float().numpy()
+    want = MB.matmul_ref(torch.tensor(a).bfloat16(),
+                         torch.tensor(w).bfloat16()).float().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-2)
+    if jtiles is not None:
+        bm, bk, bn = jtiles
+        jax_y = np.asarray(j_matmul_blocked(
+            jnp.asarray(a, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+            bm=bm, bk=bk, bn=bn, interpret=True)).astype(np.float32)
+        np.testing.assert_allclose(got, jax_y, atol=2e-2, rtol=1e-2)
+
+
+class _Props:
+    shared_memory_per_block_optin = H100_SXM.smem_optin_bytes
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,m,tiles,symbol,instance", [
+    (torch.bfloat16, 8, (8, 256, 32), "matmul_blocked_fwd",
+     ("mma_t", (2, 1), MF.MMA_T_STAGES)),
+    (torch.bfloat16, 16, (16, 512, 16), "matmul_blocked_fwd",
+     ("mma_t", (1, 2), MF.MMA_T_STAGES)),
+    (torch.bfloat16, 17, (16, 64, 64), "matmul_blocked_mma_fwd",
+     ("mma", (1, 8, 1, 1), 3)),
+    (torch.bfloat16, 512, (128, 64, 128), "matmul_blocked_mma_fwd",
+     ("mma", (4, 2, 2, 8), 3)),
+    (torch.float32, 64, (16, 128, 64), "matmul_blocked_fwd",
+     ("fma", 1, 2)),
+])
+def test_blocked_launches_the_instance(monkeypatch, dtype, m, tiles, symbol,
+                                       instance):
+    """``ops.matmul`` asks the ``"matmul"`` key and launches its tiles on
+    the instance ``instance_kind`` names (the ``"mma"`` one from its own
+    library), at the instance's stages, and records it in
+    ``matmul_blocked.instance``; bf16 tiles are checked against the
+    instance, not the tile core (the loader monkeypatched, meta tensors:
+    no card)."""
+    from repro_torch.kernels import _build, ops
+    calls, asked = [], []
+
+    def load(name, sym, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append((name, sym, args))
+            return 0
+        return fn
+
+    def best(op, dims, dtype_name):
+        asked.append((op, dims, dtype_name))
+        return type("S", (), {"tiles": tiles})()
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: _Props())
+    monkeypatch.setattr(MB, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(ops, "best_schedule", best)
+    n, k = 96, 80
+    a = torch.zeros((m, k), dtype=dtype, device="meta")
+    b = torch.zeros((k, n), dtype=dtype, device="meta")
+    with torch.no_grad():
+        assert ops.matmul(a, b).shape == (m, n)
+    name = str(dtype).removeprefix("torch.")
+    assert asked == [("matmul", (m, n, k), name)]
+    (lib, sym, args), = calls
+    assert sym == symbol and lib == symbol.removesuffix("_fwd")
+    assert args[0] == (1 if dtype == torch.bfloat16 else 0)
+    assert args[4:7] == (m, n, k) and args[7:10] == tiles
+    assert args[10] == instance[2]
+    assert MB.matmul_blocked.instance == instance
+    if dtype == torch.bfloat16:   # tiles off the instance raise
+        bad = (m, 64, 256) if m <= 16 else (512, 64, 256)
+        with pytest.raises(ValueError, match="transposed|warp grid"):
+            MB.matmul_blocked(a, b, bm=bad[0], bk=bad[1], bn=bad[2])
+        assert len(calls) == 1
 
 
 def test_qkv_and_w8_footprints_mirror_the_kernel():

@@ -1,5 +1,5 @@
 """Kernel rows 1-5 at every head dim the reference registers, and row 3
-with more kv heads than a cluster holds, on the CPU.
+at more kv heads, on the CPU.
 
 * The guards: a head dim that is a multiple of 16 from 16 to 256 is
   taken (16, 80, 96 and 256 beside 64 and 128), 24 and 272 are refused;
@@ -12,8 +12,8 @@ with more kv heads than a cluster holds, on the CPU.
   Pallas kernels in interpret mode: paged decode and chunked prefill,
   the attention forward and its backward, the oproj-fused decode; the
   oproj-fused decode's plain version at Hkv 16 and 32 (seamless-m4t-
-  medium's and phi-3-vision's kv heads) too, and the cluster each batch
-  row's heads are summed across.
+  medium's and phi-3-vision's kv heads) too, and the cluster a head's
+  E slices form.
 """
 
 import jax.numpy as jnp
@@ -59,9 +59,13 @@ def test_footprints_are_priced_at_the_instance_width(d):
     for fn in (FA.fwd_smem_bytes, FB.dq_smem_bytes, FB.dkv_smem_bytes):
         for esz in (2, 4):
             assert fn(32, 32, d, esz) == fn(32, 32, w, esz)
-    # oproj's attention rows are kept at the true head dim
-    assert FD.oproj_smem_bytes_required(32, 4, d, 512) == \
-        FD.smem_bytes_required(32, 4, w) + (4 * d + 512) * 4
+    # oproj's attention rows are kept at the true head dim, 16 row slots
+    # (8 up to 8 batch rows); the wo ring overlays the tiles
+    tiles = max(FD.smem_bytes_required(32, 4, w), 4 * 16384)
+    assert FD.oproj_smem_bytes_required(32, 4, d) == \
+        tiles + (17 * 4 * d + 8) * 4
+    assert FD.oproj_smem_bytes_required(32, 4, d, batch=8) == \
+        tiles + (9 * 4 * d + 8) * 4
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS + (64, 128))
@@ -196,8 +200,7 @@ def oproj_case(hkv, g, d, e, seed=6, page=8, nb=4):
                                        (16, 1, 16, 32), (32, 1, 16, 48)])
 def test_plain_oproj_matches_jax(hkv, g, d, e):
     """The oproj-fused decode's plain version at off-instance head dims
-    and at Hkv 16 and 32 (more kv heads than one cluster of 8 blocks)
-    against JAX's kernel in interpret mode, fp32."""
+    and at Hkv 16 and 32 against JAX's kernel in interpret mode, fp32."""
     arrs = oproj_case(hkv, g, d, e)
     port = FD.flash_decode_oproj(*map(torch.from_numpy, arrs),
                                  window=9).numpy()
@@ -206,12 +209,15 @@ def test_plain_oproj_matches_jax(hkv, g, d, e):
     np.testing.assert_allclose(port, kernel, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("hkv,c", [(1, 1), (4, 4), (7, 7), (8, 8), (10, 5),
-                                   (12, 6), (16, 8), (32, 8), (40, 8)])
-def test_oproj_cluster_is_the_largest_divisor_up_to_8(hkv, c):
-    """Each batch row's cluster: c blocks, the largest divisor of Hkv
-    that is at most the portable 8; block r sums kv heads r, r + c, ...,
-    and at Hkv <= 8 each block holds one head, as before."""
-    assert FD.oproj_cluster(hkv) == c
-    heads = sorted(h for r in range(c) for h in range(r, hkv, c))
-    assert heads == list(range(hkv))
+@pytest.mark.parametrize("n,c", [(1, 1), (4, 4), (7, 7), (8, 8), (12, 12),
+                                 (16, 16), (17, 1), (32, 16), (40, 10)])
+def test_oproj_cluster_is_the_largest_divisor_up_to_16(n, c):
+    """A head's cluster: c blocks, the largest divisor of its slice
+    count n that is at most H100's non-portable 16, so a head's slices
+    are whole clusters; at Hkv 16 and 32 (E 1024 and 3072) the grid's
+    clusters are 8 and 12 blocks."""
+    assert FD.MAX_CLUSTER == 16
+    assert FD.oproj_cluster(n) == c
+    assert n % c == 0
+    assert FD.oproj_grid(16, 1024)[2] == 8
+    assert FD.oproj_grid(32, 3072)[2] == 12

@@ -110,10 +110,10 @@ def test_fused_candidates_fit_the_cuda_kernels(op, dims, dtype):
     for s in cands:
         assert fits_smem(spec, s.tiles, BUDGET)
         if op == "flash_decode_oproj":
-            G, S, D, E = dims
+            G, S, D, _ = dims
             (page,) = s.tiles
             assert S % page == 0
-            assert oproj_smem_bytes_required(page, G, D, E,
+            assert oproj_smem_bytes_required(page, G, D,
                                              spec.itemsize) <= BUDGET
             continue
         bm, bk, bn = s.tiles
@@ -166,7 +166,7 @@ def test_fused_page_is_a_whole_page_divisor_that_fits(dtype):
     page = choose_page_size(cfg, 512, fused=True)
     g = cfg.n_heads // cfg.n_kv_heads
     assert 512 % page == 0
-    assert oproj_smem_bytes_required(page, g, cfg.head_dim, cfg.d_model,
+    assert oproj_smem_bytes_required(page, g, cfg.head_dim,
                                      dtype.itemsize) <= BUDGET
     assert page == best_schedule(
         "flash_decode_oproj", (g, 512, cfg.head_dim, cfg.d_model),
@@ -353,6 +353,34 @@ def test_best_schedule_refuses_a_cached_conv_tile_its_kernel_cannot_hold(
     # a cached tile that fits is taken as it is
     cache.store(Schedule(spec, s.tiles, source="measured"))
     assert best_schedule("conv2d", dims, "bfloat16",
+                         cache=cache).source == "cache"
+
+
+@pytest.mark.parametrize("dims,stale", [
+    ((8, 4096, 4096), (8, 256, 64)),      # the tile core's decode tile
+    ((8, 4096, 12800), (8, 64, 256)),     # bn 256: not a transposed bn
+    ((512, 4096, 4096), (256, 64, 256)),  # no warp grid holds 256 x 256
+])
+def test_best_schedule_refuses_a_stale_bf16_matmul_tile(tmp_path, dims,
+                                                        stale):
+    """Row 6 runs row 9's tensor-core instances in bf16, so a ``"matmul"``
+    tile cached for the CUDA-core tile core is checked against the
+    instance and searched again where the instance does not hold it (a
+    decode bn outside ``MMA_T_COLS``, a tile off the warp grid); one it
+    holds is taken as it is, and fp32 keeps the tile core's."""
+    cache = ScheduleCache(str(tmp_path / "schedules.json"))
+    spec = OpSpec("matmul", dims, "bfloat16")
+    cache.store(Schedule(spec, stale, source="measured"))
+    s = best_schedule("matmul", dims, "bfloat16", cache=cache)
+    if fits_smem(spec, stale, BUDGET):
+        assert s.source == "cache" and s.tiles == stale
+    else:
+        assert s.source == "analytic" and fits_smem(spec, s.tiles, BUDGET)
+    assert not fits_smem(spec, (8, 64, 256) if dims[0] == 8
+                         else (256, 64, 256), BUDGET)
+    fspec = OpSpec("matmul", dims, "float32")
+    cache.store(Schedule(fspec, (16, 64, 64), source="measured"))
+    assert best_schedule("matmul", dims, "float32",
                          cache=cache).source == "cache"
 
 
