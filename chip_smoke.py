@@ -11,7 +11,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``nvcc``, all at once;
 3. each kernel against its plain PyTorch version, fp32 and bf16:
    attention cases, ``flash_decode`` at pages 16, 32, 64, 128 (or the
-   largest that fits: 111 keys in fp32) and the model's page,
+   largest that fits: 111 keys in fp32) and the model's page, repeats
+   bit-equal; rows 1 and 2's split grid in bf16 (batches of 1 to 64
+   rows, so one split to the most, a row whose later splits see
+   nothing, decode and chunk, every split count at 1 and 8 rows,
+   repeats bit-equal);
    ``matmul_blocked`` at ragged shapes and under every tile the Hopper
    adapter emits for granite's projection shapes at M = 1, 8, 16, 17,
    64, 512 (bf16: the transposed ``mma_t`` instance up to 16 rows,
@@ -57,7 +61,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in bf16, weights from ``--seed``, serving 16 requests (prompts of
    16..300 tokens, 32 new tokens each) through ``PagedEngine`` with page
    64, prefill chunk 64, max_seq 512 and 8 slots, and a short
-   torch.profiler window of the same engine;
+   torch.profiler window of the same engine (every row 1 launch in it
+   on the split tensor-core core, as in phases 6, 9 and 9b for rows 1
+   and 2);
 6. the blocked path: the same model and requests with the page size and
    prefill chunk left to the blocking model and every projection through
    ``matmul_blocked`` (``ops.blocked_linear``), with its own profiler
@@ -93,7 +99,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
-   beside its bound, its plain version and a library call (rows 4 and 5
+   beside its bound, its plain version and a library call (rows 1 and 2
+   and the chunk with their grid: splits, cluster, blocks; rows 4 and 5
    with their tiles, TFLOP/s, share of the bound and ratio to SDPA, and
    at S 2048 and 8192 beside SDPA, each pass's kernel time; rows 7 and 8
    at all four projection shapes with the model's tiles, TFLOP/s, share
@@ -146,15 +153,17 @@ def gemm_atol(dtype_name: str, k: int) -> float | None:
 
 
 def compare(name: str, out, ref, dtype_name: str,
-            atol: float | None = None) -> float:
-    """Max abs error of ``out`` vs ``ref``; raises past the tolerance."""
+            atol: float | None = None, quiet: bool = False) -> float:
+    """Max abs error of ``out`` vs ``ref``; raises past the tolerance
+    (``quiet``: prints only then)."""
     import torch
     atol, rtol = atol or TOL[dtype_name][0], TOL[dtype_name][1]
     out, ref = out.float(), ref.float()
     err = float((out - ref).abs().max())
     ok = bool(torch.all((out - ref).abs() <= atol + rtol * ref.abs()))
-    print(f"  {name:<46} max_abs_err {err:.3e}  (tol {atol:g} abs + "
-          f"{rtol:g} rel)  {'ok' if ok else 'FAIL'}")
+    if not quiet or not ok:
+        print(f"  {name:<46} max_abs_err {err:.3e}  (tol {atol:g} abs + "
+              f"{rtol:g} rel)  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     return err
@@ -355,8 +364,10 @@ def phase3_kernels(dev) -> None:
             for window, cap in ((None, None), (37, 30.0)):
                 args = paged_inputs(dev, dtype, lengths, q_span, seed=q_span)
                 kw = dict(window=window, logit_cap=cap, q_span=q_span)
+                out = FD.flash_decode(*args, **kw)
+                assert torch.equal(out, FD.flash_decode(*args, **kw))
                 compare(f"flash_decode {dn} q_span={q_span} window={window}"
-                        f" cap={cap}", FD.flash_decode(*args, **kw),
+                        f" cap={cap} {FD.flash_decode.instance}", out,
                         FD.paged_attention_ref(*args, **kw), dn)
             top = FD.largest_page(cfg.head_dim, dtype.itemsize, torch.cuda
                                   .get_device_properties(dev)
@@ -424,6 +435,96 @@ def phase3_kernels(dev) -> None:
                     n_tiles += 1
         print(f"  {n_tiles} adapter tiles checked in {dn}; the largest page "
               f"that fits is {top} keys")
+    torch.cuda.synchronize()
+
+
+def check_decode_splits(fn, args, ref, dn: str, tag: str, **kw) -> None:
+    """Row 1 or 2 (``fn``) with bf16 q rows at every split count from 1
+    to the most the launch takes (``n_blocks`` and the cluster limit),
+    each recorded as the tensor-core core, repeats bit-equal, each against
+    ``ref``.  The count is forced by patching the wrapper's
+    ``decode_grid`` for the call."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.core.hopper_adapter import default_smem_budget
+    from repro_torch.kernels import flash_decode as FD
+    q, k_pages, bt = args[0], args[1], args[-2]
+    page, d = k_pages.shape[1], q.shape[3]
+    two = FD.decode_smem_bytes(page, d, k_pages.element_size()) \
+        <= default_smem_budget()
+    most = min(bt.shape[1], FD.MAX_CLUSTER if two else 8)
+    worst = 0.0
+    for s in range(1, most + 1):
+        with mock.patch.object(FD, "decode_grid", lambda *a: (s, s, 0)):
+            out = fn(*args, **kw)
+            assert fn.instance == ("mma", s), fn.instance
+            assert torch.equal(out, fn(*args, **kw)), (tag, s)
+        worst = max(worst, compare(f"{tag} splits={s}", out, ref, dn,
+                                   quiet=True))
+    print(f"  {tag}: splits 1..{most}, repeats bit-equal, max_abs_err "
+          f"{worst:.3e}")
+
+
+def phase3_decode_grid(dev) -> None:
+    """Rows 1 and 2's split grid in bf16 (q bf16; pages bf16 or fp8, the
+    model's page 32 and fp8 page 64): batches whose grid takes one split
+    (24 and 64 rows) and the most (1 row: 16 at page 32, 8 at 64), a
+    5-key row whose later splits see nothing, lengths 1 and an exact page
+    multiple, decode and a 64-token chunk, window and cap, drawn fp8
+    scales, every split count from 1 to the most at B 1 and 8; rows of
+    300 pages (the block reloads its page table); each against the plain
+    version, repeats bit-equal."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    bf16 = torch.bfloat16
+    for batch in (1, 2, 8, 24, 64):
+        rng = np.random.default_rng(batch)
+        lengths = ([5] if batch == 1 else [1, 64] if batch == 2 else
+                   [int(n) for n in rng.integers(1, 450, batch)])
+        for q_span in (1, 64):
+            for fp8, page in ((False, 32), (True, 64)):
+                for window, cap in ((None, None), (37, 30.0)):
+                    args = paged_inputs(dev, torch.float32 if fp8 else bf16,
+                                        lengths, q_span, seed=batch + page,
+                                        page=page, n_blocks=512 // page)
+                    fn, plain = FD.flash_decode, FD.paged_attention_ref
+                    if fp8:
+                        args = fp8_paged(args, seed=batch, unit=False)
+                        args = (args[0].to(bf16),) + args[1:]
+                        fn, plain = FD.flash_decode_fp8, \
+                            FD.paged_attention_fp8_ref
+                    kw = dict(window=window, logit_cap=cap, q_span=q_span)
+                    q, kp = args[0], args[1]
+                    grid = FD.decode_grid(batch, q.shape[1], q.shape[2],
+                                          page, 512 // page, q.shape[3],
+                                          kp.element_size())
+                    out = fn(*args, **kw)
+                    assert fn.instance == ("mma", grid[0]), fn.instance
+                    assert torch.equal(out, fn(*args, **kw))
+                    ref = plain(*args, **kw)
+                    tag = (f"{fn.__name__} B={batch} q_span={q_span} "
+                           f"page={page} window={window} cap={cap} grid "
+                           f"(splits, cluster, blocks) {grid}")
+                    compare(tag, out, ref, "bfloat16")
+                    if batch in (1, 8) and window is None:
+                        check_decode_splits(fn, args, ref, "bfloat16", tag,
+                                            **kw)
+    # rows of 300 pages of 16 keys: a run longer than the block's 128 page
+    # indices reloads them, and with a window the run starts past them
+    for window in (None, 100):
+        for q_span in (1, 4):
+            args = paged_inputs(dev, bf16, [4797, 2000, 9], q_span,
+                                seed=q_span, hkv=2, page=16, n_blocks=300)
+            kw = dict(window=window, q_span=q_span)
+            out = FD.flash_decode(*args, **kw)
+            assert torch.equal(out, FD.flash_decode(*args, **kw))
+            ref = FD.paged_attention_ref(*args, **kw)
+            tag = (f"flash_decode B=3 lengths 4797, 2000, 9 page=16 "
+                   f"q_span={q_span} window={window}")
+            compare(tag, out, ref, "bfloat16")
+            check_decode_splits(FD.flash_decode, args, ref, "bfloat16", tag,
+                                **kw)
     torch.cuda.synchronize()
 
 
@@ -834,8 +935,9 @@ def phase13_reduced(seed: int, kernels: dict) -> dict:
     requests x 8 tokens through joins and chunked prefill, unfused and
     fused, the kernel path token-identical to the plain path; bf16 fused:
     the same requests, every row-9 and row-11 call on its transposed
-    (decode) or mma instance.  Training, bf16: 3 steps on the default path (rows 4
-    and 5 forward and backward), finite losses, step 0's loss within 2%
+    (decode) or mma instance, row 1's chunks on the split tensor-core
+    core.  Training, bf16: 3 steps on the default path (rows 4 and 5
+    forward and backward), finite losses, step 0's loss within 2%
     of the plain path's.  Then the two launchers' own usage lines,
     ``launch.train --reduced --steps 2`` and ``launch.serve --reduced``,
     on their default device."""
@@ -896,18 +998,25 @@ def phase13_reduced(seed: int, kernels: dict) -> dict:
         return launch
     for name in kinds:
         setattr(ops, f"_{name}_kernel", spy(name))
+    from repro_torch.kernels import flash_decode as FD
+    chunks = FD.flash_decode.launches
     try:
         reqs = serve(cfgb, paramsb, prompts, 8, max_batch=4, fuse=True)
     finally:
         for name in kinds:
             setattr(ops, f"_{name}_kernel", real[name])
+    # the chunks' row 1 launches: bf16 q rows run the split core
+    chunks = FD.flash_decode.launches - chunks
+    assert chunks > 0 and FD.flash_decode.instance[0] == "mma", \
+        (chunks, FD.flash_decode.instance)
     assert all(len(r.output) == 8 and int(r.output.max()) < cfgb.vocab
                for r in reqs)
     for name, seen in kinds.items():
         assert seen == {(True, "mma_t"), (False, "mma")}, (name, seen)
     print(f"  bf16 fuse=True: 6 requests x 8 tokens; rows 9 and 11 on "
           f"{sorted(k for _, k in kinds['matmul_fused'])} and "
-          f"{sorted(k for _, k in kinds['qkv_fused'])}; first tokens "
+          f"{sorted(k for _, k in kinds['qkv_fused'])}; row 1 ({chunks} "
+          f"chunk launches) on {FD.flash_decode.instance}; first tokens "
           f"{[int(r.output[0]) for r in reqs]}")
     del params, paramsb
     # training: 3 steps, bf16, the default path
@@ -1088,6 +1197,7 @@ def phase5_full(cfg, params, warm, prompts, kernels) -> dict:
         prefill_logits(cfg, params, prompts[0], use_kernel=False))
     summary["profile"] = profile_window(engine_for(cfg, params, max_batch=8),
                                         prompts[:8], 8)
+    hold_decode_core(summary["profile"], "flash_decode")
     return summary
 
 
@@ -1149,6 +1259,7 @@ def phase6_blocked(cfg, params, warm, prompts, kernels) -> dict:
             _cublas_logits(cfg, params, prompts[0]))
         summary["profile"] = profile_window(engine(), prompts[:8], 8)
         hold_mma_kinds(summary["profile"], ("matmul_blocked",))
+        hold_decode_core(summary["profile"], "flash_decode")
     return summary
 
 
@@ -1210,6 +1321,20 @@ def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
         summary["profile"] = profile_window(engine(), prompts[:8], 8)
         hold_mma_kinds(summary["profile"], ("matmul_fused", "qkv_fused"))
     return summary
+
+
+def hold_decode_core(profile: dict, row: str) -> float:
+    """Every launch of row 1 (``flash_decode``) or 2
+    (``flash_decode_fp8``) in a bf16 profiled window ran the tensor-core
+    decode core (``decode_mma_kernel``), none the fp32 instance's
+    ``attn_rows``; returns the row's device ms."""
+    kinds = profile["device_ms_by_kind"]
+    assert not any(k.endswith("(fp32)") for k in kinds), kinds
+    ms = kinds.get(row, 0.0)
+    assert ms > 0, (row, kinds)
+    print(f"  {row} in the profiled window: {ms:.3f} ms, every launch on "
+          f"the split tensor-core core")
+    return ms
 
 
 def hold_mma_kinds(profile: dict, rows: tuple[str, ...],
@@ -1304,6 +1429,7 @@ def phase9_quantized(cfg, qparams, warm, prompts, kernels, fuse: bool,
     summary["profile"] = profile_window(engine(), prompts[:8], 8)
     hold_mma_kinds(summary["profile"],
                    ("matmul_fused", "matmul_w8") if fuse else ("matmul_w8",))
+    hold_decode_core(summary["profile"], "flash_decode_fp8")
     return summary
 
 
@@ -1368,11 +1494,14 @@ def kernel_kind(name: str) -> str:
         return "flash_decode_oproj"
     if "fwd_mma_kernel" in name:
         return "flash_attention (mma)"
+    if "decode_mma_kernel" in name:   # rows 1 and 2's tensor-core core
+        return ("flash_decode_fp8" if "unsigned char" in name
+                else "flash_decode")
     if "attn_rows_kernel" in name:
         if "PagedLayout" not in name:
             return "flash_attention"
-        return ("flash_decode_fp8" if "unsigned char" in name
-                else "flash_decode")
+        return ("flash_decode_fp8 (fp32)" if "unsigned char" in name
+                else "flash_decode (fp32)")
     if any(w in name.lower()
            for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul"
@@ -1442,6 +1571,7 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
                             n_blocks=-(-512 // p))
         io_bytes = 2 * args[0].numel() * 2 + args[3].numel() * 4 + 4 * 8
         b_ms, b_by = bound(kv_bytes + io_bytes, 4 * n_keys * hq * d)
+        grid = FD.decode_grid(8, hkv, hq // hkv, p, -(-512 // p), d)
         row = {
             "name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
@@ -1454,12 +1584,14 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
             "plain_ms": time_ms(lambda: FD.paged_attention_ref(*args)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": f"decode B=8 Hkv={hkv} G={hq // hkv} D={d} page={p} "
-                     f"lengths={dec_lens} bf16"}
+                     f"lengths={dec_lens} bf16; grid (splits, cluster, "
+                     f"blocks) {grid}"}
         if p == page:
             out.append(row)
         else:
-            print(f"  flash_decode at page {p} (the cuBLAS run's): "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+            print(f"  flash_decode at page {p} (the cuBLAS run's; grid "
+                  f"{grid}): {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms")
 
     # chunked prefill: the third 64-token chunk of a 300-token prompt
     cargs = paged_inputs(dev, bf16, [129], 64, seed=6, page=page,
@@ -1469,9 +1601,10 @@ def time_kernels(cfg, lens, launches, page: int) -> list[dict]:
     cb_ms, cb_by = bound(c_bytes, 4 * n_pairs * hq * d)
     c_ms = time_ms(lambda: FD.flash_decode(*cargs, q_span=64))
     cp_ms = time_ms(lambda: FD.paged_attention_ref(*cargs, q_span=64))
-    print(f"  flash_decode chunk (q_span=64, cache 129..192, page {page}): "
-          f"{c_ms:.4f} ms, plain {cp_ms:.4f} ms, bound {cb_ms:.4f} ms "
-          f"({cb_by})")
+    cgrid = FD.decode_grid(1, hkv, 64 * hq // hkv, page, -(-512 // page), d)
+    print(f"  flash_decode chunk (q_span=64, cache 129..192, page {page}, "
+          f"grid (splits, cluster, blocks) {cgrid}): {c_ms:.4f} ms, plain "
+          f"{cp_ms:.4f} ms, bound {cb_ms:.4f} ms ({cb_by})")
 
     # join: one prompt in the 64 bucket
     q, k, v = dense_inputs(dev, bf16, 1, 64, 64, seed=7, hq=hq, hkv=hkv, d=d)
@@ -1707,6 +1840,7 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
     kv_bytes = 2 * n_keys * hkv * d * 1
     io = 2 * args[0].numel() * 2 + args[5].numel() * 4 + 4 * 8 + 2 * 4 * hkv
     b_ms, b_by = bound(kv_bytes + io, 4 * n_keys * hq * d)
+    grid = FD.decode_grid(8, hkv, hq // hkv, page, -(-512 // page), d, 1)
     rows.append({
         "name": "flash_decode_fp8", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_decode_fp8.cu",
@@ -1720,7 +1854,8 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"decode B=8 Hkv={hkv} G={hq // hkv} D={d} page={page} "
                  f"lengths={dec_lens} (sum {n_keys}) q bf16, pages "
-                 f"float8_e4m3fn, unit scales; phase 9b launches "
+                 f"float8_e4m3fn, unit scales; grid (splits, cluster, "
+                 f"blocks) {grid}; phase 9b launches "
                  f"{launches9b['flash_decode_fp8']}"})
 
     # matmul_w8: the decode projections (M = 8) at granite's four shapes
@@ -3089,6 +3224,16 @@ def main() -> int:
               f"instances, {min(r for r, _ in gemm_inst)}-"
               f"{max(r for r, _ in gemm_inst)} registers, "
               f"{sum(sp for _, sp in gemm_inst)} B spilled in all")
+    decode = [(label, regs, spill) for name in ("flash_decode",
+                                                "flash_decode_fp8")
+              for label, regs, spill in ptxas_report(reports.get(name, ""))
+              if label.startswith("decode_mma_kernel<")]
+    if decode:
+        print(f"  rows 1, 2: {len(decode)} decode_mma_kernel instances, "
+              f"{min(r for _, r, _ in decode)}-"
+              f"{max(r for _, r, _ in decode)} registers, "
+              f"{sum(sp for _, _, sp in decode)} B spilled in all")
+        assert sum(sp for _, _, sp in decode) == 0, decode
     oproj = ptxas_report(reports.get("flash_decode_oproj", ""))
     if oproj:
         print(f"  flash_decode_oproj: {len(oproj)} instances, "
@@ -3104,8 +3249,9 @@ def main() -> int:
               f"{sum(sp for _, sp in wgrad_mma)} B spilled in all")
 
     phase("phase 3: kernels vs plain versions")
-    for check in (phase3_kernels, phase3_head_dims, phase3_oproj_wide,
-                  phase3_fused, phase3_quant, phase3_train, phase3_conv):
+    for check in (phase3_kernels, phase3_decode_grid, phase3_head_dims,
+                  phase3_oproj_wide, phase3_fused, phase3_quant,
+                  phase3_train, phase3_conv):
         t0 = time.perf_counter()
         check(torch.device("cuda"))
         print(f"  {check.__name__}: {time.perf_counter() - t0:.1f}s")

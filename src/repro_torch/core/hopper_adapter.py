@@ -927,7 +927,8 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
                                  bytes_per_elem: int = 2,
                                  smem_budget_bytes: int | None = None,
                                  target: HopperTarget = H100_SXM,
-                                 top: int = 8, kv_bytes: int | None = None
+                                 top: int = 8, kv_bytes: int | None = None,
+                                 split_core: bool = True
                                  ) -> tuple[tuple[int], ...]:
     """Ranked ``(page,)`` candidates for the paged flash-decode kernel.
 
@@ -936,15 +937,26 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
     nest whose only free blocking choice is how much of the S-long KV
     stream is resident per step.  The optimizer search runs on that nest
     (C = the KV reduction dim); each winner's C extent is snapped to
-    multiples of 32 (one key per lane), to the kernel's shared-memory
-    footprint at its rows per block, and to a divisor of ``seq_kv`` (a
+    multiples of 32 (one key per lane), to the footprint of the kernel
+    that runs these widths (``flash_decode.page_smem_bytes``: the bf16
+    decode core's ring of whole pages for bf16 q rows, ``attn_rows``'
+    two-stage tiles in fp32), and to a divisor of ``seq_kv`` (a
     request's pages then tile ``max_seq`` exactly).  The chosen tile is
     the paged cache's page size.  ``kv_bytes``: the pages' own width (1
     for an fp8 pool, priced by the fp8 kernel's footprint; q rows keep
-    ``bytes_per_elem``).
+    ``bytes_per_elem``).  ``split_core=False`` prices ``attn_rows``'
+    tiles whatever the widths (row 3's attention runs them).
     """
     from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
+                                                  page_smem_bytes,
                                                   smem_bytes_required)
+
+    def footprint(page: int) -> int:
+        if split_core:
+            return page_smem_bytes(page, head_dim, bytes_per_elem, kv_bytes)
+        return smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
+                                   bytes_per_elem, kv_bytes)
+
     budget = default_smem_budget(target, smem_budget_bytes)
     problem = Problem.gemm(M=groups, N_cols=head_dim, K_reduce=seq_kv,
                            bytes_per_elem=bytes_per_elem,
@@ -958,15 +970,11 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
     out: list[tuple[int]] = []
     for page in raw:
         page = _pick_tile(seq_kv, max(page, mult), mult)
-        while (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
-                                   bytes_per_elem, kv_bytes) > budget
-               and page > mult):
+        while footprint(page) > budget and page > mult:
             page = _shrink(seq_kv, page, mult)
         # one key per lane is a preference: a wide head (D = 256 in fp32)
         # fits the budget only below it
-        while (smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
-                                   bytes_per_elem, kv_bytes) > budget
-               and page > 1):
+        while footprint(page) > budget and page > 1:
             page = _shrink(seq_kv, page, 1)
         if seq_kv % page:
             page = max(d for d in divisors(seq_kv) if d <= page)
@@ -1103,7 +1111,8 @@ def flash_decode_oproj_tile_candidates(groups: int, seq_kv: int,
                                        top: int = 8) -> tuple[tuple[int],
                                                               ...]:
     """Ranked ``(page,)`` candidates for the oproj-fused decode kernel:
-    the ``flash_decode`` family, searched under the budget less what this
+    the ``flash_decode`` family over ``attn_rows``' tiles (the attention
+    core row 3 runs), searched under the budget less what this
     kernel adds to a block's shared memory (the G x D fp32 attention
     rows of a group of 16 batch rows, one split's rows, its statistics
     and the merge weights; ``oproj_smem_bytes_required``).  ``wo`` is
@@ -1119,4 +1128,5 @@ def flash_decode_oproj_tile_candidates(groups: int, seq_kv: int,
              - OPROJ_WO_STAGES * OPROJ_STEP_BYTES)
     return flash_decode_tile_candidates(groups, seq_kv, head_dim,
                                         bytes_per_elem,
-                                        max(budget - extra, 1), target, top)
+                                        max(budget - extra, 1), target, top,
+                                        split_core=False)

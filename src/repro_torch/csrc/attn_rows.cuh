@@ -1,7 +1,8 @@
 // Streaming-softmax attention over query rows on CUDA cores: the core of
-// the paged decode kernels (flash_decode.cu, flash_decode_oproj.cu,
-// flash_decode_fp8.cu) and of flash_attention.cu's fp32 instance (its
-// bf16 instance runs on the tensor cores, attn_mma.cuh).
+// row 3's attention (flash_decode_oproj.cu), of the fp32 instances of the
+// paged decode kernels (flash_decode.cu, flash_decode_fp8.cu; their bf16
+// instances run decode_mma.cuh) and of flash_attention.cu's fp32
+// instance (its bf16 instance runs on the tensor cores, attn_mma.cuh).
 //
 // attn_rows() runs kWarps query rows of one (batch, kv head) pair in one
 // block and hands each finished row to a sink: attn_rows_kernel writes it
@@ -161,6 +162,21 @@ struct PagedLayout {
   }
   __device__ void row_stats(int, int, int, float, float) const {}
 };
+
+// Pages [first, end) of split sp of n: the pages holding keys [k_lo,
+// k_hi) cut into n page-aligned runs of ceil(pages / n), the last ones
+// short or empty.  The split decode kernels (flash_decode_oproj.cu,
+// decode_mma.cuh) cut their rows' keys by this rule.
+struct PageRun {
+  int first, end;
+};
+__host__ __device__ inline PageRun page_run(int k_lo, int k_hi, int page,
+                                            int n, int sp) {
+  const int p0 = k_lo / page, p1 = (k_hi + page - 1) / page;
+  const int per = p1 > p0 ? (p1 - p0 + n - 1) / n : 0;
+  const int first = p0 + sp * per < p1 ? p0 + sp * per : p1;
+  return {first, first + per < p1 ? first + per : p1};
+}
 
 // Score of one staged fp8 key row against the warp's q row: each lane
 // walks the row a 32-bit word (4 e4m3 values) at a time, starting at its
@@ -400,25 +416,6 @@ template <class F> int with_head_dim(int head_dim, F&& f) {
   if (head_dim <= 64) return f(std::integral_constant<int, 64>{});
   if (head_dim <= 128) return f(std::integral_constant<int, 128>{});
   return f(std::integral_constant<int, 256>{});
-}
-
-// dtype (of q and the output): 0 = float32, 1 = bfloat16.  K and V in
-// q's dtype, or fp8 (kFp8KV); head_dim is mk.hd.  Returns a cudaError_t.
-template <bool kFp8KV = false, class Layout>
-int dispatch(int dtype, const Layout& lay, int n_kv_heads, int batch,
-             const void* q, const void* k, const void* v, void* o, Mask mk,
-             int tile, cudaStream_t stream) {
-  using F32K = std::conditional_t<kFp8KV, fp8, float>;
-  using B16K = std::conditional_t<kFp8KV, fp8, __nv_bfloat16>;
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return with_head_dim(mk.hd, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    if (dtype == 0)
-      return launch_rows<float, D, Layout, F32K>(lay, n_kv_heads, batch, q,
-                                                 k, v, o, mk, tile, stream);
-    return launch_rows<__nv_bfloat16, D, Layout, B16K>(
-        lay, n_kv_heads, batch, q, k, v, o, mk, tile, stream);
-  });
 }
 
 }  // namespace attn

@@ -6,42 +6,63 @@
 // int32; lengths (B,) int32 counting the cache including the first
 // spanned token.  Row r of request b sees key kpos < lengths[b] + r / G
 // (and kpos > lengths[b] - 1 + r / G - window), exactly _block_mask.
+// Block-table entries past a request's length point at scratch page 0:
+// they are read only when a row can see them.
 //
 // The TPU grid (B, Hkv, n_blocks) carried m/l/acc across the sequential
-// KV axis, one page per step; here a block owns kWarps rows of one
-// (b, kv head), reads block_tables[b, kpos / page] and lengths[b] itself,
-// and walks keys only up to what its furthest row can see, one page per
-// step: the KV tile of attn_rows.cuh is the page, so the page size the
-// blocking model chooses (serve/kv_cache.choose_page_size) is this
-// kernel's tile.  Any page from 1 key up to the largest whose two-stage
-// tile fits the card's opt-in shared memory launches.  q rows are tiled
-// across blocks, so a chunked-prefill span (q_span * G rows) never enters
-// the block's footprint.  Block-table entries past a request's length
-// point at scratch page 0: they are read only when a row can see them,
-// and masked when it cannot.
+// KV axis, one page a step, for the G rows of one (b, kv head).  Here the
+// bf16 instance is decode_mma.cuh: the grid is (splits, Hkv, B * row
+// tiles), each block one m16 tile of a (b, kv head)'s rows and one
+// page-aligned run of the keys they see, the splits of a tile one cluster
+// merged through distributed shared memory by their running max and sum;
+// the four warps take the run's 16-key chunks in turn out of a ring of
+// whole pages (kStages steps of at least 64 keys), score them on the
+// tensor cores and multiply P . V with P in a bf16 high part and its
+// residual.  The split count (kernels/flash_decode.py::decode_splits) is
+// the least whose blocks fill the card: granite's decode at 8 slots runs
+// 64 (b, kv head) pairs x 3 splits.  The page the blocking model chooses
+// (serve/kv_cache.choose_page_size, priced by decode_smem_bytes) is the
+// ring's unit.  The fp32 instance keeps attn_rows.cuh on the CUDA cores
+// (one block of 4 rows a (b, kv head), the KV tile one page, two stages):
+// TF32 would break its tolerance.
 //
 // head_dim: any multiple of 16 up to 256, run at the smallest compiled
-// width at least it (attn_rows.cuh: 32, 64, 128, 256).
+// width at least it (32, 64, 128, 256).
 //
-// Bound on this card: every visible K/V byte is read once per block of
-// rows -- at decode (one position, 4 rows) that is the whole cache once,
-// 0.5 flop/byte, bytes bound at 3.35 TB/s.  The simple design leaves the
-// card under-filled at small batch: B * Hkv = 64 blocks per layer at
-// max_batch 8 against 132 SMs (split-KV is a later step).
-#include "attn_rows.cuh"
+// Bound on this card: bytes -- every visible K/V byte read once (a split
+// reads its run only), 0.5 flop/byte at decode, 3.35 TB/s.  At granite's
+// decode (1,509 keys over 8 slots, 6.2 MB) that is 1.9 us; a launch and
+// the serial chain of one block (lengths and page table, the copies, the
+// cluster merge) add about 5 us on top of the bytes.
+#include "decode_mma.cuh"
 
+// dtype (of q and the output): 0 = float32, 1 = bfloat16.  splits: the
+// bf16 instance's runs per row tile (1 .. 16); the fp32 instance takes 1.
+// Returns a cudaError_t.
 extern "C" int flash_decode_fwd(int dtype, int head_dim, const void* q,
                                 const void* k_pages, const void* v_pages,
                                 const int* block_tables, const int* lengths,
                                 void* o, int batch, int hkv, int gtot,
                                 int q_span, int page, int n_blocks,
-                                int window, float logit_cap, void* stream) {
+                                int window, float logit_cap, int splits,
+                                void* stream) {
   if (q_span <= 0 || gtot % q_span)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return decode_mma::dispatch<__nv_bfloat16>(
+        head_dim, q, k_pages, v_pages, block_tables, lengths, o, nullptr,
+        nullptr, batch, hkv, gtot, q_span, page, n_blocks, window,
+        logit_cap, splits, s);
+  if (dtype != 0 || splits != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const attn::PagedLayout lay{gtot, gtot / q_span, hkv, page, n_blocks,
                               block_tables, lengths};
   const attn::Mask mk{1, window, 1.0f / sqrtf(float(head_dim)), logit_cap,
                       head_dim};
-  return attn::dispatch(dtype, lay, hkv, batch, q, k_pages, v_pages, o, mk,
-                        page, static_cast<cudaStream_t>(stream));
+  return attn::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return attn::launch_rows<float, D>(lay, hkv, batch, q, k_pages, v_pages,
+                                       o, mk, page, s);
+  });
 }

@@ -221,11 +221,12 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
     } else if (rank < rows * n_split) {
       const int b = g0 + rank / n_split, sp = rank % n_split;
       const int len = lay.lengths[b], page = lay.page;
-      const int p0 = (mk.window > 0 ? max(0, len - mk.window) : 0) / page;
-      const int per = ((len + page - 1) / page - p0 + n_split - 1) / n_split;
-      const int start = (p0 + sp * per) * page;
-      const SplitLayout split{lay, start, max(start, min(len, start +
-                                                      per * page)), stats};
+      const attn::PageRun run = attn::page_run(
+          mk.window > 0 ? max(0, len - mk.window) : 0, len, page, n_split,
+          sp);
+      const int start = run.first * page;
+      const SplitLayout split{lay, start, max(start, min(len, run.end *
+                                                      page)), stats};
       const PartToSmem sink{part, hd};
       for (int t0 = 0; t0 < groups; t0 += attn::kWarps) {
         attn::attn_rows<T, D>(split, q, k, v, mk, page, b, h, t0, smem,

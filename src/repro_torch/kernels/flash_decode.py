@@ -3,10 +3,17 @@
 Port of ``repro.kernels.flash_decode.flash_decode`` (the TPU kernel of
 paged decode and chunked prefill).  The kernel lives in
 ``csrc/flash_decode.cu`` (design and bound in its header comment).  As
-on the TPU, its KV tile is one page: the page size the blocking model
-chooses (``serve.kv_cache.choose_page_size``) is what the kernel stages
-per step, and :func:`smem_bytes_required` is what the Hopper adapter's
+on the TPU, the KV tile is whole pages: the page size the blocking model
+chooses (``serve.kv_cache.choose_page_size``) is the unit the kernel
+stages, and :func:`page_smem_bytes` is what the Hopper adapter's
 ``"flash_decode"`` search prices.
+
+The bf16 instances of rows 1 and 2 (``csrc/decode_mma.cuh``) split each
+row tile's visible pages over a cluster of :func:`decode_splits` blocks
+and score a kv head's query rows together on the tensor cores; their
+footprint is :func:`decode_smem_bytes`.  The fp32 instances keep
+``csrc/attn_rows.cuh``, one block of 4 rows a (batch, kv head), one page
+a step (:func:`smem_bytes_required`, which row 3 prices too).
 
 Layouts (GQA-native: all G query heads of one KV head share its pages):
 
@@ -47,9 +54,11 @@ with ``kv_bytes=1`` under the ``"flash_decode_fp8"`` key.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.core.hopper_adapter import H100_SXM, default_smem_budget
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (check_head_dim,
                                                  instance_head_dim)
@@ -89,6 +98,90 @@ def largest_page(head_dim: int, bytes_per_elem: int, smem_bytes: int,
     per_key = smem_bytes_required(1, ROWS_PER_BLOCK, head_dim,
                                   bytes_per_elem, kv_bytes) - fixed
     return (smem_bytes - fixed) // per_key
+
+
+DECODE_ROWS = 16       # query rows of a bf16 block: one m16 tile (kRows)
+DECODE_WARPS = 4       # warps of a block, each taking 16-key chunks (kWarps)
+DECODE_CHUNK = 16      # keys a warp scores at once (kChunk)
+DECODE_STAGES = 2      # ring steps in flight (kStages)
+DECODE_TABLE = 128     # page indices a block holds at once (kTable)
+DECODE_PAD = 8         # floats past D in a warp's merge row (kPad)
+
+
+def decode_step_pages(page: int, head_dim: int) -> int:
+    """Pages one ring step of the bf16 decode core stages: whole pages of
+    at least 64 keys (32 at the 256-wide instance), or one longer page
+    (csrc ``step_pages``)."""
+    keys = 4 * DECODE_CHUNK if instance_head_dim(head_dim) <= 128 \
+        else 2 * DECODE_CHUNK
+    return 1 if page >= keys else keys // page
+
+
+def decode_step_rows(page: int, head_dim: int) -> int:
+    """Staged rows of one ring step: its pages' keys in whole 16-key
+    chunks (csrc ``step_rows``)."""
+    return -(-decode_step_pages(page, head_dim) * page // DECODE_CHUNK) \
+        * DECODE_CHUNK
+
+
+def decode_smem_bytes(page: int, head_dim: int, kv_bytes: int = 2) -> int:
+    """Dynamic shared memory of one block of the bf16 decode core (csrc
+    ``decode_mma::smem_bytes``): the ring, :data:`DECODE_STAGES` steps of
+    K and V rows at ``kv_bytes`` (1 for an fp8 pool, with each warp's
+    16-key bf16 widening scratch), overlaid by the warps' fp32 merge rows
+    once drained; the q tile, the page table and the (max, sum) pairs.
+    Rows are staged at the compiled width (``instance_head_dim``).  The
+    query span never enters: row tiles are blocks of their own."""
+    d = instance_head_dim(head_dim)
+    ring = DECODE_STAGES * 2 * decode_step_rows(page, head_dim) * d * kv_bytes
+    if kv_bytes == 1:
+        ring += DECODE_WARPS * DECODE_CHUNK * d * 2
+    merge = DECODE_WARPS * DECODE_ROWS * (d + DECODE_PAD) * 4
+    return (max(ring, merge) + DECODE_ROWS * d * 2 + DECODE_TABLE * 4
+            + (DECODE_WARPS + 1) * DECODE_ROWS * 2 * 4)
+
+
+def page_smem_bytes(page: int, head_dim: int, bytes_per_elem: int = 2,
+                    kv_bytes: int | None = None) -> int:
+    """The footprint of the paged decode instance that runs these widths:
+    the bf16 decode core (:func:`decode_smem_bytes`) for bf16 q rows, the
+    fp32 instance's ``attn_rows`` tiles (:func:`smem_bytes_required`)
+    otherwise.  The ``"flash_decode"`` and ``"flash_decode_fp8"`` keys
+    price their pages by it."""
+    if bytes_per_elem == 2:
+        return decode_smem_bytes(page, head_dim,
+                                 bytes_per_elem if kv_bytes is None
+                                 else kv_bytes)
+    return smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
+                               bytes_per_elem, kv_bytes)
+
+
+def decode_splits(batch: int, hkv: int, rows: int, n_blocks: int, *,
+                  max_cluster: int | None = None) -> int:
+    """Runs of each row tile's visible pages in the bf16 decode core, one
+    block each, one cluster a tile: the least count whose ``batch * hkv *
+    ceil(rows / 16) * splits`` blocks fill the H100's 132 SMs, capped by
+    ``n_blocks`` (no run below one page) and the cluster limit
+    (:data:`MAX_CLUSTER`).  From shapes only: the host never reads
+    ``lengths``, so a short row's later runs may be empty."""
+    tiles = batch * hkv * -(-rows // DECODE_ROWS)
+    want = -(-H100_SXM.sms // max(tiles, 1))
+    cap = MAX_CLUSTER if max_cluster is None else max_cluster
+    return max(1, min(want, n_blocks, cap))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_grid(batch: int, hkv: int, rows: int, page: int, n_blocks: int,
+                head_dim: int, kv_bytes: int = 2) -> tuple[int, int, int]:
+    """``(splits, cluster, blocks)`` of the bf16 decode core's launch at
+    these shapes, as the wrapper picks them: a cluster above the portable
+    8 only where two blocks share an SM (the footprint within the
+    two-block budget), so that 16 blocks fit one GPC.  Cached by shape:
+    each decode step asks it once a layer."""
+    two = decode_smem_bytes(page, head_dim, kv_bytes) <= default_smem_budget()
+    splits = decode_splits(batch, hkv, rows, n_blocks,
+                           max_cluster=MAX_CLUSTER if two else 8)
+    return splits, splits, splits * hkv * batch * -(-rows // DECODE_ROWS)
 
 
 OPROJ_MAX_ROWS = 16        # batch rows of one group (csrc: kMaxRows)
@@ -175,9 +268,10 @@ def oproj_hbm_bytes(batch: int, hkv: int, groups: int, head_dim: int,
 
 
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _FP8_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 FP8 = torch.float8_e4m3fn
 _OPROJ_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
@@ -220,7 +314,9 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  q_span: int = 1) -> torch.Tensor:
     """Paged attention over one q block per (batch, kv head); returns the
     shape of ``q`` in ``q.dtype``.  With ``q_span > 1`` the rows hold
-    consecutive positions, each under its own causal limit.
+    consecutive positions, each under its own causal limit.  bf16 q rows
+    run :func:`decode_grid`'s split count, fp32 ones one block a (batch,
+    kv head).
 
     CUDA tensors launch the kernel (or raise: there is no fallback);
     CPU tensors take :func:`paged_attention_ref`.
@@ -231,22 +327,41 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                    logit_cap=logit_cap, q_span=q_span)
     _refuse_grad("flash_decode", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_tables, lengths, q_span, window)
+    _check_launch(q, k_pages)
     b, hkv, gtot, d = q.shape
-    page = k_pages.shape[1]
+    page, n_blocks = k_pages.shape[1], block_tables.shape[1]
+    splits = _splits(q, page, n_blocks, k_pages.element_size())
     out = torch.empty_like(q)
     fn = _build.load("flash_decode", "flash_decode_fwd", _ARGTYPES)
     err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), b, hkv, gtot, q_span, page,
-             block_tables.shape[1], int(window or 0),
-             float(logit_cap or 0.0),
+             out.data_ptr(), b, hkv, gtot, q_span, page, n_blocks,
+             int(window or 0), float(logit_cap or 0.0), splits,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
+    flash_decode.instance = _instance(q, splits)
     return out
 
 
 flash_decode.launches = 0
+flash_decode.instance = None
+
+
+def _splits(q: torch.Tensor, page: int, n_blocks: int,
+            kv_bytes: int) -> int:
+    """The launch's split count: :func:`decode_grid`'s for bf16 q rows; 1
+    for the fp32 instance (one block of 4 rows a (b, kv head))."""
+    if q.dtype != torch.bfloat16:
+        return 1
+    b, hkv, gtot, d = q.shape
+    return decode_grid(b, hkv, gtot, page, n_blocks, d, kv_bytes)[0]
+
+
+def _instance(q: torch.Tensor, splits: int) -> tuple:
+    """What a launch ran: ``("mma", splits)`` (the bf16 decode core) or
+    ``("rows", 1)`` (the fp32 ``attn_rows`` instance)."""
+    return ("mma", splits) if q.dtype == torch.bfloat16 else ("rows", 1)
 
 
 def paged_attention_fp8_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -292,6 +407,7 @@ def flash_decode_fp8(q: torch.Tensor, k_pages: torch.Tensor,
     _refuse_grad("flash_decode_fp8", q, k_pages, v_pages, k_scale, v_scale)
     _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,
            kv_dtype=FP8)
+    _check_launch(q, k_pages)
     b, hkv, gtot, d = q.shape
     scales = []
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -300,22 +416,25 @@ def flash_decode_fp8(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"{name} must be an fp32 tensor of {hkv} "
                              f"values on {q.device}")
         scales.append(t.contiguous())
-    page = k_pages.shape[1]
+    page, n_blocks = k_pages.shape[1], block_tables.shape[1]
+    splits = _splits(q, page, n_blocks, 1)
     out = torch.empty_like(q)
     fn = _build.load("flash_decode_fp8", "flash_decode_fp8_fwd",
                      _FP8_ARGTYPES)
     err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), scales[0].data_ptr(), scales[1].data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
-             hkv, gtot, q_span, page, block_tables.shape[1],
-             int(window or 0), float(logit_cap or 0.0),
+             hkv, gtot, q_span, page, n_blocks, int(window or 0),
+             float(logit_cap or 0.0), splits,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_fp8")
     flash_decode_fp8.launches += 1
+    flash_decode_fp8.instance = _instance(q, splits)
     return out
 
 
 flash_decode_fp8.launches = 0
+flash_decode_fp8.instance = None
 
 
 def paged_attention_oproj_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -360,6 +479,7 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
                                          logit_cap=logit_cap)
     _refuse_grad("flash_decode_oproj", q, k_pages, v_pages, wo)
     _check(q, k_pages, v_pages, block_tables, lengths, 1, window)
+    _check_launch(q, k_pages, split_core=False)
     b, hkv, g, d = q.shape
     if wo.dim() != 3 or tuple(wo.shape[:2]) != (hkv, g * d):
         raise ValueError(f"wo {tuple(wo.shape)} is not (Hkv={hkv}, "
@@ -456,12 +576,24 @@ def _check(q, k_pages, v_pages, block_tables, lengths, q_span, window,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     check_head_dim(d)
+
+
+def _check_launch(q, k_pages, split_core=True):
+    """Raise where the launch itself would be refused: a page whose
+    footprint (the instance's that runs, or with ``split_core=False``
+    ``attn_rows``') overflows the card's shared memory, or more 16-row
+    tiles than the bf16 core's grid holds."""
+    b, _, gtot, d = q.shape
     page = k_pages.shape[1]
-    need = smem_bytes_required(page, ROWS_PER_BLOCK, d, q.element_size(),
-                               k_pages.element_size())
+    esz, kvb = q.element_size(), k_pages.element_size()
+    need = (page_smem_bytes(page, d, esz, kvb) if split_core
+            else smem_bytes_required(page, ROWS_PER_BLOCK, d, esz, kvb))
     have = torch.cuda.get_device_properties(
         q.device).shared_memory_per_block_optin
     if need > have:
         raise ValueError(
             f"page {page} needs {need} bytes of shared memory per block; "
             f"this card allows {have}")
+    if split_core and esz == 2 and b * -(-gtot // DECODE_ROWS) > 65535:
+        raise ValueError(f"{b} batch rows of {gtot} query rows exceed the "
+                         "grid's 65,535 row tiles")

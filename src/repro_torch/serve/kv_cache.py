@@ -90,22 +90,21 @@ def choose_prefill_chunk(cfg: ModelConfig, max_seq: int,
 
     A prefill chunk is one multi-position q block of the flash-decode
     kernel (``q_span = chunk``), so it is priced by the kernel's own
-    footprint (``flash_decode.smem_bytes_required``) against the shared
-    memory budget the page was tuned under: the chunk is the largest
-    power-of-two multiple of the page size (a whole number of pages)
-    whose footprint still fits, capped at ``max_seq``.  On Hopper the
-    kernel tiles query rows across blocks, ``ROWS_PER_BLOCK`` at a time,
-    so the span never enters the footprint and the rule returns the
-    largest power-of-two whole-page chunk within ``max_seq`` -- the JAX
-    rule's answer when nothing binds.
+    footprint (``flash_decode.page_smem_bytes``: the instance that runs
+    the model's dtype) against the shared memory budget the page was
+    tuned under: the chunk is the largest power-of-two multiple of the
+    page size (a whole number of pages) whose footprint still fits,
+    capped at ``max_seq``.  On Hopper the kernels tile query rows across
+    blocks (16 rows a block in bf16, 4 in fp32), so the span never
+    enters the footprint and the rule returns the largest power-of-two
+    whole-page chunk within ``max_seq`` -- the JAX rule's answer when
+    nothing binds.
     """
     from repro_torch.core.hopper_adapter import default_smem_budget
-    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
-                                                  smem_bytes_required)
+    from repro_torch.kernels.flash_decode import page_smem_bytes
     kv_bytes = (cfg.kv_cache_dtype or cfg.dtype).itemsize
-    fits = smem_bytes_required(page_size, ROWS_PER_BLOCK, cfg.head_dim,
-                               cfg.dtype.itemsize, kv_bytes) \
-        <= default_smem_budget()
+    fits = page_smem_bytes(page_size, cfg.head_dim, cfg.dtype.itemsize,
+                           kv_bytes) <= default_smem_budget()
     chunk = min(page_size, max_seq)
     while fits and chunk * 2 <= max_seq:
         chunk *= 2

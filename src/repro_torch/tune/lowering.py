@@ -63,7 +63,8 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
     over its segment-major grid).  The quantized keys price their
     narrow operand at one byte (the int8 weight tile, the fp8 pages of
     ``flash_decode.smem_bytes_required``), and an int8 weight tile's bn
-    must be a whole number of 16-byte copies.  The conv
+    must be a whole number of 16-byte copies.  A decode page is priced
+    by the instance that runs (``flash_decode.page_smem_bytes``).  The conv
     keys: row 12's footprint and accumulator (``"conv2d"``, and
     ``"conv2d_dgrad"``, which runs it), row 13's for ``"conv2d_wgrad"``,
     each with the spec's stride."""
@@ -89,16 +90,15 @@ def fits_smem(spec: OpSpec, tiles: tuple[int, ...], budget: int,
         bm, bk, bn = tiles
         return qkv_fits(spec.dims[0], bm, bk, bn, spec.dims[3],
                         spec.itemsize, budget, target, Nkv=spec.dims[1])
-    from repro_torch.kernels.flash_decode import (ROWS_PER_BLOCK,
-                                                  oproj_smem_bytes_required,
-                                                  smem_bytes_required)
+    from repro_torch.kernels.flash_decode import (oproj_smem_bytes_required,
+                                                  page_smem_bytes)
     (page,) = tiles
     if spec.op == "flash_decode_oproj":
         G, _, D, _ = spec.dims
         return oproj_smem_bytes_required(page, G, D, spec.itemsize) <= budget
     _, _, D = spec.dims
-    return smem_bytes_required(page, ROWS_PER_BLOCK, D, spec.itemsize,
-                               NARROW_WEIGHT_BYTES.get(spec.op)) <= budget
+    return page_smem_bytes(page, D, spec.itemsize,
+                           NARROW_WEIGHT_BYTES.get(spec.op)) <= budget
 
 
 def divides(spec: OpSpec, tiles: tuple[int, ...]) -> bool:

@@ -24,6 +24,8 @@ is held as a GEMM of C * Fh * Fw terms, weights scaled by that count **
 in either dtype).
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
                                                      flash_attention_bwd_ref)
-from repro_torch.kernels.flash_decode import (flash_decode,
+from repro_torch.core.hopper_adapter import default_smem_budget
+from repro_torch.kernels.flash_decode import (MAX_CLUSTER, decode_smem_bytes,
+                                              flash_decode,
                                               flash_decode_fp8,
                                               flash_decode_oproj,
                                               largest_page,
@@ -91,6 +95,33 @@ def paged_case(dev, dtype, q_span, lengths, *, hkv=8, g=4, d=128, page=64,
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def split_counts(q, k_pages, n_blocks):
+    """Every split count a bf16 launch at these shapes may take: 1 to the
+    most (``n_blocks``, and the cluster limit: 16 where two blocks share
+    an SM, else 8); the fp32 instance takes none (its one block a row
+    block)."""
+    if q.dtype != torch.bfloat16:
+        return []
+    page, d = k_pages.shape[1], q.shape[3]
+    two = decode_smem_bytes(page, d, k_pages.element_size()) \
+        <= default_smem_budget()
+    return list(range(1, min(n_blocks, MAX_CLUSTER if two else 8) + 1))
+
+
+def hold_splits(fn, args, ref, dtype, **kw):
+    """``fn`` at every split count of :func:`split_counts` (the wrapper's
+    ``decode_grid`` patched to give it) against ``ref``, each launch
+    recorded as the tensor-core instance, repeats bit-equal."""
+    from repro_torch.kernels import flash_decode as FD
+    q, k_pages, bt = args[0], args[1], args[-2]
+    for s in split_counts(q, k_pages, bt.shape[1]):
+        with mock.patch.object(FD, "decode_grid", lambda *a: (s, s, 0)):
+            out = fn(*args, **kw)
+            assert fn.instance == ("mma", s)
+            assert torch.equal(out, fn(*args, **kw)), s
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q_span,lengths", [
     (1, [1, 17, 64, 130, 300, 512]),        # decode; 1 sits in page 0
@@ -99,6 +130,8 @@ def paged_case(dev, dtype, q_span, lengths, *, hkv=8, g=4, d=128, page=64,
 @pytest.mark.parametrize("window,cap", [(None, None), (37, 30.0)])
 def test_flash_decode_matches_plain(dev, dtype, q_span, lengths, window,
                                     cap):
+    """The model's split count, then every count from 1 to the most
+    (bf16): repeats bit-equal, each against the plain version."""
     args = paged_case(dev, dtype, q_span, lengths)
     before = flash_decode.launches
     out = flash_decode(*args, window=window, logit_cap=cap, q_span=q_span)
@@ -107,6 +140,26 @@ def test_flash_decode_matches_plain(dev, dtype, q_span, lengths, window,
     ref = paged_attention_ref(*args, window=window, logit_cap=cap,
                               q_span=q_span)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    hold_splits(flash_decode, args, ref, dtype, window=window,
+                logit_cap=cap, q_span=q_span)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_decode_long_rows_reload_the_page_table(dev, dtype, window):
+    """Rows of 300 pages (page 16, 4,800 keys): a run longer than the
+    128 page indices a block holds reloads them between ring steps, and
+    with a window the run starts past them; decode and a 4-position
+    span, every split count (bf16), repeats bit-equal."""
+    for q_span in (1, 4):
+        args = paged_case(dev, dtype, q_span, [4797, 2000, 9], hkv=2, g=4,
+                          page=16, n_blocks=300, seed=q_span)
+        kw = dict(window=window, q_span=q_span)
+        out = flash_decode(*args, **kw)
+        assert torch.equal(out, flash_decode(*args, **kw))
+        ref = paged_attention_ref(*args, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        hold_splits(flash_decode, args, ref, dtype, **kw)
 
 
 # b, sq, skv, hq, hkv, d, causal, window, cap: the first six the serving
@@ -208,9 +261,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("page", [16, 48, 128])
 @pytest.mark.parametrize("q_span", [1, 64])
 def test_flash_decode_page_is_the_tile(dev, dtype, page, q_span):
-    """The kernel stages one page per step: any page launches, including
-    one that is no multiple of 32 keys and one past 48 KB of tiles, up
-    to the largest that fits the card (fp32: 111 keys, so 128 -> 111)."""
+    """The kernels stage whole pages: any page launches, including one
+    that is no multiple of 32 keys and one past 48 KB of tiles, up to
+    the largest that fits the card (fp32: 111 keys, so 128 -> 111), at
+    every split count (bf16)."""
     page = min(page, largest_page(128, dtype.itemsize, torch.cuda
                                   .get_device_properties(dev)
                                   .shared_memory_per_block_optin))
@@ -222,6 +276,7 @@ def test_flash_decode_page_is_the_tile(dev, dtype, page, q_span):
     assert flash_decode.launches == before + 1
     ref = paged_attention_ref(*args, q_span=q_span)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    hold_splits(flash_decode, args, ref, dtype, q_span=q_span)
 
 
 def gemm_case(dev, dtype, m, n, k, seed=0):
@@ -511,7 +566,8 @@ def test_int8_matmul_fused_matches_plain(dev, dtype, epi, m, n, k, tiles):
 def test_flash_decode_fp8_matches_plain(dev, dtype, q_span, lengths, page,
                                         window, cap, unit):
     """fp8 pages (a page of 200 keys fits only at one byte), unit and
-    non-unit per-head scales; two launches agree bit for bit."""
+    non-unit per-head scales; two launches agree bit for bit, and in
+    bf16 at every split count."""
     q, kp, vp, bt, ln = paged_case(dev, torch.float32, q_span, lengths,
                                    page=page, n_blocks=-(-512 // page),
                                    seed=page + q_span)
@@ -530,6 +586,8 @@ def test_flash_decode_fp8_matches_plain(dev, dtype, q_span, lengths, page,
     assert out.dtype == dtype and torch.equal(out, again)
     ref = paged_attention_fp8_ref(q, kp8, vp8, ks, vs, bt, ln, **kw)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    hold_splits(flash_decode_fp8, (q, kp8, vp8, ks, vs, bt, ln), ref, dtype,
+                **kw)
 
 
 def test_quantized_kernels_refuse_what_they_cannot_take(dev):
