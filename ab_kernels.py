@@ -38,7 +38,8 @@ import time
 
 def outputs(page: int) -> list[dict]:
     """Digests of outputs that must not change: ``flash_decode_oproj``
-    (bf16, fp32; phase 8's decode shape and a windowed, capped one),
+    (bf16, fp32; phase 8's decode shape, a windowed, capped one and 20
+    batch rows, the 16-row groups),
     ``flash_attention`` in fp32 (the CUDA-core instance) and bf16, and
     ``flash_decode`` in fp32 (``attn_rows``), decode and chunk."""
     import hashlib
@@ -60,6 +61,10 @@ def outputs(page: int) -> list[dict]:
         dn = str(dtype).split(".")[1]
         args = C.oproj_inputs(dev, dtype, lens, seed=8, page=page)
         digest(f"flash_decode_oproj {dn}", FD.flash_decode_oproj(*args))
+        wide = C.oproj_inputs(dev, dtype, lens * 2 + lens[:4], seed=20,
+                              page=page)
+        digest(f"flash_decode_oproj {dn} B=20",
+               FD.flash_decode_oproj(*wide))
         digest(f"flash_decode_oproj {dn} window 37 cap 30",
                FD.flash_decode_oproj(*args, window=37, logit_cap=30.0))
         q, k, v = C.dense_inputs(dev, dtype, 2, 200, 200, seed=3)

@@ -52,6 +52,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    adapter emits for the Table-4 layers and AlexNet conv1 under the
    three conv keys, repeats bit-equal, every bf16 wgrad on its ``mma``
    instance;
+   the new archs' shapes: rows 1 and 2 at G 16 and 48 (Hkv 2 and 1,
+   every split count at B 1), row 3 there at B 1, 8 and 20 in head
+   chunks, row 4 at D 256 with window and cap and at G 48, row 11 at
+   (M, 128, 6144, 48) and (M, 256, 4096, 16) in bf16 and fp32;
 4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
    fused, with wide weights and under w8fp8 (int8 projections, fp8
    pages): the kernel path and the plain path give identical greedy
@@ -89,13 +93,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bf16, remat "block", 4 x 512 tokens for 8 steps, on the default path
    and with blocked kernels: finite losses, step 0 held against the
    plain path, step times, tokens/s and a profiled step whose attention
-   kernels (and, blocked, dgrad kernels) are the tensor-core ones;
+   kernels (and, blocked, dgrad kernels) are the tensor-core ones; then
+   3 steps under remat "dots": step 0's loss within 2% of "block"'s,
+   step time and peak memory beside it, fewer ``aten.mm`` calls a step;
 12. the paper's conv path at full Table-4 size: Conv1..Conv5 and AlexNet
    conv1 (stride 4) at batch 2 in bf16 through ``ops.conv2d`` forward and
    ``torch.autograd.grad`` (dX through row 12, dW through row 13), tiles
    from the model under the three conv keys, held against the fp32
    oracles, launch counts asserted, every wgrad on row 13's tensor-core
    instance, the plain path launching nothing;
+14. the static-batch engine (``DecodeEngine``, dense caches, a ring
+   buffer for local layers): (a) granite-3-8b, glm4-9b, granite-34b and
+   gemma2-9b at full width, 2 layers, fp32 (gemma2's 4064-token prompts
+   and 40 new tokens wrap its ring at step 32): the kernel path, the
+   plain path
+   and the paged engine give identical greedy tokens, unfused and fused,
+   with the launch counts of each; (b) gemma2-9b at full width and depth
+   in bf16, 4 prompts of 4000 tokens and 128 new ones through both
+   engines (the ring wraps at step 96): tok/s, peak memory, a profiled
+   window each, the prefill logits against the plain path and a step
+   past the wrap (dense cache against paged) within 5% of max |logit|;
+   (c) glm4-9b and granite-34b at full width, 4 layers, bf16, both
+   engines unfused and fused, each path's prefill logits and paged
+   decode logits (row 3 at G 16 and 48 when fused) against the plain
+   path within 5% of max |logit|;
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
@@ -107,7 +128,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of the bound, ratio to ``torch.matmul``, two and three stages);
    rows 12 and 13 at Conv1 and Conv4 with TFLOP/s and share of the bound
    (row 13 with its instance and ratio to ``conv2d_weight``); row 12's
-   forward and dgrad and row 13 at all six conv layers.
+   forward and dgrad and row 13 at all six conv layers; rows 3 and 11 at
+   glm4-9b's and granite-34b's decode (row 11 in fp32 and bf16) with
+   their grids and shared memory.
 
 The last two lines are a JSON ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -345,6 +368,88 @@ def phase3_oproj_wide(dev) -> None:
     torch.cuda.synchronize()
 
 
+def phase3_wide_groups(dev) -> None:
+    """The new archs' shapes, each kernel against its plain version:
+    rows 1 and 2 at glm4-9b's (Hkv 2, G 16) and granite-34b's (Hkv 1, G
+    48) grouping, decode and a 16-token chunk, window and cap, every split
+    count at B 1 (bf16); row 3 there at B 1, 8 and 20 (its query heads in
+    ``oproj_chunks`` partials), fp32 and bf16, repeats bit-equal, the
+    slice counters left zero; row 4 at gemma2-9b's D 256 with its window
+    (4096, here 300) and cap (50), at glm4-9b's (Hq 32, Hkv 2) and at
+    granite-34b's G 48; row 11 at (M, 128, 6144,
+    48) and (M, 256, 4096, 16), bf16 and fp32 (bn below 64), under every
+    adapter tile."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    bf16 = torch.bfloat16
+    for dtype in (torch.float32, bf16):
+        dn = str(dtype).split(".")[1]
+        for hkv, g, e in ((2, 16, 4096), (1, 48, 6144)):
+            for q_span in (1, 16):
+                for window, cap in ((None, None), (37, 50.0)):
+                    lengths = [1, 33, 130, 300]
+                    args = paged_inputs(dev, dtype, lengths, q_span,
+                                        seed=g + q_span, hkv=hkv, g=g,
+                                        page=32, n_blocks=16)
+                    kw = dict(window=window, logit_cap=cap, q_span=q_span)
+                    out = FD.flash_decode(*args, **kw)
+                    assert torch.equal(out, FD.flash_decode(*args, **kw))
+                    ref = FD.paged_attention_ref(*args, **kw)
+                    tag = (f"flash_decode {dn} Hkv={hkv} G={g} "
+                           f"q_span={q_span} window={window} cap={cap}")
+                    compare(tag, out, ref, dn)
+                    f8 = fp8_paged(paged_inputs(
+                        dev, torch.float32, lengths, q_span, seed=g,
+                        hkv=hkv, g=g, page=32, n_blocks=16), seed=g,
+                        unit=window is None)
+                    f8 = (f8[0].to(dtype),) + f8[1:]
+                    out8 = FD.flash_decode_fp8(*f8, **kw)
+                    assert torch.equal(out8, FD.flash_decode_fp8(*f8, **kw))
+                    ref8 = FD.paged_attention_fp8_ref(*f8, **kw)
+                    compare(tag.replace("flash_decode", "flash_decode_fp8"),
+                            out8, ref8, dn)
+                    if dtype == bf16 and window is None:
+                        one = paged_inputs(dev, bf16, [450], q_span, seed=g,
+                                           hkv=hkv, g=g, page=32,
+                                           n_blocks=16)
+                        check_decode_splits(
+                            FD.flash_decode, one,
+                            FD.paged_attention_ref(*one, **kw), dn,
+                            f"{tag} B=1", **kw)
+            for b in (1, 8, 20):
+                lengths = [(97 * i + 13) % 512 + 1 for i in range(b)]
+                args = oproj_inputs(dev, dtype, lengths, seed=g + b,
+                                    page=32, hkv=hkv, g=g, e=e)
+                for window, cap in ((None, None), (37, 50.0)):
+                    kw = dict(window=window, logit_cap=cap)
+                    out = FD.flash_decode_oproj(*args, **kw)
+                    assert torch.equal(out, FD.flash_decode_oproj(*args,
+                                                                  **kw))
+                    assert not FD._COUNTERS[out.device].any()
+                    smem = FD.oproj_smem_bytes_required(
+                        32, g, 128, dtype.itemsize, batch=b)
+                    chunks = FD.oproj_chunks(g, 128, b)
+                    compare(f"flash_decode_oproj {dn} B={b} Hkv={hkv} G={g} "
+                            f"E={e} window={window} cap={cap} (grid "
+                            f"{FD.oproj_grid(hkv, e, chunks)} x {hkv} x "
+                            f"{chunks} chunks of "
+                            f"{FD.oproj_head_chunk(g, 128, b)}, {smem} B "
+                            f"shared)", out,
+                            FD.paged_attention_oproj_ref(*args, **kw), dn,
+                            gemm_atol(dn, hkv * g * 128))
+        for b, sq, hq, hkv, d, window, cap in (
+                (1, 400, 16, 8, 256, 300, 50.0), (2, 130, 16, 8, 256, None,
+                                                  50.0),
+                (1, 300, 32, 2, 128, None, None),
+                (1, 200, 48, 1, 128, None, None)):
+            check_attention_edge(dev, dtype, b, sq, sq, hq, hkv, d, True,
+                                 window, cap)
+        for m in (1, 8, 24, 512):
+            for nkv, k, g in ((128, 6144, 48), (256, 4096, 16)):
+                check_qkv(dev, dtype, m, nkv, k, g)
+    torch.cuda.synchronize()
+
+
 def phase3_kernels(dev) -> None:
     import torch
     from repro_torch.configs import get_config
@@ -531,6 +636,13 @@ def phase3_decode_grid(dev) -> None:
 GRANITE_MLP = (("gate", 12800, 4096, dict(act="silu")),
                ("up", 12800, 4096, dict(mul=True)),
                ("down", 4096, 12800, dict(residual=True)))
+# the dense archs' MLPs beside granite's (phase 14 runs them fused):
+# glm4-9b's SwiGLU and granite-34b's GELU MLP
+WIDE_MLP = (("glm4-9b gate", 13696, 4096, dict(act="silu")),
+            ("glm4-9b up", 13696, 4096, dict(mul=True)),
+            ("glm4-9b down", 4096, 13696, dict(residual=True)),
+            ("granite-34b up", 24576, 6144, dict(act="gelu")),
+            ("granite-34b down", 6144, 24576, dict(residual=True)))
 
 
 def epilogue(dev, dtype, m, n, seed, act="none", scale=False, bias=False,
@@ -586,7 +698,7 @@ def check_row9(dev, dtype, w8: bool) -> int:
     path of a wide W); granite's gate, up and down projections with the
     model's epilogues at ``ROW9_M`` under every tile the adapter emits
     for the ``"matmul_fused"`` (``"matmul_fused_w8"``) key, repeats
-    bit-equal.  bf16 asserts the instance: ``"mma_t"`` at M <= 16,
+    bit-equal, and for a wide W ``WIDE_MLP``'s the same way.  bf16 asserts the instance: ``"mma_t"`` at M <= 16,
     ``"mma"`` above.  Returns the adapter tiles checked."""
     import itertools
 
@@ -661,7 +773,7 @@ def check_row9(dev, dtype, w8: bool) -> int:
     # the model gives each projection
     n_tiles = 0
     for m in ROW9_M:
-        for name, n, k, epi_kw in GRANITE_MLP:
+        for name, n, k, epi_kw in GRANITE_MLP + (() if w8 else WIDE_MLP):
             a, w, scale = operands(m, n, k, seed=m + n + k)
             _, kw = epi(m, n, m, **epi_kw)
             ref = MF.matmul_fused_ref(a, w, scale, **kw)
@@ -1170,13 +1282,13 @@ def prefill_logits(cfg, params, prompt, **kw):
     return logits.float()
 
 
-def hold_logits(name: str, got, want) -> dict:
+def hold_logits(name: str, got, want, what: str = "prefill logits") -> dict:
     """``got`` against ``want`` within 5% of the largest |logit|."""
     import torch
     dev_ = float((got - want).abs().max())
     scale = float(want.abs().max())
     same = int(got.argmax()) == int(want.argmax())
-    print(f"  full-width prefill logits, {name}: max |diff| {dev_:.3e} of "
+    print(f"  full-width {what}, {name}: max |diff| {dev_:.3e} of "
           f"max |logit| {scale:.3e} (bound 5%); argmax "
           f"{'agrees' if same else 'differs'}")
     assert torch.isfinite(got).all() and dev_ <= 0.05 * scale and same, \
@@ -1512,23 +1624,35 @@ def kernel_kind(name: str) -> str:
 
 def profile_window(engine, prompts, n_tokens: int) -> dict:
     """Device busy share and device time by kernel kind over a short run
-    traced by torch.profiler (whose overhead inflates the host time, so
-    the busy share is a lower bound of the untraced one)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    of the paged engine traced by torch.profiler (whose overhead inflates
+    the host time, so the busy share is a lower bound of the untraced
+    one).  Only the card's activity is traced: the host's op events cost
+    more than the run to collect (phase 5's window on the H100: 169 s of
+    processing for an 8.7 s run) and no number here reads them."""
     for p in prompts:
         engine.submit(p, n_tokens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         while engine.has_work:
             engine.step()
+    return profile_call(run, f"{len(prompts)} requests x {n_tokens} tokens")
+
+
+def profile_call(run, what: str) -> dict:
+    """``profile_window``'s trace and summary of one call of ``run``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    post = time.perf_counter() - t0 - wall   # stopping and averaging it
     kinds: dict[str, float] = {}
     top = []
-    for e in prof.key_averages():
+    for e in averages:
         if not str(e.device_type).endswith("CUDA"):
             continue
         us = float(getattr(e, "self_device_time_total", 0.0))
@@ -1538,9 +1662,10 @@ def profile_window(engine, prompts, n_tokens: int) -> dict:
     out = {"wall_s": wall, "device_busy_s": busy,
            "busy_share": busy / wall,
            "device_ms_by_kind": {k: v / 1e3 for k, v in sorted(kinds.items())}}
-    print(f"  profiled window ({len(prompts)} requests x {n_tokens} tokens): "
+    print(f"  profiled window ({what}): "
           f"wall {wall:.3f}s, device busy {busy:.3f}s "
-          f"({100 * busy / wall:.1f}%), by kind (ms) "
+          f"({100 * busy / wall:.1f}%), the trace's own processing "
+          f"{post:.1f}s, by kind (ms) "
           f"{ {k: round(v, 3) for k, v in out['device_ms_by_kind'].items()} }")
     for us, count, name in sorted(top, reverse=True)[:8]:
         print(f"    {us / 1e3:9.3f} ms  x{count:<6} {name}")
@@ -1947,6 +2072,399 @@ def time_quant_kernels(cfg, lens, launches9, launches9b,
     return rows
 
 
+# ------------------------------ the dense engine -----------------------------
+
+DENSE_ARCHS = ("granite-3-8b", "glm4-9b", "granite-34b", "gemma2-9b")
+
+
+def dense_engine(cfg, params, max_seq: int, **kw):
+    """The static-batch engine on the card."""
+    from repro_torch.serve.engine import DecodeEngine, ServeConfig
+    return DecodeEngine(cfg, params, ServeConfig(max_seq=max_seq,
+                                                 device="cuda", **kw))
+
+
+def paged_engine(cfg, params, max_seq: int, batch: int, **kw):
+    """The paged engine with the model's page and chunk."""
+    from repro_torch.serve.engine import PagedEngine, PagedServeConfig
+    return PagedEngine(cfg, params, PagedServeConfig(
+        max_seq=max_seq, max_batch=batch, device="cuda", **kw))
+
+
+def dense_prompts(cfg, b: int, s0: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (b, s0), dtype=np.int32)
+
+
+def dense_launches(cfg, n_tokens: int, fuse: bool) -> dict:
+    """The static engine's launches for one ``generate``: row 4 once a
+    layer (the one prefill); under ``fuse`` row 11 once a layer a model
+    call (the prefill and n - 1 decode steps) and row 9 once a weight of
+    the MLP a layer a call; nothing else (decode attention is plain
+    PyTorch, as in JAX; ``wo`` is ``ops.linear``)."""
+    want = {"flash_attention": cfg.n_layers}
+    if fuse:
+        mats = 3 if cfg.mlp_kind == "swiglu" else 2
+        want["qkv_fused"] = cfg.n_layers * n_tokens
+        want["matmul_fused"] = mats * cfg.n_layers * n_tokens
+    return want
+
+
+def phase14_parity(seed: int, kernels: dict) -> dict:
+    """(a) Each dense arch at full width, 2 layers, fp32: the static
+    engine's kernel path against its plain path (``use_kernel=False``),
+    unfused and fused, and against the paged engine, token for token;
+    the launch counts of each.  gemma2-9b's prompts (4064 tokens, 40 new
+    ones) run its local layers' ring past the 4096 window."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype=torch.float32)
+        params = T.init_params(cfg, seed=seed, device="cuda")
+        ring = cfg.window is not None
+        b, s0, n, max_seq = (2, 4064, 40, 4224) if ring else (2, 300, 24,
+                                                              512)
+        prompts = dense_prompts(cfg, b, s0, seed)
+        res = {}
+        t0 = time.perf_counter()
+        for fuse in (False, True):
+            reset(kernels)
+            kern = dense_engine(cfg, params, max_seq,
+                                fuse=fuse).generate(prompts, n)
+            torch.cuda.synchronize()
+            launched = counts(kernels)
+            plain = dense_engine(cfg, params, max_seq, fuse=fuse,
+                                 use_kernel=False).generate(prompts, n)
+            assert counts(kernels) == launched, \
+                "the plain path launched a kernel"
+            want = dense_launches(cfg, n, fuse)
+            assert {k: v for k, v in launched.items() if v} == want, \
+                (arch, fuse, launched, want)
+            assert np.array_equal(kern, plain), (arch, fuse, kern, plain)
+            reset(kernels)
+            eng = paged_engine(cfg, params, max_seq, b, fuse=fuse)
+            paged = eng.generate(list(prompts), n)
+            torch.cuda.synchronize()
+            plaunch = {k: v for k, v in counts(kernels).items() if v}
+            decode = "flash_decode_oproj" if fuse else "flash_decode"
+            assert plaunch.get(decode, 0) > 0, (arch, fuse, plaunch)
+            assert np.array_equal(paged, kern), (arch, fuse, paged, kern)
+            print(f"  {arch} fuse={fuse}: {b} x {n} tokens from {s0}-token "
+                  f"prompts identical on the static kernel path, its plain "
+                  f"path and the paged engine (page {eng.page_size}, chunk "
+                  f"{eng.prefill_chunk}); static launches {want}, paged "
+                  f"{plaunch}; first tokens {kern[:, :4].tolist()}")
+            res["fused" if fuse else "unfused"] = {
+                "static_launches": want, "paged_launches": plaunch,
+                "page": eng.page_size}
+        print(f"  {arch}: {time.perf_counter() - t0:.1f}s")
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def teacher_forced_logits(cfg, params, prompt, tokens, max_seq: int):
+    """The logits of the last of ``tokens`` fed one by one after
+    ``prompt`` (1, S0): through the static engine's dense cache (its ring
+    for local layers; plain PyTorch attention) and through the paged
+    cache (``flash_decode``).  Returns (dense, paged), fp32."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_cache as KV
+    dev = torch.device("cuda")
+    s0 = prompt.shape[1]
+    tok = torch.from_numpy(prompt).to(dev)
+    feed = torch.from_numpy(np.asarray(tokens, np.int32)).to(dev)
+    with torch.no_grad():
+        _, cache = T.prefill(cfg, params, tok, max_seq=max_seq)
+        for i in range(len(tokens)):
+            dense, cache = T.decode_step(cfg, params, feed[i:i + 1], cache,
+                                         s0 + i)
+        del cache
+        page = KV.choose_page_size(cfg, max_seq)
+        nb = KV.num_blocks(max_seq, page)
+        pool = KV.init_paged_cache(cfg, nb + 1, page, dev)
+        pages = torch.arange(1, nb + 1, device=dev)
+        _, full = T.prefill(cfg, params, tok, max_seq=s0, full_kv=True)
+        KV.write_prefill(cfg, pool, full, pages, page)
+        del full
+        attn = KV.make_paged_attn_step(cfg, pages[None].int(), page)
+        pos = torch.tensor([s0], dtype=torch.int32, device=dev)
+        for i in range(len(tokens)):
+            paged, _ = T.decode_step(cfg, params, feed[i:i + 1], pool,
+                                     pos + i, attn)
+    return dense.float(), paged.float()
+
+
+def paged_logits(cfg, params, prompts, tokens, max_seq: int, fuse: bool,
+                 use_kernel: bool):
+    """The prefill logits of ``prompts`` (B, S0), and the logits of the
+    last of ``tokens`` (B, n) fed one step at a time through a paged
+    cache at the model's page, all under ``ops.fused_ops(fuse)`` (fused:
+    one-pass QKV, the MLP through ``matmul_fused``, single-token decode
+    through ``flash_decode_oproj``), on the kernel path or the plain one.
+    Returns (prefill, decode), fp32."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_cache as KV
+    dev = torch.device("cuda")
+    b, s0 = prompts.shape
+    tok = torch.from_numpy(prompts).to(dev)
+    feed = torch.from_numpy(np.asarray(tokens, np.int32)).to(dev)
+    page = KV.choose_page_size(cfg, max_seq, fused=fuse)
+    nb = KV.num_blocks(max_seq, page)
+    pages = torch.arange(1, b * nb + 1, device=dev).reshape(b, nb)
+    with torch.no_grad(), ops.fused_ops(fuse):
+        pre, full = T.prefill(cfg, params, tok, max_seq=s0, full_kv=True,
+                              use_kernel=use_kernel)
+        pool = KV.init_paged_cache(cfg, b * nb + 1, page, dev)
+        for r in range(b):
+            KV.write_prefill(cfg, pool, {"layers": [
+                {key: c[key][r:r + 1] for key in ("k", "v")}
+                for c in full["layers"]]}, pages[r], page)
+        del full
+        attn = KV.make_paged_attn_step(cfg, pages.int(), page,
+                                       use_kernel=use_kernel, fused=fuse)
+        pos = torch.full((b,), s0, dtype=torch.int32, device=dev)
+        for i in range(feed.shape[1]):
+            dec, _ = T.decode_step(cfg, params, feed[:, i], pool, pos + i,
+                                   attn, use_kernel=use_kernel)
+    return pre.float(), dec.float()
+
+
+def serve_timed(label: str, run, n_tokens: int) -> dict:
+    """``run()`` on a synchronised clock with the peak memory reset
+    before: tok/s and peak GB."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {label}: {n_tokens} tokens in {wall:.3f}s = "
+          f"{n_tokens / wall:.1f} tok/s, peak {peak:.2f} GB")
+    return {"out": out, "wall_s": wall, "tok_per_s": n_tokens / wall,
+            "peak_gb": peak}
+
+
+def phase14_gemma2(seed: int, kernels: dict) -> dict:
+    """(b) gemma2-9b at full width and depth in bf16: the static and the
+    paged engine serve the same 4 prompts of 4000 tokens, 128 new ones
+    each (max_seq 4352), so the local layers' ring wraps at position
+    4096.  The prefill logits of the kernel path against the plain path,
+    and the logits of a step past the wrap (position 4099, the static
+    engine's tokens fed to both) of the dense cache against the paged
+    one, each within 5% of max |logit| with the argmax equal; tok/s, peak
+    memory and a profiled window of each engine."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("gemma2-9b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {cfg.param_count() * 2 / 1e9:.2f} GB of bf16 weights "
+          f"({cfg.n_layers} layers) in {time.perf_counter() - t0:.1f}s")
+    b, s0, n, max_seq = 4, 4000, 128, 4352
+    prompts = dense_prompts(cfg, b, s0, seed)
+    t0 = time.perf_counter()
+    dense_engine(cfg, params, max_seq).generate(prompts, 2)      # warm
+    paged_engine(cfg, params, max_seq, b).generate(list(prompts), 2)
+    print(f"  warm runs (the same shapes, 2 tokens): "
+          f"{time.perf_counter() - t0:.1f}s")
+    out = {}
+    reset(kernels)
+    st = serve_timed("static engine", lambda: dense_engine(
+        cfg, params, max_seq).generate(prompts, n), b * n)
+    out["static_launches"] = {k: v for k, v in counts(kernels).items() if v}
+    assert out["static_launches"] == dense_launches(cfg, n, False), \
+        out["static_launches"]
+    reset(kernels)
+    eng = paged_engine(cfg, params, max_seq, b)
+    pg = serve_timed(f"paged engine (page {eng.page_size}, chunk "
+                     f"{eng.prefill_chunk})",
+                     lambda: eng.generate(list(prompts), n), b * n)
+    out["paged_launches"] = {k: v for k, v in counts(kernels).items() if v}
+    assert out["paged_launches"].get("flash_decode", 0) > 0, \
+        out["paged_launches"]
+    same = float((st["out"] == pg["out"]).mean())
+    print(f"  the engines' tokens agree at {100 * same:.1f}% of "
+          f"{b * n} (bf16: the dense cache's plain attention and the paged "
+          f"kernel round differently); static launches "
+          f"{out['static_launches']}, paged {out['paged_launches']}")
+    for key, r in (("static", st), ("paged", pg)):
+        out[key] = {k: v for k, v in r.items() if k != "out"}
+    out["token_agreement"] = same
+    tok = torch.from_numpy(prompts[:1]).cuda()
+    with torch.no_grad():
+        got = T.prefill(cfg, params, tok, max_seq=s0)[0].float()
+        want = T.prefill(cfg, params, tok, max_seq=s0,
+                         use_kernel=False)[0].float()
+    out["prefill_logits"] = hold_logits(
+        "gemma2-9b, 4000 tokens, kernels vs plain", got, want)
+    t0 = time.perf_counter()
+    dense, paged = teacher_forced_logits(cfg, params, prompts[:1],
+                                         st["out"][0, :100], max_seq)
+    out["wrap_logits"] = hold_logits(
+        "gemma2-9b at position 4099 (past the ring's wrap), paged vs "
+        "dense cache", paged, dense, what="decode logits")
+    print(f"  the prefill and teacher-forced logits: "
+          f"{time.perf_counter() - t0:.1f}s")
+    out["static"]["profile"] = profile_call(
+        lambda: dense_engine(cfg, params, max_seq).generate(prompts, 16),
+        f"static engine, {b} x 16 tokens after {s0}-token prompts")
+    out["paged"]["profile"] = profile_window(
+        paged_engine(cfg, params, max_seq, b), list(prompts), 16)
+    hold_decode_core(out["paged"]["profile"], "flash_decode")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase14_wide(seed: int, kernels: dict) -> dict:
+    """(c) glm4-9b and granite-34b at full width, depth cut to 4 layers
+    (granite-34b's 88 would hold 67 GB), bf16: 8 prompts of 256 tokens,
+    32 new ones each, max_seq 512, through the static and the paged
+    engine, unfused and fused: tok/s, peak memory, launches (the fused
+    paged decode runs row 3 at G 16 and 48).  Each path, unfused and
+    fused, held against its plain path on the same inputs: the 8
+    prompts' prefill logits and the paged decode logits at position 259
+    (the static engine's first 4 tokens fed), each within 5% of max
+    |logit| with the argmax equal; the plain path launches nothing."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in ("glm4-9b", "granite-34b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=4)
+        params = T.init_params(cfg, seed=seed, device="cuda")
+        prompts = dense_prompts(cfg, 8, 256, seed)
+        res = {}
+        for fuse in (False, True):
+            tag = "fused" if fuse else "unfused"
+            # warm at the run's shapes: the fused keys' tiles are searched
+            # at first use
+            dense_engine(cfg, params, 512, fuse=fuse).generate(prompts, 2)
+            paged_engine(cfg, params, 512, 8, fuse=fuse).generate(
+                list(prompts), 2)
+            reset(kernels)
+            st = serve_timed(f"{arch} {tag} static engine",
+                             lambda: dense_engine(cfg, params, 512,
+                                                  fuse=fuse).generate(
+                                 prompts, 32), 8 * 32)
+            slaunch = {k: v for k, v in counts(kernels).items() if v}
+            assert slaunch == dense_launches(cfg, 32, fuse), slaunch
+            eng = paged_engine(cfg, params, 512, 8, fuse=fuse)
+            reset(kernels)
+            pg = serve_timed(f"{arch} {tag} paged engine (page "
+                             f"{eng.page_size}, chunk {eng.prefill_chunk})",
+                             lambda: eng.generate(list(prompts), 32), 8 * 32)
+            plaunch = {k: v for k, v in counts(kernels).items() if v}
+            decode = "flash_decode_oproj" if fuse else "flash_decode"
+            assert plaunch.get(decode, 0) > 0, plaunch
+            same = float((st["out"] == pg["out"]).mean())
+            print(f"    launches: static {slaunch}, paged {plaunch}; tokens "
+                  f"agree at {100 * same:.1f}%")
+            fed = st["out"][:, :4]
+            reset(kernels)
+            got = paged_logits(cfg, params, prompts, fed, 512, fuse, True)
+            torch.cuda.synchronize()
+            held = counts(kernels)
+            assert held[decode] >= cfg.n_layers * 4, held
+            want = paged_logits(cfg, params, prompts, fed, 512, fuse, False)
+            assert counts(kernels) == held, "the plain path launched a kernel"
+            res[tag] = {"static": {k: v for k, v in st.items() if k != "out"},
+                        "paged": {k: v for k, v in pg.items() if k != "out"},
+                        "static_launches": slaunch, "paged_launches": plaunch,
+                        "token_agreement": same, "page": eng.page_size,
+                        "prefill_logits": hold_logits(
+                            f"{arch} {tag}, 8 x 256 tokens, kernels vs "
+                            f"plain", got[0], want[0]),
+                        "decode_logits": hold_logits(
+                            f"{arch} {tag} paged decode at position 259, "
+                            f"kernels vs plain", got[1], want[1],
+                            what="decode logits")}
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_wide_kernels() -> dict:
+    """Rows 3 and 11 at the wide groups they were repaired for, beside
+    their bound and plain versions: row 3 at glm4-9b's decode (B 8, Hkv
+    2, G 16, E 4096) and granite-34b's (B 8, Hkv 1, G 48, E 6144), page
+    32, bf16, lengths 100..450, with the grid, head chunks and shared
+    memory; row 11 at (8, 256, 4096, 16) and (8, 128, 6144, 48), fp32 on
+    the tile core (bn below 64) and bf16, the model's tiles, with the
+    joint width, column blocks and shared memory."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import qkv_fused as QF
+    from repro_torch.tune import best_schedule
+    dev = torch.device("cuda")
+    out = {}
+    lens = [100 + 50 * i for i in range(8)]
+    for arch, hkv, g, e in (("glm4-9b", 2, 16, 4096),
+                            ("granite-34b", 1, 48, 6144)):
+        args = oproj_inputs(dev, torch.bfloat16, lens, seed=g, page=32,
+                            hkv=hkv, g=g, e=e)
+        hq, d, n_keys = hkv * g, 128, sum(lens)
+        b_ms, b_by = bound(2 * n_keys * hkv * d * 2 + args[5].numel() * 2
+                           + (args[0].numel() + 8 * e) * 2,
+                           4 * n_keys * hq * d + 2 * 8 * hq * d * e)
+        row = {"ms": time_ms(lambda: FD.flash_decode_oproj(*args)),
+               "plain_ms": time_ms(
+                   lambda: FD.paged_attention_oproj_ref(*args)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "grid": FD.oproj_grid(hkv, e, FD.oproj_chunks(g, d, 8)),
+               "head_chunk": FD.oproj_head_chunk(g, d, 8),
+               "chunks": FD.oproj_chunks(g, d, 8),
+               "smem": FD.oproj_smem_bytes_required(32, g, d, batch=8)}
+        out[f"flash_decode_oproj {arch}"] = row
+        print(f"  flash_decode_oproj {arch} decode B=8 Hkv={hkv} G={g} "
+              f"D=128 E={e} page=32 bf16: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"grid (slice, slices, cluster) {row['grid']} x {hkv} heads "
+              f"x {row['chunks']} chunks of {row['head_chunk']} query "
+              f"heads, {row['smem']} B shared")
+    for dims in ((8, 256, 4096, 16), (8, 128, 6144, 48)):
+        m, nkv, k, g = dims
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            x, wq, wk, wv = qkv_inputs(dev, dtype, m, nkv, k, g, seed=g)
+            bm, bk, bn = best_schedule("qkv_fused", dims, dn).tiles
+            cols = (g + 2) * nkv
+            b_ms, b_by = bound((m * k + k * cols + m * cols)
+                               * dtype.itemsize, 2 * m * k * cols)
+            row = {"ms": time_ms(lambda: QF.qkv_fused(x, wq, wk, wv, bm=bm,
+                                                      bk=bk, bn=bn)),
+                   "plain_ms": time_ms(lambda: QF.qkv_fused_ref(x, wq, wk,
+                                                                wv)),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "tiles": (bm, bk, bn),
+                   "smem": QF.smem_bytes_required(bm, bk, bn, g,
+                                                  dtype.itemsize, m=m),
+                   "blocks": (-(-nkv // bn) if dtype == torch.float32
+                              else QF.blocks(nkv, g, bn))}
+            out[f"qkv_fused {dims} {dn}"] = row
+            joint = (f" of {(g + 2) * bn} joint columns"
+                     if dtype == torch.float32 else "")
+            print(f"  qkv_fused M={m} Nkv={nkv} K={k} G={g} {dn}: tiles "
+                  f"{(bm, bk, bn)}, {row['blocks']} column blocks{joint}, "
+                  f"{row['smem']} B shared: {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"the bf16 peak)")
+    return out
+
+
 # ------------------------------ training ------------------------------------
 
 
@@ -2171,7 +2689,10 @@ def train_profile(step_fn, params, state, batch) -> dict:
         wall = time.perf_counter() - t0
     kinds: dict[str, float] = {}
     top = []
+    mm = 0
     for e in prof.key_averages():
+        if e.key in ("aten::mm", "aten::addmm"):
+            mm += e.count
         if not str(e.device_type).endswith("CUDA"):
             continue
         us = float(getattr(e, "self_device_time_total", 0.0))
@@ -2180,15 +2701,36 @@ def train_profile(step_fn, params, state, batch) -> dict:
         top.append((us, e.count, e.key[:90]))
     busy = sum(kinds.values()) / 1e6
     out = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+           "mm_calls": mm,
            "device_ms_by_kind": {k: v / 1e3 for k, v in sorted(kinds.items())},
            "top": [{"ms": us / 1e3, "count": c, "name": n}
                    for us, c, n in sorted(top, reverse=True)[:8]]}
     print(f"  profiled step: wall {wall:.3f}s, device busy {busy:.3f}s "
-          f"({100 * busy / wall:.1f}%), by kind (ms) "
+          f"({100 * busy / wall:.1f}%), aten::mm calls {mm}, by kind (ms) "
           f"{ {k: round(v, 3) for k, v in out['device_ms_by_kind'].items()} }")
     for t in out["top"]:
         print(f"    {t['ms']:9.3f} ms  x{t['count']:<6} {t['name']}")
     return out
+
+
+def mm_dispatched(step_fn, params, state, batch) -> int:
+    """The ``aten.mm``/``aten.addmm`` calls one train step runs, counted
+    by a dispatch mode (under remat "dots" a recomputed product's saved
+    output is returned before it reaches this mode)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in ops
+            return func(*args, **(kwargs or {}))
+    with Count() as count:
+        _, _, m = step_fn(params, state, batch)
+        float(m["loss"])
+    return count.n
 
 
 def train_kind(name: str) -> str:
@@ -2215,7 +2757,11 @@ def phase11_train(seed: int, kernels: dict) -> dict:
     remat "block", batch 4 x seq 512 from ``make_batch``, 8 steps at
     lr 3e-3 with ``launch.train``'s warmup: on the default path (cuBLAS
     projections, flash-attention kernels forward and backward) and with
-    blocked kernels; step 0 of each held against the plain path."""
+    blocked kernels; step 0 of each held against the plain path.  Then
+    3 steps of the default path under remat "dots" (the batch-free
+    products' outputs saved): step 0's loss within 2% of "block"'s, step
+    time and peak memory beside it, and the profiled step's ``aten::mm``
+    calls fewer than "block"'s (no projection recomputed)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch
@@ -2247,14 +2793,17 @@ def phase11_train(seed: int, kernels: dict) -> dict:
           f"{float(plain['grad_norm']):.5f}")
     out = {"params": n_par, "plain_step0": {k: float(plain[k]) for k in
                                             ("loss", "grad_norm")}}
-    for name, blocked in (("default", False), ("blocked", True)):
+    for name, blocked, remat, n_steps in (("default", False, "block", steps),
+                                          ("blocked", True, "block", steps),
+                                          ("dots", False, "dots", 3)):
         tc = loop.TrainConfig(opt=opt, blocked_linear=blocked)
-        step_fn = loop.make_train_step(cfg, tc)
+        step_fn = loop.make_train_step(
+            dataclasses.replace(cfg, remat=remat), tc)
         params, state = params0, adamw.init_state(params0)
         torch.cuda.reset_peak_memory_stats()
         reset(kernels)
         hist = []
-        for s, batch in enumerate(batches):
+        for s, batch in enumerate(batches[:n_steps]):
             t0 = time.perf_counter()
             params, state, m = step_fn(params, state, batch)
             loss = float(m["loss"])
@@ -2283,11 +2832,13 @@ def phase11_train(seed: int, kernels: dict) -> dict:
         steady = hist[1:]
         out[name] = {
             "history": hist, "peak_gb": peak,
-            "launches_per_step": {k: launched[k] / steps for k in want},
+            "launches_per_step": {k: launched[k] / n_steps for k in want},
             "step_ms_median": statistics.median(h["ms"] for h in steady),
             "tokens_per_s_median": statistics.median(
                 h["tokens_per_s"] for h in steady),
-            "profile": train_profile(step_fn, params, state, batches[0])}
+            "profile": train_profile(step_fn, params, state, batches[0]),
+            "mm_dispatched": mm_dispatched(step_fn, params, state,
+                                           batches[0])}
         # bf16 attention ran the tensor-core instances, and only those
         kinds = out[name]["profile"]["device_ms_by_kind"]
         assert kinds.get("flash_attention (mma)", 0) > 0 and kinds.get(
@@ -2318,6 +2869,18 @@ def phase11_train(seed: int, kernels: dict) -> dict:
               f"{out[name]['launches_per_step']}")
         del params, state
         torch.cuda.empty_cache()
+    dots, block = out["dots"], out["default"]
+    rel = abs(dots["history"][0]["loss"] - block["history"][0]["loss"]) / \
+        abs(block["history"][0]["loss"])
+    mm = (dots["mm_dispatched"], block["mm_dispatched"])
+    print(f"  remat dots against block (default path): step 0 loss rel "
+          f"{rel:.2e} (bound 2e-2); median step {dots['step_ms_median']:.1f}"
+          f" vs {block['step_ms_median']:.1f} ms; peak "
+          f"{dots['peak_gb']:.2f} vs {block['peak_gb']:.2f} GB; aten::mm "
+          f"calls a step that run {mm[0]} vs {mm[1]} (the profiler's "
+          f"aten::mm events {dots['profile']['mm_calls']} vs "
+          f"{block['profile']['mm_calls']})")
+    assert rel <= 2e-2 and mm[0] < mm[1], (rel, mm)
     del params0
     torch.cuda.empty_cache()
     return out
@@ -3250,8 +3813,8 @@ def main() -> int:
 
     phase("phase 3: kernels vs plain versions")
     for check in (phase3_kernels, phase3_decode_grid, phase3_head_dims,
-                  phase3_oproj_wide, phase3_fused, phase3_quant,
-                  phase3_train, phase3_conv):
+                  phase3_oproj_wide, phase3_wide_groups, phase3_fused,
+                  phase3_quant, phase3_train, phase3_conv):
         t0 = time.perf_counter()
         check(torch.device("cuda"))
         print(f"  {check.__name__}: {time.perf_counter() - t0:.1f}s")
@@ -3317,6 +3880,13 @@ def main() -> int:
           "and AlexNet conv1, batch 2, bf16, ops.conv2d forward and "
           "backward")
     conv = phase12_conv(kernels)
+    phase("phase 14: the static-batch engine (dense caches, a ring for "
+          "local layers): (a) parity at full width, 2 layers, fp32, four "
+          "archs; (b) gemma2-9b full depth, bf16, past the ring's wrap; "
+          "(c) glm4-9b and granite-34b, 4 layers, bf16")
+    dense = {"parity": phase14_parity(args.seed, kernels),
+             "gemma2-9b": phase14_gemma2(args.seed, kernels),
+             "wide": phase14_wide(args.seed, kernels)}
     phase("phase 7: tune_op matmul (8, 4096, 4096), qkv_fused "
           "(8, 1024, 4096, 4) and conv2d (Conv4), bfloat16")
     tuned = phase7_tune()
@@ -3329,6 +3899,7 @@ def main() -> int:
     rows += time_train_kernels(cfg, train)
     train["attention"] = time_attention_passes()
     rows += time_conv_kernels(conv)
+    dense["kernels"] = time_wide_kernels()
     for name, t in time_conv_layers().items():
         conv[name].setdefault("timing", {})["layers"] = t
     print("serve " + json.dumps({"prompt_lens": [int(n) for n in lens],
@@ -3336,6 +3907,7 @@ def main() -> int:
                                  "fused": fused, "w8fp8": quant,
                                  "w8fp8_fused": quant_fused,
                                  "tune": tuned}))
+    print("dense " + json.dumps(dense))
     print("train " + json.dumps({"parity": parity, "full_width": train,
                                  "reduced": reduced}))
     print("conv " + json.dumps(conv))

@@ -274,7 +274,8 @@ def oproj_target(fns: dict, args, reps: int) -> None:
                                            page=args.page)
     b, hkv, g, d = q.shape
     e = wo.shape[2]
-    width, n_slices, cluster = FD.oproj_grid(hkv, e)
+    chunks = FD.oproj_chunks(g, d, b)
+    width, n_slices, cluster = FD.oproj_grid(hkv, e, chunks)
     ref = FD.paged_attention_oproj_ref(q, kp, vp, bt, ln, wo)
     print(f"flash_decode_oproj: decode B={b} Hkv={hkv} G={g} D={d} E={e} "
           f"page={args.page} lengths={dec_lens}; {n_slices} slices of "
@@ -285,7 +286,8 @@ def oproj_target(fns: dict, args, reps: int) -> None:
         entry.argtypes = FD._OPROJ_ARGTYPES
         entry.restype = ctypes.c_int
         counters = torch.zeros(n_slices, dtype=torch.int32, device=dev)
-        ws = torch.empty((hkv, b, e), dtype=torch.float32, device=dev)
+        ws = torch.empty((hkv * chunks, b, e), dtype=torch.float32,
+                         device=dev)
         out = torch.zeros((b, e), dtype=bf16, device=dev)
 
         def call(entry=entry, counters=counters, ws=ws, out=out,
@@ -294,7 +296,7 @@ def oproj_target(fns: dict, args, reps: int) -> None:
                         bt.data_ptr(), ln.data_ptr(), wo.data_ptr(),
                         out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
                         b, hkv, g, args.page, bt.shape[1], e, width,
-                        cluster, 0, 0.0,
+                        cluster, FD.oproj_head_chunk(g, d, b), 0, 0.0,
                         torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
@@ -314,7 +316,7 @@ def oproj_target(fns: dict, args, reps: int) -> None:
         for rep in range(reps):
             for mc, blocks in choices if rep % 2 == 0 else choices[::-1]:
                 FD.MAX_CLUSTER, FD.OPROJ_BLOCKS = mc, blocks
-                grid = FD.oproj_grid(hkv, e)
+                grid = FD.oproj_grid(hkv, e, chunks)
                 C.compare(f"flash_decode_oproj grid {grid}",
                           FD.flash_decode_oproj(q, kp, vp, bt, ln, wo), ref,
                           "bfloat16", C.gemm_atol("bfloat16", 4096))

@@ -1,9 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, and
 the paper's own benchmark layers.
 
-Only the archs the port runs are registered.  Every other arch of
-``repro.configs`` raises with a pointer to ``ROADMAP.md`` (queue 1, item
-11: the other arch families).
+Only the archs the port runs are registered: the four dense attention
+decoders (granite-3-8b, glm4-9b, granite-34b, gemma2-9b), each module's
+``CONFIG`` and ``reduced()`` equal to ``repro.configs``'.  Every other
+arch of ``repro.configs`` raises with a pointer to ``ROADMAP.md`` (queue
+1, item 11: the other arch families).
 
 ``PAPER_LAYERS`` are the paper's Table-4 problems (the five conv layers
 in output-space X, Y and the two fully connected ones as batch-16
@@ -12,12 +14,15 @@ GEMMs), equal to ``repro.configs.PAPER_LAYERS``.
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_8b
+from repro_torch.configs import gemma2_9b, glm4_9b, granite_3_8b, granite_34b
 from repro_torch.core.loopnest import Problem
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "granite-3-8b": granite_3_8b,
+    "glm4-9b": glm4_9b,
+    "granite-34b": granite_34b,
+    "gemma2-9b": gemma2_9b,
 }
 
 ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

@@ -986,6 +986,7 @@ def flash_decode_tile_candidates(groups: int, seq_kv: int, head_dim: int,
 # the thinnest k step the fused QKV search falls back to: a whole number
 # of 16-byte vectors in fp32 and in bf16
 _MIN_BK = 16
+_MIN_QKV_BN = 4   # fp32: one 16-byte column group of the GEMM tile core
 
 
 def qkv_fits(M: int, bm: int, bk: int, bn: int, groups: int,
@@ -1051,8 +1052,12 @@ def qkv_fused_tile_candidates(M: int, Nkv: int, K: int, groups: int,
     ``nk_mult`` down to ``_MIN_BK`` -- until the joint (bm, (G+2)*bn)
     tile fits the GEMM core's shared memory and accumulator cap: at G = 4
     the cap allows bn <= 128, and only with bm <= 16; at granite's widths
-    no tile with bk >= 64 fits the two-block budget.  A seed tile (JAX's)
-    joins the search's list.
+    no tile with bk >= 64 fits the two-block budget.  Where the joint
+    width alone overflows the cap (more than 1,024 columns: G + 2 > 16
+    at bn 64), bn goes below ``nk_mult``, to a divisor of Nkv in
+    multiples of 4 (one 16-byte fp32 column group): glm4-9b's G 16 takes
+    bn 32 (576 columns), granite-34b's G 48 bn 16 (800).  A seed tile
+    (JAX's) joins the search's list.
     """
     from repro_torch.kernels.matmul_fused import MMA_T_ROWS
     from repro_torch.kernels.qkv_fused import (accumulators_per_thread,
@@ -1091,6 +1096,8 @@ def qkv_fused_tile_candidates(M: int, Nkv: int, K: int, groups: int,
                 bm = _shrink(M, bm, mm)
             elif bn > mk:
                 bn = _shrink(Nkv, bn, mk)
+            elif not regs_ok and bn > _MIN_QKV_BN:
+                bn = _shrink(Nkv, bn, _MIN_QKV_BN)
             elif bk > mk:
                 bk = _shrink(K, bk, mk)
             elif bk > _MIN_BK:

@@ -12,14 +12,15 @@
 // (1, E) fp32 accumulator resident across them, with each head's whole
 // (G*D, E) wo slab in VMEM -- so the slabs were read once per batch row.
 // Here wo is read once a call (per group of up to kMaxRows batch rows):
-//  * the grid is (E / S slices, Hkv): block (s, h) owns columns [s S,
-//    s S + S) of head h's slab, for every batch row.  The blocks of a
-//    head's slices form thread-block clusters of c blocks (c, the largest
-//    divisor of the slice count up to kernels/flash_decode.py::
-//    MAX_CLUSTER, is an argument; above 8 the non-portable size is
-//    allowed).  S (128 or 256 columns, 1 or 2 a thread) is picked on the
-//    host so that Hkv * E / S blocks fill the card (granite: 16 slices of
-//    256, 128 blocks);
+//  * the grid is (E / S slices, Hkv x n_chunks): block (s, y) owns
+//    columns [s S, s S + S) of the rows of head h = y / n_chunks's slab
+//    that belong to its query-head chunk y % n_chunks (below), for every
+//    batch row.  The blocks of a (head, chunk)'s slices form thread-block
+//    clusters of c blocks (c, the largest divisor of the slice count up
+//    to kernels/flash_decode.py::MAX_CLUSTER, is an argument; above 8 the
+//    non-portable size is allowed).  S (128 or 256 columns, 1 or 2 a
+//    thread) is picked on the host so that the grid's blocks fill the
+//    card (granite: 16 slices of 256 x 8 heads, 128 blocks);
 //  * attention, once per (batch row, head) and cluster, with the
 //    streaming-softmax core of flash_decode (attn_rows.cuh, unchanged;
 //    the KV tile is the page).  Where the cluster has at least as many
@@ -45,20 +46,31 @@
 //    tensor cores would round to bf16, and at 8 rows the FMA rate per
 //    staged byte is several times what HBM feeds;
 //  * the head sum: each block writes its (rows, S) fp32 partial into the
-//    workspace ws (Hkv, B, E); the last block of a slice to arrive (one
-//    atomic counter per (group, slice), the only atomic) sums h = 0, 1,
-//    ..., Hkv - 1 in that order, writes out in q's dtype and resets the
-//    counter to zero.  The order is fixed, so repeats agree bit for bit.
-//    The counters start at zero (the wrapper owns them) and every launch
-//    leaves them so.
+//    workspace ws (Hkv x n_chunks, B, E); the last block of a slice to
+//    arrive (one atomic counter per (group, slice), the only atomic) sums
+//    the partials y = 0, 1, ... in that order (head by head, chunk by
+//    chunk), writes out in q's dtype and resets the counter to zero.  The
+//    order is fixed, so repeats agree bit for bit.  The counters start at
+//    zero (the wrapper owns them) and every launch leaves them so.
 // head_dim: any multiple of 16 up to 256, at the smallest compiled width
 // at least it (attn_rows.cuh); the attention rows are kept at head_dim.
-// Shared memory: max(the attention tiles, the wo ring) + the rows,
-// whatever B (groups of kMaxRows rows), E and Hkv.
+// Wide query groups (glm4-9b's G 16, granite-34b's G 48 at head_dim 128:
+// 6,144 fp32 attention rows a batch row) run in head chunks of gc query
+// heads (an argument: the most whose rows fit the two-block budget beside
+// the ring, a multiple of kWarps, or G where all fit, one chunk;
+// kernels/flash_decode.py::oproj_head_chunk): chunk j's blocks run the
+// attention of query heads [j gc, j gc + gc), their gather and the slab's
+// rows [j gc hd, (j gc + gc) hd) into a partial of their own, so the
+// chunks run side by side on the grid and the head sum adds them.  Chunks
+// cost no K/V reads, since attn_rows re-reads a row's pages for every
+// kWarps query rows anyway.
+// Shared memory: max(the attention tiles, the wo ring) + one chunk's
+// rows, whatever B (groups of kMaxRows rows), E and Hkv.
 //
 // Bound on this card: bytes.  wo, Hq * D * E elements, once (granite:
 // 33.5 MB, 0.010 ms at 3.35 TB/s), the visible K and V once per cluster,
-// and the fp32 workspace (Hkv * B * E * 4 bytes) out and back.  What is
+// and the fp32 workspace (Hkv * n_chunks * B * E * 4 bytes) out and
+// back.  What is
 // left over the bound is the attention's: its longest row runs page by
 // page before the slab can be multiplied.
 #include <cooperative_groups.h>
@@ -74,31 +86,38 @@ constexpr int kStages = 4;           // wo steps in the ring
 constexpr int kStageBytes = 16384;   // one wo step
 constexpr int kMaxCluster = 16;      // blocks of a cluster (non-portable)
 
-// row t, dim d of batch-row slot `slot` of the group: [G*hd][RB] fp32
+// row t (of the chunk from query head c0), dim d of batch-row slot
+// `slot` of the group: [gc*hd][RB] fp32
 struct RowsToSmem {
   float* x;
-  int hd, rb, slot;
+  int hd, rb, slot, c0;
   __device__ void put(int t, int d, float v) const {
-    x[(t * hd + d) * rb + slot] = v;
+    x[((t - c0) * hd + d) * rb + slot] = v;
   }
 };
 
-// one split's rows, [G*hd] fp32, each normalised by its own sum
+// one split's rows of the chunk, [gc*hd] fp32, each normalised by its
+// own sum
 struct PartToSmem {
   float* part;
-  int hd;
-  __device__ void put(int t, int d, float v) const { part[t * hd + d] = v; }
+  int hd, c0;
+  __device__ void put(int t, int d, float v) const {
+    part[(t - c0) * hd + d] = v;
+  }
 };
 
 // The keys [start, end) of a decode row as attn_rows sees a whole row:
 // positions relative to start, so its causal and window masks and its
-// page-aligned tiles hold unchanged; each query row's running max and
-// sum go to stats [G][2] for the merge.
+// page-aligned tiles hold unchanged; query rows below t_end (the head
+// chunk's last), each one's running max and sum to stats [gc][2] (from
+// query head c0) for the merge (a whole row, [0, its length), leaves
+// them unread).
 struct SplitLayout {
   attn::PagedLayout base;
   int start, end;
   float* stats;
-  __host__ __device__ int rows() const { return base.rows(); }
+  int c0, t_end;
+  __host__ __device__ int rows() const { return t_end; }
   __device__ int64_t q_row(int b, int hk, int t) const {
     return base.q_row(b, hk, t);
   }
@@ -108,8 +127,8 @@ struct SplitLayout {
     return base.k_row(b, hk, kpos + start);
   }
   __device__ void row_stats(int, int, int t, float m, float l) const {
-    stats[2 * t] = m;
-    stats[2 * t + 1] = l;
+    stats[2 * (t - c0)] = m;
+    stats[2 * (t - c0) + 1] = l;
   }
 };
 
@@ -138,8 +157,9 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
   f[1] = __uint_as_float(u & 0xffff0000u);
 }
 
-// the attention tiles (overlaid by the wo ring) and the rows
-// (kernels/flash_decode.py::oproj_smem_bytes_required)
+// the attention tiles (overlaid by the wo ring) and one head chunk's
+// rows (kernels/flash_decode.py::oproj_smem_bytes_required; groups: the
+// chunk's query heads)
 template <typename T>
 __host__ __device__ constexpr size_t tiles_bytes(int page, int D) {
   return attn::smem_bytes<T>(page, D) > size_t(kStages) * kStageBytes
@@ -162,7 +182,7 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ wo, T* __restrict__ out,
                     float* __restrict__ ws, unsigned* __restrict__ counters,
-                    attn::Mask mk, int batch, int e_dim) {
+                    attn::Mask mk, int batch, int e_dim, int head_chunk) {
   if constexpr (kExact) mk.hd = D;
   constexpr int S = attn::kThreads * CPT;
   constexpr int V = 16 / sizeof(T);                  // elements a copy
@@ -172,15 +192,21 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int c = static_cast<int>(cluster.num_blocks());
-  const int groups = lay.gtot, hd = mk.hd, n_rows = groups * hd;
-  const int s = blockIdx.x, h = blockIdx.y;
+  const int groups = lay.gtot, hd = mk.hd, gc = head_chunk;
+  const int n_chunks = (groups + gc - 1) / gc;
+  // partial y: head h, query heads [c0, c0 + gn) and the slab's rows
+  // [c0 hd, (c0 + gn) hd)
+  const int s = blockIdx.x, y = blockIdx.y, h = y / n_chunks;
+  const int c0 = (y - h * n_chunks) * gc, gn = min(gc, groups - c0);
+  const int n_rows = gn * hd;
   const int e0 = s * S, e_ok = min(S, e_dim - e0);
   T* const ring = reinterpret_cast<T*>(smem);        // [kStages][KR][S]
   float* const x = reinterpret_cast<float*>(
-      smem + tiles_bytes<T>(lay.page, D));           // [n_rows][RB]
-  float* const part = x + n_rows * RB;               // a split's [n_rows]
-  float* const stats = part + n_rows;                // its [G][2] m, l
-  const T* const w = wo + int64_t(h) * n_rows * e_dim + e0;
+      smem + tiles_bytes<T>(lay.page, D));           // [gc*hd][RB]
+  float* const part = x + gc * hd * RB;              // a split's [gc*hd]
+  float* const stats = part + gc * hd;               // its [gc][2] m, l
+  const T* const w =
+      wo + (int64_t(h) * groups + c0) * hd * e_dim + e0;
   const int col = threadIdx.x * CPT;                 // of the slice
 
   // the slab, KR rows a step, kStages - 1 steps ahead
@@ -202,19 +228,22 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
 
   for (int g0 = 0; g0 < batch; g0 += RB) {
     const int rows = min(RB, batch - g0);
-    // the attention of the group's rows, head h.  With at least as many
-    // blocks as rows (one), block p < rows * n_split runs split p %
-    // n_split of row p / n_split into its part: the row's visible pages
-    // in n_split page-aligned runs (n_split = c / rows; at 1, the whole
-    // row).  With fewer, block r runs rows r, r + c, ... into its x.
+    // With at least as many blocks as rows (one), block p < rows *
+    // n_split runs split p % n_split of row p / n_split into its part:
+    // the row's visible pages in n_split page-aligned runs (n_split = c /
+    // rows; at 1, the whole row).  With fewer, block r runs rows r, r +
+    // c, ... into its x.
     const bool one = c >= rows;
     const int n_split = one ? c / rows : 1;
+
     if (!one) {
       for (int r = rank; r < rows; r += c) {
-        const RowsToSmem sink{x, hd, RB, r};
-        for (int t0 = 0; t0 < groups; t0 += attn::kWarps) {
-          attn::attn_rows<T, D>(lay, q, k, v, mk, lay.page, g0 + r, h, t0,
-                                smem, sink);
+        const SplitLayout whole{lay, 0, lay.lengths[g0 + r], stats, c0,
+                                c0 + gn};
+        const RowsToSmem sink{x, hd, RB, r, c0};
+        for (int t0 = c0; t0 < c0 + gn; t0 += attn::kWarps) {
+          attn::attn_rows<T, D>(whole, q, k, v, mk, lay.page, g0 + r, h,
+                                t0, smem, sink);
           __syncthreads();  // the tiles may be reused
         }
       }
@@ -225,10 +254,11 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
           mk.window > 0 ? max(0, len - mk.window) : 0, len, page, n_split,
           sp);
       const int start = run.first * page;
-      const SplitLayout split{lay, start, max(start, min(len, run.end *
-                                                      page)), stats};
-      const PartToSmem sink{part, hd};
-      for (int t0 = 0; t0 < groups; t0 += attn::kWarps) {
+      const SplitLayout split{lay, start,
+                              max(start, min(len, run.end * page)), stats,
+                              c0, c0 + gn};
+      const PartToSmem sink{part, hd, c0};
+      for (int t0 = c0; t0 < c0 + gn; t0 += attn::kWarps) {
         attn::attn_rows<T, D>(split, q, k, v, mk, page, b, h, t0, smem,
                               sink);
         __syncthreads();  // the tiles may be reused
@@ -242,9 +272,9 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
       // order, each weighted by its sum at the common max over the sum
       // of the weights (the weights first, into the free tiles region),
       // then 4 dims at a time, kU loads in flight a thread
-      float* const wts = reinterpret_cast<float*>(smem);  // [rows][n][G]
-      for (int i = threadIdx.x; i < rows * groups; i += attn::kThreads) {
-        const int b = i / groups, t = i - b * groups;
+      float* const wts = reinterpret_cast<float*>(smem);  // [rows][n][gn]
+      for (int i = threadIdx.x; i < rows * gn; i += attn::kThreads) {
+        const int b = i / gn, t = i - b * gn;
         float mx = attn::kNegInf, den = 0.f;
         for (int j = 0; j < n_split; ++j) {
           const float2 st = *reinterpret_cast<const float2*>(
@@ -255,12 +285,12 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
           const float2 st = *reinterpret_cast<const float2*>(
               cluster.map_shared_rank(stats, b * n_split + j) + 2 * t);
           const float wt = st.y > 0.f ? st.y * expf(st.x - mx) : 0.f;
-          wts[(b * n_split + j) * groups + t] = wt;
+          wts[(b * n_split + j) * gn + t] = wt;
           den += wt;
         }
         for (int j = 0; j < n_split; ++j)
-          wts[(b * n_split + j) * groups + t] =
-              den > 0.f ? wts[(b * n_split + j) * groups + t] / den : 0.f;
+          wts[(b * n_split + j) * gn + t] =
+              den > 0.f ? wts[(b * n_split + j) * gn + t] / den : 0.f;
       }
       __syncthreads();
       constexpr int kU = 4;
@@ -280,7 +310,7 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
             if (idx < n && b < rows) {
               pj[u] = *reinterpret_cast<const float4*>(
                   cluster.map_shared_rank(part, b * n_split + j) + i);
-              wt[u] = wts[(b * n_split + j) * groups + i / hd];
+              wt[u] = wts[(b * n_split + j) * gn + i / hd];
             }
           }
 #pragma unroll
@@ -314,21 +344,19 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
         for (int u = 0; u < U; ++u) {
           const int i = i0 + u * attn::kThreads, slot = i % RB;
           got[u] = i >= n || slot >= rows ? 0.f
-                   : slot % c == rank     ? x[i]
-                                   : cluster.map_shared_rank(x, slot % c)[i];
+                   : slot % c == rank
+                       ? x[i]
+                       : cluster.map_shared_rank(x, slot % c)[i];
         }
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          if (i0 + u * attn::kThreads < n) x[i0 + u * attn::kThreads] = got[u];
+          if (i0 + u * attn::kThreads < n)
+            x[i0 + u * attn::kThreads] = got[u];
       }
     }
     cluster.sync();  // no block overwrites or leaves rows another reads
 
-    float acc[RB][CPT];
-#pragma unroll
-    for (int b = 0; b < RB; ++b)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[b][j] = 0.f;
+    float acc[RB][CPT] = {};
     for (int p = 0; p < kStages - 1; ++p) stage(p);
     for (int step = 0; step < steps; ++step) {
       attn::cp_async_wait<kStages - 2>();
@@ -344,7 +372,8 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
         float xv[RB];
 #pragma unroll
         for (int b = 0; b < RB; b += 4) {
-          const float4 u = *reinterpret_cast<const float4*>(xs + r * RB + b);
+          const float4 u =
+              *reinterpret_cast<const float4*>(xs + r * RB + b);
           xv[b] = u.x; xv[b + 1] = u.y; xv[b + 2] = u.z; xv[b + 3] = u.w;
         }
 #pragma unroll
@@ -355,15 +384,15 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
       }
     }
     attn::cp_async_wait<0>();
-
-    // the partial, then the slice's head sum by the last block to arrive
+    float* const mine = ws + (int64_t(y) * batch + g0) * e_dim + e0 + col;
 #pragma unroll
     for (int b = 0; b < RB; ++b)
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
         if (b < rows && col + j < e_ok)
-          ws[(int64_t(h) * batch + g0 + b) * e_dim + e0 + col + j] =
-              acc[b][j];
+          mine[int64_t(b) * e_dim + j] = acc[b][j];
+
+    // then the slice's head sum by the last block to arrive
     __threadfence();  // this thread's partial is visible before the count
     __syncthreads();  // ... every thread's
     unsigned* const cnt = counters + (g0 / RB) * gridDim.x + s;
@@ -371,25 +400,25 @@ decode_oproj_kernel(attn::PagedLayout lay, const T* __restrict__ q,
     if (threadIdx.x == 0) last = atomicAdd(cnt, 1u) == gridDim.y - 1;
     if (__syncthreads_or(last)) {  // every partial of the slice is in ws
       __threadfence();
-      // 4 columns a thread, kHeads heads' loads in flight at once; the
-      // heads are added in order
-      constexpr int kHeads = 4;
-      const int n4 = rows * (e_ok / 4), hkv = int(gridDim.y);
+      // 4 columns a thread, kParts partials' loads in flight at once;
+      // the partials are added in order
+      constexpr int kParts = 4;
+      const int n4 = rows * (e_ok / 4), n_part = int(gridDim.y);
       for (int i = threadIdx.x; i < n4; i += attn::kThreads) {
         const int b = i / (e_ok / 4), e = e0 + (i - b * (e_ok / 4)) * 4;
         const float* src = ws + int64_t(g0 + b) * e_dim + e;
-        const int64_t hs = int64_t(batch) * e_dim;   // one head's stride
+        const int64_t hs = int64_t(batch) * e_dim;   // one partial's
         float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int h0 = 0; h0 < hkv; h0 += kHeads) {
-          float4 p[kHeads];
+        for (int p0 = 0; p0 < n_part; p0 += kParts) {
+          float4 p[kParts];
 #pragma unroll
-          for (int j = 0; j < kHeads; ++j)
-            if (h0 + j < hkv)
+          for (int j = 0; j < kParts; ++j)
+            if (p0 + j < n_part)
               p[j] = __ldcg(reinterpret_cast<const float4*>(
-                  src + (h0 + j) * hs));
+                  src + (p0 + j) * hs));
 #pragma unroll
-          for (int j = 0; j < kHeads; ++j)
-            if (h0 + j < hkv) {
+          for (int j = 0; j < kParts; ++j)
+            if (p0 + j < n_part) {
               sum.x += p[j].x; sum.y += p[j].y;
               sum.z += p[j].z; sum.w += p[j].w;
             }
@@ -410,12 +439,12 @@ template <typename T, int D, int RB, int CPT>
 int launch(const attn::PagedLayout& lay, int batch, const void* q,
            const void* k, const void* v, const void* wo, void* out,
            float* ws, unsigned* counters, attn::Mask mk, int e_dim,
-           int cluster, cudaStream_t stream) {
+           int cluster, int head_chunk, cudaStream_t stream) {
   constexpr int S = attn::kThreads * CPT;
   const int n_slices = (e_dim + S - 1) / S;
   if (cluster < 1 || cluster > kMaxCluster || n_slices % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<T>(lay.page, D, mk.hd, lay.gtot, RB);
+  const size_t smem = smem_bytes<T>(lay.page, D, mk.hd, head_chunk, RB);
   const bool exact = mk.hd == D;
   auto kernel = exact ? decode_oproj_kernel<T, D, RB, CPT, true>
                       : decode_oproj_kernel<T, D, RB, CPT, false>;
@@ -436,7 +465,8 @@ int launch(const attn::PagedLayout& lay, int batch, const void* q,
     wide_cluster[exact] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_slices, lay.hkv, 1);
+  cfg.gridDim = dim3(n_slices, lay.hkv * ((lay.gtot + head_chunk - 1) /
+                                           head_chunk), 1);
   cfg.blockDim = dim3(attn::kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -450,7 +480,7 @@ int launch(const attn::PagedLayout& lay, int batch, const void* q,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, lay, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(wo),
-      static_cast<T*>(out), ws, counters, mk, batch, e_dim);
+      static_cast<T*>(out), ws, counters, mk, batch, e_dim, head_chunk);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -459,20 +489,22 @@ template <typename T, int D>
 int dispatch(const attn::PagedLayout& lay, int batch, const void* q,
              const void* k, const void* v, const void* wo, void* out,
              float* ws, unsigned* counters, attn::Mask mk, int e_dim,
-             int slice, int cluster, cudaStream_t stream) {
+             int slice, int cluster, int gc, cudaStream_t stream) {
   const bool wide = batch > 8;
   if (slice == attn::kThreads)
     return wide ? launch<T, D, kMaxRows, 1>(lay, batch, q, k, v, wo, out, ws,
-                                            counters, mk, e_dim, cluster,
+                                            counters, mk, e_dim, cluster, gc,
                                             stream)
                 : launch<T, D, 8, 1>(lay, batch, q, k, v, wo, out, ws,
-                                     counters, mk, e_dim, cluster, stream);
+                                     counters, mk, e_dim, cluster, gc,
+                                     stream);
   if (slice == 2 * attn::kThreads)
     return wide ? launch<T, D, kMaxRows, 2>(lay, batch, q, k, v, wo, out, ws,
-                                            counters, mk, e_dim, cluster,
+                                            counters, mk, e_dim, cluster, gc,
                                             stream)
                 : launch<T, D, 8, 2>(lay, batch, q, k, v, wo, out, ws,
-                                     counters, mk, e_dim, cluster, stream);
+                                     counters, mk, e_dim, cluster, gc,
+                                     stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -480,8 +512,10 @@ int dispatch(const attn::PagedLayout& lay, int batch, const void* q,
 
 // dtype: 0 = float32, 1 = bfloat16.  slice: E columns a block owns (128
 // or 256); cluster: blocks of one cluster (divides the slice count, at
-// most 16).  ws: an fp32 (Hkv, B, E) workspace; counters: ceil(B / RB) *
-// ceil(E / slice) zeros, left zero.  Returns a cudaError_t.
+// most 16); head_chunk: query heads of one partial (1 to groups).  ws:
+// an fp32 (Hkv * ceil(groups / head_chunk), B, E) workspace; counters:
+// ceil(B / RB) * ceil(E / slice) zeros, left zero.  Returns a
+// cudaError_t.
 extern "C" int flash_decode_oproj_fwd(int dtype, int head_dim, const void* q,
                                       const void* k_pages,
                                       const void* v_pages,
@@ -490,9 +524,11 @@ extern "C" int flash_decode_oproj_fwd(int dtype, int head_dim, const void* q,
                                       void* out, void* ws, void* counters,
                                       int batch, int hkv, int groups,
                                       int page, int n_blocks, int e_dim,
-                                      int slice, int cluster, int window,
+                                      int slice, int cluster,
+                                      int head_chunk, int window,
                                       float logit_cap, void* stream) {
   if (batch <= 0 || hkv <= 0 || groups <= 0 || page <= 0 || e_dim <= 0 ||
+      head_chunk < 1 || head_chunk > groups ||
       e_dim % (16 / (dtype ? 2 : 4)) || (dtype != 0 && dtype != 1) ||
       ws == nullptr || counters == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -507,9 +543,10 @@ extern "C" int flash_decode_oproj_fwd(int dtype, int head_dim, const void* q,
     constexpr int D = decltype(d)::value;
     if (dtype == 0)
       return dispatch<float, D>(lay, batch, q, k_pages, v_pages, wo, out, w,
-                                cnt, mk, e_dim, slice, cluster, s);
+                                cnt, mk, e_dim, slice, cluster, head_chunk,
+                                s);
     return dispatch<__nv_bfloat16, D>(lay, batch, q, k_pages, v_pages, wo,
                                       out, w, cnt, mk, e_dim, slice, cluster,
-                                      s);
+                                      head_chunk, s);
   });
 }

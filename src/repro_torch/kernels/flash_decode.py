@@ -33,13 +33,14 @@ columns past D staged as zeros (``flash_attention.instance_head_dim``).
 :func:`flash_decode_oproj` is the single-token form with the output
 projection fused in (port of ``flash_decode.flash_decode_oproj``, kernel
 row 3; ``csrc/flash_decode_oproj.cu``): q (B, Hkv, G, D) and ``wo``
-(Hkv, G*D, E) give (B, E).  Its grid is E slices by kv heads
-(:func:`oproj_grid`): the blocks of a head's slices form clusters that
-run the head's attention once per batch row and share the rows through
-distributed shared memory, each block streams its slice of the head's
-``wo`` once for every batch row, and the last block of a slice sums the
-heads' fp32 partials in head order, so the attention output never
-reaches HBM.  Its page is priced by :func:`oproj_smem_bytes_required`
+(Hkv, G*D, E) give (B, E).  Its grid is E slices by kv heads and their
+query-head chunks (:func:`oproj_grid`, :func:`oproj_chunks`): the
+blocks of a (head, chunk)'s slices form clusters that run its attention
+once per batch row and share the rows through distributed shared
+memory, each block streams its slice of the chunk's ``wo`` rows once for
+every batch row, and the last block of a slice sums the fp32 partials
+head by head, chunk by chunk, so the attention output never reaches
+HBM.  Its page is priced by :func:`oproj_smem_bytes_required`
 under the ``"flash_decode_oproj"`` key.
 
 :func:`flash_decode_fp8` is the same attention over ``float8_e4m3fn``
@@ -188,7 +189,7 @@ OPROJ_MAX_ROWS = 16        # batch rows of one group (csrc: kMaxRows)
 OPROJ_WO_STAGES = 4        # wo steps in the ring (csrc: kStages)
 OPROJ_STEP_BYTES = 16384   # one wo step (csrc: kStageBytes)
 OPROJ_SLICES = (128, 256)  # E columns a block owns: 1 or 2 a thread
-OPROJ_BLOCKS = 128         # the grid's least Hkv * E / slice
+OPROJ_BLOCKS = 128         # the grid's least partials * E / slice
 MAX_CLUSTER = 16           # blocks of one cluster (H100's non-portable 16)
 
 
@@ -198,6 +199,33 @@ def oproj_group_rows(batch: int | None = None) -> int:
     return 8 if batch is not None and batch <= 8 else OPROJ_MAX_ROWS
 
 
+def oproj_head_chunk(groups: int, head_dim: int,
+                     batch: int | None = None) -> int:
+    """Query heads of one partial of ``flash_decode_oproj`` (csrc
+    ``head_chunk``): all G where their fp32 rows in
+    :func:`oproj_group_rows` slots, one split's rows and their (max, sum)
+    pairs fit the two-block budget beside the wo ring; else the most
+    that do, in whole warps' worth of rows (:data:`ROWS_PER_BLOCK`), at
+    least one warp's.  granite-3-8b (G 4, D 128): 4, one pass; glm4-9b
+    (G 16) and granite-34b (G 48) at D 128: 8 up to 8 batch rows, else
+    4.  From shapes only, like the grid."""
+    per_head = (oproj_group_rows(batch) + 1) * head_dim * 4 + 2 * 4
+    room = default_smem_budget() - OPROJ_WO_STAGES * OPROJ_STEP_BYTES
+    fit = room // per_head
+    if fit >= groups:
+        return groups
+    return max(fit - fit % ROWS_PER_BLOCK, min(groups, ROWS_PER_BLOCK))
+
+
+def oproj_chunks(groups: int, head_dim: int,
+                 batch: int | None = None) -> int:
+    """Query-head chunks of a kv head in ``flash_decode_oproj``
+    (:func:`oproj_head_chunk` heads each, the last short): each is a
+    partial of its own, Hkv x chunks of them on the grid's second axis.
+    glm4-9b: 2 up to 8 batch rows, else 4; granite-34b: 6, else 12."""
+    return -(-groups // oproj_head_chunk(groups, head_dim, batch))
+
+
 def oproj_smem_bytes_required(page: int, groups: int, head_dim: int,
                               bytes_per_elem: int = 2, *,
                               batch: int | None = None) -> int:
@@ -205,15 +233,17 @@ def oproj_smem_bytes_required(page: int, groups: int, head_dim: int,
     ``smem_bytes``): the decode tiles of :func:`smem_bytes_required` or
     the wo ring (:data:`OPROJ_WO_STAGES` steps of
     :data:`OPROJ_STEP_BYTES`), which overlays them, whichever is larger;
-    the group's G x head_dim fp32 attention rows in
-    :func:`oproj_group_rows` slots; one split's rows and its G running
-    maxima and sums (:func:`oproj_splits`).  Neither E nor Hkv enters,
-    nor B beyond 16 rows (larger batches run in groups)."""
+    one head chunk's (:func:`oproj_head_chunk`) head_dim-wide fp32
+    attention rows in :func:`oproj_group_rows` slots; one split's rows
+    and their running maxima and sums (:func:`oproj_splits`).  Neither E
+    nor Hkv enters, nor B beyond 16 rows (larger batches run in groups),
+    nor G past the chunk."""
     tiles = max(smem_bytes_required(page, ROWS_PER_BLOCK, head_dim,
                                     bytes_per_elem),
                 OPROJ_WO_STAGES * OPROJ_STEP_BYTES)
     rows = oproj_group_rows(batch) + 1
-    return tiles + (rows * head_dim + 2) * groups * 4
+    chunk = oproj_head_chunk(groups, head_dim, batch)
+    return tiles + (rows * head_dim + 2) * chunk * 4
 
 
 def oproj_splits(cluster: int, rows: int) -> int:
@@ -225,15 +255,16 @@ def oproj_splits(cluster: int, rows: int) -> int:
     return max(1, cluster // rows)
 
 
-def oproj_grid(n_kv_heads: int, d_model: int) -> tuple[int, int, int]:
+def oproj_grid(n_kv_heads: int, d_model: int,
+               chunks: int = 1) -> tuple[int, int, int]:
     """``(slice, slices, cluster)`` of ``flash_decode_oproj``'s grid
-    (slices x Hkv blocks): the widest of :data:`OPROJ_SLICES` whose
-    ``Hkv * ceil(E / slice)`` blocks reach :data:`OPROJ_BLOCKS` (the
-    narrowest where none does: row 9's decode rule), and the cluster of a
-    head's slices, the largest divisor of the slice count up to
-    :data:`MAX_CLUSTER`."""
+    (slices x Hkv x ``chunks`` blocks, :func:`oproj_chunks`): the widest
+    of :data:`OPROJ_SLICES` whose ``Hkv * chunks * ceil(E / slice)``
+    blocks reach :data:`OPROJ_BLOCKS` (the narrowest where none does: row
+    9's decode rule), and the cluster of a partial's slices, the largest
+    divisor of the slice count up to :data:`MAX_CLUSTER`."""
     wide = [w for w in OPROJ_SLICES
-            if n_kv_heads * -(-d_model // w) >= OPROJ_BLOCKS]
+            if n_kv_heads * chunks * -(-d_model // w) >= OPROJ_BLOCKS]
     width = max(wide) if wide else min(OPROJ_SLICES)
     n = -(-d_model // width)
     return width, n, oproj_cluster(n)
@@ -254,15 +285,17 @@ def oproj_hbm_bytes(batch: int, hkv: int, groups: int, head_dim: int,
     ``oproj_hbm_bytes`` counts them (q, K and V over ``ceil(seq / page)``
     pages a row, out) but with ``wo`` read once a call (per group of up
     to :data:`OPROJ_MAX_ROWS` rows), K and V once per cluster of a
-    head's slices, and the fp32 (Hkv, B, E) workspace written and read
-    back.  JAX's kernel reads ``wo`` once per batch row."""
-    width, n, c = oproj_grid(hkv, d_model)
+    (head, chunk)'s slices, and the fp32 (Hkv x chunks, B, E) workspace
+    (:func:`oproj_chunks`) written once and read back once.  JAX's
+    kernel reads ``wo`` once per batch row."""
+    passes = oproj_chunks(groups, head_dim, batch)
+    width, n, c = oproj_grid(hkv, d_model, passes)
     nb = -(-seq // page)
     q_bytes = batch * hkv * groups * head_dim * bytes_per_elem
     kv = 2 * batch * hkv * nb * page * head_dim * bytes_per_elem * (n // c)
     reads = -(-batch // OPROJ_MAX_ROWS)
     wo = reads * hkv * groups * head_dim * d_model * bytes_per_elem
-    ws = 2 * hkv * batch * d_model * 4
+    ws = 2 * passes * hkv * batch * d_model * 4
     out = batch * d_model * bytes_per_elem
     return q_bytes + kv + wo + ws + out
 
@@ -274,7 +307,7 @@ _FP8_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 FP8 = torch.float8_e4m3fn
 _OPROJ_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
@@ -465,10 +498,11 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
     """Single-token paged attention fused with the output projection:
     q (B, Hkv, G, D), wo (Hkv, G*D, E) -> (B, E) in q's dtype.  One
     launch reads ``wo`` once per group of up to 16 batch rows
-    (:func:`oproj_grid`), the heads summed in order through an fp32
-    (Hkv, B, E) workspace; the slice counters (zero, kept per device,
-    left zero by every launch) make the launches of one device share a
-    stream.
+    (:func:`oproj_grid`), the query heads in chunks side by side where
+    their rows overflow the budget (:func:`oproj_chunks`), the partials
+    summed in order through an fp32 (Hkv x chunks, B, E) workspace; the
+    slice counters (zero, kept per device, left zero by every launch)
+    make the launches of one device share a stream.
 
     CUDA tensors launch the kernel (or raise: there is no fallback);
     CPU tensors take :func:`paged_attention_oproj_ref`.
@@ -500,14 +534,16 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(
             f"page {page} at G = {g}, D = {d} needs {need} bytes of shared "
             f"memory per block; this card allows {have}")
-    width, n_slices, cluster = oproj_grid(hkv, e)
+    chunks = oproj_chunks(g, d, b)
+    width, n_slices, cluster = oproj_grid(hkv, e, chunks)
     n_counters = -(-b // oproj_group_rows(b)) * n_slices
     counters = _COUNTERS.get(q.device)
     if counters is None or counters.numel() < n_counters:
         counters = torch.zeros(n_counters, dtype=torch.int32,
                                device=q.device)
         _COUNTERS[q.device] = counters
-    ws = torch.empty((hkv, b, e), dtype=torch.float32, device=q.device)
+    ws = torch.empty((hkv * chunks, b, e), dtype=torch.float32,
+                     device=q.device)
     out = torch.empty((b, e), dtype=q.dtype, device=q.device)
     fn = _build.load("flash_decode_oproj", "flash_decode_oproj_fwd",
                      _OPROJ_ARGTYPES)
@@ -515,7 +551,8 @@ def flash_decode_oproj(q: torch.Tensor, k_pages: torch.Tensor,
              v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
              wo.data_ptr(), out.data_ptr(), ws.data_ptr(),
              counters.data_ptr(), b, hkv, g, page, block_tables.shape[1], e,
-             width, cluster, int(window or 0), float(logit_cap or 0.0),
+             width, cluster, oproj_head_chunk(g, d, b), int(window or 0),
+             float(logit_cap or 0.0),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode_oproj")
     flash_decode_oproj.launches += 1

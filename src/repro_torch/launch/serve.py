@@ -1,8 +1,15 @@
-"""Serving launcher of the port: the paged continuous-batching engine.
+"""Serving launcher of the port: paged continuous batching or the static
+batch.
 
+    # paged continuous batching (the port's default engine)
     python -m repro_torch.launch.serve --arch granite-3-8b --engine paged \
         --batch 8 --requests 16 --prompt-len 300 --mixed-lens --gen 32 \
         --max-seq 512
+
+    # the static batch: one prefill of --batch prompts of --prompt-len
+    # tokens, then --gen lock-step decode steps over the dense caches
+    python -m repro_torch.launch.serve --arch gemma2-9b --engine static \
+        --batch 4 --prompt-len 16 --gen 32
 
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels (use ``--reduced`` there).  The
@@ -16,7 +23,10 @@ quantized path, as JAX's launcher does: ``w8`` int8 projection weights
 (``quant.quantize_params``, the ``matmul_w8`` kernel), ``fp8kv`` an fp8
 page pool (``flash_decode_fp8``, the page sized under
 ``"flash_decode_fp8"``), ``w8fp8`` both; it composes with ``--fuse``.
-The static-batch engine is a later slice.
+Both compose with ``--engine static`` too (its fp8 cache is the dense
+one).  JAX's launcher defaults to the static engine; this one to the
+paged engine.  ``--metrics-out PATH`` writes the engine's metrics
+registry as JSON.
 """
 
 from __future__ import annotations
@@ -33,22 +43,26 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.obs import format_metrics
 from repro_torch.quant import quantize_params, quantized_bytes
-from repro_torch.serve.engine import PagedEngine, PagedServeConfig
+from repro_torch.serve.engine import (DecodeEngine, PagedEngine,
+                                      PagedServeConfig, ServeConfig)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--engine", choices=("paged",), default="paged",
-                    help="the static-batch engine is not ported yet")
+    ap.add_argument("--engine", choices=("static", "paged"),
+                    default="paged",
+                    help="paged: continuous batching over the paged cache; "
+                         "static: one batch, dense caches, lock-step decode")
     ap.add_argument("--batch", type=int, default=8,
-                    help="decode batch slots")
+                    help="paged: decode batch slots; static: batch size")
     ap.add_argument("--requests", type=int, default=0,
-                    help="total requests to stream (default: batch)")
+                    help="paged: total requests to stream (default: batch)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--mixed-lens", action="store_true",
-                    help="draw prompt lengths in [prompt_len/2, prompt_len]")
+                    help="paged: draw prompt lengths in [prompt_len/2, "
+                         "prompt_len]")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=0,
@@ -72,6 +86,8 @@ def main(argv=None) -> None:
                     default="bfloat16")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--metrics-out", metavar="PATH", default=None,
+                    help="write the engine's metrics registry as JSON")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -84,13 +100,33 @@ def main(argv=None) -> None:
         qb, db = quantized_bytes(params)
         print(f"quantized projection weights: {qb / 1e6:.1f} MB "
               f"(same projections at bf16: {db / 1e6:.1f} MB)")
+    rng = np.random.default_rng(args.seed)
+    kv = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
+    if args.engine == "static":
+        engine = DecodeEngine(cfg, params, ServeConfig(
+            max_seq=args.max_seq, temperature=args.temperature,
+            seed=args.seed, fuse=args.fuse, device=args.device))
+        prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
+                               dtype=np.int32)
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, args.gen)
+        dt = time.perf_counter() - t0
+        print(f"static engine ({args.device}): batch={args.batch} "
+              f"prompt={args.prompt_len} max_seq={args.max_seq} kv={kv} "
+              f"blocked_linear={ops.blocked_linear_enabled()} "
+              f"fused={args.fuse} quantize={args.quantize}")
+        print(format_metrics(engine.metrics.snapshot(), sections=("engine",)))
+        print(f"generated {out.shape} in {dt:.2f}s "
+              f"({out.size / dt:.1f} tok/s)")
+        print("sample:", out[0, :16].tolist())
+        write_metrics(engine, args.metrics_out)
+        return
     engine = PagedEngine(cfg, params, PagedServeConfig(
         max_seq=args.max_seq, max_batch=args.batch,
         page_size=args.page_size or None,
         prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
         temperature=args.temperature, seed=args.seed, device=args.device,
         fuse=args.fuse))
-    rng = np.random.default_rng(args.seed)
     n_req = args.requests or args.batch
     lo = max(1, args.prompt_len // 2) if args.mixed_lens else args.prompt_len
     lens = rng.integers(lo, args.prompt_len + 1, n_req)
@@ -102,7 +138,6 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     emitted = sum(len(r.output) for r in reqs)
-    kv = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
     print(f"paged engine ({args.device}): page={engine.page_size} "
           f"chunk={engine.prefill_chunk} kv={kv} slots={args.batch} "
           f"requests={n_req} blocked_linear="
@@ -113,6 +148,16 @@ def main(argv=None) -> None:
     print(f"generated {emitted} tokens over {n_req} requests in {dt:.2f}s "
           f"({emitted / dt:.1f} tok/s), statuses: {'/'.join(statuses)}")
     print("sample:", reqs[0].output[:16].tolist())
+    write_metrics(engine, args.metrics_out)
+
+
+def write_metrics(engine, path: str | None) -> None:
+    """The engine's registry snapshot as JSON at ``path`` (none: no
+    file)."""
+    if path:
+        with open(path, "w") as f:
+            f.write(engine.metrics.to_json())
+        print(f"metrics snapshot -> {path}")
 
 
 if __name__ == "__main__":

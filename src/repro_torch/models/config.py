@@ -48,7 +48,8 @@ class ModelConfig:
 
     # training: activation checkpointing of the blocks in
     # transformer.forward -- "none" | "block" | "full" | "dots" ("dots"
-    # checkpoints whole blocks for now, like "block")
+    # saves the outputs of the batch-free matrix products and recomputes
+    # the rest, JAX's dots_with_no_batch_dims_saveable)
     remat: str = "block"
 
     def __post_init__(self):

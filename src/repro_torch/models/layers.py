@@ -80,10 +80,12 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
     ``return_cache`` (True, or an int cache length) also returns the K/V
     cache ``{"k", "v"}`` of shape (B, length, Hkv, D), zero-padded past
-    S.  ``full_cache=True`` keeps windowed layers in that full
-    position-indexed layout — the paged serving path stores every layer
-    in pages and masks the window at decode time.  The ring-buffer
-    layout of the dense decode engine is not ported yet.
+    S.  A windowed layer's cache is a ring buffer of ``min(window,
+    length)`` slots, slot ``p % L`` holding position p, the last L
+    positions kept (the dense decode engine's layout,
+    :func:`attention_decode`); ``full_cache=True`` keeps it in the full
+    position-indexed layout instead — the paged serving path stores
+    every layer in pages and masks the window at decode time.
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -93,16 +95,22 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     out = ops.linear(out.reshape(b, s, hq * hd), params["wo"], use_kernel)
     if not return_cache:
         return out
-    if window is not None and not full_cache:
-        raise NotImplementedError(
-            "the ring-buffer cache of windowed layers belongs to the dense "
-            "DecodeEngine: ROADMAP.md, queue 1, item 17")
     cache_len = return_cache if isinstance(return_cache, int) and \
         return_cache is not True else s
     # attention above ran over the wide K/V; only the cache is cast (to
-    # fp8 for an fp8 pool), as in JAX.  Padding before the cast gives
-    # the same bytes and needs no padding op in fp8.
+    # fp8 for an fp8 pool), as in JAX.  Padding or placing before the
+    # cast gives the same bytes and needs no fp8 op but the cast.
     cache_dtype = cfg.kv_cache_dtype or cfg.dtype
+    if window is not None and not full_cache:
+        # ring buffer: slot p % L holds position p; keep the last L
+        length = min(window, cache_len)
+        last = torch.arange(s - min(length, s), s, device=x.device)
+        ring = {}
+        for name, t in (("k", k), ("v", v)):
+            c = t.new_zeros((b, length, hkv, hd))
+            c[:, last % length] = t[:, last]
+            ring[name] = c.to(cache_dtype)
+        return out, ring
     pad = (0, 0, 0, 0, 0, cache_len - s)
     return out, {"k": F.pad(k, pad).to(cache_dtype),
                  "v": F.pad(v, pad).to(cache_dtype)}
@@ -142,6 +150,64 @@ def qkv_decode_proj(cfg: ModelConfig, params: dict, x: torch.Tensor,
     q, k, v = qkv_span_proj(cfg, params, x[:, None, :], positions,
                             use_kernel=use_kernel)
     return q[:, 0], k[:, 0], v[:, 0]
+
+
+def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                     cache: dict, pos: int, *, window: int | None = None,
+                     use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+    """One-token step over the dense cache, as JAX writes it.  x: (B, 1,
+    D); ``pos``: the token's position, one for the whole batch; cache
+    ``{"k", "v"}``: (B, L, Hkv, D), L the window (a ring buffer, slot
+    ``pos % L``) for local layers, else max_seq.
+
+    The token's K/V are written into the cache in place (cast to its
+    dtype); the scores, the cap, the masked softmax and the weighted sum
+    are fp32 ``einsum`` s over the whole cache, widened from its dtype (an
+    fp8 cache too), outside any kernel, as in JAX; ``wo`` goes through
+    :func:`ops.linear`.  Returns (out (B, 1, D), the cache)."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = qkv_decode_proj(cfg, params, x[:, 0], posv,
+                              use_kernel=use_kernel)
+    ck, cv = cache["k"], cache["v"]
+    length = ck.shape[1]
+    if window is None and pos >= length:
+        raise ValueError(f"position {pos} is past the cache's {length} "
+                         "slots (max_seq)")
+    slot = pos % length if window is not None else pos
+    ck[:, slot] = k.to(ck.dtype)
+    cv[:, slot] = v.to(cv.dtype)
+
+    slots = torch.arange(length, device=x.device)
+    if window is not None:
+        kpos = pos - (pos - slots) % length           # ring-buffer positions
+        valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
+    else:
+        valid = slots <= pos
+
+    qh = q.reshape(b, hkv, hq // hkv, hd)             # (B, hkv, G, D)
+    logits = torch.einsum("bhgd,blhd->bhgl", qh.float(),
+                          ck.float()) * hd ** -0.5
+    if cfg.attn_logit_cap is not None:
+        logits = cfg.attn_logit_cap * torch.tanh(logits / cfg.attn_logit_cap)
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgl,blhd->bhgd", probs, cv.float())
+    out = out.reshape(b, 1, hq * hd).to(x.dtype)
+    return ops.linear(out, params["wo"], use_kernel), cache
+
+
+def attention_cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
+                         window: int | None) -> dict:
+    """The dense decode cache of one attention layer: ``{"k", "v"}``, (B,
+    L, Hkv, D) zeros in the cache dtype, L the window for a local layer
+    (a ring buffer) and max_seq otherwise."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    length = min(window, max_seq) if window is not None else max_seq
+    d = ParamDef((batch, length, hkv, hd), init="zeros",
+                 dtype=cfg.kv_cache_dtype or cfg.dtype)
+    return {"k": d, "v": d}
 
 
 # ========================== dense MLP (SwiGLU) =============================

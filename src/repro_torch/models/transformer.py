@@ -11,18 +11,31 @@ Training: :func:`forward` is the full-sequence forward and
 :func:`loss_fn` the masked cross-entropy, with JAX's ``(total, {"loss",
 "aux", "tokens"})`` result.  ``cfg.remat`` ``"block"`` and ``"full"``
 checkpoint every block (``torch.utils.checkpoint``, non-reentrant), as
-JAX checkpoints each pattern cycle; ``"dots"`` (JAX: save the matmul
-outputs, recompute the elementwise ops) checkpoints whole blocks too for
-now (``ROADMAP.md``, queue 1, item 6); ``"none"`` keeps every
+JAX checkpoints each pattern cycle; ``"dots"`` checkpoints every block
+under a selective policy, JAX's ``dots_with_no_batch_dims_saveable``:
+the outputs of matrix products without batch dimensions (``aten.mm``,
+``aten.addmm``: the projections) are saved, everything else is
+recomputed in the backward.  The port's CUDA GEMMs (blocked linears,
+``ops.blocked_linear``) are ``autograd.Function`` s that launch through
+ctypes, which the policy cannot see, so they are recomputed, as JAX
+recomputes a ``pallas_call`` (not a dot).  ``"none"`` keeps every
 activation.
+
+Decoding: :func:`prefill` returns the per-layer caches and
+:func:`decode_step` takes one token (or a span) over a cache.  With no
+``attn_step`` it steps the dense cache (:func:`init_cache`, the static
+engine's; ``layers.attention_decode``, a ring buffer for local layers),
+as JAX's ``_block_decode`` does; the paged engine passes its own step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -95,6 +108,21 @@ def _block_apply(cfg: ModelConfig, p: dict, h: torch.Tensor, i: int,
                        use_kernel=use_kernel)
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    matrix products without batch dimensions, recompute the rest."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 def _remat_block(cfg, p, h, i, positions, use_kernel, blocked, fused):
     """One block under the caller's op switches: the backward recomputes
     it from autograd's own thread, where the switches' context variables
@@ -117,10 +145,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     remat = torch.is_grad_enabled() and cfg.remat in ("block", "full",
                                                       "dots")
     switches = (ops.blocked_linear_enabled(), ops.fused_ops_enabled())
+    extra = {"context_fn": _DOTS_CONTEXT} if cfg.remat == "dots" else {}
     for i, p in enumerate(params["layers"]):
         if remat:
             h = checkpoint(_remat_block, cfg, p, h, i, positions,
-                           use_kernel, *switches, use_reentrant=False)
+                           use_kernel, *switches, use_reentrant=False,
+                           **extra)
         else:
             h = _block_apply(cfg, p, h, i, positions, use_kernel)
     h = L.rmsnorm(params["final_norm"], h)
@@ -156,10 +186,12 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Full-sequence forward that also returns the K/V caches.
 
     Returns (logits (B, V), cache) with ``cache["layers"][i]`` =
-    ``{"k", "v"}`` of shape (B, max_seq, Hkv, D).  ``full_kv=True`` keeps
-    windowed layers position-indexed (the paged cache masks the window at
-    decode time); ``logits_at`` returns that position's logits instead
-    of the last one's (a bucketed prompt is right-padded).
+    ``{"k", "v"}`` of shape (B, max_seq, Hkv, D), or (B, min(window,
+    max_seq), Hkv, D) for a local layer: the dense cache of
+    :func:`init_cache`, a local layer's a ring buffer.  ``full_kv=True``
+    keeps windowed layers position-indexed (the paged cache masks the
+    window at decode time); ``logits_at`` returns that position's logits
+    instead of the last one's (a bucketed prompt is right-padded).
     """
     h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
     b, s, _ = h.shape
@@ -181,32 +213,64 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return logits, {"layers": caches}
 
 
+def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The dense decode cache's tree: ``{"layers": [{"k", "v"}, ...]}``,
+    one entry per layer in execution order, like the parameters
+    (``layers.attention_cache_defs``: a ring buffer of ``window`` slots
+    for a local layer)."""
+    _check_ported(cfg)
+    return {"layers": [L.attention_cache_defs(cfg, batch, max_seq,
+                                              _window(cfg, i))
+                       for i in range(cfg.n_layers)]}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: str | torch.device = "cuda") -> dict:
+    """The dense decode cache, zeros on ``device`` (default ``"cuda"``;
+    raises without a GPU unless ``device="cpu"``)."""
+    return build(cache_defs(cfg, batch, max_seq), resolve_device(device))
+
+
 AttnStep = Callable[[dict, torch.Tensor, dict, torch.Tensor, "int | None"],
                     torch.Tensor]
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                cache: dict, pos: torch.Tensor, attn_step: AttnStep,
+                cache: dict, pos, attn_step: AttnStep | None = None,
                 use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
-    """One decode step over a stacked cache (e.g. the paged pools).
+    """One decode step.
 
     token: (B,) int -> logits (B, V); or (B, S), the span form (chunked
     prefill), whose S tokens occupy consecutive positions from ``pos`` ->
     logits (B, S, V).  ``attn_step(params, hn, layer_cache, pos, window)``
-    is the attention implementation (``serve.kv_cache.make_paged_attn_step``
-    / ``make_paged_span_step``); ``layer_cache`` holds layer i's slice of
-    every stacked cache tensor, which the step updates in place.
-    ``use_kernel=False`` gives the MLP's fused GEMMs their plain version
-    (the attention step carries its own choice).  Returns (logits, cache)
-    with ``cache`` the same, updated object.
+    is the attention implementation over a stacked cache
+    (``serve.kv_cache.make_paged_attn_step`` / ``make_paged_span_step``);
+    ``layer_cache`` holds layer i's slice of every stacked cache tensor,
+    which the step updates in place.  Without one, the dense cache
+    (:func:`init_cache` or :func:`prefill`'s, ``pos`` an int, the
+    batch's one position) is stepped by ``layers.attention_decode``, as
+    JAX's ``_block_decode`` does; the dense cache is one-token, so the
+    span form then raises.  ``use_kernel=False`` gives every GEMM its
+    plain version (a paged step carries its own choice).  Returns
+    (logits, cache) with ``cache`` the same, updated object.
     """
     single = token.dim() == 1
+    if not single and attn_step is None:
+        raise ValueError("multi-token decode_step needs a span-capable "
+                         "attn_step (the dense cache is one-token)")
     h = params["embed"]["embedding"][token[:, None] if single else token] \
         * (cfg.d_model ** 0.5)
     for i, p in enumerate(params["layers"]):
-        layer_cache = {k: v[i] for k, v in cache.items()}
         hn = L.rmsnorm(p["norm1"], h)
-        h = h + attn_step(p["mixer"], hn, layer_cache, pos, _window(cfg, i))
+        if attn_step is None:
+            out, _ = L.attention_decode(cfg, p["mixer"], hn,
+                                        cache["layers"][i], pos,
+                                        window=_window(cfg, i),
+                                        use_kernel=use_kernel)
+        else:
+            layer_cache = {k: v[i] for k, v in cache.items()}
+            out = attn_step(p["mixer"], hn, layer_cache, pos, _window(cfg, i))
+        h = h + out
         h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
                         use_kernel=use_kernel)
     h = L.rmsnorm(params["final_norm"], h)

@@ -1,9 +1,20 @@
-"""Paged continuous-batching serving engine (the port of
-``repro.serve.engine.PagedEngine``).
+"""Serving engines: the static-batch baseline and paged continuous
+batching (the port of ``repro.serve.engine``).
 
-A prompt enters through :meth:`PagedEngine.submit`; each
-:meth:`PagedEngine.step` runs one decode-priority iteration of the
-scheduler's plan:
+:class:`DecodeEngine` is the static batch (JAX's default engine): one
+prefill of the whole ``(B, S0)`` batch into the dense per-layer caches
+(a ring buffer of ``window`` slots for a local layer), then a Python
+loop of ``transformer.decode_step`` over those caches, one token for
+every row a step, sampled on the device from an explicit generator
+seeded with ``seed``; the tokens reach the host once, at the end.
+``fuse=True`` runs both under ``ops.fused_ops``, as in JAX: the QKV
+projection as one ``qkv_fused`` pass, the MLP as ``matmul_fused``
+GEMMs, ``wo`` through ``ops.linear``.  Quantized weights and an fp8
+cache compose (``layers.attention_decode`` widens the cache to fp32).
+
+:class:`PagedEngine` is the paged path.  A prompt enters through
+:meth:`PagedEngine.submit`; each :meth:`PagedEngine.step` runs one
+decode-priority iteration of the scheduler's plan:
 
 * **admission** — a request that fits one prefill chunk (or every
   request, with ``prefill_chunk=0``) joins whole: ``transformer.prefill``
@@ -66,6 +77,75 @@ def sample_tokens(cfg: ModelConfig, logits: torch.Tensor, temperature: float,
     probs = torch.softmax(logits.float() / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+# ========================= static-batch baseline ===========================
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_seq: int = 1024
+    temperature: float = 0.0   # 0 -> greedy
+    seed: int = 0
+    fuse: bool = False         # the cross-op fused kernels
+    use_kernel: bool = True    # False: the plain versions, on purpose
+    device: str = "cuda"       # "cpu" runs the plain versions
+
+
+class DecodeEngine:
+    """Static batch: every request prefills together (the prompts share
+    one length S0) and decodes in lock-step for a fixed token budget.
+    Counters ``engine.prefill_tokens`` and ``engine.decode_tokens`` in
+    :attr:`metrics`."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig):
+        T.model_defs(cfg)                  # refuses unported families
+        self.cfg, self.params, self.sc = cfg, params, sc
+        self.device = resolve_device(sc.device)
+        _check_params_device(params, self.device)
+        self.metrics = reg = MetricsRegistry()
+        self._m_prefill_tokens = reg.counter("engine.prefill_tokens")
+        self._m_decode_tokens = reg.counter("engine.decode_tokens")
+
+    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+        """prompts: (B, S0) int32.  Returns (B, n_tokens) int32: the
+        first token sampled from the prefill's logits, each later one
+        from a decode step at positions S0, S0 + 1, ...  The global
+        layers' caches hold ``max_seq`` positions, so S0 + n_tokens - 1
+        must not exceed it."""
+        cfg, sc = self.cfg, self.sc
+        prompts = np.asarray(prompts, np.int32)
+        b, s0 = prompts.shape
+        if n_tokens < 1 or s0 + n_tokens - 1 > sc.max_seq:
+            raise ValueError(f"{s0} prompt tokens and {n_tokens} new ones "
+                             f"do not fit max_seq {sc.max_seq}")
+        gen = torch.Generator(device=self.device).manual_seed(sc.seed)
+        kw = dict(use_kernel=sc.use_kernel)
+        with torch.no_grad(), ops.fused_ops(sc.fuse):
+            logits, cache = T.prefill(
+                cfg, self.params, torch.from_numpy(prompts).to(self.device),
+                max_seq=sc.max_seq, **kw)
+            tok = sample_tokens(cfg, logits, sc.temperature, gen)
+            out = [tok]
+            for pos in range(s0, s0 + n_tokens - 1):
+                logits, cache = T.decode_step(cfg, self.params, tok, cache,
+                                              pos, **kw)
+                tok = sample_tokens(cfg, logits, sc.temperature, gen)
+                out.append(tok)
+        host = torch.stack(out, dim=1).cpu().numpy()
+        self._m_prefill_tokens.inc(b * s0)
+        self._m_decode_tokens.inc(b * n_tokens)
+        return host
+
+
+def _check_params_device(params: Any, device: torch.device) -> None:
+    if params["embed"]["embedding"].device.type != device.type:
+        raise ValueError(
+            f"params are on {params['embed']['embedding'].device}, the "
+            f"engine on {device}")
+
+
+# ======================== paged continuous batching ========================
 
 
 @dataclasses.dataclass
@@ -137,10 +217,7 @@ class PagedEngine:
         T.model_defs(cfg)                  # refuses unported families
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = resolve_device(sc.device)
-        if params["embed"]["embedding"].device.type != self.device.type:
-            raise ValueError(
-                f"params are on {params['embed']['embedding'].device}, the "
-                f"engine on {self.device}")
+        _check_params_device(params, self.device)
         self.page_size = sc.page_size or KV.choose_page_size(
             cfg, sc.max_seq, fused=sc.fuse)
         self.max_blocks = KV.num_blocks(sc.max_seq, self.page_size)

@@ -391,6 +391,11 @@ def test_matmul_fused_matches_plain(dev, dtype, epi, m, n, k, tiles):
     (8, 32, 64, 2, (8, 64, 16), None),        # the reduced granite: decode
     (24, 32, 64, 2, (16, 64, 32), None),      # and a join
     (5, 40, 70, 3, (8, 64, 32), None),        # scalar staging
+    # the wide query groups at the model's tiles: glm4-9b (G 16) and
+    # granite-34b (G 48, MQA), fp32 bn under 64
+    (8, 256, 4096, 16, (8, 16, 32), (8, 256, 32)),
+    (8, 128, 6144, 48, (8, 16, 16), (8, 256, 32)),
+    (512, 128, 6144, 48, (16, 16, 16), (64, 192, 64)),
 ])
 def test_qkv_fused_matches_plain(dev, dtype, m, nkv, k, g, tiles,
                                  bf16_tiles):
@@ -442,6 +447,34 @@ def test_flash_decode_oproj_matches_plain(dev, dtype, page, window, cap):
                                     logit_cap=cap)
     torch.testing.assert_close(out.float(), ref.float(),
                                **gemm_tol(dtype, 512))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g,e", [(2, 16, 4096), (1, 48, 6144)])
+@pytest.mark.parametrize("b", [1, 8, 20])
+def test_flash_decode_oproj_wide_groups(dev, dtype, hkv, g, e, b):
+    """glm4-9b's (Hkv 2, G 16) and granite-34b's (Hkv 1, G 48) decode at
+    D 128 and the fused page (32), B 1, 8 and 20 (two groups): the query
+    heads in chunks of ``oproj_head_chunk`` within the two-block budget,
+    each chunk a partial of its own on the grid, repeats bit-equal,
+    against the plain version."""
+    from repro_torch.kernels import flash_decode as FD
+    lengths = [(97 * i + 13) % 512 + 1 for i in range(b)]
+    q, kp, vp, bt, ln = paged_case(dev, dtype, 1, lengths, hkv=hkv, g=g,
+                                   page=32, n_blocks=16, seed=g + b)
+    rng = np.random.default_rng(g + b)
+    wo = torch.tensor(rng.standard_normal((hkv, g * 128, e))
+                      / (hkv * g * 128) ** 0.5, dtype=dtype, device=dev)
+    assert FD.oproj_smem_bytes_required(32, g, 128, dtype.itemsize,
+                                        batch=b) <= default_smem_budget()
+    out = flash_decode_oproj(q, kp, vp, bt, ln, wo)
+    again = flash_decode_oproj(q, kp, vp, bt, ln, wo)
+    torch.cuda.synchronize()
+    assert out.shape == (b, e) and torch.equal(out, again)
+    assert not FD._COUNTERS[q.device].any()
+    ref = paged_attention_oproj_ref(q, kp, vp, bt, ln, wo)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **gemm_tol(dtype, hkv * g * 128))
 
 
 def test_fused_kernels_refuse_what_they_cannot_hold(dev):

@@ -41,9 +41,13 @@ def model():
 
 
 @pytest.mark.parametrize("getter", ["full", "reduced"])
-def test_config_matches_jax(getter):
-    j = (jget_config if getter == "full" else jget_reduced)(ARCH)
-    t = (get_config if getter == "full" else get_reduced)(ARCH)
+@pytest.mark.parametrize("arch", [ARCH, "glm4-9b", "granite-34b",
+                                  "gemma2-9b"])
+def test_config_matches_jax(arch, getter):
+    """Every registered arch's ``CONFIG`` and ``reduced()`` field for field
+    the reference's (dtypes aside), and the same parameter count."""
+    j = (jget_config if getter == "full" else jget_reduced)(arch)
+    t = (get_config if getter == "full" else get_reduced)(arch)
     for f in dataclasses.fields(t):
         if f.name not in ("dtype", "kv_cache_dtype"):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
@@ -52,7 +56,7 @@ def test_config_matches_jax(getter):
 
 def test_unported_arch_raises_with_roadmap_pointer():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("gemma2-9b")
+        get_config("mamba2-780m")
 
 
 def test_param_tree_matches_jax_shapes(model):

@@ -2,19 +2,20 @@
 the CPU.
 
 * The design: a numpy emulation of one launch of
-  ``csrc/flash_decode_oproj.cu`` -- the (slice, head) grid of
-  ``oproj_grid``, each cluster of a head's slices running the head's
-  attention once per batch row (block r: rows r, r + c, ... of each group
-  of up to 16) into NaN-filled shared memory, the gather of the other
-  blocks' rows through distributed shared memory, the wo slice streamed
-  in 16 KB steps (zero past the slab and the slice) with fp32 fused
-  multiply-adds over the G*D rows in order, the fp32 partials into the
-  (Hkv, B, E) workspace, and the last block of a slice to arrive (blocks
-  arrive in a random order) summing the heads in head order and
-  resetting its counter -- against JAX's ``flash_decode_oproj`` in
-  interpret mode and ``paged_attention_oproj_ref``: Hkv 8, 16 and 32, a
-  ragged last E slice, ``window`` and ``logit_cap``, head dims 16 and
-  96, more than 16 batch rows.
+  ``csrc/flash_decode_oproj.cu`` -- the (slice, head x chunk) grid of
+  ``oproj_grid`` and ``oproj_chunks``, each cluster of a partial's slices
+  running its query heads' attention once per batch row (block r: rows
+  r, r + c, ... of each group of up to 16) into NaN-filled shared
+  memory, the gather of the other blocks' rows through distributed
+  shared memory, the wo slice streamed in 16 KB steps (zero past the
+  chunk's rows and the slice) with fp32 fused multiply-adds over the
+  chunk's rows in order, the fp32 partials into the (Hkv x chunks, B, E)
+  workspace, and the last block of a slice to arrive (blocks arrive in
+  a random order) summing the partials in order and resetting its
+  counter -- against JAX's ``flash_decode_oproj`` in interpret mode and
+  ``paged_attention_oproj_ref``: Hkv 8, 16 and 32, a ragged last E
+  slice, ``window`` and ``logit_cap``, head dims 16 and 96, more than 16
+  batch rows, G 16 and 48 in chunks.
 * The grid: the slice by the fill rule, the cluster, the counters.
 * The footprint mirrors the ``.cu``'s (its constants read from the
   source), and the page search prices it.
@@ -126,7 +127,10 @@ def emulate(q, kp, vp, bt, lengths, wo, *, window=None, logit_cap=None,
     b, hkv, g, d = q.shape
     e = wo.shape[2]
     n_rows = g * d
-    width, n_slices, c = FD.oproj_grid(hkv, e)
+    gc = FD.oproj_head_chunk(g, d, b)
+    nc = FD.oproj_chunks(g, d, b)
+    assert nc == _ceil(g, gc)
+    width, n_slices, c = FD.oproj_grid(hkv, e, nc)
     rb = FD.oproj_group_rows(b)
     kr = FD.OPROJ_STEP_BYTES // (width * itemsize)
     # the attention of each (batch row, head): attn_rows, unchanged (its
@@ -134,7 +138,7 @@ def emulate(q, kp, vp, bt, lengths, wo, *, window=None, logit_cap=None,
     attn = FD.paged_attention_ref(
         *map(torch.from_numpy, (q, kp, vp, bt, lengths)), window=window,
         logit_cap=logit_cap).numpy().reshape(b, hkv, n_rows)
-    ws = np.full((hkv, b, e), np.nan, np.float32)
+    ws = np.full((hkv * nc, b, e), np.nan, np.float32)
     out = np.full((b, e), np.nan, np.float32)
     n_groups = -(-b // rb)
     counters = np.zeros(n_groups * n_slices, np.int64)
@@ -158,49 +162,58 @@ def emulate(q, kp, vp, bt, lengths, wo, *, window=None, logit_cap=None,
                         max(st, min(n, st + per * page)), window,
                         logit_cap))
                 splits[r, h] = merge(parts).reshape(n_rows)
-        x = {}   # (slice, head) -> the block's [n_rows][rb] rows
-        for h in range(hkv):
+        # partial y: head y // nc, query heads [c0, c0 + gc) (the last
+        # chunk short), the slab's rows [c0 d, (c0 + gc) d)
+        span = {y: (y // nc, (y % nc) * gc * d,
+                    (min(g, (y % nc + 1) * gc) - (y % nc) * gc) * d)
+                for y in range(hkv * nc)}
+        x = {}   # (slice, partial) -> the block's chunk rows [n_c][rb]
+        for y, (h, base, n_c) in span.items():
             for s in range(n_slices):
                 rank = s % c
-                xs = np.full((n_rows, rb), np.nan, np.float32)
+                xs = np.full((n_c, rb), np.nan, np.float32)
                 if n_split == 1:
                     for r in range(rank, rows, c):
-                        xs[:, r] = attn[g0 + r, h]
+                        xs[:, r] = attn[g0 + r, h, base:base + n_c]
                 elif rank < rows * n_split and rank % n_split == 0:
-                    xs[:, rank // n_split] = splits[rank // n_split, h]
-                x[s, h] = xs
+                    xs[:, rank // n_split] = \
+                        splits[rank // n_split, h][base:base + n_c]
+                x[s, y] = xs
         gathered = {}
-        for (s, h), xs in x.items():
-            rank, base = s % c, s - s % c
+        for (s, y), xs in x.items():
+            rank, first = s % c, s - s % c
             mine = xs.copy()
             for slot in range(rb):
                 owner = slot * n_split if n_split > 1 else slot % c
                 if slot >= rows:
                     mine[:, slot] = 0.0
                 elif owner != rank:
-                    mine[:, slot] = x[base + owner, h][:, slot]
+                    mine[:, slot] = x[first + owner, y][:, slot]
             assert np.all(np.isfinite(mine))
-            gathered[s, h] = mine
+            gathered[s, y] = mine
         # the slab, block by block, and the arrivals in a random order
-        for idx in rng.permutation(hkv * n_slices):
-            h, s = divmod(int(idx), n_slices)
+        n_part = hkv * nc
+        for idx in rng.permutation(n_part * n_slices):
+            y, s = divmod(int(idx), n_slices)
+            h, base, n_c = span[y]
             e0 = s * width
             e_ok = min(width, e - e0)
-            xs = gathered[s, h]
+            xs = gathered[s, y]
             acc = np.zeros((rb, width), np.float32)
-            for r0 in range(0, n_rows, kr):
+            for r0 in range(0, n_c, kr):
                 step = np.zeros((kr, width), np.float32)
-                k_ok = min(kr, n_rows - r0)
-                step[:k_ok, :e_ok] = wo[h, r0:r0 + k_ok, e0:e0 + e_ok]
+                k_ok = min(kr, n_c - r0)
+                step[:k_ok, :e_ok] = wo[h, base + r0:base + r0 + k_ok,
+                                        e0:e0 + e_ok]
                 for r in range(k_ok):
                     acc = fma32(xs[r0 + r][:, None], step[r][None, :], acc)
-            ws[h, g0:g0 + rows, e0:e0 + e_ok] = acc[:rows, :e_ok]
+            ws[y, g0:g0 + rows, e0:e0 + e_ok] = acc[:rows, :e_ok]
             cnt = (g0 // rb) * n_slices + s
             counters[cnt] += 1
-            if counters[cnt] == hkv:       # the last of the slice's heads
+            if counters[cnt] == n_part:    # the last of the slice's
                 total = np.zeros((rows, e_ok), np.float32)
-                for hh in range(hkv):
-                    part = ws[hh, g0:g0 + rows, e0:e0 + e_ok]
+                for yy in range(n_part):
+                    part = ws[yy, g0:g0 + rows, e0:e0 + e_ok]
                     assert np.all(np.isfinite(part))
                     total = (total + part).astype(np.float32)
                 out[g0:g0 + rows, e0:e0 + e_ok] = total
@@ -227,6 +240,11 @@ CASES = [
     (2, 8, 4, 32, 1024, None, None),
     (3, 2, 2, 96, 1024, 11, 15.0),
     (20, 2, 1, 16, 1024, None, None),
+    # wide query groups in head chunks (oproj_head_chunk): G 16 at head
+    # dim 96 in two partials of 12 and 4 heads (split 4 ways), and G 48,
+    # MQA, 18 rows in partials of 44 and 4 heads
+    (2, 2, 16, 96, 264, 11, 15.0),
+    (18, 1, 48, 16, 136, None, None),
 ]
 
 
@@ -402,19 +420,26 @@ def meta_args(b, hkv, g, d, e, dtype=torch.bfloat16, page=32, nb=16):
 
 @pytest.mark.parametrize("b,hkv,g,d,e", [(8, 8, 4, 128, 4096),
                                          (20, 32, 1, 96, 3072),
-                                         (2, 16, 1, 64, 1024)])
+                                         (2, 16, 1, 64, 1024),
+                                         # glm4-9b and granite-34b: the
+                                         # query heads in chunks
+                                         (1, 2, 16, 128, 4096),
+                                         (8, 1, 48, 128, 6144),
+                                         (20, 1, 48, 128, 6144)])
 def test_wrapper_launches_the_grid(fake_card, b, hkv, g, d, e):
-    """One launch with the grid's slice and cluster, an fp32 (Hkv, B, E)
-    workspace and zeroed int32 counters, one per (group, slice), kept
-    per device and grown when a launch needs more."""
+    """One launch with the grid's slice and cluster, the query-head chunk
+    (``oproj_head_chunk``), an fp32 (Hkv x chunks, B, E) workspace and
+    zeroed int32 counters, one per (group, slice), kept per device and
+    grown when a launch needs more."""
     with torch.no_grad():
         out = FD.flash_decode_oproj(*meta_args(b, hkv, g, d, e))
     assert out.shape == (b, e) and out.dtype == torch.bfloat16
     (symbol, args), = fake_card
     assert symbol == "flash_decode_oproj_fwd"
-    width, n, c = FD.oproj_grid(hkv, e)
-    # batch, hkv, groups, page, n_blocks, e, slice, cluster
-    assert args[11:19] == (b, hkv, g, 32, 16, e, width, c)
+    width, n, c = FD.oproj_grid(hkv, e, FD.oproj_chunks(g, d, b))
+    # batch, hkv, groups, page, n_blocks, e, slice, cluster, head chunk
+    assert args[11:20] == (b, hkv, g, 32, 16, e, width, c,
+                           FD.oproj_head_chunk(g, d, b))
     counters = FD._COUNTERS[torch.device("meta")]
     assert counters.dtype == torch.int32
     assert counters.numel() == -(-b // FD.oproj_group_rows(b)) * n
