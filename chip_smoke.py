@@ -76,6 +76,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
 6b. the fused path: phase 6 with ``fuse=True`` (``qkv_fused``,
    ``matmul_fused`` and ``flash_decode_oproj``; the page under the fused
    key), with the same checks and its own profiler window;
+15. the observability stack on phase 6b's path (8 of its prompts x 16
+   new tokens): served untraced (each ``DramLedger.record`` call timed)
+   and with ``Obs(trace=StepTracer, dram=KernelProfiler)``; greedy
+   tokens identical, the trace's ``step`` spans holding ``host_prep``,
+   ``plan_step`` and ``dispatch.decode``, each per-call key's dispatches
+   equal to its kernel's launches, every roofline row with ``min_bytes
+   <= hbm_bytes`` and ``peak_frac <= 1.05``; ``python -m
+   repro_torch.profile --corrupt matmul`` on the blocked path writes the
+   fidelity gate's keys to the miss log and ``tune --from-telemetry
+   --dry-run`` lists them (15b, after phase 11: its blocked training for
+   2 steps with and without ``obs``, step-0 loss within 2%, the
+   ``train_step`` scope's GEMM keys' dispatches equal to rows 6-8's
+   launches);
 9. the quantized path (run after 6b, while the bf16 model is in memory):
    ``quantize_params`` on the card, an fp8 page pool, the model's page
    and chunk, every projection through ``matmul_w8`` and decode through
@@ -116,7 +129,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (c) glm4-9b and granite-34b at full width, 4 layers, bf16, both
    engines unfused and fused, each path's prefill logits and paged
    decode logits (row 3 at G 16 and 48 when fused) against the plain
-   path within 5% of max |logit|;
+   path within 5% of max |logit|; and glm4-9b under w8fp8 (int8
+   projections, an fp8 dense cache) through the static engine, unfused
+   and fused, its prefill and one decode step's logits held against the
+   plain path;
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
@@ -132,7 +148,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    glm4-9b's and granite-34b's decode (row 11 in fp32 and bf16) with
    their grids and shared memory.
 
-The last two lines are a JSON ``{"kernels": [...]}`` record and
+Phase 3's row 9 runs granite's and ``WIDE_MLP``'s projections with wide
+and int8 weights alike.  The last two lines are a JSON ``{"kernels":
+[...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.  Imports nothing of JAX.
@@ -698,7 +716,8 @@ def check_row9(dev, dtype, w8: bool) -> int:
     path of a wide W); granite's gate, up and down projections with the
     model's epilogues at ``ROW9_M`` under every tile the adapter emits
     for the ``"matmul_fused"`` (``"matmul_fused_w8"``) key, repeats
-    bit-equal, and for a wide W ``WIDE_MLP``'s the same way.  bf16 asserts the instance: ``"mma_t"`` at M <= 16,
+    bit-equal, and ``WIDE_MLP``'s the same way (an int8 W too: their N
+    are multiples of 16).  bf16 asserts the instance: ``"mma_t"`` at M <= 16,
     ``"mma"`` above.  Returns the adapter tiles checked."""
     import itertools
 
@@ -773,7 +792,7 @@ def check_row9(dev, dtype, w8: bool) -> int:
     # the model gives each projection
     n_tiles = 0
     for m in ROW9_M:
-        for name, n, k, epi_kw in GRANITE_MLP + (() if w8 else WIDE_MLP):
+        for name, n, k, epi_kw in GRANITE_MLP + WIDE_MLP:
             a, w, scale = operands(m, n, k, seed=m + n + k)
             _, kw = epi(m, n, m, **epi_kw)
             ref = MF.matmul_fused_ref(a, w, scale, **kw)
@@ -1433,6 +1452,217 @@ def phase6_fused(cfg, params, warm, prompts, kernels) -> dict:
         summary["profile"] = profile_window(engine(), prompts[:8], 8)
         hold_mma_kinds(summary["profile"], ("matmul_fused", "qkv_fused"))
     return summary
+
+
+def nested(inner: dict, outer: dict) -> bool:
+    """Whether Chrome-trace span ``inner`` lies inside ``outer``."""
+    return (outer["ts"] - 1e-3 <= inner["ts"] and inner["ts"] + inner["dur"]
+            <= outer["ts"] + outer["dur"] + 1e-3)
+
+
+def hold_roofline(rep: dict, what: str, bound: float | None = 1.05) -> dict:
+    """Print each dispatched key's roofline row; every row has
+    ``min_bytes <= hbm_bytes`` and a measured ``peak_frac`` (at most
+    ``bound``: above it a count or a time is wrong; nothing is clamped).
+    Returns the rows without their tiles' energy split."""
+    rows = {}
+    for key, r in rep["per_op"].items():
+        print(f"    {what} {key}: tiles {r['tiles']} ({r['source']}), "
+              f"{r['dispatches']} dispatches, hbm_bytes {r['hbm_bytes']}, "
+              f"min_bytes {r['min_bytes']}, time {r['time_us']:.1f} us, "
+              f"bound {r['bound_us']:.1f} us ({r['bound']}), peak_frac "
+              f"{r['peak_frac']:.4f}, fidelity {r['fidelity_ratio']}")
+        assert r["min_bytes"] <= r["hbm_bytes"], (key, r)
+        assert r["peak_frac"] is not None and r["peak_frac"] > 0, (key, r)
+        assert bound is None or r["peak_frac"] <= bound, (key, r)
+        rows[key] = {k: v for k, v in r.items() if k != "energy_split"}
+    return rows
+
+
+def phase15_observed(cfg, params, prompts, kernels) -> dict:
+    """The observability stack on phase 6b's path: granite-3-8b at full
+    width and depth, bf16, fused, blocked ``wo``, 8 of phase 5's prompts
+    x 16 new tokens, served twice on fresh engines: with the default
+    ``Obs()`` (tracer off; each ``DramLedger.record`` call timed on the
+    host clock, repeats apart from first resolutions) and with
+    ``Obs(trace=StepTracer, dram=KernelProfiler)``.
+    The greedy tokens are identical; the trace parses, and its ``step``
+    spans hold ``host_prep``, ``plan_step`` and ``dispatch.decode``; each
+    per-call key's dispatches equal its kernel's launches over the run
+    (``qkv_fused``, ``matmul_fused``, and ``matmul`` for row 6's wo);
+    every row has ``min_bytes <= hbm_bytes`` and ``peak_frac <= 1.05``.
+    Then ``python -m repro_torch.profile --corrupt matmul`` on the
+    blocked path (bf16, 48-token prompts): the fidelity gate writes the
+    miss log, and ``python -m repro_torch.tune --from-telemetry LOG
+    --dry-run`` lists every flagged key."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (KernelProfiler, MetricsRegistry, Obs,
+                                 StepTracer, read_miss_log)
+    from repro_torch.profile import main as profile_main
+    from repro_torch.serve.engine import PagedEngine, PagedServeConfig
+    from repro_torch.tune.__main__ import main as tune_main
+
+    def engine(obs):
+        return PagedEngine(cfg, params, PagedServeConfig(
+            max_seq=512, max_batch=8, device="cuda", fuse=True), obs=obs)
+
+    def serve(obs):
+        eng = engine(obs)
+        torch.cuda.synchronize()
+        reset(kernels)
+        t0 = time.perf_counter()
+        out = eng.generate(prompts[:8], 16)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts(kernels)
+
+    tmp = Path(tempfile.mkdtemp(prefix="phase15_"))
+    res = {}
+    with ops.blocked_linear():
+        plain_obs = Obs()
+        led = plain_obs.dram
+        record = led.record
+        spent = {"first": [0, 0], "repeat": [0, 0]}   # ns, calls
+
+        def timed_record(spec, schedule):
+            kind = "repeat" if (spec, schedule.tiles) in led._res \
+                else "first"
+            t = time.perf_counter_ns()
+            record(spec, schedule)
+            spent[kind][0] += time.perf_counter_ns() - t
+            spent[kind][1] += 1
+        led.record = timed_record
+        plain, wall0, _ = serve(plain_obs)
+        res["record"] = {k: {"calls": n, "us_each": ns / 1e3 / max(n, 1)}
+                         for k, (ns, n) in spent.items()}
+        rec = res["record"]
+        print(f"  untraced: {plain.size} tokens in {wall0:.3f}s "
+              f"({plain.size / wall0:.1f} tok/s); DramLedger.record on "
+              f"the host clock: {rec['repeat']['calls']} repeat calls at "
+              f"{rec['repeat']['us_each']:.3f} us each, "
+              f"{rec['first']['calls']} first resolutions at "
+              f"{rec['first']['us_each']:.1f} us each")
+
+        reg = MetricsRegistry()
+        tracer = StepTracer(tmp / "trace.json")
+        prof = KernelProfiler(registry=reg, tracer=tracer, device="cuda")
+        obs = Obs(registry=reg, trace=tracer, dram=prof)
+        traced, wall1, launches = serve(obs)
+        obs.close()
+        print(f"  traced (fenced after every dispatch): {traced.size} "
+              f"tokens in {wall1:.3f}s ({traced.size / wall1:.1f} tok/s); "
+              f"launches {launches}")
+        assert np.array_equal(plain, traced), "observation changed tokens"
+        events = json.loads((tmp / "trace.json").read_text())
+        steps = [e for e in events if e["name"] == "step"]
+        for name in ("host_prep", "plan_step", "dispatch.decode"):
+            inner = [e for e in events if e["name"] == name]
+            assert inner and all(any(nested(e, st) for st in steps)
+                                 for e in inner), name
+        print(f"  trace: {len(events)} events, {len(steps)} steps; "
+              f"host_prep, plan_step and dispatch.decode nested in them")
+        rep = prof.roofline_report()
+        for prefix, kernel in (("qkv_fused/", "qkv_fused"),
+                               ("matmul_fused/", "matmul_fused"),
+                               ("matmul/", "matmul_blocked")):
+            n = sum(r["dispatches"] for k, r in rep["per_op"].items()
+                    if k.startswith(prefix))
+            print(f"  {prefix[:-1]}: {n} dispatches, {kernel} "
+                  f"{launches[kernel]} launches")
+            assert n == launches[kernel] > 0, (prefix, n, launches)
+        res["rows"] = hold_roofline(rep, "serve")
+        res["totals"] = rep["totals"]
+        res["per_tag"] = {t: v["executions"] for t, v in
+                          prof.report()["per_tag"].items()}
+        res["tok_per_s"] = {"untraced": plain.size / wall0,
+                            "traced": traced.size / wall1}
+
+        log = tmp / "miss.jsonl"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            profile_main(["--no-fuse", "--dtype", "bfloat16",
+                          "--prompt-len", "48", "--requests", "2", "--gen",
+                          "2", "--max-seq", "64", "--corrupt", "matmul",
+                          "--miss-log", str(log), "--trace",
+                          str(tmp / "corrupt.json"), "--json",
+                          str(tmp / "corrupt_roofline.json")])
+    flagged = json.loads((tmp / "corrupt_roofline.json").read_text())[
+        "fidelity_misses"]
+    assert "fidelity gate" in buf.getvalue() and flagged, buf.getvalue()
+    assert all(k.startswith("matmul/") for k in flagged), flagged
+    targets = read_miss_log(str(log))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tune_main(["--from-telemetry", str(log), "--dry-run"])
+    listed = buf.getvalue()
+    for key in flagged:
+        assert f"would tune {key}" in listed, (key, listed)
+    print(f"  --corrupt matmul: fidelity gate flagged {flagged}; the miss "
+          f"log holds {len(targets)} targets, all listed by tune "
+          f"--from-telemetry --dry-run")
+    res["corrupt_flagged"] = flagged
+    return res
+
+
+def phase15_train(seed: int, kernels: dict) -> dict:
+    """Phase 11's blocked training (granite-3-8b full width, 4 of 40
+    layers, bf16, remat "block", 4 x 512 tokens) for 2 steps through
+    ``train.loop.train``, without and with ``Obs(trace=StepTracer,
+    dram=KernelProfiler)``: step 0's loss within 2% (observation, not
+    perturbation), a ``train_step`` scope per step whose ``matmul`` and
+    ``matmul_dgrad`` rows have as many dispatches as rows 6, 7 and 8
+    launched, ``min_bytes <= hbm_bytes`` and a measured ``peak_frac``
+    (printed: the whole step's wall clock, optimizer and attention
+    included, is shared among the GEMM keys)."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.obs import KernelProfiler, Obs, StepTracer
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4,
+                              remat="block")
+    batches = [make_batch(cfg, 512, 4, s, seed=seed, device="cuda")
+               for s in range(2)]
+    tc = loop.TrainConfig(opt=adamw.AdamWConfig(lr=3e-3, warmup_steps=0,
+                                                total_steps=2),
+                          blocked_linear=True, log_every=100)
+    quiet = dict(seed=seed, device="cuda", log=lambda *_: None)
+    plain = loop.train(cfg, tc, iter(batches), **quiet)["history"]
+    torch.cuda.empty_cache()
+    path = Path(tempfile.mkdtemp(prefix="phase15_")) / "train.json"
+    prof = KernelProfiler(device="cuda")
+    obs = Obs(trace=StepTracer(path), dram=prof)
+    reset(kernels)
+    traced = loop.train(cfg, tc, iter(batches), obs=obs, **quiet)["history"]
+    obs.close()
+    torch.cuda.empty_cache()
+    launches = counts(kernels)
+    rel = abs(traced[0] - plain[0]) / abs(plain[0])
+    print(f"  step 0 loss traced {traced[0]:.5f} vs untraced {plain[0]:.5f} "
+          f"(rel {rel:.2e}, bound 2e-2); step 1 {traced[1]:.5f} vs "
+          f"{plain[1]:.5f}")
+    assert rel <= 2e-2, (traced, plain)
+    rep = prof.roofline_report()
+    assert prof.report()["per_tag"]["train_step"]["executions"] == 2
+    by_op = {}
+    for k, r in rep["per_op"].items():
+        by_op[k.split("/")[0]] = by_op.get(k.split("/")[0], 0) + \
+            r["dispatches"]
+    assert by_op == {"matmul": launches["matmul_blocked"],
+                     "matmul_dgrad": launches["matmul_dgrad_a"]
+                     + launches["matmul_dgrad_b"]}, (by_op, launches)
+    names = {e["name"] for e in json.loads(path.read_text())}
+    assert {"step 0", "step 1", "grad", "train"} <= names, names
+    print(f"  train_step dispatches {by_op} = rows 6, 7 + 8 launches")
+    return {"loss_untraced": plain, "loss_traced": traced,
+            "rows": hold_roofline(rep, "train", bound=None)}
 
 
 def hold_decode_core(profile: dict, row: str) -> float:
@@ -2328,6 +2558,65 @@ def phase14_gemma2(seed: int, kernels: dict) -> dict:
     return out
 
 
+def static_quant_cell(cfg, params, prompts, kernels) -> dict:
+    """(c)'s quantized cell: ``cfg`` with int8 projections
+    (``quantize_params``) over an fp8 dense cache (w8fp8), through the
+    static engine, unfused and fused: the engine's kernel path against
+    its plain path (token agreement printed), and the prefill logits and
+    one decode step's logits (the kernel path's greedy token fed to both)
+    held within 5% of max |logit| with the argmax equal; the kernel path
+    launches the int8 GEMMs (row 10; fused, row 9's int8 variant too),
+    the plain path nothing."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import quantize_params
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype=torch.float8_e4m3fn)
+    qparams = quantize_params(params)
+    tok = torch.from_numpy(prompts).cuda()
+    s0 = prompts.shape[1]
+    out = {}
+    for fuse in (False, True):
+        tag = "fused" if fuse else "unfused"
+        reset(kernels)
+        kern = dense_engine(cfg8, qparams, 512, fuse=fuse).generate(
+            prompts, 8)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts(kernels).items() if v}
+        plain = dense_engine(cfg8, qparams, 512, fuse=fuse,
+                             use_kernel=False).generate(prompts, 8)
+        assert {k: v for k, v in counts(kernels).items() if v} == launched, \
+            "the plain path launched a kernel"
+        assert launched.get("matmul_w8", 0) > 0, launched
+        assert (launched.get("matmul_fused", 0) > 0) == fuse, launched
+        same = float((kern == plain).mean())
+        logits = {}
+        for use_kernel in (True, False):
+            with torch.no_grad(), ops.fused_ops(fuse):
+                pre, cache = T.prefill(cfg8, qparams, tok, max_seq=512,
+                                       use_kernel=use_kernel)
+                if use_kernel:
+                    first = pre[:, :cfg.vocab].argmax(-1).to(torch.int32)
+                dec, _ = T.decode_step(cfg8, qparams, first, cache, s0,
+                                       use_kernel=use_kernel)
+            logits[use_kernel] = (pre.float(), dec.float())
+            del cache
+        print(f"  {cfg.name} w8fp8 {tag} static engine: launches "
+              f"{launched}; {kern.shape[0]} x 8 tokens agree with the plain "
+              f"path at {100 * same:.1f}%")
+        out[tag] = {"launches": launched, "token_agreement": same,
+                    "prefill_logits": hold_logits(
+                        f"{cfg.name} w8fp8 {tag} static, kernels vs plain",
+                        logits[True][0], logits[False][0]),
+                    "decode_logits": hold_logits(
+                        f"{cfg.name} w8fp8 {tag} static decode at position "
+                        f"{s0}, kernels vs plain", logits[True][1],
+                        logits[False][1], what="decode logits")}
+    del qparams
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase14_wide(seed: int, kernels: dict) -> dict:
     """(c) glm4-9b and granite-34b at full width, depth cut to 4 layers
     (granite-34b's 88 would hold 67 GB), bf16: 8 prompts of 256 tokens,
@@ -2337,7 +2626,8 @@ def phase14_wide(seed: int, kernels: dict) -> dict:
     fused, held against its plain path on the same inputs: the 8
     prompts' prefill logits and the paged decode logits at position 259
     (the static engine's first 4 tokens fed), each within 5% of max
-    |logit| with the argmax equal; the plain path launches nothing."""
+    |logit| with the argmax equal; the plain path launches nothing.
+    glm4-9b also runs :func:`static_quant_cell` (w8fp8)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -2391,6 +2681,8 @@ def phase14_wide(seed: int, kernels: dict) -> dict:
                             f"{arch} {tag} paged decode at position 259, "
                             f"kernels vs plain", got[1], want[1],
                             what="decode logits")}
+        if arch == "glm4-9b":
+            res["w8fp8"] = static_quant_cell(cfg, params, prompts, kernels)
         out[arch] = res
         del params
         torch.cuda.empty_cache()
@@ -3836,6 +4128,9 @@ def main() -> int:
     fused = phase6_fused(cfg, params, warm, prompts, kernels)
     print(f"  fused {fused['tok_per_s']:.1f} tok/s against blocked "
           f"{blocked['tok_per_s']:.1f} tok/s in this run")
+    phase("phase 15: the observability stack on phase 6b's path: untraced "
+          "and traced + profiled, the fidelity gate under --corrupt")
+    observed = phase15_observed(cfg, params, prompts, kernels)
     phase("phase 9: the quantized path (w8fp8): int8 projections from "
           "quantize_params on the card, an fp8 page pool, the model's page "
           "and chunk")
@@ -3876,6 +4171,9 @@ def main() -> int:
           "bf16, remat block, 4 x 512 tokens, 8 steps: default path and "
           "blocked kernels")
     train = phase11_train(args.seed, kernels)
+    phase("phase 15b: phase 11's blocked training, 2 steps, untraced and "
+          "traced + profiled")
+    observed["train"] = phase15_train(args.seed, kernels)
     phase("phase 12: the paper's conv path at full Table-4 size: Conv1-5 "
           "and AlexNet conv1, batch 2, bf16, ops.conv2d forward and "
           "backward")
@@ -3911,6 +4209,7 @@ def main() -> int:
     print("train " + json.dumps({"parity": parity, "full_width": train,
                                  "reduced": reduced}))
     print("conv " + json.dumps(conv))
+    print("observed " + json.dumps(observed))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.hopper_adapter import MAX_EMPTY_ROWS
+from repro_torch.core.hopper_adapter import H100_SXM, MAX_EMPTY_ROWS
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_blocked import (STAGES, THREADS,
                                                 _check_args, _DTYPES,
+                                                _out_hw, clipped_extent,
                                                 conv2d_blocked_ref,
                                                 conv2d_tiled, pixel_stride,
                                                 weight_vectors)
@@ -191,6 +192,29 @@ def splits_for(n_blocks: int, pairs: int, sms: int) -> int:
     blocks fill two blocks per SM, at most one per (image, tile) pair and
     ``MAX_SPLITS``."""
     return max(1, min(pairs, MAX_SPLITS, _ceil(2 * sms, n_blocks)))
+
+
+def hbm_bytes(n: int, h: int, w: int, c: int, k: int, fh: int, fw: int,
+              bx: int, by: int, bc: int, bk: int, itemsize: int = 2,
+              stride: int = 1, sms: int = H100_SXM.sms) -> int:
+    """Global-memory bytes of one :func:`conv2d_wgrad_block` call (both
+    passes) for ``x (n, h, w, c)``: the first pass's (C tile, K tile,
+    split) blocks together stage every (image, spatial tile) pair's
+    haloed input window (clipped to the image, as the forward's) once
+    per K tile across all of C, and its cotangent tile once per C tile
+    across all of K; each split writes an fp32 (Fh, Fw, C, K) partial
+    (:func:`splits_for` on ``sms`` SMs), which the second pass reads
+    back before writing dW once.  JAX's count is one image through the
+    single-pass TPU kernel."""
+    oh, ow = _out_hw(h, w, fh, fw, stride)
+    rows = clipped_extent(h, oh, by, (by - 1) * stride + fh, stride)
+    cols = clipped_extent(w, ow, bx, (bx - 1) * stride + fw, stride)
+    pairs = n * _ceil(oh, by) * _ceil(ow, bx)
+    splits = splits_for(_ceil(c, bc) * _ceil(k, bk), pairs, sms)
+    x_reads = n * _ceil(k, bk) * rows * cols * c
+    g_reads = n * _ceil(c, bc) * oh * ow * k
+    dw = fh * fw * c * k * 4
+    return (x_reads + g_reads) * itemsize + (2 * splits + 1) * dw
 
 
 def conv2d_wgrad_block_ref(x: torch.Tensor, g: torch.Tensor, fh: int,

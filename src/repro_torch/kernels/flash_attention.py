@@ -125,6 +125,35 @@ def fwd_accumulators(block_q: int, block_kv: int, head_dim: int) -> int:
     return ROWS_PER_WARP * (instance_head_dim(head_dim) + block_kv) // 32
 
 
+def hbm_bytes(seq_q: int, seq_kv: int, head_dim: int, block_q: int,
+              block_kv: int, bytes_per_elem: int = 2, *, groups: int = 1,
+              causal: bool = False, window: int | None = None,
+              with_lse: bool = False) -> int:
+    """Global-memory bytes the forward's blocks request for one (batch,
+    kv head) -- the parity count of JAX's ``hbm_bytes``; no tuned key
+    reads it.  A block owns ``block_q`` of the head's ``seq_q * groups``
+    position-major rows (queries aligned to the tail of the keys) and
+    stages keys from the ``block_kv`` tile holding its window's first key
+    up to its last row's causal limit (keys past it are zero-filled, not
+    loaded: ``csrc/flash_attention.cu``); q is read and the output
+    written once, and ``with_lse`` adds the fp32 residual of each row.
+    JAX's count reads every K/V block once per q block (none skipped)."""
+    rows = seq_q * groups
+    off = seq_kv - seq_q
+    keys = 0
+    for t0 in range(0, rows, block_q):
+        t_last = min(t0 + block_q, rows) - 1
+        k_hi = seq_kv
+        if causal:
+            k_hi = min(k_hi, off + t_last // groups + 1)
+        k_lo = (max(0, off + t0 // groups - window + 1)
+                if window else 0)
+        keys += max(0, k_hi - k_lo // block_kv * block_kv)
+    qo = 2 * rows * head_dim * bytes_per_elem
+    return qo + 2 * keys * head_dim * bytes_per_elem + \
+        (rows * 4 if with_lse else 0)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         logit_cap: float | None = None) -> torch.Tensor:

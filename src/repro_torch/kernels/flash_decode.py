@@ -185,6 +185,36 @@ def decode_grid(batch: int, hkv: int, rows: int, page: int, n_blocks: int,
     return splits, splits, splits * hkv * batch * -(-rows // DECODE_ROWS)
 
 
+def hbm_bytes(batch: int, hkv: int, groups: int, head_dim: int, seq: int,
+              page: int, bytes_per_elem: int = 2,
+              kv_bytes: int | None = None, q_span: int = 1) -> int:
+    """Global-memory bytes of one :func:`flash_decode` (``kv_bytes=1``:
+    :func:`flash_decode_fp8`) call whose rows each see ``seq`` keys, in
+    whole pages (block tables and lengths excluded, as in JAX).
+
+    bf16 (``csrc/decode_mma.cuh``): grid (splits, Hkv, B x row tiles of
+    16 rows), :func:`decode_grid`'s split count; every block of a tile's
+    cluster stages the tile's q rows, the runs partition the tile's
+    pages (each K and V page read once a row tile), and the output is
+    written once.  fp32 (``attn_rows``): one block a (b, kv head) per 4
+    rows, each streaming every visible page.  An fp8 pool's pages are
+    ``kv_bytes`` wide and every block reads its head's two fp32 scales.
+    JAX's count reads each page once per (b, kv head)."""
+    kvb = bytes_per_elem if kv_bytes is None else kv_bytes
+    rows = q_span * groups
+    nb = -(-seq // page)
+    if bytes_per_elem == 2:
+        tiles = -(-rows // DECODE_ROWS)
+        splits = decode_grid(batch, hkv, rows, page, nb, head_dim, kvb)[0]
+    else:
+        tiles, splits = -(-rows // ROWS_PER_BLOCK), 1
+    pairs = batch * hkv
+    q = pairs * rows * head_dim * bytes_per_elem
+    kv = 2 * pairs * tiles * nb * page * head_dim * kvb
+    scales = 2 * 4 * pairs * tiles * splits if kv_bytes is not None else 0
+    return q * splits + kv + q + scales
+
+
 OPROJ_MAX_ROWS = 16        # batch rows of one group (csrc: kMaxRows)
 OPROJ_WO_STAGES = 4        # wo steps in the ring (csrc: kStages)
 OPROJ_STEP_BYTES = 16384   # one wo step (csrc: kStageBytes)

@@ -74,16 +74,28 @@ def accumulators_per_thread(bm: int, bn: int) -> int:
     return COLS_PER_THREAD * -(-bm // thread_rows)
 
 
+def row_blocks(M: int, bm: int, bytes_per_elem: int) -> int:
+    """Row blocks of a forward GEMM's grid: ``ceil(M / bm)``, or one
+    where the bf16 ``"mma_t"`` instance (M <= 16) holds every row in each
+    block (``matmul_fused.instance_kind``)."""
+    from repro_torch.kernels.matmul_fused import MMA_T_ROWS
+    if bytes_per_elem == 2 and M <= MMA_T_ROWS:
+        return 1
+    return -(-M // bm)
+
+
 def hbm_bytes(M: int, N: int, K: int, bm: int, bk: int, bn: int,
               bytes_per_elem: int = 2) -> int:
     """Global-memory bytes the grid's loads and stores issue: every block
     of a grid column reads its A row-panel, so A is read ceil(N / bn)
-    times and B ceil(M / bm) times; C is written once.  ``bk`` does not
+    times and B once per row block (:func:`row_blocks`: ceil(M / bm),
+    one for the decode instance); C is written once.  ``bk`` does not
     change the count (it is the staging step, not a reuse boundary).
-    L2 may serve some of the repeated reads: this counts requests, not
-    HBM transfers."""
+    Ragged tiles count with ceilings: the kernels mask the edges and run
+    (JAX's count requires dividing tiles).  L2 may serve some of the
+    repeated reads: this counts requests, not HBM transfers."""
     del bk
-    gm, gn = -(-M // bm), -(-N // bn)
+    gm, gn = row_blocks(M, bm, bytes_per_elem), -(-N // bn)
     return (M * K * gn + K * N * gm + M * N) * bytes_per_elem
 
 

@@ -178,6 +178,21 @@ def smem_bytes_required(bm: int, bk: int, bn: int, bytes_per_elem: int = 2,
     return stages * max(_mma_chunks(bm, bk, bn, k) for k in kernels) * 16
 
 
+def hbm_bytes(M: int, N: int, K: int, bm: int, bk: int, bn: int,
+              bytes_per_elem: int = 2) -> int:
+    """Global-memory bytes one dgrad call's grid requests, dims and tiles
+    in the ``"matmul_dgrad"`` key's (M_out, N_out, K_reduce) roles (dA:
+    ``(M, K, N)``; dB: ``(K, N, M)``): a ``ceil(N_out / bn)`` x
+    ``ceil(M_out / bm)`` grid whose blocks each walk the whole
+    reduction, so the row-side operand is read once per column block,
+    the column-side one once per row block, and the cotangent written
+    once in the operands' dtype.  JAX prices ``matmul_dgrad`` with the
+    blocked GEMM's formula under DMA elision."""
+    del bk
+    gm, gn = _ceil(M, bm), _ceil(N, bn)
+    return (M * K * gn + K * N * gm + M * N) * bytes_per_elem
+
+
 def matmul_dgrad_a_ref(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of dA = g @ b.T: the fp32 product cast to g's
     dtype."""

@@ -146,6 +146,28 @@ def accumulators_per_thread(bm: int, bn: int, bytes_per_elem: int = 2, *,
     return 4 * layout[2] * layout[3]
 
 
+def hbm_bytes(M: int, N: int, K: int, bm: int, bk: int, bn: int,
+              bytes_per_elem: int = 2, w_bytes: int | None = None,
+              has_bias: bool = False, has_mul: bool = False,
+              has_residual: bool = False) -> int:
+    """Global-memory bytes one call's grid requests: the GEMM's
+    (``matmul_blocked.hbm_bytes``: A once per column block, W at
+    ``w_bytes`` -- 1 for an int8 weight -- once per row block, Y written
+    once) plus the epilogue's operands, which ``FusedMap::store`` loads
+    for every output element (``csrc/fused_gemm.cuh``): the fp32 scale
+    (int8 W) and bias, and ``mul`` and ``residual`` in A's dtype.  JAX's
+    count fetches the fp32 rows once per row block under DMA elision;
+    here each element's load is a request (L2 serves the repeats)."""
+    del bk
+    gm = MB.row_blocks(M, bm, bytes_per_elem)
+    wb = bytes_per_elem if w_bytes is None else w_bytes
+    total = (M * K * bytes_per_elem * _ceil(N, bn) + K * N * wb * gm
+             + M * N * bytes_per_elem)
+    per_out = (4 * ((w_bytes is not None) + has_bias)
+               + bytes_per_elem * (has_mul + has_residual))
+    return total + M * N * per_out
+
+
 def matmul_fused_ref(a: torch.Tensor, w: torch.Tensor,
                      scale: torch.Tensor | None = None,
                      bias: torch.Tensor | None = None,

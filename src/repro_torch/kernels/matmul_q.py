@@ -56,6 +56,17 @@ def smem_bytes_required(bm: int, bk: int, bn: int, a_bytes: int = 2,
     return MF.smem_bytes_required(bm, bk, bn, 2, w_bytes, m=m)
 
 
+def hbm_bytes(M: int, N: int, K: int, bm: int, bk: int, bn: int,
+              a_bytes: int = 2, w_bytes: int = 1) -> int:
+    """Global-memory bytes one call's grid requests: the GEMM's with the
+    weight stream at ``w_bytes`` (``matmul_fused.hbm_bytes``) plus the
+    fp32 scale, which ``W8Map::store`` loads for every output element
+    (``csrc/gemm_mma_inst.cuh``; a per-tensor scale is broadcast to a
+    row of N by the wrapper).  JAX's count fetches the scale row once
+    per row block."""
+    return MF.hbm_bytes(M, N, K, bm, bk, bn, a_bytes, w_bytes)
+
+
 def matmul_w8_ref(a: torch.Tensor, w_q: torch.Tensor,
                   scale) -> torch.Tensor:
     """Plain version: the fp32 product of ``a`` and the int8 payload,

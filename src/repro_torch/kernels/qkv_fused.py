@@ -53,6 +53,24 @@ def blocks(nkv: int, groups: int, bn: int) -> int:
     return -(-groups * nkv // bn) + 2 * -(-nkv // bn)
 
 
+def hbm_bytes(M: int, Nkv: int, K: int, groups: int, bm: int, bk: int,
+              bn: int, bytes_per_elem: int = 2) -> int:
+    """Global-memory bytes one call's grid requests: x read once per
+    column block (fp32: the ``ceil(Nkv / bn)`` joint blocks, each
+    feeding all three weights from one staged tile; bf16: the
+    segment-major grid's :func:`blocks`), the three weights once per row
+    block (``matmul_blocked.row_blocks``: one for the decode instance),
+    q, k and v written once.  ``bk`` does not change the count.  JAX's
+    count has the TPU's joint tile in every dtype, and elides x's
+    re-reads when the reduction is one block."""
+    del bk
+    cols = (groups + 2) * Nkv
+    col_blocks = (-(-Nkv // bn) if bytes_per_elem != 2
+                  else blocks(Nkv, groups, bn))
+    gm = MB.row_blocks(M, bm, bytes_per_elem)
+    return (M * K * col_blocks + K * cols * gm + M * cols) * bytes_per_elem
+
+
 def smem_bytes_required(bm: int, bk: int, bn: int, groups: int,
                         bytes_per_elem: int = 2, *,
                         m: int | None = None) -> int:

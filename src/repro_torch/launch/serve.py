@@ -25,8 +25,13 @@ page pool (``flash_decode_fp8``, the page sized under
 ``"flash_decode_fp8"``), ``w8fp8`` both; it composes with ``--fuse``.
 Both compose with ``--engine static`` too (its fp8 cache is the dense
 one).  JAX's launcher defaults to the static engine; this one to the
-paged engine.  ``--metrics-out PATH`` writes the engine's metrics
-registry as JSON.
+paged engine.  ``--metrics-out PATH`` writes the metrics snapshot (the
+registry and the modeled-vs-resolved DRAM report) as JSON, ``--trace
+PATH`` a Chrome-trace timeline of every engine step (it fences the
+device after each dispatch, so a traced run is not for throughput
+numbers) and ``--miss-log PATH`` the schedule-cache misses as JSONL
+tuning targets for ``python -m repro_torch.tune --from-telemetry``, as
+JAX's launcher does.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.obs import format_metrics
+from repro_torch.obs import Obs, format_metrics
 from repro_torch.quant import quantize_params, quantized_bytes
 from repro_torch.serve.engine import (DecodeEngine, PagedEngine,
                                       PagedServeConfig, ServeConfig)
@@ -87,7 +92,17 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--metrics-out", metavar="PATH", default=None,
-                    help="write the engine's metrics registry as JSON")
+                    help="write the metrics snapshot (registry + "
+                         "modeled-vs-resolved DRAM report) as JSON")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="write a Chrome-trace (chrome://tracing / "
+                         "Perfetto) span timeline of every engine step; "
+                         "fences the device after each dispatch, so "
+                         "traced runs are NOT for throughput numbers")
+    ap.add_argument("--miss-log", metavar="PATH", default=None,
+                    help="append schedule-cache misses as JSONL tuning "
+                         "targets for python -m repro_torch.tune "
+                         "--from-telemetry")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -102,10 +117,11 @@ def main(argv=None) -> None:
               f"(same projections at bf16: {db / 1e6:.1f} MB)")
     rng = np.random.default_rng(args.seed)
     kv = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
+    obs = Obs(trace=args.trace, miss_log=args.miss_log)
     if args.engine == "static":
         engine = DecodeEngine(cfg, params, ServeConfig(
             max_seq=args.max_seq, temperature=args.temperature,
-            seed=args.seed, fuse=args.fuse, device=args.device))
+            seed=args.seed, fuse=args.fuse, device=args.device), obs=obs)
         prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                                dtype=np.int32)
         t0 = time.perf_counter()
@@ -119,14 +135,14 @@ def main(argv=None) -> None:
         print(f"generated {out.shape} in {dt:.2f}s "
               f"({out.size / dt:.1f} tok/s)")
         print("sample:", out[0, :16].tolist())
-        write_metrics(engine, args.metrics_out)
+        finish_obs(obs, args)
         return
     engine = PagedEngine(cfg, params, PagedServeConfig(
         max_seq=args.max_seq, max_batch=args.batch,
         page_size=args.page_size or None,
         prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
         temperature=args.temperature, seed=args.seed, device=args.device,
-        fuse=args.fuse))
+        fuse=args.fuse), obs=obs)
     n_req = args.requests or args.batch
     lo = max(1, args.prompt_len // 2) if args.mixed_lens else args.prompt_len
     lens = rng.integers(lo, args.prompt_len + 1, n_req)
@@ -148,16 +164,30 @@ def main(argv=None) -> None:
     print(f"generated {emitted} tokens over {n_req} requests in {dt:.2f}s "
           f"({emitted / dt:.1f} tok/s), statuses: {'/'.join(statuses)}")
     print("sample:", reqs[0].output[:16].tolist())
-    write_metrics(engine, args.metrics_out)
+    finish_obs(obs, args)
 
 
-def write_metrics(engine, path: str | None) -> None:
-    """The engine's registry snapshot as JSON at ``path`` (none: no
-    file)."""
-    if path:
-        with open(path, "w") as f:
-            f.write(engine.metrics.to_json())
-        print(f"metrics snapshot -> {path}")
+def finish_obs(obs: Obs, args) -> None:
+    """Shared tail: the metrics snapshot and the DRAM bytes per op key
+    (``--metrics-out``), where the trace and the miss log went, and the
+    bundle closed."""
+    if args.metrics_out:
+        obs.write_metrics(args.metrics_out)
+        print(f"metrics snapshot -> {args.metrics_out}")
+        dram = obs.snapshot()["dram"]
+        lines = format_metrics({"dram": {
+            k: {kk: v[kk] for kk in ("modeled_bytes", "used_bytes", "ratio")
+                if v[kk] is not None}
+            for k, v in dram["per_op"].items()}})
+        if lines:
+            print("modeled-vs-resolved DRAM bytes per op key:")
+            print(lines)
+    if args.trace:
+        print(f"chrome trace -> {args.trace}")
+    if args.miss_log:
+        print(f"schedule-cache miss log -> {args.miss_log} (replay: "
+              "python -m repro_torch.tune --from-telemetry)")
+    obs.close()
 
 
 if __name__ == "__main__":

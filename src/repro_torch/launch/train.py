@@ -11,10 +11,11 @@ on the same trajectory.  ``--blocked-kernels`` runs every projection
 through the blocked GEMM and its dgrad kernels (forward and backward);
 attention runs the flash-attention kernels forward and backward on the
 card either way.  The flags are JAX's launcher's, plus ``--device``,
-``--dtype`` and ``--seed``.  Not ported yet, and refused when given:
-``--production-mesh`` (distribution, ``ROADMAP.md`` queue 1, item 16)
-and ``--trace`` / ``--miss-log`` (the tracer and the DRAM ledger, item
-14).
+``--dtype`` and ``--seed``: ``--metrics-out`` writes the train gauges
+and the DRAM report, ``--trace`` a Chrome-trace timeline of every step
+and ``--miss-log`` the schedule-cache misses (meaningful with
+``--blocked-kernels``).  Not ported yet, and refused when given:
+``--production-mesh`` (distribution, ``ROADMAP.md`` queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.pipeline import make_batch
-from repro_torch.obs import MetricsRegistry, format_metrics
+from repro_torch.obs import Obs, format_metrics
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import TrainConfig, train
 
@@ -53,14 +54,15 @@ def main(argv=None) -> None:
                     help="the 16x16 mesh (not ported: ROADMAP.md, queue 1, "
                          "item 16)")
     ap.add_argument("--metrics-out", metavar="PATH", default=None,
-                    help="write the metrics snapshot (train gauges) as "
-                         "JSON")
+                    help="write the metrics snapshot (train gauges + "
+                         "modeled-vs-resolved DRAM report) as JSON")
     ap.add_argument("--trace", metavar="PATH", default=None,
-                    help="Chrome-trace timeline (not ported: ROADMAP.md, "
-                         "queue 1, item 14)")
+                    help="write a Chrome-trace span timeline of every "
+                         "train step (step/grad/checkpoint spans + "
+                         "loss/throughput counter tracks)")
     ap.add_argument("--miss-log", metavar="PATH", default=None,
-                    help="schedule-cache miss log (not ported: ROADMAP.md, "
-                         "queue 1, item 14)")
+                    help="append schedule-cache misses as JSONL tuning "
+                         "targets (meaningful with --blocked-kernels)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--seed", type=int, default=0)
@@ -71,12 +73,6 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--production-mesh: distribution is not ported yet; see "
             "ROADMAP.md, queue 1, item 16")
-    for flag, value in (("--trace", args.trace),
-                        ("--miss-log", args.miss_log)):
-        if value:
-            raise NotImplementedError(
-                f"{flag}: the tracer and the DRAM ledger are not ported "
-                "yet; see ROADMAP.md, queue 1, item 14")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
@@ -93,17 +89,21 @@ def main(argv=None) -> None:
             yield make_batch(cfg, args.seq_len, args.batch, step,
                              device=args.device)
 
-    registry = MetricsRegistry()
+    obs = Obs(trace=args.trace, miss_log=args.miss_log)
     result = train(cfg, tc, batches(), seed=args.seed, device=args.device,
-                   restore=args.restore == "auto", registry=registry)
+                   restore=args.restore == "auto", obs=obs)
     print(f"final loss: {result['history'][-1]:.4f} "
           f"(start {result['history'][0]:.4f})")
     if args.metrics_out:
-        with open(args.metrics_out, "w") as f:
-            f.write(registry.to_json())
+        obs.write_metrics(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")
-        print(format_metrics({"train": registry.snapshot().get("train",
-                                                               {})}))
+        print(format_metrics({"train": obs.snapshot().get("train", {})}))
+    if args.trace:
+        print(f"chrome trace -> {args.trace}")
+    if args.miss_log:
+        print(f"schedule-cache miss log -> {args.miss_log} (replay: "
+              "python -m repro_torch.tune --from-telemetry)")
+    obs.close()
 
 
 if __name__ == "__main__":

@@ -41,7 +41,19 @@ left unset (``kv_cache.choose_page_size`` / ``choose_prefill_chunk``).
 projection as one ``qkv_fused`` pass, the MLP as epilogue-fused
 ``matmul_fused`` GEMMs and single-token decode as ``flash_decode_oproj``
 (attention with the output projection fused in), with the page sized
-under that kernel's key.  Not ported yet, and refused with
+under that kernel's key.
+
+Both engines take an ``obs`` bundle (:class:`repro_torch.obs.Obs`; a
+private one when none is given, tracer off): the metrics registry
+(:attr:`metrics`), the DRAM ledger, whose scopes tag every device
+dispatch with JAX's tags (``static_prefill[S0]``,
+``static_generate[n]``, ``setup``, ``join[bucket]``, ``prefill[C]``,
+``decode[chunk]``) and whose ``end_step`` closes each step, and an
+optional Chrome-trace tracer.  With a tracer attached the step's phases
+emit spans and each dispatch scope ends with
+:func:`device_fence` (``torch.cuda.synchronize``), so spans and the
+profiler's scopes time the device's work; with none, no fence runs.
+Not ported yet, and refused with
 ``NotImplementedError`` rather than ignored: ``spec_decode``,
 ``prefix_cache``, ``preempt``, ``degrade`` and ``nan_guard``
 (``ROADMAP.md``).
@@ -59,12 +71,19 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs import Obs
 from repro_torch.obs.trace import null_span
 from repro_torch.serve import kv_cache as KV
 from repro_torch.serve.lifecycle import RequestStatus
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.util import resolve_device
+
+
+def device_fence(device: torch.device) -> None:
+    """Wait for the device's queued work (a CPU device has none): the
+    engines call it only with a tracer attached."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def sample_tokens(cfg: ModelConfig, logits: torch.Tensor, temperature: float,
@@ -96,14 +115,16 @@ class DecodeEngine:
     """Static batch: every request prefills together (the prompts share
     one length S0) and decodes in lock-step for a fixed token budget.
     Counters ``engine.prefill_tokens`` and ``engine.decode_tokens`` in
-    :attr:`metrics`."""
+    :attr:`metrics` (``obs.registry``)."""
 
-    def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig):
+    def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig,
+                 obs: Obs | None = None):
         T.model_defs(cfg)                  # refuses unported families
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = resolve_device(sc.device)
         _check_params_device(params, self.device)
-        self.metrics = reg = MetricsRegistry()
+        self.obs = obs if obs is not None else Obs()
+        self.metrics = reg = self.obs.registry
         self._m_prefill_tokens = reg.counter("engine.prefill_tokens")
         self._m_decode_tokens = reg.counter("engine.decode_tokens")
 
@@ -121,20 +142,33 @@ class DecodeEngine:
                              f"do not fit max_seq {sc.max_seq}")
         gen = torch.Generator(device=self.device).manual_seed(sc.seed)
         kw = dict(use_kernel=sc.use_kernel)
+        tr = self.obs.tracer
+        sp = tr.span if tr is not None else null_span
         with torch.no_grad(), ops.fused_ops(sc.fuse):
-            logits, cache = T.prefill(
-                cfg, self.params, torch.from_numpy(prompts).to(self.device),
-                max_seq=sc.max_seq, **kw)
-            tok = sample_tokens(cfg, logits, sc.temperature, gen)
-            out = [tok]
-            for pos in range(s0, s0 + n_tokens - 1):
-                logits, cache = T.decode_step(cfg, self.params, tok, cache,
-                                              pos, **kw)
+            with sp("prefill", cat="static"), \
+                    self.obs.dram.scope(f"static_prefill[{s0}]"):
+                logits, cache = T.prefill(
+                    cfg, self.params,
+                    torch.from_numpy(prompts).to(self.device),
+                    max_seq=sc.max_seq, **kw)
                 tok = sample_tokens(cfg, logits, sc.temperature, gen)
-                out.append(tok)
-        host = torch.stack(out, dim=1).cpu().numpy()
+                if tr is not None:
+                    device_fence(self.device)
+            out = [tok]
+            with sp("decode", cat="static"), \
+                    self.obs.dram.scope(f"static_generate[{n_tokens}]"):
+                for pos in range(s0, s0 + n_tokens - 1):
+                    logits, cache = T.decode_step(cfg, self.params, tok,
+                                                  cache, pos, **kw)
+                    tok = sample_tokens(cfg, logits, sc.temperature, gen)
+                    out.append(tok)
+                if tr is not None:
+                    device_fence(self.device)
+        with sp("readback", cat="static"):
+            host = torch.stack(out, dim=1).cpu().numpy()
         self._m_prefill_tokens.inc(b * s0)
         self._m_decode_tokens.inc(b * n_tokens)
+        self.obs.dram.end_step(range(b))
         return host
 
 
@@ -212,14 +246,19 @@ class PagedEngine:
     at admission, which keeps block tables stable across a decode chunk.
     """
 
-    def __init__(self, cfg: ModelConfig, params: Any, sc: PagedServeConfig):
+    def __init__(self, cfg: ModelConfig, params: Any, sc: PagedServeConfig,
+                 obs: Obs | None = None):
         _check_ported(sc)
         T.model_defs(cfg)                  # refuses unported families
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = resolve_device(sc.device)
         _check_params_device(params, self.device)
-        self.page_size = sc.page_size or KV.choose_page_size(
-            cfg, sc.max_seq, fused=sc.fuse)
+        self.obs = obs if obs is not None else Obs()
+        with self.obs.dram.scope("setup"):
+            # the page choice resolves the decode key once, here --
+            # attributed to "setup", not to a step
+            self.page_size = sc.page_size or KV.choose_page_size(
+                cfg, sc.max_seq, fused=sc.fuse)
         self.max_blocks = KV.num_blocks(sc.max_seq, self.page_size)
         n_pages = sc.n_pages or sc.max_batch * self.max_blocks + 1
         self.cache = KV.init_paged_cache(cfg, n_pages, self.page_size,
@@ -238,7 +277,7 @@ class PagedEngine:
                   f"{self.prefill_chunk} (blocking model, max_seq "
                   f"{sc.max_seq}{', fused' if sc.fuse else ''})")
 
-        self.metrics = reg = MetricsRegistry()
+        self.metrics = reg = self.obs.registry
         reg.gauge("engine.page_size").set(self.page_size)
         reg.gauge("engine.prefill_chunk").set(self.prefill_chunk)
         allocator = KV.PageAllocator(n_pages, metrics=reg)
@@ -282,13 +321,23 @@ class PagedEngine:
 
     def step(self) -> list[Request]:
         """One continuous-batching iteration; returns finished requests
-        (with ``.output`` and ``.status`` filled)."""
+        (with ``.output`` and ``.status`` filled).
+
+        With a tracer attached, the step and its phases (host prep,
+        ``plan_step``, device dispatches, readback) emit Chrome-trace
+        spans, and each dispatch ends with :func:`device_fence`, so
+        span durations include the device's work.  With no tracer,
+        ``sp`` is the shared no-op span and NO fence runs (guarded by
+        ``tests/test_torch_obs.py``)."""
         t0 = time.perf_counter_ns()
-        sp = null_span
+        tr = self.obs.tracer
+        sp = tr.span if tr is not None else null_span
         finished: list[Request] = []
-        with sp("step", cat="engine"):
+        step_rids: set[int] = set()
+        with sp("step", cat="engine", args={"step": self._m_steps.value}):
             with sp("host_prep", cat="engine"):
                 for req in self.scheduler.admit():
+                    step_rids.add(req.rid)
                     row = np.full(self.max_blocks, KV.SCRATCH_PAGE, np.int32)
                     row[:len(req.pages)] = req.pages
                     self._block_tables[req.slot] = torch.from_numpy(row).to(
@@ -306,6 +355,7 @@ class PagedEngine:
             running = self.scheduler.running
             # decode first: decode-ready slots are never stalled by prefill
             decode_rs = [running[s] for s in plan.decode_slots]
+            step_rids.update(r.rid for r in decode_rs)
             if decode_rs:
                 with sp("dispatch.decode", cat="device"):
                     self._decode_once(decode_rs)
@@ -313,6 +363,7 @@ class PagedEngine:
                 r = running.get(slot)
                 if r is None or r.prefill_done:
                     continue
+                step_rids.add(r.rid)
                 with sp("dispatch.prefill", cat="device"):
                     self._prefill_one_chunk(r)
             done_slots = [s for s, r in running.items() if r.done]
@@ -328,6 +379,7 @@ class PagedEngine:
                     finished.append(req)
         self._m_steps.inc()
         self._m_step_us.observe((time.perf_counter_ns() - t0) / 1000.0)
+        self.obs.dram.end_step(sorted(step_rids))
         return finished
 
     def generate(self, prompts, n_tokens: int, *,
@@ -363,19 +415,23 @@ class PagedEngine:
         nb = KV.num_blocks(bucket, self.page_size)
         pages = np.full(nb, KV.SCRATCH_PAGE, np.int64)
         pages[:min(nb, len(req.pages))] = req.pages[:nb]
-        with ops.fused_ops(self.sc.fuse):
-            logits, dense = T.prefill(
-                self.cfg, self.params,
-                torch.from_numpy(prompt).to(self.device), max_seq=bucket,
-                full_kv=True, logits_at=n - 1, use_kernel=self.sc.use_kernel)
-        KV.write_prefill(self.cfg, self.cache, dense,
-                         torch.from_numpy(pages).to(self.device),
-                         self.page_size)
-        tok = sample_tokens(self.cfg, logits, self.sc.temperature,
-                            self._gen)[0]
-        self._lengths[slot] = n
-        self._cur_tok[slot] = tok
-        self._out_buf[slot, 0] = tok
+        # the scope tag carries the bucket, as JAX's jit variant
+        with self.obs.dram.scope(f"join[{bucket}]"):
+            with ops.fused_ops(self.sc.fuse):
+                logits, dense = T.prefill(
+                    self.cfg, self.params,
+                    torch.from_numpy(prompt).to(self.device),
+                    max_seq=bucket, full_kv=True, logits_at=n - 1,
+                    use_kernel=self.sc.use_kernel)
+            KV.write_prefill(self.cfg, self.cache, dense,
+                             torch.from_numpy(pages).to(self.device),
+                             self.page_size)
+            tok = sample_tokens(self.cfg, logits, self.sc.temperature,
+                                self._gen)[0]
+            self._lengths[slot] = n
+            self._cur_tok[slot] = tok
+            self._out_buf[slot, 0] = tok
+            self._fence()
         self._m_prefill_tokens.inc(n)
         self._m_joins.inc()
         req.generated = 1
@@ -393,24 +449,28 @@ class PagedEngine:
         tokens = np.zeros((1, width), np.int32)
         tokens[0, :c_real] = req.prompt[start:start + c_real]
         slot = req.slot
-        attn = KV.make_paged_span_step(
-            self.cfg, self._block_tables[slot:slot + 1], self.page_size,
-            self.sc.max_seq, self.sc.use_kernel)
-        pos = torch.full((1,), start, dtype=torch.int32, device=self.device)
-        with ops.fused_ops(self.sc.fuse):
-            logits, _ = T.decode_step(
-                self.cfg, self.params,
-                torch.from_numpy(tokens).to(self.device), self.cache, pos,
-                attn, use_kernel=self.sc.use_kernel)
-        self._lengths[slot] = start + c_real
+        with self.obs.dram.scope(f"prefill[{width}]"):
+            attn = KV.make_paged_span_step(
+                self.cfg, self._block_tables[slot:slot + 1], self.page_size,
+                self.sc.max_seq, self.sc.use_kernel)
+            pos = torch.full((1,), start, dtype=torch.int32,
+                             device=self.device)
+            with ops.fused_ops(self.sc.fuse):
+                logits, _ = T.decode_step(
+                    self.cfg, self.params,
+                    torch.from_numpy(tokens).to(self.device), self.cache,
+                    pos, attn, use_kernel=self.sc.use_kernel)
+            self._lengths[slot] = start + c_real
+            if start + c_real >= n:
+                tok = sample_tokens(self.cfg, logits[:, n - 1 - start],
+                                    self.sc.temperature, self._gen)[0]
+                self._cur_tok[slot] = tok
+                self._out_buf[slot, 0] = tok
+            self._fence()
         self._m_prefill_tokens.inc(c_real)
         self._m_prefill_chunks.inc()
         req.prefilled = start + c_real
         if req.prefill_done:
-            tok = sample_tokens(self.cfg, logits[:, n - 1 - start],
-                                self.sc.temperature, self._gen)[0]
-            self._cur_tok[slot] = tok
-            self._out_buf[slot, 0] = tok
             req.generated = 1
 
     def _decode_once(self, running: list[Request]) -> None:
@@ -426,12 +486,19 @@ class PagedEngine:
         # engines schedule identically
         chunk = 1 << (int(remaining.max()) - 1).bit_length()
         chunk = int(min(self.sc.decode_chunk, chunk))
-        self._decode_fn(occupied, remaining, out_idx, chunk)
+        with self.obs.dram.scope(f"decode[{chunk}]"):
+            self._decode_fn(occupied, remaining, out_idx, chunk)
+            self._fence()
         self._m_decode_steps.inc(chunk)
         for r in running:
             steps = min(chunk, r.max_new_tokens - r.generated)
             r.generated += steps
             self._m_decode_tokens.inc(steps)
+
+    def _fence(self) -> None:
+        """:func:`device_fence` when a tracer is attached, else nothing."""
+        if self.obs.tracer is not None:
+            device_fence(self.device)
 
     def _decode_fn(self, occupied: np.ndarray, remaining: np.ndarray,
                    out_idx: np.ndarray, chunk: int) -> None:

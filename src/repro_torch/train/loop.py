@@ -15,6 +15,7 @@ op takes its plain version and nothing launches.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -127,17 +128,21 @@ class StepWatchdog:
 
 def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
           params=None, seed: int = 0, device: str | torch.device = "cuda",
-          restore: bool = False, log=print, registry=None) -> dict:
+          restore: bool = False, log=print, obs=None) -> dict:
     """Single-host training loop over ``batches`` (an iterable of
     ``{"tokens", "labels"}`` tensor dicts).  ``params`` default to
     ``T.init_params(cfg, seed, device)``.
 
-    ``registry`` (a :class:`repro_torch.obs.MetricsRegistry`, optional)
-    gets JAX's training telemetry: ``train.loss`` and
-    ``train.tokens_per_s`` gauges, a ``train.step_us`` histogram and a
-    ``train.steps`` counter.  Every step ends by reading the loss on the
-    host, which waits for the device, as JAX blocks on it: step times are
-    device times.
+    ``obs`` (a :class:`repro_torch.obs.Obs`, optional) gets JAX's
+    training telemetry: ``train.loss`` and ``train.tokens_per_s``
+    gauges, a ``train.step_us`` histogram and a ``train.steps`` counter
+    in the registry; ``step {n}``, ``grad`` and ``checkpoint`` spans and
+    a ``train`` counter track (loss, tokens/s) in the tracer; and, with
+    ``blocked_linear``, every projection's schedule resolutions (forward
+    and dgrad) in the DRAM ledger under the ``train_step`` scope.  Every
+    step ends by reading the loss on the host, which waits for the
+    device, as JAX blocks on it: step times and spans are device times
+    with or without a tracer.
     """
     if params is None:
         params = T.init_params(cfg, seed=seed, device=device)
@@ -150,35 +155,51 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
             params, opt_state = state["params"], state["opt"]
             log(f"restored checkpoint at step {start_step}")
 
-    if registry is not None:
-        g_loss = registry.gauge("train.loss")
-        g_tps = registry.gauge("train.tokens_per_s")
-        h_step = registry.histogram("train.step_us")
-        c_steps = registry.counter("train.steps")
+    if obs is not None:
+        from repro_torch.obs import null_span
+        span = obs.tracer.span if obs.tracer is not None else null_span
+        g_loss = obs.registry.gauge("train.loss")
+        g_tps = obs.registry.gauge("train.tokens_per_s")
+        h_step = obs.registry.histogram("train.step_us")
+        c_steps = obs.registry.counter("train.steps")
 
     step_fn = make_train_step(cfg, tc)
     watchdog = StepWatchdog(tc.straggler_factor)
     history = []
     for step, batch in enumerate(batches, start=start_step):
         t0 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])          # waits for the device
+        if obs is not None:
+            with span(f"step {step}", cat="train", args={"step": step}):
+                with span("grad", cat="train"), \
+                        obs.dram.scope("train_step"):
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         batch)
+                    loss = float(metrics["loss"])  # waits for the device
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])          # waits for the device
         dt = time.perf_counter() - t0
         slow = watchdog.observe(step, dt)
-        if registry is not None:
+        if obs is not None:
             tps = batch["tokens"].numel() / dt if dt > 0 else 0.0
             g_loss.set(loss)
             g_tps.set(round(tps, 1))
             h_step.observe(dt * 1e6)
             c_steps.inc()
+            obs.dram.end_step()
+            if obs.tracer is not None:
+                obs.tracer.counter("train", {"loss": loss,
+                                             "tokens_per_s": tps})
         if step % tc.log_every == 0 or slow:
             log(f"step {step:5d} loss {loss:.4f} "
                 f"gnorm {float(metrics.get('grad_norm', 0)):.3f} "
                 f"{dt*1e3:.0f}ms" + ("  [STRAGGLER]" if slow else ""))
         history.append(loss)
         if tc.ckpt_dir and (step + 1) % tc.ckpt_every == 0:
-            ckpt.save_async(tc.ckpt_dir, step + 1,
-                            {"params": params, "opt": opt_state})
+            with (span("checkpoint", cat="train", args={"step": step + 1})
+                  if obs is not None else contextlib.nullcontext()):
+                ckpt.save_async(tc.ckpt_dir, step + 1,
+                                {"params": params, "opt": opt_state})
     ckpt.wait_async()
     return {"params": params, "opt": opt_state, "history": history,
             "straggler_flags": watchdog.flags}

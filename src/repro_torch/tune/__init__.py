@@ -41,19 +41,36 @@ from repro_torch.tune.schedule import (CONV_OPS, MMA_GEMM_OPS, OpSpec,
                                       Schedule)
 
 __all__ = [
-    "OpSpec", "Schedule", "ScheduleCache", "best_schedule", "candidates",
+    "OpSpec", "Schedule", "ScheduleCache", "analytic_schedule",
+    "best_schedule", "candidates",
     "default_cache_path", "describe_candidates", "device_kind", "divides",
     "fits_smem", "level0_dram_bytes", "predicted_dram_accesses",
-    "predicted_dram_bytes", "schedule_to_string", "set_schedule_observer",
-    "tune_op",
+    "predicted_dram_bytes", "schedule_to_string", "set_default_cache",
+    "set_schedule_observer", "tune_op",
 ]
 
 _default_cache = ScheduleCache()
 
 
+def set_default_cache(cache: ScheduleCache) -> ScheduleCache:
+    """Swap the process-wide schedule cache; returns the previous one.
+
+    The profiler's ``--corrupt`` fault injection plants a deliberately
+    bad cached schedule this way and watches the fidelity gate catch it;
+    tests use it to isolate cache state.  Also drops the analytic memo,
+    so the swap is visible to specs resolved before it."""
+    global _default_cache
+    prev = _default_cache
+    _default_cache = cache
+    _derive.cache_clear()
+    return prev
+
+
 # One process-wide callable notified of every best_schedule resolution
-# with ``(spec, schedule)``; it must be cheap and must not call back into
-# best_schedule.  ``None`` (the default) costs one comparison.
+# with ``(spec, schedule)`` -- in the eager port, every tuned kernel call;
+# it must be cheap and must not call back into best_schedule.  ``None``
+# (the default) costs one comparison.  ``obs.dram.DramLedger.scope``
+# installs its ledger here for the scope's duration.
 _SCHEDULE_OBSERVER = None
 
 
@@ -81,6 +98,14 @@ def describe_candidates(spec: OpSpec) -> str:
 def _derive(spec: OpSpec, smem_budget_bytes: int | None,
             target: HopperTarget) -> Schedule:
     return candidates(spec, smem_budget_bytes, target)[0]
+
+
+def analytic_schedule(spec: OpSpec,
+                      target: HopperTarget = H100_SXM) -> Schedule:
+    """The blocking model's winner for ``spec`` at the default budget
+    (memoized; never reads the cache): what :func:`best_schedule`
+    returns on a miss."""
+    return _derive(spec, None, target)
 
 
 def best_schedule(op: str, dims: tuple[int, ...], dtype: str = "float32",

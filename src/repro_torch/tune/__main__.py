@@ -14,6 +14,8 @@
         --dtype bfloat16 --no-measure
     PYTHONPATH=src python -m repro_torch.tune conv2d 56 56 128 256 3 3 \\
         --dtype bfloat16 --stride 1
+    PYTHONPATH=src python -m repro_torch.tune --from-telemetry miss.jsonl \\
+        --dry-run
 
 Prints the analytic candidate table, times the top-N on the card (unless
 ``--no-measure``; without a CUDA device measuring raises) and persists
@@ -21,6 +23,13 @@ the winner.  ``kernels.ops`` and the paged engine read the *default*
 cache (``$REPRO_TORCH_TUNE_CACHE``, else
 ``~/.cache/repro_torch/schedules.json``); when tuning into a ``--cache``
 override, point ``REPRO_TORCH_TUNE_CACHE`` at that file at run time.
+
+``--from-telemetry LOG`` replays a miss log (the JSONL file a
+``repro_torch.obs.DramLedger`` writes for every schedule-cache miss and
+every fidelity-gate hit) as tuning targets: each distinct (op, dims,
+dtype, stride) is tuned and persisted.  With ``--dry-run`` the targets
+are listed and validated (an unknown op or a wrong dim count raises) but
+nothing is measured or persisted.
 """
 
 from __future__ import annotations
@@ -32,11 +41,23 @@ from repro_torch.tune import (OpSpec, ScheduleCache, describe_candidates,
 from repro_torch.tune.schedule import OPS
 
 
+def _tune_one(spec: OpSpec, args, cache: ScheduleCache) -> None:
+    print(f"tuning {spec.key(device_kind())}")
+    print(describe_candidates(spec))
+    winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=args.top_n,
+                     measure=not args.no_measure, cache=cache,
+                     stride=spec.stride)
+    extra = (f"  {winner.measured_us:.1f} us/call"
+             if winner.measured_us is not None else "")
+    print(f"winner: tiles={winner.tiles} ({winner.source}){extra}")
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.tune",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("op", choices=OPS)
-    ap.add_argument("dims", type=int, nargs="+",
+    ap.add_argument("op", choices=OPS, nargs="?",
+                    help="op to tune (omit with --from-telemetry)")
+    ap.add_argument("dims", type=int, nargs="*",
                     help="matmul, matmul_fused, matmul_w8, "
                          "matmul_fused_w8: M N K; "
                          "matmul_dgrad: the cotangent's M_out N_out "
@@ -61,18 +82,36 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--cache", default=None,
                     help="schedule cache path (default: "
                          "$REPRO_TORCH_TUNE_CACHE or ~/.cache/repro_torch)")
+    ap.add_argument("--from-telemetry", metavar="LOG", default=None,
+                    help="replay a miss log (JSONL, one schedule-cache "
+                         "miss or fidelity-gate hit a line) as tuning "
+                         "targets")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="with --from-telemetry: list and validate the "
+                         "targets without measuring or persisting")
     args = ap.parse_args(argv)
 
-    spec = OpSpec(args.op, tuple(args.dims), args.dtype, args.stride)
     cache = ScheduleCache(args.cache)
-    print(f"tuning {spec.key(device_kind())}")
-    print(describe_candidates(spec))
-    winner = tune_op(spec.op, spec.dims, spec.dtype, top_n=args.top_n,
-                     measure=not args.no_measure, cache=cache,
-                     stride=spec.stride)
-    extra = (f"  {winner.measured_us:.1f} us/call"
-             if winner.measured_us is not None else "")
-    print(f"winner: tiles={winner.tiles} ({winner.source}){extra}")
+    if args.from_telemetry is not None:
+        from repro_torch.obs.dram import read_miss_log
+        targets = read_miss_log(args.from_telemetry)
+        print(f"{len(targets)} distinct miss target(s) in "
+              f"{args.from_telemetry}")
+        for t in targets:
+            spec = OpSpec(t["op"], tuple(t["dims"]), t["dtype"],
+                          t["stride"])
+            if args.dry_run:
+                print(f"  would tune {spec.key(device_kind())}")
+                continue
+            _tune_one(spec, args, cache)
+        if not args.dry_run and targets:
+            print(f"persisted to {cache.path}")
+        return
+
+    if args.op is None or not args.dims:
+        ap.error("op and dims are required (or use --from-telemetry LOG)")
+    spec = OpSpec(args.op, tuple(args.dims), args.dtype, args.stride)
+    _tune_one(spec, args, cache)
     print(f"persisted to {cache.path}")
 
 

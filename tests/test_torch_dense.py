@@ -333,7 +333,9 @@ def test_decode_engine_needs_a_gpu_unless_asked_for_the_cpu():
                          ids=["wide", "fused-w8fp8"])
 def test_launch_static_on_cpu(tmp_path, capsys, extra):
     """``--engine static`` on the CPU: a (batch, gen) stream, the
-    counters printed and written by ``--metrics-out``."""
+    counters printed and written by ``--metrics-out`` (the metrics
+    snapshot: the registry, whose schedule-cache counters the DRAM ledger
+    keeps, and the ledger's report)."""
     out = tmp_path / "m.json"
     launch_serve.main(["--arch", "gemma2-9b", "--reduced", "--engine",
                        "static", "--device", "cpu", "--dtype", "float32",
@@ -342,8 +344,10 @@ def test_launch_static_on_cpu(tmp_path, capsys, extra):
                        *extra])
     text = capsys.readouterr().out
     assert "static engine (cpu)" in text and "generated (2, 6)" in text
-    assert json.loads(out.read_text()) == {
-        "engine": {"prefill_tokens": 20, "decode_tokens": 12}}
+    snap = json.loads(out.read_text())
+    assert snap["engine"] == {"prefill_tokens": 20, "decode_tokens": 12}
+    assert set(snap) == {"engine", "schedule_cache", "dram"}
+    assert snap["dram"]["per_step"]["steps"] == 1
 
 
 def test_launch_paged_writes_metrics(tmp_path, capsys):

@@ -465,9 +465,7 @@ def test_launch_train_reduced_cpu_runs(tmp_path, capsys):
     assert ckpt.latest_valid(str(tmp_path / "ck")) == 2
 
 
-@pytest.mark.parametrize("flag", [["--trace", "t.json"],
-                                  ["--miss-log", "m.jsonl"],
-                                  ["--production-mesh"]])
+@pytest.mark.parametrize("flag", [["--production-mesh"]])
 def test_launch_train_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_train.main(["--arch", ARCH, "--reduced", "--device", "cpu",
