@@ -34,7 +34,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    repeats bit-equal, bf16 on ``mma_t`` / ``mma``, the int8
    ``matmul_fused`` under every epilogue combination and granite's MLP,
    ``flash_decode_fp8`` at pages 16, 32, 64 and the model's fp8 page,
-   q_span 1 and 64, window, cap and unit or drawn scales; the training
+   q_span 1 and 64, window, cap and unit or drawn scales; rows 1 and 2
+   at the speculative verify's shape (B 8, q_span 2..5, the unfused,
+   fused and fp8 engines' pages and page 16, a slot at length 1 and one
+   whose rows pass max_seq, window on and off, bf16 and fp32 q); the training
    kernels: ``matmul_dgrad_a``/``_b`` at ragged shapes and under every
    ``"matmul_dgrad"`` adapter tile of granite's projections at 2048
    tokens (bf16 on the tensor-core ``mma`` instance, at 2 and 3
@@ -65,7 +68,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in bf16, weights from ``--seed``, serving 16 requests (prompts of
    16..300 tokens, 32 new tokens each) through ``PagedEngine`` with page
    64, prefill chunk 64, max_seq 512 and 8 slots, and a short
-   torch.profiler window of the same engine (every row 1 launch in it
+   torch.profiler window of the same engine (4 of the requests x 4
+   tokens; every row 1 launch in it
    on the split tensor-core core, as in phases 6, 9 and 9b for rows 1
    and 2);
 6. the blocked path: the same model and requests with the page size and
@@ -89,6 +93,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    2 steps with and without ``obs``, step-0 loss within 2%, the
    ``train_step`` scope's GEMM keys' dispatches equal to rows 6-8's
    launches);
+16. the serving features: (a) at granite-3-8b width, 2 layers, fp32,
+   unfused, fused and w8fp8, speculative decode at k = 2 and 4 gives
+   the tokens of spec off (``mean_accepted > 1``), the prefix cache
+   those of the cache off with hits and copy-on-write forks, each on
+   the kernel path and the plain path alike; a forced preemption
+   restores byte-exact tokens, ``inject_logit_fault`` fails only its
+   request, ``shutdown`` empties the pool, ``engine_smoke`` passes on
+   the card; (b) after 15, on the full bf16 model: speculative decode
+   k = 2 fused on phase 5's requests and the prefix cache on a zipf(1.2)
+   shared-prefix workload (its page priced by ``reuse_hint`` 0.5):
+   tok/s, the stats and row 1's launches by q_span; one verify step's
+   logits held against the plain path (5% of max |logit|, argmax
+   equal);
 9. the quantized path (run after 6b, while the bf16 model is in memory):
    ``quantize_params`` on the card, an fp8 page pool, the model's page
    and chunk, every projection through ``matmul_w8`` and decode through
@@ -649,6 +666,72 @@ def phase3_decode_grid(dev) -> None:
             check_decode_splits(FD.flash_decode, args, ref, "bfloat16", tag,
                                 **kw)
     torch.cuda.synchronize()
+
+
+def phase3_verify_spans(dev) -> dict:
+    """Rows 1 and 2 at the speculative verify's shape: B 8 (the engine's
+    max_batch), q_span 2..5 (k = 1..4 drafts), granite's Hkv 8, G 4, D
+    128, at the unfused and fused engines' pages for max_seq 512 (row 2:
+    the fp8 engine's) and page 16; lengths ragged, one slot at 1 and one
+    at 510, whose last rows pass max_seq (their keys end at the table's
+    512, as the engine's spans do); window off and 37; q bf16 (the split
+    core) and fp32; each against its plain version, repeats bit-equal.
+    Returns the pages checked."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.serve import kv_cache as KV
+    cfg = get_config("granite-3-8b")
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype=torch.float8_e4m3fn)
+    pages = {"flash_decode": sorted({KV.choose_page_size(cfg, 512),
+                                     KV.choose_page_size(cfg, 512,
+                                                         fused=True), 16}),
+             "flash_decode_fp8": sorted({KV.choose_page_size(cfg8, 512),
+                                         16})}
+    rng = np.random.default_rng(11)
+    lengths = [1, 510] + [int(n) for n in rng.integers(2, 500, 6)]
+    worst, ran = {}, {}
+    for name, fp8 in (("flash_decode", False), ("flash_decode_fp8", True)):
+        fn = getattr(FD, name)
+        plain = FD.paged_attention_fp8_ref if fp8 else FD.paged_attention_ref
+        for page in pages[name]:
+            nb = -(-512 // page)
+            for q_span in (2, 3, 4, 5):
+                for dtype in (torch.bfloat16, torch.float32):
+                    args = list(paged_inputs(dev, dtype, [1] * 8, q_span,
+                                             seed=page + q_span, page=page,
+                                             n_blocks=nb))
+                    # a shuffled table, scratch past each slot's span
+                    bt = (1 + rng.permutation(8 * nb)).reshape(8, nb)
+                    for i, n in enumerate(lengths):
+                        bt[i, min(nb, -(-(n + q_span - 1) // page)):] = 0
+                    args[3] = torch.tensor(bt, dtype=torch.int32,
+                                           device=dev)
+                    args[4] = torch.tensor(lengths, dtype=torch.int32,
+                                           device=dev)
+                    if fp8:
+                        args = list(fp8_paged(tuple(args), seed=page,
+                                              unit=False))
+                    dn = str(dtype).split(".")[1]
+                    for window in (None, 37):
+                        kw = dict(window=window, q_span=q_span)
+                        out = fn(*args, **kw)
+                        ran.setdefault(name, set()).add((dn, fn.instance))
+                        assert torch.equal(out, fn(*args, **kw)), \
+                            (name, page, q_span, dn, window)
+                        tag = (f"{name} verify B=8 q_span={q_span} "
+                               f"page={page} {dn} window={window}")
+                        err = compare(tag, out, plain(*args, **kw), dn,
+                                      quiet=True)
+                        worst[name] = max(worst.get(name, 0.0), err)
+            print(f"  {name} verify spans B=8 q_span 2..5 page={page}, "
+                  f"bf16 and fp32 q, window off and 37, lengths "
+                  f"{lengths}: repeats bit-equal, held to plain")
+        assert {i[0] for dn, i in ran[name] if dn == "bfloat16"} == {"mma"}
+    seen = sorted(map(str, set().union(*ran.values())))
+    print(f"  verify spans: max_abs_err {worst}; (q dtype, instance) {seen}")
+    torch.cuda.synchronize()
+    return pages
 
 
 GRANITE_MLP = (("gate", 12800, 4096, dict(act="silu")),
@@ -1326,8 +1409,11 @@ def phase5_full(cfg, params, warm, prompts, kernels) -> dict:
     summary["logits_vs_plain"] = hold_logits(
         "kernels vs plain", prefill_logits(cfg, params, prompts[0]),
         prefill_logits(cfg, params, prompts[0], use_kernel=False))
+    # 4 requests x 4 tokens: this path's events (page and chunk 64, every
+    # projection a library call) cost the profiler 80 s of processing at
+    # 8 x 8, a twelfth of the run's limit
     summary["profile"] = profile_window(engine_for(cfg, params, max_batch=8),
-                                        prompts[:8], 8)
+                                        prompts[:4], 4)
     hold_decode_core(summary["profile"], "flash_decode")
     return summary
 
@@ -1477,6 +1563,333 @@ def hold_roofline(rep: dict, what: str, bound: float | None = 1.05) -> dict:
         assert bound is None or r["peak_frac"] <= bound, (key, r)
         rows[key] = {k: v for k, v in r.items() if k != "energy_split"}
     return rows
+
+
+# ------------------------- serving features (phase 16) ----------------------
+
+
+class SpanCounts:
+    """Rows 1 and 2's launches by ``q_span`` while it is entered: the
+    ops' references to the two wrappers are swapped for counting ones
+    (each wrapper's own ``launches`` still counts every launch)."""
+
+    def __init__(self):
+        self.counts: dict[str, dict[int, int]] = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._real = {n: getattr(ops, n) for n in ("flash_decode",
+                                                    "flash_decode_fp8")}
+
+        def spy(name):
+            real = self._real[name]
+
+            def launch(*args, q_span=1, **kw):
+                per = self.counts.setdefault(name, {})
+                per[q_span] = per.get(q_span, 0) + 1
+                return real(*args, q_span=q_span, **kw)
+            return launch
+        for name in self._real:
+            setattr(ops, name, spy(name))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self._real.items():
+            setattr(ops, name, fn)
+
+
+def feature_run(engine, prompts, n_tokens: int, kernels: dict,
+                hook=None) -> tuple[list, dict, dict]:
+    """Serve ``prompts`` on ``engine`` with every launch count at 0 just
+    before (``hook(engine, steps, rids)`` after every step); returns the
+    finished requests in submission order, the launches and rows 1 and
+    2's launches by q_span."""
+    reset(kernels)
+    with SpanCounts() as spans:
+        rids = [engine.submit(p, n_tokens) for p in prompts]
+        done, steps = {}, 0
+        while engine.has_work:
+            steps += 1
+            for r in engine.step():
+                done[r.rid] = r
+            if hook is not None:
+                hook(engine, steps, rids)
+            assert steps < 500, "the engine failed to drain"
+    return [done[r] for r in rids], counts(kernels), spans.counts
+
+
+def same_tokens(what: str, got: list, want: list) -> None:
+    for g, w in zip(got, want):
+        if not np.array_equal(g.output, w.output):
+            raise AssertionError(f"{what}, request {g.rid}: "
+                                 f"{g.output.tolist()} != {w.output.tolist()}")
+
+
+def phase16_gate(seed: int, kernels: dict) -> dict:
+    """The serving features at granite-3-8b width, 2 layers, fp32, page
+    64, chunk 64, max_seq 512, 4 slots, unfused, fused and w8fp8: on the
+    kernel path, speculative decode at k = 2 and 4 gives the tokens of
+    spec off with ``mean_accepted > 1`` (prompts of a repeated motif),
+    and the prefix cache on a shared 128-token prefix (two exact
+    full-page matches, so the copy-on-write fork runs) the tokens of the
+    cache off with hits; k = 2 and the prefix cache on the plain path
+    give the kernel path's tokens, launching nothing.  Unfused: a forced
+    preemption restores byte-exact tokens, ``inject_logit_fault`` fails
+    only its request, ``shutdown`` leaves the pool empty, and
+    ``engine_smoke(device="cuda")`` passes."""
+    import torch
+    from repro_torch.chaos import engine_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import quantize_params
+    from repro_torch.serve import kv_cache as KV
+    from repro_torch.serve.lifecycle import RequestStatus
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
+                              dtype=torch.float32)
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype=torch.float8_e4m3fn)
+    qparams = quantize_params(params)
+    rng = np.random.default_rng(seed)
+    motif = rng.integers(0, cfg.vocab, (7,), dtype=np.int32)
+    spec_prompts = [np.tile(motif, 10)[:n] for n in (30, 61, 9)] + \
+        [rng.integers(0, cfg.vocab, (n,), dtype=np.int32) for n in (20, 70)]
+    pre = rng.integers(0, cfg.vocab, (128,), dtype=np.int32)
+    prefix_prompts = [np.concatenate([pre, rng.integers(
+        0, cfg.vocab, (n,), dtype=np.int32)]) for n in (5, 40, 70)] + \
+        [pre.copy(), pre.copy()]
+    forks = []
+    fork_page = KV.fork_page
+    KV.fork_page = lambda cache, s, d: (forks.append((s, d)),
+                                        fork_page(cache, s, d))
+    out = {}
+    try:
+        for mode, c, p, fuse in (("wide", cfg, params, False),
+                                 ("wide", cfg, params, True),
+                                 ("w8fp8", cfg8, qparams, False)):
+            tag = f"{mode} fuse={fuse}"
+            attn = "flash_decode_fp8" if mode == "w8fp8" else "flash_decode"
+            path = ("flash_attention", attn) + (
+                ("qkv_fused", "matmul_fused") if fuse else ()) + (
+                ("matmul_w8",) if mode == "w8fp8" else ())
+
+            def mk(slots=4, **kw):
+                return engine_for(c, p, max_batch=slots, fuse=fuse, **kw)
+            ref, _, _ = feature_run(mk(), spec_prompts, 16, kernels)
+            row = {}
+            for k in (2, 4):
+                eng = mk(spec_decode=k)
+                got, launched, spans = feature_run(eng, spec_prompts, 16,
+                                                   kernels)
+                same_tokens(f"{tag} spec k={k} against spec off", got, ref)
+                st = eng.spec_stats()
+                assert st["mean_accepted"] > 1, st
+                assert min(launched[n] for n in path) > 0, launched
+                assert spans[attn].get(k + 1, 0) > 0, spans
+                row[f"spec_{k}"] = {"spec_stats": st, "spans": spans,
+                                    "launches": {n: launched[n]
+                                                 for n in path}}
+                print(f"  {tag} spec k={k}: 5 requests x 16 tokens "
+                      f"identical to spec off; {st}; {attn} launches by "
+                      f"q_span {spans[attn]}")
+            plain, launched, _ = feature_run(
+                mk(spec_decode=2, use_kernel=False), spec_prompts, 16,
+                kernels)
+            assert not any(launched.values()), launched
+            same_tokens(f"{tag} spec k=2, plain against kernel path", plain,
+                        ref)
+            # 2 slots: the first two prompts miss and register the
+            # prefix, the next three hit it (two of them exactly)
+            off, _, _ = feature_run(mk(2), prefix_prompts, 12, kernels)
+            eng = mk(2, prefix_cache=True)
+            n_forks = len(forks)
+            got, launched, spans = feature_run(eng, prefix_prompts, 12,
+                                               kernels)
+            n_forks = len(forks) - n_forks
+            st = eng.prefix_stats()
+            same_tokens(f"{tag} prefix cache against the cache off", got,
+                        off)
+            assert st["hits"] > 0 and n_forks > 0, (st, forks)
+            # prompts past the 64-token chunk: misses and hits alike
+            # prefill through the span path
+            assert launched[attn] > 0, launched
+            plain, launched, _ = feature_run(
+                mk(2, prefix_cache=True, use_kernel=False), prefix_prompts,
+                12, kernels)
+            assert not any(launched.values()), launched
+            same_tokens(f"{tag} prefix cache, plain against kernel path",
+                        plain, got)
+            row["prefix"] = {"prefix_stats": st, "forks": n_forks,
+                             "spans": spans}
+            print(f"  {tag} prefix cache: 5 requests x 12 tokens identical "
+                  f"to the cache off and to the plain path; {st}; "
+                  f"{n_forks} copy-on-write forks; {attn} "
+                  f"launches by q_span {spans[attn]}")
+            out[tag] = row
+    finally:
+        KV.fork_page = fork_page
+    # the lifecycle, unfused
+    ref, _, _ = feature_run(engine_for(cfg, params, max_batch=2), spec_prompts,
+                            16, kernels)
+    target = []
+
+    def preempt(eng, steps, rids):
+        if steps >= 2 and not target:
+            cands = [r for r in eng.scheduler.running.values()
+                     if r.max_new_tokens - r.generated > 0]
+            if cands:
+                target.append(max(cands, key=lambda r: r.rid).rid)
+                assert eng.preempt(target[0])
+    eng = engine_for(cfg, params, max_batch=2, preempt=True,
+                     prefix_cache=True)
+    got, _, _ = feature_run(eng, spec_prompts, 16, kernels, preempt)
+    same_tokens("forced preemption against the undisturbed run", got, ref)
+    assert got[target[0]].status is RequestStatus.PREEMPTED_RETRIED
+    poisoned = []
+
+    def poison(eng, steps, rids):
+        if not poisoned and any(r.rid == rids[0] and r.decode_ready
+                                for r in eng.scheduler.running.values()):
+            eng.inject_logit_fault(rids[0])
+            poisoned.append(steps)
+    eng = engine_for(cfg, params, max_batch=2, nan_guard=True)
+    got, _, _ = feature_run(eng, spec_prompts, 16, kernels, poison)
+    assert got[0].status is RequestStatus.FAILED, got[0].status
+    assert np.array_equal(got[0].output, ref[0].output[:len(got[0].output)])
+    assert all(r.status is RequestStatus.OK for r in got[1:])
+    same_tokens("requests beside the poisoned one", got[1:], ref[1:])
+    eng = engine_for(cfg, params, max_batch=2, prefix_cache=True)
+    for q in spec_prompts:
+        eng.submit(q, 16)
+    for _ in range(2):
+        eng.step()
+    drained = eng.shutdown()
+    assert eng.scheduler.allocator.in_use() == 0 and not eng.has_work
+    smoke = engine_smoke(seed=seed, device="cuda")
+    out["lifecycle"] = {"preempted": target[0],
+                        "poisoned_tokens": len(got[0].output),
+                        "shutdown": sorted(r.status.value for r in drained),
+                        "engine_smoke": smoke}
+    print(f"  unfused: rid {target[0]} preempted at step 2 and restored "
+          f"byte-exact; rid 0 poisoned FAILED after {len(got[0].output)} "
+          f"clean tokens, the rest OK and exact; shutdown drained "
+          f"{len(drained)} requests to an empty pool; engine_smoke "
+          f"(reduced, cuda): {smoke}")
+    del params, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def zipf_prefix_workload(cfg, n: int, seed: int) -> list:
+    """``n`` prompts over 4 shared 192-token prefixes drawn with zipf(1.2)
+    popularity, each with its own tail of 8..64 tokens."""
+    rng = np.random.default_rng(seed)
+    pool = [rng.integers(0, cfg.vocab, (192,), dtype=np.int32)
+            for _ in range(4)]
+    pick = np.minimum(rng.zipf(1.2, n), len(pool)) - 1
+    return [np.concatenate([pool[i], rng.integers(
+        0, cfg.vocab, (int(t),), dtype=np.int32)])
+        for i, t in zip(pick, rng.integers(8, 65, n))]
+
+
+def phase16_full(cfg, params, prompts, kernels) -> dict:
+    """The serving features on the full granite-3-8b in bf16 (the model
+    of phases 5-15), max_seq 512, 8 slots, the blocking model's page and
+    chunk, the fused path: speculative decode at k = 2 over phase 5's 16
+    prompts x 32 tokens; the prefix cache on a zipf(1.2) shared-prefix
+    workload of 16 requests x 32 tokens, its page priced by
+    ``reuse_hint`` 0.5; each timed on a fresh engine after an untimed
+    pass; tok/s, ``spec_stats``, ``prefix_stats``, ``lifecycle_stats``
+    and row 1's launches by q_span of each; then one
+    verify step's logits at B 8, q_span 3, kernel path against plain,
+    within 5% of max |logit| with argmax equal."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_cache as KV
+    from repro_torch.serve.engine import PagedEngine, PagedServeConfig
+
+    def mk(**kw):
+        return PagedEngine(cfg, params, PagedServeConfig(
+            max_seq=512, max_batch=8, device="cuda", **kw))
+    out = {}
+    n_layers = cfg.n_layers
+    for name, kw, work in (
+            ("spec", dict(fuse=True, spec_decode=2), prompts),
+            ("prefix", dict(fuse=True, prefix_cache=True, reuse_hint=0.5),
+             zipf_prefix_workload(cfg, 16, 16))):
+        # an untimed pass first: the verify span's and the prefix tails'
+        # projection shapes (M = 24; 16, 32, 64) are new to the tuner
+        feature_run(mk(**kw), work, 32, kernels)
+        eng = mk(**kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs, launched, spans = feature_run(eng, work, 32, kernels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()["engine"]
+        for r in reqs:
+            assert r.status.value == "ok" and len(r.output) == 32, r.rid
+            assert 0 <= r.output.min() and r.output.max() < cfg.vocab
+        tokens = sum(len(r.output) for r in reqs)
+        assert launched["flash_attention"] == n_layers * snap["joins"]
+        assert launched["flash_decode"] + launched["flash_decode_oproj"] \
+            == n_layers * (snap["prefill_chunks"] + snap["decode_steps"]
+                           + snap["verify_steps"]), (launched, snap)
+        if name == "spec":
+            assert launched["qkv_fused"] > 0 and \
+                launched["matmul_fused"] > 0, launched
+            assert spans["flash_decode"].get(3, 0) == \
+                n_layers * snap["verify_steps"], spans
+        row = {"tok_per_s": tokens / wall, "wall_s": wall,
+               "page": eng.page_size, "prefill_chunk": eng.prefill_chunk,
+               "spec_stats": eng.spec_stats(),
+               "prefix_stats": eng.prefix_stats(),
+               "lifecycle_stats": eng.lifecycle_stats(),
+               "spans": spans, "launches": launched,
+               "verify_steps": snap["verify_steps"],
+               "decode_steps": snap["decode_steps"],
+               "prefill_chunks": snap["prefill_chunks"],
+               "joins": snap["joins"]}
+        if name == "prefix":
+            assert row["prefix_stats"]["hits"] > 0, row["prefix_stats"]
+            assert eng.page_size == KV.reuse_priced_page(
+                KV.choose_page_size(cfg, 512, fused=True), 512, 0.5)
+        out[name] = row
+        print(f"  {name} ({kw}): 16 requests, {tokens} tokens in "
+              f"{wall:.3f}s = {tokens / wall:.1f} tok/s; page "
+              f"{eng.page_size}, chunk "
+              f"{eng.prefill_chunk}; joins {snap['joins']}, chunks "
+              f"{snap['prefill_chunks']}, decode steps "
+              f"{snap['decode_steps']}, verify steps {snap['verify_steps']}")
+        print(f"    spec_stats {row['spec_stats']}; prefix_stats "
+              f"{row['prefix_stats']}; lifecycle_stats "
+              f"{row['lifecycle_stats']}; row 1 launches by q_span "
+              f"{spans.get('flash_decode')}")
+        del eng
+        torch.cuda.empty_cache()
+    # one verify step's logits, kernel path against plain, at B 8
+    eng = mk(fuse=True, spec_decode=2)
+    for q in prompts[:8]:
+        eng.submit(q, 32)
+    eng.step()                      # admission, joins and one verify chunk
+    assert len(eng.scheduler.running) == 8
+    feed = torch.cat([eng._cur_tok[:, None],
+                      eng._drafts(eng._lengths).clamp(min=0)], dim=1)
+    logits = {}
+    for use_kernel in (True, False):
+        attn = KV.make_paged_span_step(cfg, eng._block_tables,
+                                       eng.page_size, 512, use_kernel)
+        with torch.no_grad(), ops.fused_ops(True):
+            lg, _ = T.decode_step(cfg, params, feed, eng.cache,
+                                  eng._lengths, attn, use_kernel=use_kernel)
+        logits[use_kernel] = lg[..., :cfg.vocab].float()
+    out["verify_logits"] = hold_logits("verify step B=8 q_span=3, kernels "
+                                       "vs plain", logits[True],
+                                       logits[False], "verify logits")
+    del eng, logits
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase15_observed(cfg, params, prompts, kernels) -> dict:
@@ -2696,7 +3109,8 @@ def time_wide_kernels() -> dict:
     32, bf16, lengths 100..450, with the grid, head chunks and shared
     memory; row 11 at (8, 256, 4096, 16) and (8, 128, 6144, 48), fp32 on
     the tile core (bn below 64) and bf16, the model's tiles, with the
-    joint width, column blocks and shared memory."""
+    joint width, column blocks and shared memory, beside ``torch.matmul``
+    on the concatenated ``[wq|wk|wv]`` in the same dtype."""
     import torch
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import qkv_fused as QF
@@ -2736,10 +3150,12 @@ def time_wide_kernels() -> dict:
             cols = (g + 2) * nkv
             b_ms, b_by = bound((m * k + k * cols + m * cols)
                                * dtype.itemsize, 2 * m * k * cols)
+            wqkv = torch.cat([wq, wk, wv], dim=1)
             row = {"ms": time_ms(lambda: QF.qkv_fused(x, wq, wk, wv, bm=bm,
                                                       bk=bk, bn=bn)),
                    "plain_ms": time_ms(lambda: QF.qkv_fused_ref(x, wq, wk,
                                                                 wv)),
+                   "library_ms": time_ms(lambda: torch.matmul(x, wqkv)),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "tiles": (bm, bk, bn),
                    "smem": QF.smem_bytes_required(bm, bk, bn, g,
@@ -2752,8 +3168,9 @@ def time_wide_kernels() -> dict:
             print(f"  qkv_fused M={m} Nkv={nkv} K={k} G={g} {dn}: tiles "
                   f"{(bm, bk, bn)}, {row['blocks']} column blocks{joint}, "
                   f"{row['smem']} B shared: {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                  f"the bf16 peak)")
+                  f"{row['plain_ms']:.4f} ms, torch.matmul on [wq|wk|wv] "
+                  f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, the bf16 peak)")
     return out
 
 
@@ -4104,7 +4521,8 @@ def main() -> int:
               f"{sum(sp for _, sp in wgrad_mma)} B spilled in all")
 
     phase("phase 3: kernels vs plain versions")
-    for check in (phase3_kernels, phase3_decode_grid, phase3_head_dims,
+    for check in (phase3_kernels, phase3_decode_grid, phase3_verify_spans,
+                  phase3_head_dims,
                   phase3_oproj_wide, phase3_wide_groups, phase3_fused,
                   phase3_quant, phase3_train, phase3_conv):
         t0 = time.perf_counter()
@@ -4117,6 +4535,10 @@ def main() -> int:
           "serving parity, the fused path, 3 training steps, the "
           "launchers' usage lines")
     reduced = phase13_reduced(args.seed, kernels)
+    phase("phase 16a: the serving features, granite-3-8b width, 2 layers, "
+          "fp32, unfused, fused and w8fp8: speculative decode, the prefix "
+          "cache, preemption, the NaN guard, shutdown, engine_smoke")
+    features = {"gate": phase16_gate(args.seed, kernels)}
     phase("phase 5: granite-3-8b, full width and depth, bf16, cuBLAS path")
     cfg, params, warm, lens, prompts = full_model(args.seed)
     cublas = phase5_full(cfg, params, warm, prompts, kernels)
@@ -4131,6 +4553,10 @@ def main() -> int:
     phase("phase 15: the observability stack on phase 6b's path: untraced "
           "and traced + profiled, the fidelity gate under --corrupt")
     observed = phase15_observed(cfg, params, prompts, kernels)
+    phase("phase 16b: the serving features on the full granite-3-8b, bf16: "
+          "speculative decode k=2 fused, the prefix cache on a zipf "
+          "workload, the verify step's logits against plain")
+    features["full"] = phase16_full(cfg, params, prompts, kernels)
     phase("phase 9: the quantized path (w8fp8): int8 projections from "
           "quantize_params on the card, an fp8 page pool, the model's page "
           "and chunk")
@@ -4210,6 +4636,7 @@ def main() -> int:
                                  "reduced": reduced}))
     print("conv " + json.dumps(conv))
     print("observed " + json.dumps(observed))
+    print("features " + json.dumps(features))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,21 @@ device after each dispatch, so a traced run is not for throughput
 numbers) and ``--miss-log PATH`` the schedule-cache misses as JSONL
 tuning targets for ``python -m repro_torch.tune --from-telemetry``, as
 JAX's launcher does.
+
+The paged engine's serving features take JAX's flags: ``--spec K``
+(n-gram speculative decode, K drafts a verify step, greedy only),
+``--prefix-cache`` (radix-tree prefix sharing; ``--reuse-hint`` prices
+the page), ``--deadline S`` (a wall deadline a request), ``--preempt``
+(preempt-with-restore under page pressure, greedy only),
+``--nan-guard`` (a poisoned request fails alone) and ``--degrade`` (the
+degradation ladder); their counters print as the ``spec``,
+``prefix_cache`` and ``lifecycle`` sections.  Ctrl-C during a paged run
+cancels every request, drains the engine to terminal statuses and
+reports the page pool drained.
+
+    # the paged engine with speculative decode and the prefix cache
+    python -m repro_torch.launch.serve --arch granite-3-8b --reduced \
+        --device cpu --dtype float32 --spec 2 --prefix-cache --nan-guard
 """
 
 from __future__ import annotations
@@ -86,6 +101,34 @@ def main(argv=None) -> None:
                     help="w8: int8 projection weights (matmul_w8 kernel); "
                          "fp8kv: fp8 KV page pool (flash_decode_fp8 and "
                          "its page key); w8fp8: both")
+    ap.add_argument("--spec", type=int, default=0,
+                    help="paged: draft tokens per speculative draft-verify "
+                         "decode step (0 -> off; greedy only)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged: radix-tree prefix sharing -- repeated "
+                         "prompt prefixes reuse cached KV pages (copy on "
+                         "write)")
+    ap.add_argument("--reuse-hint", type=float, default=0.5,
+                    help="expected prompt-reuse rate for the "
+                         "share-against-stream page-size pricing (only "
+                         "with --prefix-cache)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="paged: per-request wall deadline in seconds; "
+                         "requests past it finish DEADLINE_EXCEEDED with "
+                         "whatever they emitted")
+    ap.add_argument("--preempt", action="store_true",
+                    help="paged: allow preempt-with-restore when the "
+                         "waiting head starves (greedy only; restored "
+                         "requests replay only their unshared tail with "
+                         "--prefix-cache)")
+    ap.add_argument("--nan-guard", action="store_true",
+                    help="paged: per-slot NaN/Inf logit guard -- a "
+                         "poisoned request FAILs alone instead of wedging "
+                         "the batch")
+    ap.add_argument("--degrade", action="store_true",
+                    help="paged: graceful-degradation ladder driven by the "
+                         "metrics registry (no_spec -> small_chunk -> "
+                         "preempt)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
@@ -142,24 +185,49 @@ def main(argv=None) -> None:
         page_size=args.page_size or None,
         prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
         temperature=args.temperature, seed=args.seed, device=args.device,
-        fuse=args.fuse), obs=obs)
+        fuse=args.fuse, spec_decode=args.spec,
+        prefix_cache=args.prefix_cache, reuse_hint=args.reuse_hint,
+        preempt=args.preempt, nan_guard=args.nan_guard,
+        degrade=args.degrade), obs=obs)
     n_req = args.requests or args.batch
     lo = max(1, args.prompt_len // 2) if args.mixed_lens else args.prompt_len
     lens = rng.integers(lo, args.prompt_len + 1, n_req)
     prompts = [rng.integers(0, cfg.vocab, (int(n),), dtype=np.int32)
                for n in lens]
     t0 = time.perf_counter()
-    reqs = engine.generate(prompts, args.gen, return_requests=True)
+    try:
+        reqs = engine.generate(prompts, args.gen,
+                               deadline_s=args.deadline or None,
+                               return_requests=True)
+    except KeyboardInterrupt:
+        # Ctrl-C mid-generate: cancel everything, drain to terminal
+        # statuses (freeing every page), and still report what ran
+        print("\ninterrupted: draining in-flight requests ...")
+        engine.shutdown()
+        held = engine.scheduler.allocator.in_use()
+        print(format_metrics({"lifecycle": engine.lifecycle_stats()}))
+        print(f"page pool drained ({held} pages still held)")
+        finish_obs(obs, args)
+        return
     if args.device == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    emitted = sum(len(r.output) for r in reqs)
+    emitted = sum(r.emitted_total for r in reqs)
     print(f"paged engine ({args.device}): page={engine.page_size} "
           f"chunk={engine.prefill_chunk} kv={kv} slots={args.batch} "
           f"requests={n_req} blocked_linear="
           f"{ops.blocked_linear_enabled()} fused={args.fuse} "
-          f"quantize={args.quantize}")
+          f"quantize={args.quantize} spec={engine.spec} ")
     print(format_metrics(engine.metrics.snapshot(), sections=("engine",)))
+    sections = {}
+    if engine.spec:
+        sections["spec"] = engine.spec_stats()
+    if engine.prefix_caching:
+        sections["prefix_cache"] = engine.prefix_stats()
+    if args.deadline or args.preempt or args.nan_guard or args.degrade:
+        sections["lifecycle"] = engine.lifecycle_stats()
+    if sections:
+        print(format_metrics(sections))
     statuses = sorted({r.status.value for r in reqs})
     print(f"generated {emitted} tokens over {n_req} requests in {dt:.2f}s "
           f"({emitted / dt:.1f} tok/s), statuses: {'/'.join(statuses)}")

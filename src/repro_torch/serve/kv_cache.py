@@ -21,10 +21,19 @@ JAX's engine; it is scattered through its ``uint8`` view (the cast
 values' bytes, never a widened pool), so the scatter needs no indexing
 kernel for the fp8 dtype.
 
+Pages are position-agnostic, so two block tables may point at the same
+physical page: the allocator refcounts owners
+(:meth:`PageAllocator.share`) and :class:`PrefixCache` is the sharing
+layer, a radix tree over full-page token spans mapping each span to its
+page, so a new request's admission matches its longest cached prefix and
+prefills only the tail.  Only full, frozen pages are shared; when a
+shared page would be written (an exact full-page hit re-runs its last
+token for the first-sample logits), the engine first copies it
+(:func:`fork_page`, copy on write).
+
 Page 0 is a reserved scratch page: inactive request slots keep all-zero
 block tables, so their (masked, ignored) decode writes land there
-instead of needing a branch.  Prefix sharing (``PrefixCache``) is a
-later slice.
+instead of needing a branch.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ def num_blocks(length: int, page_size: int) -> int:
 
 
 def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None,
-                     fused: bool = False) -> int:
+                     fused: bool = False,
+                     reuse_rate: float | None = None) -> int:
     """KV page size from the analytical model (op key ``"flash_decode"``).
 
     The spec's dims are (G, S, D): G query heads per KV head stream over
@@ -64,8 +74,12 @@ def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None,
     under ``"flash_decode_oproj"``, dims (G, S, D, E): its decode kernel
     stages the page beside the head's G x D rows and its (1, E) partial,
     so the page is priced by the kernel that runs
-    (``oproj_smem_bytes_required``).  The prefix cache's ``reuse_rate``
-    pricing is not ported yet (``ROADMAP.md``, queue 1, item 7).
+    (``oproj_smem_bytes_required``).
+
+    ``reuse_rate`` (prefix caching on) re-prices the tuned page for
+    sharing against streaming (:func:`reuse_priced_page`): the tree
+    shares only full pages, so small pages share better, while the
+    decode kernel pays a fixed cost for every page it streams.
     """
     from repro_torch.tune import best_schedule
     g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
@@ -81,7 +95,47 @@ def choose_page_size(cfg: ModelConfig, max_seq: int, cache=None,
         dims = (g, max_seq, cfg.head_dim)
     sched = best_schedule(op, dims, str(dtype).removeprefix("torch."),
                           cache=cache)
-    return max(1, min(sched.tiles[0], max_seq))
+    page = max(1, min(sched.tiles[0], max_seq))
+    if reuse_rate:
+        return reuse_priced_page(page, max_seq, float(reuse_rate))
+    return page
+
+
+# per-page fixed streaming overhead, in token-equivalents: what one more
+# page boundary costs the decode kernel (its block-table read and the
+# page's copy start) against streaming one more KV token.  The access
+# counts tie across page sizes (every KV element streams once), so this
+# models the constant per-page work they cannot see.
+PAGE_OVERHEAD_TOKENS = 0.25
+
+
+def reuse_priced_page(tuned: int, max_seq: int, reuse_rate: float) -> int:
+    """Share-against-stream page pricing for the prefix cache.
+
+    Candidates are the whole-page divisors of ``max_seq`` from 8 and the
+    tuned page.  Each candidate ``p`` scores, in expected re-streamed
+    tokens a request:
+
+    * **sharing loss** ``reuse_rate * (p - 1) / 2``: the tree shares full
+      pages only, so a hit re-prefills the matched prefix's boundary
+      slack, ``(p - 1) / 2`` tokens on average;
+    * **streaming loss** ``PAGE_OVERHEAD_TOKENS * max_seq / p``: a
+      full-length decode stream touches ``max_seq / p`` pages, each at
+      the fixed per-page cost.
+
+    ``reuse_rate -> 0`` gives back the tuned page; higher rates shrink
+    it.  Ties go to the larger page.
+    """
+    tuned = max(1, min(tuned, max_seq))
+    floor = min(8, max_seq)
+    cands = {d for d in range(floor, max_seq + 1) if max_seq % d == 0}
+    cands.add(tuned)
+
+    def score(p: int) -> float:
+        return (reuse_rate * (p - 1) / 2.0
+                + PAGE_OVERHEAD_TOKENS * max_seq / p)
+
+    return min(sorted(cands), key=lambda p: (score(p), -p))
 
 
 def choose_prefill_chunk(cfg: ModelConfig, max_seq: int,
@@ -161,6 +215,14 @@ def write_prefill(cfg: ModelConfig, paged: dict, dense: dict,
         _raw(pool)[:, pages[:nb]] = blocks
 
 
+def fork_page(cache: dict, src: int, dst: int) -> None:
+    """Copy on write: page ``src`` into page ``dst`` in every layer's K
+    and V pool, in place (through the ``uint8`` view of an fp8 pool)."""
+    for pool in (cache["k_pages"], cache["v_pages"]):
+        raw = _raw(pool)
+        raw[:, dst] = raw[:, src]
+
+
 def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
                          page_size: int, use_kernel: bool = True,
                          fused: bool = False):
@@ -206,15 +268,20 @@ def make_paged_attn_step(cfg: ModelConfig, block_tables: torch.Tensor,
 def make_paged_span_step(cfg: ModelConfig, block_tables: torch.Tensor,
                          page_size: int, max_seq: int,
                          use_kernel: bool = True):
-    """The span ``attn_step`` for multi-token ``transformer.decode_step``
-    (chunked prefill).
+    """The span ``attn_step`` for multi-token ``transformer.decode_step``:
+    one definition behind both chunked prefill and the speculative
+    verify.
 
     ``hn`` is (B, S, D): S consecutive tokens starting at position
     ``pos[b]``.  All S positions' K/V are written into the request's
     pages first, then ONE ``ops.paged_attention`` call with a
     (B, S, Hq, D) q block scores every position under its own causal
     limit.  Positions at or past ``max_seq`` (the padded tail of a final
-    chunk) write harmlessly into the scratch page.
+    chunk, or draft rows past the token budget) write harmlessly into
+    the scratch page, as do positions past the request's reserved pages
+    (their block-table entries are the scratch page); positions inside
+    ``max_seq`` but past a verify span's accepted prefix are overwritten
+    by the next span before the length mask exposes them.
 
     The oproj-fused kernel is single-token, so spans keep the unfused
     attention and ``linear`` pair, as in JAX; under ``fuse`` the QKV
@@ -254,9 +321,11 @@ def make_paged_span_step(cfg: ModelConfig, block_tables: torch.Tensor,
 class PageAllocator:
     """Host-side refcounted free list over the page pool.
 
-    Page 0 (``SCRATCH_PAGE``) is reserved and never handed out, which is
-    what lets the engine mask inactive block-table rows to it.
-    :meth:`share` takes an extra reference (for prefix sharing); a page
+    Page 0 (``SCRATCH_PAGE``) is reserved and never handed out: it can
+    never be allocated, shared or owned, which is what lets the engine
+    mask inactive block-table rows to it, and why :class:`PrefixCache`
+    refuses it.  :meth:`share` takes an extra reference (one for each
+    owning request, and one held by the prefix tree itself); a page
     returns to the free list when its last owner releases it.  Every
     transition is checked, so a leak or double free fails loudly.
     """
@@ -280,6 +349,10 @@ class PageAllocator:
 
     def in_use(self) -> int:
         return self.capacity - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        """Current reference count (0 = free; scratch is always 0)."""
+        return int(self._refs[page])
 
     def alloc(self) -> int:
         if not self._free:
@@ -316,3 +389,140 @@ class PageAllocator:
     def free_many(self, pages) -> None:
         for p in pages:
             self.free(int(p))
+
+
+class _PrefixNode:
+    """One full-page token span cached in the prefix tree."""
+
+    __slots__ = ("key", "page", "parent", "children", "last_used")
+
+    def __init__(self, key, page, parent):
+        self.key = key                  # tuple of page_size token ids
+        self.page = page                # physical page holding the span's KV
+        self.parent = parent
+        self.children: dict = {}        # key -> _PrefixNode
+        self.last_used = 0
+
+
+class PrefixCache:
+    """Radix tree over full-page token spans -> physical KV pages.
+
+    Each node caches one page-aligned span of prompt tokens and the page
+    holding that span's K/V; a root-to-node path spells a cached prompt
+    prefix.  The tree holds its own allocator reference on every cached
+    page (``refcount == owning requests + 1``), so a page outlives the
+    request that prefilled it and later requests can :meth:`match` it:
+    admission takes references instead of re-prefilling.
+
+    Invariants (enforced here):
+
+    * spans are always exactly ``page_size`` tokens;
+    * the scratch page can never enter the tree;
+    * eviction (:meth:`evict`) only frees LRU leaves whose sole reference
+      is the tree's: a page a live request owns has ``refcount >= 2`` and
+      is skipped, so sharing never frees a page under a reader.
+    """
+
+    def __init__(self, allocator: PageAllocator, page_size: int,
+                 metrics=None):
+        self.allocator = allocator
+        self.page_size = page_size
+        self._root = _PrefixNode((), -1, None)
+        self._pages: dict[int, _PrefixNode] = {}   # page -> node
+        self._clock = 0
+        m = metrics if metrics is not None else MetricsRegistry()
+        self._m_cached = m.gauge("prefix_cache.cached_pages")
+        self._m_evicted = m.counter("prefix_cache.evicted_pages")
+
+    def __len__(self) -> int:
+        return len(self._pages)
+
+    def pages(self) -> set[int]:
+        """The set of physical pages the tree currently references."""
+        return set(self._pages)
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def match(self, prompt) -> list[int]:
+        """Pages of the longest cached full-page prefix of ``prompt``, in
+        block order (possibly the whole prompt when its length is an
+        exact page multiple: the caller then forks the last page before
+        re-running the final token).  Bumps LRU on the matched path;
+        takes no references (the caller shares each page it attaches)."""
+        p = self.page_size
+        toks = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        node, out, t = self._root, [], self._tick()
+        for i in range(0, len(toks) - len(toks) % p, p):
+            child = node.children.get(tuple(toks[i:i + p]))
+            if child is None:
+                break
+            child.last_used = t
+            out.append(child.page)
+            node = child
+        return out
+
+    def insert(self, tokens, pages) -> int:
+        """Register full, frozen prompt pages; returns the nodes added.
+
+        ``tokens`` must be page-aligned and ``pages`` its physical page
+        per block.  Spans already cached keep their page (the duplicate
+        prefill is the caller's loss, not a correctness fault); new nodes
+        take the tree's own reference (:meth:`PageAllocator.share`)."""
+        p = self.page_size
+        toks = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        if len(toks) % p:
+            raise ValueError(
+                f"prefix spans must be page-aligned: {len(toks)} tokens "
+                f"with page {p}")
+        if len(toks) != len(pages) * p:
+            raise ValueError(f"{len(toks)} tokens != {len(pages)} pages")
+        node, added, t = self._root, 0, self._tick()
+        for i, page in enumerate(pages):
+            key = tuple(toks[i * p:(i + 1) * p])
+            child = node.children.get(key)
+            if child is None:
+                page = int(page)
+                if page == SCRATCH_PAGE:
+                    raise ValueError(
+                        "scratch page can never enter the prefix tree")
+                if page in self._pages:
+                    raise ValueError(
+                        f"page {page} already cached under another span")
+                self.allocator.share(page)     # the tree's own reference
+                child = _PrefixNode(key, page, node)
+                node.children[key] = child
+                self._pages[page] = child
+                added += 1
+            child.last_used = t
+            node = child
+        self._m_cached.set(len(self._pages))
+        return added
+
+    def evict(self, n_pages: int, protect=frozenset()) -> int:
+        """Free up to ``n_pages`` pages from LRU leaves the tree alone
+        owns (``refcount == 1``); returns how many were freed.
+
+        Pages in ``protect`` (a just-matched path the caller is about to
+        attach) and pages a live request owns are never touched; an inner
+        node becomes evictable only once its subtree is gone, so a cached
+        span never loses the prefix that gives it meaning."""
+        freed = 0
+        while freed < n_pages:
+            victim = None
+            for node in self._pages.values():
+                if (node.children or node.page in protect
+                        or self.allocator.refcount(node.page) != 1):
+                    continue
+                if victim is None or node.last_used < victim.last_used:
+                    victim = node
+            if victim is None:
+                break
+            del victim.parent.children[victim.key]
+            del self._pages[victim.page]
+            self.allocator.free(victim.page)
+            freed += 1
+        self._m_evicted.inc(freed)
+        self._m_cached.set(len(self._pages))
+        return freed

@@ -1,7 +1,6 @@
 """Decode-priority continuous-batching scheduler (host code, copied
 whole from ``repro.serve.scheduler`` and re-pointed at the port's page
-allocator, lifecycle and metrics; the prefix-cache and preemption hooks
-stay dormant until the engine ports those options).
+allocator, prefix cache, lifecycle and metrics).
 
 Policy layer of the serving subsystem (layout lives in ``kv_cache``,
 model math in ``engine``).  Two decisions live here, both pure host-side

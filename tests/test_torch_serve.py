@@ -147,10 +147,20 @@ def test_allocator_scratch_page_and_double_free():
 @pytest.mark.parametrize("option", [
     dict(spec_decode=2), dict(prefix_cache=True),
     dict(nan_guard=True), dict(preempt=True), dict(degrade=True)])
-def test_unported_options_raise(model, option):
+def test_serving_options_construct_and_serve(model, option):
+    """Each serving feature of JAX's ``PagedServeConfig`` constructs and
+    serves the workload on the CPU, token-identical to the engine
+    without it (``test_torch_serve_features.py`` holds each to JAX)."""
     _, _, cfg, params = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine(cfg, params, **option)
+    prompts, gens = make_workload(cfg.vocab, seed=5)
+    eng = port_engine(cfg, params, **option)
+    got = run(eng, prompts, gens)
+    want = run(port_engine(cfg, params), prompts, gens)
+    for g, w, n in zip(got, want, gens):
+        assert g.status is RequestStatus.OK and len(g.output) == n
+        np.testing.assert_array_equal(g.output, w.output)
+    assert eng.scheduler.allocator.in_use() == \
+        (len(eng.prefix_cache) if eng.prefix_caching else 0)
 
 
 @pytest.mark.parametrize("unset", ["page_size", "prefill_chunk", "both"])
