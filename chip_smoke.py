@@ -58,7 +58,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the new archs' shapes: rows 1 and 2 at G 16 and 48 (Hkv 2 and 1,
    every split count at B 1), row 3 there at B 1, 8 and 20 in head
    chunks, row 4 at D 256 with window and cap and at G 48, row 11 at
-   (M, 128, 6144, 48) and (M, 256, 4096, 16) in bf16 and fp32;
+   (M, 128, 6144, 48) and (M, 256, 4096, 16) in bf16 and fp32; the other
+   arch families' shapes (``phase3_families``): row 4 non-causal at
+   seamless-m4t-medium's cross-attention (Sq 1, 17, 300 over Skv 1024,
+   D 64, G 1) and encoder (1024 x 1024), row 4 at phi-3-vision's D 96
+   over 576 + 64 positions, rows 1, 3 and row 2 over fp8 pages at
+   recurrentgemma-9b's local layers (D 256, G 16, Hkv 1, window 2048,
+   B 1 and 8), repeats bit-equal;
 4. engine parity at granite-3-8b width, 2 layers, fp32, unfused and
    fused, with wide weights and under w8fp8 (int8 projections, fp8
    pages): the kernel path and the plain path give identical greedy
@@ -150,6 +156,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    projections, an fp8 dense cache) through the static engine, unfused
    and fused, its prefill and one decode step's logits held against the
    plain path;
+13b. (after 13) the six new archs' reduced configs (MoE, SSD, the
+   RG-LRU hybrid, encoder-decoder, vision prefix), fp32: the static
+   engine's kernel path against its plain path, and the paged engine's
+   for the four decoder-only ones, tokens identical, unfused and fused;
+   3 bf16 training steps each (step 0 within 2% of the plain path);
+   their launchers' usage lines;
+17. the other arch families, after 14: (a) a gate: phi3.5-moe,
+   qwen3-moe, mamba2-780m, recurrentgemma-9b (3 layers: one local),
+   seamless-m4t-medium and phi-3-vision at full width, 2 layers, fp32,
+   2 prompts x 300 tokens + 16 (recurrentgemma 2100, past its 2048
+   window): the static engine's kernel path and plain path, and the
+   paged engine's for the four decoder-only archs, unfused and fused,
+   recurrentgemma also under w8fp8, greedy tokens identical, the launch
+   counts of each path; (b) the five but qwen3-moe at full width in
+   bf16 (phi3.5-moe at 8 of 32 layers, the rest at full depth): the
+   static engine on 8 x 512 + 32 and the paged engine on 8 requests of
+   64-512 + 32 where the family has it: tok/s, peak memory, the prefill
+   logits against the plain path within 5% of max |logit|;
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
@@ -774,12 +798,13 @@ def qkv_inputs(dev, dtype, m, nkv, k, g, seed):
 
 
 def oproj_inputs(dev, dtype, lengths, seed, page, hkv=8, g=4, d=128,
-                 e=4096):
-    """``paged_inputs`` at q_span 1 plus a (Hkv, G*D, E) wo scaled so
-    every output is O(1)."""
+                 e=4096, n_blocks=None):
+    """``paged_inputs`` at q_span 1 (``n_blocks`` pages a request, 512
+    positions' worth by default) plus a (Hkv, G*D, E) wo scaled so every
+    output is O(1)."""
     import torch
     args = paged_inputs(dev, dtype, lengths, 1, seed, hkv=hkv, g=g, d=d,
-                        page=page, n_blocks=-(-512 // page))
+                        page=page, n_blocks=n_blocks or -(-512 // page))
     gen = torch.Generator(device=dev).manual_seed(seed)
     wo = (torch.randn((hkv, g * d, e), generator=gen, device=dev)
           * (hkv * g * d) ** -0.5).to(dtype)
@@ -2830,10 +2855,10 @@ def teacher_forced_logits(cfg, params, prompt, tokens, max_seq: int):
         del cache
         page = KV.choose_page_size(cfg, max_seq)
         nb = KV.num_blocks(max_seq, page)
-        pool = KV.init_paged_cache(cfg, nb + 1, page, dev)
+        pool = KV.init_paged_cache(cfg, 1, nb + 1, page, dev)
         pages = torch.arange(1, nb + 1, device=dev)
         _, full = T.prefill(cfg, params, tok, max_seq=s0, full_kv=True)
-        KV.write_prefill(cfg, pool, full, pages, page)
+        KV.write_prefill(cfg, pool, full, 0, pages, page)
         del full
         attn = KV.make_paged_attn_step(cfg, pages[None].int(), page)
         pos = torch.tensor([s0], dtype=torch.int32, device=dev)
@@ -2865,11 +2890,11 @@ def paged_logits(cfg, params, prompts, tokens, max_seq: int, fuse: bool,
     with torch.no_grad(), ops.fused_ops(fuse):
         pre, full = T.prefill(cfg, params, tok, max_seq=s0, full_kv=True,
                               use_kernel=use_kernel)
-        pool = KV.init_paged_cache(cfg, b * nb + 1, page, dev)
+        pool = KV.init_paged_cache(cfg, b, b * nb + 1, page, dev)
         for r in range(b):
             KV.write_prefill(cfg, pool, {"layers": [
                 {key: c[key][r:r + 1] for key in ("k", "v")}
-                for c in full["layers"]]}, pages[r], page)
+                for c in full["layers"]]}, r, pages[r], page)
         del full
         attn = KV.make_paged_attn_step(cfg, pages.int(), page,
                                        use_kernel=use_kernel, fused=fuse)
@@ -3171,6 +3196,385 @@ def time_wide_kernels() -> dict:
                   f"{row['plain_ms']:.4f} ms, torch.matmul on [wq|wk|wv] "
                   f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}, the bf16 peak)")
+    return out
+
+
+# -------------------- the other arch families (3, 13, 17) --------------------
+
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b", "mamba2-780m",
+                "recurrentgemma-9b", "seamless-m4t-medium",
+                "phi-3-vision-4.2b")
+DECODER_FAMILIES = FAMILY_ARCHS[:4]     # the paged engine serves these
+
+
+def phase3_families(dev) -> None:
+    """The other arch families' kernel shapes against the plain versions,
+    fp32 and bf16, repeats bit-equal: row 4 non-causal at
+    seamless-m4t-medium's cross-attention (Sq 1, 17 and 300 over Skv
+    1024; Hq = Hkv = 16, D 64) and its encoder (Sq = Skv = 1024); row 4
+    causal at phi-3-vision's D 96 over its 576 prefix positions and 64
+    tokens (Hq = Hkv = 32); rows 1 and 3, and row 2 over fp8 pages, at
+    recurrentgemma-9b's local layers (Hkv 1, G 16, D 256, window 2048,
+    E 4096) at B 1 and 8 past the window, pages 32 and the model's, row 1
+    and 2 also a 16-token chunk, and every split count at B 1 in bf16;
+    row 3 also at B 20 (16-row groups: chunks of 2 query heads).  Row
+    11 at recurrentgemma's (M, 256, 4096, 16) is phase3_wide_groups'."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.serve import kv_cache as KV
+    rg = get_config("recurrentgemma-9b")
+    pages = sorted({32, KV.choose_page_size(rg, 4096),
+                    KV.choose_page_size(rg, 4096, fused=True)})
+    bf16 = torch.bfloat16
+    for dtype in (torch.float32, bf16):
+        dn = str(dtype).split(".")[1]
+        for b, sq, skv, hq, hkv, d, causal in (
+                (2, 1, 1024, 16, 16, 64, False),
+                (2, 17, 1024, 16, 16, 64, False),
+                (1, 300, 1024, 16, 16, 64, False),
+                (1, 1024, 1024, 16, 16, 64, False),
+                (1, 640, 640, 32, 32, 96, True)):
+            check_attention_edge(dev, dtype, b, sq, skv, hq, hkv, d, causal,
+                                 None, None)
+            q, k, v = dense_inputs(dev, dtype, b, sq, skv, seed=sq + skv + hq,
+                                   hq=hq, hkv=hkv, d=d)
+            assert torch.equal(FA.flash_attention(q, k, v, causal=causal),
+                               FA.flash_attention(q, k, v, causal=causal))
+        for page in pages:
+            n_blocks = -(-4200 // page)
+            for b in (1, 8, 20):
+                lengths = ([3000] if b == 1 else
+                           [1, 100, 2047, 2048, 2049, 2500, 3000, 4100]
+                           if b == 8 else
+                           [(331 * i + 7) % 4150 + 1 for i in range(b)])
+                for q_span in (1, 16) if b <= 8 else ():
+                    kw = dict(window=2048, q_span=q_span)
+                    args = paged_inputs(dev, dtype, lengths, q_span,
+                                        seed=b + q_span, hkv=1, g=16, d=256,
+                                        page=page, n_blocks=n_blocks)
+                    out = FD.flash_decode(*args, **kw)
+                    assert torch.equal(out, FD.flash_decode(*args, **kw))
+                    tag = (f"flash_decode {dn} Hkv=1 G=16 D=256 page={page} "
+                           f"B={b} q_span={q_span} window=2048")
+                    ref = FD.paged_attention_ref(*args, **kw)
+                    compare(tag, out, ref, dn)
+                    f8 = fp8_paged(paged_inputs(
+                        dev, torch.float32, lengths, q_span, seed=b,
+                        hkv=1, g=16, d=256, page=page, n_blocks=n_blocks),
+                        seed=b, unit=False)
+                    f8 = (f8[0].to(dtype),) + f8[1:]
+                    out8 = FD.flash_decode_fp8(*f8, **kw)
+                    assert torch.equal(out8, FD.flash_decode_fp8(*f8, **kw))
+                    compare(tag.replace("flash_decode", "flash_decode_fp8"),
+                            out8, FD.paged_attention_fp8_ref(*f8, **kw), dn)
+                    if dtype == bf16 and b == 1:
+                        check_decode_splits(FD.flash_decode, args, ref, dn,
+                                            tag, **kw)
+                args = oproj_inputs(dev, dtype, lengths, seed=b, page=page,
+                                    hkv=1, g=16, d=256, e=4096,
+                                    n_blocks=n_blocks)
+                out = FD.flash_decode_oproj(*args, window=2048)
+                assert torch.equal(out, FD.flash_decode_oproj(*args,
+                                                              window=2048))
+                assert not FD._COUNTERS[out.device].any()
+                chunks = FD.oproj_chunks(16, 256, b)
+                compare(f"flash_decode_oproj {dn} Hkv=1 G=16 D=256 E=4096 "
+                        f"page={page} B={b} window=2048 (grid "
+                        f"{FD.oproj_grid(1, 4096, chunks)} x 1 x {chunks} "
+                        f"chunks of {FD.oproj_head_chunk(16, 256, b)})", out,
+                        FD.paged_attention_oproj_ref(*args, window=2048), dn,
+                        gemm_atol(dn, 16 * 256))
+    torch.cuda.synchronize()
+
+
+def family_cfg(arch: str, layers: int | None, dtype):
+    """``arch`` at full width, its depth cut to ``layers`` (the encoder's
+    too), in ``dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = {"dtype": dtype}
+    if layers is not None:
+        kw["n_layers"] = layers
+        if cfg.is_encdec:
+            kw["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def family_inputs(cfg, b: int, seed: int) -> dict:
+    """The frontend stubs' inputs (normal draws times 0.1, numpy fp32):
+    ``enc_embeds`` for the encoder-decoder, ``prefix_embeds`` for the
+    vision prefix."""
+    rng = np.random.default_rng(seed + 17)
+    out = {}
+    if cfg.is_encdec:
+        out["enc_embeds"] = (rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)) * 0.1).astype(np.float32)
+    if cfg.prefix_tokens:
+        out["prefix_embeds"] = (rng.standard_normal(
+            (b, cfg.prefix_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+    return out
+
+
+def family_static_launches(cfg) -> int:
+    """Row 4's launches for one static ``generate``: once an attention
+    layer (the one prefill) and, for the encoder-decoder, once an
+    encoder layer and once a decoder layer's cross-attention (the cross
+    decode is plain ``einsum`` s, as in JAX)."""
+    from repro_torch.models import transformer as T
+    n = len(T.attention_layers(cfg))
+    if cfg.is_encdec:
+        n += cfg.encoder_layers + cfg.n_layers
+    return n
+
+
+def family_serve(cfg, params, prompts, n, max_seq, kernels, ex, fuse):
+    """The static engine on its kernel path and its plain path (tokens
+    identical, the plain path launching nothing; row 4's launches
+    counted), and for a decoder-only stack the paged engine on both
+    paths (tokens identical; against the static engine's too unless the
+    stack routes experts -- a chunked prefill routes fewer tokens at a
+    time, so its capacity, and what it drops, differ, in JAX as here --
+    or keeps fp8 K/V, which the two engines read in another order).
+    Returns the launches of each path."""
+    import torch
+    reset(kernels)
+    kern = dense_engine(cfg, params, max_seq, fuse=fuse).generate(
+        prompts, n, **ex)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts(kernels).items() if v}
+    plain = dense_engine(cfg, params, max_seq, fuse=fuse,
+                         use_kernel=False).generate(prompts, n, **ex)
+    assert {k: v for k, v in counts(kernels).items() if v} == launched, \
+        "the plain path launched a kernel"
+    want = family_static_launches(cfg)
+    assert launched.get("flash_attention", 0) == want, (launched, want)
+    if fuse and want:         # int8 q/k/v run matmul_w8, as in JAX
+        assert launched.get("qkv_fused", 0) + launched.get("matmul_w8",
+                                                           0) > 0, launched
+    if fuse and cfg.d_ff:
+        assert launched.get("matmul_fused", 0) > 0, launched
+    assert np.array_equal(kern, plain), (cfg.name, fuse, kern, plain)
+    out = {"static": launched, "tokens": kern[:, :4].tolist()}
+    if not (cfg.is_encdec or cfg.prefix_tokens):
+        reset(kernels)
+        eng = paged_engine(cfg, params, max_seq, prompts.shape[0], fuse=fuse)
+        paged = eng.generate(list(prompts), n)
+        torch.cuda.synchronize()
+        plaunch = {k: v for k, v in counts(kernels).items() if v}
+        pplain = paged_engine(cfg, params, max_seq, prompts.shape[0],
+                              fuse=fuse, use_kernel=False).generate(
+                                  list(prompts), n)
+        assert {k: v for k, v in counts(kernels).items() if v} == plaunch
+        assert np.array_equal(paged, pplain), (cfg.name, fuse, paged, pplain)
+        fp8 = (cfg.kv_cache_dtype or cfg.dtype).itemsize == 1
+        decode = ("flash_decode_fp8" if fp8 else "flash_decode_oproj"
+                  if fuse else "flash_decode")
+        if want:
+            assert plaunch.get(decode, 0) > 0, plaunch
+        if not cfg.n_experts and not fp8:
+            assert np.array_equal(paged, kern), (cfg.name, fuse, paged, kern)
+        out.update(paged=plaunch, page=eng.page_size,
+                   chunk=eng.prefill_chunk, spec=eng.spec,
+                   prefix_caching=eng.prefix_caching,
+                   paged_equals_static=bool(np.array_equal(paged, kern)))
+    return out
+
+
+def phase17_gate(seed: int, kernels: dict) -> dict:
+    """(a) The six new archs at full width, fp32, 2 layers (recurrentgemma
+    3: recurrent, recurrent, local; seamless 2 encoder layers too), 2
+    prompts and 16 new tokens (300-token prompts; recurrentgemma 2100,
+    past its 2048 window; phi-3-vision's 576 prefix positions ahead of
+    them, seamless's 1024 encoder positions beside them): the static
+    engine's kernel path against its plain path, unfused and fused, and
+    the paged engine on both paths for the four decoder-only archs, greedy
+    tokens identical (``family_serve``), with the launch counts of each
+    path; recurrentgemma-9b also under w8fp8 (int8 projections, fp8
+    caches)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import quantize_params
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        rg = arch == "recurrentgemma-9b"
+        cfg = family_cfg(arch, 3 if rg else 2, torch.float32)
+        params = T.init_params(cfg, seed=seed, device="cuda")
+        b, s0, n = 2, 2100 if rg else 300, 16
+        max_seq = -(-(s0 + cfg.prefix_tokens + n) // 128) * 128
+        prompts = dense_prompts(cfg, b, s0, seed)
+        ex = family_inputs(cfg, b, seed)
+        cells = [("wide", cfg, params)]
+        if rg:
+            cells.append(("w8fp8", dataclasses.replace(
+                cfg, kv_cache_dtype=torch.float8_e4m3fn),
+                quantize_params(params)))
+        res = {}
+        for mode, c, p in cells:
+            for fuse in (False, True):
+                r = family_serve(c, p, prompts, n, max_seq, kernels, ex,
+                                 fuse)
+                if mode == "w8fp8":
+                    assert r["static"].get("matmul_w8", 0) > 0, r
+                tag = f"{mode} {'fused' if fuse else 'unfused'}"
+                print(f"  {arch} {tag}: {b} x {n} tokens from {s0}-token "
+                      f"prompts identical on every path; static launches "
+                      f"{r['static']}" + (
+                          f", paged (page {r['page']}, chunk {r['chunk']}, "
+                          f"spec {r['spec']}) {r['paged']}, paged == "
+                          f"static: {r['paged_equals_static']}"
+                          if "paged" in r else "")
+                      + f"; first tokens {r['tokens']}")
+                res[tag] = r
+        print(f"  {arch}: {time.perf_counter() - t0:.1f}s")
+        out[arch] = res
+        del params, cells
+        torch.cuda.empty_cache()
+    return out
+
+
+# phi3.5-moe's 32 layers would hold about 84 GB in bf16
+FAMILY_FULL_LAYERS = {"phi3.5-moe-42b-a6.6b": 8}
+
+
+def phase17_full(seed: int, kernels: dict) -> dict:
+    """(b) Five of the new archs at full width in bf16 (phi3.5-moe at 8 of
+    its 32 layers, the rest at full depth; qwen3-moe stays in (a)): the
+    static engine on 8 prompts of 512 tokens and, for the decoder-only
+    archs, the paged engine on 8 requests of 64 to 512 tokens, 32 new
+    tokens each, after a warm run: tok/s, peak memory and the launches;
+    the prefill logits of a 512-token prompt on the kernel path against
+    the plain path within 5% of max |logit|, argmax equal.  Each model
+    and its engines are freed before the next loads (``family_full``'s
+    frame), so each peak is its own."""
+    import torch
+    out = {}
+    for arch in FAMILY_ARCHS:
+        if arch == "qwen3-moe-235b-a22b":
+            continue
+        out[arch] = family_full(arch, seed, kernels)
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_full(arch: str, seed: int, kernels: dict) -> dict:
+    """One arch of phase 17b (``phase17_full``)."""
+    import torch
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = family_cfg(arch, FAMILY_FULL_LAYERS.get(arch), torch.bfloat16)
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    res = {"layers": cfg.n_layers, "init_s": time.perf_counter() - t0}
+    print(f"  {arch}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.2f}B "
+          f"parameters (active {cfg.active_param_count() / 1e9:.2f}B), "
+          f"bf16, initialised in {res['init_s']:.1f}s")
+    b, n = 8, 32
+    max_seq = -(-(512 + cfg.prefix_tokens + n) // 128) * 128
+    prompts = dense_prompts(cfg, b, 512, seed)
+    ex = family_inputs(cfg, b, seed)
+    dense_engine(cfg, params, max_seq).generate(prompts, 2, **ex)   # warm
+    reset(kernels)
+    st = serve_timed(f"{arch} static engine, {b} x {n} tokens after "
+                     f"512-token prompts", lambda: dense_engine(
+                         cfg, params, max_seq).generate(prompts, n, **ex),
+                     b * n)
+    res["static"] = {k: v for k, v in st.items() if k != "out"}
+    res["static"]["launches"] = {k: v for k, v in counts(kernels).items()
+                                 if v}
+    assert np.isin(st["out"], np.arange(cfg.vocab)).all()
+    if arch in DECODER_FAMILIES:
+        lens = np.linspace(64, 512, b).astype(int)
+        rng = np.random.default_rng(seed + 1)
+        reqs = [rng.integers(0, cfg.vocab, (int(m),), dtype=np.int32)
+                for m in lens]
+        paged_engine(cfg, params, max_seq, b).generate(reqs[:2], 2)
+        reset(kernels)
+        eng = paged_engine(cfg, params, max_seq, b)
+        pg = serve_timed(f"{arch} paged engine (page {eng.page_size}, "
+                         f"chunk {eng.prefill_chunk}), {b} requests of "
+                         f"64-512 tokens x {n}",
+                         lambda: eng.generate(reqs, n), b * n)
+        res["paged"] = {k: v for k, v in pg.items() if k != "out"}
+        res["paged"]["launches"] = {k: v for k, v in counts(kernels).items()
+                                    if v}
+        res["paged"].update(page=eng.page_size, chunk=eng.prefill_chunk)
+        assert np.isin(pg["out"], np.arange(cfg.vocab)).all()
+    tok = torch.from_numpy(prompts[:1]).cuda()
+    one = {k: torch.from_numpy(v[:1]).cuda() for k, v in ex.items()}
+    with torch.no_grad():
+        got = T.prefill(cfg, params, tok, max_seq=max_seq, **one)[0].float()
+        want = T.prefill(cfg, params, tok, max_seq=max_seq,
+                         use_kernel=False, **one)[0].float()
+    res["prefill_logits"] = hold_logits(
+        f"{arch}, 512 tokens, kernels vs plain", got, want)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"  {arch}: {res['wall_s']:.1f}s")
+    return res
+
+
+def phase13_families(seed: int, kernels: dict) -> dict:
+    """The six new archs' reduced configs (``configs.get_reduced``: d_model
+    64, head_dim 16) on the card.  Serving, fp32: 2 prompts of 12 tokens
+    and 8 new ones through ``family_serve`` (the static engine's kernel
+    path against its plain path, the paged engine's too for the
+    decoder-only archs), unfused and fused.  Training, bf16: 3 steps on
+    the default path, finite losses, step 0's loss within 2% of the
+    plain path's.  Then each arch's launcher usage lines,
+    ``launch.train --reduced --steps 2`` and ``launch.serve --reduced``,
+    on their default device."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    out = {}
+    for arch in FAMILY_ARCHS:
+        base = get_reduced(arch)
+        cfg = dataclasses.replace(base, dtype=torch.float32)
+        params = T.init_params(cfg, seed=seed, device="cuda")
+        prompts = dense_prompts(cfg, 2, 12, seed)
+        ex = family_inputs(cfg, 2, seed)
+        res = {}
+        for fuse in (False, True):
+            res["fused" if fuse else "unfused"] = family_serve(
+                cfg, params, prompts, 8, 64, kernels, ex, fuse)
+        cfgb = dataclasses.replace(base, dtype=torch.bfloat16)
+        params0 = T.init_params(cfgb, seed=seed, device="cuda")
+        opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=3)
+        batches = [make_batch(cfgb, 64, 4, s, seed=seed, device="cuda")
+                   for s in range(3)]
+        plain, _ = train_one_step(cfgb, params0, batches[0], blocked=False,
+                                  use_kernel=False, opt=opt)
+        step_fn = loop.make_train_step(cfgb, loop.TrainConfig(opt=opt))
+        p, state, losses = params0, adamw.init_state(params0), []
+        reset(kernels)
+        for batch in batches:
+            p, state, m = step_fn(p, state, batch)
+            losses.append(float(m["loss"]))
+        launched = {k: v for k, v in counts(kernels).items() if v}
+        ref = float(plain["loss"])
+        assert all(np.isfinite(losses)), losses
+        assert abs(losses[0] - ref) <= 2e-2 * abs(ref), (arch, losses, ref)
+        if family_static_launches(cfg):
+            assert launched.get("flash_attention_bwd", 0) > 0, launched
+        res["train"] = {"losses": losses, "plain_step0": ref,
+                        "launches": launched}
+        print(f"  {arch} reduced: served fp32 unfused and fused, kernel "
+              f"path == plain path (static launches "
+              f"{res['unfused']['static']}); bf16 training losses {losses},"
+              f" step 0 vs plain {ref:.5f}; launches {launched}")
+        out[arch] = res
+        del params, params0, p, state
+        torch.cuda.empty_cache()
+        launch_train.main(["--arch", arch, "--reduced", "--steps", "2"])
+        launch_serve.main(["--arch", arch, "--reduced", "--requests", "4",
+                           "--gen", "8"])
     return out
 
 
@@ -4523,7 +4927,8 @@ def main() -> int:
     phase("phase 3: kernels vs plain versions")
     for check in (phase3_kernels, phase3_decode_grid, phase3_verify_spans,
                   phase3_head_dims,
-                  phase3_oproj_wide, phase3_wide_groups, phase3_fused,
+                  phase3_oproj_wide, phase3_wide_groups, phase3_families,
+                  phase3_fused,
                   phase3_quant, phase3_train, phase3_conv):
         t0 = time.perf_counter()
         check(torch.device("cuda"))
@@ -4535,6 +4940,10 @@ def main() -> int:
           "serving parity, the fused path, 3 training steps, the "
           "launchers' usage lines")
     reduced = phase13_reduced(args.seed, kernels)
+    phase("phase 13b: the six new archs' reduced configs on the card: "
+          "static and paged serving parity, unfused and fused, 3 training "
+          "steps, the launchers' usage lines")
+    families = {"reduced": phase13_families(args.seed, kernels)}
     phase("phase 16a: the serving features, granite-3-8b width, 2 layers, "
           "fp32, unfused, fused and w8fp8: speculative decode, the prefix "
           "cache, preemption, the NaN guard, shutdown, engine_smoke")
@@ -4611,6 +5020,17 @@ def main() -> int:
     dense = {"parity": phase14_parity(args.seed, kernels),
              "gemma2-9b": phase14_gemma2(args.seed, kernels),
              "wide": phase14_wide(args.seed, kernels)}
+    phase("phase 17a: the six new archs at full width, fp32, 2 layers "
+          "(recurrentgemma 3): static and paged engines, kernel and plain "
+          "paths, unfused and fused, recurrentgemma under w8fp8")
+    t17 = time.perf_counter()
+    families["gate"] = phase17_gate(args.seed, kernels)
+    phase("phase 17b: five new archs at full width in bf16 (phi3.5-moe 8 "
+          "of 32 layers): static and paged engines, tok/s, peak memory, "
+          "prefill logits against the plain path")
+    families["full"] = phase17_full(args.seed, kernels)
+    families["phase17_s"] = time.perf_counter() - t17
+    print(f"  phase 17: {families['phase17_s']:.1f}s")
     phase("phase 7: tune_op matmul (8, 4096, 4096), qkv_fused "
           "(8, 1024, 4096, 4) and conv2d (Conv4), bfloat16")
     tuned = phase7_tune()
@@ -4637,6 +5057,7 @@ def main() -> int:
     print("conv " + json.dumps(conv))
     print("observed " + json.dumps(observed))
     print("features " + json.dumps(features))
+    print("families " + json.dumps(families))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, and
 the paper's own benchmark layers.
 
-Only the archs the port runs are registered: the four dense attention
-decoders (granite-3-8b, glm4-9b, granite-34b, gemma2-9b), each module's
-``CONFIG`` and ``reduced()`` equal to ``repro.configs``'.  Every other
-arch of ``repro.configs`` raises with a pointer to ``ROADMAP.md`` (queue
-1, item 11: the other arch families).
+Every arch of ``repro.configs`` is registered, each module's ``CONFIG``
+and ``reduced()`` equal to the reference's: the four dense attention
+decoders (granite-3-8b, glm4-9b, granite-34b, gemma2-9b), the MoE
+decoders (phi3.5-moe, qwen3-moe), the attention-free Mamba-2 SSD stack
+(mamba2-780m), the RG-LRU + local-attention hybrid (recurrentgemma-9b),
+the encoder-decoder (seamless-m4t-medium) and the vision-prefix decoder
+(phi-3-vision).
 
 ``PAPER_LAYERS`` are the paper's Table-4 problems (the five conv layers
 in output-space X, Y and the two fully connected ones as batch-16
@@ -14,7 +16,10 @@ GEMMs), equal to ``repro.configs.PAPER_LAYERS``.
 
 from __future__ import annotations
 
-from repro_torch.configs import gemma2_9b, glm4_9b, granite_3_8b, granite_34b
+from repro_torch.configs import (gemma2_9b, glm4_9b, granite_3_8b,
+                                 granite_34b, mamba2_780m, phi3_vision,
+                                 phi35_moe, qwen3_moe_235b,
+                                 recurrentgemma_9b, seamless_m4t_medium)
 from repro_torch.core.loopnest import Problem
 from repro_torch.models.config import ModelConfig
 
@@ -23,6 +28,12 @@ _MODULES = {
     "glm4-9b": glm4_9b,
     "granite-34b": granite_34b,
     "gemma2-9b": gemma2_9b,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "seamless-m4t-medium": seamless_m4t_medium,
+    "mamba2-780m": mamba2_780m,
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "phi-3-vision-4.2b": phi3_vision,
 }
 
 ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}
@@ -30,9 +41,8 @@ ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise KeyError(
-            f"arch {arch!r} is not ported yet (ported: {sorted(_MODULES)}); "
-            "see ROADMAP.md, queue 1, item 11")
+        raise KeyError(f"unknown arch {arch!r}; choose from "
+                       f"{sorted(_MODULES)}")
     return _MODULES[arch]
 
 

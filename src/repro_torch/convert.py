@@ -5,7 +5,9 @@ every leaf); this module imports no JAX.  The JAX tree stacks each
 pattern entry's layers under ``params["layers"][j]`` with a leading
 group axis and keeps the remainder under ``params["tail"]``; the port
 keeps one entry per layer, in execution order (group by group, each
-cycling through the pattern, then the tail).
+cycling through the pattern, then the tail).  An encoder-decoder's
+encoder is one stack over ``encoder_layers`` with no tail
+(``params["encoder"]["layers"]``); the port keeps a list there too.
 
 The conv path needs no conversion: ``ops.conv2d`` keeps JAX's layouts
 (activations NHWC, weights HWIO, Table-4 problems in output-space X, Y),
@@ -37,17 +39,6 @@ def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def _leaves(tree: Any, fn) -> Any:
-    """``map_tree`` that keeps a quantized leaf ``{"q", "scale"}`` whole."""
-    if _is_quantized(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _leaves(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_leaves(v, fn) for v in tree]
-    return fn(tree)
-
-
 def _per_layer(cfg: ModelConfig, tree: dict) -> dict:
     """The JAX tree's stacked groups and tail as one entry per layer."""
     pattern = cfg.layer_pattern
@@ -60,14 +51,46 @@ def _per_layer(cfg: ModelConfig, tree: dict) -> dict:
                          f"{cfg.name} has {cfg.n_layers}")
     out = {k: v for k, v in tree.items() if k not in ("layers", "tail")}
     out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {**enc, "layers": [
+            _unstack(enc["layers"], g) for g in range(cfg.encoder_layers)]}
     return out
+
+
+def _leaf_dtypes(cfg: ModelConfig) -> Any:
+    """The port's parameter tree with each leaf's dtype
+    (``transformer.model_defs``): ``cfg.dtype``, or fp32 where a leaf
+    asks for it (SSD's ``A_log``, ``D``, ``dt_bias``; RG-LRU's
+    ``lam``), as JAX's ``retype_defs`` leaves them."""
+    from repro_torch.models.transformer import model_defs
+    return map_tree(lambda d: d.dtype, model_defs(cfg))
+
+
+def _with_dtypes(tree: Any, dtypes: Any, fn) -> Any:
+    """``fn(leaf, dtype)`` on every leaf of ``tree`` (a quantized leaf
+    ``{"q", "scale"}`` whole), ``dtype`` from the parallel ``dtypes``
+    tree (``None`` where it has no such leaf)."""
+    if _is_quantized(tree):
+        return fn(tree, None)
+    if isinstance(tree, dict):
+        sub = dtypes if isinstance(dtypes, dict) else {}
+        return {k: _with_dtypes(v, sub.get(k), fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        sub = dtypes if isinstance(dtypes, list) else []
+        return [_with_dtypes(v, sub[i] if i < len(sub) else None, fn)
+                for i, v in enumerate(tree)]
+    return fn(tree, dtypes if isinstance(dtypes, torch.dtype) else None)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict,
                       device: str | torch.device = "cuda") -> dict:
     """The port's parameters from a numpy-mapped JAX param tree, on
-    ``device`` in ``cfg.dtype`` (numpy has no bfloat16: map bf16 leaves
-    to float32 first, and they are cast back here).
+    ``device``, each leaf in the dtype the port's ``model_defs`` gives it:
+    ``cfg.dtype``, or fp32 for the leaves that ask for it (SSD's
+    ``A_log``, ``D``, ``dt_bias``; RG-LRU's ``lam``), as in JAX (numpy
+    has no bfloat16: map bf16 leaves to float32 first, and they are cast
+    back here).
 
     A quantized leaf is given as ``{"q": payload, "scale": fp32}`` (JAX's
     ``QuantizedTensor`` mapped to numpy; a stacked group's ``(G, K, N)``
@@ -77,12 +100,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
     """
     dev = resolve_device(device)
 
-    def leaf(a: Any):
+    def leaf(a: Any, dtype):
         if _is_quantized(a):
             return QuantizedTensor(_tensor(a["q"], dev),
                                    _tensor(a["scale"], dev).float())
-        return _tensor(a, dev).to(cfg.dtype)
-    return _leaves(_per_layer(cfg, tree), leaf)
+        return _tensor(a, dev).to(dtype or cfg.dtype)
+    return _with_dtypes(_per_layer(cfg, tree), _leaf_dtypes(cfg), leaf)
 
 
 def opt_state_from_numpy(cfg: ModelConfig, state: dict,

@@ -57,7 +57,8 @@
 // Wide query groups (glm4-9b's G 16, granite-34b's G 48 at head_dim 128:
 // 6,144 fp32 attention rows a batch row) run in head chunks of gc query
 // heads (an argument: the most whose rows fit the two-block budget beside
-// the ring, a multiple of kWarps, or G where all fit, one chunk;
+// the ring, a multiple of kWarps where one warp's rows fit, or G where
+// all fit, one chunk; recurrentgemma-9b's D 256 at 16 rows: 2 heads;
 // kernels/flash_decode.py::oproj_head_chunk): chunk j's blocks run the
 // attention of query heads [j gc, j gc + gc), their gather and the slab's
 // rows [j gc hd, (j gc + gc) hd) into a partial of their own, so the

@@ -66,14 +66,21 @@ def make_batch(cfg: ModelConfig, seq_len: int, global_batch: int,
                device: str | torch.device = "cuda") -> dict:
     """``{"tokens", "labels"}`` of ``step`` as int32 tensors (JAX's
     dtype) on ``device`` (default ``"cuda"``; raises without a GPU unless
-    ``device="cpu"``).  Dense family only: the stub modality inputs of
-    the encoder-decoder and prefix families are not ported
-    (``ROADMAP.md``, queue 1, item 11)."""
-    if cfg.is_encdec or cfg.prefix_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder and multimodal-prefix batches "
-            "are not ported yet; see ROADMAP.md, queue 1, item 11")
+    ``device="cpu"``), with the stub modality inputs of the families
+    that take them, JAX's arrays in ``cfg.dtype``: ``enc_embeds``
+    (global_batch, encoder_seq, d_model) for the encoder-decoder,
+    ``prefix_embeds`` (global_batch, prefix_tokens, d_model) for the
+    vision-prefix family, normal draws times 0.1 from
+    ``default_rng((seed << 16) ^ step ^ 0xABCD)``."""
     dev = resolve_device(device)
     stream = TokenStream(DataConfig(cfg.vocab, seq_len, global_batch, seed))
-    return {k: torch.from_numpy(v).to(dev)
-            for k, v in stream.batch_at(step).items()}
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(step).items()}
+    rng = np.random.default_rng((seed << 16) ^ step ^ 0xABCD)
+    for key, n in (("enc_embeds", cfg.encoder_seq if cfg.is_encdec else 0),
+                   ("prefix_embeds", cfg.prefix_tokens)):
+        if n:
+            x = rng.standard_normal((global_batch, n, cfg.d_model)).astype(
+                np.float32) * 0.1
+            batch[key] = torch.from_numpy(x).to(dev, cfg.dtype)
+    return batch

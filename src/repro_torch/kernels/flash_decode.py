@@ -235,16 +235,20 @@ def oproj_head_chunk(groups: int, head_dim: int,
     ``head_chunk``): all G where their fp32 rows in
     :func:`oproj_group_rows` slots, one split's rows and their (max, sum)
     pairs fit the two-block budget beside the wo ring; else the most
-    that do, in whole warps' worth of rows (:data:`ROWS_PER_BLOCK`), at
-    least one warp's.  granite-3-8b (G 4, D 128): 4, one pass; glm4-9b
-    (G 16) and granite-34b (G 48) at D 128: 8 up to 8 batch rows, else
-    4.  From shapes only, like the grid."""
+    that do, in whole warps' worth of rows (:data:`ROWS_PER_BLOCK`);
+    where not even one warp's rows fit, the most heads that do, at least
+    one (the kernel takes any chunk).  granite-3-8b (G 4, D 128): 4, one
+    pass; glm4-9b (G 16) and granite-34b (G 48) at D 128: 8 up to 8
+    batch rows, else 4; recurrentgemma-9b (G 16, D 256): 4 up to 8 batch
+    rows, else 2.  From shapes only, like the grid."""
     per_head = (oproj_group_rows(batch) + 1) * head_dim * 4 + 2 * 4
     room = default_smem_budget() - OPROJ_WO_STAGES * OPROJ_STEP_BYTES
     fit = room // per_head
     if fit >= groups:
         return groups
-    return max(fit - fit % ROWS_PER_BLOCK, min(groups, ROWS_PER_BLOCK))
+    if fit >= ROWS_PER_BLOCK:
+        return fit - fit % ROWS_PER_BLOCK
+    return max(fit, 1)
 
 
 def oproj_chunks(groups: int, head_dim: int,

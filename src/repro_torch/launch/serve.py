@@ -11,6 +11,17 @@ batch.
     python -m repro_torch.launch.serve --arch gemma2-9b --engine static \
         --batch 4 --prompt-len 16 --gen 32
 
+``--arch`` takes every arch of ``repro_torch.configs``.  The
+encoder-decoder (seamless-m4t-medium) and vision-prefix (phi-3-vision)
+families serve through the static engine only, as in JAX (the paged
+engine covers decoder-only token models), so ``--engine`` defaults to
+``static`` for them and to ``paged`` for the rest; their frontend stubs'
+inputs (``enc_embeds``, ``prefix_embeds``: normal draws times 0.1 in the
+model dtype) are drawn after the prompts, as JAX's launcher draws them.
+Stacks with RG-LRU or SSD mixers serve through both engines; the paged
+one prefills them at exact lengths and turns chunked prefill,
+speculative decode and the prefix cache off, as JAX's does.
+
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels (use ``--reduced`` there).  The
 page size and the prefill chunk come from the blocking model unless
@@ -72,9 +83,11 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--engine", choices=("static", "paged"),
-                    default="paged",
+                    default=None,
                     help="paged: continuous batching over the paged cache; "
-                         "static: one batch, dense caches, lock-step decode")
+                         "static: one batch, dense caches, lock-step decode "
+                         "(default: paged, static for the encoder-decoder "
+                         "and vision-prefix families)")
     ap.add_argument("--batch", type=int, default=8,
                     help="paged: decode batch slots; static: batch size")
     ap.add_argument("--requests", type=int, default=0,
@@ -161,17 +174,27 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     kv = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
     obs = Obs(trace=args.trace, miss_log=args.miss_log)
-    if args.engine == "static":
+    engine_kind = args.engine or ("static" if cfg.is_encdec
+                                  or cfg.prefix_tokens else "paged")
+    if engine_kind == "static":
         engine = DecodeEngine(cfg, params, ServeConfig(
             max_seq=args.max_seq, temperature=args.temperature,
             seed=args.seed, fuse=args.fuse, device=args.device), obs=obs)
         prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                                dtype=np.int32)
+        extras = {}
+        for key, n in (("enc_embeds",
+                        cfg.encoder_seq if cfg.is_encdec else 0),
+                       ("prefix_embeds", cfg.prefix_tokens)):
+            if n:
+                extras[key] = rng.standard_normal(
+                    (args.batch, n, cfg.d_model)).astype(np.float32) * 0.1
         t0 = time.perf_counter()
-        out = engine.generate(prompts, args.gen)
+        out = engine.generate(prompts, args.gen, **extras)
         dt = time.perf_counter() - t0
-        print(f"static engine ({args.device}): batch={args.batch} "
-              f"prompt={args.prompt_len} max_seq={args.max_seq} kv={kv} "
+        print(f"static engine ({args.device}): arch={cfg.name} "
+              f"batch={args.batch} prompt={args.prompt_len} "
+              f"max_seq={args.max_seq} kv={kv} "
               f"blocked_linear={ops.blocked_linear_enabled()} "
               f"fused={args.fuse} quantize={args.quantize}")
         print(format_metrics(engine.metrics.snapshot(), sections=("engine",)))
@@ -213,7 +236,8 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     emitted = sum(r.emitted_total for r in reqs)
-    print(f"paged engine ({args.device}): page={engine.page_size} "
+    print(f"paged engine ({args.device}): arch={cfg.name} "
+          f"page={engine.page_size} "
           f"chunk={engine.prefill_chunk} kv={kv} slots={args.batch} "
           f"requests={n_req} blocked_linear="
           f"{ops.blocked_linear_enabled()} fused={args.fuse} "

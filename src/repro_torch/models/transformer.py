@@ -1,31 +1,44 @@
-"""Model assembly for dense, attention-only decoders (the port of
-``repro.models.transformer`` for the serving and training paths).
+"""Model assembly for every arch family of the reference (the port of
+``repro.models.transformer``).
 
-A model is a stack of pre-norm blocks, each an attention mixer and a
-SwiGLU FFN.  Parameters hold one entry per layer under ``"layers"`` and a
-Python loop walks them, where the JAX package stacked layer groups and
-scanned.  Other families (MoE, SSM, recurrent, encoder-decoder) are
-later slices (``ROADMAP.md``, queue 1, item 11).
+A model is a stack of pre-norm blocks; each block has a *mixer* chosen
+by ``cfg.layer_pattern`` ("global" / "local" attention, "recurrent"
+RG-LRU, "ssd" Mamba-2) and an FFN (the dense MLP, the top-k MoE, or none
+for the pure-SSD stack).  Parameters hold one entry per layer under
+``"layers"``, in execution order, and a Python loop walks them, where the
+JAX package stacked each pattern entry's layers and scanned
+(``convert.params_from_numpy`` maps one layout to the other).
+
+Encoder-decoder (seamless-m4t) adds a bidirectional encoder over the
+frontend stub's embeddings (``params["encoder"]``: its layers and final
+norm) and a cross-attention in every decoder block (row 4, non-causal,
+over the encoder's output).  The vision-prefix family (phi-3-vision)
+concatenates the stub's prefix embeddings ahead of the token
+embeddings; the loss drops the prefix positions.
 
 Training: :func:`forward` is the full-sequence forward and
-:func:`loss_fn` the masked cross-entropy, with JAX's ``(total, {"loss",
-"aux", "tokens"})`` result.  ``cfg.remat`` ``"block"`` and ``"full"``
-checkpoint every block (``torch.utils.checkpoint``, non-reentrant), as
-JAX checkpoints each pattern cycle; ``"dots"`` checkpoints every block
-under a selective policy, JAX's ``dots_with_no_batch_dims_saveable``:
-the outputs of matrix products without batch dimensions (``aten.mm``,
-``aten.addmm``: the projections) are saved, everything else is
-recomputed in the backward.  The port's CUDA GEMMs (blocked linears,
-``ops.blocked_linear``) are ``autograd.Function`` s that launch through
-ctypes, which the policy cannot see, so they are recomputed, as JAX
-recomputes a ``pallas_call`` (not a dot).  ``"none"`` keeps every
-activation.
+:func:`loss_fn` the masked cross-entropy plus ``0.01 * aux`` (the MoE
+load-balance loss), with JAX's ``(total, {"loss", "aux", "tokens"})``
+result.  ``cfg.remat`` ``"block"`` and ``"full"`` checkpoint every block
+(``torch.utils.checkpoint``, non-reentrant), as JAX checkpoints each
+pattern cycle; ``"dots"`` checkpoints every block under a selective
+policy, JAX's ``dots_with_no_batch_dims_saveable``: the outputs of
+matrix products without batch dimensions (``aten.mm``, ``aten.addmm``:
+the projections) are saved, everything else is recomputed in the
+backward.  The port's CUDA GEMMs (blocked linears, ``ops.blocked_linear``)
+are ``autograd.Function`` s that launch through ctypes, which the policy
+cannot see, so they are recomputed, as JAX recomputes a ``pallas_call``
+(not a dot).  ``"none"`` keeps every activation.
 
-Decoding: :func:`prefill` returns the per-layer caches and
-:func:`decode_step` takes one token (or a span) over a cache.  With no
-``attn_step`` it steps the dense cache (:func:`init_cache`, the static
-engine's; ``layers.attention_decode``, a ring buffer for local layers),
-as JAX's ``_block_decode`` does; the paged engine passes its own step.
+Decoding: :func:`prefill` returns the per-layer caches (attention K/V,
+the O(1) RG-LRU and SSD states, the cross K/V) and :func:`decode_step`
+takes one token (or, for attention-only stacks, a span) over a cache.
+With no ``attn_step`` it steps the dense cache (:func:`init_cache`, the
+static engine's; ``layers.attention_decode``, a ring buffer for local
+layers), as JAX's ``_block_decode`` does; the paged engine passes its
+own step and a paged cache (``serve.kv_cache.init_paged_cache``).  The
+recurrent and SSD states, and the attention caches, are updated in
+place.
 """
 
 from __future__ import annotations
@@ -43,33 +56,59 @@ from repro_torch.models.base import ParamDef, build, fan_in_scale, retype_defs
 from repro_torch.models.config import ModelConfig
 from repro_torch.util import resolve_device
 
+ATTENTION = ("global", "local")
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.n_experts or cfg.is_encdec
-            or cfg.prefix_tokens
-            or any(m not in ("global", "local") for m in cfg.layer_pattern)):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense attention-only decoders are ported; "
-            "see ROADMAP.md, queue 1, item 11")
+# ------------------------------ block defs ---------------------------------
 
 
-def block_defs(cfg: ModelConfig) -> dict:
-    return {"norm1": L.rmsnorm_defs(cfg.d_model),
-            "mixer": L.attention_defs(cfg),
-            "norm2": L.rmsnorm_defs(cfg.d_model),
-            "ffn": L.mlp_defs(cfg)}
+def _mixer_defs(cfg: ModelConfig, mixer: str) -> dict:
+    if mixer in ATTENTION:
+        return L.attention_defs(cfg)
+    if mixer == "recurrent":
+        return L.rglru_defs(cfg)
+    if mixer == "ssd":
+        return L.ssd_defs(cfg)
+    raise ValueError(mixer)
+
+
+def _ffn_defs(cfg: ModelConfig) -> dict | None:
+    if cfg.n_experts:
+        return L.moe_defs(cfg)
+    if cfg.d_ff:
+        return L.mlp_defs(cfg)
+    return None  # the pure-SSM stack has no separate FFN
+
+
+def block_defs(cfg: ModelConfig, mixer: str, cross: bool = False) -> dict:
+    d = {"norm1": L.rmsnorm_defs(cfg.d_model),
+         "mixer": _mixer_defs(cfg, mixer)}
+    ffn = _ffn_defs(cfg)
+    if ffn is not None:
+        d["norm2"] = L.rmsnorm_defs(cfg.d_model)
+        d["ffn"] = ffn
+    if cross:
+        d["norm_x"] = L.rmsnorm_defs(cfg.d_model)
+        d["cross"] = L.attention_defs(cfg)
+    return d
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     defs: dict[str, Any] = {
         "embed": L.embedding_defs(cfg),
         "final_norm": L.rmsnorm_defs(cfg.d_model),
-        "layers": [block_defs(cfg) for _ in range(cfg.n_layers)],
+        "layers": [block_defs(cfg, cfg.mixer_for_layer(i),
+                              cross=cfg.is_encdec)
+                   for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, L.padded_vocab(cfg)),
                                    scale=fan_in_scale(cfg.d_model))
+    if cfg.is_encdec:
+        defs["encoder"] = {
+            "layers": [block_defs(cfg, "global")
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": L.rmsnorm_defs(cfg.d_model),
+        }
     return retype_defs(defs, cfg.dtype)
 
 
@@ -87,6 +126,17 @@ def _window(cfg: ModelConfig, i: int) -> int | None:
     return cfg.window if cfg.mixer_for_layer(i) == "local" else None
 
 
+def attention_layers(cfg: ModelConfig) -> list[int]:
+    """The attention layers' indices, in order: the paged cache stacks
+    their pools in this order."""
+    return [i for i in range(cfg.n_layers)
+            if cfg.mixer_for_layer(i) in ATTENTION]
+
+
+def attention_only(cfg: ModelConfig) -> bool:
+    return all(m in ATTENTION for m in cfg.layer_pattern)
+
+
 def logits_fn(cfg: ModelConfig, params: dict,
               h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
@@ -99,13 +149,94 @@ def logits_fn(cfg: ModelConfig, params: dict,
     return logits
 
 
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           prefix_embeds: torch.Tensor | None) -> torch.Tensor:
+    h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor,
+         use_kernel: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's FFN half (h + FFN(norm2(h))) and the MoE aux loss
+    (None for the dense MLP)."""
+    if "ffn" not in p:
+        return h, None
+    hf = L.rmsnorm(p["norm2"], h)
+    if cfg.n_experts:
+        out, aux = L.moe_apply(cfg, p["ffn"], hf)
+        return h + out, aux
+    return L.mlp_apply(p["ffn"], hf, residual=h, use_kernel=use_kernel), None
+
+
+def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     enc_out: torch.Tensor,
+                     use_kernel: bool) -> torch.Tensor:
+    """The decoder's cross-attention over the encoder's output: row 4,
+    non-causal, Sq = the decoder's length, Skv = the encoder's (no
+    rope, the projections plain products, as in JAX)."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    se = enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (enc_out @ p["wk"]).reshape(b, se, hkv, hd)
+    v = (enc_out @ p["wv"]).reshape(b, se, hkv, hd)
+    out = ops.attention(q, k, v, causal=False, use_kernel=use_kernel)
+    return out.reshape(b, s, hq * hd) @ p["wo"]
+
+
+def _cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> dict:
+    """A layer's cross K/V cache, (B, Se, Hkv, D) each, in the model
+    dtype."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
+    return {"cross_k": (enc_out @ p["cross"]["wk"]).reshape(shape).to(
+                cfg.dtype),
+            "cross_v": (enc_out @ p["cross"]["wv"]).reshape(shape).to(
+                cfg.dtype)}
+
+
+def _encoder_apply(cfg: ModelConfig, params: dict, embeds: torch.Tensor,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """The bidirectional encoder over the frontend stub's embeddings (B,
+    Se, D): row 4 non-causal at Sq = Skv = Se, then the MLP; returns
+    its output after the final norm."""
+    enc = params["encoder"]
+    b, se, _ = embeds.shape
+    positions = torch.arange(se, device=embeds.device).expand(b, se)
+    h = embeds.to(cfg.dtype)
+    for p in enc["layers"]:
+        hn = L.rmsnorm(p["norm1"], h)
+        h = h + L.attention_apply(cfg, p["mixer"], hn, positions,
+                                  causal=False, use_kernel=use_kernel)
+        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
+                        use_kernel=use_kernel)
+    return L.rmsnorm(enc["final_norm"], h)
+
+
 def _block_apply(cfg: ModelConfig, p: dict, h: torch.Tensor, i: int,
-                 positions: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+                 positions: torch.Tensor, enc_out: torch.Tensor | None,
+                 use_kernel: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block: (h, its MoE aux loss, 0 for the other FFNs)."""
+    mixer = cfg.mixer_for_layer(i)
     hn = L.rmsnorm(p["norm1"], h)
-    h = h + L.attention_apply(cfg, p["mixer"], hn, positions, causal=True,
-                              window=_window(cfg, i), use_kernel=use_kernel)
-    return L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
-                       use_kernel=use_kernel)
+    if mixer in ATTENTION:
+        h = h + L.attention_apply(cfg, p["mixer"], hn, positions,
+                                  causal=True, window=_window(cfg, i),
+                                  use_kernel=use_kernel)
+    elif mixer == "recurrent":
+        h = h + L.rglru_apply(cfg, p["mixer"], hn)
+    else:
+        h = h + L.ssd_apply(cfg, p["mixer"], hn)
+    if enc_out is not None and "cross" in p:
+        h = h + _cross_attention(cfg, p["cross"],
+                                 L.rmsnorm(p["norm_x"], h), enc_out,
+                                 use_kernel)
+    h, aux = _ffn(cfg, p, h, use_kernel)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -123,51 +254,67 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
                                   _dots_policy)
 
 
-def _remat_block(cfg, p, h, i, positions, use_kernel, blocked, fused):
+def _remat_block(cfg, p, h, i, positions, enc_out, use_kernel, blocked,
+                 fused):
     """One block under the caller's op switches: the backward recomputes
     it from autograd's own thread, where the switches' context variables
     have their defaults, so they are set again here."""
     with ops.blocked_linear(blocked), ops.fused_ops(fused):
-        return _block_apply(cfg, p, h, i, positions, use_kernel)
+        return _block_apply(cfg, p, h, i, positions, enc_out, use_kernel)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            prefix_embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None,
             use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  tokens (B, S) -> (hidden (B, S, D) after
-    the final norm, aux loss: 0 for the dense family).  Under grad,
+    """Full-sequence forward.  tokens (B, S) -> (hidden (B, P + S, D)
+    after the final norm, P the prefix's length, and the summed MoE aux
+    loss, 0 for the other families).  ``enc_embeds`` (B, Se, D) is the
+    encoder-decoder's input, required for that family.  Under grad,
     ``cfg.remat`` decides which blocks are checkpointed (module
     docstring); ``use_kernel=False`` takes every kernel's plain
     version."""
-    _check_ported(cfg)
-    h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
+    h = _embed(cfg, params, tokens, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "enc_embeds")
+        enc_out = _encoder_apply(cfg, params, enc_embeds, use_kernel)
     remat = torch.is_grad_enabled() and cfg.remat in ("block", "full",
                                                       "dots")
     switches = (ops.blocked_linear_enabled(), ops.fused_ops_enabled())
     extra = {"context_fn": _DOTS_CONTEXT} if cfg.remat == "dots" else {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(params["layers"]):
         if remat:
-            h = checkpoint(_remat_block, cfg, p, h, i, positions,
-                           use_kernel, *switches, use_reentrant=False,
-                           **extra)
+            h, aux = checkpoint(_remat_block, cfg, p, h, i, positions,
+                                enc_out, use_kernel, *switches,
+                                use_reentrant=False, **extra)
         else:
-            h = _block_apply(cfg, p, h, i, positions, use_kernel)
+            h, aux = _block_apply(cfg, p, h, i, positions, enc_out,
+                                  use_kernel)
+        aux_total = aux_total + aux
     h = L.rmsnorm(params["final_norm"], h)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux_total
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
     """Cross-entropy LM loss over ``batch["tokens"]`` and
-    ``batch["labels"]`` (label -1: not counted), in fp32.  Returns
-    ``(total, {"loss", "aux", "tokens"})`` as JAX's ``loss_fn``."""
-    for extra in ("prefix_embeds", "enc_embeds"):
-        if batch.get(extra) is not None:
-            raise NotImplementedError(
-                f"{extra}: the multimodal and encoder-decoder families are "
-                "not ported yet; see ROADMAP.md, queue 1, item 11")
-    h, aux = forward(cfg, params, batch["tokens"], use_kernel=use_kernel)
+    ``batch["labels"]`` (label -1: not counted), in fp32, on the text
+    positions only (a ``prefix_embeds`` prefix is dropped), plus ``0.01
+    * aux``.  ``batch`` carries the modality extras ``prefix_embeds`` and
+    ``enc_embeds`` where the family has them.  Returns ``(total,
+    {"loss", "aux", "tokens"})`` as JAX's ``loss_fn``."""
+    prefix = batch.get("prefix_embeds")
+    h, aux = forward(cfg, params, batch["tokens"], prefix_embeds=prefix,
+                     enc_embeds=batch.get("enc_embeds"),
+                     use_kernel=use_kernel)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:, :]                  # loss on text only
     logits = logits_fn(cfg, params, h).float()
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
@@ -181,31 +328,52 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            max_seq: int, full_kv: bool = False,
+            max_seq: int, prefix_embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None, full_kv: bool = False,
             logits_at: int | None = None, use_kernel: bool = True):
-    """Full-sequence forward that also returns the K/V caches.
+    """Full-sequence forward that also returns the decode caches.
 
-    Returns (logits (B, V), cache) with ``cache["layers"][i]`` =
-    ``{"k", "v"}`` of shape (B, max_seq, Hkv, D), or (B, min(window,
-    max_seq), Hkv, D) for a local layer: the dense cache of
-    :func:`init_cache`, a local layer's a ring buffer.  ``full_kv=True``
-    keeps windowed layers position-indexed (the paged cache masks the
-    window at decode time); ``logits_at`` returns that position's logits
+    Returns (logits (B, V), cache) with ``cache["layers"][i]`` layer i's
+    cache: ``{"k", "v"}`` of shape (B, max_seq, Hkv, D) for a global
+    layer, (B, min(window, max_seq), Hkv, D) for a local one (a ring
+    buffer); ``{"conv", "h"}`` for an RG-LRU layer and ``{"conv",
+    "state"}`` for an SSD one (O(1) in the sequence); an
+    encoder-decoder's layers add ``{"cross_k", "cross_v"}``.  This is
+    the dense cache of :func:`init_cache`.  ``full_kv=True`` keeps
+    windowed layers position-indexed (the paged cache masks the window
+    at decode time); ``logits_at`` returns that position's logits
     instead of the last one's (a bucketed prompt is right-padded).
     """
-    h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
+    h = _embed(cfg, params, tokens, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "enc_embeds")
+        enc_out = _encoder_apply(cfg, params, enc_embeds, use_kernel)
     caches = []
     for i, p in enumerate(params["layers"]):
+        mixer = cfg.mixer_for_layer(i)
         hn = L.rmsnorm(p["norm1"], h)
-        out, cache = L.attention_apply(
-            cfg, p["mixer"], hn, positions, causal=True,
-            window=_window(cfg, i), return_cache=max_seq, full_cache=full_kv,
-            use_kernel=use_kernel)
+        if mixer in ATTENTION:
+            out, cache = L.attention_apply(
+                cfg, p["mixer"], hn, positions, causal=True,
+                window=_window(cfg, i), return_cache=max_seq,
+                full_cache=full_kv, use_kernel=use_kernel)
+        elif mixer == "recurrent":
+            out, cache = L.rglru_apply(cfg, p["mixer"], hn,
+                                       return_cache=True)
+        else:
+            out, cache = L.ssd_apply(cfg, p["mixer"], hn, return_cache=True)
         h = h + out
-        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
-                        use_kernel=use_kernel)
+        if enc_out is not None:
+            h = h + _cross_attention(cfg, p["cross"],
+                                     L.rmsnorm(p["norm_x"], h), enc_out,
+                                     use_kernel)
+            cache.update(_cross_kv(cfg, p, enc_out))
+        h, _ = _ffn(cfg, p, h, use_kernel)
         caches.append(cache)
     h = L.rmsnorm(params["final_norm"], h)
     at = s - 1 if logits_at is None else logits_at
@@ -213,26 +381,76 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return logits, {"layers": caches}
 
 
-def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """The dense decode cache's tree: ``{"layers": [{"k", "v"}, ...]}``,
-    one entry per layer in execution order, like the parameters
+def layer_cache_defs(cfg: ModelConfig, i: int, batch: int,
+                     max_seq: int) -> dict:
+    """Layer i's dense decode cache: the attention K/V
     (``layers.attention_cache_defs``: a ring buffer of ``window`` slots
-    for a local layer)."""
-    _check_ported(cfg)
-    return {"layers": [L.attention_cache_defs(cfg, batch, max_seq,
-                                              _window(cfg, i))
-                       for i in range(cfg.n_layers)]}
+    for a local layer), or the O(1) RG-LRU or SSD state."""
+    mixer = cfg.mixer_for_layer(i)
+    if mixer in ATTENTION:
+        return L.attention_cache_defs(cfg, batch, max_seq, _window(cfg, i))
+    if mixer == "recurrent":
+        return L.rglru_cache_defs(cfg, batch)
+    return L.ssd_cache_defs(cfg, batch)
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
+               enc_seq: int = 0) -> dict:
+    """The dense decode cache's tree: ``{"layers": [layer cache, ...]}``,
+    one entry per layer in execution order, like the parameters
+    (:func:`layer_cache_defs`); an encoder-decoder's entries add the
+    (B, enc_seq, Hkv, D) cross K/V."""
+    def one(i: int) -> dict:
+        d = layer_cache_defs(cfg, i, batch, max_seq)
+        if cfg.is_encdec:
+            kv = ParamDef((batch, enc_seq, cfg.n_kv_heads, cfg.head_dim),
+                          init="zeros", dtype=cfg.dtype)
+            d = {**d, "cross_k": kv, "cross_v": kv}
+        return d
+    return {"layers": [one(i) for i in range(cfg.n_layers)]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               enc_seq: int = 0) -> dict:
     """The dense decode cache, zeros on ``device`` (default ``"cuda"``;
     raises without a GPU unless ``device="cpu"``)."""
-    return build(cache_defs(cfg, batch, max_seq), resolve_device(device))
+    return build(cache_defs(cfg, batch, max_seq, enc_seq),
+                 resolve_device(device))
+
+
+def prefill_cross_cache(cfg: ModelConfig, params: dict, cache: dict,
+                        enc_embeds: torch.Tensor,
+                        use_kernel: bool = True) -> dict:
+    """Encoder-decoder: run the encoder once and write every layer's
+    cross K/V into ``cache`` (in place); returns ``cache``."""
+    enc_out = _encoder_apply(cfg, params, enc_embeds, use_kernel)
+    for p, c in zip(params["layers"], cache["layers"]):
+        c.update(_cross_kv(cfg, p, enc_out))
+    return cache
+
+
+def _cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention over the cached cross K/V: fp32
+    ``einsum`` s outside any kernel, as in JAX."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qh = (x @ p["wq"]).reshape(b, hkv, hq // hkv, hd)
+    logits = torch.einsum("bhgd,blhd->bhgl", qh.float(),
+                          ck.float()) * hd ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgl,blhd->bhgd", probs, cv.float())
+    return out.reshape(b, 1, hq * hd).to(x.dtype) @ p["wo"]
 
 
 AttnStep = Callable[[dict, torch.Tensor, dict, torch.Tensor, "int | None"],
                     torch.Tensor]
+
+
+def _set_state(cache: dict, new: dict) -> None:
+    for k, v in new.items():
+        cache[k].copy_(v)
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
@@ -241,38 +459,65 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     """One decode step.
 
     token: (B,) int -> logits (B, V); or (B, S), the span form (chunked
-    prefill), whose S tokens occupy consecutive positions from ``pos`` ->
-    logits (B, S, V).  ``attn_step(params, hn, layer_cache, pos, window)``
-    is the attention implementation over a stacked cache
-    (``serve.kv_cache.make_paged_attn_step`` / ``make_paged_span_step``);
-    ``layer_cache`` holds layer i's slice of every stacked cache tensor,
-    which the step updates in place.  Without one, the dense cache
-    (:func:`init_cache` or :func:`prefill`'s, ``pos`` an int, the
-    batch's one position) is stepped by ``layers.attention_decode``, as
-    JAX's ``_block_decode`` does; the dense cache is one-token, so the
-    span form then raises.  ``use_kernel=False`` gives every GEMM its
-    plain version (a paged step carries its own choice).  Returns
-    (logits, cache) with ``cache`` the same, updated object.
+    prefill, speculative verify), whose S tokens occupy consecutive
+    positions from ``pos`` -> logits (B, S, V).  The span form needs a
+    span-capable ``attn_step`` and an attention-only stack (the RG-LRU
+    and SSD updates are one-token), as in JAX.
+
+    ``attn_step(params, hn, layer_cache, pos, window)`` is the attention
+    implementation over a paged cache (``serve.kv_cache.
+    make_paged_attn_step`` / ``make_paged_span_step``;
+    ``init_paged_cache``'s tree): an attention layer's ``layer_cache``
+    holds its pools, the stacked ``k_pages``/``v_pages`` at its index
+    among the attention layers, which the step updates in place.
+    Without one, the dense cache (:func:`init_cache` or
+    :func:`prefill`'s, ``pos`` an int, the batch's one position) is
+    stepped by ``layers.attention_decode``, as JAX's ``_block_decode``
+    does.  Either way an RG-LRU or SSD layer's state is
+    ``cache["layers"][i]``, advanced in place for every row of the
+    batch, and an encoder-decoder's layers attend over their cached
+    cross K/V.  ``use_kernel=False`` gives every GEMM its plain version
+    (a paged step carries its own choice).  Returns (logits, cache) with
+    ``cache`` the same, updated object.
     """
     single = token.dim() == 1
-    if not single and attn_step is None:
-        raise ValueError("multi-token decode_step needs a span-capable "
-                         "attn_step (the dense cache is one-token)")
+    if not single:
+        if attn_step is None:
+            raise ValueError("multi-token decode_step needs a span-capable "
+                             "attn_step (the dense cache is one-token)")
+        bad = [m for m in cfg.layer_pattern if m not in ATTENTION]
+        if bad:
+            raise ValueError(f"multi-token decode_step is attention-only; "
+                             f"layer_pattern has {bad}")
     h = params["embed"]["embedding"][token[:, None] if single else token] \
         * (cfg.d_model ** 0.5)
+    a = 0                                  # the attention layer's index
     for i, p in enumerate(params["layers"]):
+        mixer = cfg.mixer_for_layer(i)
+        # a paged attention layer's state is its pools alone
+        paged = attn_step is not None and mixer in ATTENTION
+        lc = {} if paged else cache["layers"][i]
         hn = L.rmsnorm(p["norm1"], h)
-        if attn_step is None:
-            out, _ = L.attention_decode(cfg, p["mixer"], hn,
-                                        cache["layers"][i], pos,
-                                        window=_window(cfg, i),
-                                        use_kernel=use_kernel)
+        if mixer in ATTENTION:
+            if not paged:
+                out, _ = L.attention_decode(cfg, p["mixer"], hn, lc, pos,
+                                            window=_window(cfg, i),
+                                            use_kernel=use_kernel)
+            else:
+                pools = {k: cache[k][a] for k in ("k_pages", "v_pages")}
+                out = attn_step(p["mixer"], hn, pools, pos, _window(cfg, i))
+            a += 1
+        elif mixer == "recurrent":
+            out, new = L.rglru_decode(cfg, p["mixer"], hn, lc)
+            _set_state(lc, new)
         else:
-            layer_cache = {k: v[i] for k, v in cache.items()}
-            out = attn_step(p["mixer"], hn, layer_cache, pos, _window(cfg, i))
+            out, new = L.ssd_decode(cfg, p["mixer"], hn, lc)
+            _set_state(lc, new)
         h = h + out
-        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
-                        use_kernel=use_kernel)
+        if "cross" in p and "cross_k" in lc:
+            h = h + _cross_decode(cfg, p["cross"], L.rmsnorm(p["norm_x"], h),
+                                  lc["cross_k"], lc["cross_v"])
+        h, _ = _ffn(cfg, p, h, use_kernel)
     h = L.rmsnorm(params["final_norm"], h)
     logits = logits_fn(cfg, params, h)
     if single:

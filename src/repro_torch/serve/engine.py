@@ -75,6 +75,19 @@ The paged engine ports every option of JAX's:
   (``degrade=True``) turns speculative decode off, halves the decode
   chunk and finally enables preemption as pressure mounts.
 
+Every family of decoder-only token models serves here (the
+encoder-decoder and vision-prefix families only through
+:class:`DecodeEngine`, as in JAX).  A stack with RG-LRU or SSD mixers
+keeps their O(1) states per slot beside the pools; it prefills at exact
+lengths (:func:`default_buckets` is None: a right-padded prompt would
+fold its pad into the state), and chunked prefill, speculative decode
+and the prefix cache are off for it (spans over the cache are
+attention-only), as JAX gates them; a preempted request is then
+restored by replaying it in full.  Each decode step advances every
+slot's state, idle slots too, as JAX's body does, and an MoE layer
+routes all ``max_batch`` slots' tokens together, so its capacity is the
+whole batch's: the tokens stay JAX's.
+
 None of these has a kernel of its own (in JAX neither): the fork is one
 page copied in every layer's pools, the drafting and the guard are
 tensor ops on the engine's device, and the verify span and the prefix
@@ -153,7 +166,6 @@ class DecodeEngine:
 
     def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig,
                  obs: Obs | None = None):
-        T.model_defs(cfg)                  # refuses unported families
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = resolve_device(sc.device)
         _check_params_device(params, self.device)
@@ -162,18 +174,29 @@ class DecodeEngine:
         self._m_prefill_tokens = reg.counter("engine.prefill_tokens")
         self._m_decode_tokens = reg.counter("engine.decode_tokens")
 
-    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, n_tokens: int,
+                 enc_embeds=None, prefix_embeds=None) -> np.ndarray:
         """prompts: (B, S0) int32.  Returns (B, n_tokens) int32: the
         first token sampled from the prefill's logits, each later one
-        from a decode step at positions S0, S0 + 1, ...  The global
-        layers' caches hold ``max_seq`` positions, so S0 + n_tokens - 1
-        must not exceed it."""
+        from a decode step at positions P + S0, P + S0 + 1, ..., P the
+        prefix's length.  ``enc_embeds`` (B, Se, D), the
+        encoder-decoder's frontend embeddings, and ``prefix_embeds`` (B,
+        P, D), the vision-prefix family's, are numpy arrays or tensors,
+        taken in the model dtype.  The global layers' caches hold
+        ``max_seq`` positions, so P + S0 + n_tokens - 1 must not exceed
+        it."""
         cfg, sc = self.cfg, self.sc
         prompts = np.asarray(prompts, np.int32)
         b, s0 = prompts.shape
-        if n_tokens < 1 or s0 + n_tokens - 1 > sc.max_seq:
-            raise ValueError(f"{s0} prompt tokens and {n_tokens} new ones "
-                             f"do not fit max_seq {sc.max_seq}")
+        extras = {k: torch.as_tensor(v).to(self.device, cfg.dtype)
+                  for k, v in (("enc_embeds", enc_embeds),
+                               ("prefix_embeds", prefix_embeds))
+                  if v is not None}
+        start = s0 + (extras["prefix_embeds"].shape[1]
+                      if "prefix_embeds" in extras else 0)
+        if n_tokens < 1 or start + n_tokens - 1 > sc.max_seq:
+            raise ValueError(f"{start} prompt positions and {n_tokens} new "
+                             f"tokens do not fit max_seq {sc.max_seq}")
         gen = torch.Generator(device=self.device).manual_seed(sc.seed)
         kw = dict(use_kernel=sc.use_kernel)
         tr = self.obs.tracer
@@ -184,14 +207,14 @@ class DecodeEngine:
                 logits, cache = T.prefill(
                     cfg, self.params,
                     torch.from_numpy(prompts).to(self.device),
-                    max_seq=sc.max_seq, **kw)
+                    max_seq=sc.max_seq, **extras, **kw)
                 tok = sample_tokens(cfg, logits, sc.temperature, gen)
                 if tr is not None:
                     device_fence(self.device)
             out = [tok]
             with sp("decode", cat="static"), \
                     self.obs.dram.scope(f"static_generate[{n_tokens}]"):
-                for pos in range(s0, s0 + n_tokens - 1):
+                for pos in range(start, start + n_tokens - 1):
                     logits, cache = T.decode_step(cfg, self.params, tok,
                                                   cache, pos, **kw)
                     tok = sample_tokens(cfg, logits, sc.temperature, gen)
@@ -231,9 +254,10 @@ class PagedServeConfig:
     prefill_chunk: int | None = None   # None -> auto-sized; 0 -> whole-
     #                                    prompt joins
     spec_decode: int = 0           # draft tokens per verify step (0 = off;
-    #                                greedy only)
+    #                                greedy only, attention-only stacks)
     prefix_cache: bool = False     # radix-tree prefix sharing across
-    #                                requests (needs chunked prefill)
+    #                                requests (attention-only stacks with
+    #                                chunked prefill)
     reuse_hint: float = 0.5        # expected prompt-reuse rate: prices the
     #                                share-against-stream page size when
     #                                the prefix cache is on
@@ -254,11 +278,17 @@ class PagedServeConfig:
     #                                 queued request is FAILED (None = never)
 
 
-def default_buckets(cfg: ModelConfig, max_seq: int) -> tuple[int, ...]:
-    """Prefill length buckets: powers of two from 8, capped by max_seq
-    (right-padding is safe for attention stacks: causal attention
-    ignores the tail, and the pad positions' K/V stay masked by the
-    length until decode overwrites each slot in order)."""
+def default_buckets(cfg: ModelConfig,
+                    max_seq: int) -> tuple[int, ...] | None:
+    """Prefill length buckets: powers of two from 8, capped by max_seq,
+    for attention-only stacks (right-padding is safe there: causal
+    attention ignores the tail, and the pad positions' K/V stay masked
+    by the length until decode overwrites each slot in order).  RG-LRU
+    and SSD mixers fold every position into their O(1) state, so
+    right-padding would corrupt it: those stacks prefill at exact
+    lengths (None), as in JAX."""
+    if not T.attention_only(cfg):
+        return None
     out, b = [], 8
     while b < max_seq:
         out.append(b)
@@ -278,35 +308,47 @@ class PagedEngine:
 
     def __init__(self, cfg: ModelConfig, params: Any, sc: PagedServeConfig,
                  obs: Obs | None = None):
-        T.model_defs(cfg)                  # refuses unported families
+        if cfg.is_encdec or cfg.prefix_tokens:
+            raise NotImplementedError(
+                "paged serving covers decoder-only token models")
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = resolve_device(sc.device)
         _check_params_device(params, self.device)
         self.obs = obs if obs is not None else Obs()
-        reuse = (sc.reuse_hint or None) if sc.prefix_cache else None
+        # chunked prefill, speculative decode and the prefix cache are
+        # spans over the cache: attention-only stacks (the RG-LRU and SSD
+        # updates are one-token), as in JAX
+        has_attn = bool(T.attention_layers(cfg))
+        attn_only = T.attention_only(cfg)
+        reuse = ((sc.reuse_hint or None) if sc.prefix_cache and attn_only
+                 else None)
         with self.obs.dram.scope("setup"):
             # the page choice resolves the decode key once, here --
             # attributed to "setup", not to a step
-            self.page_size = sc.page_size or KV.choose_page_size(
-                cfg, sc.max_seq, fused=sc.fuse, reuse_rate=reuse)
+            self.page_size = sc.page_size or (
+                KV.choose_page_size(cfg, sc.max_seq, fused=sc.fuse,
+                                    reuse_rate=reuse) if has_attn
+                else min(sc.max_seq, 128))   # attention-free: pages unused
         self.max_blocks = KV.num_blocks(sc.max_seq, self.page_size)
         n_pages = sc.n_pages or sc.max_batch * self.max_blocks + 1
-        self.cache = KV.init_paged_cache(cfg, n_pages, self.page_size,
-                                         self.device)
+        self.cache = KV.init_paged_cache(cfg, sc.max_batch, n_pages,
+                                         self.page_size, self.device)
         self.buckets = (sc.buckets if sc.buckets is not None
                         else default_buckets(cfg, sc.max_seq))
         if sc.prefill_chunk is None:
-            self.prefill_chunk = KV.choose_prefill_chunk(
-                cfg, sc.max_seq, self.page_size)
-        else:   # snap an explicit chunk to a whole number of pages
-            self.prefill_chunk = (min(sc.max_seq, KV.num_blocks(
+            self.prefill_chunk = (KV.choose_prefill_chunk(
+                cfg, sc.max_seq, self.page_size) if attn_only else 0)
+        elif sc.prefill_chunk and attn_only:
+            # snap an explicit chunk to a whole number of pages
+            self.prefill_chunk = min(sc.max_seq, KV.num_blocks(
                 sc.prefill_chunk, self.page_size) * self.page_size)
-                if sc.prefill_chunk else 0)
+        else:
+            self.prefill_chunk = 0
         if sc.page_size is None or sc.prefill_chunk is None:
             print(f"PagedEngine: page {self.page_size}, prefill chunk "
                   f"{self.prefill_chunk} (blocking model, max_seq "
                   f"{sc.max_seq}{', fused' if sc.fuse else ''})")
-        self.spec = int(sc.spec_decode or 0)
+        self.spec = int(sc.spec_decode or 0) if attn_only else 0
         if self.spec and sc.temperature > 0:
             raise ValueError(
                 "spec_decode is greedy-only: draft acceptance compares "
@@ -318,7 +360,8 @@ class PagedEngine:
                 "would break (byte-exactness is the correctness bar)")
         # the prefix cache resumes prefill at the matched boundary through
         # the span path, so prefill_chunk=0 turns it off
-        self.prefix_caching = bool(sc.prefix_cache) and self.prefill_chunk > 0
+        self.prefix_caching = (bool(sc.prefix_cache) and attn_only
+                               and self.prefill_chunk > 0)
 
         self.metrics = reg = self.obs.registry
         reg.gauge("engine.page_size").set(self.page_size)
@@ -707,7 +750,7 @@ class PagedEngine:
     # -- internals ------------------------------------------------------------
 
     def _bucket(self, length: int) -> int:
-        for b in self.buckets:
+        for b in self.buckets or ():
             if b >= length:
                 return b
         return length
@@ -743,7 +786,7 @@ class PagedEngine:
                     self.cfg, self.params, tokens, max_seq=bucket,
                     full_kv=True, logits_at=n - 1,
                     use_kernel=self.sc.use_kernel)
-            KV.write_prefill(self.cfg, self.cache, dense,
+            KV.write_prefill(self.cfg, self.cache, dense, slot,
                              torch.from_numpy(pages).to(self.device),
                              self.page_size)
             if self.sc.nan_guard:

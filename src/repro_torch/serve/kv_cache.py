@@ -2,9 +2,12 @@
 port of ``repro.serve.kv_cache``).
 
 Every attention layer owns a page pool ``(n_pages, page, Hkv, D)``; the
-port stacks all layers' pools into one tensor per K and V,
-``(n_layers, n_pages, page, Hkv, D)``, and each request holds a block
-table mapping its logical KV blocks to physical pages.  The page size is
+port stacks the attention layers' pools into one tensor per K and V,
+``(n_attn, n_pages, page, Hkv, D)``, and each request holds a block
+table mapping its logical KV blocks to physical pages.  Non-attention
+mixers (RG-LRU, SSD) keep their O(1) states per batch slot beside the
+pools (``cache["layers"]``): paging only applies to the linearly
+growing K/V.  The page size is
 the flash-decode kernel's KV tile, chosen by the analytical blocking
 model on the Hopper target through ``repro_torch.tune`` under the
 ``"flash_decode"`` key (:func:`choose_page_size`; under
@@ -44,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamDef, build, stack_defs
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
@@ -168,18 +172,33 @@ def choose_prefill_chunk(cfg: ModelConfig, max_seq: int,
 # ------------------------------ device side --------------------------------
 
 
-def paged_cache_defs(cfg: ModelConfig, n_pages: int, page_size: int) -> dict:
-    """K and V pools of every layer, stacked: (n_layers, n_pages, page,
-    Hkv, D) each."""
+def paged_cache_defs(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int) -> dict:
+    """The paged decode state: the K and V pools of every attention
+    layer, stacked in layer order, ``(n_attn, n_pages, page, Hkv, D)``
+    each (``transformer.attention_layers``), and ``"layers"``, one entry
+    a layer: ``{}`` for an attention layer, the O(1) RG-LRU or SSD state
+    of ``batch`` slots for the others (paging only applies to the
+    linearly growing K/V).  Paged serving covers decoder-only token
+    models, as in JAX."""
+    if cfg.is_encdec or cfg.prefix_tokens:
+        raise NotImplementedError(
+            "paged serving covers decoder-only token models")
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
     dtype = cfg.kv_cache_dtype or cfg.dtype
     pool = ParamDef((n_pages, page_size, hkv, hd), init="zeros", dtype=dtype)
-    return stack_defs({"k_pages": pool, "v_pages": pool}, cfg.n_layers)
+    defs = stack_defs({"k_pages": pool, "v_pages": pool},
+                      len(T.attention_layers(cfg)))
+    defs["layers"] = [
+        {} if cfg.mixer_for_layer(i) in T.ATTENTION
+        else T.layer_cache_defs(cfg, i, batch, 0)
+        for i in range(cfg.n_layers)]
+    return defs
 
 
-def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
-                     device: torch.device) -> dict:
-    return build(paged_cache_defs(cfg, n_pages, page_size), device)
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int, device: torch.device) -> dict:
+    return build(paged_cache_defs(cfg, batch, n_pages, page_size), device)
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:
@@ -194,25 +213,32 @@ def _scatter(pool: torch.Tensor, idx: tuple, values: torch.Tensor) -> None:
     _raw(pool).index_put_(idx, _raw(values.to(pool.dtype)))
 
 
-def write_prefill(cfg: ModelConfig, paged: dict, dense: dict,
+def write_prefill(cfg: ModelConfig, paged: dict, dense: dict, slot: int,
                   pages: torch.Tensor, page_size: int) -> None:
-    """Scatter one request's dense prefill cache into the pools, in place.
+    """Write one request's dense prefill cache into the paged state, in
+    place.
 
     ``dense`` is a batch-1 ``transformer.prefill(..., full_kv=True)``
     cache; ``pages`` (int64) is the request's physical page per logical
     block (length >= ceil(bucket / page_size); spill entries may point at
-    the scratch page).
+    the scratch page).  The attention layers' K/V land in the pools, the
+    RG-LRU and SSD states at batch row ``slot``.
     """
-    for name, key in (("k_pages", "k"), ("v_pages", "v")):
-        pool = paged[name]
-        kv = torch.stack([_raw(c[key][0].to(pool.dtype))
-                          for c in dense["layers"]])      # L, bucket, ..
-        bucket = kv.shape[1]
-        nb = num_blocks(bucket, page_size)
-        pad = nb * page_size - bucket
-        blocks = F.pad(kv, (0, 0, 0, 0, 0, pad)).reshape(
-            kv.shape[0], nb, page_size, *kv.shape[2:])
-        _raw(pool)[:, pages[:nb]] = blocks
+    attn = T.attention_layers(cfg)
+    if attn:
+        for name, key in (("k_pages", "k"), ("v_pages", "v")):
+            pool = paged[name]
+            kv = torch.stack([_raw(dense["layers"][i][key][0].to(pool.dtype))
+                              for i in attn])             # L, bucket, ..
+            bucket = kv.shape[1]
+            nb = num_blocks(bucket, page_size)
+            pad = nb * page_size - bucket
+            blocks = F.pad(kv, (0, 0, 0, 0, 0, pad)).reshape(
+                kv.shape[0], nb, page_size, *kv.shape[2:])
+            _raw(pool)[:, pages[:nb]] = blocks
+    for state, dc in zip(paged["layers"], dense["layers"]):
+        for key, t in state.items():
+            t[slot] = dc[key][0].to(t.dtype)
 
 
 def fork_page(cache: dict, src: int, dst: int) -> None:

@@ -78,18 +78,20 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     def train_step(params, opt_state, batch):
         if tc.grad_accum > 1:
             n = tc.grad_accum
-            gsum, ltot = None, 0.0
+            gsum, ltot, atot = None, 0.0, 0.0
             for i in range(n):
                 mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                       for k, v in batch.items()}
-                (l, _), g = _value_and_grad(loss, params, mb)
+                (l, m), g = _value_and_grad(loss, params, mb)
                 g32 = map_tree(lambda x: x.float(), g)
                 gsum = g32 if gsum is None else adamw.unflatten(
                     gsum, [a + b for a, b in zip(adamw.leaves(gsum),
                                                  adamw.leaves(g32))])
-                ltot = ltot + l
+                ltot, atot = ltot + l, atot + m["aux"]
             grads = map_tree(lambda x: x / n, gsum)
-            metrics = {"loss": ltot / n}
+            # JAX reports the micro-batches' mean total as "loss"; the
+            # mean aux rides beside it for the log
+            metrics = {"loss": ltot / n, "aux": atot / n}
         else:
             (_, metrics), grads = _value_and_grad(loss, params, batch)
 
@@ -130,7 +132,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
           params=None, seed: int = 0, device: str | torch.device = "cuda",
           restore: bool = False, log=print, obs=None) -> dict:
     """Single-host training loop over ``batches`` (an iterable of
-    ``{"tokens", "labels"}`` tensor dicts).  ``params`` default to
+    ``{"tokens", "labels"}`` tensor dicts, with the family's
+    ``enc_embeds`` or ``prefix_embeds`` where it has them: every key is
+    split along the batch for accumulation).  The log line carries the
+    MoE aux loss (0 for the other families).  ``params`` default to
     ``T.init_params(cfg, seed, device)``.
 
     ``obs`` (a :class:`repro_torch.obs.Obs`, optional) gets JAX's
@@ -192,6 +197,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
                                              "tokens_per_s": tps})
         if step % tc.log_every == 0 or slow:
             log(f"step {step:5d} loss {loss:.4f} "
+                f"aux {float(metrics.get('aux', 0)):.4f} "
                 f"gnorm {float(metrics.get('grad_norm', 0)):.3f} "
                 f"{dt*1e3:.0f}ms" + ("  [STRAGGLER]" if slow else ""))
         history.append(loss)

@@ -60,10 +60,14 @@ def test_footprints_are_priced_at_the_instance_width(d):
         for esz in (2, 4):
             assert fn(32, 32, d, esz) == fn(32, 32, w, esz)
     # oproj's attention rows are kept at the true head dim, 16 row slots
-    # (8 up to 8 batch rows); the wo ring overlays the tiles
+    # (8 up to 8 batch rows), one head chunk's heads (at D 256 in 16 slots
+    # not one warp's 4 heads fit the two-block budget beside the ring:
+    # chunks of 2); the wo ring overlays the tiles
     tiles = max(FD.smem_bytes_required(32, 4, w), 4 * 16384)
+    chunk = 2 if d == 256 else 4
+    assert FD.oproj_head_chunk(4, d) == chunk
     assert FD.oproj_smem_bytes_required(32, 4, d) == \
-        tiles + (17 * 4 * d + 8) * 4
+        tiles + (17 * d + 2) * chunk * 4
     assert FD.oproj_smem_bytes_required(32, 4, d, batch=8) == \
         tiles + (9 * 4 * d + 8) * 4
 

@@ -42,7 +42,10 @@ def model():
 
 @pytest.mark.parametrize("getter", ["full", "reduced"])
 @pytest.mark.parametrize("arch", [ARCH, "glm4-9b", "granite-34b",
-                                  "gemma2-9b"])
+                                  "gemma2-9b", "qwen3-moe-235b-a22b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "seamless-m4t-medium", "mamba2-780m",
+                                  "recurrentgemma-9b", "phi-3-vision-4.2b"])
 def test_config_matches_jax(arch, getter):
     """Every registered arch's ``CONFIG`` and ``reduced()`` field for field
     the reference's (dtypes aside), and the same parameter count."""
@@ -55,8 +58,14 @@ def test_config_matches_jax(arch, getter):
 
 
 def test_unported_arch_raises_with_roadmap_pointer():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mamba2-780m")
+    """Every reference arch resolves (mamba2-780m among them); an arch
+    the reference does not have raises ``KeyError`` naming the
+    registered ones."""
+    assert get_config("mamba2-780m").name == "mamba2-780m"
+    with pytest.raises(KeyError, match="choose from"):
+        get_config("not-an-arch")
+    with pytest.raises(KeyError, match="mamba2-780m"):
+        get_reduced("not-an-arch")
 
 
 def test_param_tree_matches_jax_shapes(model):

@@ -96,9 +96,23 @@ def test_make_batch_byte_equal_to_jax(seed, step):
 
 
 def test_make_batch_refuses_unported_families():
-    cfg = dataclasses.replace(get_reduced(ARCH), encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_batch(cfg, 8, 2, 0, device="cpu")
+    """A config with an encoder (2 layers over a 4-long stub input) and
+    a 3-token prefix: ``make_batch`` adds JAX's ``enc_embeds`` and
+    ``prefix_embeds``, byte for byte, beside the tokens."""
+    jcfg = dataclasses.replace(jget_reduced(ARCH), encoder_layers=2,
+                               encoder_seq=4, prefix_tokens=3,
+                               dtype=jnp.float32)
+    cfg = dataclasses.replace(get_reduced(ARCH), encoder_layers=2,
+                              encoder_seq=4, prefix_tokens=3,
+                              dtype=torch.float32)
+    want = jmake_batch(jcfg, 8, 2, 5, seed=1)
+    got = make_batch(cfg, 8, 2, 5, seed=1, device="cpu")
+    assert sorted(got) == sorted(want)
+    assert got["enc_embeds"].shape == (2, 4, cfg.d_model)
+    assert got["prefix_embeds"].shape == (2, 3, cfg.d_model)
+    for key in got:
+        assert got[key].numpy().tobytes() == \
+            np.asarray(want[key]).tobytes(), key
 
 
 # ---------------------------- optimizer ------------------------------------

@@ -78,12 +78,17 @@ def test_oproj_footprint_fits_for_every_batch(g, dtype):
     (4, 128, 8, 4), (4, 128, 20, 4),     # granite-3-8b: one pass
     (2, 256, 8, 2), (8, 256, 8, 4),      # gemma2-9b; a wide head dim
     (16, 16, 20, 16), (48, 16, 20, 44),  # narrow heads: most at once
-    (3, 256, 20, 3),                     # fewer heads than a warp's rows
+    (3, 256, 20, 2),                     # fewer fit than a warp's rows
+    (16, 256, 8, 4), (16, 256, 20, 2),   # recurrentgemma-9b's local layers
 ])
 def test_head_chunk_rule(g, d, b, chunk):
-    """All G where they fit, else the most that do in whole warps' rows,
-    at least one warp's (or G, where G is fewer)."""
+    """All G where they fit, else the most that do in whole warps' rows;
+    where not one warp's rows fit beside the ring (D 256 in 16-row
+    groups), the most heads that do.  Every chunk's footprint is within
+    the two-block budget."""
     assert FD.oproj_head_chunk(g, d, b) == chunk
+    assert FD.oproj_smem_bytes_required(0, g, d, 2, batch=b) \
+        <= default_smem_budget()
 
 
 def test_oproj_hbm_bytes_count_a_workspace_pass_per_chunk():
