@@ -174,6 +174,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    static engine on 8 x 512 + 32 and the paged engine on 8 requests of
    64-512 + 32 where the family has it: tok/s, peak memory, the prefill
    logits against the plain path within 5% of max |logit|;
+18. the last single-card modules: (a) after 9's ``quantize_params``,
+   ``quant.logit_report`` on the full bf16 granite against its int8
+   projections (2 x 128 tokens from ``--seed``): its four numbers, row
+   10 launched on each quantized projection of every layer and row 4
+   once a layer per tree, nothing else; the quantized tree's logits on
+   the kernel path held against its plain path (5% of max |logit|,
+   argmax equal), and the bf16 tree against itself reporting no error;
+   (b) ``AbsMaxCalibrator`` (absmax and EMA 0.9) over the final hidden
+   state of three full-width bf16 forwards, its statistics on the card
+   and equal to a host reduction's, its int8 and fp8 scales the scale
+   rule over them (EMA within 1e-6 relative); (c) after 17, the four ``examples/*_torch.py`` as
+   processes of their own, all at once: ``serve_lm_torch`` matches the
+   static engine on its three archs, ``train_lm_torch`` converges and
+   restarts, ``quickstart_torch`` exits 0, ``schedule_search_torch
+   --layer Conv4 --hopper --measure`` tunes into a temporary cache; then
+   a fresh process on that cache runs ``ops.conv2d`` on Conv4 with the
+   cached tiles (row 12, held against its plain version at phase 12's
+   gate); an ``examples`` JSON line; (d) ``optimize_fused`` for
+   granite's SwiGLU MLP at the card's per-block budget (decode and the
+   fused engine's prefill chunk), its top result's bytes equal to
+   ``fused_dram_bytes``;
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
@@ -4775,6 +4796,357 @@ def time_conv_layers() -> dict:
     return out
 
 
+# --------------- the last single-card modules (phase 18) --------------------
+
+
+def phase18_report(cfg, params, qparams, seed: int, kernels: dict) -> dict:
+    """(a) ``logit_report`` on the full-width, full-depth granite: its
+    bf16 tree against its int8 projections (``quantize_params``) on 2
+    prompts of 128 tokens from ``seed``, with every launch count at 0
+    just before.  Row 10 launches on each quantized projection of every
+    layer, row 4 once a layer per tree, nothing else (the wide tree's
+    projections are cuBLAS's).  The quantized tree's logits on the kernel
+    path are held against its plain path's (``hold_logits`` at each
+    prompt's last position, and within 5% of max |logit| over every
+    position); the wide tree against itself reports no error.  JAX's
+    accuracy gate (top-1 >= 0.9, rel_err < 0.05, on the reduced config)
+    is printed beside the numbers, not held: random weights at full
+    depth.  The report on the plain path (``use_kernel=False``) is
+    printed beside it, its max_abs_err within 10% of max |logit| of the
+    kernel path's."""
+    import torch
+    from repro_torch.quant import QUANT_KEYS, logit_report, sequence_logits
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (2, 128), dtype=np.int32)
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    rep = logit_report(cfg, params, qparams, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels)
+    want = {"matmul_w8": len(QUANT_KEYS) * cfg.n_layers,
+            "flash_attention": 2 * cfg.n_layers}
+    print(f"  logit_report, 2 x 128 tokens, {cfg.n_layers} layers: "
+          f"max_abs_err {rep['max_abs_err']:.6g}, mean_abs_err "
+          f"{rep['mean_abs_err']:.6g}, rel_err {rep['rel_err']:.6g}, "
+          f"top1_agreement {rep['top1_agreement']:.6g} in {wall:.2f}s; "
+          f"launches {launches}")
+    assert all(v == want.get(k, 0) for k, v in launches.items()), \
+        (launches, want)
+    assert all(np.isfinite(v) for v in rep.values()), rep
+    gate = rep["top1_agreement"] >= 0.9 and rep["rel_err"] < 0.05
+    print(f"  JAX's reduced-config gate (top-1 >= 0.9, rel_err < 0.05): "
+          f"{'met' if gate else 'missed'} at full depth (not held here)")
+    got = sequence_logits(cfg, qparams, tokens)
+    plain = sequence_logits(cfg, qparams, tokens, use_kernel=False)
+    assert got.shape == plain.shape == (2, 128, cfg.vocab)
+    held = [hold_logits(f"w8, prompt {b}", got[b, -1], plain[b, -1],
+                        "report logits (kernel vs plain path)")
+            for b in range(2)]
+    dev_ = float((got - plain).abs().max())
+    scale = float(plain.abs().max())
+    print(f"  every position: max |diff| {dev_:.3e} of max |logit| "
+          f"{scale:.3e} (bound 5%)")
+    assert bool(torch.isfinite(got).all()) and dev_ <= 0.05 * scale
+    # the report on the plain path: each tree's logits there are within
+    # 5% of max |logit| of its kernel path's, so max_abs_err within 10%
+    rep_plain = logit_report(cfg, params, qparams, tokens, use_kernel=False)
+    gap = abs(rep_plain["max_abs_err"] - rep["max_abs_err"])
+    print(f"  logit_report on the plain path: {rep_plain}; max_abs_err "
+          f"{gap:.3e} from the kernel path's (bound 10% of max |logit|)")
+    assert all(np.isfinite(v) for v in rep_plain.values()), rep_plain
+    assert gap <= 0.1 * scale, (rep_plain, rep)
+    same = logit_report(cfg, params, params, tokens)
+    print(f"  identity report (bf16 tree against itself): {same}")
+    assert same == {"max_abs_err": 0.0, "mean_abs_err": 0.0,
+                    "rel_err": 0.0, "top1_agreement": 1.0}, same
+    del got, plain
+    return {"report": rep, "report_plain": rep_plain, "wall_s": wall,
+            "launches": launches, "jax_gate_met": gate,
+            "kernel_vs_plain": held,
+            "all_positions": {"max_abs_diff": dev_, "max_abs_logit": scale},
+            "identity": same}
+
+
+def phase18_calibrate(cfg, params, seed: int) -> dict:
+    """(b) ``AbsMaxCalibrator`` and ``AbsMaxCalibrator(momentum=0.9)`` on
+    the final hidden state of three full-width bf16 forwards (2 x 128
+    tokens each, from ``seed``): the statistics stay on the card and
+    equal the same absmax taken by a plain torch reduction over the host
+    copies, and the int8 and fp8 scales equal the scale rule applied to
+    that host statistic (the EMA within 1e-6 relative)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QUANT_DTYPES, AbsMaxCalibrator
+    from repro_torch.quant.quantize import _EPS
+    rng = np.random.default_rng(seed + 1)
+    absmax, ema = AbsMaxCalibrator(), AbsMaxCalibrator(momentum=0.9)
+    host = []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(3):
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (2, 128), dtype=np.int32)).cuda()
+            h, _ = T.forward(cfg, params, toks)
+            absmax.observe({"h": h})
+            ema.observe({"h": h})
+            host.append(h.cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_batch = [x.float().abs().amax() for x in host]
+    want_abs = torch.stack(per_batch).amax()
+    want_ema = per_batch[0]
+    for a in per_batch[1:]:
+        want_ema = 0.9 * want_ema + (1.0 - 0.9) * a
+    out = {"wall_s": wall, "per_batch_absmax": [float(a) for a in per_batch]}
+    for name, cal, want, rel in (("absmax", absmax, want_abs, 0.0),
+                                 ("ema 0.9", ema, want_ema, 1e-6)):
+        stat = cal._absmax["h"]
+        assert stat.device.type == "cuda" and stat.dtype == torch.float32 \
+            and stat.dim() == 0, (name, stat.device, stat.dtype)
+        err = abs(float(stat) - float(want)) / float(want)
+        print(f"  {name}: statistic {float(stat):.9g} on {stat.device}, "
+              f"host reduction {float(want):.9g}, relative difference "
+              f"{err:.3g} (bound {rel:g})")
+        assert err <= rel, (name, float(stat), float(want))
+        row = {"absmax": float(stat)}
+        for dtype, (_, qmax) in QUANT_DTYPES.items():
+            scale = cal.scales(dtype)["h"]
+            assert scale.device.type == "cuda", (name, scale.device)
+            # the scale rule on the card, over the host's statistic (the
+            # card divides by a scalar through its reciprocal: the host's
+            # own division may differ in the last bit)
+            ref = want.cuda() / qmax + _EPS
+            err = abs(float(scale) - float(ref)) / float(ref)
+            host_scale = float(want / qmax + _EPS)
+            print(f"    {dtype}: scale {float(scale):.9g}, the rule over "
+                  f"the host statistic {float(ref):.9g} (relative "
+                  f"difference {err:.3g}, bound {rel:g}; divided on the "
+                  f"host {host_scale:.9g})")
+            assert err <= rel, (name, dtype, float(scale), float(ref))
+            row[dtype] = float(scale)
+        out[name] = row
+    print(f"  three forwards observed in {wall:.2f}s; per-batch absmax "
+          f"{out['per_batch_absmax']}")
+    return out
+
+
+EXAMPLES = (("quickstart_torch.py", ()),
+            ("serve_lm_torch.py", ()),
+            ("train_lm_torch.py", ()),
+            ("schedule_search_torch.py",
+             ("--layer", "Conv4", "--hopper", "--measure", "--cache")))
+# the kernel rows each example's process must launch (run_counted)
+EXAMPLE_KERNELS = {"serve_lm_torch.py": ("flash_attention", "flash_decode"),
+                   "train_lm_torch.py": ("flash_attention",
+                                         "flash_attention_bwd"),
+                   "schedule_search_torch.py": ("conv2d_block",)}
+
+
+def run_counted(script: str, *args: str) -> None:
+    """Run the example ``script`` as ``__main__`` with ``args``, every
+    launch count at 0 just before; print the counts after it as one
+    ``launches {...}`` JSON line, last."""
+    import runpy
+    kernels = kernel_fns()
+    reset(kernels)
+    sys.argv = [script, *args]
+    runpy.run_path(script, run_name="__main__")
+    print("launches " + json.dumps(counts(kernels)))
+
+
+def phase18_examples(seed: int) -> dict:
+    """(c) The four examples, each a process of its own with its
+    defaults, all started together (so each one's seconds include the
+    others' load on the host and the card), with the schedule cache in a
+    temporary directory: ``serve_lm_torch`` prints ``matches-static=True``
+    for its three archs, ``train_lm_torch`` passes its own convergence
+    assert and restart drill, ``quickstart_torch`` exits 0, and
+    ``schedule_search_torch --hopper --measure`` times Conv4's candidates
+    into its cache.  The three that reach the card run through
+    :func:`run_counted`, and each must have launched its rows of
+    ``EXAMPLE_KERNELS``.  Then a fresh process with ``REPRO_TORCH_TUNE_CACHE``
+    on that cache runs ``ops.conv2d`` on Conv4 with no tiles given
+    (:func:`conv_cache_pickup`): it must take the cached tiles."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    cache = str(Path(tmp) / "conv4.json")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_TUNE_CACHE": str(Path(tmp) / "default.json")}
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, args in EXAMPLES:
+            args = (*args, cache) if "--cache" in args else args
+            cmd = [str(ROOT / "examples" / name), *args]
+            if name in EXAMPLE_KERNELS:
+                cmd = ["-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                       "import chip_smoke; chip_smoke.run_counted("
+                       "*sys.argv[2:])", str(ROOT), *cmd]
+            with open(Path(tmp) / f"{name}.out", "w") as fo, \
+                    open(Path(tmp) / f"{name}.err", "w") as fe:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, *cmd], env=env, cwd=tmp, stdout=fo,
+                    stderr=fe)
+        done = {}
+        while len(done) < len(procs):       # each one's seconds at exit
+            for name, proc in procs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            assert time.perf_counter() - t0 < 600, "an example hung"
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = ((Path(tmp) / f"{name}.{ext}").read_text()
+                          for ext in ("out", "err"))
+        print(f"  {name}: exit {proc.returncode} after {done[name]:.1f}s; "
+              f"its stdout:")
+        for line in stdout.splitlines():
+            print(f"    | {line}")
+        if proc.returncode != 0:
+            print(stderr[-4000:])
+        assert proc.returncode == 0, name
+        out[name] = {"s": done[name], "rc": proc.returncode}
+        logs[name] = stdout.splitlines()
+        if name in EXAMPLE_KERNELS:
+            tag, launched = logs[name].pop().split(" ", 1)
+            launched = json.loads(launched)
+            assert tag == "launches" and all(
+                launched[k] > 0 for k in EXAMPLE_KERNELS[name]), \
+                (name, launched)
+            out[name]["launches"] = {k: n for k, n in launched.items()
+                                     if n}
+    matches = {x.split()[0]: "matches-static=True" in x
+               for x in logs["serve_lm_torch.py"] if "matches-static=" in x}
+    out["serve_lm_torch.py"]["matches_static"] = matches
+    assert list(matches) == ["granite-3-8b", "recurrentgemma-9b",
+                             "mamba2-780m"] and all(matches.values()), \
+        matches
+    train = logs["train_lm_torch.py"]
+    out["train_lm_torch.py"]["loss"] = next(
+        x for x in train if x.startswith("loss: "))
+    assert train[-1] == "resumed OK", train[-3:]
+    out["schedule_search_torch.py"]["winner"] = next(
+        x for x in logs["schedule_search_torch.py"]
+        if x.startswith("winner (measured"))
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+         "chip_smoke.conv_cache_pickup(sys.argv[2], int(sys.argv[3]))",
+         str(ROOT), cache, str(seed)],
+        env={**env, "REPRO_TORCH_TUNE_CACHE": cache}, cwd=tmp,
+        capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        print(f"    | {line}")
+    if res.returncode != 0:
+        print(res.stderr[-4000:])
+    assert res.returncode == 0, "the Conv4 cache pickup failed"
+    pickup = json.loads(res.stdout.splitlines()[-1].split(" ", 1)[1])
+    pickup["s"] = time.perf_counter() - t1
+    out["conv4_cache_pickup"] = pickup
+    shutil.rmtree(tmp, ignore_errors=True)
+    print("examples " + json.dumps(out))
+    return out
+
+
+def conv_cache_pickup(cache: str, seed: int) -> None:
+    """Run in a fresh process with ``REPRO_TORCH_TUNE_CACHE`` on
+    ``cache``: ``ops.conv2d`` on Conv4 (batch 2, bf16) with no tiles
+    given must resolve the cached ``"conv2d"`` schedule (source
+    ``cache``, the stored tiles) and launch row 12 once; its output is
+    held against row 12's plain version on fp32 copies of the inputs at
+    phase 12's gate.  Prints one ``pickup {...}`` JSON line last."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.configs import PAPER_LAYERS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv2d_blocked import (conv2d_block,
+                                                    conv2d_blocked_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = PAPER_LAYERS["Conv4"]
+    spec = tune.OpSpec("conv2d", (p.X, p.Y, p.C, p.K, p.Fw, p.Fh),
+                       "bfloat16")
+    stored = tune.ScheduleCache(cache).lookup(spec)
+    assert stored is not None, f"no Conv4 entry in {cache}"
+    x, w, _ = conv_inputs(torch.device("cuda"), torch.bfloat16, 2,
+                          p.Y + p.Fh - 1, p.X + p.Fw - 1, p.C, p.K, p.Fh,
+                          p.Fw, 1, seed)
+    resolved = []
+    prev = tune.set_schedule_observer(
+        lambda sp, sch: resolved.append((sp, sch)))
+    try:
+        conv2d_block.launches = 0
+        y = ops.conv2d(x, w)
+        torch.cuda.synchronize()
+    finally:
+        tune.set_schedule_observer(prev)
+    assert [sp for sp, _ in resolved] == [spec], resolved
+    sch = resolved[0][1]
+    print(f"Conv4 ops.conv2d resolved tiles {sch.tiles} ({sch.source}); "
+          f"cached {stored.tiles}; row 12 launches {conv2d_block.launches}")
+    assert sch.source == "cache" and sch.tiles == stored.tiles, sch
+    assert conv2d_block.launches == 1
+    err = hold_conv("Conv4 y (cached tiles)", y,
+                    conv2d_blocked_ref(x.float(), w.float()),
+                    p.C * p.Fh * p.Fw)
+    print("pickup " + json.dumps({"tiles": list(sch.tiles),
+                                  "source": sch.source,
+                                  "launches": conv2d_block.launches,
+                                  "max_abs_err": err}))
+
+
+def phase18_fused_model(fused: dict) -> dict:
+    """(d) The fused-chain model at the card's budget: ``optimize_fused``
+    for granite-3-8b's SwiGLU MLP (``FusedProblem.mlp(M, 4096, 12800,
+    swiglu=True)``) at ``default_smem_budget()``, M = 8 (decode) and the
+    fused engine's prefill chunk (phase 6b), at the module's default
+    alignment (8 rows, 128 columns) and at the Hopper target's (16 rows,
+    64 columns).  The only gate is the module's own consistency: the top
+    result's bytes equal ``fused_dram_bytes`` at its tiles.  No timing."""
+    from repro_torch.core import (H100_SXM, FusedProblem,
+                                  default_smem_budget, optimize_fused)
+    budget = default_smem_budget()
+    out = {"budget": budget}
+    for m in (8, fused["prefill_chunk"]):
+        fp = FusedProblem.mlp(m, 4096, 12800, swiglu=True)
+        for label, kw in (("default", {}),
+                          ("hopper", {"m_align": H100_SXM.m_mult,
+                                      "n_align": H100_SXM.nk_mult})):
+            res = optimize_fused(fp, budget, **kw)
+            key = f"M{m}_{label}"
+            if not res:
+                print(f"  M {m}, {label} alignment {kw or '(8, 128)'}: "
+                      f"no joint schedule fits {budget} B")
+                out[key] = None
+                continue
+            best = res[0]
+            assert best.fused_bytes == fp.fused_dram_bytes(best.tiles,
+                                                           budget)
+            tr = best.traffic
+            print(f"  M {m}, {label} alignment {kw or '(8, 128)'}: "
+                  f"{best.summary()}; intermediate resident "
+                  f"{tr.intermediate_resident}, its tile "
+                  f"{fp.intermediate_tile_bytes(0, best.tiles[0][0])} B; "
+                  f"{len(res)} results")
+            out[key] = {"tiles": [list(t) for t in best.tiles],
+                        "fused_bytes": best.fused_bytes,
+                        "unfused_bytes": best.unfused_bytes,
+                        "savings_frac": best.savings_frac,
+                        "resident": list(tr.intermediate_resident),
+                        "results": len(res)}
+    return out
+
+
 def ptxas_report(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill-store bytes) of each entry function in
     an ``nvcc -Xptxas -v`` log; the kernel named by its identifier and
@@ -4810,6 +5182,33 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
 T0 = time.perf_counter()
 
 
+def kernel_fns() -> dict:
+    """Every kernel's wrapper by name; each counts its own launches."""
+    from repro_torch.kernels import conv2d_blocked as CB
+    from repro_torch.kernels import conv2d_bwd as CW
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import matmul_blocked as MB
+    from repro_torch.kernels import matmul_bwd as MW
+    from repro_torch.kernels import matmul_fused as MF
+    from repro_torch.kernels import matmul_q as MQ
+    from repro_torch.kernels import qkv_fused as QF
+    return {"conv2d_block": CB.conv2d_block,
+            "conv2d_wgrad_block": CW.conv2d_wgrad_block,
+            "flash_attention": FA.flash_attention,
+            "flash_attention_bwd": FB.flash_attention_bwd,
+            "flash_decode": FD.flash_decode,
+            "flash_decode_fp8": FD.flash_decode_fp8,
+            "flash_decode_oproj": FD.flash_decode_oproj,
+            "matmul_blocked": MB.matmul_blocked,
+            "matmul_dgrad_a": MW.matmul_dgrad_a,
+            "matmul_dgrad_b": MW.matmul_dgrad_b,
+            "matmul_fused": MF.matmul_fused,
+            "matmul_w8": MQ.matmul_w8,
+            "qkv_fused": QF.qkv_fused}
+
+
 def phase(title: str) -> None:
     """A phase's title, with the seconds the run has taken before it."""
     print(f"{title}  [{time.perf_counter() - T0:.0f}s into the run]",
@@ -4826,29 +5225,7 @@ def main() -> int:
         return 1
     from repro_torch.core.hopper_adapter import H100_SXM
     from repro_torch.kernels import _build
-    from repro_torch.kernels import conv2d_blocked as CB
-    from repro_torch.kernels import conv2d_bwd as CW
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import flash_attention_bwd as FB
-    from repro_torch.kernels import flash_decode as FD
-    from repro_torch.kernels import matmul_blocked as MB
-    from repro_torch.kernels import matmul_bwd as MW
-    from repro_torch.kernels import matmul_fused as MF
-    from repro_torch.kernels import matmul_q as MQ
-    from repro_torch.kernels import qkv_fused as QF
-    kernels = {"conv2d_block": CB.conv2d_block,
-               "conv2d_wgrad_block": CW.conv2d_wgrad_block,
-               "flash_attention": FA.flash_attention,
-               "flash_attention_bwd": FB.flash_attention_bwd,
-               "flash_decode": FD.flash_decode,
-               "flash_decode_fp8": FD.flash_decode_fp8,
-               "flash_decode_oproj": FD.flash_decode_oproj,
-               "matmul_blocked": MB.matmul_blocked,
-               "matmul_dgrad_a": MW.matmul_dgrad_a,
-               "matmul_dgrad_b": MW.matmul_dgrad_b,
-               "matmul_fused": MF.matmul_fused,
-               "matmul_w8": MQ.matmul_w8,
-               "qkv_fused": QF.qkv_fused}
+    kernels = kernel_fns()
 
     phase("phase 1: card")
     card = card_line()
@@ -4979,6 +5356,15 @@ def main() -> int:
     print(f"  quantized projection weights: {qb / 1e9:.3f} GB (same "
           f"projections at bf16: {db / 1e9:.3f} GB), quantized in "
           f"{time.perf_counter() - t0:.1f}s")
+    phase("phase 18a: the fake-quant logit report at full width and depth: "
+          "the bf16 tree against its int8 projections, 2 x 128 tokens; "
+          "the kernel path's quantized logits against the plain path's")
+    modules = {"report": phase18_report(cfg, params, qparams, args.seed,
+                                        kernels)}
+    phase("phase 18b: activation calibration on the card: absmax and EMA "
+          "over three full-width bf16 forwards, scales against a host "
+          "reduction")
+    modules["calibration"] = phase18_calibrate(cfg, params, args.seed)
     del params
     torch.cuda.empty_cache()
     fq = dequantize_params(qparams, torch.bfloat16)
@@ -5031,6 +5417,13 @@ def main() -> int:
     families["full"] = phase17_full(args.seed, kernels)
     families["phase17_s"] = time.perf_counter() - t17
     print(f"  phase 17: {families['phase17_s']:.1f}s")
+    phase("phase 18c: the four examples on the card, each a process of "
+          "its own, then the Conv4 cache pickup in a fresh process")
+    examples = phase18_examples(args.seed)
+    phase("phase 18d: the fused-chain model at the card's budget: "
+          "optimize_fused for granite-3-8b's SwiGLU MLP at decode and the "
+          "fused engine's prefill chunk")
+    modules["fused_model"] = phase18_fused_model(fused)
     phase("phase 7: tune_op matmul (8, 4096, 4096), qkv_fused "
           "(8, 1024, 4096, 4) and conv2d (Conv4), bfloat16")
     tuned = phase7_tune()
@@ -5058,6 +5451,8 @@ def main() -> int:
     print("observed " + json.dumps(observed))
     print("features " + json.dumps(features))
     print("families " + json.dumps(families))
+    print("modules " + json.dumps(
+        {**modules, "examples_s": {k: v["s"] for k, v in examples.items()}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

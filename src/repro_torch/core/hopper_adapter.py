@@ -33,7 +33,9 @@ and Hopper's alignment and emits:
   direct blocked conv (``kernels/conv2d_blocked.py``, row 12), and
   ``backward_tile_candidates("conv2d_dgrad" | "conv2d_wgrad", ...)`` for
   its backward: the dgrad's transposed conv on row 12 at stride 1, the
-  wgrad on row 13 (``kernels/conv2d_bwd.py``) under its own footprint.
+  wgrad on row 13 (``kernels/conv2d_bwd.py``) under its own footprint;
+* ``layer_sharding_advice`` -- the paper's multicore rule (§3.3) at mesh
+  scale, as the reference's adapter states it.
 
 ``"matmul_fused"`` (and ``"matmul_fused_w8"``, its int8 weight at one
 byte) takes ``matmul_tile_candidates(fused=True)``: in fp32 the blocked
@@ -1137,3 +1139,11 @@ def flash_decode_oproj_tile_candidates(groups: int, seq_kv: int,
                                         bytes_per_elem,
                                         max(budget - extra, 1), target, top,
                                         split_core=False)
+
+
+def layer_sharding_advice(weight_bytes: int, activation_bytes: int) -> str:
+    """Paper §3.3 / §5.3 rule at mesh scale: shard (partition) the LARGE
+    operand so the small one is the broadcast; sharing the large buffer
+    makes its broadcast free.  ``"model"`` shards the weights across the
+    cards (tensor parallel), ``"data"`` the activations."""
+    return "model" if weight_bytes >= activation_bytes else "data"

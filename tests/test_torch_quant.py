@@ -5,8 +5,11 @@ w8fp8``).
 through ``params_from_numpy``; each quantized op's plain version (what
 the port runs on CPU tensors) against the JAX package's Pallas kernel in
 interpret mode and against its oracle; the routing of ``ops``; the fp8
-page key; and the quantized ``PagedEngine`` token for token against the
-JAX one.  Inputs are drawn with numpy from a seed and handed to both
+page key; the quantized ``PagedEngine`` token for token against the
+JAX one; and the two harnesses off the serving path: the activation
+calibrator (``AbsMaxCalibrator``) on the same batches as JAX's, and the
+fake-quant ``logit_report`` on the reduced granite against JAX's, whose
+logits ``tests/test_torch_model.py`` holds to 1e-4.  Inputs are drawn with numpy from a seed and handed to both
 packages, in fp32 on the CPU.
 
 Tolerances: a single product is held within 1e-5 abs + 1e-4 rel; a sum
@@ -37,7 +40,9 @@ from repro.kernels.matmul_fused import matmul_fused as j_matmul_fused
 from repro.kernels.matmul_q import matmul_w8 as j_matmul_w8
 from repro.kernels.matmul_q import matmul_w8_ref as j_matmul_w8_ref
 from repro.models import transformer as JT
+from repro.quant import AbsMaxCalibrator as JAbsMaxCalibrator
 from repro.quant import QuantizedTensor as JQuantizedTensor
+from repro.quant import logit_report as j_logit_report
 from repro.quant import quantize as j_quantize
 from repro.quant import quantize_params as j_quantize_params
 from repro.quant import quantized_bytes as j_quantized_bytes
@@ -51,9 +56,9 @@ from repro_torch.kernels.flash_decode import (flash_decode_fp8,
 from repro_torch.kernels.matmul_fused import matmul_fused, matmul_fused_ref
 from repro_torch.kernels.matmul_q import matmul_w8, matmul_w8_ref
 from repro_torch.models import transformer as T
-from repro_torch.quant import (QuantizedTensor, dequantize_params,
-                               fake_quant, quantize, quantize_params,
-                               quantized_bytes)
+from repro_torch.quant import (AbsMaxCalibrator, QuantizedTensor,
+                               dequantize_params, fake_quant, logit_report,
+                               quantize, quantize_params, quantized_bytes)
 from repro_torch.serve.engine import PagedEngine, PagedServeConfig
 from repro_torch.serve.lifecycle import RequestStatus
 
@@ -604,3 +609,162 @@ def test_serve_cli_runs_quantized_and_fused():
     assert f"page={page} chunk={chunk} kv=float8_e4m3fn " in res.stdout
     assert "fused=True quantize=w8fp8" in res.stdout
     assert "statuses: ok" in res.stdout
+
+
+# ------------------------- calibration and fake-quant ------------------------
+
+
+def calib_batches(dtype=np.float32):
+    """Four batches of one tree (a dict over a tensor and a list of two),
+    with spikes, drawn from a seed."""
+    rng = np.random.default_rng(5)
+    out = []
+    for i in range(4):
+        h = rng.standard_normal((2, 8, 16)).astype(np.float32)
+        h[0, i, 3] = 40.0 * (-1) ** i            # a spike, sign alternating
+        out.append({"h": h.astype(dtype),
+                    "layers": [rng.standard_normal((16, 4)).astype(dtype)
+                               * (i + 1),
+                               rng.uniform(-3, 1, (7,)).astype(dtype)]})
+    return out
+
+
+def jax_tree(batch):
+    return jax.tree.map(jnp.asarray, batch)
+
+
+def torch_tree(batch):
+    return {"h": t(batch["h"]), "layers": [t(x) for x in batch["layers"]]}
+
+
+def flat(tree) -> list:
+    return [tree["h"], *tree["layers"]]
+
+
+@pytest.mark.parametrize("momentum", [None, 0.9, 0.5],
+                         ids=["absmax", "ema-0.9", "ema-0.5"])
+def test_calibrator_equals_jax(momentum):
+    """The running statistics and the int8 and fp8 scales after each of
+    four batches: absmax exactly equal, the EMA within 1e-6 relative.
+    The statistics stay fp32 0-d tensors on the batches' device."""
+    mine = AbsMaxCalibrator(momentum)
+    ref = JAbsMaxCalibrator(momentum)
+    for batch in calib_batches():
+        mine.observe(torch_tree(batch))
+        ref.observe(jax_tree(batch))
+        for dtype in ("int8", "fp8"):
+            got = flat(mine.scales(dtype))
+            want = [np.asarray(x) for x in flat(ref.scales(dtype))]
+            for g, w in zip(got, want):
+                assert g.dtype == torch.float32 and g.dim() == 0
+                assert g.device.type == "cpu"
+                if momentum is None:
+                    assert g.numpy() == w
+                else:
+                    np.testing.assert_allclose(g.numpy(), w, rtol=1e-6,
+                                               atol=0)
+        got = flat(mine._absmax)
+        want = flat(ref._absmax)
+        for g, w in zip(got, want):
+            if momentum is None:
+                assert g.numpy() == np.asarray(w)
+            else:
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=1e-6, atol=0)
+    assert mine.n_batches == ref.n_batches == 4
+
+
+def test_calibrator_bf16_batches_equal_jax():
+    """Narrow activations are widened to fp32 before the absmax, as in
+    JAX: the same bf16 batches give the same scales."""
+    mine, ref = AbsMaxCalibrator(), JAbsMaxCalibrator()
+    for batch in calib_batches():
+        mine.observe({"h": t(batch["h"]).to(torch.bfloat16)})
+        ref.observe({"h": jnp.asarray(batch["h"], jnp.bfloat16)})
+    assert mine.scales()["h"].numpy() == np.asarray(ref.scales()["h"])
+
+
+@pytest.mark.parametrize("refusal", ["momentum-high", "momentum-zero",
+                                     "momentum-one", "no-batch",
+                                     "unknown-dtype"])
+def test_calibrator_refusals_equal_jax(refusal):
+    """JAX's three refusals (momentum outside (0, 1), no batch observed,
+    an unknown dtype), with the same messages."""
+    def run(cls, tree):
+        if refusal.startswith("momentum"):
+            cls({"momentum-high": 1.5, "momentum-zero": 0.0,
+                 "momentum-one": 1.0}[refusal])
+        elif refusal == "no-batch":
+            cls().scales()
+        else:
+            cal = cls()
+            cal.observe(tree)
+            cal.scales("int4")
+    batch = calib_batches()[0]
+    with pytest.raises(ValueError) as mine:
+        run(AbsMaxCalibrator, torch_tree(batch))
+    with pytest.raises(ValueError) as ref:
+        run(JAbsMaxCalibrator, jax_tree(batch))
+    assert str(mine.value) == str(ref.value)
+
+
+def test_calibrator_refuses_another_structure():
+    """Leaves are matched by structure: a tree with another key, or a
+    list of another length, raises, and the statistics are kept."""
+    batch = torch_tree(calib_batches()[0])
+    cal = AbsMaxCalibrator()
+    cal.observe(batch)
+    with pytest.raises(ValueError, match="structure"):
+        cal.observe({"g": batch["h"], "layers": batch["layers"]})
+    with pytest.raises(ValueError, match="structure"):
+        cal.observe({"h": batch["h"], "layers": batch["layers"][:1]})
+    assert cal.n_batches == 1
+    assert cal.scales()["h"] == batch["h"].abs().max() / 127.0 + 1e-12
+
+
+@pytest.fixture(scope="module")
+def report_model():
+    """The reduced granite at fp32 from JAX's init (JAX's own test's
+    tree, unscaled), converted, quantized in both packages."""
+    jcfg = dataclasses.replace(jget_reduced(ARCH), dtype=jnp.float32)
+    cfg = dataclasses.replace(get_reduced(ARCH), dtype=torch.float32)
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32)
+    return (jcfg, jparams, j_quantize_params(jparams), cfg, params,
+            quantize_params(params), tokens)
+
+
+def test_logit_report_equals_jax(report_model):
+    """The four fields against JAX's report on the same tokens: top-1
+    agreement equal, the errors within the logits' 1e-4; JAX's own gate
+    (top-1 >= 0.9, rel_err < 0.05) holds for the port too.  On the CPU
+    the plain path is the path, so ``use_kernel=False`` reports the
+    same numbers."""
+    jcfg, jparams, jq, cfg, params, qparams, tokens = report_model
+    want = j_logit_report(jcfg, jparams, jq, tokens)
+    got = logit_report(cfg, params, qparams, tokens)
+    assert set(got) == set(want)
+    assert all(type(v) is float for v in got.values())
+    assert got["top1_agreement"] == want["top1_agreement"]
+    for key in ("max_abs_err", "mean_abs_err", "rel_err"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-4,
+                                   rtol=1e-4)
+    assert got["top1_agreement"] >= 0.9 and got["rel_err"] < 0.05
+    assert logit_report(cfg, params, qparams, t(tokens),
+                        use_kernel=False) == got
+
+
+def test_logit_report_identity_and_device_refusal(report_model):
+    """A tree against itself reports no error and full agreement; trees
+    on two devices are refused before anything runs."""
+    *_, cfg, params, qparams, tokens = report_model
+    same = logit_report(cfg, params, params, tokens)
+    assert same == {"max_abs_err": 0.0, "mean_abs_err": 0.0,
+                    "rel_err": 0.0, "top1_agreement": 1.0}
+    elsewhere = {**qparams, "embed": {
+        "embedding": qparams["embed"]["embedding"].to("meta")}}
+    with pytest.raises(ValueError, match="one device"):
+        logit_report(cfg, params, elsewhere, tokens)
