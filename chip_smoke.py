@@ -144,8 +144,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and 40 new tokens wrap its ring at step 32): the kernel path, the
    plain path
    and the paged engine give identical greedy tokens, unfused and fused,
-   with the launch counts of each; (b) gemma2-9b at full width and depth
-   in bf16, 4 prompts of 4000 tokens and 128 new ones through both
+   with the launch counts of each; (b) gemma2-9b at full width, 14 of
+   its 42 layers (7 local, 7 global; the depth cut to keep the run
+   inside its time limit), in bf16, 4 prompts of 4000 tokens and 128 new ones through both
    engines (the ring wraps at step 96): tok/s, peak memory, a profiled
    window each, the prefill logits against the plain path and a step
    past the wrap (dense cache against paged) within 5% of max |logit|;
@@ -195,6 +196,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    granite's SwiGLU MLP at the card's per-block budget (decode and the
    fused engine's prefill chunk), its top result's bytes equal to
    ``fused_dram_bytes``;
+19. distribution, after 15b: (a) rows 4 and 5 at the production
+   mesh's local head shapes (``TP_HEADS``: 2, 2, 3 and 1 query heads on
+   one kv head) against their plain versions, then the sharded train
+   step (``make_train_step(..., mesh=)``) on a one-rank NCCL mesh:
+   granite-3-8b at full width, 4 of 40 layers, bf16, remat "block", 4 x
+   512 tokens, 3 steps under ``tp_fsdp``, ``fsdp``, ``tp_fsdp`` with
+   compressed gradients and ``tp_fsdp`` with blocked linears, each
+   step's loss within 0.5% of the unsharded step's from the same params
+   and batches, the largest parameter difference after step 3, the
+   launch counts held as phase 11 holds them; (b) ``launch.train
+   --reduced --steps 3`` under ``torch.distributed.run`` (one rank) and
+   alone, the same final loss; (c) the dry run of granite-3-8b on 16 x
+   16 (train_4k under both parallelisms, decode_32k) in processes of
+   their own ((b) and (c) start after phase 2, beside phase 3):
+   collective bytes by kind, argument bytes per rank equal
+   to the local shards' bytes, fsdp's total below tp_fsdp's; a
+   ``distributed`` JSON line;
 7. ``tune_op`` on the decode GEMM shape, the decode QKV pass and Conv4
    into a temporary cache;
 8. each kernel timed at the shapes of phases 6, 6b, 9, 9b, 11 and 12
@@ -2944,7 +2962,8 @@ def serve_timed(label: str, run, n_tokens: int) -> dict:
 
 
 def phase14_gemma2(seed: int, kernels: dict) -> dict:
-    """(b) gemma2-9b at full width and depth in bf16: the static and the
+    """(b) gemma2-9b at full width, 14 of 42 layers (the local/global
+    pattern whole), in bf16: the static and the
     paged engine serve the same 4 prompts of 4000 tokens, 128 new ones
     each (max_seq 4352), so the local layers' ring wraps at position
     4096.  The prefill logits of the kernel path against the plain path,
@@ -2955,7 +2974,7 @@ def phase14_gemma2(seed: int, kernels: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    cfg = get_config("gemma2-9b")
+    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=14)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
@@ -4017,6 +4036,210 @@ def phase11_train(seed: int, kernels: dict) -> dict:
     assert rel <= 2e-2 and mm[0] < mm[1], (rel, mm)
     del params0
     torch.cuda.empty_cache()
+    return out
+
+
+# the production mesh's local attention heads (M = 16): (query heads,
+# kv heads, head_dim) of one rank, where several ranks share a kv head
+TP_HEADS = {"granite-3-8b": (2, 1, 128), "glm4-9b": (2, 1, 128),
+            "granite-34b": (3, 1, 128), "gemma2-9b": (1, 1, 256)}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase19_sharded(seed: int, kernels: dict) -> dict:
+    """(a) The sharded train step (``make_train_step(..., mesh=)``) on a
+    one-rank NCCL mesh: granite-3-8b at full width, 4 of 40 layers,
+    bf16, remat "block", 4 x 512 tokens, 3 steps each under ``tp_fsdp``,
+    ``fsdp``, ``tp_fsdp`` with gradient compression and ``tp_fsdp`` with
+    blocked linears.  Each variant's unsharded step runs first from the
+    same params and batches; every sharded step's loss is held within
+    0.5% of it, the largest parameter difference after step 3 printed.
+    The launch counts are 0 just before the sharded steps: rows 4 and 5
+    must launch, rows 6-8 under blocked, nothing else.  Before that, rows
+    4 and 5 at the production mesh's local head shapes (TP_HEADS)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    dev = torch.device("cuda")
+    for arch, (hq, hkv, d) in TP_HEADS.items():
+        check_attention_edge(dev, torch.bfloat16, 4, 512, 512, hq, hkv, d,
+                             True, None, None, with_bwd=True)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4,
+                              remat="block")
+    steps, seq, bsz = 3, 512, 4
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=steps)
+    batches = [make_batch(cfg, seq, bsz, s, seed=seed, device="cuda")
+               for s in range(steps)]
+    tp = {"data": ("data",), "model": "model"}
+    fsdp = {"data": ("data", "model"), "model": None}
+    out = {}
+    for name, mapping, compress, blocked in (
+            ("tp_fsdp", tp, False, False), ("fsdp", fsdp, False, False),
+            ("tp_fsdp_compress", tp, True, False),
+            ("tp_fsdp_blocked", tp, False, True)):
+        tc = loop.TrainConfig(opt=opt, compress_grads=compress,
+                              blocked_linear=blocked)
+        t0 = time.perf_counter()
+        params0 = T.init_params(cfg, seed=seed, device="cuda")
+        ref_p, ref_s = params0, adamw.init_state(params0)
+        ref_step = loop.make_train_step(cfg, tc)
+        ref_loss, ref_ms = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            ref_p, ref_s, m = ref_step(ref_p, ref_s, batch)
+            ref_loss.append(float(m["loss"]))
+            ref_ms.append((time.perf_counter() - t1) * 1e3)
+        del ref_s
+        params, state = loop.shard_state(cfg, params0,
+                                         adamw.init_state(params0), mesh,
+                                         mapping)
+        del params0
+        step = loop.make_train_step(cfg, tc, mesh, mapping)
+        torch.cuda.synchronize()
+        reset(kernels)
+        hist = []
+        for s, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            loss = float(m["loss"])
+            hist.append({"step": s, "loss": loss,
+                         "ms": (time.perf_counter() - t1) * 1e3})
+            rel = abs(loss - ref_loss[s]) / abs(ref_loss[s])
+            print(f"  {name} step {s}: loss {loss:.5f} unsharded "
+                  f"{ref_loss[s]:.5f} (rel {rel:.2e}, bound 5e-3) "
+                  f"{hist[-1]['ms']:.1f} ms (unsharded {ref_ms[s]:.1f})")
+            assert np.isfinite(loss) and rel <= 5e-3, (name, s, loss)
+        launched = counts(kernels)
+        want = ("flash_attention", "flash_attention_bwd") + (
+            ("matmul_blocked", "matmul_dgrad_a", "matmul_dgrad_b")
+            if blocked else ())
+        assert min(launched[k] for k in want) > 0, (name, launched)
+        assert not any(n for k, n in launched.items() if k not in want), \
+            (name, launched)
+        full = loop.unshard_state(cfg, {"params": params, "opt": state},
+                                  mesh, mapping)["params"]
+        diff = max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(adamw.leaves(full), adamw.leaves(ref_p)))
+        print(f"  {name}: launches {dict((k, launched[k]) for k in want)}"
+              f", largest parameter difference after step {steps}: "
+              f"{diff:.3e} ({time.perf_counter() - t0:.1f}s)")
+        out[name] = {"history": hist, "unsharded_loss": ref_loss,
+                     "unsharded_ms": ref_ms,
+                     "launches": {k: launched[k] for k in want},
+                     "max_param_diff": diff}
+        del params, state, full, ref_p
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return out
+
+
+def phase19_start() -> dict:
+    """Start (b)'s and (c)'s processes after the build, to run beside
+    phase 3: each takes seconds to reach the card or to import, and (c)
+    needs no card; phase 19 reads them."""
+    import os
+    env = dict(os.environ, PYTHONPATH="src")
+    args = ["-m", "repro_torch.launch.train", "--arch", "granite-3-8b",
+            "--reduced", "--steps", "3"]
+    runs = {"torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc-per-node", "1", *args],
+            "alone": [sys.executable, *args]}
+    runs.update({k: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", "granite-3-8b", "--shape", shp,
+                     "--parallelism", par, "--force"]
+                 for k, (shp, par) in DRYRUN_CELLS.items()})
+    return {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env)
+            for k, c in runs.items()}
+
+
+DRYRUN_CELLS = {"train_4k": ("train_4k", "tp_fsdp"),
+                "train_4k_fsdp": ("train_4k", "fsdp"),
+                "decode_32k": ("decode_32k", "tp_fsdp")}
+
+
+def phase19_torchrun(procs: dict) -> dict:
+    """(b) ``launch.train`` on the reduced granite, 3 steps, under
+    ``torch.distributed.run`` with one rank (NCCL, the sharded route)
+    and run alone (one-rank world, unsharded): both exit 0 with the same
+    final loss."""
+    out = {}
+    for k in ("torchrun", "alone"):
+        p = procs[k]
+        so, se = p.communicate(timeout=300)
+        assert p.returncode == 0, (k, se[-3000:])
+        line = [x for x in so.splitlines() if x.startswith("final loss")]
+        assert line, (k, so[-2000:])
+        out[k] = line[-1]
+        print(f"  {k}: {line[-1]}")
+    assert out["torchrun"] == out["alone"], out
+    return out
+
+
+def phase19_dryrun(procs: dict) -> dict:
+    """(c) ``python -m repro_torch.launch.dryrun`` for granite-3-8b x
+    train_4k on 16 x 16 under both parallelisms and x decode_32k, three
+    processes at once: collective bytes by kind, argument bytes per rank
+    (held to the local shards' bytes, from ``local_shape`` of every
+    spec), fsdp's total below tp_fsdp's."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shapes import axis_mapping, batch_shapes
+    from repro_torch.models import spmd
+    from repro_torch.models import transformer as T
+    cells = DRYRUN_CELLS
+    for k in cells:
+        so, se = procs[k].communicate(timeout=300)
+        assert procs[k].returncode == 0, (k, se[-3000:])
+    cfg = get_config("granite-3-8b")
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    sizes = {"data": 16, "model": 16}
+    out = {}
+    for k, (shp, par) in cells.items():
+        with open(dryrun.artifact_path("granite-3-8b", shp, False, par)) as f:
+            r = json.load(f)
+        assert r["ok"], r
+        shape = SHAPES[shp]
+        mapping = axis_mapping(cfg, shape, mesh, par)
+        m = 1 if par == "fsdp" else 16
+        pb = spmd.local_bytes(T.param_shapes(cfg, m), T.param_specs(cfg, m),
+                              sizes, mapping)
+        if shape.kind == "train":
+            bsh, bsp = batch_shapes(cfg, shape)
+            want = pb + 2 * pb * 4 // cfg.dtype.itemsize + 4 + \
+                spmd.local_bytes(bsh, bsp, sizes, mapping)
+        else:
+            b = shape.global_batch
+            want = pb + spmd.local_bytes(
+                T.cache_shapes(cfg, b, shape.seq_len, m),
+                T.cache_specs(cfg, b, shape.seq_len, m), sizes, mapping) + \
+                spmd.local_bytes({"t": torch.empty((b,), dtype=torch.int32,
+                                                   device="meta")},
+                                 {"t": T.P("data")}, sizes, mapping)
+        got = r["memory"]["argument_size_in_bytes"]
+        print(f"  {k}: collective bytes {r['collective_bytes']} (total "
+              f"{r['collective_bytes_total']:.4e}), argument bytes per rank "
+              f"{got} (local shards {want}), flops {r['flops']:.4e}")
+        assert got == want, (k, got, want)
+        out[k] = r
+    assert out["train_4k_fsdp"]["collective_bytes_total"] < \
+        out["train_4k"]["collective_bytes_total"], out
     return out
 
 
@@ -5301,6 +5524,10 @@ def main() -> int:
               f"{max(r for r, _ in wgrad_mma)} registers, "
               f"{sum(sp for _, sp in wgrad_mma)} B spilled in all")
 
+    # phase 19's subprocesses (the launchers, the dry run) need only the
+    # build: they run beside phase 3 and are read in phase 19
+    procs19 = phase19_start()
+
     phase("phase 3: kernels vs plain versions")
     for check in (phase3_kernels, phase3_decode_grid, phase3_verify_spans,
                   phase3_head_dims,
@@ -5395,13 +5622,29 @@ def main() -> int:
     phase("phase 15b: phase 11's blocked training, 2 steps, untraced and "
           "traced + profiled")
     observed["train"] = phase15_train(args.seed, kernels)
+    phase("phase 19a: the sharded train step on a one-rank NCCL mesh: "
+          "granite-3-8b full width, 4 of 40 layers, bf16, 3 steps under "
+          "tp_fsdp, fsdp, tp_fsdp + compressed grads and tp_fsdp + blocked "
+          "linears, each against the unsharded step")
+    t19 = time.perf_counter()
+    distributed = {"sharded": phase19_sharded(args.seed, kernels)}
+    phase("phase 19b: launch.train under torch.distributed.run (one rank) "
+          "and alone, the reduced granite, 3 steps (started after phase 2)")
+    distributed["torchrun"] = phase19_torchrun(procs19)
+    phase("phase 19c: the dry run of granite-3-8b on the 16 x 16 mesh: "
+          "train_4k under tp_fsdp and fsdp, decode_32k (started after "
+          "phase 2)")
+    distributed["dryrun"] = phase19_dryrun(procs19)
+    distributed["phase19_s"] = time.perf_counter() - t19
+    print(f"  phase 19: {distributed['phase19_s']:.1f}s")
     phase("phase 12: the paper's conv path at full Table-4 size: Conv1-5 "
           "and AlexNet conv1, batch 2, bf16, ops.conv2d forward and "
           "backward")
     conv = phase12_conv(kernels)
     phase("phase 14: the static-batch engine (dense caches, a ring for "
           "local layers): (a) parity at full width, 2 layers, fp32, four "
-          "archs; (b) gemma2-9b full depth, bf16, past the ring's wrap; "
+          "archs; (b) gemma2-9b, 14 of 42 layers, bf16, past the ring's "
+          "wrap; "
           "(c) glm4-9b and granite-34b, 4 layers, bf16")
     dense = {"parity": phase14_parity(args.seed, kernels),
              "gemma2-9b": phase14_gemma2(args.seed, kernels),
@@ -5451,6 +5694,7 @@ def main() -> int:
     print("observed " + json.dumps(observed))
     print("features " + json.dumps(features))
     print("families " + json.dumps(families))
+    print("distributed " + json.dumps(distributed))
     print("modules " + json.dumps(
         {**modules, "examples_s": {k: v["s"] for k, v in examples.items()}}))
     print(card)

@@ -9,12 +9,18 @@ decoders (phi3.5-moe, qwen3-moe), the attention-free Mamba-2 SSD stack
 the encoder-decoder (seamless-m4t-medium) and the vision-prefix decoder
 (phi-3-vision).
 
+``SHAPES`` maps a shape id to (seq_len, global_batch, kind) and
+``cells()`` yields every valid (arch, shape) dry-run cell, equal to
+``repro.configs``' (``long_500k`` only for the sub-quadratic archs).
+
 ``PAPER_LAYERS`` are the paper's Table-4 problems (the five conv layers
 in output-space X, Y and the two fully connected ones as batch-16
 GEMMs), equal to ``repro.configs.PAPER_LAYERS``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs import (gemma2_9b, glm4_9b, granite_3_8b,
                                  granite_34b, mamba2_780m, phi3_vision,
@@ -52,6 +58,38 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, Shape] = {
+    "train_4k": Shape("train_4k", 4096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524288, 1, "decode"),
+}
+
+
+def long_context_ok(cfg: ModelConfig) -> bool:
+    """long_500k runs only for the sub-quadratic archs."""
+    return cfg.supports_long_context
+
+
+def cells() -> list[tuple[str, str]]:
+    """All valid (arch, shape) dry-run cells."""
+    out = []
+    for arch, cfg in ARCHS.items():
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not long_context_ok(cfg):
+                continue
+            out.append((arch, shape.name))
+    return out
 
 
 # --- the paper's own benchmark layers (Table 4) -----------------------------

@@ -21,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.base import map_tree
+from repro_torch.models.base import ParamDef, map_tree
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import QuantizedTensor
 from repro_torch.util import resolve_device
@@ -58,33 +58,35 @@ def _per_layer(cfg: ModelConfig, tree: dict) -> dict:
     return out
 
 
-def _leaf_dtypes(cfg: ModelConfig) -> Any:
-    """The port's parameter tree with each leaf's dtype
-    (``transformer.model_defs``): ``cfg.dtype``, or fp32 where a leaf
-    asks for it (SSD's ``A_log``, ``D``, ``dt_bias``; RG-LRU's
-    ``lam``), as JAX's ``retype_defs`` leaves them."""
+def _leaf_defs(cfg: ModelConfig, model_ax: int) -> Any:
+    """The port's parameter tree at ``model_ax`` with each leaf's
+    ParamDef (``transformer.model_defs``): its shape, and its dtype,
+    ``cfg.dtype`` or fp32 where a leaf asks for it (SSD's ``A_log``,
+    ``D``, ``dt_bias``; RG-LRU's ``lam``), as JAX's ``retype_defs``
+    leaves them."""
     from repro_torch.models.transformer import model_defs
-    return map_tree(lambda d: d.dtype, model_defs(cfg))
+    return model_defs(cfg, model_ax)
 
 
-def _with_dtypes(tree: Any, dtypes: Any, fn) -> Any:
-    """``fn(leaf, dtype)`` on every leaf of ``tree`` (a quantized leaf
-    ``{"q", "scale"}`` whole), ``dtype`` from the parallel ``dtypes``
-    tree (``None`` where it has no such leaf)."""
+def _with_defs(tree: Any, defs: Any, fn) -> Any:
+    """``fn(leaf, def)`` on every leaf of ``tree`` (a quantized leaf
+    ``{"q", "scale"}`` whole), ``def`` from the parallel ``defs`` tree
+    (``None`` where it has no such leaf)."""
     if _is_quantized(tree):
         return fn(tree, None)
     if isinstance(tree, dict):
-        sub = dtypes if isinstance(dtypes, dict) else {}
-        return {k: _with_dtypes(v, sub.get(k), fn) for k, v in tree.items()}
+        sub = defs if isinstance(defs, dict) else {}
+        return {k: _with_defs(v, sub.get(k), fn) for k, v in tree.items()}
     if isinstance(tree, list):
-        sub = dtypes if isinstance(dtypes, list) else []
-        return [_with_dtypes(v, sub[i] if i < len(sub) else None, fn)
+        sub = defs if isinstance(defs, list) else []
+        return [_with_defs(v, sub[i] if i < len(sub) else None, fn)
                 for i, v in enumerate(tree)]
-    return fn(tree, dtypes if isinstance(dtypes, torch.dtype) else None)
+    return fn(tree, defs if isinstance(defs, ParamDef) else None)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda",
+                      model_ax: int | None = None) -> dict:
     """The port's parameters from a numpy-mapped JAX param tree, on
     ``device``, each leaf in the dtype the port's ``model_defs`` gives it:
     ``cfg.dtype``, or fp32 for the leaves that ask for it (SSD's
@@ -97,15 +99,26 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
     payload and ``(G, 1, N)`` scale are unstacked per layer like every
     leaf) and becomes a :class:`QuantizedTensor` whose payload keeps its
     dtype and whose scale stays fp32: neither is cast to ``cfg.dtype``.
+
+    ``model_ax``: the JAX tree was built at that model axis (its
+    embedding and ``lm_head`` padded to ``16 * model_ax``); every leaf
+    must then have the shape of the port's ``model_defs(cfg,
+    model_ax)``, or this raises.
     """
     dev = resolve_device(device)
 
-    def leaf(a: Any, dtype):
+    def leaf(a: Any, d: ParamDef | None):
         if _is_quantized(a):
             return QuantizedTensor(_tensor(a["q"], dev),
                                    _tensor(a["scale"], dev).float())
-        return _tensor(a, dev).to(dtype or cfg.dtype)
-    return _with_dtypes(_per_layer(cfg, tree), _leaf_dtypes(cfg), leaf)
+        if model_ax is not None and (d is None or tuple(np.shape(a)) !=
+                                     tuple(d.shape)):
+            raise ValueError(f"leaf of shape {np.shape(a)} is not the "
+                             f"model_ax={model_ax} tree's "
+                             f"{None if d is None else d.shape}")
+        return _tensor(a, dev).to(d.dtype if d is not None else cfg.dtype)
+    return _with_defs(_per_layer(cfg, tree), _leaf_defs(cfg, model_ax or 1),
+                      leaf)
 
 
 def opt_state_from_numpy(cfg: ModelConfig, state: dict,

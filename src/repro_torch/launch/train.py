@@ -3,8 +3,18 @@
     python -m repro_torch.launch.train --arch granite-3-8b --steps 100 \
         --reduced --ckpt-dir /tmp/ckpt --restore auto
 
-Runs on one device: the card by default, ``--device cpu`` for the plain
-PyTorch versions of the kernels (use ``--reduced`` there).  Weights are
+Run alone it is a one-rank world on one device: the card by default,
+``--device cpu`` for the plain PyTorch versions of the kernels (use
+``--reduced`` there).  Under ``torchrun`` (``python -m
+torch.distributed.run --nproc-per-node N -m repro_torch.launch.train
+...``) every rank joins the process group from the environment (NCCL
+on the card, one card a rank; gloo with ``--device cpu``) and trains on
+JAX's host mesh -- a data-only mesh over the world, mapping ``{"data":
+("data",), "model": None}`` -- through the sharded route
+(``models/spmd.py``): each rank keeps its FSDP shards and its rows of
+every batch, and rank 0 prints and writes the files.
+``--production-mesh`` takes the (16, 16) mesh and JAX's mapping with
+tensor parallelism; it needs 256 ranks and raises with fewer.  Weights are
 random, drawn from ``--seed``; batches come from the seekable synthetic
 pipeline, so ``--restore auto`` resumes from the newest valid checkpoint
 on the same trajectory.  ``--blocked-kernels`` runs every projection
@@ -14,22 +24,37 @@ card either way.  The flags are JAX's launcher's, plus ``--device``,
 ``--dtype`` and ``--seed``: ``--metrics-out`` writes the train gauges
 and the DRAM report, ``--trace`` a Chrome-trace timeline of every step
 and ``--miss-log`` the schedule-cache misses (meaningful with
-``--blocked-kernels``).  Not ported yet, and refused when given:
-``--production-mesh`` (distribution, ``ROADMAP.md`` queue 1, item 16).
+``--blocked-kernels``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.pipeline import make_batch
 from repro_torch.obs import Obs, format_metrics
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import TrainConfig, train
+
+PRODUCTION_RANKS = 256
+
+
+def _join_world(device: str) -> bool:
+    """Join the process group ``torchrun`` describes in the environment
+    (True), or stay a one-rank world (False)."""
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method="env://")
+    return True
 
 
 def main(argv=None) -> None:
@@ -51,8 +76,7 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--restore", choices=["auto", "none"], default="none")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 mesh (not ported: ROADMAP.md, queue 1, "
-                         "item 16)")
+                    help="use the 16x16 mesh (requires 256 ranks)")
     ap.add_argument("--metrics-out", metavar="PATH", default=None,
                     help="write the metrics snapshot (train gauges + "
                          "modeled-vs-resolved DRAM report) as JSON")
@@ -69,11 +93,35 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: distribution is not ported yet; see "
-            "ROADMAP.md, queue 1, item 16")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.production_mesh and world != PRODUCTION_RANKS:
+        raise RuntimeError(f"--production-mesh needs {PRODUCTION_RANKS} "
+                           f"ranks (a 16x16 mesh); this world has {world}")
+    joined = _join_world(args.device)
+    try:
+        _run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _run(args) -> None:
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    mesh = mapping = None
+    rank, rows = 0, slice(None)
+    if dist.is_initialized():
+        mesh = (make_production_mesh(device=args.device)
+                if args.production_mesh else make_host_mesh(args.device))
+        mapping = ({"data": ("data",), "model": "model"}
+                   if "model" in mesh.mesh_dim_names else
+                   {"data": ("data",), "model": None})
+        rank = dist.get_rank()
+        n = mesh.get_group("data").size()
+        if args.batch % n:
+            raise ValueError(f"--batch {args.batch} does not split over "
+                             f"{n} data ranks")
+        i = mesh.get_local_rank("data")
+        rows = slice(i * args.batch // n, (i + 1) * args.batch // n)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
     tc = TrainConfig(
@@ -86,12 +134,20 @@ def main(argv=None) -> None:
 
     def batches():
         for step in range(args.steps):
-            yield make_batch(cfg, args.seq_len, args.batch, step,
-                             device=args.device)
+            batch = make_batch(cfg, args.seq_len, args.batch, step,
+                               device=args.device)
+            yield {k: v[rows] for k, v in batch.items()}
 
+    if rank:                      # rank 0 prints and writes the files
+        train(cfg, tc, batches(), seed=args.seed,
+                       device=args.device, restore=args.restore == "auto",
+                       obs=Obs(), log=lambda *a: None, mesh=mesh,
+                       mapping=mapping)
+        return
     obs = Obs(trace=args.trace, miss_log=args.miss_log)
     result = train(cfg, tc, batches(), seed=args.seed, device=args.device,
-                   restore=args.restore == "auto", obs=obs)
+                   restore=args.restore == "auto", obs=obs, mesh=mesh,
+                   mapping=mapping)
     print(f"final loss: {result['history'][-1]:.4f} "
           f"(start {result['history'][0]:.4f})")
     if args.metrics_out:

@@ -1,8 +1,13 @@
 """Declarative parameter trees over torch.
 
 Every module declares its parameters once as a tree (nested dicts and
-lists) of :class:`ParamDef` leaves; :func:`build` materializes the tree
-on a device from an explicit ``torch.Generator``.  Weights keep the JAX
+lists) of :class:`ParamDef` leaves (shape, partition spec, init); the
+same declaration is built in three modes, as in JAX, so shapes and
+shardings cannot drift apart: :func:`build` materializes the tree on a
+device from an explicit ``torch.Generator``, :func:`shape_tree` gives
+meta tensors (the dry run's stand-ins, no allocation) and
+:func:`spec_tree` the :class:`~repro_torch.models.sharding.P` tree that
+``models.spmd.shard_params`` cuts the parameters by.  Weights keep the JAX
 package's layouts (``(d_in, d_out)``, used as ``x @ w``) so the tests can
 hold the port against it leaf for leaf.
 """
@@ -14,6 +19,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models.sharding import P
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -21,6 +28,7 @@ class ParamDef:
     scale: float = 1.0          # stddev multiplier for trunc-normal init
     dtype: Any = torch.bfloat16
     init: str = "normal"        # "normal" | "zeros" | "ones"
+    spec: P = P()               # canonical partition spec (missing: None)
 
 
 def fan_in_scale(fan_in: int) -> float:
@@ -59,6 +67,18 @@ def build(tree: Any, device: torch.device,
     return map_tree(leaf, tree)
 
 
+def spec_tree(tree: Any) -> Any:
+    """The partition spec of every leaf, one entry per dimension."""
+    return map_tree(lambda d: P(*(tuple(d.spec) + (None,) * (
+        len(d.shape) - len(d.spec)))), tree)
+
+
+def shape_tree(tree: Any) -> Any:
+    """Meta tensors of every leaf's shape and dtype (no allocation)."""
+    return map_tree(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), tree)
+
+
 def retype_defs(tree: Any, dtype: Any) -> Any:
     """Replace the default bf16 weight dtype with ``dtype`` (test configs
     run fp32); leaves that request another dtype are left alone."""
@@ -69,8 +89,10 @@ def retype_defs(tree: Any, dtype: Any) -> Any:
     return map_tree(_retype, tree)
 
 
-def stack_defs(tree: Any, n: int) -> Any:
+def stack_defs(tree: Any, n: int, stack_spec_axis: Any = None) -> Any:
     """Stack a ParamDef tree ``n`` times along a new leading axis (one
-    tensor holding every layer's copy, e.g. the paged KV pools)."""
-    return map_tree(lambda d: dataclasses.replace(d, shape=(n,) + d.shape),
-                    tree)
+    tensor holding every layer's copy, e.g. the paged KV pools), the new
+    axis's spec entry ``stack_spec_axis``."""
+    return map_tree(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape,
+        spec=P(stack_spec_axis, *d.spec)), tree)

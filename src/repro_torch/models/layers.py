@@ -4,6 +4,15 @@ dense MLP, the capacity-based top-k MoE, Mamba-2's SSD mixer and the
 RG-LRU recurrent mixer.  Layouts follow the JAX package: weights
 ``(d_in, d_out)``, attention activations ``(B, S, H, D)``.
 
+Every ``*_defs`` takes ``model_ax``, the model axis's size, and gives
+each leaf JAX's partition spec (``models/sharding.py``): weights are
+split over ``model`` (heads, ffn, experts, vocab) where ``model_ax``
+divides the dimension, and replicated where it does not; the other
+dimension of every weight is split over ``data`` (FSDP storage).  The
+caches split the batch over ``data`` and the kv heads over ``model``,
+or the sequence where the kv heads do not divide.  ``model_ax`` 1 (the
+default) is the unsharded model.
+
 The MoE, SSD and RG-LRU layers have no Pallas kernel in JAX, and none
 here: their products are ``@``/``bmm``/``einsum`` on the card's library,
 as XLA's dots are in JAX.  Their fp32 leaves (``A_log``, ``D``,
@@ -20,12 +29,18 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.base import ParamDef, fan_in_scale
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import sharding, spmd
+from repro_torch.models.sharding import P
+
+
+def _shard_if(dim: int, model_ax: int, axis: str = "model"):
+    return axis if model_ax > 1 and dim % model_ax == 0 else None
 
 # =========================== norms & embeddings ===========================
 
 
 def rmsnorm_defs(d: int) -> dict:
-    return {"scale": ParamDef((d,), init="ones")}
+    return {"scale": ParamDef((d,), init="ones", spec=P(None))}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -35,15 +50,19 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
             * params["scale"].float()).to(x.dtype)
 
 
-def padded_vocab(cfg: ModelConfig) -> int:
-    """Vocab rounded up to a multiple of 16 (the JAX package's padding on
-    a one-way model axis)."""
-    return ((cfg.vocab + 15) // 16) * 16
+def padded_vocab(cfg: ModelConfig, model_ax: int = 1) -> int:
+    """Vocab rounded up to a multiple of ``16 * model_ax`` (JAX's padding,
+    which lane-aligns every shard; JAX's default ``model_ax`` is 16, the
+    port's 1, the unsharded model)."""
+    mult = max(model_ax, 1) * 16
+    return ((cfg.vocab + mult - 1) // mult) * mult
 
 
-def embedding_defs(cfg: ModelConfig) -> dict:
-    return {"embedding": ParamDef((padded_vocab(cfg), cfg.d_model),
-                                  scale=cfg.d_model ** -0.5)}
+def embedding_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
+    v = padded_vocab(cfg, model_ax)
+    return {"embedding": ParamDef((v, cfg.d_model),
+                                  scale=cfg.d_model ** -0.5,
+                                  spec=P(_shard_if(v, model_ax), "data"))}
 
 
 # ================================ RoPE =====================================
@@ -67,15 +86,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # ============================ attention (GQA) ==============================
 
 
-def attention_defs(cfg: ModelConfig) -> dict:
+def attention_specs(cfg: ModelConfig, model_ax: int):
+    """(q spec entry, kv spec entry): the query heads split over
+    ``model`` where ``model_ax`` divides them, the kv heads where it
+    divides theirs (else replicated: every rank keeps every kv head)."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    sq = _shard_if(hq * cfg.head_dim, model_ax) if hq % model_ax == 0 \
+        or model_ax <= 1 else None
+    skv = "model" if model_ax > 1 and hkv % model_ax == 0 else None
+    return sq, skv
+
+
+def attention_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    sq, skv = attention_specs(cfg, model_ax)
     s = fan_in_scale(d)
     return {
-        "wq": ParamDef((d, hq * hd), scale=s),
-        "wk": ParamDef((d, hkv * hd), scale=s),
-        "wv": ParamDef((d, hkv * hd), scale=s),
-        "wo": ParamDef((hq * hd, d), scale=fan_in_scale(hq * hd)),
+        "wq": ParamDef((d, hq * hd), scale=s, spec=P("data", sq)),
+        "wk": ParamDef((d, hkv * hd), scale=s, spec=P("data", skv)),
+        "wv": ParamDef((d, hkv * hd), scale=s, spec=P("data", skv)),
+        "wo": ParamDef((hq * hd, d), scale=fan_in_scale(hq * hd),
+                       spec=P(sq, "data")),
     }
 
 
@@ -105,23 +137,193 @@ def attention_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
         return out
     cache_len = return_cache if isinstance(return_cache, int) and \
         return_cache is not True else s
-    # attention above ran over the wide K/V; only the cache is cast (to
-    # fp8 for an fp8 pool), as in JAX.  Padding or placing before the
-    # cast gives the same bytes and needs no fp8 op but the cast.
+    return out, _kv_cache(cfg, k, v, cache_len, window, full_cache)
+
+
+def _kv_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+              cache_len: int, window: int | None,
+              full_cache: bool) -> dict:
+    """The dense K/V cache of a prompt's (B, S, H, D) keys and values:
+    zero-padded to ``cache_len``, or a ring buffer for a windowed layer
+    (unless ``full_cache``)."""
+    b, s, h, hd = k.shape
+    # attention ran over the wide K/V; only the cache is cast (to fp8 for
+    # an fp8 pool), as in JAX.  Padding or placing before the cast gives
+    # the same bytes and needs no fp8 op but the cast.
     cache_dtype = cfg.kv_cache_dtype or cfg.dtype
     if window is not None and not full_cache:
         # ring buffer: slot p % L holds position p; keep the last L
         length = min(window, cache_len)
-        last = torch.arange(s - min(length, s), s, device=x.device)
+        last = torch.arange(s - min(length, s), s, device=k.device)
         ring = {}
         for name, t in (("k", k), ("v", v)):
-            c = t.new_zeros((b, length, hkv, hd))
+            c = t.new_zeros((b, length, h, hd))
             c[:, last % length] = t[:, last]
             ring[name] = c.to(cache_dtype)
-        return out, ring
+        return ring
     pad = (0, 0, 0, 0, 0, cache_len - s)
-    return out, {"k": F.pad(k, pad).to(cache_dtype),
-                 "v": F.pad(v, pad).to(cache_dtype)}
+    return {"k": F.pad(k, pad).to(cache_dtype),
+            "v": F.pad(v, pad).to(cache_dtype)}
+
+
+def _cache_layout(cfg: ModelConfig, length: int, model_ax: int) -> str:
+    """Where a (B, L, Hkv, D) cache splits over the model axis
+    (:func:`attention_cache_defs`): ``"heads"``, ``"seq"`` or
+    ``"replicated"``."""
+    if model_ax > 1 and cfg.n_kv_heads % model_ax == 0:
+        return "heads"
+    if model_ax > 1 and length % model_ax == 0:
+        return "seq"
+    return "replicated"
+
+
+def _kv_weights(cfg: ModelConfig, params: dict, kv_heads: list[int],
+                group, model_ax: int, device
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kv projections of a rank's kv heads.  Where the kv heads are
+    split over the model axis the local weights are they; where they are
+    replicated, the rank's columns of them, entered into the
+    tensor-parallel region (their gradient summed over the model
+    axis)."""
+    wk, wv = params["wk"], params["wv"]
+    if group is None or attention_specs(cfg, model_ax)[1] is not None:
+        return wk, wv
+    cols = spmd.kv_columns(kv_heads, cfg.head_dim).to(device)
+    return (spmd.copy_to(wk, group)[:, cols],
+            spmd.copy_to(wv, group)[:, cols])
+
+
+def attention_apply_mesh(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                         positions: torch.Tensor, *, causal: bool = True,
+                         window: int | None = None,
+                         return_cache: bool | int = False,
+                         full_cache: bool = False, use_kernel: bool = True):
+    """:func:`attention_apply` on the active mesh, over the rank's local
+    weights (after the FSDP gather) and its batch rows.
+
+    Tensor parallel where the query heads split (``spmd.head_plan``):
+    ``x`` enters the region, q/k/v and the attention kernel (row 4, and
+    row 5 backward) run on the local heads, and ``wo``'s partial sums are
+    all-reduced over the model axis.  A query head uses its own kv head:
+    where the kv heads do not split, each rank projects the kv heads its
+    query heads need (several ranks may share one).  The returned cache
+    is the rank's shard under ``attention_cache_defs``' spec: its kv
+    heads, its run of slots, or all of it."""
+    ctx = sharding.active()
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    _, hq, kv = spmd.head_plan(cfg, ctx)
+    group = ctx.model_group if spmd.tp_split(cfg, ctx) else None
+    xt = spmd.copy_to(x, group)
+    wk, wv = _kv_weights(cfg, params, kv, group, ctx.model_ax, x.device)
+    q = ops.linear(xt, params["wq"], use_kernel).reshape(b, s, hq, hd)
+    k = ops.linear(xt, wk, use_kernel).reshape(b, s, len(kv), hd)
+    v = ops.linear(xt, wv, use_kernel).reshape(b, s, len(kv), hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = ops.attention(q, k, v, causal=causal, window=window,
+                        logit_cap=cfg.attn_logit_cap, use_kernel=use_kernel)
+    out = ops.linear(out.reshape(b, s, hq * hd), params["wo"], use_kernel)
+    out = spmd.reduce_from(out, group)
+    if not return_cache:
+        return out
+    cache_len = return_cache if isinstance(return_cache, int) and \
+        return_cache is not True else s
+    length = min(window, cache_len) if window is not None and \
+        not full_cache else cache_len
+    layout = _cache_layout(cfg, length, ctx.model_ax)
+    if layout != "heads":                # every kv head, all positions
+        hkv = cfg.n_kv_heads
+        k = rope(ops.linear(x, params["wk"], use_kernel).reshape(
+            b, s, hkv, hd), positions, cfg.rope_theta)
+        v = ops.linear(x, params["wv"], use_kernel).reshape(b, s, hkv, hd)
+    cache = _kv_cache(cfg, k, v, cache_len, window, full_cache)
+    if layout == "seq":
+        cache = {n: spmd.own_chunk(c, 1, ctx.model_group).contiguous()
+                 for n, c in cache.items()}
+    return out, cache
+
+
+def attention_decode_mesh(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                          cache: dict, pos: int, *, max_seq: int,
+                          window: int | None = None,
+                          use_kernel: bool = True
+                          ) -> tuple[torch.Tensor, dict]:
+    """:func:`attention_decode` on the active mesh: the rank's batch rows
+    over its shard of the dense cache (``max_seq`` the cache's global
+    length before the window).  Head-sharded and replicated caches take
+    the rank's query heads over their kv heads.  A sequence-sharded
+    cache (kv heads that do not split over the model axis) holds a run
+    of slots on each rank: every rank scores all query heads (gathered
+    over the model axis) over its run, the partial softmaxes merge over
+    the model axis (``spmd.merge_partials``), and each rank projects its
+    heads' rows through its ``wo`` shard.  The new token's K/V are
+    written in place where its slot lies on this rank."""
+    ctx = sharding.active()
+    b = x.shape[0]
+    hq_all, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q0, hq, kv = spmd.head_plan(cfg, ctx)
+    group = ctx.model_group if spmd.tp_split(cfg, ctx) else None
+    length = min(window, max_seq) if window is not None else max_seq
+    layout = _cache_layout(cfg, length, ctx.model_ax)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    xr = x[:, 0]
+    q = rope(ops.linear(xr, params["wq"], use_kernel).reshape(
+        b, 1, hq, hd), posv, cfg.rope_theta)[:, 0]
+    wk, wv = params["wk"], params["wv"]
+    nk = wk.shape[1] // hd               # local heads, or every kv head
+    k = rope(ops.linear(xr, wk, use_kernel).reshape(b, 1, nk, hd), posv,
+             cfg.rope_theta)[:, 0]
+    v = ops.linear(xr, wv, use_kernel).reshape(b, nk, hd)
+    ck, cv = cache["k"], cache["v"]
+    slot = pos % length if window is not None else pos
+    if window is None and pos >= length:
+        raise ValueError(f"position {pos} is past the cache's {length} "
+                         "slots (max_seq)")
+    first = 0
+    if layout == "seq":
+        first = spmd.group_index(ctx.model_group) * ck.shape[1]
+    if first <= slot < first + ck.shape[1]:
+        ck[:, slot - first] = k.to(ck.dtype)
+        cv[:, slot - first] = v.to(cv.dtype)
+    slots = torch.arange(first, first + ck.shape[1], device=x.device)
+    if window is not None:
+        kpos = pos - (pos - slots) % length
+        valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
+    else:
+        valid = slots <= pos
+    if layout == "seq":
+        if group is not None:
+            q = spmd.all_gather(q, 1, group)         # every query head
+        keys, vals, heads = ck, cv, hkv
+    else:
+        # a replicated cache holds every kv head: take the rank's
+        idx = None if layout == "heads" or kv == list(range(ck.shape[2])) \
+            else torch.tensor(kv, device=x.device)
+        keys = ck if idx is None else ck.index_select(2, idx)
+        vals = cv if idx is None else cv.index_select(2, idx)
+        heads = keys.shape[2]
+    nq = q.shape[1]
+    qh = q.reshape(b, heads, nq // heads, hd)
+    logits = torch.einsum("bhgd,blhd->bhgl", qh.float(),
+                          keys.float()) * hd ** -0.5
+    if cfg.attn_logit_cap is not None:
+        logits = cfg.attn_logit_cap * torch.tanh(logits / cfg.attn_logit_cap)
+    logits = torch.where(valid, logits, -1e30)
+    if layout == "seq":
+        mx = logits.amax(dim=-1)
+        p = torch.exp(logits - mx[..., None])
+        o = torch.einsum("bhgl,blhd->bhgd", p, vals.float())
+        out = spmd.merge_partials(o, mx, p.sum(dim=-1), ctx.model_group)
+        out = out.reshape(b, hq_all * hd)
+        if group is not None:
+            out = out[:, q0 * hd:(q0 + hq) * hd]
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgl,blhd->bhgd", probs, vals.float())
+        out = out.reshape(b, hq * hd)
+    out = ops.linear(out[:, None].to(x.dtype), params["wo"], use_kernel)
+    return spmd.reduce_from(out, group), cache
 
 
 def qkv_span_proj(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -207,26 +409,39 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 
 def attention_cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
-                         window: int | None) -> dict:
+                         window: int | None, model_ax: int = 1) -> dict:
     """The dense decode cache of one attention layer: ``{"k", "v"}``, (B,
     L, Hkv, D) zeros in the cache dtype, L the window for a local layer
-    (a ring buffer) and max_seq otherwise."""
+    (a ring buffer) and max_seq otherwise.  Sharded over the kv heads
+    where ``model_ax`` divides them, else over the sequence where it
+    divides L (each rank a run of slots: the decode merges the partial
+    softmaxes over ``model``), else replicated over ``model``."""
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
     length = min(window, max_seq) if window is not None else max_seq
+    if model_ax > 1 and hkv % model_ax == 0:
+        spec = P("data", None, "model", None)       # head-sharded KV
+    elif model_ax > 1 and length % model_ax == 0:
+        spec = P("data", "model", None, None)       # sequence-sharded KV
+    else:
+        spec = P("data", None, None, None)
     d = ParamDef((batch, length, hkv, hd), init="zeros",
-                 dtype=cfg.kv_cache_dtype or cfg.dtype)
+                 dtype=cfg.kv_cache_dtype or cfg.dtype, spec=spec)
     return {"k": d, "v": d}
 
 
 # ========================== dense MLP (SwiGLU) =============================
 
 
-def mlp_defs(cfg: ModelConfig) -> dict:
+def mlp_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"w_up": ParamDef((d, f), scale=fan_in_scale(d)),
-            "w_down": ParamDef((f, d), scale=fan_in_scale(f))}
+    sh = _shard_if(f, model_ax)
+    defs = {"w_up": ParamDef((d, f), scale=fan_in_scale(d),
+                             spec=P("data", sh)),
+            "w_down": ParamDef((f, d), scale=fan_in_scale(f),
+                               spec=P(sh, "data"))}
     if cfg.mlp_kind == "swiglu":
-        defs["w_gate"] = ParamDef((d, f), scale=fan_in_scale(d))
+        defs["w_gate"] = ParamDef((d, f), scale=fan_in_scale(d),
+                                  spec=P("data", sh))
     return defs
 
 
@@ -266,13 +481,18 @@ def mlp_apply(params: dict, x: torch.Tensor,
 # ============================ MoE (top-k) ==================================
 
 
-def moe_defs(cfg: ModelConfig) -> dict:
+def moe_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    se = _shard_if(e, model_ax)   # expert parallelism over the model axis
     return {
-        "router": ParamDef((d, e), scale=fan_in_scale(d)),
-        "w_gate": ParamDef((e, d, f), scale=fan_in_scale(d)),
-        "w_up": ParamDef((e, d, f), scale=fan_in_scale(d)),
-        "w_down": ParamDef((e, f, d), scale=fan_in_scale(f)),
+        "router": ParamDef((d, e), scale=fan_in_scale(d),
+                           spec=P("data", None)),
+        "w_gate": ParamDef((e, d, f), scale=fan_in_scale(d),
+                           spec=P(se, "data", None)),
+        "w_up": ParamDef((e, d, f), scale=fan_in_scale(d),
+                         spec=P(se, "data", None)),
+        "w_down": ParamDef((e, f, d), scale=fan_in_scale(f),
+                           spec=P(se, None, "data")),
     }
 
 
@@ -293,55 +513,81 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def moe_apply(cfg: ModelConfig, params: dict,
               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-based top-k MoE, JAX's off-mesh dispatch
-    (``_moe_apply_ref``).  x: (B, S, D) -> (out (B, S, D), the Switch
-    load-balance aux loss).
+    """Capacity-based top-k MoE.  x: (B, S, D) -> (out (B, S, D), the
+    Switch load-balance aux loss).
 
-    Each of the T = B * S tokens picks its k experts by router
-    probability (weights renormalised over the k); the (token, expert)
-    pairs are sorted by expert, stably, so each expert takes its tokens
-    in token order, and a pair past the expert's :func:`moe_capacity`
-    slots is dropped (its weight zeroed).  The experts run as batched
-    products over their (E, cap, D) buffers; each token then sums its k
-    weighted rows in a fixed order, ascending expert (JAX's scatter-add
-    order), so repeats agree bit for bit.  On a paged decode step T is
-    every slot of the batch, idle ones included, as in JAX."""
-    b, s, d = x.shape
+    Off a mesh this is JAX's reference dispatch (:func:`_moe_apply_ref`).
+    On a mesh of more than one rank whose mapping has a model axis, each
+    model-axis shard routes its own slice of the tokens and exchanges
+    expert slices with one all-to-all each way (:func:`_moe_apply_sharded`,
+    the port of JAX's ``_moe_apply_shardmap``).  Where the token count or
+    the experts do not split over the model axis, or there is no model
+    axis, the reference dispatch runs over the global tokens
+    (:func:`_moe_apply_mesh_ref`).  That choice is JAX's own rule
+    (``moe_apply`` and its ``_ShardMapUnavailable``), not a fallback: the
+    two dispatches are different functions (per-shard capacity against
+    global capacity), and each runs where JAX runs it."""
+    ctx = sharding.active()
+    if ctx is None:
+        return _moe_apply_ref(cfg, params, x)
+    if sharding.on_mesh() and ctx.model_axis is not None:
+        b, s, _ = x.shape
+        if (b * s) % ctx.model_ax == 0 and cfg.n_experts % ctx.model_ax == 0:
+            return _moe_apply_sharded(cfg, params, x, ctx)
+    return _moe_apply_mesh_ref(cfg, params, x, ctx)
+
+
+def _moe_route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor):
+    """(top-k weights renormalised, top-k experts, the aux loss) of (T,
+    D) tokens."""
     e, k = cfg.n_experts, cfg.experts_per_token
-    t = b * s
-    xf = x.reshape(t, d)
-
-    logits = (xf @ params["router"]).float()                   # (T, E)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax((xf @ router).float(), dim=-1)       # (T, E)
     topw, topi = _top_k(probs, k)                               # (T, k)
     topw = topw / topw.sum(dim=-1, keepdim=True)
-
     # load-balance aux loss (Switch-style)
     density = F.one_hot(topi[:, 0], e).float().mean(dim=0)
     aux = (density * probs.mean(dim=0)).sum() * e
+    return topw, topi, aux
 
-    cap = moe_capacity(cfg, t)
+
+def _moe_dispatch(cfg: ModelConfig, xf: torch.Tensor, topw: torch.Tensor,
+                  topi: torch.Tensor, cap: int):
+    """The (E, cap, D) expert buffers of (T, D) tokens and the plan to
+    combine their outputs: pairs sorted by expert, stably, a pair past
+    its expert's ``cap`` slots dropped."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
     e_flat = topi.reshape(-1)                                   # (T * k,)
     order = torch.argsort(e_flat, stable=True)
     e_sort = e_flat[order]
     w_sort = topw.reshape(-1)[order]
     tok_sort = order // k
-    pos = torch.arange(t * k, device=x.device) - torch.searchsorted(
+    pos = torch.arange(t * k, device=xf.device) - torch.searchsorted(
         e_sort, e_sort, side="left")
     keep = pos < cap
     slot = torch.where(keep, e_sort * cap + pos, e * cap)       # drop slot
+    rows = xf[tok_sort] * keep[:, None].to(xf.dtype)
+    buf = xf.new_zeros((e * cap + 1, d)).index_put((slot,), rows)
+    return buf[:-1].reshape(e, cap, d), (order, slot, keep, w_sort)
 
-    rows = xf[tok_sort] * keep[:, None].to(x.dtype)
-    buf = x.new_zeros((e * cap + 1, d)).index_put((slot,), rows)
-    buf = buf[:-1].reshape(e, cap, d)
 
+def _moe_experts(params: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over their (E, cap, D) buffers."""
     g = F.silu(torch.bmm(buf, params["w_gate"]).float())
     u = torch.bmm(buf, params["w_up"]).float()
-    h = (g * u).to(x.dtype)
-    out_e = torch.bmm(h, params["w_down"]).to(x.dtype)         # (E, cap, D)
+    h = (g * u).to(buf.dtype)
+    return torch.bmm(h, params["w_down"]).to(buf.dtype)
 
-    flat = torch.cat([out_e.reshape(e * cap, d), x.new_zeros((1, d))])
-    gathered = flat[slot] * (w_sort * keep)[:, None].to(x.dtype)
+
+def _moe_combine(cfg: ModelConfig, out_e: torch.Tensor, plan,
+                 topi: torch.Tensor) -> torch.Tensor:
+    """Each token's k weighted expert rows summed in ascending expert
+    order (JAX's scatter-add order), so repeats agree bit for bit."""
+    order, slot, keep, w_sort = plan
+    e, cap, d = out_e.shape
+    t, k = topi.shape
+    flat = torch.cat([out_e.reshape(e * cap, d), out_e.new_zeros((1, d))])
+    gathered = flat[slot] * (w_sort * keep)[:, None].to(out_e.dtype)
     # back to (token, choice), the choices of a token in expert order
     per_tok = gathered[torch.argsort(order)].reshape(t, k, d)
     by_expert = torch.argsort(topi, dim=1)
@@ -349,26 +595,115 @@ def moe_apply(cfg: ModelConfig, params: dict,
     out = per_tok[:, 0]
     for j in range(1, k):
         out = out + per_tok[:, j]
+    return out
+
+
+def _moe_apply_ref(cfg: ModelConfig, params: dict,
+                   x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's reference dispatch (``_moe_apply_ref``).
+
+    Each of the T = B * S tokens picks its k experts by router
+    probability (weights renormalised over the k); the (token, expert)
+    pairs are sorted by expert, stably, so each expert takes its tokens
+    in token order, and a pair past the expert's :func:`moe_capacity`
+    slots is dropped (its weight zeroed).  The experts run as batched
+    products over their (E, cap, D) buffers; each token then sums its k
+    weighted rows in a fixed order, ascending expert.  On a paged decode
+    step T is every slot of the batch, idle ones included, as in JAX."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    topw, topi, aux = _moe_route(cfg, params["router"], xf)
+    buf, plan = _moe_dispatch(cfg, xf, topw, topi, moe_capacity(cfg, b * s))
+    out = _moe_combine(cfg, _moe_experts(params, buf), plan, topi)
     return out.reshape(b, s, d), aux
+
+
+def _moe_apply_sharded(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                       ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``_moe_apply_shardmap`` over the rank's batch rows and its
+    experts (E / M of them, M the model axis's size).
+
+    Model-axis rank r routes its slice r of the (T, D) local tokens (the
+    router entered into the model-split region), sizes the expert
+    buffers for that slice (:func:`moe_capacity` of T / M tokens), sends
+    each peer its experts' buffers (all-to-all: (E / M, M * cap, D) here,
+    the peers' buffers side by side in rank order), runs its experts,
+    sends the rows back (the inverse all-to-all), combines its tokens in
+    ascending expert order and all-gathers the slices over the model
+    axis.  ``aux`` is averaged over the model and batch axes."""
+    group = ctx.model_group
+    m = ctx.model_ax
+    b, s, d = x.shape
+    tl = b * s
+    tm = tl // m
+    r = spmd.group_index(group)
+    mine = spmd.copy_to(x.reshape(tl, d), group)[r * tm:(r + 1) * tm]
+    router = spmd.copy_to(params["router"], group)
+    topw, topi, aux = _moe_route(cfg, router, mine)
+    axes = tuple(a for a in ctx.mesh.mesh_dim_names
+                 if a == ctx.model_axis or a in ctx.batch_axes)
+    n = math.prod(ctx.sizes[a] for a in axes)
+    aux = spmd.reduce_from(aux / n, ctx.group(axes))            # pmean
+
+    e = cfg.n_experts
+    buf, plan = _moe_dispatch(cfg, mine, topw, topi, moe_capacity(cfg, tm))
+    cap = buf.shape[1]
+    # expert-parallel exchange: send each model peer its experts' slots
+    got = spmd.exchange(buf, group)                    # (E, cap, D), M x
+    got = got.reshape(m, e // m, cap, d).transpose(0, 1).reshape(
+        e // m, m * cap, d)
+    out_e = _moe_experts(params, got)                  # (E/M, M*cap, D)
+    back = out_e.reshape(e // m, m, cap, d).transpose(0, 1).contiguous()
+    out_e = spmd.exchange(back, group).reshape(e, cap, d)
+    mine_out = _moe_combine(cfg, out_e, plan, topi)
+    out = spmd.gather_replicated(mine_out, 0, group)            # (T, D)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_apply_mesh_ref(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                        ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's reference dispatch on a mesh, where XLA runs it over the
+    global tokens: the batch rows are gathered over the batch axes, the
+    experts over the model axis, every rank dispatches them all, and
+    keeps its rows.  The aux loss, the same on every rank, passes
+    ``1 / (batch ranks)`` of its gradient back on each, so the batch
+    axes' sum counts it once."""
+    b, s, d = x.shape
+    if _shard_if(cfg.n_experts, ctx.model_ax):       # experts split
+        group = ctx.model_group
+        params = {**params, **{n: spmd.gather_replicated(params[n], 0, group)
+                               for n in ("w_gate", "w_up", "w_down")}}
+    xg = spmd.gather_shards(x, 0, ctx.batch_group)
+    out, aux = _moe_apply_ref(cfg, params, xg)
+    if ctx.batch_group is not None:
+        out = spmd.own_chunk(out, 0, ctx.batch_group)
+    return out, spmd.scale_grad(aux, 1.0 / ctx.batch_size)
 
 
 # ============================ SSD (mamba-2) ================================
 
 
-def ssd_defs(cfg: ModelConfig) -> dict:
+def ssd_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
     d, di, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh = cfg.ssm_heads
     conv_dim = di + 2 * ns
     proj_out = 2 * di + 2 * ns + nh        # z, x, B, C, dt
+    sdi = _shard_if(di, model_ax)
     return {
-        "in_proj": ParamDef((d, proj_out), scale=fan_in_scale(d)),
+        "in_proj": ParamDef((d, proj_out), scale=fan_in_scale(d),
+                            spec=P("data", None)),
         "conv_w": ParamDef((cfg.conv_width, conv_dim),
-                           scale=fan_in_scale(cfg.conv_width)),
-        "A_log": ParamDef((nh,), init="zeros", dtype=torch.float32),
-        "D": ParamDef((nh,), init="ones", dtype=torch.float32),
-        "dt_bias": ParamDef((nh,), init="zeros", dtype=torch.float32),
-        "norm_scale": ParamDef((di,), init="ones"),
-        "out_proj": ParamDef((di, d), scale=fan_in_scale(di)),
+                           scale=fan_in_scale(cfg.conv_width),
+                           spec=P(None, None)),
+        "A_log": ParamDef((nh,), init="zeros", dtype=torch.float32,
+                          spec=P(None)),
+        "D": ParamDef((nh,), init="ones", dtype=torch.float32,
+                      spec=P(None)),
+        "dt_bias": ParamDef((nh,), init="zeros", dtype=torch.float32,
+                            spec=P(None)),
+        "norm_scale": ParamDef((di,), init="ones", spec=P(sdi)),
+        "out_proj": ParamDef((di, d), scale=fan_in_scale(di),
+                             spec=P(sdi, "data")),
     }
 
 
@@ -492,14 +827,16 @@ def _conv_step(cache_conv: torch.Tensor, new: torch.Tensor,
     return conv, hist[:, 1:, :]
 
 
-def ssd_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+def ssd_cache_defs(cfg: ModelConfig, batch: int, model_ax: int = 1) -> dict:
     di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     return {
         "conv": ParamDef((batch, cfg.conv_width - 1, di + 2 * ns),
-                         init="zeros", dtype=cfg.dtype),
+                         init="zeros", dtype=cfg.dtype,
+                         spec=P("data", None, None)),
         "state": ParamDef((batch, nh, hp, ns), init="zeros",
-                          dtype=torch.float32),
+                          dtype=torch.float32,
+                          spec=P("data", None, None, None)),
     }
 
 
@@ -534,17 +871,20 @@ def ssd_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
 _LRU_C = 8.0
 
 
-def rglru_defs(cfg: ModelConfig) -> dict:
+def rglru_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
     d, w = cfg.d_model, cfg.lru_width
+    sw = _shard_if(w, model_ax)
     return {
-        "in_x": ParamDef((d, w), scale=fan_in_scale(d)),
-        "in_gate": ParamDef((d, w), scale=fan_in_scale(d)),
+        "in_x": ParamDef((d, w), scale=fan_in_scale(d), spec=P("data", sw)),
+        "in_gate": ParamDef((d, w), scale=fan_in_scale(d),
+                            spec=P("data", sw)),
         "conv_w": ParamDef((cfg.conv_width, w),
-                           scale=fan_in_scale(cfg.conv_width)),
-        "w_r": ParamDef((w, w), scale=fan_in_scale(w)),
-        "w_i": ParamDef((w, w), scale=fan_in_scale(w)),
-        "lam": ParamDef((w,), init="ones", dtype=torch.float32),
-        "out": ParamDef((w, d), scale=fan_in_scale(w)),
+                           scale=fan_in_scale(cfg.conv_width),
+                           spec=P(None, sw)),
+        "w_r": ParamDef((w, w), scale=fan_in_scale(w), spec=P("data", sw)),
+        "w_i": ParamDef((w, w), scale=fan_in_scale(w), spec=P("data", sw)),
+        "lam": ParamDef((w,), init="ones", dtype=torch.float32, spec=P(sw)),
+        "out": ParamDef((w, d), scale=fan_in_scale(w), spec=P(sw, "data")),
     }
 
 
@@ -588,12 +928,15 @@ def rglru_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return out, {"conv": _conv_tail(cfg, xr_raw), "h": h[:, -1, :]}
 
 
-def rglru_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+def rglru_cache_defs(cfg: ModelConfig, batch: int,
+                     model_ax: int = 1) -> dict:
     w = cfg.lru_width
+    sw = _shard_if(w, model_ax)
     return {
         "conv": ParamDef((batch, cfg.conv_width - 1, w), init="zeros",
-                         dtype=cfg.dtype),
-        "h": ParamDef((batch, w), init="zeros", dtype=torch.float32),
+                         dtype=cfg.dtype, spec=P("data", None, sw)),
+        "h": ParamDef((batch, w), init="zeros", dtype=torch.float32,
+                      spec=P("data", sw)),
     }
 
 

@@ -52,8 +52,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.base import ParamDef, build, fan_in_scale, retype_defs
+from repro_torch.models import sharding, spmd
+from repro_torch.models.base import (ParamDef, build, fan_in_scale,
+                                     retype_defs, shape_tree, spec_tree)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import P
 from repro_torch.util import resolve_device
 
 ATTENTION = ("global", "local")
@@ -61,51 +64,58 @@ ATTENTION = ("global", "local")
 # ------------------------------ block defs ---------------------------------
 
 
-def _mixer_defs(cfg: ModelConfig, mixer: str) -> dict:
+def _mixer_defs(cfg: ModelConfig, mixer: str, model_ax: int) -> dict:
     if mixer in ATTENTION:
-        return L.attention_defs(cfg)
+        return L.attention_defs(cfg, model_ax)
     if mixer == "recurrent":
-        return L.rglru_defs(cfg)
+        return L.rglru_defs(cfg, model_ax)
     if mixer == "ssd":
-        return L.ssd_defs(cfg)
+        return L.ssd_defs(cfg, model_ax)
     raise ValueError(mixer)
 
 
-def _ffn_defs(cfg: ModelConfig) -> dict | None:
+def _ffn_defs(cfg: ModelConfig, model_ax: int) -> dict | None:
     if cfg.n_experts:
-        return L.moe_defs(cfg)
+        return L.moe_defs(cfg, model_ax)
     if cfg.d_ff:
-        return L.mlp_defs(cfg)
+        return L.mlp_defs(cfg, model_ax)
     return None  # the pure-SSM stack has no separate FFN
 
 
-def block_defs(cfg: ModelConfig, mixer: str, cross: bool = False) -> dict:
+def block_defs(cfg: ModelConfig, mixer: str, cross: bool = False,
+               model_ax: int = 1) -> dict:
     d = {"norm1": L.rmsnorm_defs(cfg.d_model),
-         "mixer": _mixer_defs(cfg, mixer)}
-    ffn = _ffn_defs(cfg)
+         "mixer": _mixer_defs(cfg, mixer, model_ax)}
+    ffn = _ffn_defs(cfg, model_ax)
     if ffn is not None:
         d["norm2"] = L.rmsnorm_defs(cfg.d_model)
         d["ffn"] = ffn
     if cross:
         d["norm_x"] = L.rmsnorm_defs(cfg.d_model)
-        d["cross"] = L.attention_defs(cfg)
+        d["cross"] = L.attention_defs(cfg, model_ax)
     return d
 
 
-def model_defs(cfg: ModelConfig) -> dict:
+def model_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
+    """The parameter tree's declaration at ``model_ax`` (the model axis's
+    size): JAX's shapes (the vocab padded to ``16 * model_ax``) and
+    partition specs, one entry per layer (JAX stacks each pattern
+    entry's layers under a leading unsharded axis)."""
+    v = L.padded_vocab(cfg, model_ax)
     defs: dict[str, Any] = {
-        "embed": L.embedding_defs(cfg),
+        "embed": L.embedding_defs(cfg, model_ax),
         "final_norm": L.rmsnorm_defs(cfg.d_model),
         "layers": [block_defs(cfg, cfg.mixer_for_layer(i),
-                              cross=cfg.is_encdec)
+                              cross=cfg.is_encdec, model_ax=model_ax)
                    for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((cfg.d_model, L.padded_vocab(cfg)),
-                                   scale=fan_in_scale(cfg.d_model))
+        defs["lm_head"] = ParamDef(
+            (cfg.d_model, v), scale=fan_in_scale(cfg.d_model),
+            spec=P("data", L._shard_if(v, model_ax)))
     if cfg.is_encdec:
         defs["encoder"] = {
-            "layers": [block_defs(cfg, "global")
+            "layers": [block_defs(cfg, "global", model_ax=model_ax)
                        for _ in range(cfg.encoder_layers)],
             "final_norm": L.rmsnorm_defs(cfg.d_model),
         }
@@ -113,13 +123,56 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: str | torch.device = "cuda") -> dict:
-    """Random parameters drawn from an explicit generator seeded with
-    ``seed`` on ``device`` (default ``"cuda"``; raises without a GPU
-    unless ``device="cpu"``)."""
+                device: str | torch.device = "cuda",
+                model_ax: int = 1) -> dict:
+    """Random parameters (the full tree at ``model_ax``) drawn from an
+    explicit generator seeded with ``seed`` on ``device`` (default
+    ``"cuda"``; raises without a GPU unless ``device="cpu"``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return build(model_defs(cfg), dev, gen)
+    return build(model_defs(cfg, model_ax), dev, gen)
+
+
+def jax_stacking(cfg: ModelConfig) -> list[int]:
+    """For every parameter leaf (``optim.adamw.leaves`` order), the id of
+    the JAX tensor that holds it: JAX stacks pattern entry j's layers of
+    the whole cycles into one tensor a leaf (the remainder layers and
+    the rest are tensors of their own), and the encoder's layers into
+    one.  Where JAX computes one number per tensor (the gradient
+    compression's scale), the port computes it over the leaves of an
+    id."""
+    period = len(cfg.layer_pattern)
+    stacked = cfg.n_layers // period * period
+    keys: dict = {}
+    ids: list[int] = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, path + (i,))
+        else:
+            if path[0] == "layers" and path[1] < stacked:
+                path = ("layers", path[1] % period) + path[2:]
+            elif path[:2] == ("encoder", "layers"):
+                path = path[:2] + path[3:]
+            ids.append(keys.setdefault(path, len(keys)))
+    walk(model_defs(cfg), ())
+    return ids
+
+
+def param_shapes(cfg: ModelConfig, model_ax: int = 1) -> dict:
+    """The parameter tree at ``model_ax`` as meta tensors (global
+    shapes, no allocation)."""
+    return shape_tree(model_defs(cfg, model_ax))
+
+
+def param_specs(cfg: ModelConfig, model_ax: int = 1) -> dict:
+    """The parameter tree's partition specs at ``model_ax`` (canonical
+    axis names; ``sharding.translate_tree`` maps them onto a mesh)."""
+    return spec_tree(model_defs(cfg, model_ax))
 
 
 def _window(cfg: ModelConfig, i: int) -> int | None:
@@ -160,14 +213,86 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor,
          use_kernel: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The block's FFN half (h + FFN(norm2(h))) and the MoE aux loss
-    (None for the dense MLP)."""
+    (None for the dense MLP).  On a mesh the MLP is column- then
+    row-parallel where the model axis divides d_ff."""
     if "ffn" not in p:
         return h, None
     hf = L.rmsnorm(p["norm2"], h)
     if cfg.n_experts:
         out, aux = L.moe_apply(cfg, p["ffn"], hf)
         return h + out, aux
-    return L.mlp_apply(p["ffn"], hf, residual=h, use_kernel=use_kernel), None
+    ctx = sharding.active()
+    if ctx is None:
+        return L.mlp_apply(p["ffn"], hf, residual=h,
+                           use_kernel=use_kernel), None
+    group = ctx.model_group if L._shard_if(cfg.d_ff, ctx.model_ax) else None
+    out = L.mlp_apply(p["ffn"], spmd.copy_to(hf, group),
+                      use_kernel=use_kernel)
+    return h + spmd.reduce_from(out, group), None
+
+
+# ------------------------------ on a mesh ----------------------------------
+#
+# Under ``sharding.use_mesh`` the functions below take the rank's local
+# shards of JAX's specs (``param_specs(cfg, ctx.model_ax)``,
+# ``models.spmd.shard_params``) and its batch rows; ``models/spmd.py``
+# says how the collectives stand in for XLA's partitioner.
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """The sharded forward covers the attention decoders (dense MLP or
+    MoE); the other families raise."""
+    if cfg.is_encdec or cfg.prefix_tokens or not attention_only(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded forward of the SSD, RG-LRU, "
+            "encoder-decoder and vision-prefix families is not ported yet; "
+            "see ROADMAP.md, queue 1, item 19")
+
+
+def _layer_specs(cfg: ModelConfig, i: int, model_ax: int) -> dict:
+    return spec_tree(block_defs(cfg, cfg.mixer_for_layer(i),
+                                cross=cfg.is_encdec, model_ax=model_ax))
+
+
+def _gathered(params: dict, name: str, specs: dict, ctx) -> torch.Tensor:
+    return spmd.gather_tree({name: params[name]}, {name: specs[name]},
+                            ctx)[name]
+
+
+def _embed_mesh(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                ctx) -> torch.Tensor:
+    """The vocab-parallel embedding of the rank's token rows."""
+    specs = L.embedding_defs(cfg, ctx.model_ax)
+    emb = _gathered(params["embed"], "embedding", spec_tree(specs), ctx)
+    h = spmd.vocab_embed(emb, tokens, ctx, ctx.model_ax > 1)
+    return h * (cfg.d_model ** 0.5)
+
+
+def _logits_mesh(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                 ctx) -> torch.Tensor:
+    """The rank's vocabulary shard of the logits (column-parallel over
+    the model axis), capped as :func:`logits_fn` caps them."""
+    group = ctx.model_group if ctx.model_ax > 1 else None
+    ht = spmd.copy_to(h, group)
+    v = L.padded_vocab(cfg, ctx.model_ax)
+    if cfg.tie_embeddings:
+        specs = spec_tree(L.embedding_defs(cfg, ctx.model_ax))
+        logits = ht @ _gathered(params["embed"], "embedding", specs, ctx).T
+    else:
+        spec = P("data", L._shard_if(v, ctx.model_ax))
+        logits = ht @ _gathered(params, "lm_head", {"lm_head": spec}, ctx)
+    if cfg.final_logit_cap is not None:
+        logits = cfg.final_logit_cap * torch.tanh(
+            logits.float() / cfg.final_logit_cap)
+    return logits
+
+
+def _full_vocab(logits: torch.Tensor, ctx) -> torch.Tensor:
+    """Logits with every vocabulary shard (gathered over the model
+    axis)."""
+    if ctx.model_ax > 1:
+        return spmd.all_gather(logits, logits.dim() - 1, ctx.model_group)
+    return logits
 
 
 def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -218,13 +343,18 @@ def _encoder_apply(cfg: ModelConfig, params: dict, embeds: torch.Tensor,
 def _block_apply(cfg: ModelConfig, p: dict, h: torch.Tensor, i: int,
                  positions: torch.Tensor, enc_out: torch.Tensor | None,
                  use_kernel: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """One block: (h, its MoE aux loss, 0 for the other FFNs)."""
+    """One block: (h, its MoE aux loss, 0 for the other FFNs).  On a
+    mesh the layer's weights are all-gathered over the batch axes first
+    (FSDP; under remat the backward gathers them again)."""
     mixer = cfg.mixer_for_layer(i)
+    ctx = sharding.active()
+    if ctx is not None:
+        p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
     hn = L.rmsnorm(p["norm1"], h)
     if mixer in ATTENTION:
-        h = h + L.attention_apply(cfg, p["mixer"], hn, positions,
-                                  causal=True, window=_window(cfg, i),
-                                  use_kernel=use_kernel)
+        attn = L.attention_apply if ctx is None else L.attention_apply_mesh
+        h = h + attn(cfg, p["mixer"], hn, positions, causal=True,
+                     window=_window(cfg, i), use_kernel=use_kernel)
     elif mixer == "recurrent":
         h = h + L.rglru_apply(cfg, p["mixer"], hn)
     else:
@@ -273,8 +403,17 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     encoder-decoder's input, required for that family.  Under grad,
     ``cfg.remat`` decides which blocks are checkpointed (module
     docstring); ``use_kernel=False`` takes every kernel's plain
-    version."""
-    h = _embed(cfg, params, tokens, prefix_embeds)
+    version.
+
+    Under ``sharding.use_mesh`` (the attention decoders only) ``params``
+    are the rank's shards and ``tokens`` its batch rows; the hidden
+    state returned is its rows', replicated over the model axis."""
+    ctx = sharding.active()
+    if ctx is not None:
+        check_mesh_family(cfg)
+        h = _embed_mesh(cfg, params, tokens, ctx)
+    else:
+        h = _embed(cfg, params, tokens, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     enc_out = None
@@ -308,7 +447,16 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     positions only (a ``prefix_embeds`` prefix is dropped), plus ``0.01
     * aux``.  ``batch`` carries the modality extras ``prefix_embeds`` and
     ``enc_embeds`` where the family has them.  Returns ``(total,
-    {"loss", "aux", "tokens"})`` as JAX's ``loss_fn``."""
+    {"loss", "aux", "tokens"})`` as JAX's ``loss_fn``.
+
+    On a mesh the batch is the rank's rows: the logits stay split over
+    the vocabulary (``spmd.vocab_cross_entropy``), the token count is
+    the global one, and ``total`` is the rank's rows' share of the
+    global mean (plus ``0.01 * aux``), whose gradients summed over the
+    batch axes are the global ones; the metrics are global."""
+    ctx = sharding.active()
+    if ctx is not None:
+        return _loss_mesh(cfg, params, batch, use_kernel, ctx)
     prefix = batch.get("prefix_embeds")
     h, aux = forward(cfg, params, batch["tokens"], prefix_embeds=prefix,
                      enc_embeds=batch.get("enc_embeds"),
@@ -327,6 +475,24 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 
+def _loss_mesh(cfg: ModelConfig, params: dict, batch: dict,
+               use_kernel: bool, ctx) -> tuple[torch.Tensor, dict]:
+    h, aux = forward(cfg, params, batch["tokens"], use_kernel=use_kernel)
+    logits = _logits_mesh(cfg, params, h, ctx).float()
+    nll, mask = spmd.vocab_cross_entropy(logits, batch["labels"], ctx,
+                                         ctx.model_ax > 1)
+    mask = mask.float()
+    count = mask.sum()
+    if ctx.batch_group is not None:
+        count = spmd.all_reduce(count, ctx.batch_group)
+    loss = (nll * mask).sum() / count.clamp_min(1.0)
+    total = loss + 0.01 * aux
+    glob = loss.detach()
+    if ctx.batch_group is not None:
+        glob = spmd.all_reduce(glob, ctx.batch_group)
+    return total, {"loss": glob, "aux": aux.detach(), "tokens": count}
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             max_seq: int, prefix_embeds: torch.Tensor | None = None,
             enc_embeds: torch.Tensor | None = None, full_kv: bool = False,
@@ -343,7 +509,16 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     windowed layers position-indexed (the paged cache masks the window
     at decode time); ``logits_at`` returns that position's logits
     instead of the last one's (a bucketed prompt is right-padded).
+
+    Under ``sharding.use_mesh`` (the attention decoders) ``params`` are
+    the rank's shards and ``tokens`` its batch rows; the caches come
+    back as the rank's shards of :func:`cache_specs` and the logits are
+    its rows' over the whole vocabulary.
     """
+    ctx = sharding.active()
+    if ctx is not None:
+        return _prefill_mesh(cfg, params, tokens, max_seq, full_kv,
+                             logits_at, use_kernel, ctx)
     h = _embed(cfg, params, tokens, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
@@ -381,33 +556,92 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return logits, {"layers": caches}
 
 
+def _prefill_mesh(cfg, params, tokens, max_seq, full_kv, logits_at,
+                  use_kernel, ctx):
+    check_mesh_family(cfg)
+    h = _embed_mesh(cfg, params, tokens, ctx)
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    caches = []
+    for i, p in enumerate(params["layers"]):
+        p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
+        out, cache = L.attention_apply_mesh(
+            cfg, p["mixer"], L.rmsnorm(p["norm1"], h), positions,
+            causal=True, window=_window(cfg, i), return_cache=max_seq,
+            full_cache=full_kv, use_kernel=use_kernel)
+        h, _ = _ffn(cfg, p, h + out, use_kernel)
+        defs = L.attention_cache_defs(
+            cfg, b * ctx.batch_size, max_seq,
+            None if full_kv else _window(cfg, i), ctx.model_ax)
+        caches.append({k: sharding.maybe_shard(c, defs[k].spec,
+                                               defs[k].shape)
+                       for k, c in cache.items()})
+    h = L.rmsnorm(params["final_norm"], h)
+    at = s - 1 if logits_at is None else logits_at
+    logits = _logits_mesh(cfg, params, h[:, at:at + 1, :], ctx)[:, 0, :]
+    return _full_vocab(logits, ctx), {"layers": caches}
+
+
+def _decode_mesh(cfg, params, token, cache, pos, max_seq, use_kernel, ctx):
+    check_mesh_family(cfg)
+    if token.dim() != 1:
+        raise ValueError("on a mesh decode_step takes one token a row")
+    if max_seq is None:
+        raise ValueError("on a mesh decode_step needs max_seq, the dense "
+                         "cache's global length")
+    h = _embed_mesh(cfg, params, token[:, None], ctx)
+    for i, p in enumerate(params["layers"]):
+        p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
+        out, _ = L.attention_decode_mesh(
+            cfg, p["mixer"], L.rmsnorm(p["norm1"], h), cache["layers"][i],
+            pos, max_seq=max_seq, window=_window(cfg, i),
+            use_kernel=use_kernel)
+        h, _ = _ffn(cfg, p, h + out, use_kernel)
+    h = L.rmsnorm(params["final_norm"], h)
+    return _full_vocab(_logits_mesh(cfg, params, h, ctx), ctx)[:, 0], cache
+
+
 def layer_cache_defs(cfg: ModelConfig, i: int, batch: int,
-                     max_seq: int) -> dict:
+                     max_seq: int, model_ax: int = 1) -> dict:
     """Layer i's dense decode cache: the attention K/V
     (``layers.attention_cache_defs``: a ring buffer of ``window`` slots
     for a local layer), or the O(1) RG-LRU or SSD state."""
     mixer = cfg.mixer_for_layer(i)
     if mixer in ATTENTION:
-        return L.attention_cache_defs(cfg, batch, max_seq, _window(cfg, i))
+        return L.attention_cache_defs(cfg, batch, max_seq, _window(cfg, i),
+                                      model_ax)
     if mixer == "recurrent":
-        return L.rglru_cache_defs(cfg, batch)
-    return L.ssd_cache_defs(cfg, batch)
+        return L.rglru_cache_defs(cfg, batch, model_ax)
+    return L.ssd_cache_defs(cfg, batch, model_ax)
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
-               enc_seq: int = 0) -> dict:
+               enc_seq: int = 0, model_ax: int = 1) -> dict:
     """The dense decode cache's tree: ``{"layers": [layer cache, ...]}``,
     one entry per layer in execution order, like the parameters
     (:func:`layer_cache_defs`); an encoder-decoder's entries add the
-    (B, enc_seq, Hkv, D) cross K/V."""
+    (B, enc_seq, Hkv, D) cross K/V.  Specs at ``model_ax``, JAX's."""
     def one(i: int) -> dict:
-        d = layer_cache_defs(cfg, i, batch, max_seq)
+        d = layer_cache_defs(cfg, i, batch, max_seq, model_ax)
         if cfg.is_encdec:
             kv = ParamDef((batch, enc_seq, cfg.n_kv_heads, cfg.head_dim),
-                          init="zeros", dtype=cfg.dtype)
+                          init="zeros", dtype=cfg.dtype,
+                          spec=P("data", None, None, None))
             d = {**d, "cross_k": kv, "cross_v": kv}
         return d
     return {"layers": [one(i) for i in range(cfg.n_layers)]}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
+                model_ax: int = 1, enc_seq: int = 0) -> dict:
+    """The dense cache's partition specs (JAX's argument order)."""
+    return spec_tree(cache_defs(cfg, batch, max_seq, enc_seq, model_ax))
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                 model_ax: int = 1, enc_seq: int = 0) -> dict:
+    """The dense cache as meta tensors (global shapes)."""
+    return shape_tree(cache_defs(cfg, batch, max_seq, enc_seq, model_ax))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -455,7 +689,8 @@ def _set_state(cache: dict, new: dict) -> None:
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict, pos, attn_step: AttnStep | None = None,
-                use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+                use_kernel: bool = True,
+                max_seq: int | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step.
 
     token: (B,) int -> logits (B, V); or (B, S), the span form (chunked
@@ -479,7 +714,19 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     cross K/V.  ``use_kernel=False`` gives every GEMM its plain version
     (a paged step carries its own choice).  Returns (logits, cache) with
     ``cache`` the same, updated object.
+
+    Under ``sharding.use_mesh`` (the attention decoders, the dense
+    cache, one token a row) ``params`` and ``cache`` are the rank's
+    shards, ``token`` its rows, and ``max_seq`` the cache's global
+    length (which says how it splits: ``layers.attention_cache_defs``);
+    the logits are its rows' over the whole vocabulary.
     """
+    ctx = sharding.active()
+    if ctx is not None:
+        if attn_step is not None:
+            raise ValueError("on a mesh decode_step steps the dense cache")
+        return _decode_mesh(cfg, params, token, cache, pos, max_seq,
+                            use_kernel, ctx)
     single = token.dim() == 1
     if not single:
         if attn_step is None:

@@ -82,11 +82,17 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def apply_updates(c: AdamWConfig, params: Any, grads: Any,
-                  state: dict) -> tuple[Any, dict, dict]:
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+def apply_updates(c: AdamWConfig, params: Any, grads: Any, state: dict,
+                  gnorm: torch.Tensor | None = None
+                  ) -> tuple[Any, dict, dict]:
+    """One AdamW step.  Returns (new_params, new_state, metrics).
+    ``gnorm`` is the clip's global norm where the caller has it (on a
+    mesh, ``models.spmd.global_norm`` of the sharded tree); by default
+    :func:`global_norm` of ``grads``.  Everything else is elementwise, so
+    the same step updates local shards."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(c.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(c, step)
     b1c = 1 - torch.pow(torch.tensor(c.b1, dtype=torch.float32,

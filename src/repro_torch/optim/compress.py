@@ -3,10 +3,13 @@
 
 Each tensor is quantized to int8 with a per-tensor scale; the error
 (what the int8 values could not carry) is the residual the caller may
-add to the next step's gradients.  Across a mesh the compressed values
-would be what the gradient all-reduce carries; distribution is not
-ported yet (``ROADMAP.md``, queue 1, item 16), so here, as off-mesh in
-JAX, it is a pure (de)quantization round trip.
+add to the next step's gradients.  It is a pure (de)quantization round
+trip.  On a mesh the train step does what JAX's does: it compresses the
+already-reduced gradients (``models.spmd.compress_tree``: each tensor's
+scale is its global max, so every shard is quantized as the unsharded
+tensor would be).  Compressing before the reduction, so that the int8
+values are what the all-reduce carries, is what JAX's docstring hopes
+for and its code does not do; the port does not do it either.
 """
 
 from __future__ import annotations
@@ -31,17 +34,35 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_tree(grads: Any, residual: Any | None = None
+def compress_tree(grads: Any, residual: Any | None = None,
+                  groups: list | None = None, reduce_max=None
                   ) -> tuple[Any, Any]:
     """Quantize a gradient tree with error feedback.  Returns
-    (quantized grads as fp32, new residual)."""
+    (quantized grads as fp32, new residual).
+
+    Each tensor has its own scale, as in JAX, where a tensor may hold
+    several of the port's leaves: ``groups`` (one id per leaf, in
+    ``leaves`` order; ``transformer.jax_stacking`` gives JAX's stacked
+    layers) makes the leaves of one id share one scale, from the max
+    over all of them.  ``reduce_max(i, amax)`` returns leaf i's max over
+    every rank that holds a shard of it (on a mesh,
+    ``models.spmd.compress_tree``)."""
     gl = leaves(grads)
     rl = ([torch.zeros(g.shape, dtype=torch.float32, device=g.device)
            for g in gl] if residual is None else leaves(residual))
+    totals = [g.float() + r for g, r in zip(gl, rl)]
+    amax = [torch.max(torch.abs(t)) for t in totals]
+    if reduce_max is not None:
+        amax = [reduce_max(i, a) for i, a in enumerate(amax)]
+    ids = groups if groups is not None else list(range(len(gl)))
+    top: dict = {}
+    for i, a in zip(ids, amax):
+        top[i] = a if i not in top else torch.maximum(top[i], a)
     deq, res = [], []
-    for g, r in zip(gl, rl):
-        total = g.float() + r
-        d = decompress(*compress(total))
+    for i, total in zip(ids, totals):
+        scale = top[i] / 127.0 + 1e-12
+        d = decompress(torch.clamp(torch.round(total / scale), -127,
+                                   127).to(torch.int8), scale)
         deq.append(d)
         res.append(total - d)
     return unflatten(grads, deq), unflatten(grads, res)

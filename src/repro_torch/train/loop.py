@@ -11,6 +11,17 @@ blocked GEMM forward and its dgrad kernels backward, and attention runs
 the flash forward and backward kernels on the card in every case; with
 ``use_kernel=False`` (the yardstick a kernel path is held against) every
 op takes its plain version and nothing launches.
+
+On a mesh (``make_train_step(..., mesh=, mapping=)``, ``train(...,
+mesh=)``) the step takes the rank's shards of the parameters and the
+optimizer state (``models.spmd.shard_params`` under JAX's specs) and its
+rows of the batch, and runs the model's sharded route
+(``models/spmd.py``), even on a mesh of one rank.  The loss is the
+masked mean over the global batch; the gradients are reduced over the
+batch axes; the clip's global norm counts every distinct shard once; a
+micro-batch of the accumulation is the i-th slice of every rank's rows
+(JAX slices the global batch, so with a different token count per
+micro-batch the two normalise differently).
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import sharding, spmd
 from repro_torch.models import transformer as T
 from repro_torch.models.base import map_tree
 from repro_torch.models.config import ModelConfig
@@ -71,40 +83,101 @@ def _value_and_grad(loss: Callable, params: Any, batch: dict):
     return (total.detach(), metrics), adamw.unflatten(params, list(grads))
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
-    """(params, opt_state, batch) -> (params, opt_state, metrics)."""
+def default_mapping(mesh) -> dict:
+    """JAX's launcher mapping: the batch over the pod and data axes, the
+    model axis (where the mesh has one) for tensor parallelism."""
+    from repro_torch.launch.mesh import data_axes
+    return {"data": data_axes(mesh),
+            "model": "model" if "model" in mesh.mesh_dim_names else None}
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None,
+                    mapping: dict | None = None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    With ``mesh`` (a DeviceMesh; ``mapping`` defaults to
+    :func:`default_mapping`) the step runs the sharded route over local
+    shards (module docstring)."""
     loss = make_loss(cfg, tc)
+    if mesh is not None:
+        mapping = mapping or default_mapping(mesh)
+    # one scale per JAX tensor: JAX stacks each pattern entry's layers
+    groups = T.jax_stacking(cfg) if tc.compress_grads else None
 
     def train_step(params, opt_state, batch):
-        if tc.grad_accum > 1:
+        with (sharding.use_mesh(mesh, mapping) if mesh is not None
+              else contextlib.nullcontext()) as ctx:
             n = tc.grad_accum
             gsum, ltot, atot = None, 0.0, 0.0
             for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                (l, m), g = _value_and_grad(loss, params, mb)
-                g32 = map_tree(lambda x: x.float(), g)
-                gsum = g32 if gsum is None else adamw.unflatten(
+                mb = batch if n == 1 else {
+                    k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                    for k, v in batch.items()}
+                (_, m), g = _value_and_grad(loss, params, mb)
+                if n > 1:
+                    g = map_tree(lambda x: x.float(), g)
+                gsum = g if gsum is None else adamw.unflatten(
                     gsum, [a + b for a, b in zip(adamw.leaves(gsum),
-                                                 adamw.leaves(g32))])
-                ltot, atot = ltot + l, atot + m["aux"]
-            grads = map_tree(lambda x: x / n, gsum)
-            # JAX reports the micro-batches' mean total as "loss"; the
-            # mean aux rides beside it for the log
-            metrics = {"loss": ltot / n, "aux": atot / n}
-        else:
-            (_, metrics), grads = _value_and_grad(loss, params, batch)
-
-        if tc.compress_grads:
-            grads, _ = compress_tree(grads)
-
-        params, opt_state, opt_m = adamw.apply_updates(
-            tc.opt, params, grads, opt_state)
+                                                 adamw.leaves(g))])
+                # JAX reports the micro-batches' mean total as "loss"; the
+                # mean aux rides beside it for the log
+                ltot = ltot + m["loss"] + 0.01 * m["aux"]
+                atot = atot + m["aux"]
+            grads = gsum
+            if ctx is not None:
+                specs = T.param_specs(cfg, ctx.model_ax)
+                grads = spmd.reduce_grads(grads, specs, ctx)
+            if n > 1:
+                grads = map_tree(lambda x: x / n, grads)
+                metrics = {"loss": ltot / n, "aux": atot / n}
+            else:
+                metrics = m
+            gnorm = None
+            if ctx is None:
+                if tc.compress_grads:
+                    grads, _ = compress_tree(grads, groups=groups)
+            else:
+                if tc.compress_grads:
+                    grads = spmd.compress_tree(grads, specs, ctx, groups)
+                gnorm = spmd.global_norm(grads, specs, ctx)
+            params, opt_state, opt_m = adamw.apply_updates(
+                tc.opt, params, grads, opt_state, gnorm=gnorm)
         metrics = dict(metrics)
         metrics.update(opt_m)
         return params, opt_state, metrics
 
     return train_step
+
+
+def shard_state(cfg: ModelConfig, params: Any, opt_state: dict, mesh,
+                mapping: dict) -> tuple[Any, dict]:
+    """The rank's shards of full parameters and AdamW state under JAX's
+    specs at the mapping's model axis."""
+    ctx = sharding.MeshContext(mesh, mapping)
+    specs = T.param_specs(cfg, ctx.model_ax)
+    cut = lambda t: spmd.shard_params(t, specs, mesh, mapping)  # noqa
+    return cut(params), {"mu": cut(opt_state["mu"]),
+                         "nu": cut(opt_state["nu"]),
+                         "step": opt_state["step"]}
+
+
+def unshard_state(cfg: ModelConfig, state: dict, mesh, mapping: dict) -> dict:
+    """The full ``{"params", "opt"}`` tree from every rank's shards (an
+    all-gather along every sharded dimension; every rank gets it)."""
+    ctx = sharding.MeshContext(mesh, mapping)
+    specs = T.param_specs(cfg, ctx.model_ax)
+    full = lambda t: spmd.unshard(t, specs, ctx)  # noqa
+    return {"params": full(state["params"]),
+            "opt": {"mu": full(state["opt"]["mu"]),
+                    "nu": full(state["opt"]["nu"]),
+                    "step": state["opt"]["step"]}}
+
+
+def _model_ax(mesh, mapping: dict | None) -> int:
+    if mesh is None:
+        return 1
+    return sharding.MeshContext(mesh, mapping or default_mapping(mesh)
+                                ).model_ax
 
 
 class StepWatchdog:
@@ -130,7 +203,8 @@ class StepWatchdog:
 
 def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
           params=None, seed: int = 0, device: str | torch.device = "cuda",
-          restore: bool = False, log=print, obs=None) -> dict:
+          restore: bool = False, log=print, obs=None, mesh=None,
+          mapping: dict | None = None) -> dict:
     """Single-host training loop over ``batches`` (an iterable of
     ``{"tokens", "labels"}`` tensor dicts, with the family's
     ``enc_embeds`` or ``prefix_embeds`` where it has them: every key is
@@ -148,9 +222,17 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
     step ends by reading the loss on the host, which waits for the
     device, as JAX blocks on it: step times and spans are device times
     with or without a tracer.
+
+    With ``mesh`` the loop runs :func:`make_train_step`'s sharded route:
+    ``params`` (full; by default drawn as above, the same on every rank)
+    are cut into the rank's shards, ``batches`` yield the rank's rows,
+    and a checkpoint holds the full tree (gathered; rank 0 writes it),
+    restored by every rank and cut again, so a restart may change the
+    mesh.
     """
     if params is None:
-        params = T.init_params(cfg, seed=seed, device=device)
+        params = T.init_params(cfg, seed=seed, device=device,
+                               model_ax=_model_ax(mesh, mapping))
     opt_state = adamw.init_state(params)
     start_step = 0
     if restore and tc.ckpt_dir:
@@ -159,6 +241,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
                 tc.ckpt_dir, {"params": params, "opt": opt_state})
             params, opt_state = state["params"], state["opt"]
             log(f"restored checkpoint at step {start_step}")
+    if mesh is not None:
+        mapping = mapping or default_mapping(mesh)
+        params, opt_state = shard_state(cfg, params, opt_state, mesh,
+                                        mapping)
 
     if obs is not None:
         from repro_torch.obs import null_span
@@ -168,7 +254,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
         h_step = obs.registry.histogram("train.step_us")
         c_steps = obs.registry.counter("train.steps")
 
-    step_fn = make_train_step(cfg, tc)
+    step_fn = make_train_step(cfg, tc, mesh, mapping)
     watchdog = StepWatchdog(tc.straggler_factor)
     history = []
     for step, batch in enumerate(batches, start=start_step):
@@ -204,8 +290,11 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
         if tc.ckpt_dir and (step + 1) % tc.ckpt_every == 0:
             with (span("checkpoint", cat="train", args={"step": step + 1})
                   if obs is not None else contextlib.nullcontext()):
-                ckpt.save_async(tc.ckpt_dir, step + 1,
-                                {"params": params, "opt": opt_state})
+                state = {"params": params, "opt": opt_state}
+                if mesh is not None:
+                    state = unshard_state(cfg, state, mesh, mapping)
+                if mesh is None or torch.distributed.get_rank() == 0:
+                    ckpt.save_async(tc.ckpt_dir, step + 1, state)
     ckpt.wait_async()
     return {"params": params, "opt": opt_state, "history": history,
             "straggler_flags": watchdog.flags}
