@@ -4041,8 +4041,13 @@ def phase11_train(seed: int, kernels: dict) -> dict:
 
 # the production mesh's local attention heads (M = 16): (query heads,
 # kv heads, head_dim) of one rank, where several ranks share a kv head
+# (and the families' local heads: recurrentgemma-9b's one kv head, the
+# 16 and 32 kv heads of seamless-m4t-medium and phi-3-vision split)
 TP_HEADS = {"granite-3-8b": (2, 1, 128), "glm4-9b": (2, 1, 128),
-            "granite-34b": (3, 1, 128), "gemma2-9b": (1, 1, 256)}
+            "granite-34b": (3, 1, 128), "gemma2-9b": (1, 1, 256),
+            "recurrentgemma-9b": (1, 1, 256),
+            "seamless-m4t-medium": (1, 1, 64),
+            "phi-3-vision-4.2b": (2, 2, 96)}
 
 
 def free_port() -> int:
@@ -4062,7 +4067,10 @@ def phase19_sharded(seed: int, kernels: dict) -> dict:
     0.5% of it, the largest parameter difference after step 3 printed.
     The launch counts are 0 just before the sharded steps: rows 4 and 5
     must launch, rows 6-8 under blocked, nothing else.  Before that, rows
-    4 and 5 at the production mesh's local head shapes (TP_HEADS)."""
+    4 and 5 at the production mesh's local head shapes (TP_HEADS) and
+    seamless-m4t-medium's cross-attention at its local heads (Sq 512
+    over Skv 1,024 frames, non-causal).  The one-rank NCCL group stays
+    up for (d), :func:`phase19_families`."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4075,6 +4083,8 @@ def phase19_sharded(seed: int, kernels: dict) -> dict:
     for arch, (hq, hkv, d) in TP_HEADS.items():
         check_attention_edge(dev, torch.bfloat16, 4, 512, 512, hq, hkv, d,
                              True, None, None, with_bwd=True)
+    check_attention_edge(dev, torch.bfloat16, 4, 512, 1024, 1, 1, 64, False,
+                         None, None, with_bwd=True)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", rank=0, world_size=1)
     mesh = make_mesh((1, 1), ("data", "model"), "cuda")
@@ -4143,7 +4153,121 @@ def phase19_sharded(seed: int, kernels: dict) -> dict:
                      "max_param_diff": diff}
         del params, state, full, ref_p
         torch.cuda.empty_cache()
-    dist.destroy_process_group()
+    return out
+
+
+# phase 19d: each family at full width, its depth cut (the encoder's to
+# 2 layers at its 1,024 frames, phi-3-vision's 576 prefix rows kept)
+MESH_FAMILIES = {"recurrentgemma-9b": 3, "mamba2-780m": 2,
+                 "seamless-m4t-medium": 2, "phi-3-vision-4.2b": 2}
+
+
+def phase19_families(seed: int, kernels: dict) -> dict:
+    """(d) The SSD, RG-LRU, encoder-decoder and vision-prefix families on
+    19a's one-rank NCCL mesh, bf16, ``tp_fsdp``, with the stub inputs:
+    a mesh ``prefill`` of 2 x 256 tokens and 8 ``decode_step`` s held to
+    the unsharded ones (5% of max |logit|, argmax equal), then 2 sharded
+    train steps on 4 x 512 tokens, each held within 0.5% of the
+    unsharded step's loss from the same params.  The launch counts are 0
+    just before the sharded steps: rows 4 and 5 must launch for the
+    attention families and nothing else; mamba2 launches nothing."""
+    import contextlib
+
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import spmd
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    tp = {"data": ("data",), "model": "model"}
+    steps, seq, bsz = 2, 512, 4
+    out = {}
+    for arch, layers in MESH_FAMILIES.items():
+        t0 = time.perf_counter()
+        cfg = family_cfg(arch, layers, torch.bfloat16)
+        params0 = T.init_params(cfg, seed=seed, device="cuda")
+        # serving: the unsharded and the mesh prefill + decode steps
+        rng = np.random.default_rng(seed + 19)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, 256), dtype=np.int32)).cuda()
+        nxt = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (8, 2), dtype=np.int32)).cuda()
+        ex = {k: torch.from_numpy(v).to("cuda", cfg.dtype)
+              for k, v in family_inputs(cfg, 2, seed).items()}
+        s0 = 256 + cfg.prefix_tokens
+        max_seq = s0 + len(nxt)
+        logits = {}
+        for name in ("unsharded", "mesh"):
+            ctx = use_mesh(mesh, tp) if name == "mesh" else \
+                contextlib.nullcontext()
+            p = spmd.shard_params(params0, T.param_specs(cfg, 1), mesh, tp) \
+                if name == "mesh" else params0
+            with ctx, torch.no_grad():
+                lg, cache = T.prefill(cfg, p, prompt, max_seq, **ex)
+                rows = [lg.float()]
+                for j, tok in enumerate(nxt):
+                    lg, cache = T.decode_step(cfg, p, tok, cache, s0 + j,
+                                              max_seq=max_seq)
+                    rows.append(lg.float())
+            logits[name] = torch.stack(rows)
+            del cache
+        got, want = logits["mesh"], logits["unsharded"]
+        dev_ = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+        print(f"  {arch} ({layers} layers): mesh prefill + 8 decode steps "
+              f"against unsharded: max |diff| {dev_:.3e} of max |logit| "
+              f"{scale:.3e} (bound 5%); argmax "
+              f"{'agrees' if agree else 'differs'}")
+        assert torch.isfinite(got).all() and dev_ <= 0.05 * scale and \
+            agree, (arch, dev_, scale)
+        # training: the unsharded steps, then the sharded ones, counted
+        opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=steps)
+        tc = loop.TrainConfig(opt=opt)
+        batches = [make_batch(cfg, seq, bsz, s, seed=seed, device="cuda")
+                   for s in range(steps)]
+        ref_p, ref_s = params0, adamw.init_state(params0)
+        ref_step = loop.make_train_step(cfg, tc)
+        ref_loss = []
+        for batch in batches:
+            ref_p, ref_s, m = ref_step(ref_p, ref_s, batch)
+            ref_loss.append(float(m["loss"]))
+        del ref_p, ref_s
+        params, state = loop.shard_state(cfg, params0,
+                                         adamw.init_state(params0), mesh, tp)
+        del params0
+        step = loop.make_train_step(cfg, tc, mesh, tp)
+        torch.cuda.synchronize()
+        reset(kernels)
+        hist = []
+        for s, batch in enumerate(batches):
+            params, state, m = step(params, state, batch)
+            loss = float(m["loss"])
+            rel = abs(loss - ref_loss[s]) / abs(ref_loss[s])
+            hist.append({"step": s, "loss": loss, "unsharded": ref_loss[s],
+                         "rel": rel})
+            assert np.isfinite(loss) and rel <= 5e-3, (arch, s, loss)
+        launched = counts(kernels)
+        want_k = () if arch == "mamba2-780m" else (
+            "flash_attention", "flash_attention_bwd")
+        assert all(launched[k] > 0 for k in want_k), (arch, launched)
+        assert not any(n for k, n in launched.items() if k not in want_k), \
+            (arch, launched)
+        secs = time.perf_counter() - t0
+        print(f"  {arch}: sharded losses "
+              f"{[round(h['loss'], 5) for h in hist]} against unsharded "
+              f"{[round(x, 5) for x in ref_loss]} (rel max "
+              f"{max(h['rel'] for h in hist):.2e}, bound 5e-3); launches "
+              f"{ {k: launched[k] for k in want_k} } ({secs:.1f}s)")
+        out[arch] = {"layers": layers, "history": hist,
+                     "logits": {"max_abs_diff": dev_, "max_abs_logit": scale},
+                     "launches": {k: launched[k] for k in want_k},
+                     "s": secs}
+        del params, state, batches, logits, got, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4159,17 +4283,19 @@ def phase19_start() -> dict:
                          "--standalone", "--nproc-per-node", "1", *args],
             "alone": [sys.executable, *args]}
     runs.update({k: [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", "granite-3-8b", "--shape", shp,
+                     "--arch", arch, "--shape", shp,
                      "--parallelism", par, "--force"]
-                 for k, (shp, par) in DRYRUN_CELLS.items()})
+                 for k, (arch, shp, par) in DRYRUN_CELLS.items()})
     return {k: subprocess.Popen(c, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, env=env)
             for k, c in runs.items()}
 
 
-DRYRUN_CELLS = {"train_4k": ("train_4k", "tp_fsdp"),
-                "train_4k_fsdp": ("train_4k", "fsdp"),
-                "decode_32k": ("decode_32k", "tp_fsdp")}
+DRYRUN_CELLS = {"train_4k": ("granite-3-8b", "train_4k", "tp_fsdp"),
+                "train_4k_fsdp": ("granite-3-8b", "train_4k", "fsdp"),
+                "decode_32k": ("granite-3-8b", "decode_32k", "tp_fsdp"),
+                **{f"{arch} train_4k": (arch, "train_4k", "tp_fsdp")
+                   for arch in MESH_FAMILIES}}
 
 
 def phase19_torchrun(procs: dict) -> dict:
@@ -4192,10 +4318,11 @@ def phase19_torchrun(procs: dict) -> dict:
 
 def phase19_dryrun(procs: dict) -> dict:
     """(c) ``python -m repro_torch.launch.dryrun`` for granite-3-8b x
-    train_4k on 16 x 16 under both parallelisms and x decode_32k, three
-    processes at once: collective bytes by kind, argument bytes per rank
-    (held to the local shards' bytes, from ``local_shape`` of every
-    spec), fsdp's total below tp_fsdp's."""
+    train_4k on 16 x 16 under both parallelisms and x decode_32k, and
+    the four families of (d) x train_4k, seven processes at once:
+    collective bytes by kind, argument bytes per rank (held to the local
+    shards' bytes, from ``local_shape`` of every spec), fsdp's total
+    below tp_fsdp's, the families' all-reduces over the model axis."""
     import torch
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
@@ -4203,26 +4330,30 @@ def phase19_dryrun(procs: dict) -> dict:
     from repro_torch.launch.shapes import axis_mapping, batch_shapes
     from repro_torch.models import spmd
     from repro_torch.models import transformer as T
+    from repro_torch.models.base import map_tree
     cells = DRYRUN_CELLS
     for k in cells:
         so, se = procs[k].communicate(timeout=300)
         assert procs[k].returncode == 0, (k, se[-3000:])
-    cfg = get_config("granite-3-8b")
     mesh = AbstractMesh((16, 16), ("data", "model"))
     sizes = {"data": 16, "model": 16}
     out = {}
-    for k, (shp, par) in cells.items():
-        with open(dryrun.artifact_path("granite-3-8b", shp, False, par)) as f:
+    for k, (arch, shp, par) in cells.items():
+        cfg = get_config(arch)
+        with open(dryrun.artifact_path(arch, shp, False, par)) as f:
             r = json.load(f)
         assert r["ok"], r
         shape = SHAPES[shp]
         mapping = axis_mapping(cfg, shape, mesh, par)
         m = 1 if par == "fsdp" else 16
-        pb = spmd.local_bytes(T.param_shapes(cfg, m), T.param_specs(cfg, m),
-                              sizes, mapping)
+        pshapes, pspecs = T.param_shapes(cfg, m), T.param_specs(cfg, m)
+        pb = spmd.local_bytes(pshapes, pspecs, sizes, mapping)
         if shape.kind == "train":
             bsh, bsp = batch_shapes(cfg, shape)
-            want = pb + 2 * pb * 4 // cfg.dtype.itemsize + 4 + \
+            moments = spmd.local_bytes(map_tree(lambda t: t.float(),
+                                                pshapes), pspecs, sizes,
+                                       mapping)
+            want = pb + 2 * moments + 4 + \
                 spmd.local_bytes(bsh, bsp, sizes, mapping)
         else:
             b = shape.global_batch
@@ -4237,6 +4368,8 @@ def phase19_dryrun(procs: dict) -> dict:
               f"{r['collective_bytes_total']:.4e}), argument bytes per rank "
               f"{got} (local shards {want}), flops {r['flops']:.4e}")
         assert got == want, (k, got, want)
+        if arch in MESH_FAMILIES:
+            assert r["collective_bytes"]["all-reduce"] > 0, (k, r)
         out[k] = r
     assert out["train_4k_fsdp"]["collective_bytes_total"] < \
         out["train_4k"]["collective_bytes_total"], out
@@ -5628,12 +5761,22 @@ def main() -> int:
           "linears, each against the unsharded step")
     t19 = time.perf_counter()
     distributed = {"sharded": phase19_sharded(args.seed, kernels)}
+    phase("phase 19d: the SSD, RG-LRU, encoder-decoder and vision-prefix "
+          "families on the one-rank mesh: full width, bf16, a mesh prefill "
+          "+ 8 decode steps and 2 sharded train steps each against the "
+          "unsharded ones")
+    t19d = time.perf_counter()
+    distributed["families"] = phase19_families(args.seed, kernels)
+    distributed["phase19d_s"] = time.perf_counter() - t19d
+    print(f"  phase 19d: {distributed['phase19d_s']:.1f}s")
+    import torch.distributed as dist
+    dist.destroy_process_group()
     phase("phase 19b: launch.train under torch.distributed.run (one rank) "
           "and alone, the reduced granite, 3 steps (started after phase 2)")
     distributed["torchrun"] = phase19_torchrun(procs19)
-    phase("phase 19c: the dry run of granite-3-8b on the 16 x 16 mesh: "
-          "train_4k under tp_fsdp and fsdp, decode_32k (started after "
-          "phase 2)")
+    phase("phase 19c: the dry run on the 16 x 16 mesh: granite-3-8b "
+          "train_4k under tp_fsdp and fsdp, decode_32k, the four families' "
+          "train_4k (started after phase 2)")
     distributed["dryrun"] = phase19_dryrun(procs19)
     distributed["phase19_s"] = time.perf_counter() - t19
     print(f"  phase 19: {distributed['phase19_s']:.1f}s")

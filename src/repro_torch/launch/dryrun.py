@@ -73,8 +73,6 @@ def run_cell(cfg: ModelConfig, shape: Shape, mesh_shape: tuple[int, ...],
     from repro_torch.launch import shapes as S
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import spmd
-    from repro_torch.models.transformer import check_mesh_family
-    check_mesh_family(cfg)
     n = 1
     for k in mesh_shape:
         n *= k

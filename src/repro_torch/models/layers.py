@@ -723,22 +723,35 @@ def ssd_chunk(cfg: ModelConfig, s: int) -> int:
     return q
 
 
-def _gated_norm(params: dict, y: torch.Tensor,
-                z: torch.Tensor) -> torch.Tensor:
-    """Mamba-2's gated RMSNorm before the out-projection, in fp32."""
+def _gated_norm(params: dict, y: torch.Tensor, z: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm before the out-projection, in fp32.  The
+    mean runs over the whole d_inner row; with ``group`` (d_inner split
+    over the model axis) the rank's columns of the normalised row then
+    enter the row-parallel region (``spmd.split_to``), scaled by its
+    ``norm_scale`` shard."""
     y = y * F.silu(z.float())
     var = torch.mean(y * y, dim=-1, keepdim=True)
-    return y * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()
+    y = y * torch.rsqrt(var + 1e-6)
+    y = spmd.split_to(y, y.dim() - 1, group)
+    return y * params["norm_scale"].float()
 
 
 def ssd_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
-              return_cache: bool = False):
+              return_cache: bool = False, group=None):
     """Chunked state-space-duality forward (Mamba-2 §6).  x: (B, S, D).
 
     Within a chunk the output is the masked "attention-like" product;
     across chunks the fp32 states (B, H, P, N) run a loop over the
     chunks.  ``return_cache`` also returns the decode state ``{"conv":
-    the last conv_width - 1 conv inputs, "state": the final state}``."""
+    the last conv_width - 1 conv inputs, "state": the final state}``.
+
+    On a mesh ``group`` is the model axis's group where it splits
+    d_inner (``ssd_defs``: only ``norm_scale`` and ``out_proj`` split):
+    every rank runs the whole scan on the replicated leaves, and the
+    region opens after the gated norm's mean (:func:`_gated_norm`) and
+    closes after the row-parallel ``out_proj``; the state stays
+    replicated."""
     b, s, _ = x.shape
     di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
@@ -791,8 +804,8 @@ def ssd_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
         torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(b, s, nh, hp)
     y = y + params["D"][None, None, :, None] * xs.float()
-    y = _gated_norm(params, y.reshape(b, s, di), z)
-    out = y.to(x.dtype) @ params["out_proj"]
+    y = _gated_norm(params, y.reshape(b, s, di), z, group)
+    out = spmd.reduce_from(y.to(x.dtype) @ params["out_proj"], group)
     if not return_cache:
         return out
     return out, {"conv": _conv_tail(cfg, xbc_raw), "state": state}
@@ -841,9 +854,10 @@ def ssd_cache_defs(cfg: ModelConfig, batch: int, model_ax: int = 1) -> dict:
 
 
 def ssd_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
-               cache: dict) -> tuple[torch.Tensor, dict]:
+               cache: dict, group=None) -> tuple[torch.Tensor, dict]:
     """Single-token SSD step, an O(1) state update.  x: (B, 1, D);
-    returns (out (B, 1, D), the new ``{"conv", "state"}``)."""
+    returns (out (B, 1, D), the new ``{"conv", "state"}``).  ``group``
+    as in :func:`ssd_apply`."""
     b = x.shape[0]
     di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
@@ -861,8 +875,9 @@ def ssd_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     state = cache["state"] * decay[:, :, None, None] + upd
     y = torch.einsum("bn,bhpn->bhp", cvec, state)
     y = y + params["D"][None, :, None] * xs.float()
-    y = _gated_norm(params, y.reshape(b, di), z)
-    out = (y.to(x.dtype) @ params["out_proj"])[:, None, :]
+    y = _gated_norm(params, y.reshape(b, di), z, group)
+    out = spmd.reduce_from(y.to(x.dtype) @ params["out_proj"],
+                           group)[:, None, :]
     return out, {"conv": new_conv, "state": state}
 
 
@@ -888,9 +903,16 @@ def rglru_defs(cfg: ModelConfig, model_ax: int = 1) -> dict:
     }
 
 
-def _rglru_gates(params: dict, xr: torch.Tensor):
-    r = torch.sigmoid((xr @ params["w_r"]).float())
-    i = torch.sigmoid((xr @ params["w_i"]).float())
+def _rglru_gates(params: dict, xr: torch.Tensor, group=None):
+    """The decay ``a`` and the gated input of the conv output ``xr``.
+    With ``group`` (the width split over the model axis) ``xr`` is the
+    rank's columns: ``w_r`` and ``w_i`` take the whole row (their rows
+    unsplit), gathered over the model axis, whose backward
+    reduce-scatters the ranks' partial gradients; ``i * xr`` takes the
+    rank's own."""
+    xf = spmd.gather_shards(xr, xr.dim() - 1, group)
+    r = torch.sigmoid((xf @ params["w_r"]).float())
+    i = torch.sigmoid((xf @ params["w_i"]).float())
     a = torch.exp(-_LRU_C * F.softplus(params["lam"]) * r)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * \
         (i * xr.float())
@@ -913,16 +935,24 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                return_cache: bool = False):
+                return_cache: bool = False, group=None):
     """Griffin recurrent block: conv1d -> RG-LRU -> GeLU gate.  x: (B, S,
     D).  ``return_cache`` also returns the decode state ``{"conv": the
-    last conv_width - 1 conv inputs, "h": the last hidden state}``."""
+    last conv_width - 1 conv inputs, "h": the last hidden state}``.
+
+    On a mesh ``group`` is the model axis's group where it splits the
+    width (``rglru_defs``: every width-w leaf splits): ``in_x`` and
+    ``in_gate`` are column-parallel, the conv and the scan elementwise
+    on the rank's columns (the gates' products gather the row,
+    :func:`_rglru_gates`), ``out`` row-parallel; the state is the rank's
+    columns (``rglru_cache_defs``)."""
+    x = spmd.copy_to(x, group)
     gate = F.gelu((x @ params["in_gate"]).float(), approximate="tanh")
     xr_raw = x @ params["in_x"]
     xr = _causal_conv1d(xr_raw, params["conv_w"])
-    a, gated = _rglru_gates(params, xr)
+    a, gated = _rglru_gates(params, xr, group)
     h = linear_scan(a, gated)
-    out = (h * gate).to(x.dtype) @ params["out"]
+    out = spmd.reduce_from((h * gate).to(x.dtype) @ params["out"], group)
     if not return_cache:
         return out
     return out, {"conv": _conv_tail(cfg, xr_raw), "h": h[:, -1, :]}
@@ -941,13 +971,13 @@ def rglru_cache_defs(cfg: ModelConfig, batch: int,
 
 
 def rglru_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                 cache: dict) -> tuple[torch.Tensor, dict]:
+                 cache: dict, group=None) -> tuple[torch.Tensor, dict]:
     """Single-token RG-LRU step.  x: (B, 1, D); returns (out (B, 1, D),
-    the new ``{"conv", "h"}``)."""
+    the new ``{"conv", "h"}``).  ``group`` as in :func:`rglru_apply`."""
     gate = F.gelu((x[:, 0] @ params["in_gate"]).float(), approximate="tanh")
     conv, new_conv = _conv_step(cache["conv"], x[:, 0] @ params["in_x"],
                                 params["conv_w"])
-    a, gated = _rglru_gates(params, conv.to(x.dtype))
+    a, gated = _rglru_gates(params, conv.to(x.dtype), group)
     h = a * cache["h"] + gated
-    y = (h * gate).to(x.dtype) @ params["out"]
+    y = spmd.reduce_from((h * gate).to(x.dtype) @ params["out"], group)
     return y[:, None, :], {"conv": new_conv, "h": h}

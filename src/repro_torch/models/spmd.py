@@ -19,10 +19,17 @@ storage, which is what GSPMD makes of JAX's specs):
   back-propagates the same loss.  :func:`copy_to` (forward identity,
   backward all-reduce) enters a region split over the model axis and
   :func:`reduce_from` (forward all-reduce, backward identity) leaves it:
-  the column-parallel / row-parallel projection pair.  A replicated
-  weight used inside such a region (the kv projections where the kv
-  heads do not split, the MoE router) goes through :func:`copy_to`
-  too, so its gradient is summed over the model axis.
+  the column-parallel / row-parallel projection pair; :func:`split_to`
+  (forward this rank's chunk, backward all-gather) enters one with the
+  rank's columns of a replicated activation (SSD's gated norm, whose
+  mean needs the whole row, before its row-parallel ``out_proj``).  A
+  replicated weight used inside such a region (the kv projections
+  where the kv heads do not split, the MoE router) goes through
+  :func:`copy_to` too, so its gradient is summed over the model axis;
+  a replicated input that a region needs whole (the RG-LRU's gate
+  products over the rank's conv columns) is gathered with
+  :func:`gather_shards`, whose backward reduce-scatters the ranks'
+  partial gradients.
 * A weight's dimensions split over "data" are all-gathered per layer
   (:func:`gather_tree`; the backward is a reduce-scatter, which sums
   the gradient over the batch axes); every other leaf's gradient is
@@ -151,6 +158,20 @@ class _GatherReplicated(torch.autograd.Function):
         return own_chunk(g, ctx.dim, ctx.group).contiguous(), None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    """this rank's chunk forward, all-gather backward: a replicated
+    activation entering a region split over the group along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return own_chunk(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -206,6 +227,13 @@ def copy_to(x, group):
     """Enter a region split over ``group``: identity forward, gradient
     all-reduced backward (None: no split, identity)."""
     return x if group is None else _CopyTo.apply(x, group)
+
+
+def split_to(x, dim: int, group):
+    """Enter a region split over ``group`` along ``dim`` with this
+    rank's chunk of a replicated ``x`` (backward: the chunks' gradients
+    gathered; None: no split, identity)."""
+    return x if group is None else _SplitTo.apply(x, dim, group)
 
 
 def reduce_from(x, group):

@@ -204,7 +204,14 @@ def logits_fn(cfg: ModelConfig, params: dict,
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            prefix_embeds: torch.Tensor | None) -> torch.Tensor:
-    h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
+    """The scaled token embeddings, the prefix's rows ahead of them (on
+    a mesh the vocab-parallel lookup, :func:`_embed_mesh`, and the
+    rank's rows of the prefix)."""
+    ctx = sharding.active()
+    if ctx is None:
+        h = params["embed"]["embedding"][tokens] * (cfg.d_model ** 0.5)
+    else:
+        h = _embed_mesh(cfg, params, tokens, ctx)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     return h
@@ -239,14 +246,14 @@ def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor,
 # says how the collectives stand in for XLA's partitioner.
 
 
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """The sharded forward covers the attention decoders (dense MLP or
-    MoE); the other families raise."""
-    if cfg.is_encdec or cfg.prefix_tokens or not attention_only(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded forward of the SSD, RG-LRU, "
-            "encoder-decoder and vision-prefix families is not ported yet; "
-            "see ROADMAP.md, queue 1, item 19")
+def _mixer_group(cfg: ModelConfig, mixer: str, ctx):
+    """The RG-LRU's or SSD's tensor-parallel group (``L.rglru_apply``,
+    ``L.ssd_apply``): the model axis's where it splits the mixer's width,
+    else None (off a mesh, or the leaves replicated over it)."""
+    width = cfg.lru_width if mixer == "recurrent" else cfg.d_inner
+    if ctx is None or not L._shard_if(width, ctx.model_ax):
+        return None
+    return ctx.model_group
 
 
 def _layer_specs(cfg: ModelConfig, i: int, model_ax: int) -> dict:
@@ -300,43 +307,65 @@ def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      use_kernel: bool) -> torch.Tensor:
     """The decoder's cross-attention over the encoder's output: row 4,
     non-causal, Sq = the decoder's length, Skv = the encoder's (no
-    rope, the projections plain products, as in JAX)."""
+    rope, the projections plain products, as in JAX).
+
+    On a mesh it is tensor parallel as the self-attention is
+    (``spmd.head_plan``): the rank's query heads, K/V of the
+    (replicated) encoder output by its kv heads (``L._kv_weights``),
+    ``wo`` row-parallel."""
+    ctx = sharding.active()
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    se = enc_out.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (enc_out @ p["wk"]).reshape(b, se, hkv, hd)
-    v = (enc_out @ p["wv"]).reshape(b, se, hkv, hd)
+    hd, se = cfg.head_dim, enc_out.shape[1]
+    _, hq, kv = spmd.head_plan(cfg, ctx)
+    group = ctx.model_group if spmd.tp_split(cfg, ctx) else None
+    xt, et = spmd.copy_to(x, group), spmd.copy_to(enc_out, group)
+    wk, wv = L._kv_weights(cfg, p, kv, group,
+                           ctx.model_ax if ctx is not None else 1, x.device)
+    q = (xt @ p["wq"]).reshape(b, s, hq, hd)
+    k = (et @ wk).reshape(b, se, len(kv), hd)
+    v = (et @ wv).reshape(b, se, len(kv), hd)
     out = ops.attention(q, k, v, causal=False, use_kernel=use_kernel)
-    return out.reshape(b, s, hq * hd) @ p["wo"]
+    return spmd.reduce_from(out.reshape(b, s, hq * hd) @ p["wo"], group)
 
 
 def _cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> dict:
     """A layer's cross K/V cache, (B, Se, Hkv, D) each, in the model
-    dtype."""
+    dtype: every kv head, as JAX's spec replicates it over the model
+    axis (on a mesh whose model axis splits the kv heads, the rank's
+    ``wk``/``wv`` columns are gathered first)."""
+    ctx = sharding.active()
+    wk, wv = p["cross"]["wk"], p["cross"]["wv"]
+    if ctx is not None and L.attention_specs(cfg, ctx.model_ax)[1]:
+        wk, wv = (spmd.all_gather(w, 1, ctx.model_group) for w in (wk, wv))
     b, se, _ = enc_out.shape
     shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
-    return {"cross_k": (enc_out @ p["cross"]["wk"]).reshape(shape).to(
-                cfg.dtype),
-            "cross_v": (enc_out @ p["cross"]["wv"]).reshape(shape).to(
-                cfg.dtype)}
+    return {"cross_k": (enc_out @ wk).reshape(shape).to(cfg.dtype),
+            "cross_v": (enc_out @ wv).reshape(shape).to(cfg.dtype)}
 
 
 def _encoder_apply(cfg: ModelConfig, params: dict, embeds: torch.Tensor,
                    use_kernel: bool = True) -> torch.Tensor:
     """The bidirectional encoder over the frontend stub's embeddings (B,
     Se, D): row 4 non-causal at Sq = Skv = Se, then the MLP; returns
-    its output after the final norm."""
+    its output after the final norm.  On a mesh each layer is gathered
+    under the encoder's specs (``param_specs``' ``("encoder",
+    "layers")``) and runs the sharded attention and the MLP's
+    tensor-parallel pair (:func:`_ffn`)."""
+    ctx = sharding.active()
     enc = params["encoder"]
     b, se, _ = embeds.shape
     positions = torch.arange(se, device=embeds.device).expand(b, se)
     h = embeds.to(cfg.dtype)
+    attn = L.attention_apply if ctx is None else L.attention_apply_mesh
+    specs = None if ctx is None else spec_tree(block_defs(
+        cfg, "global", model_ax=ctx.model_ax))
     for p in enc["layers"]:
+        if ctx is not None:
+            p = spmd.gather_tree(p, specs, ctx)
         hn = L.rmsnorm(p["norm1"], h)
-        h = h + L.attention_apply(cfg, p["mixer"], hn, positions,
-                                  causal=False, use_kernel=use_kernel)
-        h = L.mlp_apply(p["ffn"], L.rmsnorm(p["norm2"], h), residual=h,
-                        use_kernel=use_kernel)
+        h = h + attn(cfg, p["mixer"], hn, positions, causal=False,
+                     use_kernel=use_kernel)
+        h, _ = _ffn(cfg, p, h, use_kernel)
     return L.rmsnorm(enc["final_norm"], h)
 
 
@@ -356,9 +385,11 @@ def _block_apply(cfg: ModelConfig, p: dict, h: torch.Tensor, i: int,
         h = h + attn(cfg, p["mixer"], hn, positions, causal=True,
                      window=_window(cfg, i), use_kernel=use_kernel)
     elif mixer == "recurrent":
-        h = h + L.rglru_apply(cfg, p["mixer"], hn)
+        h = h + L.rglru_apply(cfg, p["mixer"], hn,
+                              group=_mixer_group(cfg, mixer, ctx))
     else:
-        h = h + L.ssd_apply(cfg, p["mixer"], hn)
+        h = h + L.ssd_apply(cfg, p["mixer"], hn,
+                            group=_mixer_group(cfg, mixer, ctx))
     if enc_out is not None and "cross" in p:
         h = h + _cross_attention(cfg, p["cross"],
                                  L.rmsnorm(p["norm_x"], h), enc_out,
@@ -405,15 +436,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     docstring); ``use_kernel=False`` takes every kernel's plain
     version.
 
-    Under ``sharding.use_mesh`` (the attention decoders only) ``params``
-    are the rank's shards and ``tokens`` its batch rows; the hidden
-    state returned is its rows', replicated over the model axis."""
-    ctx = sharding.active()
-    if ctx is not None:
-        check_mesh_family(cfg)
-        h = _embed_mesh(cfg, params, tokens, ctx)
-    else:
-        h = _embed(cfg, params, tokens, prefix_embeds)
+    Under ``sharding.use_mesh`` ``params`` are the rank's shards and
+    ``tokens``, ``prefix_embeds`` and ``enc_embeds`` its batch rows; the
+    hidden state returned is its rows', replicated over the model
+    axis."""
+    h = _embed(cfg, params, tokens, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     enc_out = None
@@ -477,7 +504,12 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
 
 def _loss_mesh(cfg: ModelConfig, params: dict, batch: dict,
                use_kernel: bool, ctx) -> tuple[torch.Tensor, dict]:
-    h, aux = forward(cfg, params, batch["tokens"], use_kernel=use_kernel)
+    prefix = batch.get("prefix_embeds")
+    h, aux = forward(cfg, params, batch["tokens"], prefix_embeds=prefix,
+                     enc_embeds=batch.get("enc_embeds"),
+                     use_kernel=use_kernel)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:, :]                  # loss on text only
     logits = _logits_mesh(cfg, params, h, ctx).float()
     nll, mask = spmd.vocab_cross_entropy(logits, batch["labels"], ctx,
                                          ctx.model_ax > 1)
@@ -508,17 +540,15 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     the dense cache of :func:`init_cache`.  ``full_kv=True`` keeps
     windowed layers position-indexed (the paged cache masks the window
     at decode time); ``logits_at`` returns that position's logits
-    instead of the last one's (a bucketed prompt is right-padded).
+    instead of the last one's (a bucketed prompt is right-padded; a
+    prefix's positions count).
 
-    Under ``sharding.use_mesh`` (the attention decoders) ``params`` are
-    the rank's shards and ``tokens`` its batch rows; the caches come
-    back as the rank's shards of :func:`cache_specs` and the logits are
-    its rows' over the whole vocabulary.
+    Under ``sharding.use_mesh`` ``params`` are the rank's shards and
+    ``tokens`` (and the extras) its batch rows; the caches come back as
+    the rank's shards of :func:`cache_specs` and the logits are its
+    rows' over the whole vocabulary.
     """
     ctx = sharding.active()
-    if ctx is not None:
-        return _prefill_mesh(cfg, params, tokens, max_seq, full_kv,
-                             logits_at, use_kernel, ctx)
     h = _embed(cfg, params, tokens, prefix_embeds)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
@@ -531,17 +561,22 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     caches = []
     for i, p in enumerate(params["layers"]):
         mixer = cfg.mixer_for_layer(i)
+        if ctx is not None:
+            p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
         hn = L.rmsnorm(p["norm1"], h)
         if mixer in ATTENTION:
-            out, cache = L.attention_apply(
-                cfg, p["mixer"], hn, positions, causal=True,
-                window=_window(cfg, i), return_cache=max_seq,
-                full_cache=full_kv, use_kernel=use_kernel)
+            attn = L.attention_apply if ctx is None else \
+                L.attention_apply_mesh
+            out, cache = attn(cfg, p["mixer"], hn, positions, causal=True,
+                              window=_window(cfg, i), return_cache=max_seq,
+                              full_cache=full_kv, use_kernel=use_kernel)
         elif mixer == "recurrent":
             out, cache = L.rglru_apply(cfg, p["mixer"], hn,
-                                       return_cache=True)
+                                       return_cache=True,
+                                       group=_mixer_group(cfg, mixer, ctx))
         else:
-            out, cache = L.ssd_apply(cfg, p["mixer"], hn, return_cache=True)
+            out, cache = L.ssd_apply(cfg, p["mixer"], hn, return_cache=True,
+                                     group=_mixer_group(cfg, mixer, ctx))
         h = h + out
         if enc_out is not None:
             h = h + _cross_attention(cfg, p["cross"],
@@ -549,87 +584,59 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                      use_kernel)
             cache.update(_cross_kv(cfg, p, enc_out))
         h, _ = _ffn(cfg, p, h, use_kernel)
+        if ctx is not None:
+            defs = layer_cache_defs(
+                cfg, i, b * ctx.batch_size, max_seq, ctx.model_ax,
+                full_kv=full_kv,
+                enc_seq=enc_out.shape[1] if enc_out is not None else None)
+            cache = {k: sharding.maybe_shard(c, defs[k].spec, defs[k].shape)
+                     for k, c in cache.items()}
         caches.append(cache)
     h = L.rmsnorm(params["final_norm"], h)
     at = s - 1 if logits_at is None else logits_at
-    logits = logits_fn(cfg, params, h[:, at:at + 1, :])[:, 0, :]
-    return logits, {"layers": caches}
-
-
-def _prefill_mesh(cfg, params, tokens, max_seq, full_kv, logits_at,
-                  use_kernel, ctx):
-    check_mesh_family(cfg)
-    h = _embed_mesh(cfg, params, tokens, ctx)
-    b, s, _ = h.shape
-    positions = torch.arange(s, device=h.device).expand(b, s)
-    caches = []
-    for i, p in enumerate(params["layers"]):
-        p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
-        out, cache = L.attention_apply_mesh(
-            cfg, p["mixer"], L.rmsnorm(p["norm1"], h), positions,
-            causal=True, window=_window(cfg, i), return_cache=max_seq,
-            full_cache=full_kv, use_kernel=use_kernel)
-        h, _ = _ffn(cfg, p, h + out, use_kernel)
-        defs = L.attention_cache_defs(
-            cfg, b * ctx.batch_size, max_seq,
-            None if full_kv else _window(cfg, i), ctx.model_ax)
-        caches.append({k: sharding.maybe_shard(c, defs[k].spec,
-                                               defs[k].shape)
-                       for k, c in cache.items()})
-    h = L.rmsnorm(params["final_norm"], h)
-    at = s - 1 if logits_at is None else logits_at
-    logits = _logits_mesh(cfg, params, h[:, at:at + 1, :], ctx)[:, 0, :]
+    h = h[:, at:at + 1, :]
+    if ctx is None:
+        return logits_fn(cfg, params, h)[:, 0, :], {"layers": caches}
+    logits = _logits_mesh(cfg, params, h, ctx)[:, 0, :]
     return _full_vocab(logits, ctx), {"layers": caches}
 
 
-def _decode_mesh(cfg, params, token, cache, pos, max_seq, use_kernel, ctx):
-    check_mesh_family(cfg)
-    if token.dim() != 1:
-        raise ValueError("on a mesh decode_step takes one token a row")
-    if max_seq is None:
-        raise ValueError("on a mesh decode_step needs max_seq, the dense "
-                         "cache's global length")
-    h = _embed_mesh(cfg, params, token[:, None], ctx)
-    for i, p in enumerate(params["layers"]):
-        p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
-        out, _ = L.attention_decode_mesh(
-            cfg, p["mixer"], L.rmsnorm(p["norm1"], h), cache["layers"][i],
-            pos, max_seq=max_seq, window=_window(cfg, i),
-            use_kernel=use_kernel)
-        h, _ = _ffn(cfg, p, h + out, use_kernel)
-    h = L.rmsnorm(params["final_norm"], h)
-    return _full_vocab(_logits_mesh(cfg, params, h, ctx), ctx)[:, 0], cache
-
-
 def layer_cache_defs(cfg: ModelConfig, i: int, batch: int,
-                     max_seq: int, model_ax: int = 1) -> dict:
+                     max_seq: int, model_ax: int = 1, full_kv: bool = False,
+                     enc_seq: int | None = None) -> dict:
     """Layer i's dense decode cache: the attention K/V
     (``layers.attention_cache_defs``: a ring buffer of ``window`` slots
-    for a local layer), or the O(1) RG-LRU or SSD state."""
+    for a local layer, position-indexed under ``full_kv``), or the O(1)
+    RG-LRU or SSD state; with ``enc_seq`` (an encoder-decoder) the
+    (B, enc_seq, Hkv, D) cross K/V too, replicated over the model axis
+    as in JAX."""
     mixer = cfg.mixer_for_layer(i)
     if mixer in ATTENTION:
-        return L.attention_cache_defs(cfg, batch, max_seq, _window(cfg, i),
-                                      model_ax)
-    if mixer == "recurrent":
-        return L.rglru_cache_defs(cfg, batch, model_ax)
-    return L.ssd_cache_defs(cfg, batch, model_ax)
+        d = L.attention_cache_defs(cfg, batch, max_seq,
+                                   None if full_kv else _window(cfg, i),
+                                   model_ax)
+    elif mixer == "recurrent":
+        d = L.rglru_cache_defs(cfg, batch, model_ax)
+    else:
+        d = L.ssd_cache_defs(cfg, batch, model_ax)
+    if enc_seq is not None:
+        kv = ParamDef((batch, enc_seq, cfg.n_kv_heads, cfg.head_dim),
+                      init="zeros", dtype=cfg.dtype,
+                      spec=P("data", None, None, None))
+        d = {**d, "cross_k": kv, "cross_v": kv}
+    return d
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int,
                enc_seq: int = 0, model_ax: int = 1) -> dict:
     """The dense decode cache's tree: ``{"layers": [layer cache, ...]}``,
     one entry per layer in execution order, like the parameters
-    (:func:`layer_cache_defs`); an encoder-decoder's entries add the
-    (B, enc_seq, Hkv, D) cross K/V.  Specs at ``model_ax``, JAX's."""
-    def one(i: int) -> dict:
-        d = layer_cache_defs(cfg, i, batch, max_seq, model_ax)
-        if cfg.is_encdec:
-            kv = ParamDef((batch, enc_seq, cfg.n_kv_heads, cfg.head_dim),
-                          init="zeros", dtype=cfg.dtype,
-                          spec=P("data", None, None, None))
-            d = {**d, "cross_k": kv, "cross_v": kv}
-        return d
-    return {"layers": [one(i) for i in range(cfg.n_layers)]}
+    (:func:`layer_cache_defs`; an encoder-decoder's entries add the
+    cross K/V).  Specs at ``model_ax``, JAX's."""
+    enc = enc_seq if cfg.is_encdec else None
+    return {"layers": [layer_cache_defs(cfg, i, batch, max_seq, model_ax,
+                                        enc_seq=enc)
+                       for i in range(cfg.n_layers)]}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
@@ -667,15 +674,23 @@ def prefill_cross_cache(cfg: ModelConfig, params: dict, cache: dict,
 def _cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
     """One token's cross-attention over the cached cross K/V: fp32
-    ``einsum`` s outside any kernel, as in JAX."""
-    b = x.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qh = (x @ p["wq"]).reshape(b, hkv, hq // hkv, hd)
+    ``einsum`` s outside any kernel, as in JAX.  On a mesh the rank's
+    query heads attend over their kv heads of the (replicated) cache,
+    and ``wo``'s partial sums are all-reduced."""
+    ctx = sharding.active()
+    b, hd = x.shape[0], cfg.head_dim
+    _, hq, kv = spmd.head_plan(cfg, ctx)
+    group = ctx.model_group if spmd.tp_split(cfg, ctx) else None
+    if kv != list(range(ck.shape[2])):
+        idx = torch.tensor(kv, device=x.device)
+        ck, cv = ck.index_select(2, idx), cv.index_select(2, idx)
+    qh = (x @ p["wq"]).reshape(b, len(kv), hq // len(kv), hd)
     logits = torch.einsum("bhgd,blhd->bhgl", qh.float(),
                           ck.float()) * hd ** -0.5
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgl,blhd->bhgd", probs, cv.float())
-    return out.reshape(b, 1, hq * hd).to(x.dtype) @ p["wo"]
+    return spmd.reduce_from(out.reshape(b, 1, hq * hd).to(x.dtype)
+                            @ p["wo"], group)
 
 
 AttnStep = Callable[[dict, torch.Tensor, dict, torch.Tensor, "int | None"],
@@ -715,19 +730,22 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     (a paged step carries its own choice).  Returns (logits, cache) with
     ``cache`` the same, updated object.
 
-    Under ``sharding.use_mesh`` (the attention decoders, the dense
-    cache, one token a row) ``params`` and ``cache`` are the rank's
-    shards, ``token`` its rows, and ``max_seq`` the cache's global
-    length (which says how it splits: ``layers.attention_cache_defs``);
-    the logits are its rows' over the whole vocabulary.
+    Under ``sharding.use_mesh`` (the dense cache, one token a row)
+    ``params`` and ``cache`` are the rank's shards, ``token`` its rows,
+    and ``max_seq`` the cache's global length (which says how it splits:
+    ``layers.attention_cache_defs``); the logits are its rows' over the
+    whole vocabulary.
     """
     ctx = sharding.active()
+    single = token.dim() == 1
     if ctx is not None:
         if attn_step is not None:
             raise ValueError("on a mesh decode_step steps the dense cache")
-        return _decode_mesh(cfg, params, token, cache, pos, max_seq,
-                            use_kernel, ctx)
-    single = token.dim() == 1
+        if not single:
+            raise ValueError("on a mesh decode_step takes one token a row")
+        if max_seq is None:
+            raise ValueError("on a mesh decode_step needs max_seq, the "
+                             "dense cache's global length")
     if not single:
         if attn_step is None:
             raise ValueError("multi-token decode_step needs a span-capable "
@@ -736,17 +754,22 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         if bad:
             raise ValueError(f"multi-token decode_step is attention-only; "
                              f"layer_pattern has {bad}")
-    h = params["embed"]["embedding"][token[:, None] if single else token] \
-        * (cfg.d_model ** 0.5)
+    h = _embed(cfg, params, token[:, None] if single else token, None)
     a = 0                                  # the attention layer's index
     for i, p in enumerate(params["layers"]):
         mixer = cfg.mixer_for_layer(i)
+        if ctx is not None:
+            p = spmd.gather_tree(p, _layer_specs(cfg, i, ctx.model_ax), ctx)
         # a paged attention layer's state is its pools alone
         paged = attn_step is not None and mixer in ATTENTION
         lc = {} if paged else cache["layers"][i]
         hn = L.rmsnorm(p["norm1"], h)
         if mixer in ATTENTION:
-            if not paged:
+            if ctx is not None:
+                out, _ = L.attention_decode_mesh(
+                    cfg, p["mixer"], hn, lc, pos, max_seq=max_seq,
+                    window=_window(cfg, i), use_kernel=use_kernel)
+            elif not paged:
                 out, _ = L.attention_decode(cfg, p["mixer"], hn, lc, pos,
                                             window=_window(cfg, i),
                                             use_kernel=use_kernel)
@@ -754,11 +777,10 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 pools = {k: cache[k][a] for k in ("k_pages", "v_pages")}
                 out = attn_step(p["mixer"], hn, pools, pos, _window(cfg, i))
             a += 1
-        elif mixer == "recurrent":
-            out, new = L.rglru_decode(cfg, p["mixer"], hn, lc)
-            _set_state(lc, new)
         else:
-            out, new = L.ssd_decode(cfg, p["mixer"], hn, lc)
+            step = L.rglru_decode if mixer == "recurrent" else L.ssd_decode
+            out, new = step(cfg, p["mixer"], hn, lc,
+                            group=_mixer_group(cfg, mixer, ctx))
             _set_state(lc, new)
         h = h + out
         if "cross" in p and "cross_k" in lc:
@@ -766,6 +788,9 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                                   lc["cross_k"], lc["cross_v"])
         h, _ = _ffn(cfg, p, h, use_kernel)
     h = L.rmsnorm(params["final_norm"], h)
+    if ctx is not None:
+        return _full_vocab(_logits_mesh(cfg, params, h, ctx), ctx)[:, 0], \
+            cache
     logits = logits_fn(cfg, params, h)
     if single:
         logits = logits[:, 0, :]

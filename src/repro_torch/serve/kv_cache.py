@@ -50,6 +50,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamDef, build, stack_defs
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import P
 from repro_torch.obs.metrics import MetricsRegistry
 
 SCRATCH_PAGE = 0
@@ -173,25 +174,32 @@ def choose_prefill_chunk(cfg: ModelConfig, max_seq: int,
 
 
 def paged_cache_defs(cfg: ModelConfig, batch: int, n_pages: int,
-                     page_size: int) -> dict:
+                     page_size: int, model_ax: int = 1) -> dict:
     """The paged decode state: the K and V pools of every attention
     layer, stacked in layer order, ``(n_attn, n_pages, page, Hkv, D)``
     each (``transformer.attention_layers``), and ``"layers"``, one entry
     a layer: ``{}`` for an attention layer, the O(1) RG-LRU or SSD state
     of ``batch`` slots for the others (paging only applies to the
     linearly growing K/V).  Paged serving covers decoder-only token
-    models, as in JAX."""
+    models, as in JAX.
+
+    Specs at ``model_ax``, JAX's (``paged_attention_cache_defs``): a pool
+    splits its kv heads over ``model`` where they divide, the stacking
+    axis unsplit; the states take their dense specs.  Neither engine
+    serves on a mesh, in either package."""
     if cfg.is_encdec or cfg.prefix_tokens:
         raise NotImplementedError(
             "paged serving covers decoder-only token models")
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
     dtype = cfg.kv_cache_dtype or cfg.dtype
-    pool = ParamDef((n_pages, page_size, hkv, hd), init="zeros", dtype=dtype)
+    skv = "model" if model_ax > 1 and hkv % model_ax == 0 else None
+    pool = ParamDef((n_pages, page_size, hkv, hd), init="zeros", dtype=dtype,
+                    spec=P(None, None, skv, None))
     defs = stack_defs({"k_pages": pool, "v_pages": pool},
                       len(T.attention_layers(cfg)))
     defs["layers"] = [
         {} if cfg.mixer_for_layer(i) in T.ATTENTION
-        else T.layer_cache_defs(cfg, i, batch, 0)
+        else T.layer_cache_defs(cfg, i, batch, 0, model_ax)
         for i in range(cfg.n_layers)]
     return defs
 

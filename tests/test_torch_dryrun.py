@@ -21,8 +21,12 @@ And:
 * the artifact (through the CLI, into a temporary directory) has JAX's
   fields;
 * the 2 x 16 x 16 mesh puts the batch on ("pod", "data");
-* the cells of the families without a sharded forward raise, naming
-  the ROADMAP item.
+* the SSD, RG-LRU, encoder-decoder and vision-prefix families'
+  ``train_4k`` cells on 16 x 16 and the two ``long_500k`` cells (batch
+  1: "data" maps to None) run, their argument bytes equal to the local
+  shards' bytes counted here from the specs (the fp32 leaves' moments
+  and the stub inputs' rows included), with all-reduces over the model
+  axis.
 """
 
 import json
@@ -36,6 +40,8 @@ import pytest
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun
+from repro_torch.launch import shapes as S
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 
@@ -215,11 +221,43 @@ def test_multi_pod_puts_the_batch_on_pod_and_data():
     assert r["memory"]["argument_size_in_bytes"] == 5 * pb + 4 + rows
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
-                                  "seamless-m4t-medium",
-                                  "phi-3-vision-4.2b"])
-def test_unported_families_raise_naming_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, "
-                       "item 19"):
-        dryrun.run_cell(get_config(arch), SHAPES["train_4k"], (16, 16),
-                        ("data", "model"))
+def fp32(tree):
+    """The meta tensors of a tree as fp32 (AdamW's moments)."""
+    if isinstance(tree, dict):
+        return {k: fp32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [fp32(v) for v in tree]
+    return tree.float()
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("mamba2-780m", "train_4k"), ("recurrentgemma-9b", "train_4k"),
+    ("seamless-m4t-medium", "train_4k"), ("phi-3-vision-4.2b", "train_4k"),
+    ("mamba2-780m", "long_500k"), ("recurrentgemma-9b", "long_500k")])
+def test_family_cells_run_on_their_shards(arch, shape):
+    r = cell(arch, shape)
+    cfg, shp = get_config(arch), SHAPES[shape]
+    sizes = {"data": 16, "model": 16}
+    mapping = S.axis_mapping(cfg, shp, AbstractMesh((16, 16),
+                                                    ("data", "model")))
+    assert r["ok"] and r["mapping"] == {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in mapping.items()}, r
+    assert mapping["data"] == (None if shp.global_batch == 1
+                               else ("data",))
+    pshapes, pspecs = T.param_shapes(cfg, 16), T.param_specs(cfg, 16)
+    pb = local_bytes(pshapes, pspecs, sizes, mapping)
+    if shp.kind == "train":
+        bshapes, bspecs = S.batch_shapes(cfg, shp)
+        assert ("enc_embeds" in bshapes) == cfg.is_encdec
+        assert ("prefix_embeds" in bshapes) == bool(cfg.prefix_tokens)
+        want = pb + 2 * local_bytes(fp32(pshapes), pspecs, sizes, mapping) \
+            + 4 + local_bytes(bshapes, bspecs, sizes, mapping)
+    else:
+        b, n = shp.global_batch, shp.seq_len
+        want = pb + local_bytes(T.cache_shapes(cfg, b, n, 16),
+                                T.cache_specs(cfg, b, n, 16), sizes,
+                                mapping) + b * 4
+    assert r["memory"]["argument_size_in_bytes"] == want, (r["memory"], want)
+    assert r["collective_bytes"]["all-reduce"] > 0, r["collective_bytes"]
+    assert r["flops"] > 0

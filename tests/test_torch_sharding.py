@@ -16,8 +16,22 @@ mesh without devices), the port's on ``launch.mesh.AbstractMesh``.
   ``batch_divisor``; ``cells()``; ``batch_shapes``;
 * ``plan_mesh`` for all ten archs at 1 to 512 ranks;
 * the head plan of the sharded attention at the production mesh's
-  ``model_ax`` (the local query heads each on their own kv head).
+  ``model_ax`` (the local query heads each on their own kv head);
+* ``layer_cache_defs`` of every layer (the cross K/V included, and the
+  position-indexed ``full_kv`` form against JAX's ``attention_cache_defs``
+  without a window) and ``serve.kv_cache.paged_cache_defs`` against
+  JAX's ``cache_defs`` and ``paged_cache_defs`` (its pools JAX's
+  ``paged_attention_cache_defs``), shape, spec and dtype, for all ten
+  archs at ``model_ax`` 1, 2 and 16;
+* ``launch.train --arch recurrentgemma-9b --reduced`` under
+  ``torch.distributed.run --nproc-per-node 2 --device cpu`` gives the
+  one-process final loss (1e-5 relative).
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -32,6 +46,8 @@ from repro.launch import shapes as JS
 from repro.models import layers as JL
 from repro.models import sharding as JSH
 from repro.models import transformer as JT
+from repro.models.base import ParamDef as JParamDef
+from repro.serve import kv_cache as JKV
 from repro_torch import configs as C
 from repro_torch.launch import elastic as E
 from repro_torch.launch import mesh as M
@@ -40,6 +56,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 from repro_torch.models import spmd
 from repro_torch.models import transformer as T
+from repro_torch.serve import kv_cache as KV
 
 ARCHS = sorted(JC.ARCHS)
 MODEL_AXES = (1, 2, 16)
@@ -267,3 +284,95 @@ def test_local_shape_and_maybe_shard():
         SH.local_shape((6, 6), spec, sizes)
     x = torch.zeros(2, 3)
     assert SH.maybe_shard(x, spec, (8, 6)) is x     # off a mesh: as is
+
+
+def pdef(d) -> tuple:
+    """A ParamDef (either package's) as (shape, spec entries, dtype
+    name)."""
+    dt = str(d.dtype).split(".")[-1] if isinstance(d.dtype, torch.dtype) \
+        else np.dtype(d.dtype).name
+    spec = tuple(d.spec) + (None,) * (len(d.shape) - len(tuple(d.spec)))
+    return tuple(d.shape), norm(spec), dt
+
+
+def unstack_def(d: JParamDef) -> JParamDef:
+    assert tuple(d.spec)[0] is None
+    return JParamDef(tuple(d.shape[1:]), JP(*tuple(d.spec)[1:]), d.scale,
+                     d.dtype, d.init)
+
+
+def defs_plain(tree):
+    if isinstance(tree, dict):
+        return {k: defs_plain(v) for k, v in sorted(tree.items())}
+    if isinstance(tree, list):
+        return [defs_plain(v) for v in tree]
+    return pdef(tree)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("model_ax", MODEL_AXES)
+def test_layer_and_paged_cache_defs_equal_jax(arch, model_ax):
+    jcfg, cfg = JC.get_config(arch), C.get_config(arch)
+    enc = cfg.encoder_seq if cfg.is_encdec else None
+    for batch, max_seq in ((128, 32768), (4, 24), (2, 7)):
+        want = jax_layers(jcfg, JT.cache_defs(jcfg, batch, max_seq,
+                                              model_ax, cfg.encoder_seq),
+                          unstack_def)["layers"]
+        for i in range(cfg.n_layers):
+            got = T.layer_cache_defs(cfg, i, batch, max_seq, model_ax,
+                                     enc_seq=enc)
+            assert defs_plain(got) == defs_plain(want[i]), (i, batch)
+            if cfg.mixer_for_layer(i) in T.ATTENTION:
+                full = T.layer_cache_defs(cfg, i, batch, max_seq, model_ax,
+                                          full_kv=True)
+                assert defs_plain(full) == defs_plain(
+                    JL.attention_cache_defs(jcfg, batch, max_seq, model_ax,
+                                            None))
+    if cfg.is_encdec or cfg.prefix_tokens:
+        for fn, c in ((JKV.paged_cache_defs, jcfg),
+                      (KV.paged_cache_defs, cfg)):
+            with pytest.raises(NotImplementedError, match="decoder-only"):
+                fn(c, 4, 16, 8, model_ax)
+        return
+    want = jax_layers(jcfg, JKV.paged_cache_defs(jcfg, 4, 16, 8, model_ax),
+                      unstack_def)["layers"]
+    got = KV.paged_cache_defs(cfg, 4, 16, 8, model_ax)
+    attn = T.attention_layers(cfg)
+    for name in ("k_pages", "v_pages"):
+        assert got[name].shape[0] == len(attn) and \
+            tuple(got[name].spec)[0] is None
+    pool = {n: unstack_def(got[n]) for n in ("k_pages", "v_pages")}
+    for i in range(cfg.n_layers):
+        if i in attn:
+            assert got["layers"][i] == {}
+            assert defs_plain(pool) == defs_plain(want[i]), i
+        else:
+            assert defs_plain(got["layers"][i]) == defs_plain(want[i]), i
+    skv = "model" if model_ax > 1 and cfg.n_kv_heads % model_ax == 0 \
+        else None
+    assert pdef(pool["k_pages"])[1] == (None, None, skv, None)
+
+
+def test_launcher_under_torchrun_trains_recurrentgemma(tmp_path):
+    """The RG-LRU hybrid (its width split over no model axis: the host
+    mesh is data-only) through ``launch.train`` on 2 gloo ranks and in
+    one process: the same final loss."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    args = ["-m", "repro_torch.launch.train", "--arch", "recurrentgemma-9b",
+            "--reduced", "--device", "cpu", "--dtype", "float32", "--steps",
+            "3", "--seq-len", "16", "--batch", "4"]
+    losses = {}
+    for torchrun in (False, True):
+        pre = [sys.executable] + (["-m", "torch.distributed.run",
+                                   "--standalone", "--nproc-per-node", "2"]
+                                  if torchrun else [])
+        m = tmp_path / f"m{int(torchrun)}.json"
+        proc = subprocess.run(pre + args + ["--metrics-out", str(m)],
+                              capture_output=True, text=True, env=env,
+                              timeout=240, cwd=str(tmp_path))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout.count("final loss") == 1, proc.stdout
+        losses[torchrun] = json.loads(m.read_text())["train"]["loss"]
+    assert abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[False]), \
+        losses

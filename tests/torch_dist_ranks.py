@@ -32,20 +32,31 @@ def _rel(a, b) -> float:
 
 
 def _adam_excess(new, want, grads, clip: float, lr: float,
-                 eps: float = 1e-8, tol: float = 1e-5) -> float:
+                 eps: float = 1e-8, tol: float = 1e-5,
+                 atol: float | None = None) -> float:
     """How far the params after one AdamW step (from a zero state) stand
-    from JAX's, in units of the bound: ``tol`` of the leaf's max, plus
-    what a ``tol``-relative error in the gradient moves the first update
+    from JAX's, in units of the bound: ``tol`` of the leaf's max (with
+    ``atol``: ``atol + tol |want|`` elementwise), plus what the
+    gradient's error under the same bound, ``d``, moves the first update
     ``g / (|g| + eps)`` by, ``lr * eps * d / (|g| - d + eps)^2`` (at
     most ``2 lr``), ``g`` clip-scaled.  That term matters only where
     |g| is near ``eps``, where the update turns on the gradient's
     rounding.  1 or less passes."""
     a, b, g = (np.asarray(x, np.float64) for x in (new, want, grads))
     g = np.abs(g * clip)
-    d = tol * g.max()
+    if atol is None:
+        d, base = tol * g.max(), tol * np.abs(b).max()
+    else:
+        d, base = atol + tol * g, atol + tol * np.abs(b)
     sens = np.minimum(2.0, eps * d / (np.maximum(g - d, 0) + eps) ** 2)
-    bound = tol * np.abs(b).max() + lr * sens
+    bound = base + lr * sens
     return float((np.abs(a - b) / bound).max())
+
+
+def _excess(a, b, atol: float, rtol: float) -> float:
+    """max |a - b| / (atol + rtol |b|): 1 or less passes."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
 
 
 def _tensors(tree):
@@ -78,6 +89,19 @@ def train_cases(rank: int, world: int, store: str, shape: tuple,
     ``.npz`` (both parallelisms): the loss, every gradient leaf
     (gathered) and the parameters after AdamW against JAX's."""
     _join(rank, world, store)
+    result = _train_results(shape, data)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def _train_results(shape: tuple, data: str) -> dict:
+    """:func:`train_cases`' measurements.  A case's ``pars`` names its
+    parallelisms (default both); its batch is every ``batch/`` array
+    (the families' stub inputs too).  Errors are relative (max |port -
+    JAX| over max |JAX|) or, where the case has ``tol`` (atol, rtol),
+    in units of ``atol + rtol |JAX|`` elementwise (:func:`_excess`)."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharding, spmd
@@ -91,9 +115,12 @@ def train_cases(rank: int, world: int, store: str, shape: tuple,
     for name, case in cases.items():
         cfg = _cfg(case["arch"], **case.get("cfg", {}))
         tree = _unflat(arrays, f"{name}/params/")
-        batch = {k: torch.from_numpy(arrays[f"{name}/batch/{k}"])
-                 for k in ("tokens", "labels")}
-        for par, mapping in MAPPINGS.items():
+        batch = {k: torch.from_numpy(v) for k, v in
+                 _unflat(arrays, f"{name}/batch/").items()}
+        tol = case.get("tol")
+        err = (lambda a, b: _excess(a, b, *tol)) if tol else _rel
+        for par in case.get("pars", list(MAPPINGS)):
+            mapping = MAPPINGS[par]
             ctx = sharding.MeshContext(mesh, mapping)
             full = params_from_numpy(cfg, tree, device="cpu")
             specs = T.param_specs(cfg, ctx.model_ax)
@@ -119,23 +146,21 @@ def train_cases(rank: int, world: int, store: str, shape: tuple,
                 arrays, f"{name}/new/"), device="cpu")
             gnorm = float(arrays[f"{name}/grad_norm"])
             clip = min(1.0, tc.opt.clip_norm / (gnorm + 1e-9))
-            r = {"loss": _rel(float(metrics["loss"]),
-                              float(arrays[f"{name}/loss"])),
-                 "grad_norm": _rel(float(metrics["grad_norm"]), gnorm),
+            adam = dict(tol=tol[1], atol=tol[0]) if tol else {}
+            r = {"loss": err(float(metrics["loss"]),
+                             float(arrays[f"{name}/loss"])),
+                 "grad_norm": err(float(metrics["grad_norm"]), gnorm),
                  "params_in_bound": max(_adam_excess(
-                     a, b, g, clip, tc.opt.lr) for a, b, g in zip(
+                     a, b, g, clip, tc.opt.lr, **adam) for a, b, g in zip(
                          _tensors(new), _tensors(want_p),
                          _tensors(want_g)))}
             if tc.grad_accum == 1:
-                r["loss_first"] = _rel(float(m["loss"]),
-                                       float(arrays[f"{name}/loss"]))
-                r["grads"] = max(_rel(a, b) for a, b in zip(
+                r["loss_first"] = err(float(m["loss"]),
+                                      float(arrays[f"{name}/loss"]))
+                r["grads"] = max(err(a, b) for a, b in zip(
                     _tensors(grads), _tensors(want_g)))
             result[f"{name}/{par}"] = r
-    if rank == 0:
-        with open(out, "w") as f:
-            json.dump(result, f)
-    dist.destroy_process_group()
+    return result
 
 
 def _unflat(arrays, prefix: str):
@@ -164,10 +189,23 @@ def _lists(node):
 
 def serve_cases(rank: int, world: int, store: str, shape: tuple,
                 data: str, out: str) -> None:
-    """``prefill`` and one ``decode_step`` on the mesh per case: the
-    rank's rows of the logits against JAX's unsharded ones, and the
-    caches against the JAX prefill's cut by ``cache_specs``."""
+    """``prefill`` and ``decode_step`` s on the mesh per case: the
+    rank's rows of the logits against JAX's unsharded ones (relative),
+    and the attention layers' cache layouts."""
     _join(rank, world, store)
+    result = _serve_results(shape, data)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def _serve_results(shape: tuple, data: str) -> dict:
+    """:func:`serve_cases`' measurements.  ``next`` is (B,) (one step) or
+    (B, n) (n steps from the prompt's end, the prefix's positions
+    counted); a case's ``extra/`` arrays (the stub inputs) go to
+    ``prefill``; ``prefill`` checks every cache shard against
+    ``cache_specs``."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharding, spmd
@@ -187,22 +225,44 @@ def serve_cases(rank: int, world: int, store: str, shape: tuple,
         params = spmd.shard_params(full, T.param_specs(cfg, m), mesh,
                                    mapping)
         tokens = torch.from_numpy(arrays[f"{name}/tokens"])
+        extra = {k: _rows(ctx, torch.from_numpy(v)) for k, v in
+                 _unflat(arrays, f"{name}/extra/").items()}
         nxt = torch.from_numpy(arrays[f"{name}/next"])
-        max_seq, s = case["max_seq"], tokens.shape[1]
+        nxt = nxt.reshape(nxt.shape[0], -1)
+        want = torch.from_numpy(arrays[f"{name}/decode"])
+        want = want.reshape(nxt.shape + want.shape[-1:])
+        max_seq = case["max_seq"]
+        s = tokens.shape[1] + cfg.prefix_tokens
         with sharding.use_mesh(mesh, mapping), torch.no_grad():
             logits, cache = T.prefill(cfg, params, _rows(ctx, tokens),
-                                      max_seq, use_kernel=False)
+                                      max_seq, use_kernel=False, **extra)
             layouts = sorted({_cache_layout(
                 cfg, min(cfg.window, max_seq) if cfg.mixer_for_layer(i)
-                == "local" else max_seq, m) for i in range(cfg.n_layers)})
-            dec, _ = T.decode_step(cfg, params, _rows(ctx, nxt), cache, s,
-                                   use_kernel=False, max_seq=max_seq)
+                == "local" else max_seq, m)
+                for i in T.attention_layers(cfg)})
+            dec = []
+            for j in range(nxt.shape[1]):
+                out_j, cache = T.decode_step(
+                    cfg, params, _rows(ctx, nxt[:, j]), cache, s + j,
+                    use_kernel=False, max_seq=max_seq)
+                dec.append(_rel(out_j.numpy(),
+                                _rows(ctx, want[:, j]).numpy()))
         result[name] = {
             "prefill": _rel(logits.numpy(), _rows(ctx, torch.from_numpy(
                 arrays[f"{name}/prefill"])).numpy()),
-            "decode": _rel(dec.numpy(), _rows(ctx, torch.from_numpy(
-                arrays[f"{name}/decode"])).numpy()),
-            "layouts": layouts}
+            "decode": max(dec), "layouts": layouts}
+    return result
+
+
+def family_cases(rank: int, world: int, store: str, shape: tuple,
+                 train: str, serve: str | None, out: str) -> None:
+    """The families' training cases (:func:`train_cases`) and, where
+    ``serve`` names a file, their serving cases (:func:`serve_cases`)
+    in one group: ``{"train": ..., "serve": ...}``."""
+    _join(rank, world, store)
+    result = {"train": _train_results(shape, train)}
+    if serve:
+        result["serve"] = _serve_results(shape, serve)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(result, f)
