@@ -173,7 +173,13 @@ def main(argv=None) -> None:
               f"(same projections at bf16: {db / 1e6:.1f} MB)")
     rng = np.random.default_rng(args.seed)
     kv = str(cfg.kv_cache_dtype or cfg.dtype).removeprefix("torch.")
-    obs = Obs(trace=args.trace, miss_log=args.miss_log)
+    # closed on any exit, so a crash or Ctrl-C keeps the trace so far
+    with Obs(trace=args.trace, miss_log=args.miss_log) as obs:
+        _serve(args, cfg, params, rng, kv, obs)
+
+
+def _serve(args, cfg, params, rng, kv: str, obs: Obs) -> None:
+    """Run the chosen engine over random prompts and print its report."""
     engine_kind = args.engine or ("static" if cfg.is_encdec
                                   or cfg.prefix_tokens else "paged")
     if engine_kind == "static":
@@ -261,8 +267,7 @@ def main(argv=None) -> None:
 
 def finish_obs(obs: Obs, args) -> None:
     """Shared tail: the metrics snapshot and the DRAM bytes per op key
-    (``--metrics-out``), where the trace and the miss log went, and the
-    bundle closed."""
+    (``--metrics-out``), and where the trace and the miss log went."""
     if args.metrics_out:
         obs.write_metrics(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")
@@ -279,7 +284,6 @@ def finish_obs(obs: Obs, args) -> None:
     if args.miss_log:
         print(f"schedule-cache miss log -> {args.miss_log} (replay: "
               "python -m repro_torch.tune --from-telemetry)")
-    obs.close()
 
 
 if __name__ == "__main__":

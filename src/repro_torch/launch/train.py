@@ -82,8 +82,9 @@ def main(argv=None) -> None:
                          "modeled-vs-resolved DRAM report) as JSON")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="write a Chrome-trace span timeline of every "
-                         "train step (step/grad/checkpoint spans + "
-                         "loss/throughput counter tracks)")
+                         "train step (step/grad/fwd_bwd/optimizer/"
+                         "checkpoint spans + loss/throughput counter "
+                         "tracks); fences the device after each span")
     ap.add_argument("--miss-log", metavar="PATH", default=None,
                     help="append schedule-cache misses as JSONL tuning "
                          "targets (meaningful with --blocked-kernels)")
@@ -144,22 +145,22 @@ def _run(args) -> None:
                        obs=Obs(), log=lambda *a: None, mesh=mesh,
                        mapping=mapping)
         return
-    obs = Obs(trace=args.trace, miss_log=args.miss_log)
-    result = train(cfg, tc, batches(), seed=args.seed, device=args.device,
-                   restore=args.restore == "auto", obs=obs, mesh=mesh,
-                   mapping=mapping)
-    print(f"final loss: {result['history'][-1]:.4f} "
-          f"(start {result['history'][0]:.4f})")
-    if args.metrics_out:
-        obs.write_metrics(args.metrics_out)
-        print(f"metrics snapshot -> {args.metrics_out}")
-        print(format_metrics({"train": obs.snapshot().get("train", {})}))
-    if args.trace:
-        print(f"chrome trace -> {args.trace}")
-    if args.miss_log:
-        print(f"schedule-cache miss log -> {args.miss_log} (replay: "
-              "python -m repro_torch.tune --from-telemetry)")
-    obs.close()
+    # closed on any exit, so an interrupted run keeps its trace so far
+    with Obs(trace=args.trace, miss_log=args.miss_log) as obs:
+        result = train(cfg, tc, batches(), seed=args.seed,
+                       device=args.device, restore=args.restore == "auto",
+                       obs=obs, mesh=mesh, mapping=mapping)
+        print(f"final loss: {result['history'][-1]:.4f} "
+              f"(start {result['history'][0]:.4f})")
+        if args.metrics_out:
+            obs.write_metrics(args.metrics_out)
+            print(f"metrics snapshot -> {args.metrics_out}")
+            print(format_metrics({"train": obs.snapshot().get("train", {})}))
+        if args.trace:
+            print(f"chrome trace -> {args.trace}")
+        if args.miss_log:
+            print(f"schedule-cache miss log -> {args.miss_log} (replay: "
+                  "python -m repro_torch.tune --from-telemetry)")
 
 
 if __name__ == "__main__":

@@ -6,16 +6,21 @@ modeled-vs-resolved DRAM accounting and the kernel profiler (the port of
 (``PagedEngine(obs=...)``, ``DecodeEngine(obs=...)``,
 ``train(obs=...)``): a :class:`~repro_torch.obs.metrics.MetricsRegistry`
 the engine, scheduler and page allocator report into; an optional
-:class:`~repro_torch.obs.trace.StepTracer` writing Chrome-trace spans
-(the engines fence with ``torch.cuda.synchronize`` ONLY when a tracer is
-attached); and a :class:`~repro_torch.obs.dram.DramLedger` (or its
-subclass :class:`~repro_torch.obs.profile.KernelProfiler`) comparing
-the model's predicted DRAM bytes with what the schedule cache resolved,
-per op key, while logging schedule-cache misses for ``python -m
-repro_torch.tune --from-telemetry``.
+:class:`~repro_torch.obs.trace.StepTracer` recording Chrome-trace spans;
+``fence``, whether the engines and the train step call
+``torch.cuda.synchronize`` after every dispatch (exactly when a tracer is
+attached, so spans time the device's work, unless ``fence=False``, which
+lets a tracer record the host's launches inside a measured window with
+no synchronise); and a
+:class:`~repro_torch.obs.dram.DramLedger` (or its subclass
+:class:`~repro_torch.obs.profile.KernelProfiler`) comparing the model's
+predicted DRAM bytes with what the schedule cache resolved, per op key,
+while logging schedule-cache misses for ``python -m repro_torch.tune
+--from-telemetry``.
 
 An engine constructed without an ``obs`` builds a private ``Obs()``:
-registry and ledger on (host-side integer arithmetic), tracer off.
+registry and ledger on (host-side integer arithmetic), tracer off, no
+fence.
 """
 
 from __future__ import annotations
@@ -48,14 +53,23 @@ class Obs:
     def __init__(self, registry: MetricsRegistry | None = None,
                  trace: StepTracer | str | os.PathLike | None = None,
                  dram: DramLedger | None = None,
-                 miss_log: str | None = None):
+                 miss_log: str | None = None,
+                 fence: bool = True):
         self.registry = registry if registry is not None else MetricsRegistry()
         if trace is None or isinstance(trace, StepTracer):
             self.tracer = trace
         else:
             self.tracer = StepTracer(trace)
+        self._fence = fence
         self.dram = dram if dram is not None else DramLedger(
             registry=self.registry, miss_log=miss_log)
+
+    @property
+    def fence(self) -> bool:
+        """Whether the engines and the train step fence the device after
+        each dispatch: with a tracer attached, unless the constructor's
+        ``fence`` is False."""
+        return self._fence and self.tracer is not None
 
     def snapshot(self) -> dict:
         """Registry snapshot plus the DRAM ledger's report under

@@ -100,10 +100,21 @@ dispatch with JAX's tags (``static_prefill[S0]``,
 ``static_generate[n]``, ``setup``, ``join[bucket]``, ``prefill[C]``,
 ``decode[chunk]``, ``spec_decode[iters]``, ``cow_fork``) and whose
 ``end_step`` closes each step, and an optional Chrome-trace tracer.
-With a tracer attached the step's phases emit spans and each dispatch
-scope ends with :func:`device_fence` (``torch.cuda.synchronize``), so
-spans and the profiler's scopes time the device's work; with none, no
-fence runs.
+With a tracer attached the step's phases emit spans.  Each dispatch
+scope ends with :func:`device_fence` (``torch.cuda.synchronize``) where
+``obs.fence`` says so: exactly when a tracer is attached, so spans and
+the profiler's scopes time the device's work, unless
+``Obs(trace=..., fence=False)``, which records the spans of the host's
+launches with no fence; with no tracer none runs.
+
+:class:`PagedEngine` stamps every request on ``time.perf_counter_ns``,
+tracer or not: ``t_submit`` (:meth:`PagedEngine.submit`), ``t_admit``
+(its first admission) and ``t_first_token`` (right after the readback
+that first brings one of its tokens to the host: the finishing step's,
+or a preemption's, since tokens reach the host only then; with one
+token out, the step that sampled it).  A preempted request's
+replacement keeps the three.  With a tracer attached,
+``dispatch.join`` and ``dispatch.prefill`` carry ``args={"rid": ...}``.
 """
 
 from __future__ import annotations
@@ -123,14 +134,7 @@ from repro_torch.obs.trace import null_span
 from repro_torch.serve import kv_cache as KV
 from repro_torch.serve.lifecycle import DegradationController, RequestStatus
 from repro_torch.serve.scheduler import Request, Scheduler
-from repro_torch.util import resolve_device
-
-
-def device_fence(device: torch.device) -> None:
-    """Wait for the device's queued work (a CPU device has none): the
-    engines call it only with a tracer attached."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from repro_torch.util import device_fence, resolve_device
 
 
 def sample_tokens(cfg: ModelConfig, logits: torch.Tensor, temperature: float,
@@ -209,7 +213,7 @@ class DecodeEngine:
                     torch.from_numpy(prompts).to(self.device),
                     max_seq=sc.max_seq, **extras, **kw)
                 tok = sample_tokens(cfg, logits, sc.temperature, gen)
-                if tr is not None:
+                if self.obs.fence:
                     device_fence(self.device)
             out = [tok]
             with sp("decode", cat="static"), \
@@ -219,7 +223,7 @@ class DecodeEngine:
                                                   cache, pos, **kw)
                     tok = sample_tokens(cfg, logits, sc.temperature, gen)
                     out.append(tok)
-                if tr is not None:
+                if self.obs.fence:
                     device_fence(self.device)
         with sp("readback", cat="static"):
             host = torch.stack(out, dim=1).cpu().numpy()
@@ -439,7 +443,8 @@ class PagedEngine:
         self.scheduler.submit(Request(rid, prompt, int(max_new_tokens),
                                       priority=int(priority),
                                       deadline_ns=deadline_ns,
-                                      expire_step=expire_step))
+                                      expire_step=expire_step,
+                                      t_submit=time.perf_counter_ns()))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -540,9 +545,10 @@ class PagedEngine:
 
         With a tracer attached, the step and its phases (host prep,
         ``plan_step``, device dispatches, readback) emit Chrome-trace
-        spans, and each dispatch ends with :func:`device_fence`, so
-        span durations include the device's work.  With no tracer,
-        ``sp`` is the shared no-op span and NO fence runs (guarded by
+        spans.  Where ``obs.fence`` is set (by default, exactly with a
+        tracer) each dispatch ends with :func:`device_fence`, so span
+        durations include the device's work.  With no tracer, ``sp`` is
+        the shared no-op span and NO fence runs (guarded by
         ``tests/test_torch_obs.py``)."""
         t0 = time.perf_counter_ns()
         tr = self.obs.tracer
@@ -617,7 +623,7 @@ class PagedEngine:
                     or r.expired(now, self._sched_steps):
                 continue
             step_rids.add(r.rid)
-            with sp("dispatch.prefill", cat="device"):
+            with sp("dispatch.prefill", cat="device", args={"rid": r.rid}):
                 self._prefill_one_chunk(r)
         done_slots = [s for s, r in running.items()
                       if r.done or r.failed or r.cancelled
@@ -628,8 +634,11 @@ class PagedEngine:
             # to the scratch page, and admission rewrites the row)
             with sp("readback", cat="engine"):
                 host_out = self._out_buf.cpu().numpy()
+            t_host = time.perf_counter_ns()
             for slot in done_slots:
                 req = running[slot]
+                if req.generated and req.t_first_token is None:
+                    req.t_first_token = t_host
                 tail = host_out[slot, :req.generated].copy()
                 req.output = (tail if req.prior_tokens is None else
                               np.concatenate([req.prior_tokens, tail]))
@@ -643,7 +652,10 @@ class PagedEngine:
         writes into, fill its history row and prefill a one-chunk tail
         inline; on a miss that fits one chunk (or with
         ``prefill_chunk=0``), join the whole prompt.  Longer prefills
-        run later, a chunk at a time, as the plan schedules them."""
+        run later, a chunk at a time, as the plan schedules them.  A
+        restored request keeps its first admission's ``t_admit``."""
+        if req.t_admit is None:
+            req.t_admit = time.perf_counter_ns()
         row = np.full(self.max_blocks, KV.SCRATCH_PAGE, np.int32)
         row[:len(req.pages)] = req.pages
         self._block_tables[req.slot] = torch.from_numpy(row).to(self.device)
@@ -668,13 +680,14 @@ class PagedEngine:
             # a tail that fits one chunk prefills here, where a miss
             # would join: the hit is decode-ready this very step
             if req.prompt_len - req.prefilled <= self.prefill_chunk:
-                with sp("dispatch.prefill", cat="device"):
+                with sp("dispatch.prefill", cat="device",
+                        args={"rid": req.rid}):
                     self._prefill_one_chunk(req)
             return
         if not self.prefill_chunk or req.prompt_len <= self.prefill_chunk:
             # whole-prompt join at the prompt's pow2 bucket; only
             # multi-chunk prompts take the chunk path
-            with sp("dispatch.join", cat="device"):
+            with sp("dispatch.join", cat="device", args={"rid": req.rid}):
                 self._join(req)
             req.prefilled = req.prompt_len
             if not req.failed:          # poisoned pages are never cached
@@ -711,6 +724,8 @@ class PagedEngine:
         req = self.scheduler.running[slot]
         # a copy: on the CPU the array would share the buffer's memory
         emitted = self._out_buf[slot, :req.generated].cpu().numpy().copy()
+        if req.generated and req.t_first_token is None:
+            req.t_first_token = time.perf_counter_ns()
         new = self.scheduler.preempt(slot, emitted)
         self._clear_poison(slot)
         if tr is not None:
@@ -924,8 +939,8 @@ class PagedEngine:
             self._m_decode_tokens.inc(steps)
 
     def _fence(self) -> None:
-        """:func:`device_fence` when a tracer is attached, else nothing."""
-        if self.obs.tracer is not None:
+        """:func:`device_fence` where ``obs.fence`` is set, else nothing."""
+        if self.obs.fence:
             device_fence(self.device)
 
     def _decode_fn(self, occupied: np.ndarray, remaining: np.ndarray,

@@ -100,6 +100,10 @@ class Request:
     failed: bool = False            # NaN guard / retry exhaustion -> FAILED
     status: object = None           # lifecycle.RequestStatus, terminal
     backoff: int = 0                # admission rounds until the next probe
+    # -- host stamps, time.perf_counter_ns (the engine's module docstring)
+    t_submit: int | None = None     # submitted
+    t_admit: int | None = None      # first admitted
+    t_first_token: int | None = None   # first token on the host
 
     def __post_init__(self):
         if self.orig_prompt_len < 0:
@@ -454,7 +458,9 @@ class Scheduler:
             expire_step=req.expire_step, age=req.age,
             preempt_count=req.preempt_count + 1, prior_tokens=prior,
             orig_prompt_len=req.orig_prompt_len,
-            orig_max_new=req.orig_max_new, cancelled=req.cancelled)
+            orig_max_new=req.orig_max_new, cancelled=req.cancelled,
+            t_submit=req.t_submit, t_admit=req.t_admit,
+            t_first_token=req.t_first_token)
         self.waiting.insert(min(1, len(self.waiting)), new)
         self._m_preemptions.inc()
         return new

@@ -40,6 +40,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import compress_tree
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.util import device_fence
 
 
 @dataclasses.dataclass
@@ -92,12 +93,22 @@ def default_mapping(mesh) -> dict:
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None,
-                    mapping: dict | None = None) -> Callable:
+                    mapping: dict | None = None, obs=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     With ``mesh`` (a DeviceMesh; ``mapping`` defaults to
     :func:`default_mapping`) the step runs the sharded route over local
-    shards (module docstring)."""
+    shards (module docstring).  With a tracer in ``obs`` (a
+    :class:`repro_torch.obs.Obs`) the step records a ``fwd_bwd`` span
+    around each micro-batch's forward and backward and an ``optimizer``
+    span around the AdamW update.  Where ``obs.fence`` is set (by
+    default, exactly with a tracer) each ends with :func:`device_fence`,
+    as the engines' dispatches do, so the spans time the device's work;
+    with ``Obs(fence=False)`` they time the host's launches."""
+    from repro_torch.obs import null_span
+    tracer = obs.tracer if obs is not None else None
+    sp = tracer.span if tracer is not None else null_span
+    fence = obs is not None and obs.fence
     loss = make_loss(cfg, tc)
     if mesh is not None:
         mapping = mapping or default_mapping(mesh)
@@ -105,6 +116,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None,
     groups = T.jax_stacking(cfg) if tc.compress_grads else None
 
     def train_step(params, opt_state, batch):
+        dev = adamw.leaves(params)[0].device if fence else None
         with (sharding.use_mesh(mesh, mapping) if mesh is not None
               else contextlib.nullcontext()) as ctx:
             n = tc.grad_accum
@@ -113,7 +125,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None,
                 mb = batch if n == 1 else {
                     k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                     for k, v in batch.items()}
-                (_, m), g = _value_and_grad(loss, params, mb)
+                with sp("fwd_bwd", cat="train", args={"micro": i}):
+                    (_, m), g = _value_and_grad(loss, params, mb)
+                    if fence:
+                        device_fence(dev)
                 if n > 1:
                     g = map_tree(lambda x: x.float(), g)
                 gsum = g if gsum is None else adamw.unflatten(
@@ -140,8 +155,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None,
                 if tc.compress_grads:
                     grads = spmd.compress_tree(grads, specs, ctx, groups)
                 gnorm = spmd.global_norm(grads, specs, ctx)
-            params, opt_state, opt_m = adamw.apply_updates(
-                tc.opt, params, grads, opt_state, gnorm=gnorm)
+            with sp("optimizer", cat="train"):
+                params, opt_state, opt_m = adamw.apply_updates(
+                    tc.opt, params, grads, opt_state, gnorm=gnorm)
+                if fence:
+                    device_fence(dev)
         metrics = dict(metrics)
         metrics.update(opt_m)
         return params, opt_state, metrics
@@ -215,10 +233,12 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
     ``obs`` (a :class:`repro_torch.obs.Obs`, optional) gets JAX's
     training telemetry: ``train.loss`` and ``train.tokens_per_s``
     gauges, a ``train.step_us`` histogram and a ``train.steps`` counter
-    in the registry; ``step {n}``, ``grad`` and ``checkpoint`` spans and
-    a ``train`` counter track (loss, tokens/s) in the tracer; and, with
-    ``blocked_linear``, every projection's schedule resolutions (forward
-    and dgrad) in the DRAM ledger under the ``train_step`` scope.  Every
+    in the registry; ``step {n}``, ``grad`` and ``checkpoint`` spans
+    (and :func:`make_train_step`'s ``fwd_bwd`` and ``optimizer`` inside
+    ``grad``) and a ``train`` counter track (loss, tokens/s) in the
+    tracer; and, with ``blocked_linear``, every projection's schedule
+    resolutions (forward and dgrad) in the DRAM ledger under the
+    ``train_step`` scope.  Every
     step ends by reading the loss on the host, which waits for the
     device, as JAX blocks on it: step times and spans are device times
     with or without a tracer.
@@ -254,7 +274,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches, *,
         h_step = obs.registry.histogram("train.step_us")
         c_steps = obs.registry.counter("train.steps")
 
-    step_fn = make_train_step(cfg, tc, mesh, mapping)
+    step_fn = make_train_step(cfg, tc, mesh, mapping, obs=obs)
     watchdog = StepWatchdog(tc.straggler_factor)
     history = []
     for step, batch in enumerate(batches, start=start_step):

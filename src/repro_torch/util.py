@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the device
+fence of its traced spans."""
 
 from __future__ import annotations
 
@@ -20,3 +21,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def device_fence(device: torch.device) -> None:
+    """Wait for the device's queued work (a CPU device has none): the
+    engines and the train step call it after each dispatch where
+    ``obs.fence`` is set."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

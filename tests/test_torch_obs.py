@@ -17,6 +17,7 @@ kernel call, where JAX counts one per trace.
 import dataclasses
 import functools
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models.base import map_tree
 from repro_torch.obs import (DramLedger, MetricsRegistry, Obs, StepTracer,
                              read_miss_log)
+from repro_torch.obs import trace as trace_mod
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import (DecodeEngine, PagedEngine,
                                       PagedServeConfig, ServeConfig)
@@ -150,6 +152,68 @@ def test_tracer_file_matches_jax_tracer(tmp_path):
     # one event per line between the array's brackets
     lines = files["port"].read_text().splitlines()
     assert lines[0] == "[" and lines[-1] == "]" and len(lines) == 7
+
+
+def test_memory_tracer_spans_on_the_perf_counter_clock(tmp_path):
+    """``StepTracer(None)`` keeps its events in memory and writes no
+    file; a tracer with a path holds its events until ``close()`` (or
+    ``FLUSH_EVERY`` events); both hand back their held spans in
+    ``time.perf_counter`` seconds, nested."""
+    t0 = time.perf_counter()
+    mem, filed = StepTracer(None), StepTracer(tmp_path / "sub" / "t.json")
+    for tr in (mem, filed):
+        _drive_tracer_open(tr)
+    t1 = time.perf_counter()
+    assert (tmp_path / "sub" / "t.json").read_text() == "[\n"
+    for tr in (mem, filed):
+        spans = tr.spans()
+        assert [s.name for s in spans] == ["inner_a", "inner_b", "outer"]
+        assert all(t0 <= s.start <= s.end <= t1 for s in spans)
+        outer = spans[-1]
+        assert outer.args == {"step": 0} and outer.cat == "engine"
+        assert all(outer.start <= s.start and s.end <= outer.end
+                   for s in spans[:2])
+    mem.close()
+    filed.close()
+    assert list(tmp_path.iterdir()) == [tmp_path / "sub"]
+    assert len(mem.spans()) == 3 and not filed.spans()
+    ev = _spans(tmp_path / "sub" / "t.json")
+    assert [(e["name"], e["ph"]) for e in ev] == [
+        ("inner_a", "X"), ("inner_b", "X"), ("outer", "X")]
+
+
+def _drive_tracer_open(tr) -> None:
+    with tr.span("outer", cat="engine", args={"step": 0}):
+        with tr.span("inner_a"):
+            pass
+        with tr.span("inner_b", cat="device"):
+            pass
+
+
+def test_tracer_writes_in_batches_and_an_abort_keeps_them(tmp_path,
+                                                         monkeypatch):
+    """A tracer with a path writes every ``FLUSH_EVERY`` events and holds
+    none it wrote; a run that never reaches ``close()`` leaves those
+    events on disk, one per line; closed, the file is the same JSON
+    array as one written at once."""
+    monkeypatch.setattr(trace_mod, "FLUSH_EVERY", 2)
+    path = tmp_path / "t.json"
+    tr = StepTracer(path)
+    for i in range(5):
+        with tr.span(f"s{i}", args={"i": i}):
+            pass
+    assert [s.name for s in tr.spans()] == ["s4"]
+    lines = path.read_text().split("\n")
+    assert lines[0] == "["
+    assert [json.loads(ln.rstrip(","))["name"] for ln in lines[1:]] == \
+        [f"s{i}" for i in range(4)]
+    tr.counter("c", {"v": 1})
+    tr.close()
+    tr.close()
+    ev = _spans(path)
+    assert [e["name"] for e in ev] == [f"s{i}" for i in range(5)] + ["c"]
+    assert [e["args"]["i"] for e in ev[:5]] == list(range(5))
+    assert path.read_text().endswith("}\n]\n")
 
 
 # ======================= the ledger and its miss log =======================
@@ -273,6 +337,22 @@ def test_no_device_fence_when_tracing_off(which, monkeypatch, tmp_path):
     run(obs)
     obs.close()
     assert calls and all(d.type == "cpu" for d in calls)
+    # a tracer that may not fence records spans and fences nothing
+    calls.clear()
+    obs = Obs(trace=StepTracer(None), fence=False)
+    run(obs)
+    assert not calls and obs.tracer.spans()
+
+
+@pytest.mark.parametrize("which", ["paged", "static"])
+def test_tokens_identical_with_unfenced_tracer(which):
+    run = _paged if which == "paged" else _static
+    _, off = run()
+    obs = Obs(trace=StepTracer(None), fence=False)
+    _, on = run(obs)
+    np.testing.assert_array_equal(on, off)
+    assert not obs.fence and Obs(trace=StepTracer(None)).fence
+    assert not Obs().fence and not Obs(fence=True).fence   # no tracer
 
 
 @pytest.mark.parametrize("which", ["paged", "static"])
@@ -362,6 +442,79 @@ def test_static_engine_obs_matches_jax(tmp_path, monkeypatch):
     assert [v["resolved"] for v in dec] == [3 * cfg.n_layers]
 
 
+def _stamps(r) -> tuple:
+    return r.t_submit, r.t_admit, r.t_first_token
+
+
+def test_request_stamps_are_ordered():
+    """Every request of a paged run: submit <= admit <= first token on
+    the host, with no tracer."""
+    _, _, cfg, params = _model()
+    eng = PagedEngine(cfg, params, PagedServeConfig(**PAGED, device="cpu"))
+    t0 = time.perf_counter_ns()
+    done = eng.generate(PROMPTS + [np.arange(2, 9, dtype=np.int32)], 1,
+                        return_requests=True)
+    t1 = time.perf_counter_ns()
+    assert eng.obs.tracer is None
+    for r in done:
+        assert None not in _stamps(r)
+        assert t0 <= r.t_submit <= r.t_admit <= r.t_first_token <= t1
+
+
+def test_request_stamps_survive_preempt():
+    """A request preempted after its first tokens finishes as
+    PREEMPTED_RETRIED with its first submission's, first admission's
+    and first token's stamps, and tokens equal to an unpreempted run."""
+    _, _, cfg, params = _model()
+    # one decode step a scheduler step, so the request is caught running
+    sc = PagedServeConfig(**PAGED, device="cpu", decode_chunk=1)
+    want = PagedEngine(cfg, params, sc).generate(PROMPTS, 5)
+    eng = PagedEngine(cfg, params, sc)
+    rids = [eng.submit(p, 5) for p in PROMPTS]
+    first = {r.rid: r for r in eng.scheduler.waiting}
+    out = {}
+    while eng.has_work and not any(
+            r.rid == rids[0] and r.generated > 1
+            for r in eng.scheduler.running.values()):
+        out.update({r.rid: r for r in eng.step()})
+    before = _stamps(first[rids[0]])
+    assert before[2] is None
+    assert eng.preempt(rids[0])
+    assert first[rids[0]].t_first_token is not None
+    while eng.has_work:
+        out.update({r.rid: r for r in eng.step()})
+    got = out[rids[0]]
+    assert got is not first[rids[0]]
+    assert got.status.value == "preempted_retried"
+    assert _stamps(got)[:2] == before[:2]
+    assert got.t_first_token == first[rids[0]].t_first_token
+    for r in out.values():
+        assert r.t_submit <= r.t_admit <= r.t_first_token
+    np.testing.assert_array_equal(np.stack([out[r].output for r in rids]),
+                                  want)
+
+
+def test_paged_dispatch_spans_name_their_request():
+    """With an unfenced in-memory tracer every ``dispatch.join`` /
+    ``dispatch.prefill`` span names its request and lies between the
+    request's admission and its first token on the host."""
+    _, _, cfg, params = _model()
+    obs = Obs(trace=StepTracer(None), fence=False)
+    eng = PagedEngine(cfg, params, PagedServeConfig(**PAGED, device="cpu"),
+                      obs=obs)
+    done = eng.generate(PROMPTS, 3, return_requests=True)
+    by = {r.rid: r for r in done}
+    rids = {}
+    for s in obs.tracer.spans():
+        if s.name in ("dispatch.join", "dispatch.prefill"):
+            rids.setdefault(s.name, set()).add(s.args["rid"])
+            _, adm, tok = (t * 1e-9 for t in _stamps(by[s.args["rid"]]))
+            assert adm <= s.start <= s.end <= tok
+    # the short prompt joins; the long one takes two chunks
+    assert rids == {"dispatch.join": {done[0].rid},
+                    "dispatch.prefill": {done[1].rid}}
+
+
 def test_engine_metrics_is_the_bundles_registry():
     reg = MetricsRegistry()
     eng, _ = _paged(Obs(registry=reg), fuse=False)
@@ -403,6 +556,44 @@ def test_train_with_obs_equals_train_without(tmp_path):
     ops = {k.split("/")[0] for k in rep["per_tag"]["train_step"]["ops"]}
     assert ops == {"matmul", "matmul_dgrad"}
     assert obs.registry.snapshot()["train"]["steps"] == 2
+
+
+def test_train_step_spans_inside_each_step():
+    """An unfenced tracer through ``train(obs=)``: each step's ``grad``
+    span holds one ``fwd_bwd`` and one ``optimizer`` span, in that
+    order; the losses are bit-identical to an untraced run, and a step
+    function made without ``obs`` records nothing."""
+    plain = _train(blocked=False)
+    obs = Obs(trace=StepTracer(None), fence=False)
+    traced = _train(obs, blocked=False)
+    assert traced["history"] == plain["history"]
+    spans = obs.tracer.spans()
+    grads = [s for s in spans if s.name == "grad"]
+    assert len(grads) == 2
+    for g in grads:
+        inner = [s for s in spans
+                 if g.start <= s.start and s.end <= g.end and s is not g]
+        assert [s.name for s in inner] == ["fwd_bwd", "optimizer"]
+        assert inner[0].end <= inner[1].start
+
+
+@pytest.mark.parametrize("fence", [True, False])
+def test_train_step_spans_fence_as_the_engines_do(fence, monkeypatch):
+    """A tracer that may fence ends each ``fwd_bwd`` and ``optimizer``
+    span with the device fence, on the parameters' device; one made with
+    ``fence=False`` records the same spans and fences nothing; with no
+    tracer nothing fences."""
+    calls = []
+    monkeypatch.setattr(loop, "device_fence",
+                        lambda device: calls.append(device))
+    _train(Obs(), blocked=False)
+    assert not calls
+    obs = Obs(trace=StepTracer(None), fence=fence)
+    _train(obs, blocked=False)
+    names = [s.name for s in obs.tracer.spans()]
+    assert names.count("fwd_bwd") == names.count("optimizer") == 2
+    assert len(calls) == (4 if fence else 0)
+    assert all(d.type == "cpu" for d in calls)
 
 
 # ============================== launchers ==================================
